@@ -1,0 +1,13 @@
+"""Activation functionals of the slice (counterpart of
+``paddle_tpu/nn/functional/activation.py``)."""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["gelu"]
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """GELU in its exact erf form, paddle's default (``jax.nn.gelu`` with
+    ``approximate=False`` in the JAX package)."""
+    return torch.nn.functional.gelu(x, approximate="none")

@@ -1,0 +1,141 @@
+"""Attention routing and the static-capacity KV cache.
+
+Counterpart of ``paddle_tpu/nn/functional/attention.py`` on one device:
+the flash-by-default policy (``flash_plan``) with the JAX package's
+decline rules, the kernel call (``flash_core``), the dense
+``scaled_dot_product_attention``, and the serving cache ops
+``cache_update`` / ``cached_attention``, which stay plain PyTorch as the
+JAX package leaves them to XLA.
+
+Knobs, with the JAX package's meanings: ``PADDLE_FLASH_DEFAULT=0`` keeps
+the dense path everywhere; ``=interpret`` routes on the CPU too, where the
+kernel wrapper runs its plain version. ``PADDLE_FLASH_APPEND=0`` sends
+every Sq != Sk shape to the dense end-aligned form.
+"""
+from __future__ import annotations
+
+import os
+
+import torch
+
+from ...ops.kernels.flash_attention import flash_attention_fwd
+
+__all__ = [
+    "flash_default_enabled", "flash_append_enabled", "flash_plan",
+    "flash_core", "scaled_dot_product_attention", "cache_update",
+    "cached_attention",
+]
+
+
+def flash_default_enabled() -> bool:
+    v = os.environ.get("PADDLE_FLASH_DEFAULT", "1").strip().lower()
+    return v not in ("0", "false", "off")
+
+
+def flash_append_enabled() -> bool:
+    v = os.environ.get("PADDLE_FLASH_APPEND", "1").strip().lower()
+    return v not in ("0", "false", "off")
+
+
+def _interpret_forced() -> bool:
+    return os.environ.get(
+        "PADDLE_FLASH_DEFAULT", "").strip().lower() == "interpret"
+
+
+def _flash_block(s: int) -> int:
+    """Largest power-of-two tile <= 256 dividing s (kernel contract:
+    S % block == 0)."""
+    b = 256
+    while b > 1 and s % b:
+        b //= 2
+    return b
+
+
+def flash_plan(seq_q, seq_k, *, causal, device, has_mask=False,
+               dropout_active=False, need_weights=False,
+               has_cache=False) -> bool:
+    """Does this attention go to the flash kernel? The JAX package's
+    decline rules: not causal, a mask, active dropout, returned weights or
+    a cache; Sq > Sk (or Sq != Sk with ``PADDLE_FLASH_APPEND=0``); a tile
+    under 8 rows. "Backend has the kernel" is a CUDA ``device``; on the
+    CPU only ``PADDLE_FLASH_DEFAULT=interpret`` routes."""
+    if not flash_default_enabled():
+        return False
+    if not causal or has_mask or dropout_active or need_weights \
+            or has_cache:
+        return False
+    if int(seq_q) != int(seq_k):
+        if int(seq_q) > int(seq_k) or not flash_append_enabled():
+            return False
+    if torch.device(device).type != "cuda" and not _interpret_forced():
+        return False
+    return _flash_block(int(seq_q)) >= 8 and _flash_block(int(seq_k)) >= 8
+
+
+def flash_core(q, k, v, *, causal=True, scale=None, q_offset=0):
+    """The flash forward on ``[B, H, S, D]`` tensors, tiles derived from
+    the sequence lengths; ``q_offset`` is the global position of the first
+    query row (``Sk - Sq`` for the end-aligned decode-append shape)."""
+    out, _ = flash_attention_fwd(
+        q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+        block_q=_flash_block(int(q.shape[2])),
+        block_k=_flash_block(int(k.shape[2])), scale=scale,
+        q_offset=q_offset, kv_offset=0)
+    return out
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 is_causal=False, scale=None):
+    """Routed softmax attention over ``[B, H, S, D]``: the flash kernel for
+    the causal, mask-free case; otherwise the dense form with the scores
+    materialized, whose causal mask is end-aligned (``qpos = arange(Sq) +
+    Sk - Sq``) so both routes compute one function. (Attention dropout
+    comes with training.)"""
+    Sq, Sk = int(query.shape[2]), int(key.shape[2])
+    if flash_plan(Sq, Sk, causal=is_causal, device=query.device,
+                  has_mask=attn_mask is not None):
+        return flash_core(query, key, value, causal=is_causal, scale=scale,
+                          q_offset=Sk - Sq)
+    sc = scale if scale is not None else int(query.shape[-1]) ** -0.5
+    s = torch.matmul(query, key.transpose(-1, -2)) * sc
+    if attn_mask is not None:
+        s = s + attn_mask
+    if is_causal:
+        qpos = torch.arange(Sq, device=query.device) + (Sk - Sq)
+        kpos = torch.arange(Sk, device=query.device)
+        s = s.masked_fill(kpos[None, :] > qpos[:, None], -1e9)
+    return torch.matmul(torch.softmax(s, dim=-1), value)
+
+
+def cache_update(cache, new, pos):
+    """Write the ``[B, H, Sq, D]`` rows ``new`` into the static-capacity
+    ``[B, H, cap, D]`` cache at per-slot positions ``pos`` ([B] int), IN
+    PLACE (the JAX package's donated dynamic_update_slice; updating in
+    place keeps one cache buffer alive). Like dynamic_update_slice, a
+    start that would run past the end is clamped to ``cap - Sq``. Returns
+    ``cache``. No device-to-host read."""
+    B, H, Sq, D = new.shape
+    cap = cache.shape[2]
+    start = pos.to(torch.int64).clamp(0, cap - Sq)
+    idx = start[:, None] + torch.arange(Sq, device=cache.device)
+    cache.scatter_(2, idx[:, None, :, None].expand(B, H, Sq, D),
+                   new.to(cache.dtype))
+    return cache
+
+
+def cached_attention(query, key, value, pos, *, scale=None):
+    """Decode attention over a static-capacity cache: ``[B, H, Sq, D]``
+    queries whose first row sits at per-slot position ``pos`` against
+    ``[B, H, cap, D]`` cache K/V. The mask compares positions (``kpos >
+    pos[b] + i`` gets -1e9), which also hides every row not yet written
+    for this request. Dense on purpose, as in the JAX package: decode's
+    Sq is 1 and the per-slot offset is a tensor, not a static seam."""
+    sc = scale if scale is not None else int(query.shape[-1]) ** -0.5
+    Sq, Sk = int(query.shape[2]), int(key.shape[2])
+    s = torch.matmul(query, key.transpose(-1, -2)) * sc
+    qpos = pos.to(torch.int64)[:, None] + torch.arange(
+        Sq, device=query.device)[None, :]
+    kpos = torch.arange(Sk, device=query.device)
+    masked = kpos[None, None, None, :] > qpos[:, None, :, None]
+    s = s.masked_fill(masked, -1e9)
+    return torch.matmul(torch.softmax(s, dim=-1), value)

@@ -1,0 +1,78 @@
+"""LayerNorm functionals and their route to the hand-written kernels.
+
+Counterpart of ``paddle_tpu/nn/functional/norm.py``'s ``layer_norm``,
+``fused_residual_layer_norm`` and ``_fused_ln_route`` (single device:
+the shard_map seam of the JAX package belongs to a later slice).
+"""
+from __future__ import annotations
+
+import os
+from typing import Sequence, Union
+
+import torch
+
+from ...ops.kernels import layer_norm as _ln
+
+__all__ = ["layer_norm", "fused_residual_layer_norm"]
+
+
+def _fused_ln_route(x: torch.Tensor, normalized_shape, weight, bias) -> bool:
+    """Route this LayerNorm to the B5/B6 kernel wrappers?
+
+    The JAX package's eligibility rule, unchanged: last-axis-only
+    normalization with both affine params, float32 or bfloat16, D % 128
+    == 0 and rows a multiple of 8 (float32) or 16 (bfloat16).
+    ``PADDLE_FUSED_LN=0`` keeps the dense path everywhere. "Backend has
+    the kernel" is a CUDA tensor; on the CPU ``PADDLE_FUSED_LN=interpret``
+    routes to the wrappers, which run the kernels' plain versions there
+    (where JAX runs the Pallas interpreter), so one test drives both
+    packages down the same route."""
+    mode = os.environ.get("PADDLE_FUSED_LN", "1").strip().lower()
+    if mode in ("0", "false", "off"):
+        return False
+    if weight is None or bias is None or len(normalized_shape) != 1:
+        return False
+    if x.dim() < 2 or x.dtype not in (torch.float32, torch.bfloat16):
+        return False
+    D = x.shape[-1]
+    rows = x.numel() // D if D else 0
+    row_floor = 16 if x.dtype == torch.bfloat16 else 8
+    if D % 128 != 0 or rows == 0 or rows % row_floor != 0:
+        return False
+    return x.is_cuda or mode == "interpret"
+
+
+def _shape(normalized_shape) -> tuple:
+    if isinstance(normalized_shape, int):
+        return (normalized_shape,)
+    return tuple(normalized_shape)
+
+
+def layer_norm(x: torch.Tensor, normalized_shape: Union[int, Sequence[int]],
+               weight=None, bias=None, epsilon: float = 1e-5):
+    """LayerNorm over the trailing ``normalized_shape`` axes of ``x``."""
+    normalized_shape = _shape(normalized_shape)
+    if _fused_ln_route(x, normalized_shape, weight, bias):
+        return _ln.fused_layer_norm(x, weight, bias, epsilon)
+    axes = tuple(range(x.dim() - len(normalized_shape), x.dim()))
+    mean = x.mean(dim=axes, keepdim=True)
+    var = x.var(dim=axes, keepdim=True, correction=0)
+    out = (x - mean) / torch.sqrt(var + epsilon)
+    if weight is not None:
+        out = out * weight
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+def fused_residual_layer_norm(x, residual, normalized_shape, weight=None,
+                              bias=None, epsilon: float = 1e-5):
+    """(x + residual, LayerNorm(x + residual)) — the pre-LN block seam: one
+    B6 kernel when routed, the dense sum then :func:`layer_norm`
+    otherwise."""
+    normalized_shape = _shape(normalized_shape)
+    if _fused_ln_route(x, normalized_shape, weight, bias) \
+            and x.shape == residual.shape:
+        return _ln.fused_add_layer_norm(x, residual, weight, bias, epsilon)
+    s = x + residual
+    return s, layer_norm(s, normalized_shape, weight, bias, epsilon)

@@ -1,0 +1,24 @@
+"""Hand-written CUDA kernels for Hopper, one module per Pallas kernel
+source of ``paddle_tpu/ops/pallas``: each wrapper launches its kernel on
+a CUDA tensor, takes its plain PyTorch version on a CPU tensor, and counts
+its launches in ``<wrapper>.launches``."""
+from . import flash_attention, layer_norm
+
+#: every kernel wrapper of the port, by the name the chip run reports
+WRAPPERS = {
+    "flash_attention_fwd": flash_attention.flash_attention_fwd,
+    "layer_norm_fwd": layer_norm.layer_norm_fwd,
+    "add_layer_norm_fwd": layer_norm.add_layer_norm_fwd,
+}
+
+#: the CUDA sources, by library name (csrc/<name>.cu)
+SOURCES = ("flash_attention_fwd", "layer_norm")
+
+
+def reset_launches() -> None:
+    for w in WRAPPERS.values():
+        w.launches = 0
+
+
+def launches() -> dict:
+    return {name: w.launches for name, w in WRAPPERS.items()}

@@ -1,0 +1,42 @@
+"""Carry ``paddle_tpu`` weights into the port.
+
+``paddle_tpu`` stores a Linear weight as ``[in, out]``; the port's
+``Linear`` holds PyTorch's ``[out, in]``. :func:`from_paddle_tpu_state`
+turns a ``paddle_tpu`` ``TransformerLM.state_dict()``, given as numpy
+arrays, into a state dict the port's ``TransformerLM.load_state_dict``
+takes, so both packages compute the same function. Parameter names are
+the same in both packages.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+__all__ = ["from_paddle_tpu_state"]
+
+#: the Linear layers of the serving model, whose weights are transposed
+_LINEAR_WEIGHTS = ("attn.qkv.weight", "attn.out_proj.weight", "fc1.weight",
+                   "fc2.weight", "head.weight")
+
+
+def _is_linear_weight(name: str) -> bool:
+    return any(name == s or name.endswith("." + s) for s in _LINEAR_WEIGHTS)
+
+
+def from_paddle_tpu_state(np_state: Mapping[str, np.ndarray]
+                          ) -> Dict[str, torch.Tensor]:
+    """``{name: numpy array}`` of a ``paddle_tpu`` model -> ``{name: CPU
+    tensor}`` in the port's layout (Linear weights transposed to
+    ``[out, in]``; everything else as it is)."""
+    out = {}
+    for name, arr in np_state.items():
+        a = np.asarray(arr)
+        if _is_linear_weight(name):
+            if a.ndim != 2:
+                raise ValueError(f"{name}: expected a 2-D [in, out] weight, "
+                                 f"got shape {a.shape}")
+            a = a.T
+        out[name] = torch.from_numpy(np.ascontiguousarray(a))
+    return out
