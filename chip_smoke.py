@@ -5,14 +5,24 @@
 1. prints the card's name and power limit and builds the CUDA kernels of
    ``paddle_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel);
 2. holds each kernel against its plain PyTorch version on the card, in
-   float32 and bfloat16, at the serving shapes, and times the kernel, the
-   plain version and one PyTorch library call computing the same function;
+   float32 and bfloat16, at the training shapes (B = 4, S = 1024; LN rows
+   4096) and the serving shapes, and at the masked and offset cases; times
+   the kernel, the plain version and one PyTorch library call computing
+   the same function, all from CUDA-graph replays;
 3. serves the GPT-medium-shaped ``TransformerLM`` (vocab 32000, d_model
    1024, 16 heads, 24 layers, ffn 4096, float32, random weights from a
    seeded generator) through ``generate`` and ``InferenceEngine``, checks
    the cached decode against a full forward that goes through the flash
-   kernel, and checks that every kernel was launched on that path;
-4. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
+   kernel, and checks that every forward kernel was launched on that path
+   and no backward kernel;
+4. trains the same model (bench.py's GPT-medium training proxy: B = 4,
+   S = 1024, AdamW lr 1e-4, weight decay 0.01, float32) through
+   ``jit.TrainStep``: first one gradient oracle (every parameter's
+   gradient through the kernels against the dense route's, torch
+   autograd), then six steps on one fixed batch (the loss must fall), and
+   checks that each of the six kernels was launched as often as a step
+   needs;
+5. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
    "device": ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device, outside a
@@ -37,14 +47,33 @@ VOCAB, D_MODEL, HEADS, LAYERS, FFN = 32000, 1024, 16, 24, 4096
 BATCH, PROMPT, NEW = 8, 128, 64
 CAP = PROMPT + NEW
 
-# tolerances of kernel vs plain version on the card (same inputs):
-# f32 differs by summation order only; bf16 by one or two roundings of
-# the stored output (one bf16 ulp is 2^-8 relative)
-TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1.6e-2)}
+# tolerances of kernel vs plain version on the card (same inputs), as
+# (floor, rtol): |kernel - plain| <= floor * max|plain| + rtol * |plain|,
+# so the test scales with each output (|dq| at S = 1024 is ~0.03). f32
+# results differ by summation order only. bf16 outputs are rounded once
+# from such f32 results, so they differ by at most one bf16 ulp (<= 2^-7
+# relative); the floor covers the f32 differences of values near zero.
+TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -12, 2 ** -7)}
 # cached decode (dense cached_attention) vs the full forward (flash
 # kernel), float32 with TF32 off: the two paths sum in different orders
 # through 24 layers
 LOGIT_ATOL = 2e-3
+
+# the training configuration: bench.py's GPT-medium training proxy
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 1024, 6
+# gradient oracle, float32 with TF32 off: per parameter, max |kernel route
+# - dense route| <= GRAD_RTOL * max |dense route| (sums in different
+# orders through 24 layers; one bf16 rounding would be 2^-8 ~ 4e-3)
+GRAD_RTOL = 1e-3
+#: launches of each kernel per training step at TRAIN_* (24 layers)
+TRAIN_LAUNCHES = {
+    "flash_attention_fwd": LAYERS, "flash_attention_bwd_dq": LAYERS,
+    "flash_attention_bwd_dkv": LAYERS, "layer_norm_fwd": LAYERS + 1,
+    "add_layer_norm_fwd": LAYERS, "layer_norm_bwd": 2 * LAYERS + 1,
+}
+#: the kernels of the serving path (it runs no backward)
+SERVING_KERNELS = ("flash_attention_fwd", "layer_norm_fwd",
+                   "add_layer_norm_fwd")
 
 
 def fail(msg: str) -> None:
@@ -52,18 +81,31 @@ def fail(msg: str) -> None:
 
 
 def close(a, b, dtype):
-    """max |a - b| and whether it is within (atol + rtol * |b|)."""
-    atol, rtol = TOL[dtype]
+    """max |a - b| and whether every element is within TOL[dtype]. The
+    lse of a fully masked row (the -1e30 sentinel) must match exactly and
+    does not count in max |b|."""
+    floor, rtol = TOL[dtype]
     a, b = a.float(), b.float()
     err = (a - b).abs()
-    return err.max().item(), bool((err <= atol + rtol * b.abs()).all())
+    sentinel = b <= -1e29
+    scale = b.abs().masked_fill(sentinel, 0).max()
+    ok = torch.where(sentinel, err == 0, err <= floor * scale
+                     + rtol * b.abs())
+    return err.max().item(), bool(ok.all())
 
 
-def time_ms(fn, calls=20, reps=5):
+def peaks(ts):
+    """max |t| of each tensor, formatted (the scale a tolerance meets)."""
+    return [f"{t.float().abs().max().item():.3e}" for t in ts]
+
+
+def time_ms(fn, calls=20, reps=5, stream=None):
     """Device time of one ``fn()``: ``calls`` calls captured in a CUDA
-    graph, replayed ``reps`` times between CUDA events (no host launch
-    cost in the number; inputs L2-warm)."""
-    s = torch.cuda.Stream()
+    graph on ``stream`` (a new side stream by default; pass the stream an
+    autograd graph was recorded on to capture its backward), replayed
+    ``reps`` times between CUDA events (no host launch cost in the number;
+    inputs L2-warm)."""
+    s = stream or torch.cuda.Stream()
     s.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(s):
         for _ in range(3):
@@ -71,7 +113,7 @@ def time_ms(fn, calls=20, reps=5):
     torch.cuda.current_stream().wait_stream(s)
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
+    with torch.cuda.graph(g, stream=s):
         for _ in range(calls):
             fn()
     g.replay()
@@ -93,17 +135,20 @@ def bound_ms(nbytes, flops, dtype):
 
 
 def flash_phase(fa, gen, rows):
-    """Flash forward vs its plain version; returns the JSON entry."""
+    """Flash forward vs its plain version; returns the JSON entry, timed at
+    the training shape with the serving shape's times beside it."""
     import torch.nn.functional as tF
 
+    timed_cases = ("serving S=136", "training S=1024")
     cases = [  # (B, H, Sq, Sk, q_offset, kv_offset, what)
         (BATCH, HEADS, 128, 128, 0, 0, "causal"),
         (BATCH, HEADS, 64, 128, 64, 0, "end-aligned q_offset=Sk-Sq"),
         (BATCH, HEADS, 128, 128, 0, 64, "64 fully masked rows"),
-        (BATCH, HEADS, PROMPT + 8, PROMPT + 8, 0, 0, "main path S=136"),
+        (BATCH, HEADS, PROMPT + 8, PROMPT + 8, 0, 0, timed_cases[0]),
+        (TRAIN_B, HEADS, TRAIN_S, TRAIN_S, 0, 0, timed_cases[1]),
     ]
     D = D_MODEL // HEADS
-    entry = None
+    timed = {}
     for dtype in (torch.float32, torch.bfloat16):
         for B, H, S, Sk, qo, ko, what in cases:
             q, k, v = (torch.randn(B, H, n, D, device="cuda", generator=gen
@@ -123,45 +168,48 @@ def flash_phase(fa, gen, rows):
                 fail(f"flash {what}: fully masked rows must give out = 0")
             print(f"flash_attention_fwd {str(dtype)[6:]} [{B},{H},{S},{Sk},"
                   f"{D}] {what}: max|out err| {eo:.3e} max|lse err| "
-                  f"{el:.3e}")
+                  f"{el:.3e} (max|out| {peaks([po])[0]})")
             if not (ok_o and ok_l):
                 fail(f"flash_attention_fwd {dtype} {what} disagrees with "
                      "its plain version")
-            if what.startswith("main path") and dtype == torch.float32:
-                ms = time_ms(lambda: fa.flash_attention_fwd(
-                    q, k, v, block_q=8, block_k=8, **kw))
-                plain_ms = time_ms(lambda: fa.flash_attention_fwd_plain(
-                    q, k, v, **kw))
-                lib_ms = time_ms(lambda: tF.scaled_dot_product_attention(
-                    q, k, v, is_causal=True))
-                pairs = S * (S + 1) // 2  # visible (q, k) pairs per head
-                nbytes = (3 * B * H * S * D + B * H * S * D) \
-                    * q.element_size() + B * H * S * 4
-                flops = 4 * D * pairs * B * H
-                bms, by = bound_ms(nbytes, flops, dtype)
-                entry = dict(
-                    name="flash_attention_fwd", route="cuda",
-                    source=fa.SOURCE,
-                    replaces="paddle_tpu/ops/pallas/flash_attention.py:49 "
-                             "(_fwd_kernel_resident) and :110 (_fwd_kernel)",
-                    shape=f"[{B},{H},{S},{D}] causal", dtype="float32",
-                    max_abs_err=max(eo, el), ms=ms, plain_ms=plain_ms,
-                    bound_ms=bms, bound_by=by, library_ms=lib_ms)
-                rows.append(f"flash_attention_fwd f32 [{B},{H},{S},{D}]: "
-                            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                            f"sdpa {lib_ms:.4f} ms, bound {bms:.6f} ms "
-                            f"({by})")
-    return entry
+            if what not in timed_cases or dtype != torch.float32:
+                continue
+            calls = 20 if S <= 256 else 5
+            ms = time_ms(lambda: fa.flash_attention_fwd(
+                q, k, v, block_q=8, block_k=8, **kw), calls=calls)
+            plain_ms = time_ms(lambda: fa.flash_attention_fwd_plain(
+                q, k, v, **kw), calls=calls)
+            lib_ms = time_ms(lambda: tF.scaled_dot_product_attention(
+                q, k, v, is_causal=True), calls=calls)
+            pairs = S * (S + 1) // 2  # visible (q, k) pairs per head
+            nbytes = (3 * B * H * S * D + B * H * S * D) \
+                * q.element_size() + B * H * S * 4
+            flops = 4 * D * pairs * B * H
+            bms, by = bound_ms(nbytes, flops, dtype)
+            timed[what] = dict(
+                shape=f"[{B},{H},{S},{D}] causal", max_abs_err=max(eo, el),
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=lib_ms)
+            rows.append(f"flash_attention_fwd f32 [{B},{H},{S},{D}]: "
+                        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                        f"sdpa {lib_ms:.4f} ms, bound {bms:.6f} ms ({by})")
+    return dict(name="flash_attention_fwd", route="cuda", source=fa.SOURCE,
+                replaces="paddle_tpu/ops/pallas/flash_attention.py:49 "
+                         "(_fwd_kernel_resident) and :110 (_fwd_kernel)",
+                dtype="float32", **timed[timed_cases[1]],
+                at_serving_shape=timed[timed_cases[0]])
 
 
 def ln_phase(ln, gen, rows):
-    """LN and add-LN vs their plain versions; returns two JSON entries."""
+    """LN and add-LN vs their plain versions; returns two JSON entries,
+    timed at the training rows with the serving prefill's beside them."""
     import torch.nn.functional as tF
 
-    entries = {}
+    timed = {}
     D = D_MODEL
+    train_r, serve_r = TRAIN_B * TRAIN_S, BATCH * PROMPT
     for dtype in (torch.float32, torch.bfloat16):
-        for R in (BATCH * PROMPT, BATCH):
+        for R in (train_r, serve_r, BATCH):
             x, y = (torch.randn(R, D, device="cuda", generator=gen
                                 ).to(dtype) for _ in range(2))
             w, b = (torch.randn(D, device="cuda", generator=gen
@@ -207,18 +255,246 @@ def ln_phase(ln, gen, rows):
                     f"{plain_ms:.4f} ms, library "
                     f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
                     f"bound {bms:.6f} ms ({by})")
-                if R == BATCH * PROMPT:
-                    entries[name] = dict(
-                        name=name, route="cuda", source=ln.SOURCE,
-                        replaces=("paddle_tpu/ops/pallas/layer_norm.py:54 "
-                                  "(_ln_fwd_kernel)"
-                                  if name == "layer_norm_fwd" else
-                                  "paddle_tpu/ops/pallas/layer_norm.py:68 "
-                                  "(_add_ln_fwd_kernel)"),
-                        shape=f"[{R},{D}]", dtype="float32",
-                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        bound_ms=bms, bound_by=by, library_ms=lib_ms)
-    return entries["layer_norm_fwd"], entries["add_layer_norm_fwd"]
+                timed.setdefault(name, {})[R] = dict(
+                    shape=f"[{R},{D}]", max_abs_err=err, ms=ms,
+                    plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                    library_ms=lib_ms)
+    return tuple(
+        dict(name=name, route="cuda", source=ln.SOURCE,
+             replaces=f"paddle_tpu/ops/pallas/layer_norm.py:{line}",
+             dtype="float32", **timed[name][train_r],
+             at_serving_shape=timed[name][serve_r])
+        for name, line in (("layer_norm_fwd", "54 (_ln_fwd_kernel)"),
+                           ("add_layer_norm_fwd", "68 (_add_ln_fwd_kernel)")))
+
+
+def flash_bwd_phase(fa, gen, rows):
+    """B3 (dq) and B4 (dk/dv) vs the plain backward; returns two JSON
+    entries."""
+    import torch.nn.functional as tF
+
+    B, H, S, D = TRAIN_B, HEADS, TRAIN_S, D_MODEL // HEADS
+    cases = [  # (B, H, Sq, Sk, q_offset, kv_offset, what)
+        (B, H, S, S, 0, 0, "training S=1024"),
+        (2, H, 128, 256, 128, 0, "end-aligned q_offset=Sk-Sq"),
+        (2, H, 256, 256, 0, 64, "64 fully masked rows"),
+    ]
+    entries = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, h, sq, sk, qo, ko, what in cases:
+            q, do = (torch.randn(b, h, sq, D, device="cuda", generator=gen
+                                 ).to(dtype) for _ in range(2))
+            k, v = (torch.randn(b, h, sk, D, device="cuda", generator=gen
+                                ).to(dtype) for _ in range(2))
+            kw = dict(causal=True, q_offset=qo, kv_offset=ko)
+            # out and lse from the plain forward: the backward's check does
+            # not lean on B1
+            out, lse = fa.flash_attention_fwd_plain(q, k, v, **kw)
+            delta = (do.float() * out.float()).sum(-1)
+            dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+            dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                **kw)
+            ref = fa.flash_attention_bwd_plain(q, k, v, do, lse, delta,
+                                               **kw)
+            torch.cuda.synchronize()
+            errs = [close(a, r, dtype) for a, r in zip((dq, dk, dv), ref)]
+            print(f"flash_attention_bwd {str(dtype)[6:]} [{b},{h},{sq},"
+                  f"{sk},{D}] {what}: max|dq err| {errs[0][0]:.3e} "
+                  f"max|dk err| {errs[1][0]:.3e} max|dv err| "
+                  f"{errs[2][0]:.3e} (max|dq|, |dk|, |dv| {peaks(ref)})")
+            if not all(ok for _, ok in errs):
+                fail(f"flash backward {dtype} {what} disagrees with its "
+                     "plain version")
+            if ko and not bool((dq[:, :, :ko] == 0).all()):
+                fail(f"flash backward {what}: fully masked rows must get "
+                     "dq = 0")
+            if not (what.startswith("training") and dtype == torch.float32):
+                continue
+            ms_dq = time_ms(lambda: fa.flash_attention_bwd_dq(
+                q, k, v, do, lse, delta, **kw), calls=5)
+            ms_dkv = time_ms(lambda: fa.flash_attention_bwd_dkv(
+                q, k, v, do, lse, delta, **kw), calls=5)
+            plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
+                q, k, v, do, lse, delta, **kw), calls=5)
+            # SDPA's backward alone: its forward is recorded on the stream
+            # that the backward is then captured on
+            ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                lib_out = tF.scaled_dot_product_attention(ql, kl, vl,
+                                                          is_causal=True)
+            lib_ms = time_ms(lambda: torch.autograd.grad(
+                lib_out, (ql, kl, vl), do, retain_graph=True), calls=5,
+                stream=side)
+            pairs = b * h * sq * (sq + 1) // 2  # visible (q, k) pairs
+            el, it = b * h * sq * D, q.element_size()
+            # dq: reads q, k, v, dO, lse, delta, writes dq; 3 products
+            # of length D per visible pair. dk/dv: the same reads, writes
+            # dk, dv; 4 products.
+            b_dq = bound_ms(5 * el * it + 2 * b * h * sq * 4,
+                            6 * D * pairs, dtype)
+            b_dkv = bound_ms(6 * el * it + 2 * b * h * sq * 4,
+                             8 * D * pairs, dtype)
+            for name, ms, (bms, by), err, line in (
+                    ("flash_attention_bwd_dq", ms_dq, b_dq, errs[0][0],
+                     "paddle_tpu/ops/pallas/flash_attention.py:171 "
+                     "(_dq_kernel)"),
+                    ("flash_attention_bwd_dkv", ms_dkv, b_dkv,
+                     max(errs[1][0], errs[2][0]),
+                     "paddle_tpu/ops/pallas/flash_attention.py:224 "
+                     "(_dkv_kernel)")):
+                entries[name] = dict(
+                    name=name, route="cuda", source=fa.BWD_SOURCE,
+                    replaces=line, shape=f"[{b},{h},{sq},{D}] causal",
+                    dtype="float32", max_abs_err=err, ms=ms,
+                    plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                    library_ms=lib_ms)
+                rows.append(f"{name} f32 [{b},{h},{sq},{D}]: kernel "
+                            f"{ms:.4f} ms, plain (dq, dk, dv) "
+                            f"{plain_ms:.4f} ms, sdpa backward (dq, dk, "
+                            f"dv) {lib_ms:.4f} ms, bound {bms:.6f} ms "
+                            f"({by})")
+    return entries["flash_attention_bwd_dq"], \
+        entries["flash_attention_bwd_dkv"]
+
+
+def ln_bwd_phase(ln, gen, rows):
+    """B7 vs the plain LayerNorm backward; returns the JSON entry."""
+    entry = None
+    D = D_MODEL
+    for dtype in (torch.float32, torch.bfloat16):
+        for R in (TRAIN_B * TRAIN_S, 40):
+            x, g = (torch.randn(R, D, device="cuda", generator=gen
+                                ).to(dtype) for _ in range(2))
+            w, b = (torch.randn(D, device="cuda", generator=gen
+                                ).to(dtype) for _ in range(2))
+            _, mu, rs = ln.layer_norm_fwd_plain(x, w, b)  # not through B5
+            got = ln.layer_norm_bwd(x, w, mu, rs, g)
+            ref = ln.layer_norm_bwd_plain(x, w, mu, rs, g)
+            torch.cuda.synchronize()
+            errs = [close(a, r, dtype) for a, r in zip(got, ref)]
+            print(f"layer_norm_bwd {str(dtype)[6:]} [{R},{D}]: max err "
+                  f"dx/dw/db {[f'{e:.3e}' for e, _ in errs]} (max|dx|, "
+                  f"|dw|, |db| {peaks(ref)})")
+            if not all(ok for _, ok in errs):
+                fail(f"layer_norm_bwd {dtype} R={R} disagrees with its "
+                     "plain version")
+            if dtype != torch.float32 or R != TRAIN_B * TRAIN_S:
+                continue
+            ms = time_ms(lambda: ln.layer_norm_bwd(x, w, mu, rs, g))
+            plain_ms = time_ms(lambda: ln.layer_norm_bwd_plain(
+                x, w, mu, rs, g))
+            _, amu, ars = torch.ops.aten.native_layer_norm(x, [D], w, b,
+                                                           1e-5)
+            lib_ms = time_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+                g, x, [D], amu, ars, w, b, [True, True, True]))
+            it = x.element_size()
+            # reads x, g, w, mu, rstd; writes dx, dweight, dbias
+            bms, by = bound_ms(3 * R * D * it + 3 * D * it + 2 * R * 4,
+                               10 * R * D, dtype)
+            entry = dict(
+                name="layer_norm_bwd", route="cuda", source=ln.SOURCE,
+                replaces="paddle_tpu/ops/pallas/layer_norm.py:87 "
+                         "(_ln_bwd_kernel)",
+                shape=f"[{R},{D}]", dtype="float32",
+                max_abs_err=max(e for e, _ in errs), ms=ms,
+                plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=lib_ms)
+            rows.append(f"layer_norm_bwd f32 [{R},{D}]: kernel {ms:.4f} ms, "
+                        f"plain {plain_ms:.4f} ms, native_layer_norm_"
+                        f"backward {lib_ms:.4f} ms, bound {bms:.6f} ms "
+                        f"({by})")
+    return entry
+
+
+def training_phase(pt, kernels):
+    """Train the GPT-medium model through TrainStep + AdamW; returns the
+    per-kernel launch counts of the steps."""
+    import os
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    V = VOCAB
+    t0 = time.perf_counter()
+    model = pt.TransformerLM(V, D_MODEL, HEADS, LAYERS,
+                             max_position=TRAIN_S, dim_feedforward=FFN,
+                             seed=1)
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.RandomState(1)
+    ids = torch.as_tensor(rng.randint(0, V, size=(TRAIN_B, TRAIN_S + 1)),
+                          device=model.device)
+    inputs, labels = ids[:, :-1], ids[:, 1:]
+
+    def loss_fn(logits, lab):
+        return pt.nn.functional.cross_entropy(logits.reshape(-1, V),
+                                              lab.reshape(-1))
+
+    def grads(route):
+        os.environ["PADDLE_FLASH_DEFAULT"] = route
+        os.environ["PADDLE_FUSED_LN"] = route
+        model.zero_grad(set_to_none=True)
+        loss = loss_fn(model(inputs), labels)
+        loss.backward()
+        out = {n: p.grad for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return loss.item(), out
+
+    # the oracle: every parameter's gradient through the kernels against
+    # the dense route (torch autograd through materialized attention and
+    # plain LayerNorms)
+    kernels.reset_launches()
+    loss_k, g_k = grads("1")
+    oracle_counts = kernels.launches()
+    loss_d, g_d = grads("0")
+    os.environ.pop("PADDLE_FLASH_DEFAULT")
+    os.environ.pop("PADDLE_FUSED_LN")
+    worst, worst_name = 0.0, ""
+    for n, gd in g_d.items():
+        gk = g_k.get(n)
+        if gk is None or not bool(torch.isfinite(gk).all()):
+            fail(f"kernel route gives no finite gradient for {n}")
+        scale = gd.abs().max().item()
+        rel = (gk - gd).abs().max().item() / max(scale, 1e-30)
+        if scale == 0 or rel > worst:
+            worst, worst_name = (rel, n) if scale else (float("inf"), n)
+    print(f"gradient oracle, {n_params} float32 parameters, B={TRAIN_B} "
+          f"S={TRAIN_S}: loss kernels {loss_k:.6f} dense {loss_d:.6f}; "
+          f"worst max|g_kernel - g_dense| / max|g_dense| {worst:.3e} "
+          f"({worst_name}; tolerance {GRAD_RTOL}); launches {oracle_counts}")
+    if abs(loss_k - loss_d) > 1e-4 or worst > GRAD_RTOL:
+        fail("kernel-route gradients disagree with the dense route")
+    del g_k, g_d
+
+    opt = pt.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01)
+    step = pt.jit.TrainStep(model, loss_fn, opt)
+    torch.cuda.synchronize()
+    print(f"training model built and checked in "
+          f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()  # the training path starts here
+    losses, ms = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses.append(step(inputs, labels).item())  # .item() syncs
+        ms.append((time.perf_counter() - t1) * 1e3)
+    counts = kernels.launches()  # the training path ends here
+    steady = float(np.mean(ms[1:]))
+    print(f"TrainStep B={TRAIN_B} S={TRAIN_S} AdamW: losses "
+          f"{[f'{x:.5f}' for x in losses]}; step ms {[f'{x:.1f}' for x in ms]}"
+          f"; steady {steady:.2f} ms/step, "
+          f"{TRAIN_B * TRAIN_S / steady * 1e3:.1f} tokens/s (after one "
+          f"warm-up step); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"launches on the training path ({TRAIN_STEPS} steps): {counts}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail("training loss is not finite or did not fall")
+    for name, per_step in TRAIN_LAUNCHES.items():
+        if counts[name] != per_step * TRAIN_STEPS:
+            fail(f"kernel {name}: {counts[name]} launches on the training "
+                 f"path, expected {per_step} per step")
+    return counts
 
 
 def serving_phase(pt, kernels):
@@ -321,8 +597,8 @@ def serving_phase(pt, kernels):
     counts = kernels.launches()  # the main path ends here
     print(f"launches on the serving path: {counts}")
     for name, n in counts.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the serving path")
+        if (n <= 0) == (name in SERVING_KERNELS):
+            fail(f"kernel {name}: {n} launches on the serving path")
     return counts
 
 
@@ -356,12 +632,17 @@ def main() -> int:
     rows = []
     flash = flash_phase(fa, gen, rows)
     ln_entry, add_entry = ln_phase(ln, gen, rows)
+    dq_entry, dkv_entry = flash_bwd_phase(fa, gen, rows)
+    ln_bwd_entry = ln_bwd_phase(ln, gen, rows)
     for r in rows:
         print(r)
-    counts = serving_phase(pt, kernels)
-    entries = [flash, ln_entry, add_entry]
+    serving = serving_phase(pt, kernels)
+    training = training_phase(pt, kernels)
+    entries = [flash, ln_entry, add_entry, dq_entry, dkv_entry, ln_bwd_entry]
     for e in entries:
-        e["launches"] = counts[e["name"]]
+        e["launches"] = training[e["name"]]
+        e["launches_by_path"] = {"serving": serving[e["name"]],
+                                 "training": training[e["name"]]}
     print(f"{card}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 
 Counterpart of ``paddle_tpu/nn/functional/attention.py`` on one device:
 the flash-by-default policy (``flash_plan``) with the JAX package's
-decline rules, the kernel call (``flash_core``), the dense
+decline rules, the kernel call (``flash_core``, through the autograd
+Function whose backward runs the B3/B4 kernels), the dense
 ``scaled_dot_product_attention``, and the serving cache ops
 ``cache_update`` / ``cached_attention``, which stay plain PyTorch as the
 JAX package leaves them to XLA.
@@ -18,7 +19,7 @@ import os
 
 import torch
 
-from ...ops.kernels.flash_attention import flash_attention_fwd
+from ...ops.kernels.flash_attention import FlashAttentionFunction
 
 __all__ = [
     "flash_default_enabled", "flash_append_enabled", "flash_plan",
@@ -73,15 +74,15 @@ def flash_plan(seq_q, seq_k, *, causal, device, has_mask=False,
 
 
 def flash_core(q, k, v, *, causal=True, scale=None, q_offset=0):
-    """The flash forward on ``[B, H, S, D]`` tensors, tiles derived from
-    the sequence lengths; ``q_offset`` is the global position of the first
-    query row (``Sk - Sq`` for the end-aligned decode-append shape)."""
-    out, _ = flash_attention_fwd(
-        q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
-        block_q=_flash_block(int(q.shape[2])),
-        block_k=_flash_block(int(k.shape[2])), scale=scale,
-        q_offset=q_offset, kv_offset=0)
-    return out
+    """Flash attention on ``[B, H, S, D]`` tensors through
+    :class:`FlashAttentionFunction` (differentiable on both devices), tiles
+    derived from the sequence lengths; ``q_offset`` is the global position
+    of the first query row (``Sk - Sq`` for the end-aligned decode-append
+    shape)."""
+    return FlashAttentionFunction.apply(
+        q.contiguous(), k.contiguous(), v.contiguous(), causal,
+        _flash_block(int(q.shape[2])), _flash_block(int(k.shape[2])), scale,
+        q_offset, 0)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,

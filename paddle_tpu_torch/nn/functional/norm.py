@@ -2,7 +2,9 @@
 
 Counterpart of ``paddle_tpu/nn/functional/norm.py``'s ``layer_norm``,
 ``fused_residual_layer_norm`` and ``_fused_ln_route`` (single device:
-the shard_map seam of the JAX package belongs to a later slice).
+the shard_map seam of the JAX package belongs to a later slice). A routed
+call goes through the autograd Functions of ``ops/kernels/layer_norm.py``
+on both devices, so its backward runs the B7 kernel.
 """
 from __future__ import annotations
 

@@ -7,12 +7,15 @@ from . import flash_attention, layer_norm
 #: every kernel wrapper of the port, by the name the chip run reports
 WRAPPERS = {
     "flash_attention_fwd": flash_attention.flash_attention_fwd,
+    "flash_attention_bwd_dq": flash_attention.flash_attention_bwd_dq,
+    "flash_attention_bwd_dkv": flash_attention.flash_attention_bwd_dkv,
     "layer_norm_fwd": layer_norm.layer_norm_fwd,
     "add_layer_norm_fwd": layer_norm.add_layer_norm_fwd,
+    "layer_norm_bwd": layer_norm.layer_norm_bwd,
 }
 
 #: the CUDA sources, by library name (csrc/<name>.cu)
-SOURCES = ("flash_attention_fwd", "layer_norm")
+SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "layer_norm")
 
 
 def reset_launches() -> None:

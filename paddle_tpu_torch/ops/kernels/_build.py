@@ -134,6 +134,24 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def upcast(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the compute type of the kernels' plain versions: float32
+    for float32 and narrower types, float64 for float64 (the gradient
+    checks run the plain route in float64)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def refuse_grad(what: str, function: str, *tensors: torch.Tensor) -> None:
+    """A kernel's outputs carry no autograd graph. Raise, on any device,
+    when grad mode is on and an input requires grad: such a call goes
+    through ``function`` (a ``torch.autograd.Function`` whose forward runs
+    with grad mode off and whose backward launches the backward kernels)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: an input requires grad and the kernel's outputs would "
+            f"be cut from the autograd graph; call it through {function}")
+
+
 def require_cuda(what: str, *tensors: torch.Tensor) -> torch.device:
     """Check that every tensor lies on one CUDA device, is contiguous and
     has a type the kernels take; return the device."""

@@ -1,25 +1,34 @@
-"""Flash-attention forward (B1/B2): ``(out, lse)`` of softmax attention.
+"""Flash attention (B1-B4): the forward ``(out, lse)`` of softmax
+attention, its backward ``(dq, dk, dv)``, and the autograd Function that
+joins them.
 
-The port of ``paddle_tpu/ops/pallas/flash_attention.py``'s forward
-kernels, ``_fwd_kernel_resident`` (B1) and ``_fwd_kernel`` (B2). Both
-compute one function, and one hand-written CUDA kernel for Hopper
-(``csrc/flash_attention_fwd.cu``) computes it here; its plain PyTorch
-version and a launch count sit beside the wrapper. The backward kernels
-(B3, B4) come with the training slice.
+The port of ``paddle_tpu/ops/pallas/flash_attention.py``. The forward
+kernels ``_fwd_kernel_resident`` (B1) and ``_fwd_kernel`` (B2) compute one
+function, and one hand-written CUDA kernel for Hopper computes it here
+(``csrc/flash_attention_fwd.cu``). The backward kernels ``_dq_kernel``
+(B3) and ``_dkv_kernel`` (B4) stay two kernels
+(``csrc/flash_attention_bwd.cu``). Each wrapper has its plain PyTorch
+version and a launch count beside it. :class:`FlashAttentionFunction` is
+the counterpart of the ``flash_attention`` custom_vjp: it saves what
+``_fa_fwd`` saves, ``(q, k, v, out, lse)``, and its backward computes
+``delta = rowsum(dO * O)`` outside the kernels, as ``_backward`` does.
 
-What bounds the kernel on the H100 at the serving shapes is the f32 SIMT
-rate of its products (it does not use the tensor cores yet); the CUDA
-source says what its design keeps on chip.
+What bounds the kernels on the H100 is the f32 SIMT rate of their products
+(they do not use the tensor cores yet); the CUDA sources say what their
+designs keep on chip.
 
 Conventions of the function, kept from the Pallas kernels: q is
 ``[B, H, S, D]``, k and v ``[B, H, Sk, D]``; a masked score is ``-1e30``;
 the causal mask compares GLOBAL positions, ``kv_offset + j > q_offset +
-i``; a row with every key masked returns out = 0 and lse = ``-1e30``; out
-comes back in the input type and lse as ``[B, H, S]`` f32; the block
-contract raises when S or Sk is not divisible by its block.
+i``; a row with every key masked returns out = 0 and lse = ``-1e30``, and
+in backward ``p`` is forced to 0 wherever ``s <= -1e30 / 2``; outputs come
+back in the input type and lse as ``[B, H, S]`` f32; the block contract
+raises when S or Sk is not divisible by its block.
 
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
-kernel or raises.
+kernel or raises. A wrapper called directly with an input that requires
+grad while grad mode is on raises on either device (its outputs would be
+cut from the graph): training goes through :class:`FlashAttentionFunction`.
 """
 from __future__ import annotations
 
@@ -28,15 +37,22 @@ import ctypes
 import torch
 
 from . import _build
+from ._build import upcast as _up
 
 NEG = -1e30
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {
+_FWD_SIGNATURES = {
     "flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I,
                   _P],
 }
+_BWD_SIGNATURES = {
+    "flash_bwd_dq": [_P] * 7 + [_I, _I, _I, _I, _F, _I, _I, _I, _I, _P],
+    "flash_bwd_dkv": [_P] * 8 + [_I, _I, _I, _I, _F, _I, _I, _I, _I, _P],
+}
 SOURCE = "paddle_tpu_torch/csrc/flash_attention_fwd.cu"
-#: query rows per thread block of the CUDA kernel (grid y is at most 65535)
+BWD_SOURCE = "paddle_tpu_torch/csrc/flash_attention_bwd.cu"
+_FUNCTION = "ops.kernels.flash_attention.FlashAttentionFunction"
+#: query rows per thread block of the forward kernel (grid y <= 65535)
 _KERNEL_BLOCK_Q = 16
 
 
@@ -48,25 +64,51 @@ def _check_blocks(S, Sk, block_q, block_k):
             f"block_q={bq}/block_k={bk}")
 
 
-def flash_attention_fwd_plain(q, k, v, *, causal=False, scale=None,
-                              q_offset=0, kv_offset=0):
-    """Plain PyTorch version of the flash forward: the same function with
-    the scores materialized. Returns (out in q's type, lse [B, H, S] f32).
-    """
-    S, D = q.shape[2], q.shape[3]
+def _check_qkv(q, k, v):
+    B, H, S, D = q.shape
     Sk = k.shape[2]
-    scale = scale if scale is not None else D ** -0.5
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if k.shape != (B, H, Sk, D) or v.shape != k.shape:
+        raise ValueError(
+            f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"v {tuple(v.shape)} do not form [B, H, S|Sk, D]")
+    return B, H, S, Sk, D
+
+
+def _check_cuda(what, q, k, v, *more):
+    dev = _build.require_cuda(what, q, k, v, *more)
+    if q.dtype not in _build.DTYPE_CODE or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f"{what}: q, k, v must share one type of float32, "
+                        "bfloat16")
+    if q.shape[3] > 128:
+        raise ValueError(f"{what}: head dim {q.shape[3]} > 128")
+    return dev
+
+
+def _scores(q, k, scale, causal, q_offset, kv_offset):
+    """Masked scores ``q k^T * scale`` in the compute type."""
+    S, Sk = q.shape[2], k.shape[2]
+    s = torch.matmul(_up(q), _up(k).transpose(-1, -2)) * scale
     if causal:
         qpos = q_offset + torch.arange(S, device=q.device)
         kpos = kv_offset + torch.arange(Sk, device=q.device)
         s = s.masked_fill(kpos[None, :] > qpos[:, None], NEG)
+    return s
+
+
+def flash_attention_fwd_plain(q, k, v, *, causal=False, scale=None,
+                              q_offset=0, kv_offset=0):
+    """Plain PyTorch version of the flash forward: the same function with
+    the scores materialized. Returns (out in q's type, lse [B, H, S] in the
+    compute type)."""
+    scale = scale if scale is not None else q.shape[3] ** -0.5
+    s = _scores(q, k, scale, causal, q_offset, kv_offset)
     m = s.amax(dim=-1, keepdim=True)
     alive = m > NEG / 2
     p = torch.where(alive, torch.exp(s - m), torch.zeros_like(s))
     l = p.sum(dim=-1, keepdim=True)
     safe_l = torch.where(l == 0, torch.ones_like(l), l)
-    out = torch.matmul(p, v.float()) / safe_l
+    out = torch.matmul(p, _up(v)) / safe_l
     lse = torch.where(l == 0, torch.full_like(l, NEG), m + torch.log(safe_l))
     return out.to(q.dtype), lse[..., 0]
 
@@ -79,30 +121,20 @@ def flash_attention_fwd(q, k, v, *, causal=False, block_q=256,
     kernel tiles by its own sizes. ``q_offset``/``kv_offset`` shift the
     global positions the causal mask compares (``q_offset = Sk - Sq`` is
     the end-aligned decode-append shape)."""
-    B, H, S, D = q.shape
-    Sk = k.shape[2]
-    if k.shape != (B, H, Sk, D) or v.shape != k.shape:
-        raise ValueError(
-            f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-            f"v {tuple(v.shape)} do not form [B, H, S|Sk, D]")
+    _build.refuse_grad("flash_attention_fwd", _FUNCTION, q, k, v)
+    B, H, S, Sk, D = _check_qkv(q, k, v)
     _check_blocks(S, Sk, block_q, block_k)
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(
             q, k, v, causal=causal, scale=scale, q_offset=q_offset,
             kv_offset=kv_offset)
-    dev = _build.require_cuda("flash_attention_fwd", q, k, v)
-    if q.dtype not in _build.DTYPE_CODE or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
-        raise TypeError("flash_attention_fwd: q, k, v must share one type "
-                        "of float32, bfloat16")
-    if D > 128:
-        raise ValueError(f"flash_attention_fwd: head dim {D} > 128")
+    dev = _check_cuda("flash_attention_fwd", q, k, v)
     if -(-S // _KERNEL_BLOCK_Q) > 65535:
         raise ValueError(f"flash_attention_fwd: S={S} too long for the grid")
     scale = scale if scale is not None else D ** -0.5
     out = torch.empty_like(q)
     lse = torch.empty((B, H, S), device=dev, dtype=torch.float32)
-    lib = _build.library("flash_attention_fwd", _SIGNATURES)
+    lib = _build.library("flash_attention_fwd", _FWD_SIGNATURES)
     rc = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        out.data_ptr(), lse.data_ptr(), B * H, S, Sk, D,
                        float(scale), int(bool(causal)), int(q_offset),
@@ -114,3 +146,131 @@ def flash_attention_fwd(q, k, v, *, causal=False, block_q=256,
 
 
 flash_attention_fwd.launches = 0
+
+
+def flash_attention_bwd_plain(q, k, v, dout, lse, delta, *, causal=False,
+                              scale=None, q_offset=0, kv_offset=0):
+    """Plain PyTorch version of the B3/B4 backward, written from the Pallas
+    kernels' formulas (not from autograd): ``p = exp(s - lse)`` (0 where
+    ``s <= -1e30/2``), ``ds = p (dO v^T - delta) scale``, ``dq = ds k``,
+    ``dk = ds^T q``, ``dv = p^T dO``. Returns (dq, dk, dv) in the input
+    types."""
+    scale = scale if scale is not None else q.shape[3] ** -0.5
+    s = _scores(q, k, scale, causal, q_offset, kv_offset)
+    p = torch.where(s <= NEG / 2, torch.zeros_like(s),
+                    torch.exp(s - _up(lse)[..., None]))
+    do = _up(dout)
+    dp = torch.matmul(do, _up(v).transpose(-1, -2))
+    ds = p * (dp - _up(delta)[..., None]) * scale
+    dq = torch.matmul(ds, _up(k))
+    dk = torch.matmul(ds.transpose(-1, -2), _up(q))
+    dv = torch.matmul(p.transpose(-1, -2), do)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_args(what, q, k, v, dout, lse, delta):
+    B, H, S, Sk, D = _check_qkv(q, k, v)
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError(f"{what}: dout must match q in shape and type")
+    for t in (lse, delta):
+        if t.shape != (B, H, S) or t.dtype != torch.float32:
+            raise ValueError(f"{what}: lse and delta must be [B, H, S] f32")
+    dev = _check_cuda(what, q, k, v, dout, lse, delta)
+    return dev, B, H, S, Sk, D
+
+
+def flash_attention_bwd_dq(q, k, v, dout, lse, delta, *, causal=False,
+                           scale=None, q_offset=0, kv_offset=0):
+    """dq of the flash backward (B3, ``_dq_kernel``)."""
+    _build.refuse_grad("flash_attention_bwd_dq", _FUNCTION, q, k, v, dout)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(
+            q, k, v, dout, lse, delta, causal=causal, scale=scale,
+            q_offset=q_offset, kv_offset=kv_offset)[0]
+    dev, B, H, S, Sk, D = _bwd_args("flash_attention_bwd_dq", q, k, v, dout,
+                                    lse, delta)
+    scale = scale if scale is not None else D ** -0.5
+    dq = torch.empty_like(q)
+    lib = _build.library("flash_attention_bwd", _BWD_SIGNATURES)
+    rc = lib.flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                          dq.data_ptr(), B * H, S, Sk, D, float(scale),
+                          int(bool(causal)), int(q_offset), int(kv_offset),
+                          _build.DTYPE_CODE[q.dtype], _build.stream_ptr(dev))
+    _build.check(rc, "flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, *, causal=False,
+                            scale=None, q_offset=0, kv_offset=0):
+    """(dk, dv) of the flash backward (B4, ``_dkv_kernel``)."""
+    _build.refuse_grad("flash_attention_bwd_dkv", _FUNCTION, q, k, v, dout)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(
+            q, k, v, dout, lse, delta, causal=causal, scale=scale,
+            q_offset=q_offset, kv_offset=kv_offset)[1:]
+    dev, B, H, S, Sk, D = _bwd_args("flash_attention_bwd_dkv", q, k, v,
+                                    dout, lse, delta)
+    scale = scale if scale is not None else D ** -0.5
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    lib = _build.library("flash_attention_bwd", _BWD_SIGNATURES)
+    rc = lib.flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                           dk.data_ptr(), dv.data_ptr(), B * H, S, Sk, D,
+                           float(scale), int(bool(causal)), int(q_offset),
+                           int(kv_offset), _build.DTYPE_CODE[q.dtype],
+                           _build.stream_ptr(dev))
+    _build.check(rc, "flash_attention_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, dout, lse, delta, *, causal=False,
+                        block_q=256, block_k=256, scale=None, q_offset=0,
+                        kv_offset=0):
+    """Flash-attention backward -> (dq, dk, dv) in the input types: the
+    counterpart of ``_backward_with_delta``. ``delta`` is
+    ``rowsum(dO * O)`` ([B, H, S] f32), computed by the caller (the ring
+    attention's partial backward shifts it by the lse cotangent)."""
+    _build.refuse_grad("flash_attention_bwd", _FUNCTION, q, k, v, dout)
+    _check_qkv(q, k, v)
+    _check_blocks(q.shape[2], k.shape[2], block_q, block_k)
+    kw = dict(causal=causal, scale=scale, q_offset=q_offset,
+              kv_offset=kv_offset)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, dout, lse, delta, **kw)
+    dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw)
+    return dq, dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """``flash_attention`` with its backward on the B3/B4 kernels (the
+    custom_vjp of ``flash_attention.py:376``). On the CPU its forward and
+    backward run the plain versions. Returns ``out``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal=False, block_q=256, block_k=256,
+                scale=None, q_offset=0, kv_offset=0):
+        out, lse = flash_attention_fwd(
+            q, k, v, causal=causal, block_q=block_q, block_k=block_k,
+            scale=scale, q_offset=q_offset, kv_offset=kv_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = dict(causal=causal, block_q=block_q, block_k=block_k,
+                      scale=scale, q_offset=q_offset, kv_offset=kv_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        delta = (_up(g) * _up(out)).sum(dim=-1)
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, g.to(q.dtype).contiguous(), lse, delta.to(lse.dtype),
+            **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None, None

@@ -1,15 +1,21 @@
-"""Row LayerNorm forward (B5) and residual-add + LayerNorm forward (B6).
+"""Row LayerNorm forward (B5), residual-add + LayerNorm forward (B6),
+LayerNorm backward (B7), and the autograd Functions that join them.
 
-The port of ``paddle_tpu/ops/pallas/layer_norm.py``'s ``_ln_fwd_kernel``
-and ``_add_ln_fwd_kernel``: a hand-written CUDA kernel for Hopper
-(``csrc/layer_norm.cu``), its plain PyTorch version, and a launch count
-per wrapper.
+The port of ``paddle_tpu/ops/pallas/layer_norm.py``'s ``_ln_fwd_kernel``,
+``_add_ln_fwd_kernel`` and ``_ln_bwd_kernel``: hand-written CUDA kernels
+for Hopper (``csrc/layer_norm.cu``), each with its plain PyTorch version
+and a launch count per wrapper. :class:`LayerNormFunction` and
+:class:`AddLayerNormFunction` are the counterparts of the
+``fused_layer_norm`` / ``fused_add_layer_norm`` custom_vjps: they save what
+``_fln_fwd`` / ``_fadd_ln_fwd`` save, ``(x2d or s2d, weight, mu, rstd)``.
 
 What bounds the kernels on the H100 is bytes, not flops (a few flops per
 element moved); the CUDA source says what its design does about it. Stats
-are f32 whatever the input type; the output keeps the input type; mean and
+are f32 whatever the input type; outputs keep the input type; mean and
 rstd come back as ``[R]`` f32 (the TPU's ``(R, 128)`` lane-broadcast is a
-TPU layout, not part of the function).
+TPU layout, not part of the function). The backward kernel writes
+per-row-block dgamma/dbeta partials that the wrapper sums, as
+``_ln_backward`` does.
 
 Layout contract, as in the JAX package: ``x`` is ``[..., D]`` with the
 normalized axis last; ``weight``/``bias`` are ``[D]``. The router in
@@ -17,7 +23,9 @@ normalized axis last; ``weight``/``bias`` are ``[D]``. The router in
 (rows % 8 for f32, % 16 for bf16; D % 128).
 
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
-kernel or raises.
+kernel or raises. A wrapper called directly with an input that requires
+grad while grad mode is on raises on either device (its outputs would be
+cut from the graph): training goes through the Functions.
 """
 from __future__ import annotations
 
@@ -26,13 +34,18 @@ import ctypes
 import torch
 
 from . import _build
+from ._build import upcast as _up
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "ln_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     "add_ln_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+    "ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "ln_bwd_rows": [],
 }
 SOURCE = "paddle_tpu_torch/csrc/layer_norm.cu"
+_FUNCTIONS = ("ops.kernels.layer_norm.LayerNormFunction or "
+              "AddLayerNormFunction")
 
 
 def _stats(x32: torch.Tensor, eps: float):
@@ -45,9 +58,9 @@ def _stats(x32: torch.Tensor, eps: float):
 
 def layer_norm_fwd_plain(x2d, weight, bias, eps=1e-5):
     """Plain PyTorch version of the B5 kernel: ``[R, D]`` -> (y in x's
-    type, mean [R] f32, rstd [R] f32)."""
-    xc, mu, rs = _stats(x2d.float(), eps)
-    y = xc * rs[:, None] * weight.float() + bias.float()
+    type, mean [R], rstd [R], both in the compute type: f32)."""
+    xc, mu, rs = _stats(_up(x2d), eps)
+    y = xc * rs[:, None] * _up(weight) + _up(bias)
     return y.to(x2d.dtype), mu, rs
 
 
@@ -55,7 +68,7 @@ def add_layer_norm_fwd_plain(x2d, y2d, weight, bias, eps=1e-5):
     """Plain PyTorch version of the B6 kernel: s = x + y stored in x's
     type, then LayerNorm of the STORED s. Returns (s, LN(s), mean,
     rstd)."""
-    s = (x2d.float() + y2d.float()).to(x2d.dtype)
+    s = (_up(x2d) + _up(y2d)).to(x2d.dtype)
     out, mu, rs = layer_norm_fwd_plain(s, weight, bias, eps)
     return s, out, mu, rs
 
@@ -75,6 +88,7 @@ def _check(what, x2d, weight, bias, *more):
 
 def layer_norm_fwd(x2d, weight, bias, eps=1e-5):
     """LayerNorm forward of ``[R, D]`` rows -> (y, mean [R], rstd [R])."""
+    _build.refuse_grad("layer_norm_fwd", _FUNCTIONS, x2d, weight, bias)
     if x2d.device.type == "cpu":
         return layer_norm_fwd_plain(x2d, weight, bias, eps)
     dev = _check("layer_norm_fwd", x2d, weight, bias)
@@ -97,6 +111,8 @@ def layer_norm_fwd(x2d, weight, bias, eps=1e-5):
 def add_layer_norm_fwd(x2d, y2d, weight, bias, eps=1e-5):
     """(s = x + y, LN(s), mean [R], rstd [R]) of ``[R, D]`` rows in one
     pass."""
+    _build.refuse_grad("add_layer_norm_fwd", _FUNCTIONS, x2d, y2d, weight,
+                       bias)
     if x2d.device.type == "cpu":
         return add_layer_norm_fwd_plain(x2d, y2d, weight, bias, eps)
     dev = _check("add_layer_norm_fwd", x2d, weight, bias, y2d)
@@ -121,20 +137,114 @@ layer_norm_fwd.launches = 0
 add_layer_norm_fwd.launches = 0
 
 
+def layer_norm_bwd_plain(x2d, weight, mu, rstd, g2d):
+    """Plain PyTorch version of the B7 backward, written from the Pallas
+    kernel's formula (not from autograd): with ``x_hat`` recomputed from
+    the saved (mu, rstd) and ``g_hat = g * w``, ``dx = rstd * (g_hat -
+    mean(g_hat) - x_hat * mean(g_hat * x_hat))``, ``dweight = sum(g *
+    x_hat)``, ``dbias = sum(g)``. Returns (dx in x's type, dweight and
+    dbias in weight's type)."""
+    x, g, w = _up(x2d), _up(g2d), _up(weight)
+    xhat = (x - _up(mu)[:, None]) * _up(rstd)[:, None]
+    dxhat = g * w
+    m1 = dxhat.mean(dim=1, keepdim=True)
+    m2 = (dxhat * xhat).mean(dim=1, keepdim=True)
+    dx = _up(rstd)[:, None] * (dxhat - m1 - xhat * m2)
+    return (dx.to(x2d.dtype), (g * xhat).sum(dim=0).to(weight.dtype),
+            g.sum(dim=0).to(weight.dtype))
+
+
+def layer_norm_bwd(x2d, weight, mu, rstd, g2d):
+    """LayerNorm backward of ``[R, D]`` rows -> (dx in x's type, dweight,
+    dbias in weight's type). ``g2d`` is the output cotangent in x's type;
+    ``mu``/``rstd`` are the forward's ``[R]`` f32 statistics. The kernel
+    writes ``[ceil(R / rows), D]`` f32 partials of dweight/dbias, summed
+    here."""
+    _build.refuse_grad("layer_norm_bwd", _FUNCTIONS, x2d, weight, g2d)
+    if x2d.device.type == "cpu":
+        return layer_norm_bwd_plain(x2d, weight, mu, rstd, g2d)
+    if g2d.shape != x2d.shape or g2d.dtype != x2d.dtype:
+        raise ValueError("layer_norm_bwd: g must match x in shape and type")
+    R, D = x2d.shape
+    for t in (mu, rstd):
+        if t.shape != (R,) or t.dtype != torch.float32:
+            raise ValueError("layer_norm_bwd: mu and rstd must be [R] f32")
+    dev = _check("layer_norm_bwd", x2d, weight, weight, g2d)
+    _build.require_cuda("layer_norm_bwd", x2d, mu, rstd)
+    w = weight.float().contiguous()
+    lib = _build.library("layer_norm", _SIGNATURES)
+    n = -(-R // lib.ln_bwd_rows())
+    dx = torch.empty_like(x2d)
+    dwp = torch.empty((n, D), device=dev, dtype=torch.float32)
+    dbp = torch.empty((n, D), device=dev, dtype=torch.float32)
+    rc = lib.ln_bwd(x2d.data_ptr(), w.data_ptr(), mu.data_ptr(),
+                    rstd.data_ptr(), g2d.data_ptr(), dx.data_ptr(),
+                    dwp.data_ptr(), dbp.data_ptr(), R, D,
+                    _build.DTYPE_CODE[x2d.dtype], _build.stream_ptr(dev))
+    _build.check(rc, "layer_norm_bwd")
+    layer_norm_bwd.launches += 1
+    return (dx, dwp.sum(dim=0).to(weight.dtype),
+            dbp.sum(dim=0).to(weight.dtype))
+
+
+layer_norm_bwd.launches = 0
+
+
+class LayerNormFunction(torch.autograd.Function):
+    """LayerNorm over the last axis of ``x`` ([..., D]) on the B5 forward
+    and B7 backward kernels (the custom_vjp of ``layer_norm.py:175``). On
+    the CPU it runs their plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps=1e-5):
+        x2d = x.reshape(-1, x.shape[-1]).contiguous()
+        y, mu, rs = layer_norm_fwd(x2d, weight, bias, eps)
+        ctx.save_for_backward(x2d, weight, mu, rs)
+        ctx.shape = x.shape
+        return y.reshape(x.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2d, weight, mu, rs = ctx.saved_tensors
+        dx, dw, db = layer_norm_bwd(
+            x2d, weight, mu, rs, g.reshape(x2d.shape).to(x2d.dtype)
+            .contiguous())
+        return dx.reshape(ctx.shape), dw, db, None
+
+
+class AddLayerNormFunction(torch.autograd.Function):
+    """``(s, LN(s))`` with ``s = x + y`` on the B6 forward and B7 backward
+    kernels (the custom_vjp of ``layer_norm.py:207``): both addends get
+    ``dLN/ds + g_s``. On the CPU it runs the plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, y, weight, bias, eps=1e-5):
+        D = x.shape[-1]
+        s, out, mu, rs = add_layer_norm_fwd(
+            x.reshape(-1, D).contiguous(), y.reshape(-1, D).contiguous(),
+            weight, bias, eps)
+        ctx.save_for_backward(s, weight, mu, rs)
+        ctx.shape = x.shape
+        return s.reshape(x.shape), out.reshape(x.shape)
+
+    @staticmethod
+    def backward(ctx, gs, go):
+        s2d, weight, mu, rs = ctx.saved_tensors
+        ds, dw, db = layer_norm_bwd(
+            s2d, weight, mu, rs, go.reshape(s2d.shape).to(s2d.dtype)
+            .contiguous())
+        dsum = (ds.reshape(ctx.shape) + gs.to(ds.dtype)).to(ds.dtype)
+        return dsum, dsum, dw, db, None
+
+
 def fused_layer_norm(x, weight, bias, eps=1e-5):
-    """LayerNorm over the last axis of ``x`` ([..., D]) through the B5
-    kernel; the counterpart of ``paddle_tpu``'s ``fused_layer_norm``."""
-    D = x.shape[-1]
-    y, _, _ = layer_norm_fwd(x.reshape(-1, D).contiguous(), weight, bias,
-                             eps)
-    return y.reshape(x.shape)
+    """LayerNorm over the last axis of ``x`` ([..., D]) through
+    :class:`LayerNormFunction`; the counterpart of ``paddle_tpu``'s
+    ``fused_layer_norm``."""
+    return LayerNormFunction.apply(x, weight, bias, eps)
 
 
 def fused_add_layer_norm(x, y, weight, bias, eps=1e-5):
-    """(x + y, LayerNorm(x + y)) through the B6 kernel; the counterpart of
-    ``paddle_tpu``'s ``fused_add_layer_norm``."""
-    D = x.shape[-1]
-    s, out, _, _ = add_layer_norm_fwd(
-        x.reshape(-1, D).contiguous(), y.reshape(-1, D).contiguous(),
-        weight, bias, eps)
-    return s.reshape(x.shape), out.reshape(x.shape)
+    """(x + y, LayerNorm(x + y)) through :class:`AddLayerNormFunction`;
+    the counterpart of ``paddle_tpu``'s ``fused_add_layer_norm``."""
+    return AddLayerNormFunction.apply(x, y, weight, bias, eps)

@@ -1,0 +1,202 @@
+"""Optimizers (counterpart of ``paddle_tpu/optimizer/optimizer.py``).
+
+The ``Optimizer`` base and ``Adam`` / ``AdamW``. Each update rule is the
+JAX package's pure rule (``_adam_rule`` / ``_adamw_rule``) written in
+plain PyTorch on the parameter's device; JAX runs it outside any Pallas
+kernel too. State lives in per-parameter accumulators named as in JAX
+(``moment1``, ``moment2``), created on first use. Updates happen in place,
+under ``torch.no_grad``, on the parameter and accumulator buffers, where
+JAX returns new arrays.
+
+Two entry points apply an update: ``step()`` from the accumulated
+``.grad`` (the eager path), and ``_functional_update`` then ``_write``
+(what ``jit.TrainStep`` calls), whose write can be masked on a device
+flag so that a skipped step leaves parameters and moments unchanged.
+
+Not ported yet, and refused when asked for: gradient clipping,
+regularizer objects, ``lr_ratio``, ``multi_precision``, ``lazy_mode`` and
+``LRScheduler`` learning rates.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import torch
+
+from ..utils.train_guard import mask_step
+
+__all__ = ["Optimizer", "Adam", "AdamW"]
+
+
+def _not_ported(what: str) -> None:
+    raise NotImplementedError(f"optimizer: {what} is not ported yet")
+
+
+class Optimizer:
+    """Base: learning rate, the parameter list, accumulators and the step
+    count ``t`` of the bias correction (one per ``step()`` or
+    ``TrainStep`` call, as in JAX)."""
+
+    #: accumulator names of the rule, in JAX's spelling
+    _acc_names: tuple = ()
+
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None, grad_clip=None, name=None):
+        if not isinstance(learning_rate, (int, float)) \
+                or isinstance(learning_rate, bool):
+            _not_ported("an LRScheduler learning rate")
+        if grad_clip is not None:
+            _not_ported("grad_clip")
+        if weight_decay is not None:
+            _not_ported("weight_decay as an L2 regularizer (use AdamW)")
+        self._lr = float(learning_rate)
+        self._parameter_list: Optional[List[torch.nn.Parameter]] = None
+        self._names: Dict[int, str] = {}
+        if parameters is not None:
+            self._set_parameters(parameters)
+        self._accumulators: Dict[str, Dict[int, torch.Tensor]] = {}
+        self._step_count = 0
+
+    def _set_parameters(self, parameters) -> None:
+        """Parameters, or ``(name, parameter)`` pairs as
+        ``model.named_parameters()`` yields them (the names are what
+        ``apply_decay_param_fun`` sees)."""
+        params = []
+        for item in parameters:
+            if isinstance(item, tuple):
+                name, item = item
+                self._names[id(item)] = name
+            params.append(item)
+        self._parameter_list = params
+
+    # -- lr -----------------------------------------------------------------
+    def get_lr(self) -> float:
+        return self._lr
+
+    # -- state --------------------------------------------------------------
+    def _get_params(self) -> List[torch.nn.Parameter]:
+        if self._parameter_list is None:
+            raise ValueError("Optimizer constructed without parameters; "
+                             "pass parameters=")
+        return self._parameter_list
+
+    def _acc(self, name: str, p: torch.Tensor) -> torch.Tensor:
+        store = self._accumulators.setdefault(name, {})
+        if id(p) not in store:
+            store[id(p)] = torch.zeros_like(p)
+        return store[id(p)]
+
+    # -- the update ----------------------------------------------------------
+    def _rule(self, p, g, accs, lr, t):
+        """One parameter's update: (new_p, {acc_name: new_acc}), out of
+        place."""
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def _functional_update(self, params, grads, lr: float, t: int):
+        """The rule applied to every parameter with a gradient (a ``None``
+        gradient leaves its parameter and state untouched), out of place:
+        a list of ``(param, new_param, accs, new_accs)`` for
+        :meth:`_write`. Nothing is written yet, so a caller can judge the
+        new parameters first."""
+        news = []
+        for p, g in zip(params, grads):
+            if g is None:
+                continue
+            accs = {n: self._acc(n, p) for n in self._acc_names}
+            new_p, new_accs = self._rule(p, g.to(p.dtype), accs, lr, t)
+            news.append((p, new_p, accs, new_accs))
+        return news
+
+    @staticmethod
+    @torch.no_grad()
+    def _write(news, ok: Optional[torch.Tensor] = None) -> None:
+        """Write the updates of ``_functional_update`` into the parameter
+        and accumulator buffers. With ``ok`` (a 0-dim bool tensor on the
+        device) each value written is ``where(ok, new, old)``: a step whose
+        ``ok`` is False leaves them bitwise unchanged, and the host never
+        reads ``ok``."""
+        for p, new_p, accs, new_accs in news:
+            olds = [p] + [accs[n] for n in accs]
+            fresh = [new_p] + [new_accs[n] for n in accs]
+            if ok is not None:
+                fresh = mask_step(ok, fresh, olds)
+            for o, f in zip(olds, fresh):
+                o.copy_(f)
+
+    def step(self) -> None:
+        """Apply one update from the accumulated ``.grad`` (eager path)."""
+        params = [p for p in self._get_params() if p.grad is not None]
+        if not params:
+            return
+        self._step_count += 1
+        self._write(self._functional_update(
+            params, [p.grad for p in params], self.get_lr(),
+            self._step_count))
+
+    def clear_grad(self) -> None:
+        for p in self._get_params():
+            p.grad = None
+
+
+class Adam(Optimizer):
+    """``_adam_rule``: bias-corrected first and second moments."""
+
+    _acc_names = ("moment1", "moment2")
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None, lazy_mode=False, multi_precision=False,
+                 name=None):
+        if lazy_mode:
+            _not_ported("lazy_mode")
+        if multi_precision:
+            _not_ported("multi_precision")
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._beta1 = float(beta1)
+        self._beta2 = float(beta2)
+        self._epsilon = float(epsilon)
+
+    def _moments(self, g, accs, t):
+        b1, b2 = self._beta1, self._beta2
+        m = b1 * accs["moment1"] + (1 - b1) * g
+        v = b2 * accs["moment2"] + (1 - b2) * (g * g)
+        mhat = m / (1 - b1 ** t)
+        vhat = v / (1 - b2 ** t)
+        return m, v, mhat / (torch.sqrt(vhat) + self._epsilon)
+
+    def _rule(self, p, g, accs, lr, t):
+        m, v, upd = self._moments(g, accs, t)
+        return p - lr * upd, {"moment1": m, "moment2": v}
+
+
+class AdamW(Adam):
+    """Decoupled weight decay (``_adamw_rule``):
+    ``p - lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)``.
+    ``apply_decay_param_fun(name)`` decides per parameter whether it
+    decays; the name is the one ``model.named_parameters()`` gives (pass
+    those pairs as ``parameters``; ``jit.TrainStep`` does when it supplies
+    the model's parameters)."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=0.01,
+                 lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
+                 lazy_mode=False, multi_precision=False, name=None):
+        if lr_ratio is not None:
+            _not_ported("lr_ratio")
+        super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
+                         None, grad_clip, lazy_mode, multi_precision)
+        self._wd = float(weight_decay) if weight_decay else 0.0
+        self._apply_decay_param_fun = apply_decay_param_fun
+
+    def _rule(self, p, g, accs, lr, t):
+        wd = self._wd
+        if self._apply_decay_param_fun is not None:
+            if id(p) not in self._names:
+                raise ValueError(
+                    "AdamW: apply_decay_param_fun needs parameter names; "
+                    "pass model.named_parameters() as parameters")
+            if not self._apply_decay_param_fun(self._names[id(p)]):
+                wd = 0.0
+        m, v, upd = self._moments(g, accs, t)
+        return p - lr * (upd + wd * p), {"moment1": m, "moment2": v}

@@ -4,7 +4,9 @@
 ``Linear`` holds PyTorch's ``[out, in]``. :func:`from_paddle_tpu_state`
 turns a ``paddle_tpu`` ``TransformerLM.state_dict()``, given as numpy
 arrays, into a state dict the port's ``TransformerLM.load_state_dict``
-takes, so both packages compute the same function. Parameter names are
+takes, so both packages compute the same function, and
+:func:`to_paddle_tpu_state` turns the port's state back into paddle's
+layout, so trained parameters compare in one layout. Parameter names are
 the same in both packages.
 """
 from __future__ import annotations
@@ -14,7 +16,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["from_paddle_tpu_state"]
+__all__ = ["from_paddle_tpu_state", "to_paddle_tpu_state"]
 
 #: the Linear layers of the serving model, whose weights are transposed
 _LINEAR_WEIGHTS = ("attn.qkv.weight", "attn.out_proj.weight", "fc1.weight",
@@ -39,4 +41,18 @@ def from_paddle_tpu_state(np_state: Mapping[str, np.ndarray]
                                  f"got shape {a.shape}")
             a = a.T
         out[name] = torch.from_numpy(np.ascontiguousarray(a))
+    return out
+
+
+def to_paddle_tpu_state(state: Mapping[str, torch.Tensor]
+                        ) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`from_paddle_tpu_state`: ``{name: tensor}`` of
+    the port (a ``state_dict()``) -> ``{name: numpy array}`` in
+    ``paddle_tpu``'s layout (Linear weights transposed to ``[in, out]``),
+    copied, so later updates of the model do not show through."""
+    out = {}
+    for name, t in state.items():
+        a = t.detach().cpu().numpy()
+        # a copy: a CPU tensor's numpy() shares its storage
+        out[name] = np.array(a.T if _is_linear_weight(name) else a)
     return out

@@ -199,7 +199,8 @@ def test_sampling_properties():
 def test_no_jax_imports_in_the_port():
     files = sorted((REPO / "paddle_tpu_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py",
-              REPO / "tools" / "profile_torch_serving.py"]
+              REPO / "tools" / "profile_torch_serving.py",
+              REPO / "tools" / "profile_torch_train.py"]
     assert len(files) > 10
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

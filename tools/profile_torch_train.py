@@ -1,0 +1,92 @@
+"""Where the time of the port's training step goes, on one card.
+
+    python3 tools/profile_torch_train.py [--layers 24] [--steps 3]
+
+Builds chip_smoke.py's GPT-medium ``TransformerLM`` (vocab 32000, d_model
+1024, 16 heads, ffn 4096, float32, random weights), takes two warm-up
+``jit.TrainStep`` calls (AdamW, B = 4, S = 1024, one fixed batch, TF32
+off), then ``--steps`` more with the profiler off and ``--steps`` under
+``torch.profiler``. Prints the host wall time per step (ending in a
+synchronize), the device time summed over the CUDA kernels the profiler
+saw, the device's idle share, and the kernels that took the most device
+time, with the port's own kernels named. Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from profile_torch_serving import _device_us, _report  # noqa: E402
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--layers", type=int, default=24)
+    ap.add_argument("--steps", type=int, default=3)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_train: needs a CUDA device", file=sys.stderr)
+        return 1
+    import paddle_tpu_torch as pt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip())
+    V, B, S = 32000, 4, 1024
+    model = pt.TransformerLM(V, 1024, 16, args.layers, max_position=S,
+                             dim_feedforward=4096, seed=1)
+    ids = torch.as_tensor(np.random.RandomState(1).randint(
+        0, V, size=(B, S + 1)), device=model.device)
+
+    def loss_fn(logits, lab):
+        return pt.nn.functional.cross_entropy(logits.reshape(-1, V),
+                                              lab.reshape(-1))
+
+    step = pt.jit.TrainStep(model, loss_fn, pt.optimizer.AdamW(
+        learning_rate=1e-4, weight_decay=0.01))
+    for _ in range(2):  # warm up: kernel builds, allocator, cuBLAS
+        step(ids[:, :-1], ids[:, 1:])
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        step(ids[:, :-1], ids[:, 1:])
+    torch.cuda.synchronize()
+    off = (time.perf_counter() - t0) * 1e3 / args.steps
+    print(f"TrainStep B={B} S={S} layers={args.layers}, profiler off: host "
+          f"{off:.3f} ms per step, {B * S / off * 1e3:.1f} tokens/s")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            step(ids[:, :-1], ids[:, 1:])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    _report(f"TrainStep B={B} S={S} layers={args.layers}", wall, "step",
+            prof, args.steps)
+    dev = _device_us(prof)
+    ours = {"flash_fwd_kernel": "B1/B2", "flash_dq_kernel": "B3",
+            "flash_dkv_kernel": "B4", "ln_fwd_kernel": "B5",
+            "add_ln_fwd_kernel": "B6", "ln_bwd_kernel": "B7"}
+    for key, tag in ours.items():
+        us = sum(v for k, v in dev.items() if key in k and
+                 not (key == "ln_fwd_kernel" and "add_ln" in k))
+        print(f"  {tag} {key}: {us / 1e3 / args.steps:.4f} ms per step")
+    print(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          "GiB")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
