@@ -2,13 +2,16 @@
 
     python3 chip_smoke.py
 
-1. prints the card's name and power limit and builds the CUDA kernels of
-   ``paddle_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel);
+1. prints the card's name and power limit, builds the CUDA kernels of
+   ``paddle_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel), prints
+   each kernel's registers and spills, and counts the tensor-core (HMMA)
+   instructions of the flash forward and dK/dV kernels (``cuobjdump``);
 2. holds each kernel against its plain PyTorch version on the card, in
    float32 and bfloat16, at the training shapes (B = 4, S = 1024; LN rows
    4096) and the serving shapes, and at the masked and offset cases; times
    the kernel, the plain version and one PyTorch library call computing
-   the same function, all from CUDA-graph replays;
+   the same function, all from CUDA-graph replays (the attention kernels
+   in bfloat16 too, beside SDPA in bfloat16);
 3. serves the GPT-medium-shaped ``TransformerLM`` (vocab 32000, d_model
    1024, 16 heads, 24 layers, ffn 4096, float32, random weights from a
    seeded generator) through ``generate`` and ``InferenceEngine``, checks
@@ -38,9 +41,16 @@ import time
 import numpy as np
 import torch
 
-# peak rates of one H100 SXM (data sheet, dense): HBM bytes/s, FLOP/s
+# peak rates of one H100 SXM (data sheet, dense): HBM bytes/s, FLOP/s.
+# PEAK_FLOPS: elementwise work (the LayerNorms), float32 outside the tensor
+# cores. PEAK_MMA_FLOPS: the attention kernels' products, whose least time is
+# on the tensor cores: bf16 at 989e12, and float32 at the 3xTF32 rate, 495e12
+# / 3 -- three TF32 products per float32-accurate product, the card's fastest
+# route that keeps float32 (one TF32 pass keeps ~3 digits, which the float32
+# contract refuses).
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_MMA_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 
 # the serving configuration: bench.py's GPT-medium decode proxy
 VOCAB, D_MODEL, HEADS, LAYERS, FFN = 32000, 1024, 16, 24, 4096
@@ -50,9 +60,11 @@ CAP = PROMPT + NEW
 # tolerances of kernel vs plain version on the card (same inputs), as
 # (floor, rtol): |kernel - plain| <= floor * max|plain| + rtol * |plain|,
 # so the test scales with each output (|dq| at S = 1024 is ~0.03). f32
-# results differ by summation order only. bf16 outputs are rounded once
-# from such f32 results, so they differ by at most one bf16 ulp (<= 2^-7
-# relative); the floor covers the f32 differences of values near zero.
+# results differ by summation order and, in the tensor-core attention
+# kernels, by the 3xTF32 split (~2^-22 of each product). bf16 outputs are
+# rounded once from such f32 results, so they differ by at most one bf16
+# ulp (<= 2^-7 relative); the floor covers the f32 differences of values
+# near zero.
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -12, 2 ** -7)}
 # cached decode (dense cached_attention) vs the full forward (flash
 # kernel), float32 with TF32 off: the two paths sum in different orders
@@ -128,10 +140,49 @@ def time_ms(fn, calls=20, reps=5, stream=None):
     return t0.elapsed_time(t1) / (reps * calls)
 
 
-def bound_ms(nbytes, flops, dtype):
+def bound_ms(nbytes, flops, dtype, peak=PEAK_FLOPS):
     tb = nbytes / HBM_BYTES_S * 1e3
-    tf = flops / PEAK_FLOPS[dtype] * 1e3
+    tf = flops / peak[dtype] * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+#: the kernels that must run their products on the tensor cores, by library
+MMA_KERNELS = {"flash_attention_fwd": ("flash_attention_fwd",
+                                       "flash_fwd_kernel"),
+               "flash_attention_bwd_dkv": ("flash_attention_bwd",
+                                           "flash_dkv_kernel")}
+
+
+def tensor_core_counts(build, libs):
+    """HMMA (tensor-core) instructions in the SASS of each MMA_KERNELS
+    kernel, summed over its instantiations, from ``cuobjdump -sass`` when
+    the toolkit has it (else None). Fails when a kernel has none."""
+    from pathlib import Path
+
+    tool = Path(build.nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        print("cuobjdump not in the toolkit: HMMA counts not read")
+        return None
+    counts = {}
+    for name, (lib, kernel) in MMA_KERNELS.items():
+        sass = subprocess.run([str(tool), "-sass", str(libs[lib])],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        per_fn, fn = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :", 1)[1].strip()
+                fn = fn if kernel in fn else None
+                if fn:
+                    per_fn[fn] = 0
+            elif fn and "HMMA" in line:
+                per_fn[fn] += 1
+        counts[name] = sum(per_fn.values())
+        print(f"HMMA instructions in {kernel}: {counts[name]} "
+              f"({len(per_fn)} instantiations: {sorted(per_fn.values())})")
+        if not per_fn or min(per_fn.values()) == 0:
+            fail(f"{kernel} runs no product on the tensor cores")
+    return counts
 
 
 def flash_phase(fa, gen, rows):
@@ -146,6 +197,7 @@ def flash_phase(fa, gen, rows):
         (BATCH, HEADS, 128, 128, 0, 64, "64 fully masked rows"),
         (BATCH, HEADS, PROMPT + 8, PROMPT + 8, 0, 0, timed_cases[0]),
         (TRAIN_B, HEADS, TRAIN_S, TRAIN_S, 0, 0, timed_cases[1]),
+        (1, HEADS, 4 * TRAIN_S, 4 * TRAIN_S, 0, 0, "long S=4096"),
     ]
     D = D_MODEL // HEADS
     timed = {}
@@ -172,32 +224,42 @@ def flash_phase(fa, gen, rows):
             if not (ok_o and ok_l):
                 fail(f"flash_attention_fwd {dtype} {what} disagrees with "
                      "its plain version")
-            if what not in timed_cases or dtype != torch.float32:
+            # timed: float32 at both shapes, bf16 at the training shape
+            if what not in timed_cases or (dtype != torch.float32
+                                           and what != timed_cases[1]):
                 continue
             calls = 20 if S <= 256 else 5
             ms = time_ms(lambda: fa.flash_attention_fwd(
                 q, k, v, block_q=8, block_k=8, **kw), calls=calls)
-            plain_ms = time_ms(lambda: fa.flash_attention_fwd_plain(
-                q, k, v, **kw), calls=calls)
             lib_ms = time_ms(lambda: tF.scaled_dot_product_attention(
                 q, k, v, is_causal=True), calls=calls)
             pairs = S * (S + 1) // 2  # visible (q, k) pairs per head
             nbytes = (3 * B * H * S * D + B * H * S * D) \
                 * q.element_size() + B * H * S * 4
-            flops = 4 * D * pairs * B * H
-            bms, by = bound_ms(nbytes, flops, dtype)
+            bms, by = bound_ms(nbytes, 4 * D * pairs * B * H, dtype,
+                               PEAK_MMA_FLOPS)
+            name = f"flash_attention_fwd {str(dtype)[6:]} [{B},{H},{S},{D}]"
+            if dtype != torch.float32:
+                timed["bf16"] = dict(max_abs_err=max(eo, el), ms=ms,
+                                     bound_ms=bms, bound_by=by,
+                                     library_ms=lib_ms)
+                rows.append(f"{name}: kernel {ms:.4f} ms, sdpa "
+                            f"{lib_ms:.4f} ms, bound {bms:.6f} ms ({by})")
+                continue
+            plain_ms = time_ms(lambda: fa.flash_attention_fwd_plain(
+                q, k, v, **kw), calls=calls)
             timed[what] = dict(
                 shape=f"[{B},{H},{S},{D}] causal", max_abs_err=max(eo, el),
                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=lib_ms)
-            rows.append(f"flash_attention_fwd f32 [{B},{H},{S},{D}]: "
-                        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                        f"sdpa {lib_ms:.4f} ms, bound {bms:.6f} ms ({by})")
+            rows.append(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                        f"ms, sdpa {lib_ms:.4f} ms, bound {bms:.6f} ms "
+                        f"({by})")
     return dict(name="flash_attention_fwd", route="cuda", source=fa.SOURCE,
                 replaces="paddle_tpu/ops/pallas/flash_attention.py:49 "
                          "(_fwd_kernel_resident) and :110 (_fwd_kernel)",
                 dtype="float32", **timed[timed_cases[1]],
-                at_serving_shape=timed[timed_cases[0]])
+                at_serving_shape=timed[timed_cases[0]], bf16=timed["bf16"])
 
 
 def ln_phase(ln, gen, rows):
@@ -278,6 +340,7 @@ def flash_bwd_phase(fa, gen, rows):
         (B, H, S, S, 0, 0, "training S=1024"),
         (2, H, 128, 256, 128, 0, "end-aligned q_offset=Sk-Sq"),
         (2, H, 256, 256, 0, 64, "64 fully masked rows"),
+        (1, H, 4 * S, 4 * S, 0, 0, "long S=4096"),
     ]
     entries = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -308,13 +371,12 @@ def flash_bwd_phase(fa, gen, rows):
             if ko and not bool((dq[:, :, :ko] == 0).all()):
                 fail(f"flash backward {what}: fully masked rows must get "
                      "dq = 0")
-            if not (what.startswith("training") and dtype == torch.float32):
+            if not what.startswith("training"):
                 continue
+            # timed at the training shape: float32 and bf16
             ms_dq = time_ms(lambda: fa.flash_attention_bwd_dq(
                 q, k, v, do, lse, delta, **kw), calls=5)
             ms_dkv = time_ms(lambda: fa.flash_attention_bwd_dkv(
-                q, k, v, do, lse, delta, **kw), calls=5)
-            plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
                 q, k, v, do, lse, delta, **kw), calls=5)
             # SDPA's backward alone: its forward is recorded on the stream
             # that the backward is then captured on
@@ -333,9 +395,13 @@ def flash_bwd_phase(fa, gen, rows):
             # of length D per visible pair. dk/dv: the same reads, writes
             # dk, dv; 4 products.
             b_dq = bound_ms(5 * el * it + 2 * b * h * sq * 4,
-                            6 * D * pairs, dtype)
+                            6 * D * pairs, dtype, PEAK_MMA_FLOPS)
             b_dkv = bound_ms(6 * el * it + 2 * b * h * sq * 4,
-                             8 * D * pairs, dtype)
+                             8 * D * pairs, dtype, PEAK_MMA_FLOPS)
+            plain_ms = None
+            if dtype == torch.float32:
+                plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
+                    q, k, v, do, lse, delta, **kw), calls=5)
             for name, ms, (bms, by), err, line in (
                     ("flash_attention_bwd_dq", ms_dq, b_dq, errs[0][0],
                      "paddle_tpu/ops/pallas/flash_attention.py:171 "
@@ -344,17 +410,24 @@ def flash_bwd_phase(fa, gen, rows):
                      max(errs[1][0], errs[2][0]),
                      "paddle_tpu/ops/pallas/flash_attention.py:224 "
                      "(_dkv_kernel)")):
+                row = f"{name} {str(dtype)[6:]} [{b},{h},{sq},{D}]: kernel " \
+                      f"{ms:.4f} ms, "
+                if dtype != torch.float32:
+                    entries[name]["bf16"] = dict(
+                        max_abs_err=err, ms=ms, bound_ms=bms, bound_by=by,
+                        library_ms=lib_ms)
+                    rows.append(f"{row}sdpa backward (dq, dk, dv) "
+                                f"{lib_ms:.4f} ms, bound {bms:.6f} ms ({by})")
+                    continue
                 entries[name] = dict(
                     name=name, route="cuda", source=fa.BWD_SOURCE,
                     replaces=line, shape=f"[{b},{h},{sq},{D}] causal",
                     dtype="float32", max_abs_err=err, ms=ms,
                     plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                     library_ms=lib_ms)
-                rows.append(f"{name} f32 [{b},{h},{sq},{D}]: kernel "
-                            f"{ms:.4f} ms, plain (dq, dk, dv) "
-                            f"{plain_ms:.4f} ms, sdpa backward (dq, dk, "
-                            f"dv) {lib_ms:.4f} ms, bound {bms:.6f} ms "
-                            f"({by})")
+                rows.append(f"{row}plain (dq, dk, dv) {plain_ms:.4f} ms, "
+                            f"sdpa backward (dq, dk, dv) {lib_ms:.4f} ms, "
+                            f"bound {bms:.6f} ms ({by})")
     return entries["flash_attention_bwd_dq"], \
         entries["flash_attention_bwd_dkv"]
 
@@ -620,13 +693,20 @@ def main() -> int:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    _build.build(kernels.SOURCES)
+    libs = _build.build(kernels.SOURCES)
     print(f"built {', '.join(kernels.SOURCES)} in "
           f"{time.perf_counter() - t0:.2f} s")
     for src in kernels.SOURCES:
+        fn = spill = ""
         for line in _build.build_log(src).splitlines():
-            if "registers" in line:
-                print(f"  {src}: {line.split(':', 1)[1].strip()}")
+            if "Function properties for" in line:
+                fn = line.rsplit(" ", 1)[1]
+            elif "spill" in line:
+                spill = line.strip()
+            elif "registers" in line:
+                print(f"  {src}: {fn}: {line.split(':', 1)[1].strip()}; "
+                      f"{spill}")
+    hmma = tensor_core_counts(_build, libs)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
@@ -640,6 +720,8 @@ def main() -> int:
     training = training_phase(pt, kernels)
     entries = [flash, ln_entry, add_entry, dq_entry, dkv_entry, ln_bwd_entry]
     for e in entries:
+        if hmma is not None and e["name"] in hmma:
+            e["hmma"] = hmma[e["name"]]
         e["launches"] = training[e["name"]]
         e["launches_by_path"] = {"serving": serving[e["name"]],
                                  "training": training[e["name"]]}

@@ -6,78 +6,77 @@
 // TPU's choice between them (whether a head's K/V fit VMEM) has no meaning
 // here -- a block streams K/V tiles through shared memory either way.
 //
-// What bounds it on the H100: at the serving shapes (S = Sk = 128..192,
-// D = 64) a head's q, k, v and out are 4 x S x D elements against
-// ~2 x S^2 x D flops (causal), ~S/8 flops per byte in f32: below the f32
-// balance point, so the floor is HBM bytes -- but this first kernel runs its
-// products on the f32 SIMT units (no tensor cores), which caps it at the
-// 67 TFLOP/s f32 rate long before the bytes do. The design keeps every
-// intermediate (scores, probabilities, the running max/sum and the output
-// accumulator) on chip, so each input is read from HBM once per q tile and
-// only out and lse are written.
+// What bounds it on the H100: operations. At the training shape (S = 1024,
+// D = 64, causal) a head does ~2 x S^2 x D flops against 4 x S x D elements
+// of q, k, v and out, ~S/4 flops per f32 byte, far above the balance point.
+// The card's fastest float32-accurate products are the tensor cores' 3xTF32
+// (495 / 3 = 165 TFLOP/s), so both products run there (csrc/mma.cuh):
+//   S = Q K^T:  float -> 3xTF32 m16n8k8 mma.sync; bf16 -> bf16 m16n8k16 with
+//               ldmatrix fragments (exact products, f32 sums).
+//   O += P V:   P stays f32 as in the Pallas kernel (it computes in f32 for
+//               either input type), so it is split too: 3xTF32 for float V,
+//               two passes for bf16 V (exact in TF32). P is not rounded to
+//               bf16, which would change the function.
+// A single TF32 pass is never used: the port's float32 contract is TF32 off.
 //
-// Layout: one thread block per (batch*head, tile of kBlockQ query rows); the
-// loop over key tiles inside the block replaces the TPU's sequential k grid
-// axis. Four warps; each warp owns kRowsPerWarp query rows. For one row, lane
-// j scores keys j and j + 32 of the tile (conflict-free: K rows are padded by
-// one float in shared memory), the warp reduces the row max and sum with
-// shuffles, and lane j accumulates output columns j, j + 32, ... so the P.V
-// product reads V rows contiguously.
+// Layout: one block of four warps per (batch*head, 64 query rows); each warp
+// owns 16 rows (the m16 of mma) and keeps its scores, probabilities, row
+// max/sum and output accumulator in registers; the online softmax runs on the
+// C fragments (row max and sum by two quad shuffles), and the score fragments
+// feed P V as A operands directly (mma.cuh's c_as_a). K/V tiles of 64 keys
+// stream through a two-stage ring in dynamic shared memory with cp.async: the
+// next tile's copy is in flight while this one is multiplied. Routed through
+// mma.sync, not wgmma: wgmma's TF32 form wants both operands K-major, so V
+// would need a transposed copy in shared memory, and mma.sync's fragments let
+// P stay in registers between the two products. The grid visits the query
+// tiles with the most causal work (the last ones) first.
 //
 // Conventions kept from the Pallas kernel: a masked score is -1e30 (not -inf);
 // a row whose every key is masked returns out = 0 and lse = -1e30; the causal
 // mask compares global positions, kv_offset + key > q_offset + row. Key tiles
 // wholly in a row block's future are skipped (the result is the same: their
-// probabilities are exactly 0).
+// probabilities are exactly 0). Ragged S, Sk and D are zero-padded in shared
+// memory and masked.
 
 #include <stdint.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
 constexpr float kNeg = -1e30f;
 constexpr int kWarps = 4;
-constexpr int kRowsPerWarp = 4;
-constexpr int kBlockQ = kWarps * kRowsPerWarp;
+constexpr int kThreads = kWarps * 32;
+constexpr int kBlockQ = kWarps * 16;  // query rows per block
+constexpr int kBlockK = 64;           // keys per tile
 
-// DC = ceil(head_dim / 32) column chunks per lane; the key tile shrinks for
-// wide heads so that the static shared memory stays under 48 KB.
-template <int DC>
-struct Tile {
-  static constexpr int kD = DC * 32;
-  static constexpr int kBlockK = DC <= 2 ? 64 : 32;
-  static constexpr int kKeysPerLane = kBlockK / 32;
-};
+// Dynamic shared memory: the q tile and two stages of (k, v) tiles.
+template <typename T, int kD>
+constexpr size_t smem_bytes() {
+  return sizeof(T) * 5 * kBlockQ * pt::TileLd<T, kD>::value;
+}
 
-template <typename T, int DC>
-__global__ void __launch_bounds__(kWarps * 32)
+template <typename T, int kD>
+__global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
                      float* __restrict__ lse, int S, int Sk, int D,
-                     float scale, int causal, int q_offset, int kv_offset) {
-  using Tl = Tile<DC>;
-  constexpr int kD = Tl::kD;
-  constexpr int kBlockK = Tl::kBlockK;
-  constexpr int kKPL = Tl::kKeysPerLane;
-  __shared__ float qs[kBlockQ][kD];
-  __shared__ float ks[kBlockK][kD + 1];
-  __shared__ float vs[kBlockK][kD];
+                     float scale, int causal, int q_offset, int kv_offset,
+                     int vec) {
+  constexpr int kLd = pt::TileLd<T, kD>::value;
+  constexpr int kTile = kBlockK * kLd;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);
+  T* kv = qs + kBlockQ * kLd;  // stage s: k at kv + 2s kTile, v after it
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const size_t bh = blockIdx.x;
-  const int q0 = blockIdx.y * kBlockQ;
-  const T* qh = q + bh * S * D;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;  // last tiles first
   const T* kh = k + bh * Sk * D;
   const T* vh = v + bh * Sk * D;
-
-  for (int i = tid; i < kBlockQ * kD; i += kWarps * 32) {
-    const int r = i / kD, d = i % kD;
-    const int row = q0 + r;
-    qs[r][d] = (row < S && d < D) ? pt::to_f32(qh[(size_t)row * D + d]) : 0.f;
-  }
 
   // key tiles this block can see at all
   int n_tiles = (Sk + kBlockK - 1) / kBlockK;
@@ -87,120 +86,121 @@ __global__ void __launch_bounds__(kWarps * 32)
     n_tiles = last_key < 0 ? 0 : min(n_tiles, last_key / kBlockK + 1);
   }
 
-  float m[kRowsPerWarp], l[kRowsPerWarp], o[kRowsPerWarp][DC];
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    m[i] = kNeg;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) o[i][c] = 0.f;
-  }
+  auto load_kv = [&](int tile, int stage) {
+    T* ks = kv + 2 * stage * kTile;
+    pt::load_tile<T, kBlockK, kD, kLd, kThreads>(ks, kh, tile * kBlockK, Sk,
+                                                 D, vec);
+    pt::load_tile<T, kBlockK, kD, kLd, kThreads>(ks + kTile, vh,
+                                                 tile * kBlockK, Sk, D, vec);
+  };
+  pt::load_tile<T, kBlockQ, kD, kLd, kThreads>(qs, q + bh * S * D, q0, S, D,
+                                               vec);
+  if (n_tiles > 0) load_kv(0, 0);
+  pt::cp_async_commit();
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBlockK;
-    __syncthreads();  // previous tile fully consumed (and q tile written)
-    for (int i = tid; i < kBlockK * kD; i += kWarps * 32) {
-      const int j = i / kD, d = i % kD;
-      const int key = k0 + j;
-      const bool in = key < Sk && d < D;
-      ks[j][d] = in ? pt::to_f32(kh[(size_t)key * D + d]) : 0.f;
-      vs[j][d] = in ? pt::to_f32(vh[(size_t)key * D + d]) : 0.f;
+  const int row0 = q0 + warp * 16;    // the warp's 16 rows
+  const int row_base = row0 + g;  // this thread's rows row_base, row_base + 8
+  float o[kD / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < kD / 8; ++dn)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[dn][c] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * kBlockK;
+    if (it + 1 < n_tiles) {
+      load_kv(it + 1, (it + 1) & 1);
+      pt::cp_async_commit();
+      pt::cp_async_wait<1>();  // tile it (and the q tile) have landed
+    } else {
+      pt::cp_async_wait<0>();
     }
     __syncthreads();
+    const T* ks = kv + 2 * (it & 1) * kTile;
 
+    float s[8][4];
+    pt::warp_gemm_nt<T, kD>(s, qs + warp * 16 * kLd, ks);
+
+    // masked scores and the online softmax, on the C fragments: element c
+    // of s[nt] is row row_base + 8 (c / 2), key k0 + 8 nt + 2 t + c % 2.
+    // Only a tile that crosses Sk or the warp's causal diagonal is masked.
+    const bool edge =
+        k0 + kBlockK > Sk ||
+        (causal && kv_offset + k0 + kBlockK - 1 > q_offset + row0);
+    float mx[2] = {kNeg, kNeg};
 #pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const int r = warp * kRowsPerWarp + i;
-      const int row = q0 + r;
-      if (row >= S) break;  // warp-uniform
-      float s[kKPL];
-      float mx = kNeg;
+    for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-      for (int c = 0; c < kKPL; ++c) {
-        const int j = lane + 32 * c;
-        const int key = k0 + j;
-        float acc = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < kD; ++d) acc += qs[r][d] * ks[j][d];
-        float sc = acc * scale;
-        if (key >= Sk || (causal && kv_offset + key > q_offset + row))
+      for (int c = 0; c < 4; ++c) {
+        const int key = k0 + 8 * nt + 2 * t + (c & 1);
+        const int row = row_base + 8 * (c >> 1);
+        float sc = s[nt][c] * scale;
+        if (edge &&
+            (key >= Sk || (causal && kv_offset + key > q_offset + row)))
           sc = kNeg;
-        s[c] = sc;
-        mx = fmaxf(mx, sc);
+        s[nt][c] = sc;
+        mx[c >> 1] = fmaxf(mx[c >> 1], sc);
       }
-      mx = pt::warp_max(mx);
-      const float m_new = fmaxf(m[i], mx);
-      const bool alive = m_new > kNeg / 2;  // row has an unmasked key so far
-      float psum = 0.f;
+    float m_new[2], corr[2], psum[2] = {0.f, 0.f};
+    bool alive[2];
 #pragma unroll
-      for (int c = 0; c < kKPL; ++c) {
-        s[c] = alive ? expf(s[c] - m_new) : 0.f;
-        psum += s[c];
-      }
-      psum = pt::warp_sum(psum);
-      const float corr = alive ? expf(m[i] - m_new) : 1.f;
-      l[i] = l[i] * corr + psum;
-      m[i] = m_new;
-      float acc[DC];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[c] = 0.f;
-#pragma unroll
-      for (int c = 0; c < kKPL; ++c) {
-#pragma unroll 8
-        for (int src = 0; src < 32; ++src) {
-          const float p = __shfl_sync(0xffffffffu, s[c], src);
-          const int j = src + 32 * c;
-#pragma unroll
-          for (int dc = 0; dc < DC; ++dc) acc[dc] += p * vs[j][lane + 32 * dc];
-        }
-      }
-#pragma unroll
-      for (int dc = 0; dc < DC; ++dc) o[i][dc] = o[i][dc] * corr + acc[dc];
+    for (int h = 0; h < 2; ++h) {
+      m_new[h] = fmaxf(m[h], pt::quad_max(mx[h]));
+      alive[h] = m_new[h] > kNeg / 2;  // the row has an unmasked key so far
+      corr[h] = alive[h] ? expf(m[h] - m_new[h]) : 1.f;
+      m[h] = m_new[h];
     }
-  }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int h = c >> 1;
+        s[nt][c] = alive[h] ? expf(s[nt][c] - m_new[h]) : 0.f;
+        psum[h] += s[nt][c];
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + pt::quad_sum(psum[h]);
+#pragma unroll
+    for (int dn = 0; dn < kD / 8; ++dn)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) o[dn][c] *= corr[c >> 1];
 
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int row = q0 + warp * kRowsPerWarp + i;
-    if (row >= S) break;
-    const float safe_l = l[i] == 0.f ? 1.f : l[i];
-    T* orow = out + (bh * S + row) * D;
-#pragma unroll
-    for (int dc = 0; dc < DC; ++dc) {
-      const int d = lane + 32 * dc;
-      if (d < D) pt::store(orow + d, o[i][dc] / safe_l);
-    }
-    if (lane == 0)
-      lse[bh * S + row] = l[i] == 0.f ? kNeg : m[i] + logf(safe_l);
+    pt::warp_gemm_pb<T, kD>(o, s, ks + kTile);  // o += p v
+    __syncthreads();  // this stage is consumed before it is refilled
   }
+  pt::cp_async_wait<0>();
+
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float safe_l = l[h] == 0.f ? 1.f : l[h];
+    inv[h] = 1.f / safe_l;
+    const int row = row_base + 8 * h;
+    if (t == 0 && row < S)
+      lse[bh * S + row] = l[h] == 0.f ? kNeg : m[h] + logf(safe_l);
+  }
+  pt::warp_store<T, kD>(out + bh * S * D, o, row0, S, D, inv);
 }
 
-template <typename T>
+template <typename T, int kD>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
            int BH, int S, int Sk, int D, float scale, int causal,
            int q_offset, int kv_offset, cudaStream_t st) {
-  const dim3 grid(BH, (S + kBlockQ - 1) / kBlockQ);
-  const dim3 block(kWarps * 32);
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  T* op = static_cast<T*>(out);
-  float* lp = static_cast<float*>(lse);
-  const int dc = (D + 31) / 32;
-#define PT_FLASH_CASE(N)                                                    \
-  case N:                                                                   \
-    flash_fwd_kernel<T, N><<<grid, block, 0, st>>>(                         \
-        qp, kp, vp, op, lp, S, Sk, D, scale, causal, q_offset, kv_offset);  \
-    break;
-  switch (dc) {
-    PT_FLASH_CASE(1)
-    PT_FLASH_CASE(2)
-    PT_FLASH_CASE(3)
-    PT_FLASH_CASE(4)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef PT_FLASH_CASE
+  constexpr size_t smem = smem_bytes<T, kD>();
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_kernel<T, kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  // cp.async moves 16-byte chunks: rows of a multiple of 16 bytes, aligned
+  const int vec = (D * sizeof(T)) % 16 == 0 &&
+                  ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
+  flash_fwd_kernel<T, kD><<<dim3(BH, (S + kBlockQ - 1) / kBlockQ), kThreads,
+                            smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out),
+      static_cast<float*>(lse), S, Sk, D, scale, causal, q_offset, kv_offset,
+      vec);
   return cudaGetLastError();
 }
 
@@ -208,20 +208,28 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
 
 // C interface (bound with ctypes). q is [BH, S, D], k and v [BH, Sk, D], out
 // [BH, S, D], all row-major of `dtype` (pt::kF32 / pt::kBF16); lse is f32
-// [BH, S]. Head dims up to 128. Returns cudaGetLastError() after the launch.
+// [BH, S]. Head dims up to 128 (tiles of 64 or 128 columns, zero-padded).
+// Returns cudaGetLastError() after the launch.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* out, void* lse, int BH, int S, int Sk, int D,
                          float scale, int causal, int q_offset, int kv_offset,
                          int dtype, void* stream) {
-  if (BH < 0 || S < 0 || Sk < 0 || D <= 0 || D > 128)
+  if (BH < 0 || S < 0 || Sk < 0 || D <= 0 || D > 128 ||
+      (S + kBlockQ - 1) / kBlockQ > 65535)
     return cudaErrorInvalidValue;
   if (BH == 0 || S == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == pt::kF32)
-    return launch<float>(q, k, v, out, lse, BH, S, Sk, D, scale, causal,
-                         q_offset, kv_offset, st);
-  if (dtype == pt::kBF16)
-    return launch<__nv_bfloat16>(q, k, v, out, lse, BH, S, Sk, D, scale,
-                                 causal, q_offset, kv_offset, st);
+#define PT_FWD(T, KD)                                                       \
+  return launch<T, KD>(q, k, v, out, lse, BH, S, Sk, D, scale, causal,     \
+                       q_offset, kv_offset, st)
+  if (dtype == pt::kF32) {
+    if (D <= 64) PT_FWD(float, 64);
+    PT_FWD(float, 128);
+  }
+  if (dtype == pt::kBF16) {
+    if (D <= 64) PT_FWD(__nv_bfloat16, 64);
+    PT_FWD(__nv_bfloat16, 128);
+  }
+#undef PT_FWD
   return cudaErrorInvalidValue;
 }

@@ -13,9 +13,11 @@ the counterpart of the ``flash_attention`` custom_vjp: it saves what
 ``_fa_fwd`` saves, ``(q, k, v, out, lse)``, and its backward computes
 ``delta = rowsum(dO * O)`` outside the kernels, as ``_backward`` does.
 
-What bounds the kernels on the H100 is the f32 SIMT rate of their products
-(they do not use the tensor cores yet); the CUDA sources say what their
-designs keep on chip.
+What bounds the kernels on the H100 is the rate of their products. The
+forward and dK/dV kernels run them on the tensor cores, float32 through
+3xTF32 (float32-accurate; a single TF32 pass is never used), bf16 through
+bf16 products; the dQ kernel still runs on the f32 SIMT units. The CUDA
+sources say what their designs keep on chip.
 
 Conventions of the function, kept from the Pallas kernels: q is
 ``[B, H, S, D]``, k and v ``[B, H, Sk, D]``; a masked score is ``-1e30``;
@@ -53,7 +55,7 @@ SOURCE = "paddle_tpu_torch/csrc/flash_attention_fwd.cu"
 BWD_SOURCE = "paddle_tpu_torch/csrc/flash_attention_bwd.cu"
 _FUNCTION = "ops.kernels.flash_attention.FlashAttentionFunction"
 #: query rows per thread block of the forward kernel (grid y <= 65535)
-_KERNEL_BLOCK_Q = 16
+_KERNEL_BLOCK_Q = 64
 
 
 def _check_blocks(S, Sk, block_q, block_k):

@@ -9,7 +9,8 @@ This file imports no JAX, so it runs where only PyTorch is installed
 
 Tolerances of kernel against plain version as in chip_smoke.py, scaled
 to each output: |kernel - plain| <= floor * max|plain| + rtol * |plain|,
-float32 (1e-5, 1e-5) (summation order), bfloat16 (2^-12, 2^-7) (one
+float32 (1e-5, 1e-5) (summation order; the 3xTF32 split of the
+tensor-core kernels, ~2^-22 of each product), bfloat16 (2^-12, 2^-7) (one
 rounding of the stored output: at most one bf16 ulp); the -1e30 lse of a
 fully masked row must match exactly. The small model's gradients through the kernels
 against the dense route: float32, TF32 off, max |err| <= 1e-4 + 1e-3 of
@@ -50,11 +51,23 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
+# (S, Sk, D, causal, q_offset, kv_offset): causal square, end-aligned
+# q_offset = Sk - Sq, kv_offset with fully masked rows, ragged lengths
+# around the kernels' 64-row tiles (136; Sq 72 with Sk 200; Sq 200 with
+# Sk 72), head dims 32, 40, 64, 96 and 128, and 36 (bf16 rows of 72
+# bytes: the kernels' plain copy in place of 16-byte cp.async), and a long
+# S = 4096 (the float32 sums of the tensor-core kernels over 64 tiles)
+FWD_CASES = [(128, 128, 64, True, 0, 0), (64, 128, 64, True, 64, 0),
+             (128, 128, 64, True, 0, 64), (40, 72, 128, False, 0, 0),
+             (24, 40, 96, True, 16, 0), (136, 136, 32, True, 0, 0),
+             (136, 136, 64, True, 0, 0), (72, 200, 40, True, 128, 0),
+             (72, 200, 96, False, 0, 0), (200, 72, 128, False, 0, 0),
+             (200, 200, 64, True, 0, 72), (136, 136, 128, True, 0, 0),
+             (72, 72, 36, True, 0, 0), (4096, 4096, 64, True, 0, 0)]
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("S,Sk,D,causal,qo,ko", [
-    (128, 128, 64, True, 0, 0), (64, 128, 64, True, 64, 0),
-    (128, 128, 64, True, 0, 64), (40, 72, 128, False, 0, 0),
-    (24, 40, 96, True, 16, 0), (136, 136, 32, True, 0, 0)])
+@pytest.mark.parametrize("S,Sk,D,causal,qo,ko", FWD_CASES)
 def test_flash_forward_kernel(gen, dtype, S, Sk, D, causal, qo, ko):
     q, k, v = (torch.randn(2, 3, n, D, device="cuda", generator=gen
                            ).to(dtype) for n in (S, Sk, Sk))
@@ -67,6 +80,8 @@ def test_flash_forward_kernel(gen, dtype, S, Sk, D, causal, qo, ko):
     assert fa.flash_attention_fwd.launches == before + 1
     assert_near(o, po, dtype)
     assert_near(lse, plse, torch.float32)
+    if ko:  # rows that see no key: out = 0, lse = -1e30
+        assert (o[:, :, :ko] == 0).all() and (lse[:, :, :ko] == -1e30).all()
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -101,11 +116,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
 
 # (S, Sk, D, causal, q_offset, kv_offset): causal square, end-aligned
 # q_offset = Sk - Sq, kv_offset with fully masked rows, Sq != Sk with
-# ragged tiles, wide heads
+# ragged tiles, wide heads; then the ragged lengths and head dims of
+# FWD_CASES
 BWD_CASES = [(128, 128, 64, True, 0, 0), (64, 128, 64, True, 64, 0),
              (128, 128, 64, True, 0, 64), (40, 72, 64, False, 0, 0),
              (72, 40, 32, True, 0, 0), (96, 160, 128, True, 64, 0),
-             (48, 48, 96, False, 0, 0)]
+             (48, 48, 96, False, 0, 0), (136, 136, 64, True, 0, 0),
+             (72, 200, 40, True, 128, 0), (72, 200, 128, True, 128, 0),
+             (200, 72, 96, False, 0, 0), (200, 200, 32, True, 0, 72),
+             (72, 72, 36, True, 0, 0), (4096, 4096, 64, True, 0, 0)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -131,6 +150,22 @@ def test_flash_backward_kernels(gen, dtype, S, Sk, D, causal, qo, ko):
         assert_near(got, want, dtype)
     if ko:  # fully masked rows get no gradient
         assert (dq[:, :, :ko] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_flash_dkv_kernel_is_deterministic(gen, dtype):
+    """One block owns each dK/dV tile and sums in a fixed order: two calls
+    on the same inputs are bit-equal."""
+    q, k, v, dout = (torch.randn(2, 4, 256, 64, device="cuda", generator=gen
+                                 ).to(dtype) for _ in range(4))
+    out, lse = fa.flash_attention_fwd_plain(q, k, v, causal=True)
+    delta = (dout.float() * out.float()).sum(-1)
+    first = fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal=True)
+    second = fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta,
+                                        causal=True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
