@@ -5,7 +5,8 @@
 1. prints the card's name and power limit, builds the CUDA kernels of
    ``paddle_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel), prints
    each kernel's registers and spills, and counts the tensor-core (HMMA)
-   instructions of the flash forward and dK/dV kernels (``cuobjdump``);
+   instructions of the flash forward, dQ and dK/dV kernels
+   (``cuobjdump``);
 2. holds each kernel against its plain PyTorch version on the card, in
    float32 and bfloat16, at the training shapes (B = 4, S = 1024; LN rows
    4096) and the serving shapes, and at the masked and offset cases; times
@@ -149,6 +150,8 @@ def bound_ms(nbytes, flops, dtype, peak=PEAK_FLOPS):
 #: the kernels that must run their products on the tensor cores, by library
 MMA_KERNELS = {"flash_attention_fwd": ("flash_attention_fwd",
                                        "flash_fwd_kernel"),
+               "flash_attention_bwd_dq": ("flash_attention_bwd",
+                                          "flash_dq_kernel"),
                "flash_attention_bwd_dkv": ("flash_attention_bwd",
                                            "flash_dkv_kernel")}
 
@@ -435,9 +438,10 @@ def flash_bwd_phase(fa, gen, rows):
 def ln_bwd_phase(ln, gen, rows):
     """B7 vs the plain LayerNorm backward; returns the JSON entry."""
     entry = None
-    D = D_MODEL
+    # the training rows, a few rows, and rows off the register path (D not
+    # a multiple of 128; R not a multiple of the block's 8 warps)
     for dtype in (torch.float32, torch.bfloat16):
-        for R in (TRAIN_B * TRAIN_S, 40):
+        for R, D in ((TRAIN_B * TRAIN_S, D_MODEL), (40, D_MODEL), (37, 200)):
             x, g = (torch.randn(R, D, device="cuda", generator=gen
                                 ).to(dtype) for _ in range(2))
             w, b = (torch.randn(D, device="cuda", generator=gen

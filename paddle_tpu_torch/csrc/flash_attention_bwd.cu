@@ -18,25 +18,41 @@
 // does 3 and dkv 4 dot products of length D (~6D and ~8D flops) against a few
 // bytes per pair, far above the balance point.
 //
-// dkv runs its four products on the tensor cores (csrc/mma.cuh), float32
-// through 3xTF32 and bf16 K Q^T / V dO^T through bf16 mma.sync; p and ds stay
-// f32 and are split for the products they feed (two passes with a bf16
-// operand). Four warps own 16 keys each, keys being the M dimension of
+// Both kernels run their products on the tensor cores (csrc/mma.cuh):
+// float32 through 3xTF32, bf16 Q K^T, dO V^T (and their transposes) through
+// bf16 mma.sync with ldmatrix; p and ds stay f32 and are split for the
+// products they feed (two passes against a bf16 operand). Each block is four
+// warps over 64 rows (queries for dq, keys for dkv), 16 rows per warp, so
+// every warp's scores, probabilities and ds stay in its C fragments and feed
+// the next product from registers: no probability or ds tile touches shared
+// memory. The block's own 64-row tiles stay on chip for the whole loop;
+// the other side's tiles stream through a two-stage cp.async ring, the
+// next tile's copy in flight while this one is multiplied. Blocks whose loop
+// is longest under the causal mask are launched first.
+//
+// dq (B3): warps own 16 query rows each; the q and dO tiles stay with the
+// block for the whole loop, and each thread's lse and delta (rows g and
+// g + 8 of its warp) in registers; k and v tiles stream. Per key tile:
+//   S = Q K^T, dP = dO V^T, P = exp(S scale - lse), dS = P (dP - delta) scale,
+//   dQ += dS K  (dS, a 16 x 64 C fragment, is the A operand; K the B tile).
+// Each tile's dS K is summed in a fresh fragment and added with float32
+// adds: a query block sees up to 64 key tiles at S = 4096, and one tensor-core
+// accumulator taking them all would drift past the float32 tolerance.
+// In float32 the 3xTF32 split is integer work on the ALUs which, counted in
+// instructions, takes about as long to issue as the products: every warp
+// splits every k and v value it reads, and k feeds two products. So at head
+// dims up to 64 (dq_split) each warp first reads its q and dO rows into
+// registers, and the block splits each streamed k and v tile once, hi in
+// place and lo into the space the q and dO tiles held. (Timed against
+// splitting in every warp on the H100: faster at the training shape, for
+// twice the shared-memory reads of k and v.)
+//
+// dkv (B4): warps own 16 keys each, keys being the M dimension of
 //   S^T = K Q^T and dP^T = V dO^T  (A from the block's k and v tiles),
 //   P^T = exp(S^T scale - lse), dS^T = P^T (dP^T - delta) scale,
-//   dV += P^T dO and dK += dS^T Q  (P^T and dS^T fed from registers),
-// so no probability or ds tile touches shared memory. k and v stay in shared
-// memory for the whole loop; q and dO tiles, with their lse and delta, stream
-// through a two-stage cp.async ring, the next tile's copy in flight while this
-// one is multiplied. Blocks of the first key tiles, which the most query tiles
-// see under the causal mask, are launched first (grid y in key order).
-//
-// dq (B3) still runs on the f32 SIMT units: a block of 256 threads is a
-// 16 x 16 grid, and thread (ty, tx) owns rows ty + 16i and columns tx + 16j of
-// every 64-wide tile product, a 4 x 4 (or 4 x 8 at D = 128) register tile, so
-// each pair of shared-memory loads feeds 2-4 FMAs instead of one. Tiles are
-// padded by one float per row, which keeps the transposed reads free of bank
-// conflicts.
+//   dV += P^T dO and dK += dS^T Q  (P^T and dS^T fed from registers);
+// k and v stay resident, and q and dO tiles, with their lse and delta,
+// stream.
 //
 // Conventions kept from the Pallas kernels: a masked score is -1e30 and p is
 // forced to 0 wherever s <= -1e30 / 2, i.e. at every masked entry (fully
@@ -53,132 +69,31 @@
 
 namespace {
 
-constexpr float kNeg = -1e30f;
-constexpr int kThreads = 256;     // a 16 x 16 grid of threads
-constexpr int kTile = 64;         // query rows and keys per tile
-constexpr int kLdS = kTile + 1;   // padded row of a [kTile][kTile] tile
+constexpr int kThreads = 128;  // four warps, 16 query rows (dq) or keys each
+constexpr int kTile = 64;      // query rows and keys per tile
 
-// Shared-memory floats of one [kTile][kD] operand tile, rows padded by one.
-template <int kD>
-__host__ __device__ constexpr int tile_floats() {
-  return kTile * (kD + 1);
-}
-
-// dst[r][d] = src[row0 + r][d] as f32; rows >= n_rows and columns >= D are 0.
+// Bytes of one [kTile][kD] tile of T in shared memory (TileLd row stride).
 template <typename T, int kD>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          int row0, int n_rows, int D) {
-  constexpr int kLd = kD + 1;
-  for (int i = threadIdx.x; i < kTile * kD; i += kThreads) {
-    const int r = i / kD, d = i % kD;
-    const int row = row0 + r;
-    dst[r * kLd + d] =
-        (row < n_rows && d < D) ? pt::to_f32(src[(size_t)row * D + d]) : 0.f;
-  }
+__host__ __device__ constexpr size_t tile_bytes() {
+  return sizeof(T) * kTile * pt::TileLd<T, kD>::value;
 }
 
-// s[i][j] = q[ty+16i] . k[tx+16j] and dp[i][j] = dO[ty+16i] . v[tx+16j]:
-// the score tile and dO v^T, both [query][key].
-template <int kD>
-__device__ __forceinline__ void score_tiles(const float* qs, const float* ks,
-                                            const float* dos, const float* vs,
-                                            float (&s)[4][4], float (&dp)[4][4],
-                                            int ty, int tx) {
-  constexpr int kLd = kD + 1;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < kD; ++d) {
-    float a[4], c[4], b[4], e[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = qs[(ty + 16 * i) * kLd + d];
-      c[i] = dos[(ty + 16 * i) * kLd + d];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      b[j] = ks[(tx + 16 * j) * kLd + d];
-      e[j] = vs[(tx + 16 * j) * kLd + d];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] += a[i] * b[j];
-        dp[i][j] += c[i] * e[j];
-      }
-  }
-}
-
-// ds of the thread's 4 x 4 (query, key) entries, written to the shared
-// [query][key] tile dss.
-__device__ __forceinline__ void probs_and_ds(
-    const float (&s)[4][4], const float (&dp)[4][4], const float (&lse)[4],
-    const float (&delta)[4], float* dss, int q0, int k0, int ty,
-    int tx, int S, int Sk, float scale, int causal, int q_offset,
-    int kv_offset) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int key = k0 + tx + 16 * j;
-      float sc = s[i][j] * scale;
-      if (row >= S || key >= Sk ||
-          (causal && kv_offset + key > q_offset + row))
-        sc = kNeg;
-      const float p = sc <= kNeg * 0.5f ? 0.f : expf(sc - lse[i]);
-      dss[(ty + 16 * i) * kLdS + tx + 16 * j] =
-          p * (dp[i][j] - delta[i]) * scale;
-    }
-  }
-}
-
-// acc[i][j] += sum_k A(ty+16i, k) * B(k, tx+16j) over k < kTile, with
-// A(m, k) = a[m * kLdS + k] and B(k, n) = b[k * (kD + 1) + n].
-template <int kD>
-__device__ __forceinline__ void accumulate(float (&acc)[4][kD / 16],
-                                           const float* a, const float* b,
-                                           int ty, int tx) {
-  constexpr int kLd = kD + 1;
-  constexpr int kN = kD / 16;
-#pragma unroll 4
-  for (int k = 0; k < kTile; ++k) {
-    float x[4], y[kN];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = a[(ty + 16 * i) * kLdS + k];
-#pragma unroll
-    for (int j = 0; j < kN; ++j) y[j] = b[k * kLd + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < kN; ++j) acc[i][j] += x[i] * y[j];
-  }
-}
-
-// out[row0 + ty + 16i][tx + 16j] = acc[i][j], rounded once to T.
+// Dynamic shared memory of the dQ kernel: two stages of (k tile, v tile),
+// then the q and dO tiles. With dq_split, the q and dO tiles are read into
+// registers first and their space holds the lo planes of the k and v tiles
+// of the current stage.
 template <typename T, int kD>
-__device__ __forceinline__ void store_tile(T* __restrict__ out,
-                                           const float (&acc)[4][kD / 16],
-                                           int row0, int n_rows, int D, int ty,
-                                           int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty + 16 * i;
-    if (row >= n_rows) continue;
-#pragma unroll
-    for (int j = 0; j < kD / 16; ++j) {
-      const int col = tx + 16 * j;
-      if (col < D) pt::store(out + (size_t)row * D + col, acc[i][j]);
-    }
-  }
-}
-
-template <int kD>
 constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (4 * tile_floats<kD>() + kTile * kLdS);
+  return 6 * tile_bytes<T, kD>();
+}
+
+// float32 rows of up to 64 columns: the warps' q and dO rows in registers,
+// and each k and v tile split once per block (split_tiles). At 128 columns
+// the rows would take 128 more registers a thread; bf16 has nothing to
+// split (its k is exact in TF32, and its q k^T and dO v^T are bf16).
+template <typename T, int kD>
+__host__ __device__ constexpr bool dq_split() {
+  return sizeof(T) == 4 && kD == 64;
 }
 
 template <typename T, int kD>
@@ -188,28 +103,23 @@ __global__ void __launch_bounds__(kThreads)
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq, int S,
                     int Sk, int D, float scale, int causal, int q_offset,
-                    int kv_offset) {
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* dos = qs + tile_floats<kD>();
-  float* ks = dos + tile_floats<kD>();
-  float* vs = ks + tile_floats<kD>();
-  float* dss = vs + tile_floats<kD>();
+                    int kv_offset, int vec) {
+  constexpr int kLd = pt::TileLd<T, kD>::value;
+  constexpr int kTileE = kTile * kLd;  // elements of one tile
+  constexpr bool kSplit = dq_split<T, kD>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // stage s: k at kv + 2 s kTileE, v after it
+  T* kv = reinterpret_cast<T*>(smem_raw);
+  T* qs = kv + 4 * kTileE;
+  T* dos = qs + kTileE;
 
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const size_t bh = blockIdx.x;
-  const int q0 = blockIdx.y * kTile;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // last tiles first
   const T* kh = k + bh * Sk * D;
   const T* vh = v + bh * Sk * D;
-  load_tile<T, kD>(qs, q + bh * S * D, q0, S, D);
-  load_tile<T, kD>(dos, dout + bh * S * D, q0, S, D);
-  float lse_r[4], delta_r[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    lse_r[i] = row < S ? lse[bh * S + row] : 0.f;
-    delta_r[i] = row < S ? delta[bh * S + row] : 0.f;
-  }
 
   // key tiles these rows can see at all (_dq_kernel's `visible`)
   int n_tiles = (Sk + kTile - 1) / kTile;
@@ -218,49 +128,113 @@ __global__ void __launch_bounds__(kThreads)
     n_tiles = last_key < 0 ? 0 : min(n_tiles, last_key / kTile + 1);
   }
 
-  float acc[4][kD / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kD / 16; ++j) acc[i][j] = 0.f;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kTile;
-    __syncthreads();  // the previous tile's ks and dss are consumed
-    load_tile<T, kD>(ks, kh, k0, Sk, D);
-    load_tile<T, kD>(vs, vh, k0, Sk, D);
+  auto load_kv = [&](int tile, int stage) {
+    T* ks = kv + 2 * stage * kTileE;
+    pt::load_tile<T, kTile, kD, kLd, kThreads>(ks, kh, tile * kTile, Sk, D,
+                                               vec);
+    pt::load_tile<T, kTile, kD, kLd, kThreads>(ks + kTileE, vh, tile * kTile,
+                                               Sk, D, vec);
+  };
+  pt::load_tile<T, kTile, kD, kLd, kThreads>(qs, q + bh * S * D, q0, S, D,
+                                             vec);
+  pt::load_tile<T, kTile, kD, kLd, kThreads>(dos, dout + bh * S * D, q0, S, D,
+                                             vec);
+  // the warp's q and dO rows (dq_split); unused otherwise
+  float qa[kSplit ? kD / 8 : 1][4], da[kSplit ? kD / 8 : 1][4];
+  if constexpr (kSplit) {
+    pt::cp_async_commit();
+    pt::cp_async_wait<0>();
     __syncthreads();
-    float s[4][4], dp[4][4];
-    score_tiles<kD>(qs, ks, dos, vs, s, dp, ty, tx);
-    probs_and_ds(s, dp, lse_r, delta_r, dss, q0, k0, ty, tx, S, Sk, scale,
-                 causal, q_offset, kv_offset);
-    __syncthreads();
-    accumulate<kD>(acc, dss, ks, ty, tx);  // dq += ds k
+    pt::load_a_rows<kD>(qa, qs + warp * 16 * kLd);
+    pt::load_a_rows<kD>(da, dos + warp * 16 * kLd);
+    __syncthreads();  // the q and dO tiles become the lo planes
   }
-  store_tile<T, kD>(dq + bh * S * D, acc, q0, S, D, ty, tx);
-}
+  if (n_tiles > 0) load_kv(0, 0);
+  pt::cp_async_commit();
 
-constexpr int kDkvThreads = 128;  // four warps, 16 keys each
+  const int row0 = q0 + warp * 16;  // the warp's 16 rows
+  const int row_base = row0 + g;    // this thread's rows row_base, row_base + 8
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row_base + 8 * h;
+    lse_r[h] = row < S ? lse[bh * S + row] : 0.f;
+    delta_r[h] = row < S ? delta[bh * S + row] : 0.f;
+  }
+  float dq_acc[kD / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < kD / 8; ++dn)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dq_acc[dn][c] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * kTile;
+    if (it + 1 < n_tiles) {
+      load_kv(it + 1, (it + 1) & 1);
+      pt::cp_async_commit();
+      pt::cp_async_wait<1>();  // tile it (and q, dO) have landed
+    } else {
+      pt::cp_async_wait<0>();
+    }
+    __syncthreads();
+    T* ks = kv + 2 * (it & 1) * kTileE;
+    T* vs = ks + kTileE;
+
+    // p = Q K^T and ds = dO V^T; element c of p[nt] is row
+    // row_base + 8 (c / 2), key k0 + 8 nt + 2 t + c % 2
+    float p[8][4], ds[8][4];
+    if constexpr (kSplit) {
+      pt::split_tiles<kTile, kD, kThreads>(ks, qs, vs, dos);  // lo: qs, dos
+      __syncthreads();
+      pt::warp_gemm_nt_split2<kD>(p, qa, ks, qs, ds, da, vs, dos);
+    } else {
+      pt::warp_gemm_nt<T, kD>(p, qs + warp * 16 * kLd, ks);
+      pt::warp_gemm_nt<T, kD>(ds, dos + warp * 16 * kLd, vs);
+    }
+    // Only a tile that crosses S, Sk or the warp's causal diagonal is masked
+    // (a fully masked row lies in such a tile: it sees no key).
+    const bool edge =
+        row0 + 16 > S || k0 + kTile > Sk ||
+        (causal && kv_offset + k0 + kTile - 1 > q_offset + row0);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int key = k0 + 8 * nt + 2 * t + (c & 1);
+        const int row = row_base + 8 * (c >> 1);
+        const bool masked =
+            edge && (row >= S || key >= Sk ||
+                     (causal && kv_offset + key > q_offset + row));
+        const int h = c >> 1;
+        const float pv = masked ? 0.f : expf(p[nt][c] * scale - lse_r[h]);
+        ds[nt][c] = pv * (ds[nt][c] - delta_r[h]) * scale;
+      }
+    if constexpr (kSplit)
+      pt::warp_gemm_pb_split<kD>(dq_acc, ds, ks, qs);  // dq += ds k
+    else
+      pt::warp_gemm_pb<T, kD>(dq_acc, ds, ks);
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+  pt::cp_async_wait<0>();
+
+  const float one[2] = {1.f, 1.f};
+  pt::warp_store<T, kD>(dq + bh * S * D, dq_acc, row0, S, D, one);
+}
 
 // Dynamic shared memory of the dK/dV kernel: the k and v tiles, then two
 // stages of (q tile, dO tile, lse[64], delta[64]).
 template <typename T, int kD>
-__host__ __device__ constexpr size_t dkv_tile_bytes() {
-  return sizeof(T) * kTile * pt::TileLd<T, kD>::value;
-}
-
-template <typename T, int kD>
 __host__ __device__ constexpr size_t dkv_stage_bytes() {
-  return 2 * dkv_tile_bytes<T, kD>() + 2 * kTile * sizeof(float);
+  return 2 * tile_bytes<T, kD>() + 2 * kTile * sizeof(float);
 }
 
 template <typename T, int kD>
 constexpr size_t dkv_smem_bytes() {
-  return 2 * dkv_tile_bytes<T, kD>() + 2 * dkv_stage_bytes<T, kD>();
+  return 2 * tile_bytes<T, kD>() + 2 * dkv_stage_bytes<T, kD>();
 }
 
 template <typename T, int kD>
-__global__ void __launch_bounds__(kDkvThreads)
+__global__ void __launch_bounds__(kThreads)
     flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
@@ -268,7 +242,7 @@ __global__ void __launch_bounds__(kDkvThreads)
                      T* __restrict__ dv, int S, int Sk, int D, float scale,
                      int causal, int q_offset, int kv_offset, int vec) {
   constexpr int kLd = pt::TileLd<T, kD>::value;
-  constexpr size_t kTileB = dkv_tile_bytes<T, kD>();
+  constexpr size_t kTileB = tile_bytes<T, kD>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ks = reinterpret_cast<T*>(smem_raw);
   T* vs = reinterpret_cast<T*>(smem_raw + kTileB);
@@ -305,10 +279,10 @@ __global__ void __launch_bounds__(kDkvThreads)
 
   auto load_q = [&](int tile, int st) {
     const int q0 = tile * kTile;
-    pt::load_tile<T, kTile, kD, kLd, kDkvThreads>(stage_q(st), qh, q0, S, D,
-                                                   vec);
-    pt::load_tile<T, kTile, kD, kLd, kDkvThreads>(stage_do(st), doh, q0, S,
-                                                   D, vec);
+    pt::load_tile<T, kTile, kD, kLd, kThreads>(stage_q(st), qh, q0, S, D,
+                                               vec);
+    pt::load_tile<T, kTile, kD, kLd, kThreads>(stage_do(st), doh, q0, S, D,
+                                               vec);
     // threads 0..63 copy lse, 64..127 delta
     const int i = threadIdx.x & (kTile - 1);
     const float* src = threadIdx.x < kTile ? lse : delta;
@@ -316,10 +290,10 @@ __global__ void __launch_bounds__(kDkvThreads)
     pt::cp_async4(stage_stats(st) + threadIdx.x,
                   in ? src + bh * S + q0 + i : src, in);
   };
-  pt::load_tile<T, kTile, kD, kLd, kDkvThreads>(ks, k + bh * Sk * D, k0, Sk,
-                                                 D, vec);
-  pt::load_tile<T, kTile, kD, kLd, kDkvThreads>(vs, v + bh * Sk * D, k0, Sk,
-                                                 D, vec);
+  pt::load_tile<T, kTile, kD, kLd, kThreads>(ks, k + bh * Sk * D, k0, Sk, D,
+                                             vec);
+  pt::load_tile<T, kTile, kD, kLd, kThreads>(vs, v + bh * Sk * D, k0, Sk, D,
+                                             vec);
   if (t0 < n_q) load_q(t0, 0);
   pt::cp_async_commit();
 
@@ -389,12 +363,21 @@ __global__ void __launch_bounds__(kDkvThreads)
   pt::warp_store<T, kD>(dv + bh * Sk * D, dv_acc, key0, Sk, D, one);
 }
 
+// cp.async moves 16-byte chunks: rows of a multiple of 16 bytes, aligned
+template <typename T>
+int use_vec(int D, const void* q, const void* k, const void* v,
+            const void* dout) {
+  const uintptr_t bases =
+      (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout;
+  return (D * sizeof(T)) % 16 == 0 && bases % 16 == 0;
+}
+
 template <typename T, int kD>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int BH, int S,
               int Sk, int D, float scale, int causal, int q_offset,
               int kv_offset, cudaStream_t st) {
-  constexpr size_t smem = dq_smem_bytes<kD>();
+  constexpr size_t smem = dq_smem_bytes<T, kD>();
   cudaError_t e = cudaFuncSetAttribute(
       flash_dq_kernel<T, kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -404,7 +387,8 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), S, Sk, D, scale, causal, q_offset, kv_offset);
+      static_cast<T*>(dq), S, Sk, D, scale, causal, q_offset, kv_offset,
+      use_vec<T>(D, q, k, v, dout));
   return cudaGetLastError();
 }
 
@@ -418,17 +402,13 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
       flash_dkv_kernel<T, kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
-  // cp.async moves 16-byte chunks: rows of a multiple of 16 bytes, aligned
-  const int vec = (D * sizeof(T)) % 16 == 0 &&
-                  ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
-                   (uintptr_t)dout) % 16 == 0;
-  flash_dkv_kernel<T, kD><<<dim3(BH, (Sk + kTile - 1) / kTile), kDkvThreads,
+  flash_dkv_kernel<T, kD><<<dim3(BH, (Sk + kTile - 1) / kTile), kThreads,
                             smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<T*>(dk), static_cast<T*>(dv), S, Sk, D, scale, causal,
-      q_offset, kv_offset, vec);
+      q_offset, kv_offset, use_vec<T>(D, q, k, v, dout));
   return cudaGetLastError();
 }
 

@@ -271,6 +271,120 @@ __device__ __forceinline__ void warp_gemm_pb(float (&o)[kD / 8][4],
     for (int c = 0; c < 4; ++c) o[dn][c] += part[dn][c];
 }
 
+// Float32 products against a tile split once per block. A block whose
+// warps all multiply the same streamed tile splits each value of it once
+// (split_tiles: hi in place, lo into a plane of the same layout), where
+// warp_gemm_nt and warp_gemm_pb would split it again in every warp; the
+// warps then read both parts. The A rows of warp_gemm_nt_split2 are the
+// warp's own, held raw in registers (load_a_rows) and split per k step.
+
+// a[ks] = {A[g][8ks+t], A[g+8][8ks+t], A[g][8ks+t+4], A[g+8][8ks+t+4]}:
+// the m16n8k8 A operands of the 16 rows at `a_rows` (row-major, TileLd
+// stride), every k step.
+template <int kD>
+__device__ __forceinline__ void load_a_rows(float (&a)[kD / 8][4],
+                                            const float* __restrict__ a_rows) {
+  constexpr int kLd = TileLd<float, kD>::value;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int ks = 0; ks < kD / 8; ++ks) {
+    const float* ar = a_rows + g * kLd + 8 * ks + t;
+    a[ks][0] = ar[0], a[ks][1] = ar[8 * kLd], a[ks][2] = ar[4],
+    a[ks][3] = ar[8 * kLd + 4];
+  }
+}
+
+// Block-wide, for two [kRows][kD] tiles a and b: each value x becomes
+// tf32(x) (its TF32 hi part, kept as float bits) and its lo plane (a_lo,
+// b_lo) takes tf32(x - hi) at the same place.
+template <int kRows, int kD, int kThreads>
+__device__ __forceinline__ void split_tiles(float* a, float* a_lo, float* b,
+                                            float* b_lo) {
+  constexpr int kLd = TileLd<float, kD>::value;
+  for (int i = threadIdx.x; i < kRows * kD / 4; i += kThreads) {
+    const int o = i / (kD / 4) * kLd + i % (kD / 4) * 4;
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      float* tile = m ? b : a;
+      float* lo = m ? b_lo : a_lo;
+      const float4 x = *reinterpret_cast<const float4*>(tile + o);
+      const Split s0 = split_tf32(x.x), s1 = split_tf32(x.y),
+                  s2 = split_tf32(x.z), s3 = split_tf32(x.w);
+      *reinterpret_cast<uint4*>(tile + o) =
+          make_uint4(s0.hi, s1.hi, s2.hi, s3.hi);
+      *reinterpret_cast<uint4*>(lo + o) =
+          make_uint4(s0.lo, s1.lo, s2.lo, s3.lo);
+    }
+  }
+}
+
+__device__ __forceinline__ Split split_at(const float* hi, const float* lo,
+                                          int i) {
+  return {__float_as_uint(hi[i]), __float_as_uint(lo[i])};
+}
+
+// Two products of warp_gemm_nt's form for float32, c0 = A0 B0^T and
+// c1 = A1 B1^T, in one pass over k (two independent chains for the tensor
+// cores), with each A from load_a_rows and each B split by split_tiles
+// (parts b and b_lo).
+template <int kD>
+__device__ __forceinline__ void warp_gemm_nt_split2(
+    float (&c0)[8][4], const float (&a0)[kD / 8][4],
+    const float* __restrict__ b0, const float* __restrict__ b0_lo,
+    float (&c1)[8][4], const float (&a1)[kD / 8][4],
+    const float* __restrict__ b1, const float* __restrict__ b1_lo) {
+  constexpr int kLd = TileLd<float, kD>::value;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c0[nt][e] = c1[nt][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < kD / 8; ++ks) {
+    const FragA f0 = split_a(a0[ks][0], a0[ks][1], a0[ks][2], a0[ks][3]);
+    const FragA f1 = split_a(a1[ks][0], a1[ks][1], a1[ks][2], a1[ks][3]);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int o = (8 * nt + g) * kLd + 8 * ks + t;
+      mma_3xtf32(c0[nt], f0, split_at(b0, b0_lo, o),
+                 split_at(b0, b0_lo, o + 4));
+      mma_3xtf32(c1[nt], f1, split_at(b1, b1_lo, o),
+                 split_at(b1, b1_lo, o + 4));
+    }
+  }
+}
+
+// warp_gemm_pb for a float32 b split by split_tiles (parts b and b_lo); the
+// same fresh-fragment sum.
+template <int kD>
+__device__ __forceinline__ void warp_gemm_pb_split(
+    float (&o)[kD / 8][4], const float (&p)[8][4], const float* __restrict__ b,
+    const float* __restrict__ b_lo) {
+  constexpr int kLd = TileLd<float, kD>::value;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  float part[kD / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < kD / 8; ++dn)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) part[dn][c] = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const FragA fa = c_as_a(p[j]);
+    const int br = (8 * j + 2 * t) * kLd + g;  // rows 2t and 2t + 1
+#pragma unroll
+    for (int dn = 0; dn < kD / 8; ++dn)
+      mma_3xtf32(part[dn], fa, split_at(b, b_lo, br + 8 * dn),
+                 split_at(b, b_lo, br + kLd + 8 * dn));
+  }
+#pragma unroll
+  for (int dn = 0; dn < kD / 8; ++dn)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[dn][c] += part[dn][c];
+}
+
 // Store a warp's 16 x kD C fragments (rows row0 + g, row0 + g + 8) to the
 // row-major [n_rows][D] array out, each value times mul[h] (h = 0 for row
 // g, 1 for row g + 8), rounded once to T.

@@ -13,10 +13,10 @@ the counterpart of the ``flash_attention`` custom_vjp: it saves what
 ``_fa_fwd`` saves, ``(q, k, v, out, lse)``, and its backward computes
 ``delta = rowsum(dO * O)`` outside the kernels, as ``_backward`` does.
 
-What bounds the kernels on the H100 is the rate of their products. The
-forward and dK/dV kernels run them on the tensor cores, float32 through
-3xTF32 (float32-accurate; a single TF32 pass is never used), bf16 through
-bf16 products; the dQ kernel still runs on the f32 SIMT units. The CUDA
+What bounds the kernels on the H100 is the rate of their products. All
+three run them on the tensor cores (``mma.sync``), float32 through 3xTF32
+(float32-accurate; a single TF32 pass is never used), bf16 through bf16
+products, with the probabilities and ds kept f32 in registers. The CUDA
 sources say what their designs keep on chip.
 
 Conventions of the function, kept from the Pallas kernels: q is

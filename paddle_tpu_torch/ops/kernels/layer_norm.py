@@ -14,8 +14,8 @@ element moved); the CUDA source says what its design does about it. Stats
 are f32 whatever the input type; outputs keep the input type; mean and
 rstd come back as ``[R]`` f32 (the TPU's ``(R, 128)`` lane-broadcast is a
 TPU layout, not part of the function). The backward kernel writes
-per-row-block dgamma/dbeta partials that the wrapper sums, as
-``_ln_backward`` does.
+per-block dgamma/dbeta partials, which a second kernel sums in a fixed
+order (``_ln_backward`` sums the TPU kernel's partials outside it).
 
 Layout contract, as in the JAX package: ``x`` is ``[..., D]`` with the
 normalized axis last; ``weight``/``bias`` are ``[D]``. The router in
@@ -40,8 +40,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "ln_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
     "add_ln_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
-    "ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "ln_bwd_rows": [],
+    "ln_bwd": [_P] * 10 + [_I, _I, _I, _I, _I, _P],
+    "ln_bwd_blocks": [_I, _I, _I],
 }
 SOURCE = "paddle_tpu_torch/csrc/layer_norm.cu"
 _FUNCTIONS = ("ops.kernels.layer_norm.LayerNormFunction or "
@@ -158,8 +158,9 @@ def layer_norm_bwd(x2d, weight, mu, rstd, g2d):
     """LayerNorm backward of ``[R, D]`` rows -> (dx in x's type, dweight,
     dbias in weight's type). ``g2d`` is the output cotangent in x's type;
     ``mu``/``rstd`` are the forward's ``[R]`` f32 statistics. The kernel
-    writes ``[ceil(R / rows), D]`` f32 partials of dweight/dbias, summed
-    here."""
+    writes one f32 row of dweight/dbias partials per thread block into
+    scratch, and a second kernel of the same source sums them in a fixed
+    order."""
     _build.refuse_grad("layer_norm_bwd", _FUNCTIONS, x2d, weight, g2d)
     if x2d.device.type == "cpu":
         return layer_norm_bwd_plain(x2d, weight, mu, rstd, g2d)
@@ -172,19 +173,30 @@ def layer_norm_bwd(x2d, weight, mu, rstd, g2d):
     dev = _check("layer_norm_bwd", x2d, weight, weight, g2d)
     _build.require_cuda("layer_norm_bwd", x2d, mu, rstd)
     w = weight.float().contiguous()
-    lib = _build.library("layer_norm", _SIGNATURES)
-    n = -(-R // lib.ln_bwd_rows())
+    # the kernel writes dweight/dbias in weight's type where it has one
+    wtype = weight.dtype if weight.dtype in _build.DTYPE_CODE \
+        else torch.float32
     dx = torch.empty_like(x2d)
+    dw = torch.empty(D, device=dev, dtype=wtype)
+    db = torch.empty(D, device=dev, dtype=wtype)
+    if R == 0 or D == 0:
+        return dx, dw.zero_().to(weight.dtype), db.zero_().to(weight.dtype)
+    code = _build.DTYPE_CODE[x2d.dtype]
+    lib = _build.library("layer_norm", _SIGNATURES)
+    n = lib.ln_bwd_blocks(R, D, code)
+    if n <= 0:
+        raise ValueError(f"layer_norm_bwd: rows of D={D} are too wide for "
+                         "the kernel")
     dwp = torch.empty((n, D), device=dev, dtype=torch.float32)
     dbp = torch.empty((n, D), device=dev, dtype=torch.float32)
     rc = lib.ln_bwd(x2d.data_ptr(), w.data_ptr(), mu.data_ptr(),
                     rstd.data_ptr(), g2d.data_ptr(), dx.data_ptr(),
-                    dwp.data_ptr(), dbp.data_ptr(), R, D,
-                    _build.DTYPE_CODE[x2d.dtype], _build.stream_ptr(dev))
+                    dwp.data_ptr(), dbp.data_ptr(), dw.data_ptr(),
+                    db.data_ptr(), R, D, n, code,
+                    _build.DTYPE_CODE[wtype], _build.stream_ptr(dev))
     _build.check(rc, "layer_norm_bwd")
     layer_norm_bwd.launches += 1
-    return (dx, dwp.sum(dim=0).to(weight.dtype),
-            dbp.sum(dim=0).to(weight.dtype))
+    return dx, dw.to(weight.dtype), db.to(weight.dtype)
 
 
 layer_norm_bwd.launches = 0

@@ -153,23 +153,34 @@ def test_flash_backward_kernels(gen, dtype, S, Sk, D, causal, qo, ko):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-def test_flash_dkv_kernel_is_deterministic(gen, dtype):
-    """One block owns each dK/dV tile and sums in a fixed order: two calls
-    on the same inputs are bit-equal."""
+@pytest.mark.parametrize("kernel", [fa.flash_attention_bwd_dq,
+                                    fa.flash_attention_bwd_dkv],
+                         ids=["dq", "dkv"])
+def test_flash_backward_kernel_is_deterministic(gen, dtype, kernel):
+    """One block owns each dQ (dK/dV) tile and sums in a fixed order: two
+    calls on the same inputs are bit-equal."""
     q, k, v, dout = (torch.randn(2, 4, 256, 64, device="cuda", generator=gen
                                  ).to(dtype) for _ in range(4))
     out, lse = fa.flash_attention_fwd_plain(q, k, v, causal=True)
     delta = (dout.float() * out.float()).sum(-1)
-    first = fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal=True)
-    second = fa.flash_attention_bwd_dkv(q, k, v, dout, lse, delta,
-                                        causal=True)
+    first, second = (kernel(q, k, v, dout, lse, delta, causal=True)
+                     for _ in range(2))
     torch.cuda.synchronize()
+    if kernel is fa.flash_attention_bwd_dq:
+        first, second = (first,), (second,)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 
 
+# (R, D): the training rows, rows of the register path (D a multiple of
+# 128 up to 1024), R not a multiple of a block's 8 warps, and D off the
+# register path (not a multiple of 128; wider than 1024)
+LN_BWD_CASES = [(4096, 1024), (8, 1024), (40, 384), (37, 1024), (37, 200),
+                (300, 2048)]
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("R,D", [(4096, 1024), (8, 1024), (40, 384)])
+@pytest.mark.parametrize("R,D", LN_BWD_CASES)
 def test_layer_norm_backward_kernel(gen, dtype, R, D):
     x, g = (torch.randn(R, D, device="cuda", generator=gen).to(dtype)
             for _ in range(2))
@@ -184,6 +195,22 @@ def test_layer_norm_backward_kernel(gen, dtype, R, D):
     for a, r in zip(got, ref):
         assert a.dtype == dtype
         assert_near(a, r, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("R,D", [(4096, 1024), (37, 200)])
+def test_layer_norm_backward_kernel_is_deterministic(gen, dtype, R, D):
+    """The dweight/dbias partials are summed in a fixed order, without
+    atomics: two calls on the same inputs are bit-equal."""
+    x, g = (torch.randn(R, D, device="cuda", generator=gen).to(dtype)
+            for _ in range(2))
+    w, b = (torch.randn(D, device="cuda", generator=gen) for _ in range(2))
+    _, mu, rs = ln.layer_norm_fwd_plain(x, w, b)
+    first = ln.layer_norm_bwd(x, w, mu, rs, g)
+    second = ln.layer_norm_bwd(x, w, mu, rs, g)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_wrappers_refuse_inputs_that_require_grad(gen):

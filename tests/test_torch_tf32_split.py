@@ -1,20 +1,23 @@
 """A CPU rehearsal of the 3xTF32 arithmetic of the flash-attention kernels.
 
-The forward kernel (B1/B2) and the dK/dV kernel (B4) run their float32
-products on the tensor cores as three TF32 products: each operand x is
+The forward kernel (B1/B2), the dQ kernel (B3) and the dK/dV kernel (B4)
+run their float32 products on the tensor cores as three TF32 products: each operand x is
 split into ``hi = tf32(x)`` and ``lo = tf32(x - hi)``, and a product
 ``a b`` is taken as ``lo_a hi_b + hi_a lo_b + hi_a hi_b`` (``lo lo`` is
 dropped), summed in float32. TF32 keeps 10 mantissa bits and rounds to
 nearest with ties away from zero (``cvt.rna.tf32.f32``). Here that
 rounding is emulated by bit arithmetic on int32 views, and the kernels'
-loops (64-key tiles with an online softmax; 64-query tiles accumulating
-dK and dV) are written out in plain PyTorch around the emulated products.
+loops (64-key tiles with an online softmax; 64-key tiles accumulating dQ;
+64-query tiles accumulating dK and dV) are written out in plain PyTorch
+around the emulated products. Each tile's product is a fresh sum, added
+to the accumulator in float32, as the kernels add it.
 
 What is shown, with the float32 tolerance of kernel against plain version
 that ``chip_smoke.py`` holds on the card, ``|err| <= 1e-5 * max|plain| +
 1e-5 * |plain|`` per output, the -1e30 lse of a fully masked row exact:
-the split keeps (out, lse) and (dk, dv) within it of the plain versions,
-and a single TF32 pass does not (so the test can see the difference).
+the split keeps (out, lse), dq and (dk, dv) within it of the plain
+versions, and a single TF32 pass does not (so the test can see the
+difference).
 """
 import numpy as np
 import pytest
@@ -24,7 +27,7 @@ from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
 NEG = -1e30
 FLOOR, RTOL = 1e-5, 1e-5  # chip_smoke.py's TOL[torch.float32]
-TILE = 64  # keys per forward tile, queries per dK/dV tile
+TILE = 64  # keys per forward and dQ tile, queries per dK/dV tile
 
 
 def tf32(x):
@@ -69,6 +72,23 @@ def fwd_emulated(mm, q, k, v, scale, q_offset=0, kv_offset=0):
     safe = torch.where(l == 0, torch.ones(()), l)
     return o / safe[:, None], torch.where(l == 0, torch.full((), NEG),
                                           m + torch.log(safe))
+
+
+def dq_emulated(mm, q, k, v, do, lse, delta, scale, q_offset=0,
+                kv_offset=0):
+    """The dQ kernel's loop: causal, query rows, key tiles."""
+    rows = q_offset + torch.arange(q.shape[0])
+    dq = torch.zeros_like(q)
+    for k0 in range(0, k.shape[0], TILE):
+        kt, vt = k[k0:k0 + TILE], v[k0:k0 + TILE]
+        keys = kv_offset + k0 + torch.arange(kt.shape[0])
+        s = (mm(q, kt.T) * scale).masked_fill(keys[None] > rows[:, None],
+                                              NEG)
+        p = torch.where(s <= NEG / 2, torch.zeros(()),
+                        torch.exp(s - lse[:, None]))
+        ds = p * (mm(do, vt.T) - delta[:, None]) * scale
+        dq = dq + mm(ds, kt)
+    return dq
 
 
 def dkv_emulated(mm, q, k, v, do, lse, delta, scale, q_offset=0,
@@ -118,10 +138,11 @@ def reference(S, D, ko, seed=0):
                                             v[None, None], **kw)
     out, lse = out[0, 0], lse[0, 0]
     delta = (do * out).sum(-1)
-    _, dk, dv = fa.flash_attention_bwd_plain(
+    dq, dk, dv = fa.flash_attention_bwd_plain(
         q[None, None], k[None, None], v[None, None], do[None, None],
         lse[None, None], delta[None, None], **kw)
-    return (q, k, v, do, scale), (out, lse, delta), (dk[0, 0], dv[0, 0])
+    return (q, k, v, do, scale), (out, lse, delta), (dq[0, 0], dk[0, 0],
+                                                     dv[0, 0])
 
 
 @pytest.mark.parametrize("S,D,ko", CASES)
@@ -135,8 +156,17 @@ def test_split_forward_within_tolerance(S, D, ko):
 
 
 @pytest.mark.parametrize("S,D,ko", CASES)
+def test_split_dq_within_tolerance(S, D, ko):
+    (q, k, v, do, scale), (_, lse, delta), (dq, _, _) = reference(S, D, ko)
+    got = dq_emulated(mm_split, q, k, v, do, lse, delta, scale, kv_offset=ko)
+    assert within(got, dq)
+    if ko:  # rows that see no key get no gradient
+        assert (got[:ko] == 0).all()
+
+
+@pytest.mark.parametrize("S,D,ko", CASES)
 def test_split_dkv_within_tolerance(S, D, ko):
-    (q, k, v, do, scale), (_, lse, delta), (dk, dv) = reference(S, D, ko)
+    (q, k, v, do, scale), (_, lse, delta), (_, dk, dv) = reference(S, D, ko)
     got_dk, got_dv = dkv_emulated(mm_split, q, k, v, do, lse, delta, scale,
                                   kv_offset=ko)
     assert within(got_dk, dk)
@@ -144,10 +174,13 @@ def test_split_dkv_within_tolerance(S, D, ko):
 
 
 def test_single_tf32_pass_misses_the_tolerance():
-    (q, k, v, do, scale), (out, lse, delta), (dk, dv) = reference(1024, 64, 0)
+    (q, k, v, do, scale), (out, lse, delta), (dq, dk, dv) = \
+        reference(1024, 64, 0)
     got_o, got_l = fwd_emulated(mm_single, q, k, v, scale)
     assert not within(got_o, out)
     assert not within(got_l, lse)
+    assert not within(dq_emulated(mm_single, q, k, v, do, lse, delta, scale),
+                      dq)
     got_dk, got_dv = dkv_emulated(mm_single, q, k, v, do, lse, delta, scale)
     assert not within(got_dk, dk)
     assert not within(got_dv, dv)

@@ -76,13 +76,16 @@ def main() -> int:
     _report(f"TrainStep B={B} S={S} layers={args.layers}", wall, "step",
             prof, args.steps)
     dev = _device_us(prof)
-    ours = {"flash_fwd_kernel": "B1/B2", "flash_dq_kernel": "B3",
-            "flash_dkv_kernel": "B4", "ln_fwd_kernel": "B5",
-            "add_ln_fwd_kernel": "B6", "ln_bwd_kernel": "B7"}
-    for key, tag in ours.items():
-        us = sum(v for k, v in dev.items() if key in k and
-                 not (key == "ln_fwd_kernel" and "add_ln" in k))
-        print(f"  {tag} {key}: {us / 1e3 / args.steps:.4f} ms per step")
+    # B7 is the row kernel and the reduction of its partials
+    ours = {"B1/B2": ("flash_fwd_kernel",), "B3": ("flash_dq_kernel",),
+            "B4": ("flash_dkv_kernel",), "B5": ("ln_fwd_kernel",),
+            "B6": ("add_ln_fwd_kernel",),
+            "B7": ("ln_bwd_kernel", "ln_bwd_reduce_kernel")}
+    for tag, keys in ours.items():
+        us = sum(v for k, v in dev.items() if any(key in k for key in keys)
+                 and not (keys == ("ln_fwd_kernel",) and "add_ln" in k))
+        print(f"  {tag} {' + '.join(keys)}: {us / 1e3 / args.steps:.4f} ms "
+              "per step")
     print(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           "GiB")
     return 0
