@@ -8,8 +8,9 @@
    instructions of the flash forward, dQ and dK/dV kernels
    (``cuobjdump``);
 2. holds each kernel against its plain PyTorch version on the card, in
-   float32 and bfloat16, at the training shapes (B = 4, S = 1024; LN rows
-   4096) and the serving shapes, and at the masked and offset cases; times
+   float32 and bfloat16 (and the add-LN on a float32 + bfloat16 pair), at
+   the training shapes (B = 4, S = 1024; LN rows 4096) and the serving
+   shapes, and at the masked and offset cases; times
    the kernel, the plain version and one PyTorch library call computing
    the same function, all from CUDA-graph replays (the attention kernels
    in bfloat16 too, beside SDPA in bfloat16);
@@ -26,7 +27,15 @@
    autograd), then six steps on one fixed batch (the loss must fall), and
    checks that each of the six kernels was launched as often as a step
    needs;
-5. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
+5. trains bench.py's GPT-medium program as published (``_bench_gpt``: no
+   final LayerNorm, ``strategy.amp`` through ``fleet``, bf16 AMP O1,
+   ``fused_linear_cross_entropy`` with chunk 8192, AdamW lr 1e-4, weight
+   decay 0.01, B = 4, S = 1024): a bf16 gradient oracle against the dense
+   route under the same AMP, then six steps on bench's fixed batch (the
+   loss must fall), and checks each kernel's launches by input types (the
+   flash kernels in bf16, the add-LN on the float32 residual and the bf16
+   branch);
+6. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
    "device": ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device, outside a
@@ -87,6 +96,32 @@ TRAIN_LAUNCHES = {
 #: the kernels of the serving path (it runs no backward)
 SERVING_KERNELS = ("flash_attention_fwd", "layer_norm_fwd",
                    "add_layer_norm_fwd")
+
+# bench.py's training program as published (_bench_gpt): bf16 AMP O1
+# through fleet, no final LayerNorm, fused vocab-chunked CE (chunk 8192)
+AMP_CHUNK = 8192
+# gradient oracle under bf16 AMP: per parameter, max |kernel route - dense
+# route| <= AMP_GRAD_RTOL * max |dense route|. Both routes run the
+# projections in bf16 but round at different places: the dense route
+# rounds the scores and the probabilities to bf16 before its products
+# (matmul is white-listed) and its head's logits to bf16 (linear), while
+# the flash kernels keep the scores and P in f32 and the fused CE keeps
+# the head in f32; each such rounding is up to 2^-9 relative, and the
+# differences pass through 24 layers: 2e-2 is ~5 bf16 ulps. Printed
+# beside each route's distance from the float32 dense route, which shows
+# whether the kernel route is the one that strays.
+AMP_GRAD_RTOL = 2e-2
+#: launches of each kernel per AMP training step (24 layers, no ln_f), by
+#: input types: the flash kernels in bf16 (white list), ln1 and the add-LN
+#: backward in f32, the add-LN on the f32 residual and the bf16 branch
+AMP_LAUNCHES = {
+    "flash_attention_fwd": {"bfloat16": LAYERS},
+    "flash_attention_bwd_dq": {"bfloat16": LAYERS},
+    "flash_attention_bwd_dkv": {"bfloat16": LAYERS},
+    "layer_norm_fwd": {"float32": LAYERS},
+    "add_layer_norm_fwd": {"float32+bfloat16": LAYERS},
+    "layer_norm_bwd": {"float32": 2 * LAYERS},
+}
 
 
 def fail(msg: str) -> None:
@@ -242,15 +277,16 @@ def flash_phase(fa, gen, rows):
             bms, by = bound_ms(nbytes, 4 * D * pairs * B * H, dtype,
                                PEAK_MMA_FLOPS)
             name = f"flash_attention_fwd {str(dtype)[6:]} [{B},{H},{S},{D}]"
-            if dtype != torch.float32:
-                timed["bf16"] = dict(max_abs_err=max(eo, el), ms=ms,
-                                     bound_ms=bms, bound_by=by,
-                                     library_ms=lib_ms)
-                rows.append(f"{name}: kernel {ms:.4f} ms, sdpa "
-                            f"{lib_ms:.4f} ms, bound {bms:.6f} ms ({by})")
-                continue
             plain_ms = time_ms(lambda: fa.flash_attention_fwd_plain(
                 q, k, v, **kw), calls=calls)
+            if dtype != torch.float32:
+                timed["bf16"] = dict(max_abs_err=max(eo, el), ms=ms,
+                                     plain_ms=plain_ms, bound_ms=bms,
+                                     bound_by=by, library_ms=lib_ms)
+                rows.append(f"{name}: kernel {ms:.4f} ms, plain "
+                            f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+                            f"bound {bms:.6f} ms ({by})")
+                continue
             timed[what] = dict(
                 shape=f"[{B},{H},{S},{D}] causal", max_abs_err=max(eo, el),
                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
@@ -297,6 +333,9 @@ def ln_phase(ln, gen, rows):
                      "their plain versions")
             if dtype != torch.float32:
                 continue
+            mixed = mixed_add_ln(ln, gen, R, D, rows, timed=R == train_r)
+            if mixed is not None:
+                timed["mixed"] = mixed
             it = x.element_size()
             for name, fn, plain, lib, nbytes, err in (
                     ("layer_norm_fwd",
@@ -324,13 +363,50 @@ def ln_phase(ln, gen, rows):
                     shape=f"[{R},{D}]", max_abs_err=err, ms=ms,
                     plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                     library_ms=lib_ms)
-    return tuple(
+    mixed_add_ln(ln, gen, 37, 200, rows, timed=False)  # off the fast path
+    entries = tuple(
         dict(name=name, route="cuda", source=ln.SOURCE,
              replaces=f"paddle_tpu/ops/pallas/layer_norm.py:{line}",
              dtype="float32", **timed[name][train_r],
              at_serving_shape=timed[name][serve_r])
         for name, line in (("layer_norm_fwd", "54 (_ln_fwd_kernel)"),
                            ("add_layer_norm_fwd", "68 (_add_ln_fwd_kernel)")))
+    entries[1]["float32+bfloat16"] = timed["mixed"]
+    return entries
+
+
+def mixed_add_ln(ln, gen, R, D, rows, timed):
+    """The add-LN kernel on AMP O1's pair (x float32, y bfloat16) against
+    its plain version: s bit-equal, LN(s) and the statistics within the
+    float32 tolerance. Timed (and its dict returned) when ``timed``."""
+    x = torch.randn(R, D, device="cuda", generator=gen)
+    y = torch.randn(R, D, device="cuda", generator=gen).to(torch.bfloat16)
+    w, b = (torch.randn(D, device="cuda", generator=gen) for _ in range(2))
+    got = ln.add_layer_norm_fwd(x, y, w, b)
+    ref = ln.add_layer_norm_fwd_plain(x, y, w, b)
+    torch.cuda.synchronize()
+    errs = [close(a, r, torch.float32) for a, r in zip(got, ref)]
+    same_s = bool(torch.equal(got[0], ref[0]))
+    print(f"add_layer_norm_fwd float32+bfloat16 [{R},{D}]: max err "
+          f"s/y/mu/rstd {[f'{e:.3e}' for e, _ in errs]}; s bit-equal "
+          f"{same_s}")
+    if not (same_s and all(ok for _, ok in errs)) \
+            or got[0].dtype != torch.float32:
+        fail(f"add_layer_norm_fwd float32+bfloat16 R={R} D={D} disagrees "
+             "with its plain version")
+    if not timed:
+        return None
+    ms = time_ms(lambda: ln.add_layer_norm_fwd(x, y, w, b))
+    plain_ms = time_ms(lambda: ln.add_layer_norm_fwd_plain(x, y, w, b))
+    # reads x (f32), y (bf16), w, b; writes s, LN(s) (f32), mu, rstd
+    bms, by = bound_ms(R * D * (4 + 2) + 2 * R * D * 4 + 2 * D * 4
+                       + 2 * R * 4, 8 * R * D, torch.float32)
+    rows.append(f"add_layer_norm_fwd float32+bfloat16 [{R},{D}]: kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library n/a, bound "
+                f"{bms:.6f} ms ({by})")
+    return dict(shape=f"[{R},{D}]", max_abs_err=max(e for e, _ in errs),
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=None)
 
 
 def flash_bwd_phase(fa, gen, rows):
@@ -401,10 +477,8 @@ def flash_bwd_phase(fa, gen, rows):
                             6 * D * pairs, dtype, PEAK_MMA_FLOPS)
             b_dkv = bound_ms(6 * el * it + 2 * b * h * sq * 4,
                              8 * D * pairs, dtype, PEAK_MMA_FLOPS)
-            plain_ms = None
-            if dtype == torch.float32:
-                plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
-                    q, k, v, do, lse, delta, **kw), calls=5)
+            plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
+                q, k, v, do, lse, delta, **kw), calls=5)
             for name, ms, (bms, by), err, line in (
                     ("flash_attention_bwd_dq", ms_dq, b_dq, errs[0][0],
                      "paddle_tpu/ops/pallas/flash_attention.py:171 "
@@ -417,10 +491,11 @@ def flash_bwd_phase(fa, gen, rows):
                       f"{ms:.4f} ms, "
                 if dtype != torch.float32:
                     entries[name]["bf16"] = dict(
-                        max_abs_err=err, ms=ms, bound_ms=bms, bound_by=by,
-                        library_ms=lib_ms)
-                    rows.append(f"{row}sdpa backward (dq, dk, dv) "
-                                f"{lib_ms:.4f} ms, bound {bms:.6f} ms ({by})")
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bms, bound_by=by, library_ms=lib_ms)
+                    rows.append(f"{row}plain (dq, dk, dv) {plain_ms:.4f} ms, "
+                                f"sdpa backward (dq, dk, dv) {lib_ms:.4f} "
+                                f"ms, bound {bms:.6f} ms ({by})")
                     continue
                 entries[name] = dict(
                     name=name, route="cuda", source=fa.BWD_SOURCE,
@@ -574,6 +649,157 @@ def training_phase(pt, kernels):
     return counts
 
 
+def bench_gpt(pt, layers, seq, seed):
+    """bench.py's ``_gpt_medium`` from the port's layers: token and
+    position embeddings, ``layers`` ParallelGPTBlocks (dropout 0), no
+    final LayerNorm, and a head that the loss uses
+    (``fused_linear_cross_entropy``); forward returns the hidden state."""
+    from paddle_tpu_torch.distributed import ParallelGPTBlock
+
+    class GPT(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            kw = dict(device="cuda", generator=torch.Generator(
+                device="cuda").manual_seed(seed))
+            self.embed = pt.nn.Embedding(VOCAB, D_MODEL, **kw)
+            self.pos = pt.nn.Embedding(seq, D_MODEL, **kw)
+            self.blocks = pt.nn.LayerList([
+                ParallelGPTBlock(D_MODEL, HEADS, FFN, dropout=0.0, **kw)
+                for _ in range(layers)])
+            self.head = pt.nn.Linear(D_MODEL, VOCAB, **kw)
+
+        def forward(self, ids):
+            pos_ids = pt.arange(ids.shape[1], dtype="int64",
+                                device=ids.device)
+            h = self.embed(ids) + self.pos(pos_ids)
+            for blk in self.blocks:
+                h = blk(h)
+            return h
+
+    return GPT()
+
+
+def amp_training_phase(pt, kernels):
+    """Train bench.py's GPT-medium as bench.py does: ``strategy.amp``
+    through ``fleet.init``, ``fleet.distributed_optimizer(AdamW(1e-4,
+    0.01))``, ``fused_linear_cross_entropy`` (chunk 8192) and
+    ``TrainStep``; one gradient oracle first, then six steps on bench's
+    fixed batch. Returns the launch counts of the steps."""
+    import os
+
+    from paddle_tpu_torch.distributed import fleet
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    model = bench_gpt(pt, LAYERS, TRAIN_S, seed=2)
+    n_params = sum(p.numel() for p in model.parameters())
+    n = TRAIN_B * TRAIN_S
+    ids = torch.as_tensor((np.arange(n) % 31000).reshape(TRAIN_B, TRAIN_S),
+                          device="cuda")
+    labels = torch.as_tensor(((np.arange(n) + 1) % 31000).reshape(
+        TRAIN_B, TRAIN_S), device="cuda")
+
+    def lm_loss(h, lab):
+        return pt.nn.functional.fused_linear_cross_entropy(
+            h.reshape(-1, D_MODEL), model.head.weight, model.head.bias,
+            lab.reshape(-1))
+
+    strategy = fleet.DistributedStrategy()
+    strategy.amp = True
+    fleet.init(is_collective=True, strategy=strategy)
+    opt = fleet.distributed_optimizer(pt.optimizer.AdamW(
+        learning_rate=1e-4, weight_decay=0.01))
+    step = pt.jit.TrainStep(model, lm_loss, opt)
+
+    def grads(route, amp_on=True):
+        """(loss, {name: grad}) of one batch: route "1" through the
+        kernels and the fused CE, "0" dense attention, dense LayerNorms
+        and materialized-logit cross_entropy (torch autograd)."""
+        os.environ["PADDLE_FLASH_DEFAULT"] = route
+        os.environ["PADDLE_FUSED_LN"] = route
+        os.environ["PADDLE_CE_CHUNK"] = str(AMP_CHUNK) if route == "1" \
+            else "0"
+        model.zero_grad(set_to_none=True)
+        with pt.amp.auto_cast(amp_on, level="O1", dtype="bfloat16"):
+            loss = lm_loss(model(ids), labels)
+        loss.backward()
+        out = {k: p.grad for k, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        for knob in ("PADDLE_FLASH_DEFAULT", "PADDLE_FUSED_LN",
+                     "PADDLE_CE_CHUNK"):
+            os.environ.pop(knob)
+        return loss.item(), out
+
+    def worst(got, want):
+        w, name = 0.0, ""
+        for k, gd in want.items():
+            scale = gd.abs().max().item()
+            rel = (got[k].float() - gd.float()).abs().max().item() \
+                / max(scale, 1e-30)
+            if scale == 0 or rel > w:
+                w, name = (rel, k) if scale else (float("inf"), k)
+        return w, name
+
+    kernels.reset_launches()
+    loss_k, g_k = grads("1")
+    oracle_counts = kernels.launches_by_dtype()
+    loss_d, g_d = grads("0")
+    for k, g in g_k.items():
+        if g is None or g.dtype != torch.float32 \
+                or not bool(torch.isfinite(g).all()):
+            fail(f"kernel route gives no finite float32 gradient for {k}")
+    w_kd, n_kd = worst(g_k, g_d)
+    loss_f, g_f = grads("0", amp_on=False)  # float32, for scale only
+    w_kf, _ = worst(g_k, g_f)
+    w_df, _ = worst(g_d, g_f)
+    del g_f
+    print(f"AMP gradient oracle, {n_params} float32 parameters under bf16 "
+          f"O1, B={TRAIN_B} S={TRAIN_S}: loss kernels {loss_k:.6f} dense "
+          f"{loss_d:.6f} (float32 dense {loss_f:.6f}); worst max|g_kernel - "
+          f"g_dense| / max|g_dense| {w_kd:.3e} ({n_kd}; tolerance "
+          f"{AMP_GRAD_RTOL}); against the float32 dense route: kernels "
+          f"{w_kf:.3e}, dense bf16 {w_df:.3e}; launches {oracle_counts}")
+    if abs(loss_k - loss_d) > AMP_GRAD_RTOL * abs(loss_d) \
+            or w_kd > AMP_GRAD_RTOL:
+        fail("AMP kernel-route gradients disagree with the dense route")
+    del g_k, g_d
+    torch.cuda.synchronize()
+    # hand back the dense routes' activations, so that the steps below
+    # start from the allocator state a training job starts from
+    torch.cuda.empty_cache()
+    print(f"AMP training model built and checked in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()  # the AMP training path starts here
+    losses, ms = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses.append(step(ids, labels).item())  # .item() syncs
+        ms.append((time.perf_counter() - t1) * 1e3)
+    counts = kernels.launches_by_dtype()  # the AMP training path ends here
+    steady = float(np.mean(ms[1:]))
+    print(f"TrainStep bf16 AMP O1 (fleet) B={TRAIN_B} S={TRAIN_S} AdamW, "
+          f"fused CE chunk {AMP_CHUNK}: losses "
+          f"{[f'{x:.5f}' for x in losses]}; step ms "
+          f"{[f'{x:.1f}' for x in ms]}; steady {steady:.2f} ms/step, "
+          f"{TRAIN_B * TRAIN_S / steady * 1e3:.1f} tokens/s (after one "
+          f"warm-up step); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"launches on the AMP training path ({TRAIN_STEPS} steps), by "
+          f"input types: {counts}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail("AMP training loss is not finite or did not fall")
+    for name, per_step in AMP_LAUNCHES.items():
+        want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+        if counts[name] != want:
+            fail(f"kernel {name}: launches {counts[name]} on the AMP "
+                 f"training path, expected {want}")
+    return {k: sum(v.values()) for k, v in counts.items()}
+
+
 def serving_phase(pt, kernels):
     """Serve the GPT-medium model through generate and InferenceEngine;
     returns the per-kernel launch counts of this phase."""
@@ -696,7 +922,7 @@ def main() -> int:
     print(card)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}")
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     libs = _build.build(kernels.SOURCES)
     print(f"built {', '.join(kernels.SOURCES)} in "
           f"{time.perf_counter() - t0:.2f} s")
@@ -720,15 +946,22 @@ def main() -> int:
     ln_bwd_entry = ln_bwd_phase(ln, gen, rows)
     for r in rows:
         print(r)
+    print(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
     serving = serving_phase(pt, kernels)
+    print(f"serving phase done at {time.perf_counter() - t_start:.1f} s")
     training = training_phase(pt, kernels)
+    print(f"training phase done at {time.perf_counter() - t_start:.1f} s")
+    amp_training = amp_training_phase(pt, kernels)
+    print(f"AMP training phase done at {time.perf_counter() - t_start:.1f} "
+          "s")
     entries = [flash, ln_entry, add_entry, dq_entry, dkv_entry, ln_bwd_entry]
     for e in entries:
         if hmma is not None and e["name"] in hmma:
             e["hmma"] = hmma[e["name"]]
-        e["launches"] = training[e["name"]]
+        e["launches"] = amp_training[e["name"]]
         e["launches_by_path"] = {"serving": serving[e["name"]],
-                                 "training": training[e["name"]]}
+                                 "training": training[e["name"]],
+                                 "amp_training": amp_training[e["name"]]}
     print(f"{card}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -13,8 +13,13 @@
 // serving shapes stays cache-resident between passes), and mean/rstd written
 // as [R] f32 instead of the TPU's (R, 128) lane-broadcast.
 //
-// add-LN stores s = x + y in the input type first and normalizes the STORED
-// (rounded) s -- bf16 parity with the dense x + y depends on it.
+// add-LN stores s = x + y in x's type first and normalizes the STORED
+// (rounded) s -- bf16 parity with the dense x + y depends on it. The addends
+// may differ in type: under AMP O1 the residual stream x is float32 and the
+// attention branch y bfloat16. Each addend is loaded in its own type and the
+// sum taken in f32, as the Pallas kernel casts each to f32; s and LN(s) are
+// stored in x's type. Instantiated for (f32, f32), (bf16, bf16) and
+// (f32, bf16): the pairs the router sends.
 
 #include <stdint.h>
 
@@ -59,9 +64,9 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+template <typename T, typename TR>
 __global__ void __launch_bounds__(kThreads)
-    add_ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ r,
+    add_ln_fwd_kernel(const T* __restrict__ x, const TR* __restrict__ r,
                       const float* __restrict__ w, const float* __restrict__ b,
                       T* __restrict__ s, T* __restrict__ y,
                       float* __restrict__ mu, float* __restrict__ rstd, int D,
@@ -69,7 +74,7 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ float scratch[32];
   const size_t row = blockIdx.x;
   const T* xr = x + row * D;
-  const T* rr = r + row * D;
+  const TR* rr = r + row * D;
   T* sr = s + row * D;
   T* yr = y + row * D;
 
@@ -394,26 +399,36 @@ extern "C" int ln_fwd(const void* x, const void* w, const void* b, void* y,
   return cudaGetLastError();
 }
 
+template <typename T, typename TR>
+static void launch_add_ln_fwd(const void* x, const void* r, const float* w,
+                              const float* b, void* s, void* y, float* mu,
+                              float* rstd, int R, int D, float eps,
+                              cudaStream_t st) {
+  add_ln_fwd_kernel<T, TR><<<R, kThreads, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const TR*>(r), w, b,
+      static_cast<T*>(s), static_cast<T*>(y), mu, rstd, D, eps);
+}
+
+// x, s and y are [R, D] of `dtype`, r [R, D] of `rdtype`; the pairs taken
+// are (f32, f32), (bf16, bf16) and (f32, bf16).
 extern "C" int add_ln_fwd(const void* x, const void* r, const void* w,
                           const void* b, void* s, void* y, void* mu,
                           void* rstd, int R, int D, float eps, int dtype,
-                          void* stream) {
+                          int rdtype, void* stream) {
   if (R <= 0 || D <= 0) return R < 0 || D < 0 ? cudaErrorInvalidValue : 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* wf = static_cast<const float*>(w);
   const float* bf = static_cast<const float*>(b);
   float* m = static_cast<float*>(mu);
   float* rs = static_cast<float*>(rstd);
-  if (dtype == pt::kF32) {
-    add_ln_fwd_kernel<float><<<R, kThreads, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(r), wf, bf,
-        static_cast<float*>(s), static_cast<float*>(y), m, rs, D, eps);
-  } else if (dtype == pt::kBF16) {
-    add_ln_fwd_kernel<__nv_bfloat16><<<R, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(r), wf, bf,
-        static_cast<__nv_bfloat16*>(s), static_cast<__nv_bfloat16*>(y), m, rs,
-        D, eps);
+  if (dtype == pt::kF32 && rdtype == pt::kF32) {
+    launch_add_ln_fwd<float, float>(x, r, wf, bf, s, y, m, rs, R, D, eps, st);
+  } else if (dtype == pt::kBF16 && rdtype == pt::kBF16) {
+    launch_add_ln_fwd<__nv_bfloat16, __nv_bfloat16>(x, r, wf, bf, s, y, m, rs,
+                                                    R, D, eps, st);
+  } else if (dtype == pt::kF32 && rdtype == pt::kBF16) {
+    launch_add_ln_fwd<float, __nv_bfloat16>(x, r, wf, bf, s, y, m, rs, R, D,
+                                            eps, st);
   } else {
     return cudaErrorInvalidValue;
   }

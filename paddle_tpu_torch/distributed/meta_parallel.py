@@ -5,12 +5,19 @@ device (mp = 1).
 ``ParallelMultiHeadAttention`` and ``ParallelGPTBlock`` compute what the
 JAX layers compute on a trivial mesh. Sharding over ``mp`` belongs to a
 later slice: every layer here raises on ``mp > 1``.
+
+Under AMP O1 the block's types flow as in the JAX package: the residual
+stream stays float32, the projections (``linear``) and the attention
+products run in bfloat16, and the residual sums come back float32 (a
+float32 tensor plus a bfloat16 one). Dropout draws its masks from the
+``torch.Generator`` the layer was built with.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from .. import amp
 from ..nn import functional as F
 from ..nn.functional import attention as attn_route
 from ..nn.layers.common import Linear
@@ -52,12 +59,15 @@ class ParallelMultiHeadAttention(nn.Module):
     """Causal self-attention with a fused ``[d, 3d]`` qkv projection.
 
     Full forward: the flash kernel when ``flash_plan`` routes it (the
-    flash-by-default policy), else the dense form with a ``triu(-1e9)``
-    mask. Cached forward (serving): write this step's K/V at per-slot
-    ``pos`` first, then attend over the whole capacity with the position
-    mask (``cached_attention``). Attention dropout comes with training."""
+    flash-by-default policy, which declines while attention dropout is
+    active: the kernel never materializes the probabilities), else the
+    dense form: scores (``matmul``), a ``triu(-1e9)`` mask, ``softmax``,
+    dropout, then the context product (``matmul``). Cached forward
+    (serving): write this step's K/V at per-slot ``pos`` first, then
+    attend over the whole capacity with the position mask
+    (``cached_attention``)."""
 
-    def __init__(self, embed_dim, num_heads, mp=1, *, device,
+    def __init__(self, embed_dim, num_heads, mp=1, *, dropout=0.0, device,
                  dtype=torch.float32, generator):
         super().__init__()
         _single_device(mp, "ParallelMultiHeadAttention")
@@ -65,6 +75,8 @@ class ParallelMultiHeadAttention(nn.Module):
             raise ValueError("embed_dim must divide into num_heads")
         self.num_heads = int(num_heads)
         self.head_dim = embed_dim // num_heads
+        self.dropout = float(dropout)
+        self._generator = generator
         self.qkv = ColumnParallelLinear(
             embed_dim, 3 * embed_dim, device=device, dtype=dtype,
             generator=generator)
@@ -101,30 +113,49 @@ class ParallelMultiHeadAttention(nn.Module):
             ctx = attn_route.cached_attention(q, k, v, pos, scale=dh ** -0.5)
             ctx = ctx.transpose(1, 2).reshape(B, T, H * dh)
             return self.out_proj(ctx), MultiHeadAttention.Cache(k, v)
-        if attn_route.flash_plan(T, T, causal=True, device=x.device):
+        if attn_route.flash_plan(
+                T, T, causal=True, device=x.device,
+                dropout_active=bool(self.dropout) and self.training):
             ctx = attn_route.flash_core(q, k, v, causal=True)
         else:
-            scores = torch.matmul(q, k.transpose(-1, -2)) * (dh ** -0.5)
-            mask = torch.triu(torch.full((T, T), -1e9, device=x.device,
-                                         dtype=torch.float32), diagonal=1)
-            ctx = torch.matmul(torch.softmax(scores + mask, dim=-1), v)
+            ctx = self._dense(q, k, v, T)
         ctx = ctx.transpose(1, 2).reshape(B, T, H * dh)
         return self.out_proj(ctx)
+
+    def _dense(self, q, k, v, T):
+        qr, kr = amp.cast_if_amp("matmul", (q, k))
+        scores = torch.matmul(qr, kr.transpose(-1, -2)) * (self.head_dim
+                                                           ** -0.5)
+        scores = scores + torch.triu(torch.full(
+            (T, T), -1e9, device=q.device, dtype=torch.float32), diagonal=1)
+        (scores,) = amp.cast_if_amp("softmax", (scores,))
+        attn = torch.softmax(scores, dim=-1)
+        if self.dropout:
+            attn = F.dropout(attn, self.dropout, training=self.training,
+                             generator=self._generator)
+        attn, vr = amp.cast_if_amp("matmul", (attn, v))
+        return torch.matmul(attn, vr)
 
 
 class ParallelGPTBlock(nn.Module):
     """Pre-LN GPT decoder block: ``ln1`` -> attention -> residual-add + LN
-    (one B6 kernel when routed) -> fc1 -> exact GELU -> fc2 -> residual."""
+    (one B6 kernel when routed) -> fc1 -> exact GELU -> dropout -> fc2 ->
+    residual. ``dropout`` applies to the attention probabilities (on the
+    dense route, which it selects while training) and to the MLP's hidden
+    activations."""
 
     def __init__(self, d_model, num_heads, dim_feedforward=None, mp=1, *,
-                 device, dtype=torch.float32, generator):
+                 dropout=0.0, device, dtype=torch.float32, generator):
         super().__init__()
         _single_device(mp, "ParallelGPTBlock")
         ffn = dim_feedforward or 4 * d_model
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.d_model = int(d_model)
+        self.dropout = float(dropout)
+        self._generator = generator
         self.ln1 = LayerNorm(d_model, device=device, dtype=dtype)
-        self.attn = ParallelMultiHeadAttention(d_model, num_heads, **kw)
+        self.attn = ParallelMultiHeadAttention(d_model, num_heads,
+                                               dropout=dropout, **kw)
         self.ln2 = LayerNorm(d_model, device=device, dtype=dtype)
         self.fc1 = ColumnParallelLinear(d_model, ffn, **kw)
         self.fc2 = RowParallelLinear(ffn, d_model, **kw)
@@ -137,7 +168,11 @@ class ParallelGPTBlock(nn.Module):
         h, n2 = F.fused_residual_layer_norm(
             x, a, [self.d_model], self.ln2.weight, self.ln2.bias,
             self.ln2.epsilon)
-        out = h + self.fc2(F.gelu(self.fc1(n2)))
+        m = F.gelu(self.fc1(n2))
+        if self.dropout:
+            m = F.dropout(m, self.dropout, training=self.training,
+                          generator=self._generator)
+        out = h + self.fc2(m)
         return out if new_cache is None else (out, new_cache)
 
     def gen_cache(self, batch_size, max_length, dtype=None):

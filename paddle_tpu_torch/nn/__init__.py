@@ -1,6 +1,10 @@
-"""``nn`` of the port: the functionals and layers the serving slice runs."""
-from . import functional
-from .layers import Embedding, LayerNorm, Linear, MultiHeadAttention
+"""``nn`` of the port: the functionals, layers and gradient clips the
+serving and training slices run."""
+from . import clip, functional
+from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
+from .layers import Embedding, LayerList, LayerNorm, Linear, \
+    MultiHeadAttention
 
-__all__ = ["functional", "Embedding", "LayerNorm", "Linear",
-           "MultiHeadAttention"]
+__all__ = ["clip", "functional", "Embedding", "LayerList", "LayerNorm",
+           "Linear", "MultiHeadAttention", "ClipGradByValue",
+           "ClipGradByNorm", "ClipGradByGlobalNorm"]

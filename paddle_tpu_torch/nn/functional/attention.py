@@ -19,6 +19,7 @@ import os
 
 import torch
 
+from ... import amp
 from ...ops.kernels.flash_attention import FlashAttentionFunction
 
 __all__ = [
@@ -78,7 +79,9 @@ def flash_core(q, k, v, *, causal=True, scale=None, q_offset=0):
     :class:`FlashAttentionFunction` (differentiable on both devices), tiles
     derived from the sequence lengths; ``q_offset`` is the global position
     of the first query row (``Sk - Sq`` for the end-aligned decode-append
-    shape)."""
+    shape). Under AMP q, k and v are cast to the AMP type first
+    (``flash_attention`` is white-listed); lse stays float32."""
+    q, k, v = amp.cast_if_amp("flash_attention", (q, k, v))
     return FlashAttentionFunction.apply(
         q.contiguous(), k.contiguous(), v.contiguous(), causal,
         _flash_block(int(q.shape[2])), _flash_block(int(k.shape[2])), scale,
@@ -90,22 +93,29 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     """Routed softmax attention over ``[B, H, S, D]``: the flash kernel for
     the causal, mask-free case; otherwise the dense form with the scores
     materialized, whose causal mask is end-aligned (``qpos = arange(Sq) +
-    Sk - Sq``) so both routes compute one function. (Attention dropout
-    comes with training.)"""
+    Sk - Sq``) so both routes compute one function. The dense form's two
+    steps are the AMP names ``attention_scores`` (scores and softmax; the
+    softmax runs in the type the scores come in, as in the JAX package)
+    and ``attention_context`` (weights times V). (Attention dropout is the
+    GPT block's.)"""
     Sq, Sk = int(query.shape[2]), int(key.shape[2])
     if flash_plan(Sq, Sk, causal=is_causal, device=query.device,
                   has_mask=attn_mask is not None):
         return flash_core(query, key, value, causal=is_causal, scale=scale,
                           q_offset=Sk - Sq)
     sc = scale if scale is not None else int(query.shape[-1]) ** -0.5
-    s = torch.matmul(query, key.transpose(-1, -2)) * sc
-    if attn_mask is not None:
-        s = s + attn_mask
+    qr, kr, mr = amp.cast_if_amp("attention_scores",
+                                 (query, key, attn_mask))
+    s = torch.matmul(qr, kr.transpose(-1, -2)) * sc
+    if mr is not None:
+        s = s + mr
     if is_causal:
         qpos = torch.arange(Sq, device=query.device) + (Sk - Sq)
         kpos = torch.arange(Sk, device=query.device)
         s = s.masked_fill(kpos[None, :] > qpos[:, None], -1e9)
-    return torch.matmul(torch.softmax(s, dim=-1), value)
+    w = torch.softmax(s, dim=-1)
+    w, vr = amp.cast_if_amp("attention_context", (w, value))
+    return torch.matmul(w, vr)
 
 
 def cache_update(cache, new, pos):
@@ -130,7 +140,8 @@ def cached_attention(query, key, value, pos, *, scale=None):
     ``[B, H, cap, D]`` cache K/V. The mask compares positions (``kpos >
     pos[b] + i`` gets -1e9), which also hides every row not yet written
     for this request. Dense on purpose, as in the JAX package: decode's
-    Sq is 1 and the per-slot offset is a tensor, not a static seam."""
+    Sq is 1 and the per-slot offset is a tensor, not a static seam. No AMP
+    cast: the JAX package runs it outside its op dispatcher too."""
     sc = scale if scale is not None else int(query.shape[-1]) ** -0.5
     Sq, Sk = int(query.shape[2]), int(key.shape[2])
     s = torch.matmul(query, key.transpose(-1, -2)) * sc

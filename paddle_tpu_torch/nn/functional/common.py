@@ -1,0 +1,62 @@
+"""Common functionals: ``linear`` and ``dropout`` (counterparts of
+``paddle_tpu/nn/functional/common.py``).
+
+``linear`` is the one seam every projection of the port goes through
+(``Linear`` and the parallel layers), and the AMP cast site of the
+white-listed name ``linear``. Its weight is PyTorch's ``[out, in]``, where
+paddle's is ``[in, out]``.
+
+``dropout`` draws its mask from an explicit ``torch.Generator`` that the
+caller passes: the port touches no global RNG. Its bits are not JAX's;
+the same generator state gives the same mask.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ... import amp
+
+__all__ = ["linear", "dropout"]
+
+
+def linear(x, weight, bias=None, name=None):
+    """``x @ weight^T + bias`` with ``weight`` ``[out, in]``; under AMP the
+    float inputs are cast to the AMP type first (white list)."""
+    x, weight, bias = amp.cast_if_amp("linear", (x, weight, bias))
+    return torch.nn.functional.linear(x, weight, bias)
+
+
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
+            name=None, *, generator: Optional[torch.Generator] = None):
+    """paddle.nn.functional.dropout. ``upscale_in_train`` keeps each
+    element with probability ``1 - p`` and divides the kept ones by
+    ``1 - p`` in training (identity at inference); ``downscale_in_infer``
+    keeps them unscaled in training and multiplies by ``1 - p`` at
+    inference. ``axis`` (an int or a list) draws one decision per index
+    of those axes, shared along the others. The mask comes from
+    ``generator`` (on ``x``'s device), which a training call with
+    ``0 < p < 1`` must be given."""
+    if mode not in ("upscale_in_train", "downscale_in_infer"):
+        raise ValueError(f"dropout: unknown mode {mode!r}")
+    if not 0.0 <= p <= 1.0:
+        raise ValueError(f"dropout: p must be in [0, 1], got {p}")
+    if not training or p == 0.0:
+        if mode == "downscale_in_infer" and not training and p > 0.0:
+            return x * (1.0 - p)
+        return x
+    if p == 1.0:
+        return torch.zeros_like(x)
+    if generator is None:
+        raise ValueError("dropout: pass the torch.Generator that draws the "
+                         "mask (generator=)")
+    shape = list(x.shape)
+    if axis is not None:
+        axes = [a % x.dim() for a in
+                (axis if isinstance(axis, (list, tuple)) else [axis])]
+        shape = [s if i in axes else 1 for i, s in enumerate(shape)]
+    keep = torch.rand(shape, generator=generator, device=x.device) < 1.0 - p
+    kept = x / (1.0 - p) if mode == "upscale_in_train" else x
+    return torch.where(keep, kept, torch.zeros((), dtype=x.dtype,
+                                               device=x.device))

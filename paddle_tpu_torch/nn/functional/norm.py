@@ -5,6 +5,13 @@ Counterpart of ``paddle_tpu/nn/functional/norm.py``'s ``layer_norm``,
 the shard_map seam of the JAX package belongs to a later slice). A routed
 call goes through the autograd Functions of ``ops/kernels/layer_norm.py``
 on both devices, so its backward runs the B7 kernel.
+
+AMP, as in the JAX package: the dense ``layer_norm`` is black-listed
+(float32 in, float32 out); the routed forms are on neither list, so the
+kernels take their inputs in the type they come in. Under AMP O1 the
+pre-LN block's residual seam meets a float32 residual stream ``x`` and a
+bfloat16 attention branch: that pair goes to the B6 kernel as it is, which
+returns ``s`` and ``LN(s)`` in ``x``'s type.
 """
 from __future__ import annotations
 
@@ -13,6 +20,7 @@ from typing import Sequence, Union
 
 import torch
 
+from ... import amp
 from ...ops.kernels import layer_norm as _ln
 
 __all__ = ["layer_norm", "fused_residual_layer_norm"]
@@ -56,6 +64,7 @@ def layer_norm(x: torch.Tensor, normalized_shape: Union[int, Sequence[int]],
     normalized_shape = _shape(normalized_shape)
     if _fused_ln_route(x, normalized_shape, weight, bias):
         return _ln.fused_layer_norm(x, weight, bias, epsilon)
+    x, weight, bias = amp.cast_if_amp("layer_norm", (x, weight, bias))
     axes = tuple(range(x.dim() - len(normalized_shape), x.dim()))
     mean = x.mean(dim=axes, keepdim=True)
     var = x.var(dim=axes, keepdim=True, correction=0)
@@ -71,7 +80,9 @@ def fused_residual_layer_norm(x, residual, normalized_shape, weight=None,
                               bias=None, epsilon: float = 1e-5):
     """(x + residual, LayerNorm(x + residual)) — the pre-LN block seam: one
     B6 kernel when routed, the dense sum then :func:`layer_norm`
-    otherwise."""
+    otherwise. Eligibility reads ``x`` and the equal shapes only, as the
+    JAX package's does: ``residual`` may be of another type (a bfloat16
+    branch under AMP), and ``s`` comes back in ``x``'s type."""
     normalized_shape = _shape(normalized_shape)
     if _fused_ln_route(x, normalized_shape, weight, bias) \
             and x.shape == residual.shape:

@@ -12,12 +12,14 @@ import torch
 from torch import nn
 
 from ...core.random import xavier_normal
+from ..functional.common import linear
 
 __all__ = ["Embedding", "Linear"]
 
 
 class Linear(nn.Module):
-    """y = x W^T + b with W ``[out_features, in_features]``."""
+    """y = x W^T + b with W ``[out_features, in_features]``, through
+    ``functional.linear`` (the AMP cast site)."""
 
     def __init__(self, in_features, out_features, *, device,
                  dtype=torch.float32, generator):
@@ -31,7 +33,7 @@ class Linear(nn.Module):
                                              dtype=dtype))
 
     def forward(self, x):
-        return nn.functional.linear(x, self.weight, self.bias)
+        return linear(x, self.weight, self.bias)
 
     def extra_repr(self):
         return f"in_features={self.in_features}, " \

@@ -1,1 +1,5 @@
-"""Operators of the port: the hand-written CUDA kernels (``kernels``)."""
+"""Operators of the port: the hand-written CUDA kernels (``kernels``) and
+tensor creation (``creation``)."""
+from .creation import arange
+
+__all__ = ["arange"]

@@ -128,6 +128,15 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
 
 
+def count_launch(wrapper, *tensors: torch.Tensor) -> None:
+    """One launch of ``wrapper``'s kernel: add one to ``wrapper.launches``
+    and to ``wrapper.by_dtype`` under the input types (``"bfloat16"``, or
+    ``"float32+bfloat16"`` for addends of two types)."""
+    key = "+".join(dict.fromkeys(str(t.dtype)[6:] for t in tensors))
+    wrapper.launches += 1
+    wrapper.by_dtype[key] = wrapper.by_dtype.get(key, 0) + 1
+
+
 def stream_ptr(device: torch.device) -> int:
     """The current PyTorch stream of ``device``, as the C interface takes
     it."""

@@ -143,11 +143,12 @@ def flash_attention_fwd(q, k, v, *, causal=False, block_q=256,
                        int(kv_offset), _build.DTYPE_CODE[q.dtype],
                        _build.stream_ptr(dev))
     _build.check(rc, "flash_attention_fwd")
-    flash_attention_fwd.launches += 1
+    _build.count_launch(flash_attention_fwd, q)
     return out, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.by_dtype = {}
 
 
 def flash_attention_bwd_plain(q, k, v, dout, lse, delta, *, causal=False,
@@ -200,7 +201,7 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, *, causal=False,
                           int(bool(causal)), int(q_offset), int(kv_offset),
                           _build.DTYPE_CODE[q.dtype], _build.stream_ptr(dev))
     _build.check(rc, "flash_attention_bwd_dq")
-    flash_attention_bwd_dq.launches += 1
+    _build.count_launch(flash_attention_bwd_dq, q)
     return dq
 
 
@@ -225,12 +226,14 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, *, causal=False,
                            int(kv_offset), _build.DTYPE_CODE[q.dtype],
                            _build.stream_ptr(dev))
     _build.check(rc, "flash_attention_bwd_dkv")
-    flash_attention_bwd_dkv.launches += 1
+    _build.count_launch(flash_attention_bwd_dkv, q)
     return dk, dv
 
 
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.by_dtype = {}
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.by_dtype = {}
 
 
 def flash_attention_bwd(q, k, v, dout, lse, delta, *, causal=False,

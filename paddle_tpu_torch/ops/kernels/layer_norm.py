@@ -39,7 +39,7 @@ from ._build import upcast as _up
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "ln_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
-    "add_ln_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+    "add_ln_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
     "ln_bwd": [_P] * 10 + [_I, _I, _I, _I, _I, _P],
     "ln_bwd_blocks": [_I, _I, _I],
 }
@@ -65,12 +65,19 @@ def layer_norm_fwd_plain(x2d, weight, bias, eps=1e-5):
 
 
 def add_layer_norm_fwd_plain(x2d, y2d, weight, bias, eps=1e-5):
-    """Plain PyTorch version of the B6 kernel: s = x + y stored in x's
-    type, then LayerNorm of the STORED s. Returns (s, LN(s), mean,
-    rstd)."""
+    """Plain PyTorch version of the B6 kernel: s = x + y, each addend
+    taken to f32, stored in x's type, then LayerNorm of the STORED s.
+    Returns (s, LN(s) in x's type, mean, rstd)."""
     s = (_up(x2d) + _up(y2d)).to(x2d.dtype)
     out, mu, rs = layer_norm_fwd_plain(s, weight, bias, eps)
     return s, out, mu, rs
+
+
+#: (x, y) types the add-LN kernel takes: one type, or AMP O1's float32
+#: residual stream with a bfloat16 branch
+ADD_LN_PAIRS = ((torch.float32, torch.float32),
+                (torch.bfloat16, torch.bfloat16),
+                (torch.float32, torch.bfloat16))
 
 
 def _check(what, x2d, weight, bias, *more):
@@ -78,8 +85,11 @@ def _check(what, x2d, weight, bias, *more):
         raise TypeError(f"{what}: dtype {x2d.dtype} not supported "
                         "(float32, bfloat16)")
     for t in more:
-        if t.dtype != x2d.dtype or t.shape != x2d.shape:
-            raise ValueError(f"{what}: addends must match in shape and type")
+        if t.shape != x2d.shape:
+            raise ValueError(f"{what}: operands must match in shape")
+        if (x2d.dtype, t.dtype) not in ADD_LN_PAIRS:
+            raise ValueError(f"{what}: no kernel for the types "
+                             f"({x2d.dtype}, {t.dtype})")
     if x2d.dim() != 2 or weight.shape != (x2d.shape[1],) \
             or bias.shape != (x2d.shape[1],):
         raise ValueError(f"{what}: x must be [R, D] with weight/bias [D]")
@@ -104,13 +114,14 @@ def layer_norm_fwd(x2d, weight, bias, eps=1e-5):
                     float(eps), _build.DTYPE_CODE[x2d.dtype],
                     _build.stream_ptr(dev))
     _build.check(rc, "layer_norm_fwd")
-    layer_norm_fwd.launches += 1
+    _build.count_launch(layer_norm_fwd, x2d)
     return y, mu, rs
 
 
 def add_layer_norm_fwd(x2d, y2d, weight, bias, eps=1e-5):
     """(s = x + y, LN(s), mean [R], rstd [R]) of ``[R, D]`` rows in one
-    pass."""
+    pass; s and LN(s) in x's type. The addends' types are a pair of
+    ``ADD_LN_PAIRS``; any other pair raises on the card."""
     _build.refuse_grad("add_layer_norm_fwd", _FUNCTIONS, x2d, y2d, weight,
                        bias)
     if x2d.device.type == "cpu":
@@ -127,14 +138,17 @@ def add_layer_norm_fwd(x2d, y2d, weight, bias, eps=1e-5):
     rc = lib.add_ln_fwd(x2d.data_ptr(), y2d.data_ptr(), w.data_ptr(),
                         b.data_ptr(), s.data_ptr(), out.data_ptr(),
                         mu.data_ptr(), rs.data_ptr(), R, D, float(eps),
-                        _build.DTYPE_CODE[x2d.dtype], _build.stream_ptr(dev))
+                        _build.DTYPE_CODE[x2d.dtype],
+                        _build.DTYPE_CODE[y2d.dtype], _build.stream_ptr(dev))
     _build.check(rc, "add_layer_norm_fwd")
-    add_layer_norm_fwd.launches += 1
+    _build.count_launch(add_layer_norm_fwd, x2d, y2d)
     return s, out, mu, rs
 
 
 layer_norm_fwd.launches = 0
+layer_norm_fwd.by_dtype = {}
 add_layer_norm_fwd.launches = 0
+add_layer_norm_fwd.by_dtype = {}
 
 
 def layer_norm_bwd_plain(x2d, weight, mu, rstd, g2d):
@@ -195,11 +209,12 @@ def layer_norm_bwd(x2d, weight, mu, rstd, g2d):
                     db.data_ptr(), R, D, n, code,
                     _build.DTYPE_CODE[wtype], _build.stream_ptr(dev))
     _build.check(rc, "layer_norm_bwd")
-    layer_norm_bwd.launches += 1
+    _build.count_launch(layer_norm_bwd, x2d)
     return dx, dw.to(weight.dtype), db.to(weight.dtype)
 
 
 layer_norm_bwd.launches = 0
+layer_norm_bwd.by_dtype = {}
 
 
 class LayerNormFunction(torch.autograd.Function):
@@ -227,7 +242,8 @@ class LayerNormFunction(torch.autograd.Function):
 class AddLayerNormFunction(torch.autograd.Function):
     """``(s, LN(s))`` with ``s = x + y`` on the B6 forward and B7 backward
     kernels (the custom_vjp of ``layer_norm.py:207``): both addends get
-    ``dLN/ds + g_s``. On the CPU it runs the plain versions."""
+    ``dLN/ds + g_s``, each in its own type. On the CPU it runs the plain
+    versions."""
 
     @staticmethod
     def forward(ctx, x, y, weight, bias, eps=1e-5):
@@ -236,7 +252,7 @@ class AddLayerNormFunction(torch.autograd.Function):
             x.reshape(-1, D).contiguous(), y.reshape(-1, D).contiguous(),
             weight, bias, eps)
         ctx.save_for_backward(s, weight, mu, rs)
-        ctx.shape = x.shape
+        ctx.shape, ctx.y_dtype = x.shape, y.dtype
         return s.reshape(x.shape), out.reshape(x.shape)
 
     @staticmethod
@@ -246,7 +262,9 @@ class AddLayerNormFunction(torch.autograd.Function):
             s2d, weight, mu, rs, go.reshape(s2d.shape).to(s2d.dtype)
             .contiguous())
         dsum = (ds.reshape(ctx.shape) + gs.to(ds.dtype)).to(ds.dtype)
-        return dsum, dsum, dw, db, None
+        # each addend's gradient in its own type (the JAX package returns
+        # dsum in s's type for both; PyTorch would cast it the same way)
+        return dsum, dsum.to(ctx.y_dtype), dw, db, None
 
 
 def fused_layer_norm(x, weight, bias, eps=1e-5):

@@ -1,4 +1,6 @@
-"""Optimizers of the port (counterpart of ``paddle_tpu.optimizer``)."""
+"""Optimizers of the port (counterpart of ``paddle_tpu.optimizer``) and
+their learning-rate schedulers (``optimizer.lr``)."""
+from . import lr
 from .optimizer import Adam, AdamW, Optimizer
 
-__all__ = ["Optimizer", "Adam", "AdamW"]
+__all__ = ["lr", "Optimizer", "Adam", "AdamW"]

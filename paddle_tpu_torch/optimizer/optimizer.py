@@ -12,10 +12,17 @@ Two entry points apply an update: ``step()`` from the accumulated
 ``.grad`` (the eager path), and ``_functional_update`` then ``_write``
 (what ``jit.TrainStep`` calls), whose write can be masked on a device
 flag so that a skipped step leaves parameters and moments unchanged.
+Both first add the regularizer terms to the gradients and then clip them
+(``_process_grads``), as the JAX package does.
 
-Not ported yet, and refused when asked for: gradient clipping,
-regularizer objects, ``lr_ratio``, ``multi_precision``, ``lazy_mode`` and
-``LRScheduler`` learning rates.
+The learning rate is a float or an ``optimizer.lr.LRScheduler``, read
+through ``get_lr``. ``weight_decay`` is a regularizer
+(``regularizer.L1Decay`` / ``L2Decay``) or a float, which means
+``L2Decay`` of it; a parameter's own ``regularizer`` attribute takes
+precedence. ``AdamW`` decays decoupled instead.
+
+Not ported yet, and refused when asked for: ``lr_ratio``,
+``multi_precision`` and ``lazy_mode``.
 """
 from __future__ import annotations
 
@@ -23,7 +30,9 @@ from typing import Dict, List, Optional
 
 import torch
 
+from ..regularizer import L2Decay, WeightDecayRegularizer
 from ..utils.train_guard import mask_step
+from .lr import LRScheduler
 
 __all__ = ["Optimizer", "Adam", "AdamW"]
 
@@ -33,23 +42,30 @@ def _not_ported(what: str) -> None:
 
 
 class Optimizer:
-    """Base: learning rate, the parameter list, accumulators and the step
-    count ``t`` of the bias correction (one per ``step()`` or
-    ``TrainStep`` call, as in JAX)."""
+    """Base: learning rate, the parameter list, regularizer, gradient
+    clip, accumulators and the step count ``t`` of the bias correction
+    (one per ``step()`` or ``TrainStep`` call, as in JAX; a 0-dim tensor
+    when ``TrainStep`` counts applied updates on the device)."""
 
     #: accumulator names of the rule, in JAX's spelling
     _acc_names: tuple = ()
 
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None):
-        if not isinstance(learning_rate, (int, float)) \
-                or isinstance(learning_rate, bool):
-            _not_ported("an LRScheduler learning rate")
-        if grad_clip is not None:
-            _not_ported("grad_clip")
-        if weight_decay is not None:
-            _not_ported("weight_decay as an L2 regularizer (use AdamW)")
-        self._lr = float(learning_rate)
+        if isinstance(learning_rate, bool) or not isinstance(
+                learning_rate, (int, float, LRScheduler)):
+            raise TypeError("optimizer: learning_rate must be a float or an "
+                            "LRScheduler")
+        self._lr = learning_rate if isinstance(learning_rate, LRScheduler) \
+            else float(learning_rate)
+        self._grad_clip = grad_clip
+        if isinstance(weight_decay, WeightDecayRegularizer):
+            self._regularization = weight_decay
+        elif isinstance(weight_decay, (int, float)) \
+                and not isinstance(weight_decay, bool):
+            self._regularization = L2Decay(weight_decay)
+        else:
+            self._regularization = None
         self._parameter_list: Optional[List[torch.nn.Parameter]] = None
         self._names: Dict[int, str] = {}
         if parameters is not None:
@@ -71,7 +87,14 @@ class Optimizer:
 
     # -- lr -----------------------------------------------------------------
     def get_lr(self) -> float:
+        if isinstance(self._lr, LRScheduler):
+            return float(self._lr())
         return self._lr
+
+    def set_lr(self, value) -> None:
+        if isinstance(self._lr, LRScheduler):
+            raise RuntimeError("cannot set_lr when using an LRScheduler")
+        self._lr = float(value)
 
     # -- state --------------------------------------------------------------
     def _get_params(self) -> List[torch.nn.Parameter]:
@@ -87,6 +110,20 @@ class Optimizer:
         return store[id(p)]
 
     # -- the update ----------------------------------------------------------
+    def _process_grads(self, params, grads):
+        """Regularizer terms (the parameter's own ``regularizer`` first,
+        else the optimizer's), then the gradient clip. A ``None`` gradient
+        stays ``None``."""
+        out = []
+        for p, g in zip(params, grads):
+            r = getattr(p, "regularizer", None) or self._regularization
+            out.append(g if g is None or r is None
+                       else g + r.grad_term(p.detach()))
+        grads = out
+        if self._grad_clip is not None:
+            grads = [g for _, g in self._grad_clip(list(zip(params, grads)))]
+        return grads
+
     def _rule(self, p, g, accs, lr, t):
         """One parameter's update: (new_p, {acc_name: new_acc}), out of
         place."""
@@ -130,9 +167,10 @@ class Optimizer:
         if not params:
             return
         self._step_count += 1
-        self._write(self._functional_update(
-            params, [p.grad for p in params], self.get_lr(),
-            self._step_count))
+        with torch.no_grad():
+            grads = self._process_grads(params, [p.grad for p in params])
+        self._write(self._functional_update(params, grads, self.get_lr(),
+                                            self._step_count))
 
     def clear_grad(self) -> None:
         for p in self._get_params():

@@ -2,8 +2,9 @@
 
 ``paddle_tpu`` stores a Linear weight as ``[in, out]``; the port's
 ``Linear`` holds PyTorch's ``[out, in]``. :func:`from_paddle_tpu_state`
-turns a ``paddle_tpu`` ``TransformerLM.state_dict()``, given as numpy
-arrays, into a state dict the port's ``TransformerLM.load_state_dict``
+turns a ``paddle_tpu`` ``TransformerLM.state_dict()`` (or bench.py's
+GPT-medium model's: ``embed``, ``pos``, ``blocks.*``, ``head``), given as
+numpy arrays, into a state dict the port's model's ``load_state_dict``
 takes, so both packages compute the same function, and
 :func:`to_paddle_tpu_state` turns the port's state back into paddle's
 layout, so trained parameters compare in one layout. Parameter names are
@@ -18,7 +19,7 @@ import torch
 
 __all__ = ["from_paddle_tpu_state", "to_paddle_tpu_state"]
 
-#: the Linear layers of the serving model, whose weights are transposed
+#: the Linear layers of the models, whose weights are transposed
 _LINEAR_WEIGHTS = ("attn.qkv.weight", "attn.out_proj.weight", "fc1.weight",
                    "fc2.weight", "head.weight")
 

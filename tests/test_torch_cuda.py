@@ -14,7 +14,9 @@ tensor-core kernels, ~2^-22 of each product), bfloat16 (2^-12, 2^-7) (one
 rounding of the stored output: at most one bf16 ulp); the -1e30 lse of a
 fully masked row must match exactly. The small model's gradients through the kernels
 against the dense route: float32, TF32 off, max |err| <= 1e-4 + 1e-3 of
-each parameter's largest gradient (summation order through two layers).
+each parameter's largest gradient (summation order through two layers);
+under bf16 AMP O1, 2e-2 of it (the two routes round to bf16 at different
+places).
 """
 
 import pytest
@@ -100,6 +102,39 @@ def test_layer_norm_kernels(gen, dtype, R, D):
     assert_near(got2[1], ref2[1], dtype)
     for a, r in zip(got[1:] + got2[2:], ref[1:] + ref2[2:]):
         assert_near(a, r, torch.float32)
+
+
+@pytest.mark.parametrize("R,D", [(4096, 1024), (1024, 1024), (8, 1024),
+                                 (40, 384), (37, 200)])
+def test_mixed_dtype_add_layer_norm_kernel(gen, R, D):
+    """AMP O1's residual seam on the B6 kernel: x float32, y bfloat16; s
+    bit-equal to the plain version's (one f32 sum, rounded once), LN(s)
+    and the statistics in float32; counted under the pair's types. Rows
+    off the training shape (few rows, D not a multiple of 128) too."""
+    x = torch.randn(R, D, device="cuda", generator=gen)
+    y = torch.randn(R, D, device="cuda", generator=gen).to(torch.bfloat16)
+    w, b = (torch.randn(D, device="cuda", generator=gen) for _ in range(2))
+    before = ln.add_layer_norm_fwd.by_dtype.get("float32+bfloat16", 0)
+    got = ln.add_layer_norm_fwd(x, y, w, b)
+    ref = ln.add_layer_norm_fwd_plain(x, y, w, b)
+    torch.cuda.synchronize()
+    assert ln.add_layer_norm_fwd.by_dtype["float32+bfloat16"] == before + 1
+    assert got[0].dtype == got[1].dtype == torch.float32
+    torch.testing.assert_close(got[0], ref[0], atol=0, rtol=0)
+    for a, r in zip(got[1:], ref[1:]):
+        assert_near(a, r, torch.float32)
+
+
+def test_add_layer_norm_refuses_pairs_the_router_never_makes(gen):
+    """Only (f32, f32), (bf16, bf16) and (f32, bf16) have a kernel; any
+    other pair raises on the card (no plain fallback)."""
+    x = torch.randn(16, 128, device="cuda", generator=gen)
+    w, b = torch.ones(128, device="cuda"), torch.zeros(128, device="cuda")
+    for xt, yt in ((torch.bfloat16, torch.float32),
+                   (torch.float32, torch.float16),
+                   (torch.float16, torch.float16)):
+        with pytest.raises((ValueError, TypeError)):
+            ln.add_layer_norm_fwd(x.to(xt), x.to(yt), w, b)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(gen):
@@ -258,3 +293,44 @@ def test_model_gradients_through_the_kernels(gen, monkeypatch):
         assert scale > 0, n
         torch.testing.assert_close(g, want[n], atol=1e-4 + 1e-3 * scale,
                                    rtol=0, msg=n)
+
+
+def test_amp_model_gradients_through_the_kernels(gen, monkeypatch):
+    """Under bf16 AMP O1 every parameter's gradient through the kernel
+    routes is within 2e-2 of its largest gradient of the dense route's
+    under the same AMP (the routes round to bf16 at different places: the
+    dense one rounds the scores and probabilities, the flash kernels keep
+    them f32); the flash kernels ran in bf16 and the add-LN on the float32
+    residual with the bf16 branch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = pt.TransformerLM(64, d_model=128, num_heads=2, num_layers=2,
+                             max_position=64, seed=1)
+    ids = torch.randint(0, 64, (2, 65), device="cuda", generator=gen)
+
+    def grads(route):
+        monkeypatch.setenv("PADDLE_FLASH_DEFAULT", route)
+        monkeypatch.setenv("PADDLE_FUSED_LN", route)
+        model.zero_grad(set_to_none=True)
+        with pt.amp.auto_cast(True, level="O1", dtype="bfloat16"):
+            logits = model(ids[:, :-1])
+            loss = pt.nn.functional.cross_entropy(
+                logits.reshape(-1, 64), ids[:, 1:].reshape(-1))
+        loss.backward()
+        return {n: p.grad.clone() for n, p in model.named_parameters()}
+
+    kernels.reset_launches()
+    got = grads("1")
+    assert kernels.launches_by_dtype() == {
+        "flash_attention_fwd": {"bfloat16": 2},
+        "flash_attention_bwd_dq": {"bfloat16": 2},
+        "flash_attention_bwd_dkv": {"bfloat16": 2},
+        "layer_norm_fwd": {"float32": 3},
+        "add_layer_norm_fwd": {"float32+bfloat16": 2},
+        "layer_norm_bwd": {"float32": 5}}
+    want = grads("0")
+    for n, g in got.items():
+        assert g.dtype == torch.float32, n
+        scale = want[n].abs().max().item()
+        assert scale > 0, n
+        torch.testing.assert_close(g, want[n], atol=2e-2 * scale, rtol=0,
+                                   msg=n)

@@ -305,3 +305,45 @@ def test_cross_entropy_refuses_what_is_not_ported():
         with pytest.raises(NotImplementedError):
             pt.nn.functional.cross_entropy(x, y, **kw)
 
+
+
+@pytest.mark.parametrize("shape", [(16, 128), (2, 8, 256)], ids=str)
+def test_mixed_dtype_add_layer_norm_matches_custom_vjp(shape):
+    """AMP O1's residual seam: x float32 (the residual stream) and y
+    bfloat16 (the attention branch). The plain B6 against the Pallas
+    kernel (interpreter): s and LN(s) in float32, s bit-equal (the sum of
+    an f32 and a bf16 value rounded once to f32); then dx, dy, dgamma and
+    dbeta. The JAX custom_vjp returns the same f32 ``dsum`` for both
+    addends; ``AddLayerNormFunction`` returns y's in y's type, so dy is
+    compared after rounding the JAX one to bfloat16 (float32 tolerance on
+    the rest)."""
+    x, y, g, gs, w, b = _ln_inputs(shape, seed=5)
+    jx, jy = jnp.asarray(x, jnp.float32), jnp.asarray(y, jnp.bfloat16)
+    jw, jb = jnp.asarray(w), jnp.asarray(b)
+    tx = torch.from_numpy(x).requires_grad_()
+    ty = torch.from_numpy(y).to(torch.bfloat16).requires_grad_()
+    tw, tb = (torch.from_numpy(a).requires_grad_() for a in (w, b))
+
+    (js, jo), vjp = jax.vjp(
+        lambda a, c, d, e: fused_add_layer_norm(a, c, d, e, 1e-5, True),
+        jx, jy, jw, jb)
+    s, o = tln.AddLayerNormFunction.apply(tx, ty, tw, tb, 1e-5)
+    assert (s.dtype, o.dtype) == (torch.float32, torch.float32)
+    assert (js.dtype, jo.dtype) == (jnp.float32, jnp.float32)
+    np.testing.assert_array_equal(s.detach().numpy(), _f32(js))
+    _close(o, jo, "float32")
+    tg, tgs = torch.from_numpy(g), torch.from_numpy(gs)
+    dx, dy, dw, db = torch.autograd.grad((s, o), (tx, ty, tw, tb),
+                                         (tgs, tg))
+    jdx, jdy, jdw, jdb = vjp((jnp.asarray(gs), jnp.asarray(g)))
+    assert (dx.dtype, dy.dtype) == (torch.float32, torch.bfloat16)
+    for got, want in ((dx, jdx), (dw, jdw), (db, jdb)):
+        _close(got, want, "float32")
+    np.testing.assert_array_equal(
+        dy.float().numpy(), _f32(jnp.asarray(jdy).astype(jnp.bfloat16)))
+    # the plain wrapper takes the pair as the kernel does
+    ps, po, _, _ = tln.add_layer_norm_fwd_plain(
+        tx.detach().reshape(-1, shape[-1]), ty.detach().reshape(
+            -1, shape[-1]), tw.detach(), tb.detach())
+    np.testing.assert_array_equal(ps.numpy(), s.detach().reshape(
+        -1, shape[-1]).numpy())

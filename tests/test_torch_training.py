@@ -219,11 +219,20 @@ def test_train_step_refuses_what_is_not_ported(models, monkeypatch):
             pt.jit.TrainStep(tm, _torch_loss,
                              pt.optimizer.AdamW(learning_rate=LR))
         monkeypatch.delenv(knob)
-    for kw in ({"grad_clip": object()}, {"lr_ratio": lambda p: 1.0},
-               {"multi_precision": True}, {"lazy_mode": True},
-               {"learning_rate": object()}):
+    strategy = pt.distributed.fleet.DistributedStrategy()
+    strategy.recompute = True
+    opt = pt.optimizer.AdamW(learning_rate=LR)
+    opt.user_defined_strategy = strategy
+    with pytest.raises(NotImplementedError, match="recompute"):
+        pt.jit.TrainStep(tm, _torch_loss, opt)
+    for kw in ({"lr_ratio": lambda p: 1.0}, {"multi_precision": True},
+               {"lazy_mode": True}):
         with pytest.raises(NotImplementedError):
             pt.optimizer.AdamW(**kw)
+    # grad_clip and LRScheduler learning rates are ported; a rate that is
+    # neither a number nor a scheduler is refused
+    with pytest.raises(TypeError):
+        pt.optimizer.AdamW(learning_rate=object())
 
 
 def test_guard_health_word():

@@ -1,15 +1,19 @@
 """Where the time of the port's training step goes, on one card.
 
-    python3 tools/profile_torch_train.py [--layers 24] [--steps 3]
+    python3 tools/profile_torch_train.py [--layers 24] [--steps 3] [--amp]
 
 Builds chip_smoke.py's GPT-medium ``TransformerLM`` (vocab 32000, d_model
-1024, 16 heads, ffn 4096, float32, random weights), takes two warm-up
-``jit.TrainStep`` calls (AdamW, B = 4, S = 1024, one fixed batch, TF32
-off), then ``--steps`` more with the profiler off and ``--steps`` under
-``torch.profiler``. Prints the host wall time per step (ending in a
-synchronize), the device time summed over the CUDA kernels the profiler
-saw, the device's idle share, and the kernels that took the most device
-time, with the port's own kernels named. Needs a CUDA device.
+1024, 16 heads, ffn 4096, float32, random weights) and trains it in
+float32 with ``cross_entropy``; with ``--amp``, bench.py's program as
+published instead (chip_smoke.py's ``bench_gpt``: no final LayerNorm, bf16
+AMP O1 through ``fleet``, ``fused_linear_cross_entropy`` with chunk 8192).
+Takes two warm-up ``jit.TrainStep`` calls (AdamW lr 1e-4, weight decay
+0.01, B = 4, S = 1024, one fixed batch, TF32 off), then ``--steps`` more
+with the profiler off and ``--steps`` under ``torch.profiler``. Prints the
+host wall time per step (ending in a synchronize), the device time summed
+over the CUDA kernels the profiler saw, the device's idle share, and the
+kernels that took the most device time, with the port's own kernels
+named. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -31,6 +35,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=24)
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--amp", action="store_true",
+                    help="bench.py's program: bf16 AMP O1, fused CE")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_train: needs a CUDA device", file=sys.stderr)
@@ -44,17 +50,33 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip())
     V, B, S = 32000, 4, 1024
-    model = pt.TransformerLM(V, 1024, 16, args.layers, max_position=S,
-                             dim_feedforward=4096, seed=1)
     ids = torch.as_tensor(np.random.RandomState(1).randint(
-        0, V, size=(B, S + 1)), device=model.device)
+        0, V, size=(B, S + 1)), device="cuda")
+    opt = pt.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01)
+    if args.amp:
+        from chip_smoke import bench_gpt
+        from paddle_tpu_torch.distributed import fleet
 
-    def loss_fn(logits, lab):
-        return pt.nn.functional.cross_entropy(logits.reshape(-1, V),
-                                              lab.reshape(-1))
+        model = bench_gpt(pt, args.layers, S, seed=2)
+        strategy = fleet.DistributedStrategy()
+        strategy.amp = True
+        fleet.init(is_collective=True, strategy=strategy)
+        opt = fleet.distributed_optimizer(opt)
 
-    step = pt.jit.TrainStep(model, loss_fn, pt.optimizer.AdamW(
-        learning_rate=1e-4, weight_decay=0.01))
+        def loss_fn(h, lab):
+            return pt.nn.functional.fused_linear_cross_entropy(
+                h.reshape(-1, 1024), model.head.weight, model.head.bias,
+                lab.reshape(-1), chunk=8192)
+    else:
+        model = pt.TransformerLM(V, 1024, 16, args.layers, max_position=S,
+                                 dim_feedforward=4096, seed=1)
+
+        def loss_fn(logits, lab):
+            return pt.nn.functional.cross_entropy(logits.reshape(-1, V),
+                                                  lab.reshape(-1))
+
+    step = pt.jit.TrainStep(model, loss_fn, opt)
+    what = "bf16 AMP O1, fused CE" if args.amp else "float32"
     for _ in range(2):  # warm up: kernel builds, allocator, cuBLAS
         step(ids[:, :-1], ids[:, 1:])
     torch.cuda.synchronize()
@@ -64,8 +86,9 @@ def main() -> int:
         step(ids[:, :-1], ids[:, 1:])
     torch.cuda.synchronize()
     off = (time.perf_counter() - t0) * 1e3 / args.steps
-    print(f"TrainStep B={B} S={S} layers={args.layers}, profiler off: host "
-          f"{off:.3f} ms per step, {B * S / off * 1e3:.1f} tokens/s")
+    print(f"TrainStep {what} B={B} S={S} layers={args.layers}, profiler "
+          f"off: host {off:.3f} ms per step, {B * S / off * 1e3:.1f} "
+          "tokens/s")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -73,8 +96,8 @@ def main() -> int:
             step(ids[:, :-1], ids[:, 1:])
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    _report(f"TrainStep B={B} S={S} layers={args.layers}", wall, "step",
-            prof, args.steps)
+    _report(f"TrainStep {what} B={B} S={S} layers={args.layers}", wall,
+            "step", prof, args.steps)
     dev = _device_us(prof)
     # B7 is the row kernel and the reduction of its partials
     ours = {"B1/B2": ("flash_fwd_kernel",), "B3": ("flash_dq_kernel",),
@@ -86,6 +109,24 @@ def main() -> int:
                  and not (keys == ("ln_fwd_kernel",) and "add_ln" in k))
         print(f"  {tag} {' + '.join(keys)}: {us / 1e3 / args.steps:.4f} ms "
               "per step")
+    # every kernel the profiler saw, in classes that sum to device busy
+    classes = {"port kernels (B1-B7)": 0.0, "float32 GEMMs": 0.0,
+               "other GEMMs (bf16)": 0.0, "copies": 0.0,
+               "elementwise and reductions": 0.0}
+    for k, us in dev.items():
+        if any(key in k for keys in ours.values() for key in keys):
+            c = "port kernels (B1-B7)"
+        elif "f32f32" in k or "sgemm" in k:
+            c = "float32 GEMMs"
+        elif "gemm" in k or "nvjet" in k:
+            c = "other GEMMs (bf16)"
+        elif k.startswith("Memcpy") or k.startswith("Memset"):
+            c = "copies"
+        else:
+            c = "elementwise and reductions"
+        classes[c] += us
+    for c, us in classes.items():
+        print(f"  {c}: {us / 1e3 / args.steps:.4f} ms per step")
     print(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           "GiB")
     return 0
