@@ -8,12 +8,15 @@
    instructions of the flash forward, dQ and dK/dV kernels
    (``cuobjdump``);
 2. holds each kernel against its plain PyTorch version on the card, in
-   float32 and bfloat16 (and the add-LN on a float32 + bfloat16 pair), at
-   the training shapes (B = 4, S = 1024; LN rows 4096) and the serving
-   shapes, and at the masked and offset cases; times
-   the kernel, the plain version and one PyTorch library call computing
-   the same function, all from CUDA-graph replays (the attention kernels
-   in bfloat16 too, beside SDPA in bfloat16);
+   float32 and bfloat16 (the attention kernels in float16 too, and the
+   add-LN on the float32 + bfloat16 and float32 + float16 pairs), at the
+   training shapes (B = 4, S = 1024; LN rows 4096), BERT-base's LN rows
+   ([4096, 768]) and the serving shapes, at the masked and offset cases,
+   and the attention kernels at head dims 192 and 256 (causal and not,
+   ragged lengths); times the kernel, the plain version and one PyTorch
+   library call computing the same function, all from CUDA-graph replays
+   (the attention kernels in each type beside SDPA in that type, also at
+   the head-dim-256 block's shape);
 3. serves the GPT-medium-shaped ``TransformerLM`` (vocab 32000, d_model
    1024, 16 heads, 24 layers, ffn 4096, float32, random weights from a
    seeded generator) through ``generate`` and ``InferenceEngine``, checks
@@ -35,7 +38,22 @@
    loss must fall), and checks each kernel's launches by input types (the
    flash kernels in bf16, the add-LN on the float32 residual and the bf16
    branch);
-6. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
+6. the same program under float16 O1 (``amp_configs = {"use_bf16":
+   False}``, dynamic loss scaling): its gradient oracle (at the scaler's
+   initial scale), six steps with the scaler's skipped steps, and the
+   flash kernels' launches in float16 and the add-LN's on (float32,
+   float16);
+7. one ParallelGPTBlock at d_model 2048 with 8 heads (head dim 256), B =
+   2, S = 1024, forward and backward through the kernels against the
+   dense route, in float32 and under bf16 AMP;
+8. bench.py's other training programs at its sizes: LeNet (batch 256,
+   Adam 1e-3), ResNet-50 (batch 256 at 224 x 224, 1000 classes, Momentum
+   0.1/0.9) in float32 with TF32 off and under bf16 AMP through
+   ``fleet``, and BERT-base (12 layers, 768 wide, batch 32 x 128, AdamW
+   1e-4/0.01, bf16 AMP): six steps each on one batch, with the rate,
+   ms/step, peak memory, losses (which must fall) and launches (BERT's
+   LayerNorms on B5/B7; the others none);
+9. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
    "device": ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device, outside a
@@ -59,8 +77,10 @@ import torch
 # route that keeps float32 (one TF32 pass keeps ~3 digits, which the float32
 # contract refuses).
 HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
-PEAK_MMA_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
+              torch.float16: 989e12}
+PEAK_MMA_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12,
+                  torch.float16: 989e12}
 
 # the serving configuration: bench.py's GPT-medium decode proxy
 VOCAB, D_MODEL, HEADS, LAYERS, FFN = 32000, 1024, 16, 24, 4096
@@ -74,8 +94,14 @@ CAP = PROMPT + NEW
 # kernels, by the 3xTF32 split (~2^-22 of each product). bf16 outputs are
 # rounded once from such f32 results, so they differ by at most one bf16
 # ulp (<= 2^-7 relative); the floor covers the f32 differences of values
-# near zero.
-TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -12, 2 ** -7)}
+# near zero. float16 outputs likewise differ by one f16 rounding (2^-10
+# relative, floor 2^-14).
+TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -12, 2 ** -7),
+       torch.float16: (2 ** -14, 2 ** -10)}
+#: the flash kernels' types; the short names of the JSON line
+FLASH_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+SHORT = {torch.float32: "float32", torch.bfloat16: "bf16",
+         torch.float16: "float16"}
 # cached decode (dense cached_attention) vs the full forward (flash
 # kernel), float32 with TF32 off: the two paths sum in different orders
 # through 24 layers
@@ -122,6 +148,19 @@ AMP_LAUNCHES = {
     "add_layer_norm_fwd": {"float32+bfloat16": LAYERS},
     "layer_norm_bwd": {"float32": 2 * LAYERS},
 }
+
+
+# head dim 256 (queue C's fault): one full-width ParallelGPTBlock
+WIDE_D_MODEL, WIDE_HEADS, WIDE_B, WIDE_S = 2048, 8, 2, 1024
+WIDE_H, WIDE_D = WIDE_HEADS, WIDE_D_MODEL // WIDE_HEADS
+
+# bench.py's other training programs (main(), bench.py:1393-1440), at its
+# sizes: LeNet (Adam 1e-3), ResNet-50 in float32 and bf16 AMP (Momentum
+# 0.1, 0.9), BERT-base under bf16 AMP (AdamW 1e-4, 0.01)
+BENCH_STEPS = 6
+LENET_BATCH, RESNET_BATCH = 256, 256
+BERT_B, BERT_S, BERT_D, BERT_HEADS, BERT_LAYERS = 32, 128, 768, 12, 12
+BERT_VOCAB, BERT_POS = 30522, 512
 
 
 def fail(msg: str) -> None:
@@ -224,26 +263,34 @@ def tensor_core_counts(build, libs):
 
 
 def flash_phase(fa, gen, rows):
-    """Flash forward vs its plain version; returns the JSON entry, timed at
-    the training shape with the serving shape's times beside it."""
+    """Flash forward vs its plain version, at the model's head dim and at
+    head dims 192/256 (the kernel's 256-column tiles) in every type;
+    returns the JSON entry, timed at the training shape with the serving
+    shape's and the D = 256 block shape's times beside it."""
     import torch.nn.functional as tF
 
-    timed_cases = ("serving S=136", "training S=1024")
-    cases = [  # (B, H, Sq, Sk, q_offset, kv_offset, what)
-        (BATCH, HEADS, 128, 128, 0, 0, "causal"),
-        (BATCH, HEADS, 64, 128, 64, 0, "end-aligned q_offset=Sk-Sq"),
-        (BATCH, HEADS, 128, 128, 0, 64, "64 fully masked rows"),
-        (BATCH, HEADS, PROMPT + 8, PROMPT + 8, 0, 0, timed_cases[0]),
-        (TRAIN_B, HEADS, TRAIN_S, TRAIN_S, 0, 0, timed_cases[1]),
-        (1, HEADS, 4 * TRAIN_S, 4 * TRAIN_S, 0, 0, "long S=4096"),
+    D0 = D_MODEL // HEADS
+    serve, train, wide = "serving S=136", "training S=1024", \
+        f"D={WIDE_D} block S={WIDE_S}"
+    cases = [  # (B, H, Sq, Sk, D, causal, q_offset, kv_offset, what)
+        (BATCH, HEADS, 128, 128, D0, True, 0, 0, "causal"),
+        (BATCH, HEADS, 64, 128, D0, True, 64, 0,
+         "end-aligned q_offset=Sk-Sq"),
+        (BATCH, HEADS, 128, 128, D0, True, 0, 64, "64 fully masked rows"),
+        (BATCH, HEADS, PROMPT + 8, PROMPT + 8, D0, True, 0, 0, serve),
+        (TRAIN_B, HEADS, TRAIN_S, TRAIN_S, D0, True, 0, 0, train),
+        (1, HEADS, 4 * TRAIN_S, 4 * TRAIN_S, D0, True, 0, 0, "long S=4096"),
+        (WIDE_B, WIDE_H, WIDE_S, WIDE_S, WIDE_D, True, 0, 0, wide),
+        (2, 4, 200, 200, 256, False, 0, 0, "ragged, not causal"),
+        (2, 4, 136, 136, 192, True, 0, 0, "ragged causal"),
+        (2, 4, 72, 200, 192, True, 128, 0, "end-aligned q_offset=Sk-Sq"),
     ]
-    D = D_MODEL // HEADS
     timed = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        for B, H, S, Sk, qo, ko, what in cases:
+    for dtype in FLASH_DTYPES:
+        for B, H, S, Sk, D, causal, qo, ko, what in cases:
             q, k, v = (torch.randn(B, H, n, D, device="cuda", generator=gen
                                    ).to(dtype) for n in (S, Sk, Sk))
-            kw = dict(causal=True, q_offset=qo, kv_offset=ko)
+            kw = dict(causal=causal, q_offset=qo, kv_offset=ko)
             o, l = fa.flash_attention_fwd(q, k, v, block_q=S, block_k=Sk,
                                           **kw)
             po, pl = fa.flash_attention_fwd_plain(q, k, v, **kw)
@@ -260,11 +307,12 @@ def flash_phase(fa, gen, rows):
                   f"{D}] {what}: max|out err| {eo:.3e} max|lse err| "
                   f"{el:.3e} (max|out| {peaks([po])[0]})")
             if not (ok_o and ok_l):
-                fail(f"flash_attention_fwd {dtype} {what} disagrees with "
-                     "its plain version")
-            # timed: float32 at both shapes, bf16 at the training shape
-            if what not in timed_cases or (dtype != torch.float32
-                                           and what != timed_cases[1]):
+                fail(f"flash_attention_fwd {dtype} D={D} {what} disagrees "
+                     "with its plain version")
+            # timed: every type at the training and D = 256 block shapes,
+            # float32 at the serving shape too
+            if what not in (train, wide) and not (
+                    what == serve and dtype == torch.float32):
                 continue
             calls = 20 if S <= 256 else 5
             ms = time_ms(lambda: fa.flash_attention_fwd(
@@ -276,29 +324,22 @@ def flash_phase(fa, gen, rows):
                 * q.element_size() + B * H * S * 4
             bms, by = bound_ms(nbytes, 4 * D * pairs * B * H, dtype,
                                PEAK_MMA_FLOPS)
-            name = f"flash_attention_fwd {str(dtype)[6:]} [{B},{H},{S},{D}]"
             plain_ms = time_ms(lambda: fa.flash_attention_fwd_plain(
                 q, k, v, **kw), calls=calls)
-            if dtype != torch.float32:
-                timed["bf16"] = dict(max_abs_err=max(eo, el), ms=ms,
-                                     plain_ms=plain_ms, bound_ms=bms,
-                                     bound_by=by, library_ms=lib_ms)
-                rows.append(f"{name}: kernel {ms:.4f} ms, plain "
-                            f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
-                            f"bound {bms:.6f} ms ({by})")
-                continue
-            timed[what] = dict(
+            timed[what, SHORT[dtype]] = dict(
                 shape=f"[{B},{H},{S},{D}] causal", max_abs_err=max(eo, el),
                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=lib_ms)
-            rows.append(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                        f"ms, sdpa {lib_ms:.4f} ms, bound {bms:.6f} ms "
-                        f"({by})")
+            rows.append(f"flash_attention_fwd {str(dtype)[6:]} [{B},{H},{S},"
+                        f"{D}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                        f"sdpa {lib_ms:.4f} ms, bound {bms:.6f} ms ({by})")
     return dict(name="flash_attention_fwd", route="cuda", source=fa.SOURCE,
                 replaces="paddle_tpu/ops/pallas/flash_attention.py:49 "
                          "(_fwd_kernel_resident) and :110 (_fwd_kernel)",
-                dtype="float32", **timed[timed_cases[1]],
-                at_serving_shape=timed[timed_cases[0]], bf16=timed["bf16"])
+                dtype="float32", **timed[train, "float32"],
+                at_serving_shape=timed[serve, "float32"],
+                bf16=timed[train, "bf16"], float16=timed[train, "float16"],
+                head_dim_256={t: timed[wide, t] for t in SHORT.values()})
 
 
 def ln_phase(ln, gen, rows):
@@ -333,9 +374,11 @@ def ln_phase(ln, gen, rows):
                      "their plain versions")
             if dtype != torch.float32:
                 continue
-            mixed = mixed_add_ln(ln, gen, R, D, rows, timed=R == train_r)
-            if mixed is not None:
-                timed["mixed"] = mixed
+            for ytype in (torch.bfloat16, torch.float16):
+                mixed = mixed_add_ln(ln, gen, R, D, rows, R == train_r,
+                                     ytype)
+                if mixed is not None:
+                    timed[f"float32+{str(ytype)[6:]}"] = mixed
             it = x.element_size()
             for name, fn, plain, lib, nbytes, err in (
                     ("layer_norm_fwd",
@@ -363,7 +406,8 @@ def ln_phase(ln, gen, rows):
                     shape=f"[{R},{D}]", max_abs_err=err, ms=ms,
                     plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                     library_ms=lib_ms)
-    mixed_add_ln(ln, gen, 37, 200, rows, timed=False)  # off the fast path
+    for ytype in (torch.bfloat16, torch.float16):  # off the fast path
+        mixed_add_ln(ln, gen, 37, 200, rows, False, ytype)
     entries = tuple(
         dict(name=name, route="cuda", source=ln.SOURCE,
              replaces=f"paddle_tpu/ops/pallas/layer_norm.py:{line}",
@@ -371,37 +415,71 @@ def ln_phase(ln, gen, rows):
              at_serving_shape=timed[name][serve_r])
         for name, line in (("layer_norm_fwd", "54 (_ln_fwd_kernel)"),
                            ("add_layer_norm_fwd", "68 (_add_ln_fwd_kernel)")))
-    entries[1]["float32+bfloat16"] = timed["mixed"]
+    for pair in ("float32+bfloat16", "float32+float16"):
+        entries[1][pair] = timed[pair]
+    entries[0]["bert_base"] = bert_width_ln(ln, gen, rows)
     return entries
 
 
-def mixed_add_ln(ln, gen, R, D, rows, timed):
-    """The add-LN kernel on AMP O1's pair (x float32, y bfloat16) against
-    its plain version: s bit-equal, LN(s) and the statistics within the
-    float32 tolerance. Timed (and its dict returned) when ``timed``."""
+def bert_width_ln(ln, gen, rows):
+    """B5 at BERT-base's rows (32 x 128 tokens, D 768, float32) against its
+    plain version, timed beside ``F.layer_norm``; returns the dict."""
+    import torch.nn.functional as tF
+
+    R, D = BERT_B * BERT_S, BERT_D
     x = torch.randn(R, D, device="cuda", generator=gen)
-    y = torch.randn(R, D, device="cuda", generator=gen).to(torch.bfloat16)
+    w, b = (torch.randn(D, device="cuda", generator=gen) for _ in range(2))
+    got = ln.layer_norm_fwd(x, w, b)
+    ref = ln.layer_norm_fwd_plain(x, w, b)
+    torch.cuda.synchronize()
+    errs = [close(a, r, torch.float32) for a, r in zip(got, ref)]
+    print(f"layer_norm_fwd float32 [{R},{D}] (BERT-base): max err y/mu/rstd "
+          f"{[f'{e:.3e}' for e, _ in errs]}")
+    if not all(ok for _, ok in errs):
+        fail(f"layer_norm_fwd float32 [{R},{D}] disagrees with its plain "
+             "version")
+    ms = time_ms(lambda: ln.layer_norm_fwd(x, w, b))
+    plain_ms = time_ms(lambda: ln.layer_norm_fwd_plain(x, w, b))
+    lib_ms = time_ms(lambda: tF.layer_norm(x, (D,), w, b, 1e-5))
+    bms, by = bound_ms(2 * R * D * 4 + 2 * D * 4 + 2 * R * 4, 8 * R * D,
+                       torch.float32)
+    rows.append(f"layer_norm_fwd f32 [{R},{D}]: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+                f"{bms:.6f} ms ({by})")
+    return dict(shape=f"[{R},{D}]", max_abs_err=max(e for e, _ in errs),
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=lib_ms)
+
+
+def mixed_add_ln(ln, gen, R, D, rows, timed, ytype):
+    """The add-LN kernel on AMP O1's pair (x float32, y bfloat16 or
+    float16) against its plain version: s bit-equal, LN(s) and the
+    statistics within the float32 tolerance. Timed (and its dict returned)
+    when ``timed``."""
+    pair = f"float32+{str(ytype)[6:]}"
+    x = torch.randn(R, D, device="cuda", generator=gen)
+    y = torch.randn(R, D, device="cuda", generator=gen).to(ytype)
     w, b = (torch.randn(D, device="cuda", generator=gen) for _ in range(2))
     got = ln.add_layer_norm_fwd(x, y, w, b)
     ref = ln.add_layer_norm_fwd_plain(x, y, w, b)
     torch.cuda.synchronize()
     errs = [close(a, r, torch.float32) for a, r in zip(got, ref)]
     same_s = bool(torch.equal(got[0], ref[0]))
-    print(f"add_layer_norm_fwd float32+bfloat16 [{R},{D}]: max err "
+    print(f"add_layer_norm_fwd {pair} [{R},{D}]: max err "
           f"s/y/mu/rstd {[f'{e:.3e}' for e, _ in errs]}; s bit-equal "
           f"{same_s}")
     if not (same_s and all(ok for _, ok in errs)) \
             or got[0].dtype != torch.float32:
-        fail(f"add_layer_norm_fwd float32+bfloat16 R={R} D={D} disagrees "
-             "with its plain version")
+        fail(f"add_layer_norm_fwd {pair} R={R} D={D} disagrees with its "
+             "plain version")
     if not timed:
         return None
     ms = time_ms(lambda: ln.add_layer_norm_fwd(x, y, w, b))
     plain_ms = time_ms(lambda: ln.add_layer_norm_fwd_plain(x, y, w, b))
-    # reads x (f32), y (bf16), w, b; writes s, LN(s) (f32), mu, rstd
+    # reads x (f32), y (16-bit), w, b; writes s, LN(s) (f32), mu, rstd
     bms, by = bound_ms(R * D * (4 + 2) + 2 * R * D * 4 + 2 * D * 4
                        + 2 * R * 4, 8 * R * D, torch.float32)
-    rows.append(f"add_layer_norm_fwd float32+bfloat16 [{R},{D}]: kernel "
+    rows.append(f"add_layer_norm_fwd {pair} [{R},{D}]: kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library n/a, bound "
                 f"{bms:.6f} ms ({by})")
     return dict(shape=f"[{R},{D}]", max_abs_err=max(e for e, _ in errs),
@@ -410,25 +488,32 @@ def mixed_add_ln(ln, gen, R, D, rows, timed):
 
 
 def flash_bwd_phase(fa, gen, rows):
-    """B3 (dq) and B4 (dk/dv) vs the plain backward; returns two JSON
-    entries."""
+    """B3 (dq) and B4 (dk/dv) vs the plain backward, at the model's head
+    dim and at head dims 192/256 in every type; returns two JSON entries,
+    timed at the training shape with the D = 256 block shape's times
+    beside it."""
     import torch.nn.functional as tF
 
-    B, H, S, D = TRAIN_B, HEADS, TRAIN_S, D_MODEL // HEADS
-    cases = [  # (B, H, Sq, Sk, q_offset, kv_offset, what)
-        (B, H, S, S, 0, 0, "training S=1024"),
-        (2, H, 128, 256, 128, 0, "end-aligned q_offset=Sk-Sq"),
-        (2, H, 256, 256, 0, 64, "64 fully masked rows"),
-        (1, H, 4 * S, 4 * S, 0, 0, "long S=4096"),
+    S, D0 = TRAIN_S, D_MODEL // HEADS
+    train, wide = "training S=1024", f"D={WIDE_D} block S={WIDE_S}"
+    cases = [  # (B, H, Sq, Sk, D, causal, q_offset, kv_offset, what)
+        (TRAIN_B, HEADS, S, S, D0, True, 0, 0, train),
+        (2, HEADS, 128, 256, D0, True, 128, 0, "end-aligned q_offset=Sk-Sq"),
+        (2, HEADS, 256, 256, D0, True, 0, 64, "64 fully masked rows"),
+        (1, HEADS, 4 * S, 4 * S, D0, True, 0, 0, "long S=4096"),
+        (WIDE_B, WIDE_H, WIDE_S, WIDE_S, WIDE_D, True, 0, 0, wide),
+        (2, 4, 200, 200, 256, False, 0, 0, "ragged, not causal"),
+        (2, 4, 136, 136, 192, True, 0, 0, "ragged causal"),
+        (2, 4, 72, 200, 192, True, 128, 0, "end-aligned q_offset=Sk-Sq"),
     ]
-    entries = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        for b, h, sq, sk, qo, ko, what in cases:
+    timed = {}
+    for dtype in FLASH_DTYPES:
+        for b, h, sq, sk, D, causal, qo, ko, what in cases:
             q, do = (torch.randn(b, h, sq, D, device="cuda", generator=gen
                                  ).to(dtype) for _ in range(2))
             k, v = (torch.randn(b, h, sk, D, device="cuda", generator=gen
                                 ).to(dtype) for _ in range(2))
-            kw = dict(causal=True, q_offset=qo, kv_offset=ko)
+            kw = dict(causal=causal, q_offset=qo, kv_offset=ko)
             # out and lse from the plain forward: the backward's check does
             # not lean on B1
             out, lse = fa.flash_attention_fwd_plain(q, k, v, **kw)
@@ -445,14 +530,13 @@ def flash_bwd_phase(fa, gen, rows):
                   f"max|dk err| {errs[1][0]:.3e} max|dv err| "
                   f"{errs[2][0]:.3e} (max|dq|, |dk|, |dv| {peaks(ref)})")
             if not all(ok for _, ok in errs):
-                fail(f"flash backward {dtype} {what} disagrees with its "
-                     "plain version")
+                fail(f"flash backward {dtype} D={D} {what} disagrees with "
+                     "its plain version")
             if ko and not bool((dq[:, :, :ko] == 0).all()):
                 fail(f"flash backward {what}: fully masked rows must get "
                      "dq = 0")
-            if not what.startswith("training"):
+            if what not in (train, wide):
                 continue
-            # timed at the training shape: float32 and bf16
             ms_dq = time_ms(lambda: fa.flash_attention_bwd_dq(
                 q, k, v, do, lse, delta, **kw), calls=5)
             ms_dkv = time_ms(lambda: fa.flash_attention_bwd_dkv(
@@ -479,44 +563,39 @@ def flash_bwd_phase(fa, gen, rows):
                              8 * D * pairs, dtype, PEAK_MMA_FLOPS)
             plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
                 q, k, v, do, lse, delta, **kw), calls=5)
-            for name, ms, (bms, by), err, line in (
-                    ("flash_attention_bwd_dq", ms_dq, b_dq, errs[0][0],
-                     "paddle_tpu/ops/pallas/flash_attention.py:171 "
-                     "(_dq_kernel)"),
+            for name, ms, (bms, by), err in (
+                    ("flash_attention_bwd_dq", ms_dq, b_dq, errs[0][0]),
                     ("flash_attention_bwd_dkv", ms_dkv, b_dkv,
-                     max(errs[1][0], errs[2][0]),
-                     "paddle_tpu/ops/pallas/flash_attention.py:224 "
-                     "(_dkv_kernel)")):
-                row = f"{name} {str(dtype)[6:]} [{b},{h},{sq},{D}]: kernel " \
-                      f"{ms:.4f} ms, "
-                if dtype != torch.float32:
-                    entries[name]["bf16"] = dict(
-                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        bound_ms=bms, bound_by=by, library_ms=lib_ms)
-                    rows.append(f"{row}plain (dq, dk, dv) {plain_ms:.4f} ms, "
-                                f"sdpa backward (dq, dk, dv) {lib_ms:.4f} "
-                                f"ms, bound {bms:.6f} ms ({by})")
-                    continue
-                entries[name] = dict(
-                    name=name, route="cuda", source=fa.BWD_SOURCE,
-                    replaces=line, shape=f"[{b},{h},{sq},{D}] causal",
-                    dtype="float32", max_abs_err=err, ms=ms,
-                    plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                     max(errs[1][0], errs[2][0]))):
+                timed[name, what, SHORT[dtype]] = dict(
+                    shape=f"[{b},{h},{sq},{D}] causal", max_abs_err=err,
+                    ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                     library_ms=lib_ms)
-                rows.append(f"{row}plain (dq, dk, dv) {plain_ms:.4f} ms, "
-                            f"sdpa backward (dq, dk, dv) {lib_ms:.4f} ms, "
-                            f"bound {bms:.6f} ms ({by})")
-    return entries["flash_attention_bwd_dq"], \
-        entries["flash_attention_bwd_dkv"]
+                rows.append(f"{name} {str(dtype)[6:]} [{b},{h},{sq},{D}]: "
+                            f"kernel {ms:.4f} ms, plain (dq, dk, dv) "
+                            f"{plain_ms:.4f} ms, sdpa backward (dq, dk, dv) "
+                            f"{lib_ms:.4f} ms, bound {bms:.6f} ms ({by})")
+    return tuple(
+        dict(name=name, route="cuda", source=fa.BWD_SOURCE,
+             replaces=f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
+             dtype="float32", **timed[name, train, "float32"],
+             bf16=timed[name, train, "bf16"],
+             float16=timed[name, train, "float16"],
+             head_dim_256={t: timed[name, wide, t] for t in SHORT.values()})
+        for name, line in (("flash_attention_bwd_dq", "171 (_dq_kernel)"),
+                           ("flash_attention_bwd_dkv", "224 (_dkv_kernel)")))
 
 
 def ln_bwd_phase(ln, gen, rows):
     """B7 vs the plain LayerNorm backward; returns the JSON entry."""
-    entry = None
-    # the training rows, a few rows, and rows off the register path (D not
-    # a multiple of 128; R not a multiple of the block's 8 warps)
+    entry = bert_entry = None
+    # the training rows, BERT-base's rows, a few rows, and rows off the
+    # register path (D not a multiple of 128; R not a multiple of the
+    # block's 8 warps)
+    bert = BERT_B * BERT_S, BERT_D
     for dtype in (torch.float32, torch.bfloat16):
-        for R, D in ((TRAIN_B * TRAIN_S, D_MODEL), (40, D_MODEL), (37, 200)):
+        for R, D in ((TRAIN_B * TRAIN_S, D_MODEL), bert, (40, D_MODEL),
+                     (37, 200)):
             x, g = (torch.randn(R, D, device="cuda", generator=gen
                                 ).to(dtype) for _ in range(2))
             w, b = (torch.randn(D, device="cuda", generator=gen
@@ -532,7 +611,8 @@ def ln_bwd_phase(ln, gen, rows):
             if not all(ok for _, ok in errs):
                 fail(f"layer_norm_bwd {dtype} R={R} disagrees with its "
                      "plain version")
-            if dtype != torch.float32 or R != TRAIN_B * TRAIN_S:
+            if dtype != torch.float32 or R not in (TRAIN_B * TRAIN_S,
+                                                   bert[0]):
                 continue
             ms = time_ms(lambda: ln.layer_norm_bwd(x, w, mu, rs, g))
             plain_ms = time_ms(lambda: ln.layer_norm_bwd_plain(
@@ -545,6 +625,16 @@ def ln_bwd_phase(ln, gen, rows):
             # reads x, g, w, mu, rstd; writes dx, dweight, dbias
             bms, by = bound_ms(3 * R * D * it + 3 * D * it + 2 * R * 4,
                                10 * R * D, dtype)
+            rows.append(f"layer_norm_bwd f32 [{R},{D}]: kernel {ms:.4f} "
+                        f"ms, plain {plain_ms:.4f} ms, native_layer_norm_"
+                        f"backward {lib_ms:.4f} ms, bound {bms:.6f} ms "
+                        f"({by})")
+            if D == BERT_D:
+                bert_entry = dict(
+                    shape=f"[{R},{D}]", max_abs_err=max(e for e, _ in errs),
+                    ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                    library_ms=lib_ms)
+                continue
             entry = dict(
                 name="layer_norm_bwd", route="cuda", source=ln.SOURCE,
                 replaces="paddle_tpu/ops/pallas/layer_norm.py:87 "
@@ -553,10 +643,7 @@ def ln_bwd_phase(ln, gen, rows):
                 max_abs_err=max(e for e, _ in errs), ms=ms,
                 plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=lib_ms)
-            rows.append(f"layer_norm_bwd f32 [{R},{D}]: kernel {ms:.4f} ms, "
-                        f"plain {plain_ms:.4f} ms, native_layer_norm_"
-                        f"backward {lib_ms:.4f} ms, bound {bms:.6f} ms "
-                        f"({by})")
+    entry["bert_base"] = bert_entry
     return entry
 
 
@@ -679,20 +766,24 @@ def bench_gpt(pt, layers, seq, seed):
     return GPT()
 
 
-def amp_training_phase(pt, kernels):
+def amp_training_phase(pt, kernels, amp_dtype="bfloat16"):
     """Train bench.py's GPT-medium as bench.py does: ``strategy.amp``
     through ``fleet.init``, ``fleet.distributed_optimizer(AdamW(1e-4,
     0.01))``, ``fused_linear_cross_entropy`` (chunk 8192) and
     ``TrainStep``; one gradient oracle first, then six steps on bench's
-    fixed batch. Returns the launch counts of the steps."""
+    fixed batch. ``amp_dtype="float16"`` sets ``amp_configs["use_bf16"] =
+    False``: float16 O1 with dynamic loss scaling, whose initial scale the
+    oracle applies too (an unscaled float16 backward would flush small
+    gradients to zero). Returns the launch counts of the steps."""
     import os
 
     from paddle_tpu_torch.distributed import fleet
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    fp16 = amp_dtype == "float16"
     t0 = time.perf_counter()
-    model = bench_gpt(pt, LAYERS, TRAIN_S, seed=2)
+    model = bench_gpt(pt, LAYERS, TRAIN_S, seed=3 if fp16 else 2)
     n_params = sum(p.numel() for p in model.parameters())
     n = TRAIN_B * TRAIN_S
     ids = torch.as_tensor((np.arange(n) % 31000).reshape(TRAIN_B, TRAIN_S),
@@ -707,10 +798,13 @@ def amp_training_phase(pt, kernels):
 
     strategy = fleet.DistributedStrategy()
     strategy.amp = True
+    if fp16:
+        strategy.amp_configs = {"use_bf16": False}
     fleet.init(is_collective=True, strategy=strategy)
     opt = fleet.distributed_optimizer(pt.optimizer.AdamW(
         learning_rate=1e-4, weight_decay=0.01))
     step = pt.jit.TrainStep(model, lm_loss, opt)
+    scale = strategy.amp_configs["init_loss_scaling"] if fp16 else 1.0
 
     def grads(route, amp_on=True):
         """(loss, {name: grad}) of one batch: route "1" through the
@@ -721,10 +815,10 @@ def amp_training_phase(pt, kernels):
         os.environ["PADDLE_CE_CHUNK"] = str(AMP_CHUNK) if route == "1" \
             else "0"
         model.zero_grad(set_to_none=True)
-        with pt.amp.auto_cast(amp_on, level="O1", dtype="bfloat16"):
+        with pt.amp.auto_cast(amp_on, level="O1", dtype=amp_dtype):
             loss = lm_loss(model(ids), labels)
-        loss.backward()
-        out = {k: p.grad for k, p in model.named_parameters()}
+        (loss * scale).backward()
+        out = {k: p.grad / scale for k, p in model.named_parameters()}
         model.zero_grad(set_to_none=True)
         for knob in ("PADDLE_FLASH_DEFAULT", "PADDLE_FUSED_LN",
                      "PADDLE_CE_CHUNK"):
@@ -754,8 +848,9 @@ def amp_training_phase(pt, kernels):
     w_kf, _ = worst(g_k, g_f)
     w_df, _ = worst(g_d, g_f)
     del g_f
-    print(f"AMP gradient oracle, {n_params} float32 parameters under bf16 "
-          f"O1, B={TRAIN_B} S={TRAIN_S}: loss kernels {loss_k:.6f} dense "
+    print(f"AMP gradient oracle, {n_params} float32 parameters under "
+          f"{amp_dtype} O1 (loss scale {scale}), B={TRAIN_B} S={TRAIN_S}: "
+          f"loss kernels {loss_k:.6f} dense "
           f"{loss_d:.6f} (float32 dense {loss_f:.6f}); worst max|g_kernel - "
           f"g_dense| / max|g_dense| {w_kd:.3e} ({n_kd}; tolerance "
           f"{AMP_GRAD_RTOL}); against the float32 dense route: kernels "
@@ -781,7 +876,14 @@ def amp_training_phase(pt, kernels):
         ms.append((time.perf_counter() - t1) * 1e3)
     counts = kernels.launches_by_dtype()  # the AMP training path ends here
     steady = float(np.mean(ms[1:]))
-    print(f"TrainStep bf16 AMP O1 (fleet) B={TRAIN_B} S={TRAIN_S} AdamW, "
+    applied = TRAIN_STEPS
+    if fp16:
+        applied = step.state_dict()["scaler"]["applied_steps"]
+        print(f"float16 loss scaler after {TRAIN_STEPS} steps: "
+              f"{step.state_dict()['scaler']}; skipped steps "
+              f"{TRAIN_STEPS - applied}")
+    print(f"TrainStep {amp_dtype} AMP O1 (fleet) B={TRAIN_B} S={TRAIN_S} "
+          f"AdamW, "
           f"fused CE chunk {AMP_CHUNK}: losses "
           f"{[f'{x:.5f}' for x in losses]}; step ms "
           f"{[f'{x:.1f}' for x in ms]}; steady {steady:.2f} ms/step, "
@@ -790,14 +892,199 @@ def amp_training_phase(pt, kernels):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"launches on the AMP training path ({TRAIN_STEPS} steps), by "
           f"input types: {counts}")
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0] \
+            or applied == 0:
         fail("AMP training loss is not finite or did not fall")
     for name, per_step in AMP_LAUNCHES.items():
-        want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+        want = {k.replace("bfloat16", amp_dtype): v * TRAIN_STEPS
+                for k, v in per_step.items()}
         if counts[name] != want:
             fail(f"kernel {name}: launches {counts[name]} on the AMP "
                  f"training path, expected {want}")
     return {k: sum(v.values()) for k, v in counts.items()}
+
+
+def wide_block_phase(pt, kernels):
+    """One ParallelGPTBlock at d_model 2048 with 8 heads (head dim 256), B
+    = 2, S = 1024: the forward's output and the input's and every
+    parameter's gradient under a random cotangent through the kernels
+    against the dense route, in float32 (TF32 off) and under bf16 AMP O1.
+    Returns the kernels' launches by input types, per run."""
+    import os
+
+    from paddle_tpu_torch.distributed import ParallelGPTBlock
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    blk = ParallelGPTBlock(WIDE_D_MODEL, WIDE_HEADS, device="cuda",
+                           generator=gen)
+    x = torch.randn(WIDE_B, WIDE_S, WIDE_D_MODEL, device="cuda",
+                    generator=gen)
+    cot = torch.randn(WIDE_B, WIDE_S, WIDE_D_MODEL, device="cuda",
+                      generator=gen)
+
+    def run(route, amp_dtype):
+        os.environ["PADDLE_FLASH_DEFAULT"] = route
+        os.environ["PADDLE_FUSED_LN"] = route
+        blk.zero_grad(set_to_none=True)
+        xi = x.clone().requires_grad_()
+        with pt.amp.auto_cast(amp_dtype != "float32", level="O1",
+                              dtype="bfloat16"):
+            out = blk(xi)
+        (out.float() * cot).sum().backward()
+        res = {n: p.grad for n, p in blk.named_parameters()}
+        res["x"], res["out"] = xi.grad, out.detach().float()
+        for knob in ("PADDLE_FLASH_DEFAULT", "PADDLE_FUSED_LN"):
+            os.environ.pop(knob)
+        return res
+
+    counts = {}
+    for amp_dtype, tol in (("float32", GRAD_RTOL),
+                           ("bfloat16", AMP_GRAD_RTOL)):
+        kernels.reset_launches()  # this run starts here
+        got = run("1", amp_dtype)
+        counts[amp_dtype] = kernels.launches_by_dtype()  # and ends here
+        want = run("0", amp_dtype)
+        worst, worst_name = 0.0, ""
+        for n, w in want.items():
+            rel = (got[n].float() - w.float()).abs().max().item() \
+                / max(w.abs().max().item(), 1e-30)
+            if not np.isfinite(rel) or rel > worst:
+                worst, worst_name = rel, n
+        flash_type = "float32" if amp_dtype == "float32" else "bfloat16"
+        print(f"ParallelGPTBlock d_model {WIDE_D_MODEL}, {WIDE_HEADS} heads "
+              f"(head dim {WIDE_D}), B={WIDE_B} S={WIDE_S}, {amp_dtype}: "
+              f"worst max|kernels - dense| / max|dense| over the output and "
+              f"the gradients {worst:.3e} ({worst_name}; tolerance {tol}); "
+              f"launches {counts[amp_dtype]}")
+        if not worst <= tol:
+            fail(f"head dim {WIDE_D} block ({amp_dtype}) disagrees with the "
+                 "dense route")
+        for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                     "flash_attention_bwd_dkv"):
+            if counts[amp_dtype][name] != {flash_type: 1}:
+                fail(f"kernel {name}: launches {counts[amp_dtype][name]} in "
+                     f"the head dim {WIDE_D} block, expected one in "
+                     f"{flash_type}")
+    del blk, got, want
+    torch.cuda.empty_cache()
+    return counts
+
+
+def bench_bert(pt):
+    """bench.py's ``_bert_base`` from the port's layers: token and
+    position embeddings, 12 post-LN TransformerEncoderLayers (768 wide, 12
+    heads, ffn 3072, dropout 0), the mean over the sequence, a 2-way
+    head."""
+
+    class Bert(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            kw = dict(device="cuda", generator=torch.Generator(
+                device="cuda").manual_seed(5))
+            self.embed = pt.nn.Embedding(BERT_VOCAB, BERT_D, **kw)
+            self.pos = pt.nn.Embedding(BERT_POS, BERT_D, **kw)
+            self.encoder = pt.nn.LayerList([
+                pt.nn.TransformerEncoderLayer(BERT_D, BERT_HEADS, 4 * BERT_D,
+                                              dropout=0.0, **kw)
+                for _ in range(BERT_LAYERS)])
+            self.head = pt.nn.Linear(BERT_D, 2, **kw)
+
+        def forward(self, ids):
+            pos_ids = pt.arange(ids.shape[1], dtype="int64",
+                                device=ids.device)
+            h = self.embed(ids) + self.pos(pos_ids)
+            for lyr in self.encoder:
+                h = lyr(h)
+            return self.head(h.mean(dim=1))
+
+    return Bert()
+
+
+def bench_program_phase(pt, kernels, name, model, opt, x, y, amp, unit,
+                        launches):
+    """Train one of bench.py's programs as ``_bench_train`` /
+    ``_bench_bert`` do (``TrainStep`` with ``cross_entropy``; bf16 AMP
+    through ``fleet`` when ``amp``) for BENCH_STEPS steps on one batch
+    made on the card: prints the rate (``unit`` per second, from the mean
+    host time of steps 2-6 around a synchronize), the step times, peak
+    memory, the losses (which must be finite and fall) and the kernels'
+    launches by input types (which must equal ``launches`` per step).
+    Returns the launches."""
+    from paddle_tpu_torch.distributed import fleet
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if amp:
+        strategy = fleet.DistributedStrategy()
+        strategy.amp = True
+        fleet.init(is_collective=True, strategy=strategy)
+        opt = fleet.distributed_optimizer(opt)
+    step = pt.jit.TrainStep(
+        model, lambda out, lab: pt.nn.functional.cross_entropy(out, lab),
+        opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()  # this program's path starts here
+    losses, ms = [], []
+    for _ in range(BENCH_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses.append(step(x, y).item())  # .item() syncs
+        ms.append((time.perf_counter() - t1) * 1e3)
+    counts = kernels.launches_by_dtype()  # and ends here
+    steady = float(np.mean(ms[1:]))
+    print(f"{name}: batch {x.shape[0]}, {x.shape[0] / steady * 1e3:.1f} "
+          f"{unit}/s, {steady:.2f} ms/step (mean of steps 2-"
+          f"{BENCH_STEPS}); step ms {[f'{t:.1f}' for t in ms]}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; losses "
+          f"{[f'{v:.5f}' for v in losses]}; launches {counts}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"{name}: loss is not finite or did not fall")
+    want = {k: {t: n * BENCH_STEPS for t, n in launches.get(k, {}).items()}
+            for k in counts}
+    if counts != want:
+        fail(f"{name}: launches {counts}, expected {want}")
+    del step, opt, model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def bench_programs_phase(pt, kernels):
+    """bench.py's LeNet, ResNet-50 (float32 and bf16 AMP) and BERT-base
+    programs at its sizes; returns each path's launches by input types."""
+    from paddle_tpu_torch.vision.models import LeNet, resnet50
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    out = {}
+    x = torch.rand(LENET_BATCH, 1, 28, 28, device="cuda", generator=gen)
+    y = torch.arange(LENET_BATCH, device="cuda") % 10
+    out["lenet"] = bench_program_phase(
+        pt, kernels, "LeNet (Adam 1e-3, float32)", LeNet(generator=gen),
+        pt.optimizer.Adam(learning_rate=1e-3), x, y, False, "imgs", {})
+    x = torch.rand(RESNET_BATCH, 3, 224, 224, device="cuda", generator=gen)
+    y = torch.arange(RESNET_BATCH, device="cuda") % 1000
+    for amp in (False, True):
+        label = "resnet50_bf16" if amp else "resnet50_f32"
+        out[label] = bench_program_phase(
+            pt, kernels, f"ResNet-50 (Momentum 0.1/0.9, "
+            f"{'bf16 AMP' if amp else 'float32, TF32 off'})",
+            resnet50(num_classes=1000, generator=gen),
+            pt.optimizer.Momentum(learning_rate=0.1, momentum=0.9), x, y,
+            amp, "imgs", {})
+    del x
+    ids = torch.arange(BERT_B * BERT_S, device="cuda").reshape(
+        BERT_B, BERT_S) % 30000
+    y = torch.arange(BERT_B, device="cuda") % 2
+    # the post-LN encoder's two LayerNorms a layer on the float32 residual
+    # sums ([4096, 768]): B5 forward, B7 backward
+    ln_per_step = {"float32": 2 * BERT_LAYERS}
+    out["bert"] = bench_program_phase(
+        pt, kernels, "BERT-base (AdamW 1e-4/0.01, bf16 AMP)", bench_bert(pt),
+        pt.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01), ids, y,
+        True, "samples", {"layer_norm_fwd": ln_per_step,
+                          "layer_norm_bwd": ln_per_step})
+    return out
 
 
 def serving_phase(pt, kernels):
@@ -954,14 +1241,27 @@ def main() -> int:
     amp_training = amp_training_phase(pt, kernels)
     print(f"AMP training phase done at {time.perf_counter() - t_start:.1f} "
           "s")
+    fp16_training = amp_training_phase(pt, kernels, "float16")
+    print(f"float16 AMP training phase done at "
+          f"{time.perf_counter() - t_start:.1f} s")
+    wide_block = wide_block_phase(pt, kernels)
+    print(f"head dim {WIDE_D} block phase done at "
+          f"{time.perf_counter() - t_start:.1f} s")
+    programs = bench_programs_phase(pt, kernels)
+    print(f"bench programs phase done at {time.perf_counter() - t_start:.1f} "
+          "s")
     entries = [flash, ln_entry, add_entry, dq_entry, dkv_entry, ln_bwd_entry]
     for e in entries:
         if hmma is not None and e["name"] in hmma:
             e["hmma"] = hmma[e["name"]]
         e["launches"] = amp_training[e["name"]]
-        e["launches_by_path"] = {"serving": serving[e["name"]],
-                                 "training": training[e["name"]],
-                                 "amp_training": amp_training[e["name"]]}
+        e["launches_by_path"] = {
+            "serving": serving[e["name"]], "training": training[e["name"]],
+            "amp_training": amp_training[e["name"]],
+            "fp16_amp_training": fp16_training[e["name"]],
+            **{f"head_dim_{WIDE_D}_{k}": sum(v[e["name"]].values())
+               for k, v in wide_block.items()},
+            **{k: sum(v[e["name"]].values()) for k, v in programs.items()}}
     print(f"{card}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,11 @@
 // Helpers shared by the port's kernels: f32 <-> storage-type conversion and
 // a block-wide sum. Every kernel computes in f32 and stores in the input
-// type (float or __nv_bfloat16), as the Pallas kernels they replace do.
+// type (float, __nv_bfloat16 or __half), as the Pallas kernels they replace
+// do.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace pt {
@@ -11,17 +13,22 @@ namespace pt {
 // dtype codes passed through the C interface (see ops/kernels/_build.py)
 constexpr int kF32 = 0;
 constexpr int kBF16 = 1;
+constexpr int kF16 = 2;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 // round-to-nearest-even store in the storage type
 __device__ __forceinline__ float from_f32(float x, const float*) { return x; }
 __device__ __forceinline__ __nv_bfloat16 from_f32(float x,
                                                   const __nv_bfloat16*) {
   return __float2bfloat16(x);
+}
+__device__ __forceinline__ __half from_f32(float x, const __half*) {
+  return __float2half_rn(x);
 }
 
 template <typename T>

@@ -19,13 +19,13 @@
 // bytes per pair, far above the balance point.
 //
 // Both kernels run their products on the tensor cores (csrc/mma.cuh):
-// float32 through 3xTF32, bf16 Q K^T, dO V^T (and their transposes) through
-// bf16 mma.sync with ldmatrix; p and ds stay f32 and are split for the
-// products they feed (two passes against a bf16 operand). Each block is four
-// warps over 64 rows (queries for dq, keys for dkv), 16 rows per warp, so
-// every warp's scores, probabilities and ds stay in its C fragments and feed
-// the next product from registers: no probability or ds tile touches shared
-// memory. The block's own 64-row tiles stay on chip for the whole loop;
+// float32 through 3xTF32, bf16 or f16 Q K^T, dO V^T (and their transposes)
+// through mma.sync in that type with ldmatrix; p and ds stay f32 and are
+// split for the products they feed (two passes against a bf16 or f16
+// operand). Each block is four warps over 64 rows (queries for dq, keys for
+// dkv), 16 rows per warp, so every warp's scores, probabilities and ds stay
+// in its C fragments and feed the next product from registers: no
+// probability or ds tile touches shared memory. The block's own 64-row tiles stay on chip for the whole loop;
 // the other side's tiles stream through a two-stage cp.async ring, the
 // next tile's copy in flight while this one is multiplied. Blocks whose loop
 // is longest under the causal mask are launched first.
@@ -58,9 +58,20 @@
 // forced to 0 wherever s <= -1e30 / 2, i.e. at every masked entry (fully
 // masked rows have lse == -1e30 too, where exp(s - lse) would be 1); the
 // causal mask compares global positions, kv_offset + key > q_offset + row;
-// inputs are read in their type (f32 or bf16), all math is f32, and each
-// output is rounded once. Tiles that
-// the causal mask hides entirely are skipped.
+// inputs are read in their type (f32, bf16 or f16), all math is f32, and
+// each output is rounded once. Tiles that the causal mask hides entirely are
+// skipped.
+//
+// Head dims 129..256 (tiles of 256 columns). The block's own two 64-row
+// tiles take 133,120 bytes of shared memory in float32, so the streamed
+// tiles shrink to keep two stages under the 227 KB a block may have: 16 rows
+// in float32, 32 in bf16 and f16 (stream_rows). dq keeps its 128-float
+// accumulator a thread, and each dS K sums 64 columns' fresh fragments at a
+// time. dK and dV together would need 256 accumulator floats a thread, over
+// the 255-register limit, so a dkv block owns 128 of the output columns
+// (grid z picks which); it computes the score products over all 256
+// columns, as the other half's block does too, and multiplies only its own
+// columns of dO and q.
 
 #include <stdint.h>
 
@@ -70,12 +81,30 @@
 namespace {
 
 constexpr int kThreads = 128;  // four warps, 16 query rows (dq) or keys each
-constexpr int kTile = 64;      // query rows and keys per tile
+constexpr int kTile = 64;      // the block's own rows (queries or keys)
 
-// Bytes of one [kTile][kD] tile of T in shared memory (TileLd row stride).
+// Rows of a streamed tile (keys for dq, queries for dkv): 64, or for head
+// dims above 128 as many as let two stages fit beside the block's own tiles.
 template <typename T, int kD>
+__host__ __device__ constexpr int stream_rows() {
+  return kD <= 128 ? kTile : sizeof(T) == 4 ? 16 : 32;
+}
+
+// Output columns of one dkv block, and the columns of one fresh-fragment
+// chunk of the P-side products (mma.cuh's warp_gemm_pb).
+template <int kD>
+__host__ __device__ constexpr int dkv_cols() {
+  return kD <= 128 ? kD : 128;
+}
+template <int kCols>
+__host__ __device__ constexpr int pb_chunk() {
+  return kCols <= 128 ? kCols : 64;
+}
+
+// Bytes of one [rows][kD] tile of T in shared memory (TileLd row stride).
+template <typename T, int kD, int kRows = kTile>
 __host__ __device__ constexpr size_t tile_bytes() {
-  return sizeof(T) * kTile * pt::TileLd<T, kD>::value;
+  return sizeof(T) * kRows * pt::TileLd<T, kD>::value;
 }
 
 // Dynamic shared memory of the dQ kernel: two stages of (k tile, v tile),
@@ -84,7 +113,8 @@ __host__ __device__ constexpr size_t tile_bytes() {
 // of the current stage.
 template <typename T, int kD>
 constexpr size_t dq_smem_bytes() {
-  return 6 * tile_bytes<T, kD>();
+  return 4 * tile_bytes<T, kD, stream_rows<T, kD>()>() +
+         2 * tile_bytes<T, kD>();
 }
 
 // float32 rows of up to 64 columns: the warps' q and dO rows in registers,
@@ -105,13 +135,14 @@ __global__ void __launch_bounds__(kThreads)
                     int Sk, int D, float scale, int causal, int q_offset,
                     int kv_offset, int vec) {
   constexpr int kLd = pt::TileLd<T, kD>::value;
-  constexpr int kTileE = kTile * kLd;  // elements of one tile
+  constexpr int kBlockK = stream_rows<T, kD>();  // keys per k/v tile
+  constexpr int kTileE = kBlockK * kLd;  // elements of one k or v tile
   constexpr bool kSplit = dq_split<T, kD>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // stage s: k at kv + 2 s kTileE, v after it
   T* kv = reinterpret_cast<T*>(smem_raw);
   T* qs = kv + 4 * kTileE;
-  T* dos = qs + kTileE;
+  T* dos = qs + kTile * kLd;
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -122,18 +153,18 @@ __global__ void __launch_bounds__(kThreads)
   const T* vh = v + bh * Sk * D;
 
   // key tiles these rows can see at all (_dq_kernel's `visible`)
-  int n_tiles = (Sk + kTile - 1) / kTile;
+  int n_tiles = (Sk + kBlockK - 1) / kBlockK;
   if (causal) {
     const int last_key = q_offset + min(q0 + kTile, S) - 1 - kv_offset;
-    n_tiles = last_key < 0 ? 0 : min(n_tiles, last_key / kTile + 1);
+    n_tiles = last_key < 0 ? 0 : min(n_tiles, last_key / kBlockK + 1);
   }
 
   auto load_kv = [&](int tile, int stage) {
     T* ks = kv + 2 * stage * kTileE;
-    pt::load_tile<T, kTile, kD, kLd, kThreads>(ks, kh, tile * kTile, Sk, D,
-                                               vec);
-    pt::load_tile<T, kTile, kD, kLd, kThreads>(ks + kTileE, vh, tile * kTile,
-                                               Sk, D, vec);
+    pt::load_tile<T, kBlockK, kD, kLd, kThreads>(ks, kh, tile * kBlockK, Sk,
+                                                 D, vec);
+    pt::load_tile<T, kBlockK, kD, kLd, kThreads>(ks + kTileE, vh,
+                                                 tile * kBlockK, Sk, D, vec);
   };
   pt::load_tile<T, kTile, kD, kLd, kThreads>(qs, q + bh * S * D, q0, S, D,
                                              vec);
@@ -168,7 +199,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < 4; ++c) dq_acc[dn][c] = 0.f;
 
   for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = it * kTile;
+    const int k0 = it * kBlockK;
     if (it + 1 < n_tiles) {
       load_kv(it + 1, (it + 1) & 1);
       pt::cp_async_commit();
@@ -182,22 +213,22 @@ __global__ void __launch_bounds__(kThreads)
 
     // p = Q K^T and ds = dO V^T; element c of p[nt] is row
     // row_base + 8 (c / 2), key k0 + 8 nt + 2 t + c % 2
-    float p[8][4], ds[8][4];
+    float p[kBlockK / 8][4], ds[kBlockK / 8][4];
     if constexpr (kSplit) {
       pt::split_tiles<kTile, kD, kThreads>(ks, qs, vs, dos);  // lo: qs, dos
       __syncthreads();
       pt::warp_gemm_nt_split2<kD>(p, qa, ks, qs, ds, da, vs, dos);
     } else {
-      pt::warp_gemm_nt<T, kD>(p, qs + warp * 16 * kLd, ks);
-      pt::warp_gemm_nt<T, kD>(ds, dos + warp * 16 * kLd, vs);
+      pt::warp_gemm_nt<T, kD, kBlockK>(p, qs + warp * 16 * kLd, ks);
+      pt::warp_gemm_nt<T, kD, kBlockK>(ds, dos + warp * 16 * kLd, vs);
     }
     // Only a tile that crosses S, Sk or the warp's causal diagonal is masked
     // (a fully masked row lies in such a tile: it sees no key).
     const bool edge =
-        row0 + 16 > S || k0 + kTile > Sk ||
-        (causal && kv_offset + k0 + kTile - 1 > q_offset + row0);
+        row0 + 16 > S || k0 + kBlockK > Sk ||
+        (causal && kv_offset + k0 + kBlockK - 1 > q_offset + row0);
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < kBlockK / 8; ++nt)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int key = k0 + 8 * nt + 2 * t + (c & 1);
@@ -212,7 +243,7 @@ __global__ void __launch_bounds__(kThreads)
     if constexpr (kSplit)
       pt::warp_gemm_pb_split<kD>(dq_acc, ds, ks, qs);  // dq += ds k
     else
-      pt::warp_gemm_pb<T, kD>(dq_acc, ds, ks);
+      pt::warp_gemm_pb<T, kD, kBlockK, kLd, pb_chunk<kD>()>(dq_acc, ds, ks);
     __syncthreads();  // this stage is consumed before it is refilled
   }
   pt::cp_async_wait<0>();
@@ -222,10 +253,11 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Dynamic shared memory of the dK/dV kernel: the k and v tiles, then two
-// stages of (q tile, dO tile, lse[64], delta[64]).
+// stages of (q tile, dO tile, lse[rows], delta[rows]) of stream_rows rows.
 template <typename T, int kD>
 __host__ __device__ constexpr size_t dkv_stage_bytes() {
-  return 2 * tile_bytes<T, kD>() + 2 * kTile * sizeof(float);
+  constexpr int kRows = stream_rows<T, kD>();
+  return 2 * tile_bytes<T, kD, kRows>() + 2 * kRows * sizeof(float);
 }
 
 template <typename T, int kD>
@@ -242,7 +274,10 @@ __global__ void __launch_bounds__(kThreads)
                      T* __restrict__ dv, int S, int Sk, int D, float scale,
                      int causal, int q_offset, int kv_offset, int vec) {
   constexpr int kLd = pt::TileLd<T, kD>::value;
+  constexpr int kBlockQ = stream_rows<T, kD>();  // query rows per q/dO tile
+  constexpr int kCols = dkv_cols<kD>();          // dk/dv columns of a block
   constexpr size_t kTileB = tile_bytes<T, kD>();
+  constexpr size_t kQTileB = tile_bytes<T, kD, kBlockQ>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ks = reinterpret_cast<T*>(smem_raw);
   T* vs = reinterpret_cast<T*>(smem_raw + kTileB);
@@ -252,11 +287,11 @@ __global__ void __launch_bounds__(kThreads)
   };
   auto stage_do = [&](int st) {
     return reinterpret_cast<T*>(ring + st * dkv_stage_bytes<T, kD>() +
-                                kTileB);
+                                kQTileB);
   };
-  auto stage_stats = [&](int st) {  // lse[64], then delta[64]
+  auto stage_stats = [&](int st) {  // lse[kBlockQ], then delta[kBlockQ]
     return reinterpret_cast<float*>(ring + st * dkv_stage_bytes<T, kD>() +
-                                    2 * kTileB);
+                                    2 * kQTileB);
   };
 
   const int lane = threadIdx.x & 31;
@@ -264,31 +299,35 @@ __global__ void __launch_bounds__(kThreads)
   const int g = lane >> 2, t = lane & 3;
   const size_t bh = blockIdx.x;
   const int k0 = blockIdx.y * kTile;
+  // this block's dk/dv columns (a constant 0 up to 128 columns)
+  const int col0 = kD > kCols ? blockIdx.z * kCols : 0;
   const T* qh = q + bh * S * D;
   const T* doh = dout + bh * S * D;
 
   // the first query tile that sees this block's first key (_dkv_kernel's
-  // `visible`, q_offset + q0 + kTile - 1 >= kv_offset + k0); every later
+  // `visible`, q_offset + q0 + kBlockQ - 1 >= kv_offset + k0); every later
   // tile sees it too
-  const int n_q = (S + kTile - 1) / kTile;
+  const int n_q = (S + kBlockQ - 1) / kBlockQ;
   int t0 = 0;
   if (causal) {
-    const int x = kv_offset + k0 - q_offset - (kTile - 1);
-    t0 = x <= 0 ? 0 : (x + kTile - 1) / kTile;
+    const int x = kv_offset + k0 - q_offset - (kBlockQ - 1);
+    t0 = x <= 0 ? 0 : (x + kBlockQ - 1) / kBlockQ;
   }
 
   auto load_q = [&](int tile, int st) {
-    const int q0 = tile * kTile;
-    pt::load_tile<T, kTile, kD, kLd, kThreads>(stage_q(st), qh, q0, S, D,
-                                               vec);
-    pt::load_tile<T, kTile, kD, kLd, kThreads>(stage_do(st), doh, q0, S, D,
-                                               vec);
-    // threads 0..63 copy lse, 64..127 delta
-    const int i = threadIdx.x & (kTile - 1);
-    const float* src = threadIdx.x < kTile ? lse : delta;
-    const bool in = q0 + i < S;
-    pt::cp_async4(stage_stats(st) + threadIdx.x,
-                  in ? src + bh * S + q0 + i : src, in);
+    const int q0 = tile * kBlockQ;
+    pt::load_tile<T, kBlockQ, kD, kLd, kThreads>(stage_q(st), qh, q0, S, D,
+                                                 vec);
+    pt::load_tile<T, kBlockQ, kD, kLd, kThreads>(stage_do(st), doh, q0, S,
+                                                 D, vec);
+    // threads 0..kBlockQ-1 copy lse, the next kBlockQ delta
+    if (2 * kBlockQ >= kThreads || threadIdx.x < 2 * kBlockQ) {
+      const int i = threadIdx.x & (kBlockQ - 1);
+      const float* src = threadIdx.x < kBlockQ ? lse : delta;
+      const bool in = q0 + i < S;
+      pt::cp_async4(stage_stats(st) + threadIdx.x,
+                    in ? src + bh * S + q0 + i : src, in);
+    }
   };
   pt::load_tile<T, kTile, kD, kLd, kThreads>(ks, k + bh * Sk * D, k0, Sk, D,
                                              vec);
@@ -297,9 +336,9 @@ __global__ void __launch_bounds__(kThreads)
   if (t0 < n_q) load_q(t0, 0);
   pt::cp_async_commit();
 
-  float dk_acc[kD / 8][4], dv_acc[kD / 8][4];
+  float dk_acc[kCols / 8][4], dv_acc[kCols / 8][4];
 #pragma unroll
-  for (int dn = 0; dn < kD / 8; ++dn)
+  for (int dn = 0; dn < kCols / 8; ++dn)
 #pragma unroll
     for (int c = 0; c < 4; ++c) dk_acc[dn][c] = dv_acc[dn][c] = 0.f;
   const int key0 = k0 + warp * 16;    // the warp's 16 keys
@@ -307,7 +346,7 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int it = t0; it < n_q; ++it) {
     const int st = (it - t0) & 1;
-    const int q0 = it * kTile;
+    const int q0 = it * kBlockQ;
     if (it + 1 < n_q) {
       load_q(it + 1, st ^ 1);
       pt::cp_async_commit();
@@ -319,19 +358,19 @@ __global__ void __launch_bounds__(kThreads)
     const T* qs = stage_q(st);
     const T* dos = stage_do(st);
     const float* lse_s = stage_stats(st);
-    const float* delta_s = lse_s + kTile;
+    const float* delta_s = lse_s + kBlockQ;
 
     // p^T: element c of p[nt] is key key_base + 8 (c / 2), query column
     // 8 nt + 2 t + c % 2 of the tile
-    float p[8][4];
-    pt::warp_gemm_nt<T, kD>(p, ks + warp * 16 * kLd, qs);  // K Q^T
+    float p[kBlockQ / 8][4];
+    pt::warp_gemm_nt<T, kD, kBlockQ>(p, ks + warp * 16 * kLd, qs);  // K Q^T
     // Only a tile that crosses S, Sk or the warp's causal diagonal is masked
     // (a fully masked row lies in such a tile: it sees no key).
     const bool edge =
-        q0 + kTile > S || key0 + 16 > Sk ||
+        q0 + kBlockQ > S || key0 + 16 > Sk ||
         (causal && kv_offset + key0 + 15 > q_offset + q0);
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < kBlockQ / 8; ++nt)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int col = 8 * nt + 2 * t + (c & 1);
@@ -343,24 +382,27 @@ __global__ void __launch_bounds__(kThreads)
                      (causal && kv_offset + key > q_offset + row));
         p[nt][c] = masked ? 0.f : expf(sc - lse_s[col]);
       }
-    pt::warp_gemm_pb<T, kD>(dv_acc, p, dos);  // dv += p^T dO
+    // dv += p^T dO, over this block's columns of dO
+    pt::warp_gemm_pb<T, kCols, kBlockQ, kLd, pb_chunk<kD>()>(dv_acc, p,
+                                                            dos + col0);
 
-    float ds[8][4];
-    pt::warp_gemm_nt<T, kD>(ds, vs + warp * 16 * kLd, dos);  // V dO^T
+    float ds[kBlockQ / 8][4];
+    pt::warp_gemm_nt<T, kD, kBlockQ>(ds, vs + warp * 16 * kLd, dos);  // V dO^T
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < kBlockQ / 8; ++nt)
 #pragma unroll
       for (int c = 0; c < 4; ++c)
         ds[nt][c] = p[nt][c] * (ds[nt][c] - delta_s[8 * nt + 2 * t + (c & 1)]) *
                     scale;
-    pt::warp_gemm_pb<T, kD>(dk_acc, ds, qs);  // dk += ds^T q
+    pt::warp_gemm_pb<T, kCols, kBlockQ, kLd, pb_chunk<kD>()>(
+        dk_acc, ds, qs + col0);  // dk += ds^T q, this block's columns
     __syncthreads();  // this stage is consumed before it is refilled
   }
   pt::cp_async_wait<0>();
 
   const float one[2] = {1.f, 1.f};
-  pt::warp_store<T, kD>(dk + bh * Sk * D, dk_acc, key0, Sk, D, one);
-  pt::warp_store<T, kD>(dv + bh * Sk * D, dv_acc, key0, Sk, D, one);
+  pt::warp_store<T, kCols>(dk + bh * Sk * D, dk_acc, key0, Sk, D, one, col0);
+  pt::warp_store<T, kCols>(dv + bh * Sk * D, dv_acc, key0, Sk, D, one, col0);
 }
 
 // cp.async moves 16-byte chunks: rows of a multiple of 16 bytes, aligned
@@ -402,8 +444,9 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
       flash_dkv_kernel<T, kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
-  flash_dkv_kernel<T, kD><<<dim3(BH, (Sk + kTile - 1) / kTile), kThreads,
-                            smem, st>>>(
+  flash_dkv_kernel<T, kD><<<dim3(BH, (Sk + kTile - 1) / kTile,
+                                 kD / dkv_cols<kD>()),
+                            kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -413,16 +456,17 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 }
 
 bool bad_shape(int BH, int S, int Sk, int D) {
-  return BH < 0 || S < 0 || Sk < 0 || D <= 0 || D > 128 ||
+  return BH < 0 || S < 0 || Sk < 0 || D <= 0 || D > 256 ||
          (S + kTile - 1) / kTile > 65535 || (Sk + kTile - 1) / kTile > 65535;
 }
 
 }  // namespace
 
 // C interface (bound with ctypes). q, dout and dq are [BH, S, D]; k, v, dk and
-// dv [BH, Sk, D], all row-major of `dtype` (pt::kF32 / pt::kBF16); lse and
-// delta are f32 [BH, S]. Head dims up to 128 (tiles of 64 or 128 columns,
-// zero-padded). Each returns cudaGetLastError() after its one launch.
+// dv [BH, Sk, D], all row-major of `dtype` (pt::kF32 / pt::kBF16 /
+// pt::kF16); lse and delta are f32 [BH, S]. Head dims up to 256 (tiles of
+// 64, 128 or 256 columns, zero-padded). Each returns cudaGetLastError()
+// after its one launch.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dq, int BH, int S, int Sk,
@@ -436,11 +480,18 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                           scale, causal, q_offset, kv_offset, st)
   if (dtype == pt::kF32) {
     if (D <= 64) PT_DQ(float, 64);
-    PT_DQ(float, 128);
+    if (D <= 128) PT_DQ(float, 128);
+    PT_DQ(float, 256);
   }
   if (dtype == pt::kBF16) {
     if (D <= 64) PT_DQ(__nv_bfloat16, 64);
-    PT_DQ(__nv_bfloat16, 128);
+    if (D <= 128) PT_DQ(__nv_bfloat16, 128);
+    PT_DQ(__nv_bfloat16, 256);
+  }
+  if (dtype == pt::kF16) {
+    if (D <= 64) PT_DQ(__half, 64);
+    if (D <= 128) PT_DQ(__half, 128);
+    PT_DQ(__half, 256);
   }
 #undef PT_DQ
   return cudaErrorInvalidValue;
@@ -460,11 +511,18 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                            scale, causal, q_offset, kv_offset, st)
   if (dtype == pt::kF32) {
     if (D <= 64) PT_DKV(float, 64);
-    PT_DKV(float, 128);
+    if (D <= 128) PT_DKV(float, 128);
+    PT_DKV(float, 256);
   }
   if (dtype == pt::kBF16) {
     if (D <= 64) PT_DKV(__nv_bfloat16, 64);
-    PT_DKV(__nv_bfloat16, 128);
+    if (D <= 128) PT_DKV(__nv_bfloat16, 128);
+    PT_DKV(__nv_bfloat16, 256);
+  }
+  if (dtype == pt::kF16) {
+    if (D <= 64) PT_DKV(__half, 64);
+    if (D <= 128) PT_DKV(__half, 128);
+    PT_DKV(__half, 256);
   }
 #undef PT_DKV
   return cudaErrorInvalidValue;

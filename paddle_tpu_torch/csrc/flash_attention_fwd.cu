@@ -11,12 +11,12 @@
 // of q, k, v and out, ~S/4 flops per f32 byte, far above the balance point.
 // The card's fastest float32-accurate products are the tensor cores' 3xTF32
 // (495 / 3 = 165 TFLOP/s), so both products run there (csrc/mma.cuh):
-//   S = Q K^T:  float -> 3xTF32 m16n8k8 mma.sync; bf16 -> bf16 m16n8k16 with
-//               ldmatrix fragments (exact products, f32 sums).
+//   S = Q K^T:  float -> 3xTF32 m16n8k8 mma.sync; bf16 / f16 -> m16n8k16 in
+//               that type with ldmatrix fragments (exact products, f32 sums).
 //   O += P V:   P stays f32 as in the Pallas kernel (it computes in f32 for
-//               either input type), so it is split too: 3xTF32 for float V,
-//               two passes for bf16 V (exact in TF32). P is not rounded to
-//               bf16, which would change the function.
+//               every input type), so it is split too: 3xTF32 for float V,
+//               two passes for bf16 or f16 V (exact in TF32). P is not
+//               rounded to V's type, which would change the function.
 // A single TF32 pass is never used: the port's float32 contract is TF32 off.
 //
 // Layout: one block of four warps per (batch*head, 64 query rows); each warp
@@ -24,8 +24,9 @@
 // max/sum and output accumulator in registers; the online softmax runs on the
 // C fragments (row max and sum by two quad shuffles), and the score fragments
 // feed P V as A operands directly (mma.cuh's c_as_a). K/V tiles of 64 keys
-// stream through a two-stage ring in dynamic shared memory with cp.async: the
-// next tile's copy is in flight while this one is multiplied. Routed through
+// (32 for head dims above 128) stream through a two-stage ring in dynamic
+// shared memory with cp.async: the next tile's copy is in flight while this
+// one is multiplied. Routed through
 // mma.sync, not wgmma: wgmma's TF32 form wants both operands K-major, so V
 // would need a transposed copy in shared memory, and mma.sync's fragments let
 // P stay in registers between the two products. The grid visits the query
@@ -37,6 +38,14 @@
 // wholly in a row block's future are skipped (the result is the same: their
 // probabilities are exactly 0). Ragged S, Sk and D are zero-padded in shared
 // memory and masked.
+//
+// Head dims 129..256 (tiles of 256 columns) meet the card's two budgets. The
+// two-stage ring of 64-key tiles would take 5 x 64 x 260 x 4 = 332,800 bytes
+// of shared memory in float32, above the 227 KB a block may have, so the
+// tiles hold 32 keys (199,680 bytes in float32, 101,376 in 16-bit types).
+// The output accumulator o is 128 floats a thread; P V sums each 64 columns'
+// fresh fragments in turn (mma.cuh's kChunk), so they add 32 registers, not
+// 128.
 
 #include <stdint.h>
 
@@ -49,12 +58,22 @@ constexpr float kNeg = -1e30f;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kBlockQ = kWarps * 16;  // query rows per block
-constexpr int kBlockK = 64;           // keys per tile
+
+// keys per K/V tile, and the columns of one P V chunk (see above)
+template <int kD>
+__host__ __device__ constexpr int block_k() {
+  return kD <= 128 ? 64 : 32;
+}
+template <int kD>
+__host__ __device__ constexpr int pv_chunk() {
+  return kD <= 128 ? kD : 64;
+}
 
 // Dynamic shared memory: the q tile and two stages of (k, v) tiles.
 template <typename T, int kD>
 constexpr size_t smem_bytes() {
-  return sizeof(T) * 5 * kBlockQ * pt::TileLd<T, kD>::value;
+  return sizeof(T) * (kBlockQ + 4 * block_k<kD>()) *
+         pt::TileLd<T, kD>::value;
 }
 
 template <typename T, int kD>
@@ -65,6 +84,7 @@ __global__ void __launch_bounds__(kThreads)
                      float scale, int causal, int q_offset, int kv_offset,
                      int vec) {
   constexpr int kLd = pt::TileLd<T, kD>::value;
+  constexpr int kBlockK = block_k<kD>();
   constexpr int kTile = kBlockK * kLd;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);
@@ -119,8 +139,8 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     const T* ks = kv + 2 * (it & 1) * kTile;
 
-    float s[8][4];
-    pt::warp_gemm_nt<T, kD>(s, qs + warp * 16 * kLd, ks);
+    float s[kBlockK / 8][4];
+    pt::warp_gemm_nt<T, kD, kBlockK>(s, qs + warp * 16 * kLd, ks);
 
     // masked scores and the online softmax, on the C fragments: element c
     // of s[nt] is row row_base + 8 (c / 2), key k0 + 8 nt + 2 t + c % 2.
@@ -130,7 +150,7 @@ __global__ void __launch_bounds__(kThreads)
         (causal && kv_offset + k0 + kBlockK - 1 > q_offset + row0);
     float mx[2] = {kNeg, kNeg};
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < kBlockK / 8; ++nt)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int key = k0 + 8 * nt + 2 * t + (c & 1);
@@ -152,7 +172,7 @@ __global__ void __launch_bounds__(kThreads)
       m[h] = m_new[h];
     }
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < kBlockK / 8; ++nt)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int h = c >> 1;
@@ -166,7 +186,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int c = 0; c < 4; ++c) o[dn][c] *= corr[c >> 1];
 
-    pt::warp_gemm_pb<T, kD>(o, s, ks + kTile);  // o += p v
+    pt::warp_gemm_pb<T, kD, kBlockK, kLd, pv_chunk<kD>()>(
+        o, s, ks + kTile);  // o += p v
     __syncthreads();  // this stage is consumed before it is refilled
   }
   pt::cp_async_wait<0>();
@@ -207,14 +228,15 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
 }  // namespace
 
 // C interface (bound with ctypes). q is [BH, S, D], k and v [BH, Sk, D], out
-// [BH, S, D], all row-major of `dtype` (pt::kF32 / pt::kBF16); lse is f32
-// [BH, S]. Head dims up to 128 (tiles of 64 or 128 columns, zero-padded).
+// [BH, S, D], all row-major of `dtype` (pt::kF32 / pt::kBF16 / pt::kF16);
+// lse is f32 [BH, S]. Head dims up to 256 (tiles of 64, 128 or 256 columns,
+// zero-padded).
 // Returns cudaGetLastError() after the launch.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* out, void* lse, int BH, int S, int Sk, int D,
                          float scale, int causal, int q_offset, int kv_offset,
                          int dtype, void* stream) {
-  if (BH < 0 || S < 0 || Sk < 0 || D <= 0 || D > 128 ||
+  if (BH < 0 || S < 0 || Sk < 0 || D <= 0 || D > 256 ||
       (S + kBlockQ - 1) / kBlockQ > 65535)
     return cudaErrorInvalidValue;
   if (BH == 0 || S == 0) return 0;
@@ -224,11 +246,18 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                        q_offset, kv_offset, st)
   if (dtype == pt::kF32) {
     if (D <= 64) PT_FWD(float, 64);
-    PT_FWD(float, 128);
+    if (D <= 128) PT_FWD(float, 128);
+    PT_FWD(float, 256);
   }
   if (dtype == pt::kBF16) {
     if (D <= 64) PT_FWD(__nv_bfloat16, 64);
-    PT_FWD(__nv_bfloat16, 128);
+    if (D <= 128) PT_FWD(__nv_bfloat16, 128);
+    PT_FWD(__nv_bfloat16, 256);
+  }
+  if (dtype == pt::kF16) {
+    if (D <= 64) PT_FWD(__half, 64);
+    if (D <= 128) PT_FWD(__half, 128);
+    PT_FWD(__half, 256);
   }
 #undef PT_FWD
   return cudaErrorInvalidValue;

@@ -16,10 +16,10 @@
 // add-LN stores s = x + y in x's type first and normalizes the STORED
 // (rounded) s -- bf16 parity with the dense x + y depends on it. The addends
 // may differ in type: under AMP O1 the residual stream x is float32 and the
-// attention branch y bfloat16. Each addend is loaded in its own type and the
-// sum taken in f32, as the Pallas kernel casts each to f32; s and LN(s) are
-// stored in x's type. Instantiated for (f32, f32), (bf16, bf16) and
-// (f32, bf16): the pairs the router sends.
+// attention branch y bfloat16 (or float16). Each addend is loaded in its own
+// type and the sum taken in f32, as the Pallas kernel casts each to f32; s
+// and LN(s) are stored in x's type. Instantiated for (f32, f32),
+// (bf16, bf16), (f32, bf16) and (f32, f16): the pairs the router sends.
 
 #include <stdint.h>
 
@@ -410,7 +410,7 @@ static void launch_add_ln_fwd(const void* x, const void* r, const float* w,
 }
 
 // x, s and y are [R, D] of `dtype`, r [R, D] of `rdtype`; the pairs taken
-// are (f32, f32), (bf16, bf16) and (f32, bf16).
+// are (f32, f32), (bf16, bf16), (f32, bf16) and (f32, f16).
 extern "C" int add_ln_fwd(const void* x, const void* r, const void* w,
                           const void* b, void* s, void* y, void* mu,
                           void* rstd, int R, int D, float eps, int dtype,
@@ -429,6 +429,9 @@ extern "C" int add_ln_fwd(const void* x, const void* r, const void* w,
   } else if (dtype == pt::kF32 && rdtype == pt::kBF16) {
     launch_add_ln_fwd<float, __nv_bfloat16>(x, r, wf, bf, s, y, m, rs, R, D,
                                             eps, st);
+  } else if (dtype == pt::kF32 && rdtype == pt::kF16) {
+    launch_add_ln_fwd<float, __half>(x, r, wf, bf, s, y, m, rs, R, D, eps,
+                                     st);
   } else {
     return cudaErrorInvalidValue;
   }

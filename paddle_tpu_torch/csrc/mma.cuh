@@ -1,6 +1,7 @@
 // Tensor-core fragments for the attention kernels: warp-level mma.sync
-// products in TF32 (m16n8k8) and bf16 (m16n8k16), the 3xTF32 split that
-// keeps float32 products float32-accurate, ldmatrix, and cp.async copies.
+// products in TF32 (m16n8k8) and bf16 or f16 (m16n8k16), the 3xTF32 split
+// that keeps float32 products float32-accurate, ldmatrix, and cp.async
+// copies.
 //
 // Fragment layouts of one warp (PTX ISA, "Matrix Fragments for mma"), with
 // g = lane / 4 and t = lane % 4:
@@ -12,6 +13,7 @@
 //   A, 16 x 16 bf16: a0 = A[g][2t..2t+1], a1 = A[g+8][2t..],
 //        a2 = A[g][2t+8..], a3 = A[g+8][2t+8..].
 //   B, 16 x 8 bf16: b0 = B[2t..2t+1][g], b1 = B[2t+8..][g].
+//   f16 fragments are laid out as the bf16 ones.
 //
 // A C fragment feeds the next product as its A operand without shuffles: a
 // sum over k may run in any order as long as A and B agree, so the k step's
@@ -21,13 +23,15 @@
 // 3xTF32 (CUTLASS's OpMultiplyAddFastF32): x = hi + lo with hi = tf32(x) and
 // lo = tf32(x - hi), both rounded to nearest (ties away, as cvt.rna);
 // a b = lo_a hi_b + hi_a lo_b + hi_a hi_b, the small terms summed first and
-// lo_a lo_b (~2^-22 |a b|) dropped. A value of bf16 is exact in TF32 (its
-// lo is 0), so a product with one bf16 operand takes two passes.
+// lo_a lo_b (~2^-22 |a b|) dropped. A value of bf16 or f16 is exact in TF32
+// (8 and 11 significant bits against TF32's 11; its lo is 0), so a product
+// with one such operand takes two passes.
 #pragma once
 
 #include <stdint.h>
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 
 #include "common.cuh"
 
@@ -70,6 +74,27 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d += a b, m16n8k16, f16 inputs, f32 accumulate.
+__device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The m16n8k16 product in the 16-bit storage type of the (unused) tag.
+__device__ __forceinline__ void mma_16(float (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1,
+                                       const __nv_bfloat16*) {
+  mma_bf16(d, a, b0, b1);
+}
+__device__ __forceinline__ void mma_16(float (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1,
+                                       const __half*) {
+  mma_f16(d, a, b0, b1);
+}
+
 // An A operand of m16n8k8 held as its 3xTF32 split.
 struct FragA {
   Split x[4];
@@ -93,16 +118,20 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const FragA& a,
   mma_tf32(d, a.x[0].hi, a.x[1].hi, a.x[2].hi, a.x[3].hi, b0.hi, b1.hi);
 }
 
-// d += a b for float32 a and a b exact in TF32 (bf16 values): two products.
+// d += a b for float32 a and a b exact in TF32 (bf16 or f16 values): two
+// products.
 __device__ __forceinline__ void mma_2xtf32(float (&d)[4], const FragA& a,
                                            uint32_t b0, uint32_t b1) {
   mma_tf32(d, a.x[0].lo, a.x[1].lo, a.x[2].lo, a.x[3].lo, b0, b1);
   mma_tf32(d, a.x[0].hi, a.x[1].hi, a.x[2].hi, a.x[3].hi, b0, b1);
 }
 
-// The bits of a bf16 value widened to f32 (exact, hence exact TF32).
-__device__ __forceinline__ uint32_t bf16_bits_as_f32(__nv_bfloat16 x) {
+// The bits of a bf16 or f16 value widened to f32 (exact, hence exact TF32).
+__device__ __forceinline__ uint32_t exact_tf32(__nv_bfloat16 x) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(x)) << 16;
+}
+__device__ __forceinline__ uint32_t exact_tf32(__half x) {
+  return __float_as_uint(__half2float(x));
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -146,8 +175,8 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Shared-memory row stride (elements) of a tile of kD columns: f32 rows
 // padded by 4 floats (the fragment reads A[g][t], B[g][t] and B[2t][g] hit
-// 32 distinct banks), bf16 rows by 8 (16 bytes: ldmatrix rows on distinct
-// banks).
+// 32 distinct banks), bf16 and f16 rows by 8 (16 bytes: ldmatrix rows on
+// distinct banks).
 template <typename T, int kD>
 struct TileLd {
   static constexpr int value = sizeof(T) == 4 ? kD + 4 : kD + 8;
@@ -181,18 +210,19 @@ __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src,
   }
 }
 
-// One warp: c = A B^T, the 16 x 64 product of a (16 rows) and b (64 rows),
-// both row-major [row][kD] tiles of T in shared memory with the TileLd
-// stride; c[nt] is the C fragment of columns 8nt..8nt+7. float: 3xTF32 with
-// fragments read as scalars; bf16: bf16 products with ldmatrix.
-template <typename T, int kD>
-__device__ __forceinline__ void warp_gemm_nt(float (&c)[8][4],
+// One warp: c = A B^T, the 16 x kN product of a (16 rows) and b (kN rows,
+// a multiple of 16), both row-major [row][kD] tiles of T in shared memory
+// with the TileLd stride; c[nt] is the C fragment of columns 8nt..8nt+7.
+// float: 3xTF32 with fragments read as scalars; bf16 and f16: 16-bit
+// products with ldmatrix.
+template <typename T, int kD, int kN = 64>
+__device__ __forceinline__ void warp_gemm_nt(float (&c)[kN / 8][4],
                                              const T* __restrict__ a,
                                              const T* __restrict__ b) {
   constexpr int kLd = TileLd<T, kD>::value;
   const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
+  for (int nt = 0; nt < kN / 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) c[nt][e] = 0.f;
   if constexpr (sizeof(T) == 4) {
@@ -203,7 +233,7 @@ __device__ __forceinline__ void warp_gemm_nt(float (&c)[8][4],
           reinterpret_cast<const float*>(a) + g * kLd + 8 * ks + t;
       const FragA fa = split_a(ar[0], ar[8 * kLd], ar[4], ar[8 * kLd + 4]);
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
+      for (int nt = 0; nt < kN / 8; ++nt) {
         const float* br = reinterpret_cast<const float*>(b) +
                           (8 * nt + g) * kLd + 8 * ks + t;
         mma_3xtf32(c[nt], fa, split_tf32(br[0]), split_tf32(br[4]));
@@ -216,59 +246,66 @@ __device__ __forceinline__ void warp_gemm_nt(float (&c)[8][4],
       uint32_t af[4];
       ldmatrix_x4(af, a + (r8 + 8 * hi8) * kLd + 16 * ks + 8 * hi16);
 #pragma unroll
-      for (int np = 0; np < 4; ++np) {
+      for (int np = 0; np < kN / 16; ++np) {
         uint32_t bf[4];
         ldmatrix_x4(bf,
                     b + (16 * np + r8 + 8 * hi16) * kLd + 16 * ks + 8 * hi8);
-        mma_bf16(c[2 * np], af, bf[0], bf[1]);
-        mma_bf16(c[2 * np + 1], af, bf[2], bf[3]);
+        mma_16(c[2 * np], af, bf[0], bf[1], b);
+        mma_16(c[2 * np + 1], af, bf[2], bf[3], b);
       }
     }
   }
 }
 
-// One warp: o[dn] += P B for P the 16 x 64 f32 C fragments p (kept in f32
-// precision through the split) and b a row-major [64][kD] tile of T in
-// shared memory; o[dn] is the C fragment of columns 8dn..8dn+7. float
-// B: 3xTF32; bf16 B: two passes.
+// One warp: o[dn] += P B for P the 16 x kN f32 C fragments p (kept in f32
+// precision through the split) and b a row-major [kN][kCols] tile of T in
+// shared memory with row stride kLd; o[dn] is the C fragment of columns
+// 8dn..8dn+7. float B: 3xTF32; bf16 and f16 B: two passes.
 //
 // The product is summed in a fresh fragment and added to o with float32
 // adds. The tensor cores' float32 accumulation does not round to nearest,
 // and its error grows with the mma additions into one fragment: a dK/dV
 // accumulator that took every query tile in place drifted past the float32
 // tolerance at S = 4096. Here a fragment takes 24 (or 16) additions.
-template <typename T, int kD>
-__device__ __forceinline__ void warp_gemm_pb(float (&o)[kD / 8][4],
-                                             const float (&p)[8][4],
+// Columns go in chunks of kChunk, each with its own fresh fragments, so a
+// wide head keeps kChunk / 2 registers of them, not kCols / 2 (each output
+// value still takes the same sum in the same order).
+template <typename T, int kCols, int kN = 64,
+          int kLd = TileLd<T, kCols>::value, int kChunk = kCols>
+__device__ __forceinline__ void warp_gemm_pb(float (&o)[kCols / 8][4],
+                                             const float (&p)[kN / 8][4],
                                              const T* __restrict__ b) {
-  constexpr int kLd = TileLd<T, kD>::value;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  float part[kD / 8][4];
 #pragma unroll
-  for (int dn = 0; dn < kD / 8; ++dn)
+  for (int c0 = 0; c0 < kCols / 8; c0 += kChunk / 8) {
+    float part[kChunk / 8][4];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) part[dn][c] = 0.f;
+    for (int dn = 0; dn < kChunk / 8; ++dn)
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const FragA fa = c_as_a(p[j]);
-    const T* br = b + (8 * j + 2 * t) * kLd + g;  // rows 2t and 2t + 1
+      for (int c = 0; c < 4; ++c) part[dn][c] = 0.f;
 #pragma unroll
-    for (int dn = 0; dn < kD / 8; ++dn) {
-      if constexpr (sizeof(T) == 4) {
-        const float* bf = reinterpret_cast<const float*>(br);
-        mma_3xtf32(part[dn], fa, split_tf32(bf[8 * dn]),
-                   split_tf32(bf[kLd + 8 * dn]));
-      } else {
-        mma_2xtf32(part[dn], fa, bf16_bits_as_f32(br[8 * dn]),
-                   bf16_bits_as_f32(br[kLd + 8 * dn]));
+    for (int j = 0; j < kN / 8; ++j) {
+      const FragA fa = c_as_a(p[j]);
+      // rows 2t and 2t + 1 of the k step, the chunk's columns
+      const T* br = b + (8 * j + 2 * t) * kLd + g + 8 * c0;
+#pragma unroll
+      for (int dn = 0; dn < kChunk / 8; ++dn) {
+        if constexpr (sizeof(T) == 4) {
+          const float* bf = reinterpret_cast<const float*>(br);
+          mma_3xtf32(part[dn], fa, split_tf32(bf[8 * dn]),
+                     split_tf32(bf[kLd + 8 * dn]));
+        } else {
+          mma_2xtf32(part[dn], fa, exact_tf32(br[8 * dn]),
+                     exact_tf32(br[kLd + 8 * dn]));
+        }
       }
     }
+#pragma unroll
+    for (int dn = 0; dn < kChunk / 8; ++dn)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) o[c0 + dn][c] += part[dn][c];
   }
-#pragma unroll
-  for (int dn = 0; dn < kD / 8; ++dn)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) o[dn][c] += part[dn][c];
 }
 
 // Float32 products against a tile split once per block. A block whose
@@ -385,14 +422,15 @@ __device__ __forceinline__ void warp_gemm_pb_split(
     for (int c = 0; c < 4; ++c) o[dn][c] += part[dn][c];
 }
 
-// Store a warp's 16 x kD C fragments (rows row0 + g, row0 + g + 8) to the
-// row-major [n_rows][D] array out, each value times mul[h] (h = 0 for row
-// g, 1 for row g + 8), rounded once to T.
+// Store a warp's 16 x kD C fragments (rows row0 + g, row0 + g + 8) to
+// columns col0.. of the row-major [n_rows][D] array out, each value times
+// mul[h] (h = 0 for row g, 1 for row g + 8), rounded once to T.
 template <typename T, int kD>
 __device__ __forceinline__ void warp_store(T* __restrict__ out,
                                            const float (&c)[kD / 8][4],
                                            int row0, int n_rows, int D,
-                                           const float (&mul)[2]) {
+                                           const float (&mul)[2],
+                                           int col0 = 0) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -402,7 +440,7 @@ __device__ __forceinline__ void warp_store(T* __restrict__ out,
     T* orow = out + (size_t)row * D;
 #pragma unroll
     for (int dn = 0; dn < kD / 8; ++dn) {
-      const int col = 8 * dn + 2 * t;
+      const int col = col0 + 8 * dn + 2 * t;
       if (col < D) store(orow + col, c[dn][2 * h] * mul[h]);
       if (col + 1 < D) store(orow + col + 1, c[dn][2 * h + 1] * mul[h]);
     }

@@ -28,6 +28,13 @@ new parameters) are not finite leaves parameters and moments bitwise
 unchanged, decided on the device with no host read. As in JAX the step
 count ``t`` of the bias correction advances on every call.
 
+Buffers that the forward updates (batch norm's running statistics) are
+masked with the same verdict: a skipped step leaves them bitwise
+unchanged too, as the JAX package masks its ``new_b``. (With the guard
+off, the JAX package masks them on neither skip; the port masks them on
+the fp16 scaler's skip as well, so a non-finite batch never reaches the
+running statistics.)
+
 Not ported yet, and refused: ``grad_post_hook`` and the guard's host half.
 """
 from __future__ import annotations
@@ -79,6 +86,7 @@ class TrainStep:
             optimizer._set_parameters(model.named_parameters())
         self._params = [p for p in optimizer._get_params()
                         if p.requires_grad]
+        self._buffers = list(model.buffers())
         self._guard = _TG.guard_mode() != "off"
         self._device = self._params[0].device if self._params \
             else torch.device("cpu")
@@ -127,6 +135,8 @@ class TrainStep:
         lbls = [self._tensor(y) for y in _as_list(labels)]
         for p in self._params:
             p.grad = None
+        masked = self._guard or self._loss_scale_cfg is not None
+        old_bufs = [b.clone() for b in self._buffers] if masked else []
         with torch.enable_grad(), self._amp_guard():
             outs = self.model(*ins)
             loss = self.loss_fn(outs, *lbls)
@@ -160,6 +170,11 @@ class TrainStep:
                                   if g is not None]).all()
             self._update_scaler(ok)
         opt._write(news, ok)
+        if old_bufs:
+            with torch.no_grad():
+                for b, new in zip(self._buffers,
+                                  _TG.mask_step(ok, self._buffers, old_bufs)):
+                    b.copy_(new)
         for p in self._params:
             p.grad = None
         if self._ret_out:

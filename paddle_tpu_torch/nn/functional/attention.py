@@ -21,10 +21,12 @@ import torch
 
 from ... import amp
 from ...ops.kernels.flash_attention import FlashAttentionFunction
+from .common import dropout
 
 __all__ = [
     "flash_default_enabled", "flash_append_enabled", "flash_plan",
-    "flash_core", "scaled_dot_product_attention", "cache_update",
+    "flash_core", "scaled_dot_product_attention", "dense_attention",
+    "cache_update",
     "cached_attention",
 ]
 
@@ -89,20 +91,37 @@ def flash_core(q, k, v, *, causal=True, scale=None, q_offset=0):
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
-                                 is_causal=False, scale=None):
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, scale=None, name=None, *,
+                                 generator=None):
     """Routed softmax attention over ``[B, H, S, D]``: the flash kernel for
-    the causal, mask-free case; otherwise the dense form with the scores
-    materialized, whose causal mask is end-aligned (``qpos = arange(Sq) +
-    Sk - Sq``) so both routes compute one function. The dense form's two
-    steps are the AMP names ``attention_scores`` (scores and softmax; the
-    softmax runs in the type the scores come in, as in the JAX package)
-    and ``attention_context`` (weights times V). (Attention dropout is the
-    GPT block's.)"""
+    the causal, mask-free, dropout-free case; otherwise the dense form with
+    the scores materialized, whose causal mask is end-aligned (``qpos =
+    arange(Sq) + Sk - Sq``) so both routes compute one function. The dense
+    form's two steps are the AMP names ``attention_scores`` (scores and
+    softmax; the softmax runs in the type the scores come in, as in the
+    JAX package) and ``attention_context`` (weights times V), with dropout
+    of the weights between them in training (its mask drawn from
+    ``generator``)."""
     Sq, Sk = int(query.shape[2]), int(key.shape[2])
+    dropout_active = bool(dropout_p) and training
     if flash_plan(Sq, Sk, causal=is_causal, device=query.device,
-                  has_mask=attn_mask is not None):
+                  has_mask=attn_mask is not None,
+                  dropout_active=dropout_active):
         return flash_core(query, key, value, causal=is_causal, scale=scale,
                           q_offset=Sk - Sq)
+    return dense_attention(query, key, value, attn_mask, is_causal, scale,
+                           dropout_p if dropout_active else 0.0,
+                           generator)[0]
+
+
+def dense_attention(query, key, value, attn_mask=None, is_causal=False,
+                    scale=None, dropout_p=0.0, generator=None):
+    """The dense form of :func:`scaled_dot_product_attention` -> (out,
+    weights): ``attention_scores`` (the scores plus ``attn_mask``, the
+    end-aligned causal mask at -1e9, softmax), dropout of the weights when
+    ``dropout_p`` (training), then ``attention_context``."""
+    Sq, Sk = int(query.shape[2]), int(key.shape[2])
     sc = scale if scale is not None else int(query.shape[-1]) ** -0.5
     qr, kr, mr = amp.cast_if_amp("attention_scores",
                                  (query, key, attn_mask))
@@ -114,8 +133,10 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         kpos = torch.arange(Sk, device=query.device)
         s = s.masked_fill(kpos[None, :] > qpos[:, None], -1e9)
     w = torch.softmax(s, dim=-1)
-    w, vr = amp.cast_if_amp("attention_context", (w, value))
-    return torch.matmul(w, vr)
+    if dropout_p:
+        w = dropout(w, dropout_p, training=True, generator=generator)
+    wr, vr = amp.cast_if_amp("attention_context", (w, value))
+    return torch.matmul(wr, vr), w
 
 
 def cache_update(cache, new, pos):

@@ -1,7 +1,9 @@
-"""LayerNorm functionals and their route to the hand-written kernels.
+"""Batch norm, the LayerNorm functionals and their route to the
+hand-written kernels.
 
-Counterpart of ``paddle_tpu/nn/functional/norm.py``'s ``layer_norm``,
-``fused_residual_layer_norm`` and ``_fused_ln_route`` (single device:
+Counterpart of ``paddle_tpu/nn/functional/norm.py``'s ``batch_norm``,
+``layer_norm``, ``fused_residual_layer_norm`` and ``_fused_ln_route``
+(single device:
 the shard_map seam of the JAX package belongs to a later slice). A routed
 call goes through the autograd Functions of ``ops/kernels/layer_norm.py``
 on both devices, so its backward runs the B7 kernel.
@@ -11,7 +13,13 @@ AMP, as in the JAX package: the dense ``layer_norm`` is black-listed
 kernels take their inputs in the type they come in. Under AMP O1 the
 pre-LN block's residual seam meets a float32 residual stream ``x`` and a
 bfloat16 attention branch: that pair goes to the B6 kernel as it is, which
-returns ``s`` and ``LN(s)`` in ``x``'s type.
+returns ``s`` and ``LN(s)`` in ``x``'s type (float16 branches alike).
+
+``batch_norm`` is on neither AMP list. It is written in plain tensor ops,
+as the JAX package writes it, because ``torch.nn.functional.batch_norm``
+computes another function: it updates the running variance with the
+unbiased batch variance, weighs the running statistics by ``1 -
+momentum``, and applies the normalization in float32.
 """
 from __future__ import annotations
 
@@ -23,7 +31,49 @@ import torch
 from ... import amp
 from ...ops.kernels import layer_norm as _ln
 
-__all__ = ["layer_norm", "fused_residual_layer_norm"]
+__all__ = ["batch_norm", "layer_norm", "fused_residual_layer_norm"]
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, momentum=0.9, epsilon=1e-5,
+               data_format="NCHW", use_global_stats=None, name=None):
+    """Batch normalization over every axis but the channel axis (1 for
+    ``NC...``, the last otherwise).
+
+    With batch statistics (``training`` and not ``use_global_stats``), as
+    the JAX package: the mean and the biased variance ``mean(x^2) -
+    mean^2`` in float32, the normalization folded into ``x * scale +
+    shift`` with per-channel ``scale = weight * rsqrt(var + eps)`` and
+    ``shift = bias - mean * scale`` cast to x's type (so a bfloat16 input
+    is normalized in bfloat16), and the running statistics updated in
+    place, ``running * momentum + batch * (1 - momentum)``. Otherwise
+    ``(x - running_mean) / sqrt(running_var + eps) * weight + bias``."""
+    ch = 1 if data_format.startswith("NC") else x.dim() - 1
+    axes = tuple(i for i in range(x.dim()) if i != ch)
+    bshape = [1] * x.dim()
+    bshape[ch] = x.shape[ch]
+    if training and not use_global_stats:
+        xf = x.float()
+        mean = xf.mean(dim=axes)
+        var = ((xf * xf).mean(dim=axes) - mean * mean).clamp(min=0.0)
+        r = torch.rsqrt(var + epsilon)
+        scale = weight.float() * r if weight is not None else r
+        shift = bias.float() - mean * scale if bias is not None \
+            else -mean * scale
+        out = x * scale.to(x.dtype).reshape(bshape) \
+            + shift.to(x.dtype).reshape(bshape)
+        with torch.no_grad():
+            running_mean.copy_(running_mean * momentum
+                               + mean * (1 - momentum))
+            running_var.copy_(running_var * momentum + var * (1 - momentum))
+        return out
+    out = (x - running_mean.reshape(bshape)) \
+        / torch.sqrt(running_var.reshape(bshape) + epsilon)
+    if weight is not None:
+        out = out * weight.reshape(bshape)
+    if bias is not None:
+        out = out + bias.reshape(bshape)
+    return out
 
 
 def _fused_ln_route(x: torch.Tensor, normalized_shape, weight, bias) -> bool:

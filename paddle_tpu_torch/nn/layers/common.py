@@ -1,4 +1,4 @@
-"""``Embedding`` and ``Linear`` (counterparts of
+"""``Embedding``, ``Linear``, ``Dropout`` and ``Flatten`` (counterparts of
 ``paddle_tpu/nn/layers/common.py``).
 
 Weights follow PyTorch's layout: ``Linear.weight`` is ``[out, in]``, where
@@ -12,9 +12,10 @@ import torch
 from torch import nn
 
 from ...core.random import xavier_normal
-from ..functional.common import linear
+from ...ops.manipulation import flatten
+from ..functional.common import dropout, linear
 
-__all__ = ["Embedding", "Linear"]
+__all__ = ["Embedding", "Linear", "Dropout", "Flatten"]
 
 
 class Linear(nn.Module):
@@ -55,3 +56,34 @@ class Embedding(nn.Module):
 
     def extra_repr(self):
         return f"{self.weight.shape[0]}, {self.weight.shape[1]}"
+
+
+class Dropout(nn.Module):
+    """``functional.dropout`` in training, the identity (or the
+    ``downscale_in_infer`` scaling) in eval; the mask comes from
+    ``generator``, which a layer with ``0 < p < 1`` must be given to
+    train."""
+
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None,
+                 *, generator=None):
+        super().__init__()
+        self.p, self.axis, self.mode = p, axis, mode
+        self._generator = generator
+
+    def forward(self, x):
+        return dropout(x, self.p, axis=self.axis, training=self.training,
+                       mode=self.mode, generator=self._generator)
+
+    def extra_repr(self):
+        return f"p={self.p}, axis={self.axis}, mode={self.mode}"
+
+
+class Flatten(nn.Module):
+    """Merge the axes ``start_axis..stop_axis`` into one."""
+
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis, self.stop_axis = start_axis, stop_axis
+
+    def forward(self, x):
+        return flatten(x, self.start_axis, self.stop_axis)

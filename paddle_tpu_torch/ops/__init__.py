@@ -1,5 +1,7 @@
-"""Operators of the port: the hand-written CUDA kernels (``kernels``) and
-tensor creation (``creation``)."""
+"""Operators of the port: the hand-written CUDA kernels (``kernels``),
+tensor creation (``creation``) and shape manipulation
+(``manipulation``)."""
 from .creation import arange
+from .manipulation import flatten
 
-__all__ = ["arange"]
+__all__ = ["arange", "flatten"]

@@ -15,9 +15,10 @@ the counterpart of the ``flash_attention`` custom_vjp: it saves what
 
 What bounds the kernels on the H100 is the rate of their products. All
 three run them on the tensor cores (``mma.sync``), float32 through 3xTF32
-(float32-accurate; a single TF32 pass is never used), bf16 through bf16
-products, with the probabilities and ds kept f32 in registers. The CUDA
-sources say what their designs keep on chip.
+(float32-accurate; a single TF32 pass is never used), bfloat16 and float16
+through products in that type, with the probabilities and ds kept f32 in
+registers. Head dims up to 256. The CUDA sources say what their designs
+keep on chip.
 
 Conventions of the function, kept from the Pallas kernels: q is
 ``[B, H, S, D]``, k and v ``[B, H, Sk, D]``; a masked score is ``-1e30``;
@@ -56,6 +57,8 @@ BWD_SOURCE = "paddle_tpu_torch/csrc/flash_attention_bwd.cu"
 _FUNCTION = "ops.kernels.flash_attention.FlashAttentionFunction"
 #: query rows per thread block of the forward kernel (grid y <= 65535)
 _KERNEL_BLOCK_Q = 64
+#: the widest head the kernels take (tiles of 64, 128 or 256 columns)
+MAX_HEAD_DIM = 256
 
 
 def _check_blocks(S, Sk, block_q, block_k):
@@ -81,9 +84,9 @@ def _check_cuda(what, q, k, v, *more):
     if q.dtype not in _build.DTYPE_CODE or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise TypeError(f"{what}: q, k, v must share one type of float32, "
-                        "bfloat16")
-    if q.shape[3] > 128:
-        raise ValueError(f"{what}: head dim {q.shape[3]} > 128")
+                        "bfloat16, float16")
+    if q.shape[3] > MAX_HEAD_DIM:
+        raise ValueError(f"{what}: head dim {q.shape[3]} > {MAX_HEAD_DIM}")
     return dev
 
 

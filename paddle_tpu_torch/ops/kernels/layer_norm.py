@@ -73,15 +73,19 @@ def add_layer_norm_fwd_plain(x2d, y2d, weight, bias, eps=1e-5):
     return s, out, mu, rs
 
 
+#: types of x the kernels take (the router sends no other: float16 rows
+#: take the dense LayerNorm, as in the JAX package)
+LN_TYPES = (torch.float32, torch.bfloat16)
 #: (x, y) types the add-LN kernel takes: one type, or AMP O1's float32
-#: residual stream with a bfloat16 branch
+#: residual stream with a bfloat16 or float16 branch
 ADD_LN_PAIRS = ((torch.float32, torch.float32),
                 (torch.bfloat16, torch.bfloat16),
-                (torch.float32, torch.bfloat16))
+                (torch.float32, torch.bfloat16),
+                (torch.float32, torch.float16))
 
 
 def _check(what, x2d, weight, bias, *more):
-    if x2d.dtype not in _build.DTYPE_CODE:
+    if x2d.dtype not in LN_TYPES:
         raise TypeError(f"{what}: dtype {x2d.dtype} not supported "
                         "(float32, bfloat16)")
     for t in more:
@@ -188,8 +192,7 @@ def layer_norm_bwd(x2d, weight, mu, rstd, g2d):
     _build.require_cuda("layer_norm_bwd", x2d, mu, rstd)
     w = weight.float().contiguous()
     # the kernel writes dweight/dbias in weight's type where it has one
-    wtype = weight.dtype if weight.dtype in _build.DTYPE_CODE \
-        else torch.float32
+    wtype = weight.dtype if weight.dtype in LN_TYPES else torch.float32
     dx = torch.empty_like(x2d)
     dw = torch.empty(D, device=dev, dtype=wtype)
     db = torch.empty(D, device=dev, dtype=wtype)

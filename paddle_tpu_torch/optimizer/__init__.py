@@ -1,6 +1,6 @@
 """Optimizers of the port (counterpart of ``paddle_tpu.optimizer``) and
 their learning-rate schedulers (``optimizer.lr``)."""
 from . import lr
-from .optimizer import Adam, AdamW, Optimizer
+from .optimizer import SGD, Adam, AdamW, Momentum, Optimizer
 
-__all__ = ["lr", "Optimizer", "Adam", "AdamW"]
+__all__ = ["lr", "Optimizer", "SGD", "Momentum", "Adam", "AdamW"]

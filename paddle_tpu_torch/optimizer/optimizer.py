@@ -1,12 +1,13 @@
 """Optimizers (counterpart of ``paddle_tpu/optimizer/optimizer.py``).
 
-The ``Optimizer`` base and ``Adam`` / ``AdamW``. Each update rule is the
-JAX package's pure rule (``_adam_rule`` / ``_adamw_rule``) written in
-plain PyTorch on the parameter's device; JAX runs it outside any Pallas
-kernel too. State lives in per-parameter accumulators named as in JAX
-(``moment1``, ``moment2``), created on first use. Updates happen in place,
-under ``torch.no_grad``, on the parameter and accumulator buffers, where
-JAX returns new arrays.
+The ``Optimizer`` base, ``SGD``, ``Momentum`` and ``Adam`` / ``AdamW``.
+Each update rule is the JAX package's pure rule (``_sgd_rule``,
+``_momentum_rule``, ``_adam_rule``, ``_adamw_rule``) written in plain
+PyTorch on the parameter's device; JAX runs it outside any Pallas kernel
+too. State lives in per-parameter accumulators named as in JAX
+(``velocity``; ``moment1``, ``moment2``), created on first use. Updates
+happen in place, under ``torch.no_grad``, on the parameter and
+accumulator buffers, where JAX returns new arrays.
 
 Two entry points apply an update: ``step()`` from the accumulated
 ``.grad`` (the eager path), and ``_functional_update`` then ``_write``
@@ -34,7 +35,7 @@ from ..regularizer import L2Decay, WeightDecayRegularizer
 from ..utils.train_guard import mask_step
 from .lr import LRScheduler
 
-__all__ = ["Optimizer", "Adam", "AdamW"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW"]
 
 
 def _not_ported(what: str) -> None:
@@ -175,6 +176,32 @@ class Optimizer:
     def clear_grad(self) -> None:
         for p in self._get_params():
             p.grad = None
+
+
+class SGD(Optimizer):
+    """``_sgd_rule``: ``p - lr * g``."""
+
+    def _rule(self, p, g, accs, lr, t):
+        return p - lr * g, {}
+
+
+class Momentum(Optimizer):
+    """``_momentum_rule``: ``v = momentum * v + g``, then ``p - lr * v``,
+    or with ``use_nesterov`` ``p - lr * (g + momentum * v)``."""
+
+    _acc_names = ("velocity",)
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._momentum = float(momentum)
+        self._nesterov = bool(use_nesterov)
+
+    def _rule(self, p, g, accs, lr, t):
+        v = self._momentum * accs["velocity"] + g
+        step = g + self._momentum * v if self._nesterov else v
+        return p - lr * step, {"velocity": v}
 
 
 class Adam(Optimizer):

@@ -13,9 +13,10 @@ plain versions.
 
 Checked: the AMP lists; the types at each seam of a block under
 ``auto_cast``; one batch's loss and every parameter's gradient under the
-strategy's AMP (paddle_tpu's gradients from ``jax.value_and_grad`` of the
-function its ``TrainStep`` differentiates: its eager tape cannot take the
-bf16 cotangent of a float32 residual sum); three ``TrainStep`` calls
+strategy's AMP, bf16 and float16 (paddle_tpu's gradients from
+``jax.value_and_grad`` of the function its ``TrainStep`` differentiates:
+its eager tape cannot take the bf16 cotangent of a float32 residual sum);
+three ``TrainStep`` calls
 through ``fleet.distributed_optimizer``; the float16 loss scaler's skip of
 a NaN batch; and ``amp.decorate`` at O2.
 
@@ -156,7 +157,7 @@ def _models():
     missing, unexpected = jm.set_state_dict(state)
     assert not missing and not unexpected
     tm = TorchGPT()
-    tm.load_state_dict(from_paddle_tpu_state(state), strict=True)
+    tm.load_state_dict(from_paddle_tpu_state(state, tm), strict=True)
     return jm, tm
 
 
@@ -254,7 +255,48 @@ def test_loss_and_gradients_under_amp_match(env):
         tloss = tstep.loss_fn(tm(torch.as_tensor(ids)),
                               torch.as_tensor(lab))
     tloss.backward()
-    got = to_paddle_tpu_state({n: p.grad for n, p in tm.named_parameters()})
+    got = to_paddle_tpu_state(
+        {n: p.grad for n, p in tm.named_parameters()}, tm)
+    np.testing.assert_allclose(tloss.item(), float(jloss), atol=LOSS_ATOL,
+                               rtol=0)
+    assert set(got) == set(want)
+    for name, g in got.items():
+        assert g.dtype == np.float32, name
+        scale = np.abs(want[name]).max()
+        assert scale > 0, name
+        assert np.abs(g - want[name]).max() <= GRAD_RTOL * scale, name
+
+
+def test_fp16_loss_and_gradients_match(env):
+    """float16 O1 (``use_bf16=False``): the flash kernels' routes take
+    float16 q, k and v, and the add-LN the float32 residual with the
+    float16 branch; one batch's loss and every gradient as under bf16 (the
+    loss scaler does not enter: both sides differentiate the unscaled
+    loss)."""
+    jm, tm = _models()
+    ids, lab = _batch(2)
+    jstep, _ = _jax_step(jm, _jax_loss(jm), use_bf16=False)
+    p_raws = tuple(p._data for p in jstep._p_objs)
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jstep._loss_of(p, (), None, (jax.numpy.asarray(ids),),
+                                 (jax.numpy.asarray(lab),))[0]))(p_raws)
+    name_of = {id(p): n for n, p in jm.named_parameters()}
+    want = {name_of[id(p)]: np.asarray(g)
+            for p, g in zip(jstep._p_objs, jgrads)}
+    tstep, _ = _torch_step(tm, _torch_loss(tm), use_bf16=False)
+    assert tstep._amp_ctx["dtype"] == "float16"
+    with torch.enable_grad(), tstep._amp_guard():
+        blk = tm.blocks[0]
+        x = tm.embed(torch.as_tensor(ids))
+        a = blk.attn(blk.ln1(x))
+        s, _ = pt.nn.functional.fused_residual_layer_norm(
+            x, a, [D], blk.ln2.weight, blk.ln2.bias)
+        assert (a.dtype, s.dtype) == (torch.float16, torch.float32)
+        tloss = tstep.loss_fn(tm(torch.as_tensor(ids)),
+                              torch.as_tensor(lab))
+    tloss.backward()
+    got = to_paddle_tpu_state(
+        {n: p.grad for n, p in tm.named_parameters()}, tm)
     np.testing.assert_allclose(tloss.item(), float(jloss), atol=LOSS_ATOL,
                                rtol=0)
     assert set(got) == set(want)
@@ -279,7 +321,7 @@ def test_three_train_steps_through_fleet_match(env):
     np.testing.assert_allclose(tl, jl, atol=LOSS_ATOL, rtol=0)
     assert tl[2] < tl[0]
     want = {k: np.array(v._data) for k, v in jm.state_dict().items()}
-    got = to_paddle_tpu_state(tm.state_dict())
+    got = to_paddle_tpu_state(tm.state_dict(), tm)
     for name in want:
         np.testing.assert_allclose(got[name], want[name], atol=PARAM_ATOL,
                                    rtol=0, err_msg=name)

@@ -11,8 +11,9 @@ Tolerances of kernel against plain version as in chip_smoke.py, scaled
 to each output: |kernel - plain| <= floor * max|plain| + rtol * |plain|,
 float32 (1e-5, 1e-5) (summation order; the 3xTF32 split of the
 tensor-core kernels, ~2^-22 of each product), bfloat16 (2^-12, 2^-7) (one
-rounding of the stored output: at most one bf16 ulp); the -1e30 lse of a
-fully masked row must match exactly. The small model's gradients through the kernels
+rounding of the stored output: at most one bf16 ulp), float16 (2^-14,
+2^-10) (one f16 rounding of the stored output); the -1e30 lse of a fully
+masked row must match exactly. The small model's gradients through the kernels
 against the dense route: float32, TF32 off, max |err| <= 1e-4 + 1e-3 of
 each parameter's largest gradient (summation order through two layers);
 under bf16 AMP O1, 2e-2 of it (the two routes round to bf16 at different
@@ -29,8 +30,11 @@ from paddle_tpu_torch.ops.kernels import layer_norm as ln
 
 pytestmark = pytest.mark.cuda
 
-TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -12, 2 ** -7)}
+TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -12, 2 ** -7),
+       torch.float16: (2 ** -14, 2 ** -10)}
 DTYPES = [torch.float32, torch.bfloat16]
+#: the flash kernels' types
+FLASH_DTYPES = DTYPES + [torch.float16]
 
 
 def assert_near(got, want, dtype):
@@ -57,18 +61,22 @@ def gen():
 # q_offset = Sk - Sq, kv_offset with fully masked rows, ragged lengths
 # around the kernels' 64-row tiles (136; Sq 72 with Sk 200; Sq 200 with
 # Sk 72), head dims 32, 40, 64, 96 and 128, and 36 (bf16 rows of 72
-# bytes: the kernels' plain copy in place of 16-byte cp.async), and a long
-# S = 4096 (the float32 sums of the tensor-core kernels over 64 tiles)
+# bytes: the kernels' plain copy in place of 16-byte cp.async), a long
+# S = 4096 (the float32 sums of the tensor-core kernels over 64 tiles), and
+# head dims 192 and 256 (the kernels' 256-column tiles), causal and not,
+# with ragged lengths
 FWD_CASES = [(128, 128, 64, True, 0, 0), (64, 128, 64, True, 64, 0),
              (128, 128, 64, True, 0, 64), (40, 72, 128, False, 0, 0),
              (24, 40, 96, True, 16, 0), (136, 136, 32, True, 0, 0),
              (136, 136, 64, True, 0, 0), (72, 200, 40, True, 128, 0),
              (72, 200, 96, False, 0, 0), (200, 72, 128, False, 0, 0),
              (200, 200, 64, True, 0, 72), (136, 136, 128, True, 0, 0),
-             (72, 72, 36, True, 0, 0), (4096, 4096, 64, True, 0, 0)]
+             (72, 72, 36, True, 0, 0), (4096, 4096, 64, True, 0, 0),
+             (136, 136, 256, True, 0, 0), (72, 200, 192, False, 0, 0),
+             (200, 200, 256, True, 0, 72), (1024, 1024, 256, True, 0, 0)]
 
 
-@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("dtype", FLASH_DTYPES, ids=str)
 @pytest.mark.parametrize("S,Sk,D,causal,qo,ko", FWD_CASES)
 def test_flash_forward_kernel(gen, dtype, S, Sk, D, causal, qo, ko):
     q, k, v = (torch.randn(2, 3, n, D, device="cuda", generator=gen
@@ -104,21 +112,24 @@ def test_layer_norm_kernels(gen, dtype, R, D):
         assert_near(a, r, torch.float32)
 
 
+@pytest.mark.parametrize("ytype", [torch.bfloat16, torch.float16], ids=str)
 @pytest.mark.parametrize("R,D", [(4096, 1024), (1024, 1024), (8, 1024),
                                  (40, 384), (37, 200)])
-def test_mixed_dtype_add_layer_norm_kernel(gen, R, D):
-    """AMP O1's residual seam on the B6 kernel: x float32, y bfloat16; s
-    bit-equal to the plain version's (one f32 sum, rounded once), LN(s)
-    and the statistics in float32; counted under the pair's types. Rows
-    off the training shape (few rows, D not a multiple of 128) too."""
+def test_mixed_dtype_add_layer_norm_kernel(gen, R, D, ytype):
+    """AMP O1's residual seam on the B6 kernel: x float32, y bfloat16 or
+    float16; s bit-equal to the plain version's (one f32 sum, rounded
+    once), LN(s) and the statistics in float32; counted under the pair's
+    types. Rows off the training shape (few rows, D not a multiple of 128)
+    too."""
     x = torch.randn(R, D, device="cuda", generator=gen)
-    y = torch.randn(R, D, device="cuda", generator=gen).to(torch.bfloat16)
+    y = torch.randn(R, D, device="cuda", generator=gen).to(ytype)
     w, b = (torch.randn(D, device="cuda", generator=gen) for _ in range(2))
-    before = ln.add_layer_norm_fwd.by_dtype.get("float32+bfloat16", 0)
+    key = f"float32+{str(ytype)[6:]}"
+    before = ln.add_layer_norm_fwd.by_dtype.get(key, 0)
     got = ln.add_layer_norm_fwd(x, y, w, b)
     ref = ln.add_layer_norm_fwd_plain(x, y, w, b)
     torch.cuda.synchronize()
-    assert ln.add_layer_norm_fwd.by_dtype["float32+bfloat16"] == before + 1
+    assert ln.add_layer_norm_fwd.by_dtype[key] == before + 1
     assert got[0].dtype == got[1].dtype == torch.float32
     torch.testing.assert_close(got[0], ref[0], atol=0, rtol=0)
     for a, r in zip(got[1:], ref[1:]):
@@ -126,12 +137,12 @@ def test_mixed_dtype_add_layer_norm_kernel(gen, R, D):
 
 
 def test_add_layer_norm_refuses_pairs_the_router_never_makes(gen):
-    """Only (f32, f32), (bf16, bf16) and (f32, bf16) have a kernel; any
-    other pair raises on the card (no plain fallback)."""
+    """Only (f32, f32), (bf16, bf16), (f32, bf16) and (f32, f16) have a
+    kernel; any other pair raises on the card (no plain fallback)."""
     x = torch.randn(16, 128, device="cuda", generator=gen)
     w, b = torch.ones(128, device="cuda"), torch.zeros(128, device="cuda")
     for xt, yt in ((torch.bfloat16, torch.float32),
-                   (torch.float32, torch.float16),
+                   (torch.bfloat16, torch.float16),
                    (torch.float16, torch.float16)):
         with pytest.raises((ValueError, TypeError)):
             ln.add_layer_norm_fwd(x.to(xt), x.to(yt), w, b)
@@ -143,7 +154,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention_fwd(qt, qt, qt)
     with pytest.raises(TypeError):
-        fa.flash_attention_fwd(q.half(), q.half(), q.half())
+        fa.flash_attention_fwd(q.double(), q.double(), q.double())
+    with pytest.raises(TypeError):
+        fa.flash_attention_fwd(q, q.half(), q.half())
+    wide = torch.randn(1, 2, 16, 320, device="cuda", generator=gen)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_fwd(wide, wide, wide)
     with pytest.raises(ValueError, match="CUDA device"):
         ln.layer_norm_fwd(q.reshape(-1, 64), torch.ones(64),
                           torch.zeros(64))
@@ -159,10 +175,13 @@ BWD_CASES = [(128, 128, 64, True, 0, 0), (64, 128, 64, True, 64, 0),
              (48, 48, 96, False, 0, 0), (136, 136, 64, True, 0, 0),
              (72, 200, 40, True, 128, 0), (72, 200, 128, True, 128, 0),
              (200, 72, 96, False, 0, 0), (200, 200, 32, True, 0, 72),
-             (72, 72, 36, True, 0, 0), (4096, 4096, 64, True, 0, 0)]
+             (72, 72, 36, True, 0, 0), (4096, 4096, 64, True, 0, 0),
+             (136, 136, 256, True, 0, 0), (72, 200, 192, True, 128, 0),
+             (200, 72, 256, False, 0, 0), (200, 200, 192, True, 0, 72),
+             (1024, 1024, 256, True, 0, 0)]
 
 
-@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("dtype", FLASH_DTYPES, ids=str)
 @pytest.mark.parametrize("S,Sk,D,causal,qo,ko", BWD_CASES)
 def test_flash_backward_kernels(gen, dtype, S, Sk, D, causal, qo, ko):
     q, k, v = (torch.randn(2, 3, n, D, device="cuda", generator=gen
@@ -187,7 +206,7 @@ def test_flash_backward_kernels(gen, dtype, S, Sk, D, causal, qo, ko):
         assert (dq[:, :, :ko] == 0).all()
 
 
-@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("dtype", FLASH_DTYPES, ids=str)
 @pytest.mark.parametrize("kernel", [fa.flash_attention_bwd_dq,
                                     fa.flash_attention_bwd_dkv],
                          ids=["dq", "dkv"])

@@ -198,7 +198,7 @@ def test_train_step_with_clip_schedule_and_decay_matches(lm_env):
     jm.set_state_dict(state)
     tm = pt.TransformerLM(VOCAB, d_model=D, num_heads=HEADS,
                           num_layers=LAYERS, max_position=S, device="cpu")
-    tm.load_state_dict(from_paddle_tpu_state(state))
+    tm.load_state_dict(from_paddle_tpu_state(state, tm))
 
     def jsched():
         return jax_lr.LinearWarmup(jax_lr.CosineAnnealingDecay(1e-2, T_max=4),
@@ -237,7 +237,7 @@ def test_train_step_with_clip_schedule_and_decay_matches(lm_env):
         ts.step()
     np.testing.assert_allclose(tl, jl, atol=2e-5, rtol=0)
     want = {k: np.array(v._data) for k, v in jm.state_dict().items()}
-    got = to_paddle_tpu_state(tm.state_dict())
+    got = to_paddle_tpu_state(tm.state_dict(), tm)
     for name in want:
         np.testing.assert_allclose(got[name], want[name], atol=1e-4, rtol=0,
                                    err_msg=name)

@@ -76,7 +76,7 @@ def models(env):
     assert not missing and not unexpected
     tm = pt.TransformerLM(VOCAB, d_model=D, num_heads=HEADS,
                           num_layers=LAYERS, max_position=CAP, device="cpu")
-    tm.load_state_dict(from_paddle_tpu_state(state))
+    tm.load_state_dict(from_paddle_tpu_state(state, tm))
     tm.eval()
     return jm, tm
 

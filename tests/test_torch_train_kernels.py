@@ -57,6 +57,9 @@ FLASH_CASES = {
     "end_aligned": (1, 3, 16, 48, 32, True, 32, 0, 8, 16),
     "fully_masked_rows": (2, 2, 16, 16, 16, True, 0, 8, 8, 8),
     "sq_ne_sk": (2, 2, 16, 32, 16, False, 0, 0, 8, 8),
+    # head dims of the CUDA kernels' 256-column tiles
+    "head_dim_256": (1, 2, 32, 32, 256, True, 0, 0, 16, 16),
+    "head_dim_192": (1, 2, 16, 32, 192, False, 0, 0, 8, 16),
 }
 
 
@@ -107,7 +110,7 @@ def test_flash_backward_block_contract_raises():
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("case", ["end_aligned"])
+@pytest.mark.parametrize("case", ["end_aligned", "head_dim_256"])
 def test_flash_function_matches_custom_vjp(case, dtype):
     """``FlashAttentionFunction``'s forward and backward against the
     ``flash_attention`` custom_vjp (interpreter), same cotangent."""
@@ -128,6 +131,32 @@ def test_flash_function_matches_custom_vjp(case, dtype):
                               torch.from_numpy(do).to(tdt))
     for g, w in zip(got, want):
         _close(g, w, dtype)
+
+
+@pytest.mark.parametrize("case", ["causal_square", "head_dim_256"])
+def test_flash_float16_matches_custom_vjp(case):
+    """float16 q, k, v (AMP with ``use_bf16=False``): the forward and the
+    backward of ``FlashAttentionFunction`` against the ``flash_attention``
+    custom_vjp in the interpreter. Both compute in f32 and round each
+    output to float16 once: atol 2e-3 + rtol 2e-3 (a float16 ulp is 2^-10
+    relative)."""
+    _, _, _, _, _, causal, qo, ko, bq, bk = FLASH_CASES[case]
+    q, k, v, do = _flash_inputs(case, seed=11)
+    jout, vjp = jax.vjp(
+        lambda a, b, c: jax_fa.flash_attention(a, b, c, causal, bq, bk, None,
+                                               True, qo, ko),
+        *(jnp.asarray(a, jnp.float16) for a in (q, k, v)))
+    want = (jout,) + vjp(jnp.asarray(do, jnp.float16))
+    tq, tk, tv = (torch.from_numpy(a).half().requires_grad_()
+                  for a in (q, k, v))
+    out = tfa.FlashAttentionFunction.apply(tq, tk, tv, causal, bq, bk, None,
+                                           qo, ko)
+    got = (out,) + torch.autograd.grad(out, (tq, tk, tv),
+                                       torch.from_numpy(do).half())
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float16
+        np.testing.assert_allclose(g.detach().float().numpy(), _f32(w),
+                                   atol=2e-3, rtol=2e-3)
 
 
 def _ln_inputs(shape, seed):

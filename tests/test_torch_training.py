@@ -88,7 +88,7 @@ def models(env):
     assert not missing and not unexpected
     tm = pt.TransformerLM(VOCAB, d_model=D, num_heads=HEADS,
                           num_layers=LAYERS, max_position=S, device="cpu")
-    tm.load_state_dict(from_paddle_tpu_state(state))
+    tm.load_state_dict(from_paddle_tpu_state(state, tm))
     return jm, tm
 
 
@@ -124,7 +124,8 @@ def test_one_batch_loss_and_gradients_match(models):
         p.clear_grad()
     tloss = _torch_loss(tm(torch.as_tensor(ids)), torch.as_tensor(lab))
     tloss.backward()
-    got = to_paddle_tpu_state({n: p.grad for n, p in tm.named_parameters()})
+    got = to_paddle_tpu_state(
+        {n: p.grad for n, p in tm.named_parameters()}, tm)
     tm.zero_grad(set_to_none=True)
     np.testing.assert_allclose(tloss.item(), float(jloss.numpy()),
                                atol=LOSS_ATOL, rtol=0)
@@ -156,12 +157,13 @@ def trained(models):
                     np.array(jopt._accumulators[n][id(p)])
                     for p in jm.parameters()
                     for n in ("moment1", "moment2")]),
-                "torch": (to_paddle_tpu_state(tm.state_dict()), [
+                "torch": (to_paddle_tpu_state(tm.state_dict(), tm), [
                     topt._accumulators[n][id(p)].clone()
                     for p in tm.parameters()
                     for n in ("moment1", "moment2")]),
             }
-    rec["final"] = (_jax_state(jm), to_paddle_tpu_state(tm.state_dict()))
+    rec["final"] = (_jax_state(jm),
+                    to_paddle_tpu_state(tm.state_dict(), tm))
     return rec
 
 
