@@ -23,14 +23,24 @@
    the cached decode against a full forward that goes through the flash
    kernel, and checks that every forward kernel was launched on that path
    and no backward kernel;
-4. trains the same model (bench.py's GPT-medium training proxy: B = 4,
+4. serves the same model through the serving tier, at bench.py's sizes:
+   ``generate`` through a paged KV cache (block 16) against the contiguous
+   cache's tokens; the chunked paged engine (4 slots, chunk 32, a pool
+   sized by the requests' demand, then one that covers three of them, so
+   admission defers) against the unchunked contiguous engine; a prefix
+   cache whose warm request must hit and equal the cold one; a fleet of
+   LoRA-style adapters mixed in one engine against each request served
+   alone; with tokens/s, TTFTs, the pool's bytes against the contiguous
+   worst case, and the LayerNorm forwards' launches (float32 only, no
+   backward kernel);
+5. trains the same model (bench.py's GPT-medium training proxy: B = 4,
    S = 1024, AdamW lr 1e-4, weight decay 0.01, float32) through
    ``jit.TrainStep``: first one gradient oracle (every parameter's
    gradient through the kernels against the dense route's, torch
    autograd), then six steps on one fixed batch (the loss must fall), and
    checks that each of the six kernels was launched as often as a step
    needs;
-5. trains bench.py's GPT-medium program as published (``_bench_gpt``: no
+6. trains bench.py's GPT-medium program as published (``_bench_gpt``: no
    final LayerNorm, ``strategy.amp`` through ``fleet``, bf16 AMP O1,
    ``fused_linear_cross_entropy`` with chunk 8192, AdamW lr 1e-4, weight
    decay 0.01, B = 4, S = 1024): a bf16 gradient oracle against the dense
@@ -38,22 +48,22 @@
    loss must fall), and checks each kernel's launches by input types (the
    flash kernels in bf16, the add-LN on the float32 residual and the bf16
    branch);
-6. the same program under float16 O1 (``amp_configs = {"use_bf16":
+7. the same program under float16 O1 (``amp_configs = {"use_bf16":
    False}``, dynamic loss scaling): its gradient oracle (at the scaler's
    initial scale), six steps with the scaler's skipped steps, and the
    flash kernels' launches in float16 and the add-LN's on (float32,
    float16);
-7. one ParallelGPTBlock at d_model 2048 with 8 heads (head dim 256), B =
+8. one ParallelGPTBlock at d_model 2048 with 8 heads (head dim 256), B =
    2, S = 1024, forward and backward through the kernels against the
    dense route, in float32 and under bf16 AMP;
-8. bench.py's other training programs at its sizes: LeNet (batch 256,
+9. bench.py's other training programs at its sizes: LeNet (batch 256,
    Adam 1e-3), ResNet-50 (batch 256 at 224 x 224, 1000 classes, Momentum
    0.1/0.9) in float32 with TF32 off and under bf16 AMP through
    ``fleet``, and BERT-base (12 layers, 768 wide, batch 32 x 128, AdamW
    1e-4/0.01, bf16 AMP): six steps each on one batch, with the rate,
    ms/step, peak memory, losses (which must fall) and launches (BERT's
    LayerNorms on B5/B7; the others none);
-9. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
+10. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
    "device": ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device, outside a
@@ -106,6 +116,12 @@ SHORT = {torch.float32: "float32", torch.bfloat16: "bf16",
 # kernel), float32 with TF32 off: the two paths sum in different orders
 # through 24 layers
 LOGIT_ATOL = 2e-3
+
+# the serving tier: bench.py's _bench_decode_paged (block 16, chunk 32,
+# engine requests of 16 new tokens) and _bench_serve_multitenant (prompt
+# 128 + 32 new: cap 160)
+TIER_BLOCK, TIER_CHUNK, TIER_ENGINE_NEW = 16, 32, 16
+MT_NEW, MT_CAP = 32, 160
 
 # the training configuration: bench.py's GPT-medium training proxy
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 1024, 6
@@ -1192,6 +1208,161 @@ def serving_phase(pt, kernels):
     return counts
 
 
+def serving_tier_phase(pt, kernels, card):
+    """The serving tier at GPT-medium width: bench.py's
+    ``_bench_decode_paged`` (paged ``generate``, the chunked paged engine)
+    and the colocated half of ``_bench_serve_multitenant`` (the prefix
+    cache's cold and warm requests, a mixed-adapter fleet), each held to
+    its plain form: paged equals contiguous, chunked equals unchunked, warm
+    equals cold, mixed equals each request served alone. Returns the
+    per-kernel launch counts of the phase."""
+    import os
+
+    from paddle_tpu_torch.jit import DecodeStep, PrefillStep
+    from paddle_tpu_torch.serving import Request, paged_kv
+    from paddle_tpu_torch.serving.adapters import AdapterSet
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cap = PROMPT + NEW
+    cap += (-cap) % TIER_BLOCK  # engine pools splice block-aligned
+    model = pt.TransformerLM(VOCAB, D_MODEL, HEADS, LAYERS, max_position=cap,
+                             dim_feedforward=FFN, seed=2)
+    # bench's prompts: rows of arange % 31000
+    prompts = (np.arange(BATCH * PROMPT) % 31000).reshape(BATCH, PROMPT)
+    one = (np.arange(PROMPT) % 31000).astype(np.int32)
+    pre, dec = PrefillStep(model), DecodeStep(model)
+    os.environ["PADDLE_SERVE_BLOCK_SIZE"] = str(TIER_BLOCK)
+    try:
+        if not isinstance(model.gen_cache(1, cap)[0].k, paged_kv.PagedKV):
+            fail("PADDLE_SERVE_BLOCK_SIZE did not page the cache")
+        # warm the step objects the timed call uses (bench's pattern)
+        pt.generate(model, prompts, 2, max_length=cap, prefill=pre,
+                    decode=dec)
+        kernels.reset_launches()  # the phase's main path starts here
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        paged = pt.generate(model, prompts, NEW, max_length=cap,
+                            prefill=pre, decode=dec)
+        gen_s = time.perf_counter() - t0
+    finally:
+        del os.environ["PADDLE_SERVE_BLOCK_SIZE"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    contig = pt.generate(model, prompts, NEW, max_length=cap, prefill=pre,
+                         decode=dec)
+    contig_s = time.perf_counter() - t0
+    same = bool(np.array_equal(paged, contig))
+    print(f"paged generate (block {TIER_BLOCK}) B={BATCH} prompt={PROMPT} "
+          f"new={NEW} cap={cap}: {BATCH * NEW / gen_s:.1f} tokens/s "
+          f"({gen_s * 1e3:.1f} ms), the contiguous cache's right after "
+          f"{BATCH * NEW / contig_s:.1f} tokens/s; tokens equal: {same}")
+    if not same or (paged < 0).any() or (paged >= VOCAB).any():
+        fail("paged generate disagrees with the contiguous cache")
+
+    def serve(reqs, **kw):
+        eng = pt.InferenceEngine(model, max_length=kw.pop("cap", cap), **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        res = eng.run()
+        return eng, res, time.perf_counter() - t0
+
+    def requests(n, prompt, new, adapter=lambda i: 0):
+        return [Request(prompt, max_new_tokens=new, rid=i,
+                        adapter=adapter(i)) for i in range(n)]
+
+    # bench's chunked engine: pool sized by the requests' demand (prompt +
+    # 16 new per slot), not by capacity
+    need = paged_kv.blocks_for(PROMPT + TIER_ENGINE_NEW, TIER_BLOCK)
+    demand = 4 * need + 1
+    reqs = requests(8, one, TIER_ENGINE_NEW)
+    eng, res, eng_s = serve(reqs, slots=4, block_size=TIER_BLOCK,
+                            prefill_chunk=TIER_CHUNK, pool_blocks=demand)
+    _, plain, _ = serve(requests(8, one, TIER_ENGINE_NEW), slots=4)
+    ttfts = sorted(r.ttft_ms for r in res.values())
+    held = paged_kv.pool_bytes(eng._state.caches)
+    worst = paged_kv.worst_case_bytes(4, HEADS, cap, D_MODEL // HEADS,
+                                      itemsize=4, layers=LAYERS)
+    print(f"chunked paged engine (slots 4, chunk {TIER_CHUNK}, "
+          f"{demand} blocks): 8 x {TIER_ENGINE_NEW} tokens in "
+          f"{eng_s * 1e3:.1f} ms, median TTFT {ttfts[len(ttfts) // 2]:.2f} "
+          f"ms (min {ttfts[0]:.2f}, max {ttfts[-1]:.2f}); admission deferred "
+          f"{eng._admit_deferred} times (4 slots x {need} blocks fill the "
+          f"pool exactly); KV pool {held} bytes against the contiguous "
+          f"worst case {worst}")
+    # the same requests over a pool that covers three of them: admission
+    # must defer while the fourth slot is free
+    tight, tres, _ = serve(requests(8, one, TIER_ENGINE_NEW), slots=4,
+                           block_size=TIER_BLOCK, prefill_chunk=TIER_CHUNK,
+                           pool_blocks=3 * need + 1)
+    print(f"chunked paged engine over {3 * need + 1} blocks: admission "
+          f"deferred {tight._admit_deferred} times")
+    for got in (res, tres):
+        if any(got[i].tokens != plain[i].tokens for i in range(8)):
+            fail("the chunked paged engine disagrees with the unchunked "
+                 "contiguous engine")
+    if tight._admit_deferred < 1 or held >= worst \
+            or len(plain[0].tokens) != TIER_ENGINE_NEW:
+        fail("paged admission did not defer, or the pool is not smaller "
+             "than the worst case")
+
+    # bench's multitenant half: adapters attach before any engine
+    adapters = AdapterSet(model, n_adapters=4, rank=8)
+    adapters.load(1)
+    adapters.load(2)
+    px = pt.InferenceEngine(model, slots=2, max_length=MT_CAP,
+                            block_size=TIER_BLOCK, prefix_cache=True)
+    cold_warm = {}
+    for rid in ("cold", "warm"):
+        px.submit(Request(one, max_new_tokens=8, rid=rid))
+        cold_warm[rid] = px.run()[rid]
+    hit_rate = px._prefix_hits / 2.0
+    warm_same = cold_warm["warm"].tokens == cold_warm["cold"].tokens
+    print(f"prefix cache (cap {MT_CAP}, block {TIER_BLOCK}): cold TTFT "
+          f"{cold_warm['cold'].ttft_ms:.2f} ms, warm TTFT "
+          f"{cold_warm['warm'].ttft_ms:.2f} ms, hit rate {hit_rate}, "
+          f"{px._prefix_blocks_shared} blocks shared, {px._cow_copies} "
+          f"copied on write; warm tokens equal cold: {warm_same}")
+    if px._prefix_hits != 1 or not warm_same:
+        fail("the warm request missed the prefix cache or disagrees")
+    fleet, mixed, mixed_s = serve(
+        requests(8, one, MT_NEW, adapter=lambda i: i % 3), slots=8,
+        cap=MT_CAP, block_size=TIER_BLOCK)
+    alone = {}
+    for a in range(3):
+        _, r, _ = serve(requests(1, one, MT_NEW, adapter=lambda i: a),
+                        slots=8, cap=MT_CAP, block_size=TIER_BLOCK)
+        alone[a] = r[0].tokens
+    same = all(mixed[i].tokens == alone[i % 3] for i in range(8))
+    distinct = len({tuple(t) for t in alone.values()})
+    print(f"adapter fleet: {len(adapters.resident) - 1} adapters, 8 "
+          f"requests (adapter i % 3) x {MT_NEW} tokens in one engine of 8 "
+          f"slots: {8 * MT_NEW / mixed_s:.1f} tokens/s; each equals the "
+          f"request served alone: {same}; {distinct} distinct streams")
+    if not same or distinct != 3:
+        fail("the mixed-adapter batch disagrees with the requests served "
+             "alone")
+    counts = kernels.launches_by_dtype()  # the phase's main path ends here
+    print(f"launches on the serving-tier path, by input types: {counts}")
+    for name in ("layer_norm_fwd", "add_layer_norm_fwd"):
+        if set(counts[name]) != {"float32"}:
+            fail(f"kernel {name}: launches {counts[name]} on the serving "
+                 "tier, expected float32 only")
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                 "layer_norm_bwd"):
+        if counts[name]:
+            fail(f"backward kernel {name} ran on the serving tier")
+    print(f"serving tier on {card}: paged generate "
+          f"{BATCH * NEW / gen_s:.1f} tokens/s, chunked engine median TTFT "
+          f"{ttfts[len(ttfts) // 2]:.2f} ms, KV pool {held} / {worst} "
+          f"bytes, prefix TTFT cold {cold_warm['cold'].ttft_ms:.2f} / warm "
+          f"{cold_warm['warm'].ttft_ms:.2f} ms, fleet "
+          f"{8 * MT_NEW / mixed_s:.1f} tokens/s")
+    return {k: sum(v.values()) for k, v in counts.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1236,6 +1407,9 @@ def main() -> int:
     print(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
     serving = serving_phase(pt, kernels)
     print(f"serving phase done at {time.perf_counter() - t_start:.1f} s")
+    tier = serving_tier_phase(pt, kernels, card)
+    print(f"serving tier phase done at {time.perf_counter() - t_start:.1f} "
+          "s")
     training = training_phase(pt, kernels)
     print(f"training phase done at {time.perf_counter() - t_start:.1f} s")
     amp_training = amp_training_phase(pt, kernels)
@@ -1256,7 +1430,9 @@ def main() -> int:
             e["hmma"] = hmma[e["name"]]
         e["launches"] = amp_training[e["name"]]
         e["launches_by_path"] = {
-            "serving": serving[e["name"]], "training": training[e["name"]],
+            "serving": serving[e["name"]],
+            "serving_tier": tier[e["name"]],
+            "training": training[e["name"]],
             "amp_training": amp_training[e["name"]],
             "fp16_amp_training": fp16_training[e["name"]],
             **{f"head_dim_{WIDE_D}_{k}": sum(v[e["name"]].values())

@@ -84,12 +84,30 @@ class ParallelMultiHeadAttention(nn.Module):
             embed_dim, embed_dim, device=device, dtype=dtype,
             generator=generator)
 
-    def gen_cache(self, batch_size, max_length, dtype=None):
-        """Zero ``[B, H, cap, Dh]`` K/V buffers in the layer's dtype."""
+    def gen_cache(self, batch_size, max_length, dtype=None,
+                  block_size=None, pool_blocks=None):
+        """Zero ``[B, H, cap, Dh]`` K/V buffers in the layer's dtype; or,
+        with ``block_size`` (the ``PADDLE_SERVE_BLOCK_SIZE`` default when
+        not given; an explicit value wins), a paged cache: a ``[P, H, bs,
+        Dh]`` block pool and a ``[B, nmax]`` table per K and V
+        (``serving.paged_kv.PagedKV``), the capacity rounded up to whole
+        blocks. ``pool_blocks`` sizes the pool (tables start all-trash);
+        without it the tables are identity-mapped. An int8/fp8 cache
+        (``dtype="int8"``, ``PADDLE_SERVE_KV_QUANT``) raises: not ported."""
+        from ..serving import paged_kv as pk  # serving imports this module
+
+        pk.refuse_quant(pk.kv_quant_policy(dtype))
         w = self.qkv.weight
+        dt = dtype or w.dtype
+        bs = (int(block_size) if block_size is not None
+              else pk.block_size_default())
+        if bs > 0:
+            return MultiHeadAttention.Cache(*(pk.paged_zero(
+                batch_size, self.num_heads, max_length, self.head_dim,
+                block=bs, pool_blocks=pool_blocks, dtype=dt,
+                device=w.device) for _ in range(2)))
         shape = (int(batch_size), self.num_heads, int(max_length),
                  self.head_dim)
-        dt = dtype or w.dtype
         return MultiHeadAttention.Cache(
             torch.zeros(shape, device=w.device, dtype=dt),
             torch.zeros(shape, device=w.device, dtype=dt))
@@ -142,7 +160,10 @@ class ParallelGPTBlock(nn.Module):
     (one B6 kernel when routed) -> fc1 -> exact GELU -> dropout -> fc2 ->
     residual. ``dropout`` applies to the attention probabilities (on the
     dense route, which it selects while training) and to the MLP's hidden
-    activations."""
+    activations. With an ``AdapterSet`` attached (buffers ``adapter_A``
+    ``[n, r, d]`` and ``adapter_B`` ``[n, ffn, r]``), ``adapter=`` ([B]
+    int ids) adds each row's low-rank delta to ``fc1``'s output, after
+    the add-LN."""
 
     def __init__(self, d_model, num_heads, dim_feedforward=None, mp=1, *,
                  dropout=0.0, device, dtype=torch.float32, generator):
@@ -160,7 +181,7 @@ class ParallelGPTBlock(nn.Module):
         self.fc1 = ColumnParallelLinear(d_model, ffn, **kw)
         self.fc2 = RowParallelLinear(ffn, d_model, **kw)
 
-    def forward(self, x, cache=None, pos=None):
+    def forward(self, x, cache=None, pos=None, adapter=None):
         if cache is not None:
             a, new_cache = self.attn(self.ln1(x), cache=cache, pos=pos)
         else:
@@ -168,12 +189,32 @@ class ParallelGPTBlock(nn.Module):
         h, n2 = F.fused_residual_layer_norm(
             x, a, [self.d_model], self.ln2.weight, self.ln2.bias,
             self.ln2.epsilon)
-        m = F.gelu(self.fc1(n2))
+        m = self.fc1(n2)
+        if adapter is not None and "adapter_A" in self._buffers:
+            # per-row LoRA delta on fc1 (serving.adapters.AdapterSet): rows
+            # gathered from the resident stacks by the [B] id vector; row 0
+            # is zeros, so id 0 adds exact zeros
+            m = m + self._adapter_delta(n2, adapter)
+        m = F.gelu(m)
         if self.dropout:
             m = F.dropout(m, self.dropout, training=self.training,
                           generator=self._generator)
         out = h + self.fc2(m)
         return out if new_cache is None else (out, new_cache)
 
-    def gen_cache(self, batch_size, max_length, dtype=None):
-        return self.attn.gen_cache(batch_size, max_length, dtype)
+    def _adapter_delta(self, x, ids):
+        """``scale * B[a] @ (A[a] @ x)`` with ``a`` each row's adapter id:
+        two batched low-rank products in float32 over the gathered rows,
+        cast back to ``x``'s type."""
+        ids = ids.to(torch.int64)
+        a = self.adapter_A[ids].float()  # [B, r, d]
+        b = self.adapter_B[ids].float()  # [B, ffn, r]
+        u = torch.einsum("btd,brd->btr", x.float(), a)
+        out = torch.einsum("btr,bfr->btf", u, b)
+        return (self._adapter_scale * out).to(x.dtype)
+
+    def gen_cache(self, batch_size, max_length, dtype=None,
+                  block_size=None, pool_blocks=None):
+        return self.attn.gen_cache(batch_size, max_length, dtype,
+                                   block_size=block_size,
+                                   pool_blocks=pool_blocks)

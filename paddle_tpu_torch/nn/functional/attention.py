@@ -5,8 +5,9 @@ the flash-by-default policy (``flash_plan``) with the JAX package's
 decline rules, the kernel call (``flash_core``, through the autograd
 Function whose backward runs the B3/B4 kernels), the dense
 ``scaled_dot_product_attention``, and the serving cache ops
-``cache_update`` / ``cached_attention``, which stay plain PyTorch as the
-JAX package leaves them to XLA.
+``cache_update`` / ``cached_attention`` over a contiguous or a paged
+(``serving.paged_kv.PagedKV``) cache, which stay plain PyTorch as the JAX
+package leaves them to XLA.
 
 Knobs, with the JAX package's meanings: ``PADDLE_FLASH_DEFAULT=0`` keeps
 the dense path everywhere; ``=interpret`` routes on the CPU too, where the
@@ -145,7 +146,15 @@ def cache_update(cache, new, pos):
     PLACE (the JAX package's donated dynamic_update_slice; updating in
     place keeps one cache buffer alive). Like dynamic_update_slice, a
     start that would run past the end is clamped to ``cap - Sq``. Returns
-    ``cache``. No device-to-host read."""
+    ``cache``. No device-to-host read.
+
+    A paged cache (``PagedKV``) takes the same append through its block
+    table, one scatter into the pool (``paged_write``)."""
+    from ...serving import paged_kv as pk  # serving imports this module
+
+    if isinstance(cache, pk.PagedKV):
+        return pk.PagedKV(pk.paged_write(cache.kv, cache.table, new, pos),
+                          cache.table)
     B, H, Sq, D = new.shape
     cap = cache.shape[2]
     start = pos.to(torch.int64).clamp(0, cap - Sq)
@@ -162,7 +171,17 @@ def cached_attention(query, key, value, pos, *, scale=None):
     pos[b] + i`` gets -1e9), which also hides every row not yet written
     for this request. Dense on purpose, as in the JAX package: decode's
     Sq is 1 and the per-slot offset is a tensor, not a static seam. No AMP
-    cast: the JAX package runs it outside its op dispatcher too."""
+    cast: the JAX package runs it outside its op dispatcher too.
+
+    Paged K/V (``PagedKV``) are first gathered through their block tables
+    into ``[B, H, nmax*bs, D]`` views (one gather each); their unwritten
+    and trash-mapped rows sit at ``kpos > qpos``, where the same mask
+    hides them."""
+    from ...serving import paged_kv as pk  # serving imports this module
+
+    if isinstance(key, pk.PagedKV):
+        key = pk.paged_gather(key.kv, key.table)
+        value = pk.paged_gather(value.kv, value.table)
     sc = scale if scale is not None else int(query.shape[-1]) ** -0.5
     Sq, Sk = int(query.shape[2]), int(key.shape[2])
     s = torch.matmul(query, key.transpose(-1, -2)) * sc

@@ -5,8 +5,8 @@ Attention takes the JAX package's ``attn_impl="dense"`` route: the routed
 ``functional.scaled_dot_product_attention`` (the flash kernel for causal,
 mask-free, dropout-free attention; the dense form otherwise), or, with
 ``need_weights``, the dense form that returns the weights. The
-``blockwise``, ``ring`` and ``ulysses`` routes, the paged and quantized KV
-caches, and ``ParamAttr`` are not ported yet, and raise.
+``blockwise``, ``ring`` and ``ulysses`` routes, the quantized KV cache
+and ``ParamAttr`` are not ported yet, and raise.
 """
 from __future__ import annotations
 
@@ -101,11 +101,15 @@ class MultiHeadAttention(nn.Module):
         return x.reshape(B, T, self.num_heads, self.head_dim).transpose(1, 2)
 
     def gen_cache(self, key=None, value=None, type=None, max_length=None,
-                  batch_size=None, dtype=None):
+                  batch_size=None, dtype=None, block_size=None,
+                  pool_blocks=None):
         """``StaticCache`` of ``key``/``value`` projected (``type=
         StaticCache``), else a ``Cache`` of zeros: ``[B, H, max_length,
         Dh]`` for static-capacity decoding, or of length 0 to concatenate
-        onto."""
+        onto. With ``block_size`` (or, for the static-capacity form, the
+        ``PADDLE_SERVE_BLOCK_SIZE`` default) the static-capacity cache is
+        paged (``serving.paged_kv.PagedKV``; ``pool_blocks`` as in
+        ``ParallelMultiHeadAttention.gen_cache``)."""
         if type == MultiHeadAttention.StaticCache:
             k = self._split_heads(self._proj(key, 1))
             v = self._split_heads(self._proj(
@@ -114,8 +118,23 @@ class MultiHeadAttention(nn.Module):
         if batch_size is None and key is None:
             raise ValueError("gen_cache needs `key` or `batch_size`")
         B = int(batch_size if batch_size is not None else key.shape[0])
+        from ...serving import paged_kv as pk  # serving imports this module
+
+        cap = int(max_length or 0)
+        if cap or dtype is not None:  # the env asks for serving caches only
+            pk.refuse_quant(pk.kv_quant_policy(dtype))
         w = self.out_proj.weight
-        shape = (B, self.num_heads, int(max_length or 0), self.head_dim)
+        bs = (int(block_size) if block_size is not None
+              else (pk.block_size_default() if cap else 0))
+        if bs > 0:
+            if not cap:
+                raise ValueError("a paged KV cache needs the static-capacity "
+                                 "form: pass max_length=")
+            return MultiHeadAttention.Cache(*(pk.paged_zero(
+                B, self.num_heads, cap, self.head_dim, block=bs,
+                pool_blocks=pool_blocks, dtype=dtype or w.dtype,
+                device=w.device) for _ in range(2)))
+        shape = (B, self.num_heads, cap, self.head_dim)
         return MultiHeadAttention.Cache(
             *(torch.zeros(shape, device=w.device, dtype=dtype or w.dtype)
               for _ in range(2)))

@@ -1,21 +1,51 @@
 """Decode loop and continuous-batching engine (counterpart of
-``paddle_tpu/serving/engine.py``, contiguous cache pool).
+``paddle_tpu/serving/engine.py``).
 
 - :func:`generate` — the whole-batch loop: bucketed prefill, one
   single-token step per token, device-resident loop state. With
   ``sync_every=0`` (the default without a stop token) the host reads the
-  device once, after the loop.
-- :class:`InferenceEngine` — slot-based continuous batching: a fixed
-  ``[slots, H, cap, Dh]`` cache pool, batch-1 prefill into a length
-  bucket, insert-on-free (a finished slot refills from the queue at the
-  next readback), per-slot sampling parameters, stop ids and budgets on
-  the device, and host readbacks only every ``PADDLE_SERVE_SYNC_EVERY``
-  steps.
+  device once, after the loop. The cache is paged when
+  ``PADDLE_SERVE_BLOCK_SIZE`` is set.
+- :class:`InferenceEngine` — slot-based continuous batching: a cache pool
+  of ``slots``, batch-1 prefill into a length bucket, insert-on-free (a
+  finished slot refills from the queue at the next readback), per-slot
+  sampling parameters, stop ids, budgets and adapter ids on the device,
+  and host readbacks only every ``PADDLE_SERVE_SYNC_EVERY`` steps.
+
+The engine's serving tier, as in the JAX package:
+
+- **paged KV pool** (``block_size``): the cache is a ``paged_kv`` block
+  pool with per-slot tables; a request takes ``ceil((prompt + max_new) /
+  bs)`` blocks at insert and frees them at retire, so memory follows the
+  requests' lengths, and admission defers while the pool cannot cover the
+  next request;
+- **chunked prefill** (``prefill_chunk``): a long prompt prefills one
+  chunk per engine turn, with decode windows in between, through
+  ``PrefillStep``'s ``start`` seam, so one long prompt does not stall
+  every request in flight;
+- **prefix cache** (``prefix_cache``, paged pools only): published prompt
+  blocks are shared by table reference, admission charges only the
+  unshared blocks, the borrower prefills only its tail (after the shared
+  K/V are copied into its scratch cache), and the splice is the
+  copy-on-write ``paged_splice_tail``;
+- **adapter fleets**: with a ``serving.adapters.AdapterSet`` attached to
+  the model before the engine is built, ``Request(adapter=)`` ids ride
+  every insert path and the decode state.
+
+Not ported yet (each raises): speculative decoding (``generate(
+draft_model=)``, ROADMAP queue A item 2(f)), KV migration
+(``extract_kv``, ``insert_migrated``: 2(g)), the router's elastic slots
+(``expand_slots``, ``retire_slots``: 2(h)) and the ``decode_metrics``
+telemetry (2(i)).
 
 Env knobs, with the JAX package's meanings:
-  ``PADDLE_SERVE_SYNC_EVERY``  decode steps per engine readback (16)
-  ``PADDLE_SERVE_BUCKETS``     prefill length buckets
-                               ("16,32,64,128,256,512,1024")
+  ``PADDLE_SERVE_SYNC_EVERY``    decode steps per engine readback (16)
+  ``PADDLE_SERVE_BUCKETS``       prefill length buckets
+                                 ("16,32,64,128,256,512,1024")
+  ``PADDLE_SERVE_BLOCK_SIZE``    KV block size; 0 = contiguous cache
+  ``PADDLE_SERVE_PREFILL_CHUNK`` prefill chunk length; 0 = whole prompt
+  ``PADDLE_SERVE_PREFIX_CACHE``  1 = refcounted CoW prefix cache (0)
+  ``PADDLE_SERVE_PREFIX_BLOCKS`` max prefix-cache entries (0 = the pool)
 """
 from __future__ import annotations
 
@@ -30,13 +60,17 @@ import torch
 
 from ..core.random import generator as make_generator
 from ..jit.decode_step import DecodeState, DecodeStep, PrefillStep
+from . import paged_kv as pk
 from . import sampling
+from .prefix_cache import PrefixCache, prefix_cache_enabled
 
 __all__ = ["GenerationConfig", "generate", "Request", "GeneratedResult",
-           "InferenceEngine", "prefill_buckets", "bucket_for"]
+           "InferenceEngine", "prefill_buckets", "bucket_for",
+           "prefill_chunk_default"]
 
 _SYNC_ENV = "PADDLE_SERVE_SYNC_EVERY"
 _BUCKETS_ENV = "PADDLE_SERVE_BUCKETS"
+_CHUNK_ENV = "PADDLE_SERVE_PREFILL_CHUNK"
 
 
 def sync_every_default() -> int:
@@ -44,6 +78,15 @@ def sync_every_default() -> int:
         return max(int(os.environ.get(_SYNC_ENV, "16")), 1)
     except ValueError:
         return 16
+
+
+def prefill_chunk_default() -> int:
+    """``PADDLE_SERVE_PREFILL_CHUNK``: prompt tokens per prefill chunk; 0
+    (default) prefills whole prompts."""
+    try:
+        return max(int(os.environ.get(_CHUNK_ENV, "0")), 0)
+    except ValueError:
+        return 0
 
 
 def prefill_buckets() -> List[int]:
@@ -66,6 +109,11 @@ def bucket_for(length: int, cap: int,
         if b >= length:
             return min(b, cap)
     return cap
+
+
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(
+        f"{what} is not ported yet: ROADMAP queue A item {item}")
 
 
 class GenerationConfig:
@@ -96,7 +144,7 @@ def _pad_prompts(prompts, pad_to, pad_id=0):
 def generate(model, input_ids, max_new_tokens=None, *, config=None,
              temperature=0.0, top_k=0, top_p=1.0, eos_id=None, seed=0,
              max_length=None, sync_every=None, return_logits=False,
-             prefill=None):
+             prefill=None, decode=None, draft_model=None, spec_k=None):
     """Decode ``max_new_tokens`` tokens for a whole batch, on the device
     the model lives on.
 
@@ -105,7 +153,12 @@ def generate(model, input_ids, max_new_tokens=None, *, config=None,
     ``[B, N, V]`` f32 per-step logits. ``sync_every=0`` (default when no
     ``eos_id``) never reads the device inside the loop; with a stop token
     the default checks the done mask every ``PADDLE_SERVE_SYNC_EVERY``
-    steps to stop early. ``prefill`` takes a prebuilt ``PrefillStep``."""
+    steps to stop early. ``prefill``/``decode`` take prebuilt
+    ``PrefillStep``/``DecodeStep`` objects. The cache comes from
+    ``model.gen_cache(B, cap)``: paged under ``PADDLE_SERVE_BLOCK_SIZE``.
+    ``draft_model`` (speculative decoding) raises: not ported."""
+    if draft_model is not None or spec_k is not None:
+        _not_ported("speculative decoding (draft_model=, spec_k=)", "2(f)")
     cfg = config if config is not None else GenerationConfig(
         temperature=temperature, top_k=top_k, top_p=top_p, eos_id=eos_id,
         seed=seed)
@@ -122,7 +175,7 @@ def generate(model, input_ids, max_new_tokens=None, *, config=None,
     ids, lens = _pad_prompts(rows, bucket_for(max_len, cap))
 
     pre = prefill if prefill is not None else PrefillStep(model)
-    step = DecodeStep(model)
+    step = decode if decode is not None else DecodeStep(model)
     last, caches, pos = pre(model.gen_cache(B, cap), ids, lens)
 
     # the first token is sampled here, outside the step; the step budget
@@ -167,16 +220,19 @@ _rid_counter = itertools.count()
 
 
 class Request:
-    """One generation request for the engine."""
+    """One generation request for the engine. ``adapter`` names the
+    fine-tune that serves it, a row of the model's ``AdapterSet``; 0
+    (default) is the base model."""
 
     def __init__(self, prompt_ids, max_new_tokens=16, temperature=0.0,
-                 top_k=0, top_p=1.0, eos_id=None, rid=None):
+                 top_k=0, top_p=1.0, eos_id=None, rid=None, adapter=0):
         self.prompt_ids = np.asarray(prompt_ids, np.int32).reshape(-1)
         self.max_new_tokens = int(max_new_tokens)
         self.temperature = float(temperature)
         self.top_k = int(top_k)
         self.top_p = float(top_p)
         self.eos_id = -1 if eos_id is None else int(eos_id)
+        self.adapter = int(adapter)
         self.rid = next(_rid_counter) if rid is None else rid
         self.t_submit: Optional[float] = None  # set by engine.submit
 
@@ -184,7 +240,8 @@ class Request:
 class GeneratedResult:
     """A finished request: generated ids and its latencies (host clock,
     ms). ``prefill_ms`` runs from the start of its prefill to its first
-    token on the host; ``ttft_ms`` from submit to that token."""
+    token on the host; ``ttft_ms`` from submit to that token (queue wait
+    and chunked prefill included)."""
 
     def __init__(self, rid, tokens, prefill_ms, total_ms, ttft_ms):
         self.rid = rid
@@ -205,43 +262,190 @@ class _Slot:
         self.ttft_ms = ttft_ms
 
 
+class _Pending:
+    """A chunked prefill in flight: its slot and (paged) blocks are held,
+    and its batch-1 cache fills one chunk per engine turn."""
+
+    __slots__ = ("req", "slot", "blocks", "caches", "consumed", "t0",
+                 "prefill_s")
+
+    def __init__(self, req, slot, blocks, caches, t0):
+        self.req = req
+        self.slot = slot
+        self.blocks = blocks
+        self.caches = caches
+        self.consumed = 0
+        self.t0 = t0
+        self.prefill_s = 0.0
+
+
 class InferenceEngine:
     """Slot-based continuous batching over one model.
 
     The decode batch is a fixed pool of ``slots``, each holding one
-    request. A request prefills at batch 1 into its length bucket; its
-    cache is copied into a free slot of the pool and its first token
-    sampled (the one host read per request). Decode runs in windows of
-    ``sync_every`` steps with one readback each; a slot that finished in
-    the window (stop id, budget) is refilled from the queue at the next
-    turn."""
+    request. A request prefills at batch 1 (whole, into its length bucket,
+    or in ``prefill_chunk`` pieces); its cache is copied into its slot of
+    the pool and its first token sampled (the one host read per request).
+    Decode runs in windows of ``sync_every`` steps with one readback each;
+    a slot that finished in the window (stop id, budget) is refilled from
+    the queue at the next turn.
+
+    With ``block_size`` (or the env default) the pool is paged:
+    ``pool_blocks`` blocks (default ``slots * ceil(max_length / bs) + 1``,
+    the trash block included), each request taking its blocks for its
+    life; when the pool cannot cover the request at the head of the queue,
+    admission defers (head of line: skipping ahead would starve long
+    requests), and a request no pool could cover raises at submit.
+    Retired slots' table rows are redirected to the trash block before
+    their blocks can be reallocated. ``prefix_cache`` (or the env default)
+    shares published prompt blocks between requests."""
 
     def __init__(self, model, *, slots=4, max_length=256, sync_every=None,
-                 seed=0):
+                 seed=0, block_size=None, pool_blocks=None,
+                 prefill_chunk=None, prefix_cache=None):
         model.eval()
         self.model = model
         self.slots = int(slots)
         self.max_length = int(max_length)
         self.sync_every = (sync_every_default() if sync_every is None
                            else max(int(sync_every), 1))
+        self.block_size = (int(block_size) if block_size is not None
+                           else pk.block_size_default())
+        self.prefill_chunk = (int(prefill_chunk) if prefill_chunk is not None
+                              else prefill_chunk_default())
         self._prefill = PrefillStep(model)
         self._decode = DecodeStep(model)
+        #: the model's resident fine-tune fleet, if it carries one
+        self.adapters = getattr(model, "_serve_adapters", None)
+        self._prefix_hits = 0
+        self._prefix_blocks_shared = 0
+        self._cow_copies = 0
         self._queue: deque = deque()
         self._active: Dict[int, _Slot] = {}
+        self._pending: Dict[int, _Pending] = {}
+        self._pool: Optional[pk.BlockPool] = None
+        self._slot_blocks: Dict[int, List[int]] = {}
+        self._nmax = 0
+        self._admit_deferred = 0
+        if self.prefill_chunk > 0 and self.max_length % self.prefill_chunk:
+            # every chunk writes a full chunk-wide window: with cap % C != 0
+            # the last chunk of a near-capacity prompt would overrun the
+            # cache, whose clamped write would overwrite earlier rows
+            raise ValueError(
+                f"max_length={self.max_length} must be a multiple of "
+                f"prefill_chunk={self.prefill_chunk} (the final chunk "
+                f"writes a full chunk-wide window)")
+        if self.block_size > 0:
+            if self.max_length % self.block_size:
+                raise ValueError(
+                    f"max_length={self.max_length} must be a multiple of "
+                    f"block_size={self.block_size} (the batch-1 prefill "
+                    f"cache splices block-aligned)")
+            self._nmax = pk.num_blocks(self.max_length, self.block_size)
+            total = (pool_blocks if pool_blocks is not None
+                     else self.slots * self._nmax + 1)
+            self._pool = pk.BlockPool(total)
+            caches = model.gen_cache(self.slots, self.max_length,
+                                     block_size=self.block_size,
+                                     pool_blocks=total)
+        else:
+            caches = model.gen_cache(self.slots, self.max_length,
+                                     block_size=0)
+        use_px = (prefix_cache if prefix_cache is not None
+                  else prefix_cache_enabled())
+        # the share unit is a block: the index needs the paged pool
+        self._prefix: Optional[PrefixCache] = (
+            PrefixCache(self.block_size)
+            if use_px and self._pool is not None else None)
         self._state = DecodeState.make(
-            model.gen_cache(self.slots, self.max_length),
-            first_tokens=np.zeros(self.slots, np.int32),
+            caches, first_tokens=np.zeros(self.slots, np.int32),
             pos=np.zeros(self.slots, np.int32), seed=seed)
         self._state.done.fill_(True)  # every slot starts free
         self._gen = make_generator(seed, self._state.pos.device)
 
     # -- public API --------------------------------------------------------
+    def needed_blocks(self, req: Request) -> int:
+        """Blocks the paged pool charges ``req`` (0 when contiguous)."""
+        if self._pool is None:
+            return 0
+        return pk.blocks_for(req.prompt_ids.size + req.max_new_tokens,
+                             self.block_size)
+
+    def free_blocks(self) -> Optional[int]:
+        return None if self._pool is None else self._pool.free
+
+    def queue_depth(self) -> int:
+        return len(self._queue)
+
+    def inflight(self) -> int:
+        return len(self._active) + len(self._pending)
+
+    def progress(self) -> Dict[object, List[int]]:
+        """rid -> tokens emitted so far, for every request the engine
+        holds: host state only (active slots report the tokens read back
+        at window boundaries, pending and queued requests ``[]``)."""
+        out: Dict[object, List[int]] = {}
+        for st in self._active.values():
+            out[st.req.rid] = list(st.tokens)
+        for job in self._pending.values():
+            out[job.req.rid] = []
+        for req in self._queue:
+            out[req.rid] = []
+        return out
+
+    def cancel(self, rid) -> bool:
+        """Withdraw one request without a result. Queued: dropped. Pending
+        prefill or active slot: the slot is marked done and its blocks
+        come back. Returns whether anything was withdrawn."""
+        for i, req in enumerate(self._queue):
+            if req.rid == rid:
+                del self._queue[i]
+                return True
+        for slot, job in list(self._pending.items()):
+            if job.req.rid == rid:
+                del self._pending[slot]
+                self._release(slot, job.blocks)
+                return True
+        for slot, st in list(self._active.items()):
+            if st.req.rid == rid:
+                self._active.pop(slot)
+                self._state.done[slot] = True
+                self._release(slot, self._slot_blocks.pop(slot, None))
+                return True
+        return False
+
+    def expand_slots(self, n: int) -> int:
+        _not_ported("InferenceEngine.expand_slots (elastic slots)", "2(h)")
+
+    def retire_slots(self, n: int) -> List[int]:
+        _not_ported("InferenceEngine.retire_slots (elastic slots)", "2(h)")
+
+    def extract_kv(self, rid):
+        _not_ported("InferenceEngine.extract_kv (KV migration)", "2(g)")
+
+    def insert_migrated(self, req: Request, bundle) -> bool:
+        _not_ported("InferenceEngine.insert_migrated (KV migration)",
+                    "2(g)")
+
     def submit(self, req: Request) -> None:
         if req.prompt_ids.size + req.max_new_tokens > self.max_length:
             raise ValueError(
                 f"request {req.rid}: prompt ({req.prompt_ids.size}) + "
                 f"max_new_tokens ({req.max_new_tokens}) exceeds "
                 f"max_length={self.max_length}")
+        if self._pool is not None and \
+                self.needed_blocks(req) > self._pool.total:
+            raise ValueError(
+                f"request {req.rid} needs {self.needed_blocks(req)} KV "
+                f"blocks but the pool only has {self._pool.total}: it can "
+                f"never be admitted")
+        if req.adapter and (self.adapters is None
+                            or not self.adapters.is_loaded(req.adapter)):
+            raise ValueError(
+                f"request {req.rid} names adapter {req.adapter} but "
+                + ("no AdapterSet is attached to this engine's model"
+                   if self.adapters is None else
+                   f"only {self.adapters.resident} are resident"))
         req.t_submit = time.perf_counter()
         self._queue.append(req)
 
@@ -254,13 +458,23 @@ class InferenceEngine:
 
     @torch.no_grad()
     def turn(self, results: Dict[object, GeneratedResult]) -> bool:
-        """One scheduling turn: fill free slots, run one decode window,
-        collect its readback. True while work remains."""
-        if not (self._queue or self._active):
+        """One scheduling turn: advance pending prefills by a chunk, fill
+        free slots, run one decode window, collect its readback. True
+        while work remains."""
+        if not (self._queue or self._active or self._pending):
             return False
-        self._fill_free_slots(results)
+        self._advance_prefills(results)
+        progress = self._fill_free_slots(results)
         if not self._active:
-            return bool(self._queue)
+            if not self._pending and not progress and self._queue:
+                # nothing in flight can free blocks for the head request
+                req = self._queue[0]
+                raise RuntimeError(
+                    f"request {req.rid} cannot be admitted: needs "
+                    f"{self.needed_blocks(req)} blocks, "
+                    f"{self.free_blocks()} free, nothing in flight to free "
+                    f"more")
+            return bool(self._queue or self._pending)
         emits = []
         for _ in range(self.sync_every):
             emit, _, self._state = self._decode(self._state)
@@ -270,47 +484,175 @@ class InferenceEngine:
         tok_block = torch.stack(emits, dim=0).cpu().numpy()
         done = self._state.done.cpu().numpy()
         self._collect(tok_block, done, results)
-        return bool(self._queue or self._active)
+        return bool(self._queue or self._active or self._pending)
 
     # -- internals ---------------------------------------------------------
-    def _fill_free_slots(self, results) -> None:
-        free = [s for s in range(self.slots) if s not in self._active]
+    def _slot_cache(self):
+        """A contiguous batch-1 cache for one request's prefill (the pool
+        may be paged: the splice re-blocks it)."""
+        return self.model.gen_cache(1, self.max_length, block_size=0)
+
+    def _row(self, blocks) -> torch.Tensor:
+        """A slot's table row: ``blocks``, trash-padded to the width."""
+        row = np.zeros(self._nmax, np.int64)
+        row[: len(blocks)] = blocks
+        return torch.as_tensor(row, device=self._state.pos.device)
+
+    def _advance_prefills(self, results) -> None:
+        """One chunk per pending prefill per turn."""
+        C = self.prefill_chunk
+        for slot in list(self._pending):
+            job = self._pending[slot]
+            p = job.req.prompt_ids
+            t0 = time.perf_counter()
+            take = min(C, p.size - job.consumed)
+            chunk = np.zeros((1, C), np.int32)
+            chunk[0, :take] = p[job.consumed: job.consumed + take]
+            last, job.caches, _ = self._prefill(
+                job.caches, chunk, [take], start=[job.consumed],
+                adapter=[job.req.adapter])
+            job.consumed += take
+            job.prefill_s += time.perf_counter() - t0
+            if job.consumed >= p.size:
+                del self._pending[slot]
+                self._activate(slot, job.req, job.caches, last,
+                               blocks=job.blocks, t_enq=job.t0,
+                               prefill_ms=job.prefill_s * 1e3,
+                               results=results)
+
+    def _fill_free_slots(self, results) -> bool:
+        if not self._queue:
+            return False
+        progress = False
+        free = [s for s in range(self.slots)
+                if s not in self._active and s not in self._pending]
         for slot in free:
             if not self._queue:
                 break
-            req = self._queue.popleft()
-            t0 = time.perf_counter()
+            req = self._queue[0]
+            blocks = share = None
+            if self._pool is not None:
+                # a matched prefix is taken by table reference, so only
+                # the unshared blocks are charged; when even those do not
+                # fit, idle cached entries are evicted before deferring
+                if self._prefix is not None:
+                    share = self._prefix.lookup(req.prompt_ids)
+                need = self.needed_blocks(req) - (
+                    0 if share is None else len(share.ref_blocks))
+                blocks = self._pool.alloc(need)
+                if blocks is None and self._prefix is not None:
+                    self._prefix.evict_for(self._pool, need)
+                    blocks = self._pool.alloc(need)
+                if blocks is None:
+                    # defer: blocks come back when work in flight retires
+                    self._admit_deferred += 1
+                    break
+            self._queue.popleft()
+            progress = True
+            if share is not None:
+                self._admit_shared(slot, req, share, blocks, results)
+                continue
             L = req.prompt_ids.size
+            if 0 < self.prefill_chunk < L:
+                self._pending[slot] = _Pending(
+                    req, slot, blocks, self._slot_cache(),
+                    time.perf_counter())
+                continue
+            t0 = time.perf_counter()
             ids, lens = _pad_prompts([req.prompt_ids],
                                      bucket_for(L, self.max_length))
             last, slot_caches, _ = self._prefill(
-                self.model.gen_cache(1, self.max_length), ids, lens)
-            first = self._insert(slot, req, slot_caches, last)
-            now = time.perf_counter()
-            prefill_ms = (now - t0) * 1e3
-            ttft_ms = (now - req.t_submit) * 1e3
-            if first == req.eos_id or req.max_new_tokens <= 1:
-                # degenerate request: done at its first token
-                results[req.rid] = GeneratedResult(
-                    req.rid, [first], prefill_ms, prefill_ms, ttft_ms)
-                self._state.done[slot] = True
-            else:
-                self._active[slot] = _Slot(req, t0, prefill_ms, first,
-                                           ttft_ms)
+                self._slot_cache(), ids, lens, adapter=[req.adapter])
+            self._activate(slot, req, slot_caches, last, blocks=blocks,
+                           t_enq=t0,
+                           prefill_ms=(time.perf_counter() - t0) * 1e3,
+                           results=results)
+        return progress
 
-    def _insert(self, slot, req, slot_caches, last) -> int:
-        """Copy a prefilled batch-1 cache into pool slot ``slot``, reset
-        that slot's state entries, and return its first token."""
+    def _activate(self, slot, req, slot_caches, last, *, blocks, t_enq,
+                  prefill_ms, results) -> None:
+        """Sample the first token, splice the prefilled cache into the
+        pool, publish the prompt's blocks, and park the request in its
+        slot or (eos at once, a 1-token budget) finish it."""
+        first = self._sample_first(req, last)
         st = self._state
-        dev = st.pos.device
-        first = sampling.sample(
+        if self._pool is None:
+            for pool, one in zip(st.caches, slot_caches):
+                pool.k[slot].copy_(one.k[0])
+                pool.v[slot].copy_(one.v[0])
+        else:
+            row = self._row(blocks)
+            for pool, one in zip(st.caches, slot_caches):
+                pk.paged_splice(pool.k, one.k, slot, row)
+                pk.paged_splice(pool.v, one.v, slot, row)
+        self._reset_slot(slot, req, first)
+        if self._prefix is not None:
+            # the index's own references keep the blocks resident for the
+            # next borrower even if the request finishes at once
+            self._prefix.publish(self._pool, req.prompt_ids, blocks)
+        self._park_or_finish(slot, req, int(first[0]), blocks, t_enq,
+                             prefill_ms, results)
+
+    def _admit_shared(self, slot, req, share, fresh, results) -> None:
+        """Admit a request over a prefix-cache hit: take the matched blocks
+        by table reference, copy them into the batch-1 scratch (the tail's
+        attention needs the real prefix K/V), prefill only the unshared
+        tail in one shot, and splice with ``paged_splice_tail``, which
+        first copies the one colliding shared block on a full match."""
+        t0 = time.perf_counter()
+        self._pool.ref(share.ref_blocks)
+        cow = share.cow_src is not None
+        table = list(share.ref_blocks) + list(fresh)
+        cow_src = share.cow_src if cow else 0
+        cow_dst = fresh[0] if cow else 0  # 0, 0: trash onto itself
+        # the fetch reads the source chain: on a full match the slot's
+        # table row points its last shared block at the private cow_dst,
+        # which holds garbage until the splice
+        src = self._row(share.src_blocks)
+        scratch = self._slot_cache()
+        for pool, one in zip(self._state.caches, scratch):
+            pk.paged_fetch(pool.k, one.k, src)
+            pk.paged_fetch(pool.v, one.v, src)
+        L = req.prompt_ids.size
+        start = int(share.tail_start)
+        n_tail = L - start
+        # the tail window writes start .. start+W-1 and must stay inside
+        # the cache: a bucket against the remaining capacity fits
+        W = bucket_for(n_tail, self.max_length - start)
+        ids = np.zeros((1, W), np.int32)
+        ids[0, :n_tail] = req.prompt_ids[start:]
+        last, scratch, _ = self._prefill(scratch, ids, [n_tail],
+                                         start=[start],
+                                         adapter=[req.adapter])
+        first = self._sample_first(req, last)
+        row = self._row(table)
+        for pool, one in zip(self._state.caches, scratch):
+            pk.paged_splice_tail(pool.k, one.k, slot, row, start, L,
+                                 cow_src, cow_dst)
+            pk.paged_splice_tail(pool.v, one.v, slot, row, start, L,
+                                 cow_src, cow_dst)
+        self._reset_slot(slot, req, first)
+        self._prefix_hits += 1
+        self._prefix_blocks_shared += len(share.ref_blocks)
+        self._cow_copies += int(cow)
+        # touches the indexed chain and indexes any full block the tail
+        # added
+        self._prefix.publish(self._pool, req.prompt_ids, table)
+        self._park_or_finish(slot, req, int(first[0]), table, t0,
+                             (time.perf_counter() - t0) * 1e3, results)
+
+    def _sample_first(self, req, last):
+        dev = self._state.pos.device
+        return sampling.sample(
             last, self._gen,
             torch.tensor([req.temperature], device=dev),
             torch.tensor([req.top_k], dtype=torch.int32, device=dev),
             torch.tensor([req.top_p], device=dev))
-        for pool, one in zip(st.caches, slot_caches):
-            pool.k[slot].copy_(one.k[0])
-            pool.v[slot].copy_(one.v[0])
+
+    def _reset_slot(self, slot, req, first) -> None:
+        """Point slot ``slot``'s state entries at a freshly prefilled
+        request whose first token is ``first`` ([1] on the device)."""
+        st = self._state
         st.pos[slot] = req.prompt_ids.size
         st.tok[slot] = first[0]
         st.done[slot] = False
@@ -319,7 +661,32 @@ class InferenceEngine:
         st.top_p[slot] = req.top_p
         st.eos[slot] = req.eos_id
         st.budget[slot] = req.max_new_tokens - 1
-        return int(first[0])
+        st.adapter[slot] = req.adapter
+
+    def _park_or_finish(self, slot, req, first, blocks, t_enq, prefill_ms,
+                        results) -> None:
+        now = time.perf_counter()
+        ttft_ms = (now - req.t_submit) * 1e3
+        if first == req.eos_id or req.max_new_tokens <= 1:
+            # degenerate request: done at its first token
+            results[req.rid] = GeneratedResult(
+                req.rid, [first], prefill_ms, prefill_ms, ttft_ms)
+            self._state.done[slot] = True
+            self._release(slot, blocks)
+        else:
+            if blocks is not None:
+                self._slot_blocks[slot] = blocks
+            self._active[slot] = _Slot(req, t_enq, prefill_ms, first,
+                                       ttft_ms)
+
+    def _release(self, slot, blocks) -> None:
+        """Give a retired slot's blocks back, redirecting its table rows to
+        trash first: the done slot keeps writing at its frozen
+        position."""
+        if self._pool is None or blocks is None:
+            return
+        pk.retire_tables(self._state.caches, slot)
+        self._pool.release(blocks)
 
     def _collect(self, tok_block, done, results) -> None:
         """Fold one readback window into the requests' host state and
@@ -338,3 +705,4 @@ class InferenceEngine:
             results[st.req.rid] = GeneratedResult(
                 st.req.rid, st.tokens, st.prefill_ms,
                 (time.perf_counter() - st.t_start) * 1e3, st.ttft_ms)
+            self._release(slot, self._slot_blocks.pop(slot, None))

@@ -2,12 +2,16 @@
 model contract the decode steps consume::
 
     model(ids)                       -> [B, S, V] logits (full forward)
-    model(ids, cache=cs, pos=pos)    -> ([B, Sq, V] logits, new caches)
-    model.gen_cache(B, cap[, dtype]) -> per-layer static-capacity caches
+    model(ids, cache=cs, pos=pos[, adapter=ids])
+                                     -> ([B, Sq, V] logits, new caches)
+    model.gen_cache(B, cap[, dtype, block_size=, pool_blocks=])
+                                     -> per-layer static-capacity caches
+                                        (contiguous or paged)
 
 Token + learned position embeddings, a ``ParallelGPTBlock`` stack, a final
 LayerNorm and an untied vocab head. The full forward attends through the
-flash kernel; the cached forward through ``cached_attention``.
+flash kernel; the cached forward through ``cached_attention``, and passes
+per-row adapter ids to the blocks (``serving.adapters.AdapterSet``).
 """
 from __future__ import annotations
 
@@ -54,7 +58,7 @@ class TransformerLM(nn.Module):
     def device(self) -> torch.device:
         return self.head.weight.device
 
-    def forward(self, ids, cache=None, pos=None):
+    def forward(self, ids, cache=None, pos=None, adapter=None):
         T = int(ids.shape[1])
         ar = torch.arange(T, device=ids.device)
         if cache is None:
@@ -68,14 +72,16 @@ class TransformerLM(nn.Module):
         h = self.embed(ids) + self.pos_embed(pos.reshape(-1, 1) + ar)
         new_caches = []
         for blk, c in zip(self.blocks, cache):
-            h, nc = blk(h, cache=c, pos=pos)
+            h, nc = blk(h, cache=c, pos=pos, adapter=adapter)
             new_caches.append(nc)
         return self.head(self.ln_f(h)), new_caches
 
-    def gen_cache(self, batch_size, max_length, dtype=None):
+    def gen_cache(self, batch_size, max_length, dtype=None,
+                  block_size=None, pool_blocks=None):
         if int(max_length) > self.max_position:
             raise ValueError(
                 f"cache capacity {max_length} exceeds max_position="
                 f"{self.max_position} (the position table)")
-        return [blk.gen_cache(batch_size, max_length, dtype)
+        return [blk.gen_cache(batch_size, max_length, dtype,
+                              block_size=block_size, pool_blocks=pool_blocks)
                 for blk in self.blocks]

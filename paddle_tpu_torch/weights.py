@@ -11,7 +11,10 @@ pass through unchanged. :func:`from_paddle_tpu_state` turns a
 port's model's ``load_state_dict`` takes, so both packages compute the
 same function, and :func:`to_paddle_tpu_state` turns the port's state back
 into paddle's layout, so trained parameters compare in one layout.
-Parameter and buffer names are the same in both packages.
+Parameter and buffer names are the same in both packages; an adapter
+fleet's stacks (``blocks.N.adapter_A`` ``[n, r, d]`` and ``adapter_B``
+``[n, ffn, r]``, registered by ``serving.adapters.AdapterSet`` on both
+sides) pass unchanged.
 """
 from __future__ import annotations
 

@@ -17,7 +17,9 @@ masked row must match exactly. The small model's gradients through the kernels
 against the dense route: float32, TF32 off, max |err| <= 1e-4 + 1e-3 of
 each parameter's largest gradient (summation order through two layers);
 under bf16 AMP O1, 2e-2 of it (the two routes round to bf16 at different
-places).
+places). The serving tier on the card (paged KV, chunked prefill, the
+prefix cache, adapter fleets) against its plain forms: greedy tokens
+equal, paged decode logits within 1e-5 (float32, TF32 off).
 """
 
 import pytest
@@ -353,3 +355,97 @@ def test_amp_model_gradients_through_the_kernels(gen, monkeypatch):
         assert scale > 0, n
         torch.testing.assert_close(g, want[n], atol=2e-2 * scale, rtol=0,
                                    msg=n)
+
+
+# ---------------------------------------------------------------------------
+# the serving tier on the card: paged KV, chunked prefill, the prefix cache
+# and adapter fleets, each against its plain form (greedy tokens equal)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture()
+def tier_model(gen, monkeypatch):
+    """A small model on the card (d_model 128: the LayerNorms take their
+    kernels), TF32 off, no serving-tier knob set."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    for k in ("PADDLE_SERVE_BLOCK_SIZE", "PADDLE_SERVE_PREFILL_CHUNK",
+              "PADDLE_SERVE_PREFIX_CACHE", "PADDLE_SERVE_KV_QUANT"):
+        monkeypatch.delenv(k, raising=False)
+    return pt.TransformerLM(64, d_model=128, num_heads=4, num_layers=2,
+                            max_position=64, seed=3)
+
+
+def _serve_tokens(model, reqs, **kw):
+    kw.setdefault("slots", 2)
+    kw.setdefault("max_length", 64)
+    kw.setdefault("sync_every", 4)
+    eng = pt.InferenceEngine(model, **kw)
+    for r in reqs:
+        eng.submit(r)
+    return eng, {k: v.tokens for k, v in eng.run().items()}
+
+
+def test_paged_generate_equals_contiguous(tier_model, monkeypatch):
+    prompts = [[5, 17, 3, 40, 22, 9, 31, 2], [11, 4, 46, 8, 27]]
+    kernels.reset_launches()
+    want, want_l = pt.generate(tier_model, prompts, 8, max_length=48,
+                               return_logits=True)
+    monkeypatch.setenv("PADDLE_SERVE_BLOCK_SIZE", "8")
+    got, got_l = pt.generate(tier_model, prompts, 8, max_length=48,
+                             return_logits=True)
+    assert (got == want).all()
+    torch.testing.assert_close(torch.tensor(got_l), torch.tensor(want_l),
+                               atol=1e-5, rtol=0)
+    assert kernels.launches()["add_layer_norm_fwd"] > 0
+
+
+def test_chunked_paged_engine_equals_unchunked(tier_model):
+    r = torch.Generator().manual_seed(0)
+    prompts = [torch.randint(0, 64, (int(n),), generator=r).tolist()
+               for n in (9, 17, 30, 12)]
+
+    def reqs():
+        return [pt.serving.Request(p, max_new_tokens=6, rid=i)
+                for i, p in enumerate(prompts)]
+
+    _, want = _serve_tokens(tier_model, reqs())
+    eng, got = _serve_tokens(tier_model, reqs(), prefill_chunk=8,
+                             block_size=8, pool_blocks=7)
+    assert got == want
+    assert eng._admit_deferred > 0 and eng.free_blocks() == 6
+
+
+def test_warm_prefix_equals_cold(tier_model):
+    preamble = list(range(3, 19))  # two blocks of 8
+    eng = pt.InferenceEngine(tier_model, slots=2, max_length=64,
+                             sync_every=4, block_size=8, prefix_cache=True)
+    out = {}
+    for rid, prompt in (("cold", preamble), ("warm", preamble),
+                        ("tail", preamble + [40])):
+        eng.submit(pt.serving.Request(prompt, max_new_tokens=8, rid=rid))
+        out[rid] = eng.run()[rid].tokens
+    assert out["warm"] == out["cold"]
+    assert eng._prefix_hits == 2 and eng._cow_copies == 1
+    _, alone = _serve_tokens(tier_model, [pt.serving.Request(
+        preamble + [40], max_new_tokens=8, rid="tail")], block_size=8)
+    assert out["tail"] == alone["tail"]
+
+
+def test_mixed_adapter_batch_equals_sequential(tier_model):
+    from paddle_tpu_torch.serving.adapters import AdapterSet
+
+    ad = AdapterSet(tier_model, n_adapters=4, rank=2)
+    ad.load(1)
+    ad.load(2)
+
+    def reqs(aids):
+        return [pt.serving.Request([5, 6, 7, 8], max_new_tokens=8,
+                                   rid=a, adapter=a) for a in aids]
+
+    _, mixed = _serve_tokens(tier_model, reqs((0, 1, 2)), slots=3,
+                             block_size=8)
+    assert len({tuple(t) for t in mixed.values()}) == 3
+    for a in (0, 1, 2):
+        _, alone = _serve_tokens(tier_model, reqs((a,)), slots=3,
+                                 block_size=8)
+        assert alone[a] == mixed[a], a

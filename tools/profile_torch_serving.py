@@ -1,14 +1,17 @@
 """Where the time of the port's serving path goes, on one card.
 
     python3 tools/profile_torch_serving.py [--layers 24] [--steps 8]
+                                           [--block-size 16]
 
 Builds chip_smoke.py's GPT-medium-shaped ``TransformerLM`` (float32,
 random weights), prefills 8 prompts of 128 tokens through
 ``PrefillStep``, then runs ``--steps`` ``DecodeStep`` calls under
-``torch.profiler``. Prints, for the prefill and for one decode step: the
-host wall time (ending in a synchronize), the device time summed over the
-CUDA kernels the profiler saw, the device's idle share, and the kernels
-that took the most device time. Needs a CUDA device.
+``torch.profiler``, over a contiguous KV cache or, with ``--block-size``,
+a paged one (identity tables, as ``generate`` builds it). Prints, for the
+prefill and for one decode step: the host wall time (ending in a
+synchronize), the device time summed over the CUDA kernels the profiler
+saw, the device's idle share, and the kernels that took the most device
+time. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -54,6 +57,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=24)
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--block-size", type=int, default=0,
+                    help="KV block size; 0 keeps the contiguous cache")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serving: needs a CUDA device", file=sys.stderr)
@@ -73,20 +78,22 @@ def main() -> int:
     lens = np.full(B, P, np.int32)
     pre, step = PrefillStep(model), DecodeStep(model)
     for _ in range(2):  # warm up: kernel builds, allocator, cuBLAS
-        last, caches, pos = pre(model.gen_cache(B, cap), ids, lens)
+        last, caches, pos = pre(
+            model.gen_cache(B, cap, block_size=args.block_size), ids, lens)
         state = DecodeState.make(caches, last.argmax(-1), pos)
         for _ in range(2):
             _, _, state = step(state)
     torch.cuda.synchronize()
 
-    caches = model.gen_cache(B, cap)
+    caches = model.gen_cache(B, cap, block_size=args.block_size)
+    kv = f"block {args.block_size}" if args.block_size else "contiguous"
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         last, caches, pos = pre(caches, ids, lens)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    _report(f"prefill B={B} L={P} layers={args.layers}", wall,
+    _report(f"prefill B={B} L={P} layers={args.layers} {kv}", wall,
             "prefill", prof, 1)
 
     state = DecodeState.make(caches, last.argmax(-1), pos)
@@ -95,7 +102,7 @@ def main() -> int:
     for _ in range(args.steps):
         _, _, state = step(state)
     torch.cuda.synchronize()
-    print(f"decode B={B} layers={args.layers}, profiler off: host "
+    print(f"decode B={B} layers={args.layers} {kv}, profiler off: host "
           f"{(time.perf_counter() - t0) * 1e3 / args.steps:.3f} ms per step")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -104,7 +111,7 @@ def main() -> int:
             _, _, state = step(state)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    _report(f"decode B={B} layers={args.layers}", wall, "step", prof,
+    _report(f"decode B={B} layers={args.layers} {kv}", wall, "step", prof,
             args.steps)
     return 0
 
