@@ -11,7 +11,9 @@
    float32 and bfloat16 (the attention kernels in float16 too, and the
    add-LN on the float32 + bfloat16 and float32 + float16 pairs), at the
    training shapes (B = 4, S = 1024; LN rows 4096), BERT-base's LN rows
-   ([4096, 768]) and the serving shapes, at the masked and offset cases,
+   ([4096, 768]) and the serving shapes (the LayerNorms also at the decode
+   step's 8 rows, a speculative round's 40 and a prefill chunk's 32), at
+   the masked and offset cases,
    and the attention kernels at head dims 192 and 256 (causal and not,
    ragged lengths); times the kernel, the plain version and one PyTorch
    library call computing the same function, all from CUDA-graph replays
@@ -33,14 +35,26 @@
    alone; with tokens/s, TTFTs, the pool's bytes against the contiguous
    worst case, and the LayerNorm forwards' launches (float32 only, no
    backward kernel);
-5. trains the same model (bench.py's GPT-medium training proxy: B = 4,
+5. quantized serving at the same size (bench.py's ``_bench_decode_q8w``):
+   an int8 weight checkpoint saved and loaded narrow (load ms, payload MB,
+   reduction), ``generate`` at B = 1 and 8 beside the float model, tokens
+   and logits against a float model holding the widened weights; then the
+   int8 KV cache: contiguous = paged ``generate``, the chunked paged engine
+   = ``generate`` of its prompt, the pool's bytes against the float
+   pool's, the agreement with the float cache (reported); and the fp8
+   cache's bytes on the card against the CPU quantizer's;
+6. greedy speculative decoding (k = 4) with a 2-layer draft at the
+   target's width and with the target as its own draft, contiguous and
+   paged, each equal to plain greedy ``generate`` (tokens/s, rounds,
+   tokens per round), and one round under sync debug mode "error";
+7. trains the same model (bench.py's GPT-medium training proxy: B = 4,
    S = 1024, AdamW lr 1e-4, weight decay 0.01, float32) through
    ``jit.TrainStep``: first one gradient oracle (every parameter's
    gradient through the kernels against the dense route's, torch
    autograd), then six steps on one fixed batch (the loss must fall), and
    checks that each of the six kernels was launched as often as a step
    needs;
-6. trains bench.py's GPT-medium program as published (``_bench_gpt``: no
+8. trains bench.py's GPT-medium program as published (``_bench_gpt``: no
    final LayerNorm, ``strategy.amp`` through ``fleet``, bf16 AMP O1,
    ``fused_linear_cross_entropy`` with chunk 8192, AdamW lr 1e-4, weight
    decay 0.01, B = 4, S = 1024): a bf16 gradient oracle against the dense
@@ -48,22 +62,22 @@
    loss must fall), and checks each kernel's launches by input types (the
    flash kernels in bf16, the add-LN on the float32 residual and the bf16
    branch);
-7. the same program under float16 O1 (``amp_configs = {"use_bf16":
+9. the same program under float16 O1 (``amp_configs = {"use_bf16":
    False}``, dynamic loss scaling): its gradient oracle (at the scaler's
    initial scale), six steps with the scaler's skipped steps, and the
    flash kernels' launches in float16 and the add-LN's on (float32,
    float16);
-8. one ParallelGPTBlock at d_model 2048 with 8 heads (head dim 256), B =
+10. one ParallelGPTBlock at d_model 2048 with 8 heads (head dim 256), B =
    2, S = 1024, forward and backward through the kernels against the
    dense route, in float32 and under bf16 AMP;
-9. bench.py's other training programs at its sizes: LeNet (batch 256,
+11. bench.py's other training programs at its sizes: LeNet (batch 256,
    Adam 1e-3), ResNet-50 (batch 256 at 224 x 224, 1000 classes, Momentum
    0.1/0.9) in float32 with TF32 off and under bf16 AMP through
    ``fleet``, and BERT-base (12 layers, 768 wide, batch 32 x 128, AdamW
    1e-4/0.01, bf16 AMP): six steps each on one batch, with the rate,
    ms/step, peak memory, losses (which must fall) and launches (BERT's
    LayerNorms on B5/B7; the others none);
-10. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
+12. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
    "device": ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device, outside a
@@ -122,6 +136,16 @@ LOGIT_ATOL = 2e-3
 # 128 + 32 new: cap 160)
 TIER_BLOCK, TIER_CHUNK, TIER_ENGINE_NEW = 16, 32, 16
 MT_NEW, MT_CAP = 32, 160
+
+# quantized serving (bench.py's _bench_decode_q8w: an int8 checkpoint served
+# at B = 1 and 8) and speculative decoding (k = 4, a 2-layer draft at the
+# target's width, or the target itself)
+Q_BATCHES = (1, BATCH)
+SPEC_K, DRAFT_LAYERS = 4, 2
+# int8 weights against a float model holding the widened weights: the same
+# GEMMs on the same values (float32, TF32 off), so only the widening's
+# placement differs; max |logit err| <= Q_LOGIT_RTOL * max |logit|
+Q_LOGIT_RTOL = 1e-5
 
 # the training configuration: bench.py's GPT-medium training proxy
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 1024, 6
@@ -366,8 +390,11 @@ def ln_phase(ln, gen, rows):
     timed = {}
     D = D_MODEL
     train_r, serve_r = TRAIN_B * TRAIN_S, BATCH * PROMPT
+    # the serving rows: decode [8], a speculative round's target [8 x (k+1)]
+    # and a prefill chunk [32]
+    serve_rows = (BATCH, BATCH * (SPEC_K + 1), TIER_CHUNK)
     for dtype in (torch.float32, torch.bfloat16):
-        for R in (train_r, serve_r, BATCH):
+        for R in (train_r, serve_r) + serve_rows:
             x, y = (torch.randn(R, D, device="cuda", generator=gen
                                 ).to(dtype) for _ in range(2))
             w, b = (torch.randn(D, device="cuda", generator=gen
@@ -428,7 +455,9 @@ def ln_phase(ln, gen, rows):
         dict(name=name, route="cuda", source=ln.SOURCE,
              replaces=f"paddle_tpu/ops/pallas/layer_norm.py:{line}",
              dtype="float32", **timed[name][train_r],
-             at_serving_shape=timed[name][serve_r])
+             at_serving_shape=timed[name][serve_r],
+             at_serving_rows={timed[name][R]["shape"]: timed[name][R]
+                              for R in serve_rows})
         for name, line in (("layer_norm_fwd", "54 (_ln_fwd_kernel)"),
                            ("add_layer_norm_fwd", "68 (_add_ln_fwd_kernel)")))
     for pair in ("float32+bfloat16", "float32+float16"):
@@ -1344,23 +1373,326 @@ def serving_tier_phase(pt, kernels, card):
     if not same or distinct != 3:
         fail("the mixed-adapter batch disagrees with the requests served "
              "alone")
-    counts = kernels.launches_by_dtype()  # the phase's main path ends here
-    print(f"launches on the serving-tier path, by input types: {counts}")
-    for name in ("layer_norm_fwd", "add_layer_norm_fwd"):
-        if set(counts[name]) != {"float32"}:
-            fail(f"kernel {name}: launches {counts[name]} on the serving "
-                 "tier, expected float32 only")
-    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-                 "layer_norm_bwd"):
-        if counts[name]:
-            fail(f"backward kernel {name} ran on the serving tier")
+    counts = _serving_launches(kernels, "serving-tier")  # main path ends
     print(f"serving tier on {card}: paged generate "
           f"{BATCH * NEW / gen_s:.1f} tokens/s, chunked engine median TTFT "
           f"{ttfts[len(ttfts) // 2]:.2f} ms, KV pool {held} / {worst} "
           f"bytes, prefix TTFT cold {cold_warm['cold'].ttft_ms:.2f} / warm "
           f"{cold_warm['warm'].ttft_ms:.2f} ms, fleet "
           f"{8 * MT_NEW / mixed_s:.1f} tokens/s")
+    return counts
+
+
+def _serving_launches(kernels, phase):
+    """The launch counts of a serving phase's main path, by input types:
+    the LayerNorm forwards in float32 only, and no backward kernel. Returns
+    the per-kernel totals."""
+    counts = kernels.launches_by_dtype()
+    print(f"launches on the {phase} path, by input types: {counts}")
+    for name in ("layer_norm_fwd", "add_layer_norm_fwd"):
+        if set(counts[name]) != {"float32"}:
+            fail(f"kernel {name}: launches {counts[name]} on the {phase} "
+                 "path, expected float32 only")
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                 "layer_norm_bwd"):
+        if counts[name]:
+            fail(f"backward kernel {name} ran on the {phase} path")
     return {k: sum(v.values()) for k, v in counts.items()}
+
+
+def quant_serving_phase(pt, kernels, card):
+    """Quantized serving at GPT-medium width, as bench.py's
+    ``_bench_decode_q8w``: ``save_quantized(model, path, "int8")``, a fresh
+    model's ``load_quantized``, ``generate`` at B = 1 and 8 beside the
+    float model of the same call; the int8-weight model against a float
+    model that holds the widened weights. Then the int8 KV cache
+    (``PADDLE_SERVE_KV_QUANT=int8``) on the int8-weight model: contiguous
+    against paged ``generate``, the chunked paged engine against
+    ``generate`` of its prompt, the pool's bytes against the float pool's;
+    and the fp8 cache's bytes on the card against the CPU quantizer's.
+    Returns the per-kernel launch counts of the phase."""
+    import os
+    import shutil
+    from pathlib import Path
+
+    from paddle_tpu_torch.distributed import quantized_comm as qc
+    from paddle_tpu_torch.distributed import quantized_compute as qcp
+    from paddle_tpu_torch.jit import DecodeStep, PrefillStep, save_quantized
+    from paddle_tpu_torch.nn.functional import attention as attn
+    from paddle_tpu_torch.serving import Request, paged_kv
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cap = PROMPT + NEW  # a multiple of the block and the chunk
+
+    def lm(seed):
+        return pt.TransformerLM(VOCAB, D_MODEL, HEADS, LAYERS,
+                                max_position=cap, dim_feedforward=FFN,
+                                seed=seed)
+
+    model = lm(4)
+    # the checkpoint goes under the checkout's git-ignored build directory
+    ckpt = Path(__file__).resolve().parent / "paddle_tpu_torch" / \
+        "_build" / "q_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        info = save_quantized(model, str(ckpt / "gpt_medium"), "int8")
+        save_s = time.perf_counter() - t0
+        qmodel = lm(5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        meta = qmodel.load_quantized(str(ckpt / "gpt_medium"))
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    payload = info["bytes_payload"] + info["bytes_scales"]
+    print(f"int8 checkpoint of {len(info['quantized'])} linear weights: "
+          f"saved in {save_s:.2f} s; q_ckpt_load_ms {load_ms:.1f} "
+          f"(load_quantized's own load_ms {meta['load_ms']}); "
+          f"q_ckpt_payload_mb {payload / 1e6:.1f}; q_ckpt_reduction_x "
+          f"{4.0 * info['bytes_payload'] / payload:.2f}; wide rest "
+          f"{info['bytes_wide'] / 1e6:.1f} MB")
+    narrow = {n: w for n, _, w in qcp.iter_quantizable(qmodel)}
+    if len(narrow) != 4 * LAYERS + 1 or any(
+            w.dtype != torch.int8 for w in narrow.values()):
+        fail("load_quantized left linear weights wide")
+    # the float model becomes the same function in two spellings: its
+    # linear weights are the widened payloads (the wide rest is already
+    # equal: the checkpoint carried it)
+    with torch.no_grad():
+        for name, _, w in qcp.iter_quantizable(model):
+            w.copy_(qcp.dequantize_weight(narrow[name],
+                                          qcp.scale_of(narrow[name])))
+    del narrow
+    steps = {"q8w": (qmodel, PrefillStep(qmodel), DecodeStep(qmodel)),
+             "float": (model, PrefillStep(model), DecodeStep(model))}
+    prompts = {B: (np.arange(B * PROMPT) % 31000).reshape(
+        B, PROMPT).astype(np.int32) for B in Q_BATCHES}
+    for B in Q_BATCHES:  # warm the step objects (bench's pattern)
+        for m, pre, dec in steps.values():
+            pt.generate(m, prompts[B], 2, max_length=cap, prefill=pre,
+                        decode=dec)
+
+    kernels.reset_launches()  # the phase's main path starts here
+    rates = {}
+    for B in Q_BATCHES:
+        for name, (m, pre, dec) in steps.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = pt.generate(m, prompts[B], NEW, max_length=cap,
+                               prefill=pre, decode=dec)
+            rates[name, B] = B * NEW / (time.perf_counter() - t0)
+            if toks.shape != (B, NEW) or (toks < 0).any() \
+                    or (toks >= VOCAB).any():
+                fail(f"{name} generate B={B} returned bad tokens")
+        print(f"generate B={B} prompt={PROMPT} new={NEW}: int8 weights "
+              f"{rates['q8w', B]:.1f} tokens/s "
+              f"(serve_gpt_medium_tokens_per_sec_b{B}_q8w), the float "
+              f"model's right after {rates['float', B]:.1f} tokens/s")
+    got = {name: pt.generate(m, prompts[BATCH], NEW, max_length=cap,
+                             prefill=pre, decode=dec, return_logits=True)
+           for name, (m, pre, dec) in steps.items()}
+    (qt, ql), (ft, fl) = got["q8w"], got["float"]
+    err = float(np.abs(ql - fl).max())
+    peak = float(np.abs(fl).max())
+    same = bool(np.array_equal(qt, ft))
+    print(f"int8 weights against the float model holding the widened "
+          f"weights, B={BATCH} x {NEW}: tokens equal {same}, max|logit "
+          f"err| {err:.3e} of max|logit| {peak:.3e} (tolerance "
+          f"{Q_LOGIT_RTOL} of it)")
+    if not same or not np.isfinite(ql).all() or err > Q_LOGIT_RTOL * peak:
+        fail("the int8-weight model disagrees with its widened weights")
+
+    qm, pre, dec = steps["q8w"]
+    one = (np.arange(PROMPT) % 31000).astype(np.int32)
+    need = paged_kv.blocks_for(PROMPT + TIER_ENGINE_NEW, TIER_BLOCK)
+    demand = 4 * need + 1
+    os.environ["PADDLE_SERVE_KV_QUANT"] = "int8"
+    try:
+        if not isinstance(qm.gen_cache(1, cap)[0].k, qc.QuantKV):
+            fail("PADDLE_SERVE_KV_QUANT=int8 did not quantize the cache")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kv8, kv8_logits = pt.generate(qm, prompts[BATCH], NEW,
+                                      max_length=cap, prefill=pre,
+                                      decode=dec, return_logits=True)
+        kv8_s = time.perf_counter() - t0
+        os.environ["PADDLE_SERVE_BLOCK_SIZE"] = str(TIER_BLOCK)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            kv8_paged = pt.generate(qm, prompts[BATCH], NEW, max_length=cap,
+                                    prefill=pre, decode=dec)
+            kv8_paged_s = time.perf_counter() - t0
+        finally:
+            del os.environ["PADDLE_SERVE_BLOCK_SIZE"]
+        same = bool(np.array_equal(kv8, kv8_paged))
+        print(f"int8 KV generate B={BATCH}: contiguous "
+              f"{BATCH * NEW / kv8_s:.1f} tokens/s, paged (block "
+              f"{TIER_BLOCK}) {BATCH * NEW / kv8_paged_s:.1f} tokens/s; "
+              f"tokens equal: {same}")
+        if not same:
+            fail("paged int8 KV generate disagrees with the contiguous one")
+        eng = pt.InferenceEngine(qm, slots=4, max_length=cap,
+                                 block_size=TIER_BLOCK,
+                                 prefill_chunk=TIER_CHUNK,
+                                 pool_blocks=demand)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(8):
+            eng.submit(Request(one, max_new_tokens=TIER_ENGINE_NEW, rid=i))
+        res = eng.run()
+        eng_s = time.perf_counter() - t0
+        alone = list(pt.generate(qm, [one], TIER_ENGINE_NEW,
+                                 max_length=cap)[0])
+        ttfts = sorted(r.ttft_ms for r in res.values())
+        same = all(res[i].tokens == alone for i in range(8))
+        caches = eng._state.caches
+        tables = sum(leaf.table.numel() * leaf.table.element_size()
+                     for c in caches for leaf in (c.k, c.v))
+        held = paged_kv.pool_bytes(caches)
+        wide = paged_kv.pool_bytes(qm.gen_cache(
+            4, cap, dtype=torch.float32, block_size=TIER_BLOCK,
+            pool_blocks=demand))
+    finally:
+        del os.environ["PADDLE_SERVE_KV_QUANT"]
+    dh = D_MODEL // HEADS
+    print(f"int8 KV chunked paged engine (slots 4, chunk {TIER_CHUNK}, "
+          f"{demand} blocks): 8 x {TIER_ENGINE_NEW} tokens in "
+          f"{eng_s * 1e3:.1f} ms, median TTFT {ttfts[4]:.2f} ms; each "
+          f"request equals int8 KV generate of its prompt: {same}; KV pool "
+          f"{held - tables} bytes against the float pool's {wide - tables} "
+          f"({(held - tables) / (wide - tables):.4f}; {dh} int8 values and "
+          f"one float32 scale per token and head: {dh + 4} / {4 * dh})")
+    if not same:
+        fail("the int8 KV engine disagrees with int8 KV generate")
+    if (held - tables) * 4 * dh != (wide - tables) * (dh + 4):
+        fail("the int8 pool's bytes are not (Dh + 4) / 4 Dh of the float "
+             "pool's")
+    counts = _serving_launches(kernels, "quantized serving")
+    agree = float((kv8 == qt).mean())
+    gap = float(np.abs(kv8_logits - ql).max())
+    print(f"int8 KV against float KV (int8 weights, B={BATCH} x {NEW}): "
+          f"{agree:.4f} of tokens agree, largest logit gap {gap:.3e} "
+          "(reported, no limit)")
+
+    # fp8 on the card: the quantizer's and the cache's bytes against the
+    # CPU's, on K rows of this model's shape
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rows = torch.randn(BATCH, HEADS, SPEC_K + 1, dh, device="cuda",
+                       generator=gen)
+    fp8 = {}
+    for dev in ("cuda", "cpu"):
+        pool = paged_kv.paged_zero(BATCH, HEADS, cap, dh, block=TIER_BLOCK,
+                                   quant="fp8", device=dev)
+        pos = torch.arange(BATCH, dtype=torch.int32, device=dev) * 17
+        pool = attn.cache_update(pool, rows.to(dev), pos)
+        fp8[dev] = (qc.bits(pool.kv.q).cpu(), pool.kv.scale.cpu(),
+                    paged_kv.paged_gather(pool.kv, pool.table).cpu())
+    same = all(torch.equal(a, b) for a, b in zip(fp8["cuda"], fp8["cpu"]))
+    print(f"fp8 KV on the card: pool bytes, scales and gathered view equal "
+          f"the CPU quantizer's: {same}")
+    if not same:
+        fail("the fp8 cache on the card disagrees with the CPU quantizer")
+    print(f"quantized serving on {card}: q8w generate "
+          f"{rates['q8w', 1]:.1f} / {rates['q8w', BATCH]:.1f} tokens/s (B "
+          f"1 / {BATCH}) against float {rates['float', 1]:.1f} / "
+          f"{rates['float', BATCH]:.1f}; q_ckpt_load_ms {load_ms:.1f}")
+    return counts
+
+
+def speculative_phase(pt, kernels, card):
+    """Greedy speculative decoding at GPT-medium width: the target with k
+    = 4 and two drafts (a 2-layer ``TransformerLM`` at the target's width,
+    its own seed; the target itself), B = 8, prompt 128, 64 new, the
+    contiguous and the paged (block 16) cache, each against the plain
+    greedy ``generate`` of the same call; then one round under
+    ``torch.cuda.set_sync_debug_mode("error")``. Returns the per-kernel
+    launch counts of the phase."""
+    import os
+
+    from paddle_tpu_torch.jit import (DecodeStep, PrefillStep,
+                                      SpecDecodeState, SpeculativeDecodeStep)
+    from paddle_tpu_torch.serving import sampling
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cap = PROMPT + NEW + SPEC_K  # the round's headroom
+    target = pt.TransformerLM(VOCAB, D_MODEL, HEADS, LAYERS,
+                              max_position=cap, dim_feedforward=FFN, seed=6)
+    small = pt.TransformerLM(VOCAB, D_MODEL, HEADS, DRAFT_LAYERS,
+                             max_position=cap, dim_feedforward=FFN, seed=7)
+    prompts = (np.arange(BATCH * PROMPT) % 31000).reshape(BATCH, PROMPT)
+    pre, dec = PrefillStep(target), DecodeStep(target)
+    drafts = {f"{DRAFT_LAYERS}-layer draft": SpeculativeDecodeStep(
+        target, small, k=SPEC_K),
+        "self draft": SpeculativeDecodeStep(target, target, k=SPEC_K)}
+    pt.generate(target, prompts, 2, max_length=cap, prefill=pre, decode=dec)
+    for st in drafts.values():
+        pt.generate(target, prompts, 3, max_length=cap, prefill=pre,
+                    decode=st, draft_model=st.draft_model)
+
+    kernels.reset_launches()  # the phase's main path starts here
+    summary = []
+    for layout in ("contiguous", "paged"):
+        if layout == "paged":
+            os.environ["PADDLE_SERVE_BLOCK_SIZE"] = str(TIER_BLOCK)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain = pt.generate(target, prompts, NEW, max_length=cap,
+                                prefill=pre, decode=dec)
+            plain_rate = BATCH * NEW / (time.perf_counter() - t0)
+            for name, st in drafts.items():
+                n0 = st._n_steps
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                # sync_every=1: the loop stops at the round that finishes
+                # the last slot, so the rounds counted are the rounds needed
+                out = pt.generate(target, prompts, NEW, max_length=cap,
+                                  prefill=pre, decode=st,
+                                  draft_model=st.draft_model, sync_every=1)
+                rate = BATCH * NEW / (time.perf_counter() - t0)
+                rounds = st._n_steps - n0
+                same = bool(np.array_equal(out, plain))
+                print(f"speculative generate ({layout}, {name}, k={SPEC_K}) "
+                      f"B={BATCH} prompt={PROMPT} new={NEW}: {rate:.1f} "
+                      f"tokens/s, {rounds} rounds, "
+                      f"{(NEW - 1) / rounds:.2f} tokens per slot and round; "
+                      f"plain generate {plain_rate:.1f} tokens/s; tokens "
+                      f"equal: {same}")
+                if not same:
+                    fail(f"speculative generate ({layout}, {name}) disagrees "
+                         "with plain greedy generate")
+                summary.append(f"{layout} {name} {rate:.1f}")
+        finally:
+            os.environ.pop("PADDLE_SERVE_BLOCK_SIZE", None)
+    counts = _serving_launches(kernels, "speculative")
+
+    # one round with every device-to-host read an error
+    st = drafts[f"{DRAFT_LAYERS}-layer draft"]
+    ids = torch.as_tensor(prompts, dtype=torch.int32)
+    lens = [PROMPT] * BATCH
+    last, caches, pos = pre(target.gen_cache(BATCH, cap), ids, lens)
+    _, dcaches, _ = PrefillStep(small)(small.gen_cache(BATCH, cap), ids,
+                                       lens)
+    state = SpecDecodeState.make(caches, dcaches, sampling.greedy(last),
+                                 pos, budget=NEW - 1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        emit, state = st(state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"one speculative round under sync debug mode 'error': emitted "
+          f"{emit.shape[1]} columns, {int((emit >= 0).sum())} tokens, no "
+          "host read")
+    print(f"speculative decoding on {card}: " + "; ".join(summary)
+          + " tokens/s")
+    return counts
 
 
 def main() -> int:
@@ -1410,6 +1742,12 @@ def main() -> int:
     tier = serving_tier_phase(pt, kernels, card)
     print(f"serving tier phase done at {time.perf_counter() - t_start:.1f} "
           "s")
+    quant = quant_serving_phase(pt, kernels, card)
+    print(f"quantized serving phase done at "
+          f"{time.perf_counter() - t_start:.1f} s")
+    spec = speculative_phase(pt, kernels, card)
+    print(f"speculative decoding phase done at "
+          f"{time.perf_counter() - t_start:.1f} s")
     training = training_phase(pt, kernels)
     print(f"training phase done at {time.perf_counter() - t_start:.1f} s")
     amp_training = amp_training_phase(pt, kernels)
@@ -1432,6 +1770,8 @@ def main() -> int:
         e["launches_by_path"] = {
             "serving": serving[e["name"]],
             "serving_tier": tier[e["name"]],
+            "quant_serving": quant[e["name"]],
+            "speculative": spec[e["name"]],
             "training": training[e["name"]],
             "amp_training": amp_training[e["name"]],
             "fp16_amp_training": fp16_training[e["name"]],

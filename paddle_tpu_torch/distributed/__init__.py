@@ -1,10 +1,11 @@
-"""Distributed layers of the port (single-device form so far) and
-``fleet``."""
-from . import fleet
+"""Distributed layers of the port (single-device form so far), ``fleet``
+and the quantization plane's serving half (``quantized_comm``: the
+quantizer and the KV layout; ``quantized_compute``: narrow weights)."""
+from . import fleet, quantized_comm, quantized_compute
 from .meta_parallel import (
     ColumnParallelLinear, ParallelGPTBlock, ParallelMultiHeadAttention,
     RowParallelLinear,
 )
 
-__all__ = ["fleet", "ColumnParallelLinear", "RowParallelLinear",
+__all__ = ["fleet", "quantized_comm", "quantized_compute", "ColumnParallelLinear", "RowParallelLinear",
            "ParallelMultiHeadAttention", "ParallelGPTBlock"]

@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from .. import amp
+from . import quantized_comm as qc
 from ..nn import functional as F
 from ..nn.functional import attention as attn_route
 from ..nn.layers.common import Linear
@@ -92,25 +93,31 @@ class ParallelMultiHeadAttention(nn.Module):
         Dh]`` block pool and a ``[B, nmax]`` table per K and V
         (``serving.paged_kv.PagedKV``), the capacity rounded up to whole
         blocks. ``pool_blocks`` sizes the pool (tables start all-trash);
-        without it the tables are identity-mapped. An int8/fp8 cache
-        (``dtype="int8"``, ``PADDLE_SERVE_KV_QUANT``) raises: not ported."""
+        without it the tables are identity-mapped. ``dtype="int8"`` or
+        ``"fp8"`` (the ``PADDLE_SERVE_KV_QUANT`` default when not given)
+        makes either form block-quantized (``QuantKV``: the narrow payload
+        at the cache's shape, float32 scales per block of the head dim)."""
         from ..serving import paged_kv as pk  # serving imports this module
 
-        pk.refuse_quant(pk.kv_quant_policy(dtype))
-        w = self.qkv.weight
-        dt = dtype or w.dtype
+        kvq = qc.kv_quant_policy(dtype)
+        dev = self.qkv.bias.device
+        dt = dtype or self.qkv.bias.dtype  # a narrow weight has no float type
         bs = (int(block_size) if block_size is not None
               else pk.block_size_default())
         if bs > 0:
             return MultiHeadAttention.Cache(*(pk.paged_zero(
                 batch_size, self.num_heads, max_length, self.head_dim,
-                block=bs, pool_blocks=pool_blocks, dtype=dt,
-                device=w.device) for _ in range(2)))
+                block=bs, pool_blocks=pool_blocks,
+                dtype=None if kvq else dt, quant=kvq, device=dev)
+                for _ in range(2)))
         shape = (int(batch_size), self.num_heads, int(max_length),
                  self.head_dim)
+        if kvq is not None:
+            return MultiHeadAttention.Cache(
+                *(qc.kv_zero(shape, kvq, device=dev) for _ in range(2)))
         return MultiHeadAttention.Cache(
-            torch.zeros(shape, device=w.device, dtype=dt),
-            torch.zeros(shape, device=w.device, dtype=dt))
+            torch.zeros(shape, device=dev, dtype=dt),
+            torch.zeros(shape, device=dev, dtype=dt))
 
     def forward(self, x, cache=None, pos=None):
         B, T = int(x.shape[0]), int(x.shape[1])

@@ -6,8 +6,9 @@ decline rules, the kernel call (``flash_core``, through the autograd
 Function whose backward runs the B3/B4 kernels), the dense
 ``scaled_dot_product_attention``, and the serving cache ops
 ``cache_update`` / ``cached_attention`` over a contiguous or a paged
-(``serving.paged_kv.PagedKV``) cache, which stay plain PyTorch as the JAX
-package leaves them to XLA.
+(``serving.paged_kv.PagedKV``) cache, full width or int8/fp8
+(``distributed.quantized_comm.QuantKV``), which stay plain PyTorch as the
+JAX package leaves them to XLA.
 
 Knobs, with the JAX package's meanings: ``PADDLE_FLASH_DEFAULT=0`` keeps
 the dense path everywhere; ``=interpret`` routes on the CPU too, where the
@@ -21,14 +22,14 @@ import os
 import torch
 
 from ... import amp
+from ...distributed import quantized_comm as qc
 from ...ops.kernels.flash_attention import FlashAttentionFunction
 from .common import dropout
 
 __all__ = [
     "flash_default_enabled", "flash_append_enabled", "flash_plan",
     "flash_core", "scaled_dot_product_attention", "dense_attention",
-    "cache_update",
-    "cached_attention",
+    "cache_update", "cached_attention",
 ]
 
 
@@ -140,6 +141,18 @@ def dense_attention(query, key, value, attn_mask=None, is_causal=False,
     return torch.matmul(wr, vr), w
 
 
+def _write_rows(buf, rows, pos):
+    """Write ``rows`` ``[B, H, Sq, *]`` into ``buf`` ``[B, H, cap, *]`` at
+    per-slot positions ``pos``, in place, the start clamped to ``cap -
+    Sq`` (dynamic_update_slice's rule); float8 through its bytes."""
+    B, H, Sq, D = rows.shape
+    cap = buf.shape[2]
+    start = pos.to(torch.int64).clamp(0, cap - Sq)
+    idx = start[:, None] + torch.arange(Sq, device=buf.device)
+    qc.bits(buf).scatter_(2, idx[:, None, :, None].expand(B, H, Sq, D),
+                          qc.bits(rows.to(buf.dtype)))
+
+
 def cache_update(cache, new, pos):
     """Write the ``[B, H, Sq, D]`` rows ``new`` into the static-capacity
     ``[B, H, cap, D]`` cache at per-slot positions ``pos`` ([B] int), IN
@@ -148,19 +161,23 @@ def cache_update(cache, new, pos):
     start that would run past the end is clamped to ``cap - Sq``. Returns
     ``cache``. No device-to-host read.
 
-    A paged cache (``PagedKV``) takes the same append through its block
-    table, one scatter into the pool (``paged_write``)."""
+    A quantized cache (``QuantKV``: an int8/fp8 payload at the cache's
+    shape and float32 scales per block of the head dim) quantizes the new
+    rows along the head dim and writes payload and scales at the same
+    positions. A paged cache (``PagedKV``) takes the same append through
+    its block table, one scatter into the pool (``paged_write``), and
+    composes with the quantized form."""
     from ...serving import paged_kv as pk  # serving imports this module
 
     if isinstance(cache, pk.PagedKV):
         return pk.PagedKV(pk.paged_write(cache.kv, cache.table, new, pos),
                           cache.table)
-    B, H, Sq, D = new.shape
-    cap = cache.shape[2]
-    start = pos.to(torch.int64).clamp(0, cap - Sq)
-    idx = start[:, None] + torch.arange(Sq, device=cache.device)
-    cache.scatter_(2, idx[:, None, :, None].expand(B, H, Sq, D),
-                   new.to(cache.dtype))
+    if isinstance(cache, qc.QuantKV):
+        uq, us = qc.quantize_like(cache, new)
+        _write_rows(cache.q, uq, pos)
+        _write_rows(cache.scale, us, pos)
+        return cache
+    _write_rows(cache, new, pos)
     return cache
 
 
@@ -176,12 +193,18 @@ def cached_attention(query, key, value, pos, *, scale=None):
     Paged K/V (``PagedKV``) are first gathered through their block tables
     into ``[B, H, nmax*bs, D]`` views (one gather each); their unwritten
     and trash-mapped rows sit at ``kpos > qpos``, where the same mask
-    hides them."""
+    hides them. Quantized K/V (``QuantKV``, contiguous or pooled) are
+    dequantized to the query's type on the read."""
     from ...serving import paged_kv as pk  # serving imports this module
 
     if isinstance(key, pk.PagedKV):
-        key = pk.paged_gather(key.kv, key.table)
-        value = pk.paged_gather(value.kv, value.table)
+        # a quantized pool gathers narrow, then dequantizes the view
+        dt = query.dtype if isinstance(key.kv, qc.QuantKV) else None
+        key = pk.paged_gather(key.kv, key.table, dt)
+        value = pk.paged_gather(value.kv, value.table, dt)
+    elif isinstance(key, qc.QuantKV):
+        key = qc.dequantize_lastaxis(key.q, key.scale, query.dtype)
+        value = qc.dequantize_lastaxis(value.q, value.scale, query.dtype)
     sc = scale if scale is not None else int(query.shape[-1]) ** -0.5
     Sq, Sk = int(query.shape[2]), int(key.shape[2])
     s = torch.matmul(query, key.transpose(-1, -2)) * sc

@@ -4,7 +4,10 @@
 ``linear`` is the one seam every projection of the port goes through
 (``Linear`` and the parallel layers), and the AMP cast site of the
 white-listed name ``linear``. Its weight is PyTorch's ``[out, in]``, where
-paddle's is ``[in, out]``.
+paddle's is ``[in, out]``. A narrow weight (an int8/fp8 checkpoint, or
+``distributed.quantized_compute.quantize_layer``) always takes the
+quantized matmul; ``PADDLE_Q_MATMUL`` (the fake-quant training matmul)
+raises: not ported.
 
 ``dropout`` draws its mask from an explicit ``torch.Generator`` that the
 caller passes: the port touches no global RNG. Its bits are not JAX's;
@@ -23,7 +26,23 @@ __all__ = ["linear", "dropout"]
 
 def linear(x, weight, bias=None, name=None):
     """``x @ weight^T + bias`` with ``weight`` ``[out, in]``; under AMP the
-    float inputs are cast to the AMP type first (white list)."""
+    float inputs are cast to the AMP type first (white list). A weight
+    that carries scales (``quantized_compute.attach_quantized``) is
+    widened to ``x``'s type and multiplied (``quantized_matmul``). A wide
+    weight under ``PADDLE_Q_MATMUL`` raises ``NotImplementedError``: the
+    fake-quant matmul is ROADMAP queue A item 7."""
+    from ...distributed import quantized_compute as Q
+
+    qsc = Q.scale_of(weight)
+    if qsc is not None:
+        x, qsc, bias = amp.cast_if_amp("linear", (x, qsc, bias))
+        return Q.quantized_matmul(x, weight, qsc, bias)
+    if weight.dim() == 2 and weight.is_floating_point() \
+            and Q.matmul_policy() is not None:
+        raise NotImplementedError(
+            "PADDLE_Q_MATMUL (the fake-quant qat_matmul over a wide weight) "
+            "is not ported yet: ROADMAP queue A item 7; unset it, or load "
+            "int8/fp8 weights (jit.load_quantized) to serve them narrow")
     x, weight, bias = amp.cast_if_amp("linear", (x, weight, bias))
     return torch.nn.functional.linear(x, weight, bias)
 

@@ -5,8 +5,9 @@ Attention takes the JAX package's ``attn_impl="dense"`` route: the routed
 ``functional.scaled_dot_product_attention`` (the flash kernel for causal,
 mask-free, dropout-free attention; the dense form otherwise), or, with
 ``need_weights``, the dense form that returns the weights. The
-``blockwise``, ``ring`` and ``ulysses`` routes, the quantized KV cache
-and ``ParamAttr`` are not ported yet, and raise.
+``blockwise``, ``ring`` and ``ulysses`` routes and ``ParamAttr`` are not
+ported yet, and raise. ``gen_cache`` builds the static-capacity cache
+contiguous or paged, full width or int8/fp8 (``QuantKV``).
 """
 from __future__ import annotations
 
@@ -109,7 +110,12 @@ class MultiHeadAttention(nn.Module):
         onto. With ``block_size`` (or, for the static-capacity form, the
         ``PADDLE_SERVE_BLOCK_SIZE`` default) the static-capacity cache is
         paged (``serving.paged_kv.PagedKV``; ``pool_blocks`` as in
-        ``ParallelMultiHeadAttention.gen_cache``)."""
+        ``ParallelMultiHeadAttention.gen_cache``). ``dtype="int8"`` or
+        ``"fp8"`` (or, for the static-capacity form, the
+        ``PADDLE_SERVE_KV_QUANT`` default) makes it block-quantized
+        (``QuantKV``); without ``max_length`` that raises, and a
+        concatenating caller that asked for no dtype keeps its float
+        cache."""
         if type == MultiHeadAttention.StaticCache:
             k = self._split_heads(self._proj(key, 1))
             v = self._split_heads(self._proj(
@@ -118,12 +124,14 @@ class MultiHeadAttention(nn.Module):
         if batch_size is None and key is None:
             raise ValueError("gen_cache needs `key` or `batch_size`")
         B = int(batch_size if batch_size is not None else key.shape[0])
+        from ...distributed import quantized_comm as qc
         from ...serving import paged_kv as pk  # serving imports this module
 
         cap = int(max_length or 0)
-        if cap or dtype is not None:  # the env asks for serving caches only
-            pk.refuse_quant(pk.kv_quant_policy(dtype))
-        w = self.out_proj.weight
+        kvq = qc.kv_quant_policy(dtype)
+        if kvq is not None and not cap and dtype is None:
+            kvq = None  # the env default is for the serving form only
+        dev, dt = self.out_proj.bias.device, self.out_proj.bias.dtype
         bs = (int(block_size) if block_size is not None
               else (pk.block_size_default() if cap else 0))
         if bs > 0:
@@ -132,11 +140,17 @@ class MultiHeadAttention(nn.Module):
                                  "form: pass max_length=")
             return MultiHeadAttention.Cache(*(pk.paged_zero(
                 B, self.num_heads, cap, self.head_dim, block=bs,
-                pool_blocks=pool_blocks, dtype=dtype or w.dtype,
-                device=w.device) for _ in range(2)))
+                pool_blocks=pool_blocks, dtype=None if kvq else dtype or dt,
+                quant=kvq, device=dev) for _ in range(2)))
         shape = (B, self.num_heads, cap, self.head_dim)
+        if kvq is not None:
+            if not cap:
+                raise ValueError("a quantized KV cache needs the "
+                                 "static-capacity form: pass max_length=")
+            return MultiHeadAttention.Cache(
+                *(qc.kv_zero(shape, kvq, device=dev) for _ in range(2)))
         return MultiHeadAttention.Cache(
-            *(torch.zeros(shape, device=w.device, dtype=dtype or w.dtype)
+            *(torch.zeros(shape, device=dev, dtype=dtype or dt)
               for _ in range(2)))
 
     def _finish_output(self, out, weights, cache):

@@ -5,7 +5,10 @@
   single-token step per token, device-resident loop state. With
   ``sync_every=0`` (the default without a stop token) the host reads the
   device once, after the loop. The cache is paged when
-  ``PADDLE_SERVE_BLOCK_SIZE`` is set.
+  ``PADDLE_SERVE_BLOCK_SIZE`` is set, int8/fp8 when
+  ``PADDLE_SERVE_KV_QUANT`` is. With ``draft_model`` the loop is greedy
+  speculative decoding (``jit.SpeculativeDecodeStep``): 1 to ``spec_k`` +
+  1 tokens per round, the tokens of the plain greedy loop.
 - :class:`InferenceEngine` — slot-based continuous batching: a cache pool
   of ``slots``, batch-1 prefill into a length bucket, insert-on-free (a
   finished slot refills from the queue at the next readback), per-slot
@@ -30,13 +33,15 @@ The engine's serving tier, as in the JAX package:
   copy-on-write ``paged_splice_tail``;
 - **adapter fleets**: with a ``serving.adapters.AdapterSet`` attached to
   the model before the engine is built, ``Request(adapter=)`` ids ride
-  every insert path and the decode state.
+  every insert path and the decode state;
+- **quantized KV** (``PADDLE_SERVE_KV_QUANT``): the pool, contiguous or
+  paged, holds int8/fp8 payloads and their scales (``QuantKV``), and every
+  splice and copy-on-write moves both.
 
-Not ported yet (each raises): speculative decoding (``generate(
-draft_model=)``, ROADMAP queue A item 2(f)), KV migration
-(``extract_kv``, ``insert_migrated``: 2(g)), the router's elastic slots
-(``expand_slots``, ``retire_slots``: 2(h)) and the ``decode_metrics``
-telemetry (2(i)).
+Not ported yet (each raises): KV migration (``extract_kv``,
+``insert_migrated``: ROADMAP queue A item 2(g)), the router's elastic
+slots (``expand_slots``, ``retire_slots``: 2(h)) and the
+``decode_metrics`` telemetry (2(i)).
 
 Env knobs, with the JAX package's meanings:
   ``PADDLE_SERVE_SYNC_EVERY``    decode steps per engine readback (16)
@@ -46,6 +51,8 @@ Env knobs, with the JAX package's meanings:
   ``PADDLE_SERVE_PREFILL_CHUNK`` prefill chunk length; 0 = whole prompt
   ``PADDLE_SERVE_PREFIX_CACHE``  1 = refcounted CoW prefix cache (0)
   ``PADDLE_SERVE_PREFIX_BLOCKS`` max prefix-cache entries (0 = the pool)
+  ``PADDLE_SERVE_KV_QUANT``      int8 / fp8 KV cache (off)
+  ``PADDLE_SERVE_SPEC_K``        draft tokens per speculative round (4)
 """
 from __future__ import annotations
 
@@ -59,7 +66,10 @@ import numpy as np
 import torch
 
 from ..core.random import generator as make_generator
-from ..jit.decode_step import DecodeState, DecodeStep, PrefillStep
+from ..distributed import quantized_comm as qc
+from ..jit.decode_step import (DecodeState, DecodeStep, PrefillStep,
+                               SpecDecodeState, SpeculativeDecodeStep,
+                               spec_k_default)
 from . import paged_kv as pk
 from . import sampling
 from .prefix_cache import PrefixCache, prefix_cache_enabled
@@ -140,6 +150,54 @@ def _pad_prompts(prompts, pad_to, pad_id=0):
     return ids, lens
 
 
+def _spec_generate(model, draft_model, rows, n_new, cfg, cap, bucket,
+                   sync_every, spec_k, prefill, decode):
+    """The speculative greedy loop behind :func:`generate`: each
+    ``SpeculativeDecodeStep`` round emits 1..k+1 tokens per slot, and the
+    host drops the -1 sentinels after the loop, so its reads follow the
+    readback windows as in the plain loop."""
+    B = len(rows)
+    ids, lens = _pad_prompts(rows, bucket)
+    pre = prefill if prefill is not None else PrefillStep(model)
+    step = decode if isinstance(decode, SpeculativeDecodeStep) else \
+        SpeculativeDecodeStep(model, draft_model, k=spec_k)
+    # the draft's prefill is kept on the step object, for the next call
+    dpre = getattr(step, "_draft_prefill", None)
+    if dpre is None:
+        dpre = step._draft_prefill = PrefillStep(draft_model)
+    last, caches, pos = pre(model.gen_cache(B, cap), ids, lens)
+    _, dcaches, _ = dpre(draft_model.gen_cache(B, cap), ids, lens)
+    first = sampling.greedy(last)
+    state = SpecDecodeState.make(caches, dcaches, first, pos,
+                                 eos_id=cfg.eos_id, budget=n_new - 1)
+    state.done = first == state.eos
+    state.tok = torch.where(state.done, 0, first)
+
+    emits = [first[:, None]]
+    # None: the default cadence (the budget ends the loop on the device,
+    # so a done check only saves rounds); an explicit 0 reads the device
+    # once, after the loop
+    sync = sync_every_default() if sync_every is None \
+        else max(int(sync_every), 0)
+    since = 0
+    # every round emits at least one token per live slot, so n_new - 1
+    # rounds always spend the budget
+    for _ in range(n_new - 1):
+        emit, state = step(state)
+        emits.append(emit)
+        since += 1
+        if sync and since >= sync:
+            since = 0
+            if bool(state.done.all()):
+                break
+    seq = torch.cat(emits, dim=1).cpu().numpy()
+    out = np.full((B, n_new), -1, np.int32)
+    for b in range(B):
+        row = [int(t) for t in seq[b] if t >= 0]
+        out[b, : min(len(row), n_new)] = row[:n_new]
+    return out
+
+
 @torch.no_grad()
 def generate(model, input_ids, max_new_tokens=None, *, config=None,
              temperature=0.0, top_k=0, top_p=1.0, eos_id=None, seed=0,
@@ -155,10 +213,17 @@ def generate(model, input_ids, max_new_tokens=None, *, config=None,
     the default checks the done mask every ``PADDLE_SERVE_SYNC_EVERY``
     steps to stop early. ``prefill``/``decode`` take prebuilt
     ``PrefillStep``/``DecodeStep`` objects. The cache comes from
-    ``model.gen_cache(B, cap)``: paged under ``PADDLE_SERVE_BLOCK_SIZE``.
-    ``draft_model`` (speculative decoding) raises: not ported."""
-    if draft_model is not None or spec_k is not None:
-        _not_ported("speculative decoding (draft_model=, spec_k=)", "2(f)")
+    ``model.gen_cache(B, cap)``: paged under ``PADDLE_SERVE_BLOCK_SIZE``,
+    int8/fp8 under ``PADDLE_SERVE_KV_QUANT``.
+
+    ``draft_model`` switches to greedy speculative decoding: ``spec_k``
+    drafts per round (default ``PADDLE_SERVE_SPEC_K``, or the k of a
+    prebuilt ``SpeculativeDecodeStep`` passed as ``decode``, which a
+    different ``spec_k`` contradicts), the same tokens as the plain greedy
+    loop. Sampling and ``return_logits`` raise. The cache holds ``spec_k``
+    rows of headroom for a round's rejected writes; the done check runs
+    every ``PADDLE_SERVE_SYNC_EVERY`` rounds unless ``sync_every`` says
+    otherwise."""
     cfg = config if config is not None else GenerationConfig(
         temperature=temperature, top_k=top_k, top_p=top_p, eos_id=eos_id,
         seed=seed)
@@ -168,6 +233,40 @@ def generate(model, input_ids, max_new_tokens=None, *, config=None,
     rows = [np.asarray(p, np.int32).reshape(-1) for p in input_ids]
     B = len(rows)
     max_len = max(r.size for r in rows)
+    if draft_model is not None:
+        if np.any(np.asarray(cfg.temperature, np.float32) > 0.0):
+            raise ValueError(
+                "speculative decoding is greedy-only (the accept rule "
+                "compares argmaxes); pass temperature<=0 or drop "
+                "draft_model")
+        if return_logits:
+            raise ValueError(
+                "return_logits is not supported with draft_model: the "
+                "speculative step folds the target's logits into the accept "
+                "decision on the device")
+        draft_model.eval()
+        if isinstance(decode, SpeculativeDecodeStep):
+            # the prebuilt step's k sets how many rows a round writes, so
+            # it sets the headroom
+            if spec_k is not None and int(spec_k) != decode.k:
+                raise ValueError(
+                    f"spec_k={spec_k} conflicts with the prebuilt decode "
+                    f"step's k={decode.k}")
+            K = decode.k
+        else:
+            K = int(spec_k) if spec_k is not None else spec_k_default()
+        # a round writes k + 1 rows at pos .. pos+k: the rejected tail must
+        # land inside the cache, or a clamped write would move onto live
+        # rows
+        cap = int(max_length) if max_length is not None \
+            else max_len + n_new + K
+        if max_len + n_new + K > cap:
+            raise ValueError(
+                f"max_length={cap} cannot hold prompt ({max_len}) + "
+                f"{n_new} new tokens + spec_k={K} headroom")
+        return _spec_generate(model, draft_model, rows, n_new, cfg, cap,
+                              bucket_for(max_len, cap), sync_every, K,
+                              prefill, decode)
     cap = int(max_length) if max_length is not None else max_len + n_new
     if max_len + n_new > cap + 1:
         raise ValueError(f"max_length={cap} cannot hold prompt ({max_len}) "
@@ -578,8 +677,10 @@ class InferenceEngine:
         st = self._state
         if self._pool is None:
             for pool, one in zip(st.caches, slot_caches):
-                pool.k[slot].copy_(one.k[0])
-                pool.v[slot].copy_(one.v[0])
+                for dst, src in ((pool.k, one.k), (pool.v, one.v)):
+                    # a QuantKV copies payload and scales alike
+                    for d, s in zip(qc.tensors_of(dst), qc.tensors_of(src)):
+                        qc.bits(d)[slot].copy_(qc.bits(s)[0])
         else:
             row = self._row(blocks)
             for pool, one in zip(st.caches, slot_caches):

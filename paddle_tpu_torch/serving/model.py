@@ -6,7 +6,11 @@ model contract the decode steps consume::
                                      -> ([B, Sq, V] logits, new caches)
     model.gen_cache(B, cap[, dtype, block_size=, pool_blocks=])
                                      -> per-layer static-capacity caches
-                                        (contiguous or paged)
+                                        (contiguous or paged; float, or
+                                        int8/fp8 with dtype="int8"/"fp8"
+                                        or PADDLE_SERVE_KV_QUANT)
+    model.load_quantized(path)       -> an int8/fp8 weight checkpoint,
+                                        loaded narrow
 
 Token + learned position embeddings, a ``ParallelGPTBlock`` stack, a final
 LayerNorm and an untied vocab head. The full forward attends through the
@@ -75,6 +79,15 @@ class TransformerLM(nn.Module):
             h, nc = blk(h, cache=c, pos=pos, adapter=adapter)
             new_caches.append(nc)
         return self.head(self.ln_f(h)), new_caches
+
+    def load_quantized(self, path, deadline_ms=None):
+        """Load an int8/fp8 ``jit.save_quantized`` checkpoint (either
+        package's) into this model: the linear weights stay narrow and go
+        through the quantized matmul. Returns the checkpoint's record with
+        ``load_ms``."""
+        from ..jit.save_load import load_quantized
+
+        return load_quantized(self, path, deadline_ms=deadline_ms)
 
     def gen_cache(self, batch_size, max_length, dtype=None,
                   block_size=None, pool_blocks=None):

@@ -22,9 +22,13 @@ redirected there, so the frozen-position writes a done slot keeps issuing
 another request. Identity tables (``gen_cache`` without ``pool_blocks``,
 the whole-batch ``generate`` shape) reserve block 0 too.
 
-The JAX package's int8/fp8 pool (``QuantKV``) is not ported: asking for
-it raises (ROADMAP queue A item 2(e)). ``BlockPool.grow``/``shrink``
-serve the router's elastic slots, which are not ported either.
+A quantized pool (``distributed.quantized_comm.QuantKV`` in place of the
+``[P, H, bs, Dh]`` tensor: the int8/fp8 payload at the pool's shape and
+its float32 scales ``[P, H, bs, Dh/qb]``) takes the same block layout for
+both leaves: writes quantize the new rows along the head dim, reads
+gather narrow and dequantize the view, and the splices copy payload and
+scales alike, float8 through its bytes. ``BlockPool.grow``/``shrink``
+serve the router's elastic slots, which are not ported yet.
 
 Env knob, with the JAX package's meaning: ``PADDLE_SERVE_BLOCK_SIZE`` --
 KV block size in tokens; 0 (default) keeps the contiguous cache.
@@ -37,20 +41,20 @@ from typing import List, Optional
 
 import torch
 
+from ..distributed import quantized_comm as qc
+
 __all__ = [
-    "PagedKV", "block_size_default", "kv_quant_policy", "refuse_quant",
-    "is_paged", "num_blocks", "blocks_for", "paged_zero", "paged_write",
-    "paged_gather", "paged_splice", "paged_splice_tail", "paged_fetch",
-    "paged_adopt", "retire_tables", "pool_bytes", "worst_case_bytes",
-    "BlockPool",
+    "PagedKV", "block_size_default", "is_paged", "num_blocks",
+    "blocks_for", "paged_zero", "paged_write", "paged_gather",
+    "paged_splice", "paged_splice_tail", "paged_fetch", "paged_adopt",
+    "retire_tables", "pool_bytes", "worst_case_bytes", "BlockPool",
 ]
 
 _BLOCK_ENV = "PADDLE_SERVE_BLOCK_SIZE"
-_QUANT_ENV = "PADDLE_SERVE_KV_QUANT"
-_QUANT_POLICIES = ("int8", "fp8")
 
-#: a paged K or V cache: ``kv`` the [P, H, bs, Dh] block pool, ``table``
-#: the [B, nmax] int32 slot -> physical-block map
+#: a paged K or V cache: ``kv`` the [P, H, bs, Dh] block pool (a tensor, or
+#: a ``QuantKV`` pair of payload and scales), ``table`` the [B, nmax] int32
+#: slot -> physical-block map
 PagedKV = collections.namedtuple("PagedKV", ["kv", "table"])
 
 
@@ -61,34 +65,6 @@ def block_size_default() -> int:
         return max(int(os.environ.get(_BLOCK_ENV, "0")), 0)
     except ValueError:
         return 0
-
-
-def kv_quant_policy(dtype=None) -> Optional[str]:
-    """The int8/fp8 KV policy a ``gen_cache(dtype=)`` call or the
-    ``PADDLE_SERVE_KV_QUANT`` env default asks for, or None. The port
-    stores no quantized cache yet, so the caches' builders raise on a
-    policy instead of serving it at full width."""
-    v = dtype
-    if v is None:
-        env = os.environ.get(_QUANT_ENV, "").strip().lower()
-        if not env or env in ("0", "off", "false", "none"):
-            return None
-        v = env
-    if isinstance(v, str) and v.lower() in _QUANT_POLICIES:
-        return v.lower()
-    if isinstance(v, str) and dtype is None:
-        raise ValueError(f"{_QUANT_ENV}={v!r}: supported values are "
-                         f"{_QUANT_POLICIES} (or 0/off)")
-    return None
-
-
-def refuse_quant(policy) -> None:
-    """Raise for an int8/fp8 policy: the quantized cache is not ported."""
-    if policy is not None:
-        raise NotImplementedError(
-            f"a {policy} KV cache (QuantKV) is not ported yet: ROADMAP "
-            "queue A item 2(e); unset PADDLE_SERVE_KV_QUANT for a float "
-            "cache")
 
 
 def is_paged(cache) -> bool:
@@ -105,6 +81,12 @@ def blocks_for(tokens: int, block: int) -> int:
     return -(-max(int(tokens), 1) // int(block))
 
 
+def _put(dst, idx, src):
+    """``dst[idx] = src`` in place (``src`` cast to ``dst``'s type), float8
+    through its bytes."""
+    qc.bits(dst)[idx] = qc.bits(src.to(dst.dtype))
+
+
 def paged_zero(batch, heads, capacity, head_dim, *, block, device,
                pool_blocks=None, dtype=None, quant=None) -> PagedKV:
     """A fresh paged K-or-V cache. With ``pool_blocks=None`` the table is
@@ -112,8 +94,8 @@ def paged_zero(batch, heads, capacity, head_dim, *, block, device,
     ``1 + b*nmax + j``; the pool holds ``B*nmax + 1`` blocks with the
     trash block): full capacity per slot, the whole-batch ``generate``
     shape. With ``pool_blocks`` the table starts all-trash and the
-    engine's :class:`BlockPool` assigns blocks per request."""
-    refuse_quant(quant)
+    engine's :class:`BlockPool` assigns blocks per request. ``quant``
+    ("int8" / "fp8") makes the pool a zero ``QuantKV``."""
     B = int(batch)
     nmax = num_blocks(capacity, block)
     if pool_blocks is None:
@@ -127,57 +109,78 @@ def paged_zero(batch, heads, capacity, head_dim, *, block, device,
                 f"pool_blocks={P}: a paged pool needs the trash block (0) "
                 "plus at least one allocatable block")
         table = torch.zeros(B, nmax, dtype=torch.int32, device=device)
-    kv = torch.zeros(P, int(heads), int(block), int(head_dim),
-                     dtype=dtype or torch.float32, device=device)
-    return PagedKV(kv, table)
+    shape = (P, int(heads), int(block), int(head_dim))
+    if quant is not None:
+        return PagedKV(qc.kv_zero(shape, quant, device=device), table)
+    return PagedKV(torch.zeros(shape, dtype=dtype or torch.float32,
+                               device=device), table)
 
 
 def paged_write(kv, table, new, pos):
     """Write ``[B, H, Sq, D]`` K-or-V rows ``new`` at per-slot positions
     ``pos`` ([B] int) through the table, in place: position ``p`` of slot
     ``b`` lands in block ``table[b, p // bs]`` at offset ``p % bs``. One
-    ``index_put_``; destinations collide only on the trash block, where
-    any writer may win. The caller keeps ``pos + Sq`` inside the slot's
-    tabled capacity (the engine reserves a request's blocks at insert).
-    Returns ``kv``."""
-    B, H, Sq, D = new.shape
-    bs = int(kv.shape[2])
-    idx = pos.to(torch.int64)[:, None] + torch.arange(Sq, device=kv.device)
+    ``index_put_`` per tensor (a quantized pool quantizes the rows along
+    the head dim first and writes payload and scales); destinations
+    collide only on the trash block, where any writer may win. The caller
+    keeps ``pos + Sq`` inside the slot's tabled capacity (the engine
+    reserves a request's blocks at insert). Returns ``kv``."""
+    B, H, Sq, _ = new.shape
+    pool = qc.tensors_of(kv)[0]
+    bs = int(pool.shape[2])
+    idx = pos.to(torch.int64)[:, None] + torch.arange(Sq,
+                                                     device=pool.device)
     blk = (idx // bs).clamp(max=int(table.shape[1]) - 1)
     phys = torch.gather(table.to(torch.int64), 1, blk).reshape(-1)
     off = (idx % bs).reshape(-1)
-    rows = new.transpose(1, 2).reshape(B * Sq, H, D)
-    kv[phys, :, off, :] = rows.to(kv.dtype)
+    news = (qc.quantize_like(kv, new) if isinstance(kv, qc.QuantKV)
+            else (new,))
+    for dst, u in zip(qc.tensors_of(kv), news):
+        rows = qc.bits(u.to(dst.dtype)).transpose(1, 2).reshape(
+            B * Sq, H, int(u.shape[-1]))
+        qc.bits(dst)[phys, :, off, :] = rows
     return kv
 
 
 def paged_gather(kv, table, out_dtype=None):
     """The per-slot K-or-V view ``[B, H, nmax*bs, D]`` of the pool through
-    the table (one gather). Rows of unwritten or trash-mapped blocks are
-    garbage; the position mask of ``cached_attention`` hides them."""
-    g = kv[table.to(torch.int64)]  # [B, nmax, H, bs, D]
-    B, nmax, H, bs, D = g.shape
-    out = g.transpose(1, 2).reshape(B, H, nmax * bs, D)
+    the table (one gather per tensor; a quantized pool gathers payload and
+    scales and dequantizes the view to ``out_dtype``, float32 by default).
+    Rows of unwritten or trash-mapped blocks are garbage; the position
+    mask of ``cached_attention`` hides them."""
+    def gather(pool):
+        g = qc.bits(pool)[table.to(torch.int64)]  # [B, nmax, H, bs, D]
+        B, nmax, H, bs, D = g.shape
+        return qc.from_bits(g.transpose(1, 2).reshape(B, H, nmax * bs, D),
+                            pool.dtype)
+
+    if isinstance(kv, qc.QuantKV):
+        return qc.dequantize_lastaxis(gather(kv.q), gather(kv.scale),
+                                      out_dtype or torch.float32)
+    out = gather(kv)
     return out if out_dtype is None else out.to(out_dtype)
 
 
 def _blocks_of(contiguous, bs):
-    """A batch-1 contiguous ``[1, H, cap, D]`` cache as ``[cap/bs, H, bs,
-    D]`` block rows."""
+    """A batch-1 contiguous ``[1, H, cap, D]`` cache tensor as ``[cap/bs,
+    H, bs, D]`` block rows."""
     _, H, cap, D = contiguous.shape
     return contiguous[0].reshape(H, cap // bs, bs, D).transpose(0, 1)
 
 
 def paged_splice(paged, slot_kv, slot, table_row):
     """Write a prefilled contiguous batch-1 cache ``slot_kv`` (``[1, H,
-    cap', D]``, ``cap'`` a multiple of the block size) into the pool
-    blocks ``table_row`` names (``[nmax]`` int, trash-padded past the
-    slot's allocation) and point slot ``slot``'s table row at them, in
-    place. Trash-padded entries collide on block 0. Returns ``paged``."""
+    cap', D]``, ``cap'`` a multiple of the block size; a ``QuantKV`` for a
+    quantized pool) into the pool blocks ``table_row`` names (``[nmax]``
+    int, trash-padded past the slot's allocation) and point slot
+    ``slot``'s table row at them, in place. Trash-padded entries collide
+    on block 0. Returns ``paged``."""
     kv, table = paged
-    rows = _blocks_of(slot_kv, int(kv.shape[2]))
-    row = torch.as_tensor(table_row, dtype=torch.int64, device=kv.device)
-    kv[row[: rows.shape[0]]] = rows.to(kv.dtype)
+    row = torch.as_tensor(table_row, dtype=torch.int64,
+                          device=table.device)
+    for pool, one in zip(qc.tensors_of(kv), qc.tensors_of(slot_kv)):
+        rows = _blocks_of(one, int(pool.shape[2]))
+        _put(pool, row[: rows.shape[0]], rows)
     table[slot] = row.to(table.dtype)
     return paged
 
@@ -188,12 +191,13 @@ def paged_fetch(paged, slot_kv, table_row):
     place, so a tail prefill's attention sees the cached prefix at
     positions ``0 .. start-1`` (rows of trash-mapped entries are garbage
     the position mask hides). Returns ``slot_kv``."""
-    kv = paged.kv
-    bs = int(kv.shape[2])
-    _, H, cap, D = slot_kv.shape
-    row = torch.as_tensor(table_row, dtype=torch.int64, device=kv.device)
-    g = kv[row[: cap // bs]]  # [nmax, H, bs, D]
-    slot_kv[0].copy_(g.transpose(0, 1).reshape(H, cap, D))
+    row = torch.as_tensor(table_row, dtype=torch.int64,
+                          device=paged.table.device)
+    for pool, one in zip(qc.tensors_of(paged.kv), qc.tensors_of(slot_kv)):
+        bs = int(pool.shape[2])
+        _, H, cap, D = one.shape
+        g = qc.bits(pool)[row[: cap // bs]]  # [nmax, H, bs, D]
+        qc.bits(one)[0].copy_(g.transpose(0, 1).reshape(H, cap, D))
     return slot_kv
 
 
@@ -206,31 +210,41 @@ def paged_splice_tail(paged, slot_kv, slot, table_row, start, length,
     reader's K/V. When the tail's first write falls inside a shared block
     (the full-prefix match), the caller passes ``cow_src``/``cow_dst``:
     the shared block is copied into the request's private ``cow_dst``
-    first, then the tail rows overlay it (copy-on-write). ``cow_src =
-    cow_dst = 0`` (the trash block onto itself) is the no-copy case.
-    Dead positions go to the trash block. In place; returns ``paged``."""
+    first, then the tail rows overlay it (copy-on-write; a quantized pool
+    copies payload and scales). ``cow_src = cow_dst = 0`` (the trash block
+    onto itself) is the no-copy case. Dead positions go to the trash
+    block. In place; returns ``paged``."""
     kv, table = paged
-    bs = int(kv.shape[2])
-    cap = int(slot_kv.shape[2])
-    kv[int(cow_dst)] = kv[int(cow_src)].clone()
-    row = torch.as_tensor(table_row, dtype=torch.int64, device=kv.device)
-    p = torch.arange(cap, device=kv.device)
-    live = (p >= int(start)) & (p < int(length))
-    phys = torch.where(live, row[p // bs], 0)
-    kv[phys, :, p % bs, :] = slot_kv[0].transpose(0, 1).to(kv.dtype)
+    row = torch.as_tensor(table_row, dtype=torch.int64,
+                          device=table.device)
+    for pool, one in zip(qc.tensors_of(kv), qc.tensors_of(slot_kv)):
+        bs = int(pool.shape[2])
+        cap = int(one.shape[2])
+        raw = qc.bits(pool)
+        raw[int(cow_dst)] = raw[int(cow_src)].clone()
+        p = torch.arange(cap, device=pool.device)
+        live = (p >= int(start)) & (p < int(length))
+        phys = torch.where(live, row[p // bs], 0)
+        _put(pool, (phys, slice(None), p % bs, slice(None)),
+             one[0].transpose(0, 1))
     table[slot] = row.to(table.dtype)
     return paged
 
 
 def paged_adopt(paged, rows, slot, table_row):
     """Adopt gathered block rows ``[nmax, H, bs, D]`` (zero-padded to the
-    table width) into the blocks ``table_row`` names and point slot
-    ``slot`` at them, in place: the splice of a migrated KV bundle. The
-    migration plane itself (``serving/kv_migration.py``) is ROADMAP queue
-    A item 2(g). Returns ``paged``."""
+    table width; a ``(payload, scales)`` pair for a quantized pool, adopted
+    narrow) into the blocks ``table_row`` names and point slot ``slot`` at
+    them, in place: the splice of a migrated KV bundle. The migration plane
+    itself (``serving/kv_migration.py``) is ROADMAP queue A item 2(g).
+    Returns ``paged``."""
     kv, table = paged
-    row = torch.as_tensor(table_row, dtype=torch.int64, device=kv.device)
-    kv[row] = torch.as_tensor(rows).to(device=kv.device, dtype=kv.dtype)
+    row = torch.as_tensor(table_row, dtype=torch.int64,
+                          device=table.device)
+    if not isinstance(kv, qc.QuantKV):
+        rows = (rows[0] if isinstance(rows, (tuple, list)) else rows,)
+    for pool, r in zip(qc.tensors_of(kv), rows):
+        _put(pool, row, torch.as_tensor(r).to(pool.device))
     table[slot] = row.to(table.dtype)
     return paged
 

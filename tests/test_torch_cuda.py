@@ -19,7 +19,13 @@ each parameter's largest gradient (summation order through two layers);
 under bf16 AMP O1, 2e-2 of it (the two routes round to bf16 at different
 places). The serving tier on the card (paged KV, chunked prefill, the
 prefix cache, adapter fleets) against its plain forms: greedy tokens
-equal, paged decode logits within 1e-5 (float32, TF32 off).
+equal, paged decode logits within 1e-5 (float32, TF32 off). Quantized
+serving: the quantizer's bytes and scales on the card equal the CPU's
+exactly (int8 and fp8); an fp8 cache's written bytes too, its attention
+within 1e-5 of the largest output (summation order); a narrow linear
+equals ``F.linear`` on its widened weight exactly (the same product on
+the same values); speculative tokens equal the plain loop's, one round
+under sync debug mode "error".
 """
 
 import pytest
@@ -449,3 +455,128 @@ def test_mixed_adapter_batch_equals_sequential(tier_model):
         _, alone = _serve_tokens(tier_model, reqs((a,)), slots=3,
                                  block_size=8)
         assert alone[a] == mixed[a], a
+
+
+# ---------------------------------------------------------------------------
+# quantized serving and speculative decoding on the card: the quantizer's
+# bytes equal the CPU's, the fp8 cache moves through its uint8 bytes, a
+# narrow linear equals the dense product of its widened weight, and a
+# speculative round reads nothing back
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("width", ["int8", "fp8"])
+def test_quantizer_on_the_card_equals_the_cpu(gen, width):
+    from paddle_tpu_torch.distributed import quantized_comm as qc
+
+    x = torch.randn(8, 16, 40, 64, device="cuda", generator=gen) * 3
+    x[0, 0] = 0  # all-zero rows: scale 0
+    rows = x.reshape(-1, 256)  # two blocks of 128 per row
+    for quant, widen in (
+            (lambda t: qc.quantize_lastaxis(t, width), qc.dequantize_lastaxis),
+            (lambda t: qc.quantize_lastaxis(t.reshape(-1, 256), width),
+             qc.dequantize_lastaxis),
+            (lambda t: qc.quantize_blockwise(t, width),
+             lambda p, s: qc.dequantize_blockwise(p, s, rows.shape))):
+        got, want = quant(x), quant(x.cpu())
+        assert torch.equal(qc.bits(got[0]).cpu(), qc.bits(want[0]))
+        assert torch.equal(got[1].cpu(), want[1])
+        assert torch.equal(widen(*got).cpu(), widen(*want))
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_fp8_cache_writes_and_gathers(gen, layout):
+    """cache_update and cached_attention over an fp8 cache on the card:
+    the written bytes and scales equal the CPU's, the attention within
+    1e-5 of its largest (summation order)."""
+    from paddle_tpu_torch.distributed import quantized_comm as qc
+    from paddle_tpu_torch.nn.functional import attention as attn
+    from paddle_tpu_torch.serving import paged_kv as pk
+
+    new = torch.randn(8, 16, 5, 64, device="cuda", generator=gen)
+    q = torch.randn(8, 16, 5, 64, device="cuda", generator=gen)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cache = (qc.kv_zero((8, 16, 64, 64), "fp8", device=dev)
+                 if layout == "contiguous" else
+                 pk.paged_zero(8, 16, 64, 64, block=16, quant="fp8",
+                               device=dev))
+        pos = torch.arange(8, device=dev, dtype=torch.int32) * 7
+        cache = attn.cache_update(cache, new.to(dev), pos)
+        buf = cache.kv if layout == "paged" else cache
+        out[dev] = (qc.bits(buf.q).cpu(), buf.scale.cpu(),
+                    attn.cached_attention(q.to(dev), cache, cache,
+                                          pos).cpu())
+    assert torch.equal(out["cuda"][0], out["cpu"][0])
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+    want = out["cpu"][2]
+    torch.testing.assert_close(out["cuda"][2], want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+
+
+def test_quantized_linear_equals_dense_on_the_widened_weight(gen,
+                                                             monkeypatch):
+    from paddle_tpu_torch.distributed import quantized_compute as qcp
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    lin = pt.nn.Linear(1024, 256, device="cuda", generator=gen)
+    x = torch.randn(8, 1024, device="cuda", generator=gen)
+    info = qcp.quantize_layer(lin, "int8")
+    assert info["quantized"] == ["weight"] and lin.weight.dtype == torch.int8
+    wide = qcp.dequantize_weight(lin.weight, lin.weight_q_scale)
+    with torch.no_grad():
+        assert torch.equal(lin(x), torch.nn.functional.linear(x, wide,
+                                                              lin.bias))
+
+
+def test_speculative_round_reads_nothing_back(tier_model):
+    """One round (draft forwards, the target's k + 1 rows, the accept
+    fold) under sync debug mode "error", and greedy speculative tokens
+    equal the plain loop's."""
+    from paddle_tpu_torch.jit import (PrefillStep, SpecDecodeState,
+                                      SpeculativeDecodeStep)
+    from paddle_tpu_torch.serving import sampling
+
+    prompts = [[5, 17, 3, 40, 22, 9, 31, 2], [11, 4, 46, 8, 27]]
+    want = pt.generate(tier_model, prompts, 12)
+    assert (pt.generate(tier_model, prompts, 12, draft_model=tier_model,
+                        spec_k=3) == want).all()
+    ids = torch.zeros(2, 16, dtype=torch.int32)
+    for i, p in enumerate(prompts):
+        ids[i, :len(p)] = torch.tensor(p)
+    lens = [len(p) for p in prompts]
+    last, caches, pos = PrefillStep(tier_model)(
+        tier_model.gen_cache(2, 32), ids, lens)
+    _, dcaches, _ = PrefillStep(tier_model)(tier_model.gen_cache(2, 32),
+                                            ids, lens)
+    state = SpecDecodeState.make(caches, dcaches, sampling.greedy(last), pos,
+                                 budget=10)
+    step = SpeculativeDecodeStep(tier_model, tier_model, k=3)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        emit, state = step(state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert emit.shape == (2, 4) and (emit[:, 0] >= 0).all()
+
+
+@pytest.mark.parametrize("pool", ["paged", "contiguous"])
+def test_fp8_engine_equals_fp8_generate(tier_model, monkeypatch, pool):
+    """The engine's splices (block splice, prefix fetch, copy-on-write
+    tail splice; or the contiguous slot copy) move fp8 payloads and their
+    scales on the card: each request equals fp8 generate of its prompt."""
+    monkeypatch.setenv("PADDLE_SERVE_KV_QUANT", "fp8")
+    preamble = list(range(3, 19))  # two blocks of 8
+    prompts = {"a": preamble, "b": [9, 30, 2, 41, 7], "c": preamble,
+               "d": preamble + [27, 4]}
+    kw = (dict(block_size=8, prefill_chunk=8, prefix_cache=True)
+          if pool == "paged" else dict(block_size=0, prefill_chunk=8))
+    eng, got = _serve_tokens(tier_model, [
+        pt.serving.Request(p, max_new_tokens=6, rid=r)
+        for r, p in prompts.items()], **kw)
+    for r, p in prompts.items():
+        assert got[r] == list(pt.generate(tier_model, [p], 6,
+                                          max_length=64)[0]), r
+    if pool == "paged":
+        assert eng._prefix_hits >= 1

@@ -202,7 +202,8 @@ def test_no_jax_imports_in_the_port():
               REPO / "tools" / "profile_torch_serving.py",
               REPO / "tools" / "profile_torch_train.py"]
     assert len(files) > 10
-    assert {"paged_kv.py", "prefix_cache.py", "adapters.py"} <= {
+    assert {"paged_kv.py", "prefix_cache.py", "adapters.py",
+            "quantized_comm.py", "quantized_compute.py", "save_load.py"} <= {
         p.name for p in files}
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

@@ -292,15 +292,24 @@ class TestPagedPrimitives:
         assert tuple(paged[0].k.kv.shape) == (9, HEADS, 8, D // HEADS)
 
     def test_quantized_cache_raises(self, models, monkeypatch):
-        _, tm = models
-        with pytest.raises(NotImplementedError, match="2\\(e\\)"):
-            tm.gen_cache(2, 64, dtype="int8", block_size=8)
-        monkeypatch.setenv("PADDLE_SERVE_KV_QUANT", "int8")
+        """The int8/fp8 pool is served (``test_torch_quant_serving.py``);
+        what still raises is what raises in paddle_tpu: an env value that
+        names no width, and a quantized cache without a capacity."""
+        jm, tm = models
+        kv = tm.gen_cache(2, 64, dtype="int8", block_size=8)[0].k.kv
+        assert tuple(kv.q.shape) == tuple(
+            jm.gen_cache(2, 64, dtype="int8", block_size=8)[0].k.kv.q.shape)
+        monkeypatch.setenv("PADDLE_SERVE_KV_QUANT", "int4")
         for bs in (8, 0):
-            with pytest.raises(NotImplementedError, match="QuantKV"):
+            with pytest.raises(ValueError, match="PADDLE_SERVE_KV_QUANT"):
                 tm.gen_cache(2, 64, block_size=bs)
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="PADDLE_SERVE_KV_QUANT"):
             pt.generate(tm, [[1, 2, 3]], 2, max_length=16)
+        monkeypatch.delenv("PADDLE_SERVE_KV_QUANT")
+        with pytest.raises(ValueError, match="static-capacity"):
+            pt.nn.MultiHeadAttention(
+                D, HEADS, device="cpu", generator=torch.Generator()
+            ).gen_cache(batch_size=2, dtype="int8")
 
 
 # ---------------------------------------------------------------------------
@@ -346,9 +355,20 @@ class TestPagedGenerate:
         assert tm.gen_cache(1, 16, block_size=4)[0].k.kv.shape[2] == 4
 
     def test_speculative_decode_raises(self, models):
+        """Speculative decoding runs (``test_torch_speculative.py``); what
+        still raises is what raises in paddle_tpu: sampling, returned
+        logits, and a ``spec_k`` against a prebuilt step's k."""
         _, tm = models
-        with pytest.raises(NotImplementedError, match="2\\(f\\)"):
-            pt.generate(tm, self.PROMPTS, 4, draft_model=tm)
+        with pytest.raises(ValueError, match="greedy-only"):
+            pt.generate(tm, self.PROMPTS, 4, draft_model=tm,
+                        temperature=0.7)
+        with pytest.raises(ValueError, match="return_logits"):
+            pt.generate(tm, self.PROMPTS, 4, draft_model=tm,
+                        return_logits=True)
+        step = pt.jit.SpeculativeDecodeStep(tm, tm, k=2)
+        with pytest.raises(ValueError, match="conflicts"):
+            pt.generate(tm, self.PROMPTS, 4, draft_model=tm, decode=step,
+                        spec_k=3)
 
 
 # ---------------------------------------------------------------------------
