@@ -47,14 +47,27 @@
    target's width and with the target as its own draft, contiguous and
    paged, each equal to plain greedy ``generate`` (tokens/s, rounds,
    tokens per round), and one round under sync debug mode "error";
-7. trains the same model (bench.py's GPT-medium training proxy: B = 4,
+7. the router's plane at GPT-medium width (cap 160, block 16, float32):
+   bench.py's disaggregated decode tier (``_bench_serve_multitenant``'s
+   second half: a ``PrefillHost`` of 2 slots hands 8 mixed-adapter
+   requests of prompt 128 to a decode ``LocalHost`` of 8 as CRC-sealed
+   KV bundles) against a colocated engine (tokens/s, tokens equal, every
+   handoff spliced, bundle bytes and the gather, seal, verify and insert
+   ms); ``drain_host`` moving live requests between two 4-slot engines,
+   in float32 and int8 KV (no fallback, no prefill for a moved request,
+   spliced bytes = the source's, tokens = greedy ``generate``);
+   ``retire_slots(2)`` relocating live top slots; and the disaggregated
+   run again with the telemetry bus on (one ``decode_metrics`` row per
+   readback window, one ``decode_request`` per request, the host reads of
+   the run with the bus off);
+8. trains the same model (bench.py's GPT-medium training proxy: B = 4,
    S = 1024, AdamW lr 1e-4, weight decay 0.01, float32) through
    ``jit.TrainStep``: first one gradient oracle (every parameter's
    gradient through the kernels against the dense route's, torch
    autograd), then six steps on one fixed batch (the loss must fall), and
    checks that each of the six kernels was launched as often as a step
    needs;
-8. trains bench.py's GPT-medium program as published (``_bench_gpt``: no
+9. trains bench.py's GPT-medium program as published (``_bench_gpt``: no
    final LayerNorm, ``strategy.amp`` through ``fleet``, bf16 AMP O1,
    ``fused_linear_cross_entropy`` with chunk 8192, AdamW lr 1e-4, weight
    decay 0.01, B = 4, S = 1024): a bf16 gradient oracle against the dense
@@ -62,22 +75,22 @@
    loss must fall), and checks each kernel's launches by input types (the
    flash kernels in bf16, the add-LN on the float32 residual and the bf16
    branch);
-9. the same program under float16 O1 (``amp_configs = {"use_bf16":
+10. the same program under float16 O1 (``amp_configs = {"use_bf16":
    False}``, dynamic loss scaling): its gradient oracle (at the scaler's
    initial scale), six steps with the scaler's skipped steps, and the
    flash kernels' launches in float16 and the add-LN's on (float32,
    float16);
-10. one ParallelGPTBlock at d_model 2048 with 8 heads (head dim 256), B =
+11. one ParallelGPTBlock at d_model 2048 with 8 heads (head dim 256), B =
    2, S = 1024, forward and backward through the kernels against the
    dense route, in float32 and under bf16 AMP;
-11. bench.py's other training programs at its sizes: LeNet (batch 256,
+12. bench.py's other training programs at its sizes: LeNet (batch 256,
    Adam 1e-3), ResNet-50 (batch 256 at 224 x 224, 1000 classes, Momentum
    0.1/0.9) in float32 with TF32 off and under bf16 AMP through
    ``fleet``, and BERT-base (12 layers, 768 wide, batch 32 x 128, AdamW
    1e-4/0.01, bf16 AMP): six steps each on one batch, with the rate,
    ms/step, peak memory, losses (which must fall) and launches (BERT's
    LayerNorms on B5/B7; the others none);
-12. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
+13. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
    "device": ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device, outside a
@@ -1695,6 +1708,388 @@ def speculative_phase(pt, kernels, card):
     return counts
 
 
+def _count_host_reads(fn):
+    """Run ``fn``; returns (its result, the device-to-host reads it made:
+    calls that bring a CUDA tensor's values to the host)."""
+    names = ("cpu", "item", "tolist", "numpy", "__bool__", "__int__",
+             "__float__", "__index__")
+    saved = {n: getattr(torch.Tensor, n) for n in names}
+    count = [0]
+
+    def wrap(real):
+        def counting(self, *a, **kw):
+            if self.is_cuda:
+                count[0] += 1
+            return real(self, *a, **kw)
+        return counting
+
+    for n, real in saved.items():
+        setattr(torch.Tensor, n, wrap(real))
+    try:
+        out = fn()
+    finally:
+        for n, real in saved.items():
+            setattr(torch.Tensor, n, real)
+    return out, count[0]
+
+
+def router_phase(pt, kernels, card):
+    """The router's plane at GPT-medium width (cap 160, block 16):
+    (a) the disaggregated decode tier of bench.py's
+    ``_bench_serve_multitenant`` (8 mixed-adapter requests of prompt 128
+    and 32 new through a ``PrefillHost`` of 2 slots and a decode
+    ``LocalHost`` of 8), against a colocated engine of 8 slots on the same
+    model and adapters; (b) ``drain_host`` with KV migration between two
+    4-slot ``LocalHost`` engines, in float32 and under an int8 KV cache,
+    against greedy ``generate``; (c) ``retire_slots(2)`` relocating the
+    live top slots of a 4-slot engine; (d) (a) again with the telemetry bus
+    on, against its readback windows and its host reads with the bus off.
+    Returns the per-kernel launch counts of each of the phase's paths, each
+    counted in a window of its own that no reference run falls in: the
+    disaggregated tier (``router``), each drain, the retire and the
+    telemetry run."""
+    import os
+    import tempfile
+
+    from paddle_tpu_torch.distributed import quantized_comm as qc
+    from paddle_tpu_torch.observability import bus
+    from paddle_tpu_torch.serving import Request, kv_migration as kvm
+    from paddle_tpu_torch.serving.adapters import AdapterSet
+    from paddle_tpu_torch.serving.router import (LocalHost, PrefillHost,
+                                                 Router)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for k in ("PADDLE_SERVE_KV_QUANT", "PADDLE_OBS_DIR",
+              "PADDLE_OBS_BUS_FILE", "PADDLE_SERVE_MIGRATE",
+              "PADDLE_SERVE_DISAGG", "PADDLE_FAULT_SPEC"):
+        os.environ.pop(k, None)
+    t_phase = time.perf_counter()
+    model = pt.TransformerLM(VOCAB, D_MODEL, HEADS, LAYERS,
+                             max_position=MT_CAP, dim_feedforward=FFN,
+                             seed=8)
+    adapters = AdapterSet(model, n_adapters=4, rank=8)
+    adapters.load(1)
+    adapters.load(2)
+    prompt = (np.arange(PROMPT) % 31000).astype(np.int32)
+    B = BATCH
+
+    def engine(slots, **kw):
+        return pt.InferenceEngine(model, slots=slots, max_length=MT_CAP,
+                                  block_size=TIER_BLOCK, **kw)
+
+    def drive(router, hosts, n, deadline_s=120):
+        deadline = time.perf_counter() + deadline_s
+        while len(router.completed) < n:
+            if time.perf_counter() > deadline:
+                fail(f"router: {len(router.completed)} of {n} requests "
+                     f"done in {deadline_s} s")
+            router.tick()
+            for h in hosts:
+                h.pump()
+
+    def disagg():
+        """(a): returns the router, its decode engine, the seconds, and
+        the decode steps the decode engine ran."""
+        dec = engine(B)
+        steps = [0]
+        real = dec._decode
+
+        def counted(state):
+            steps[0] += 1
+            return real(state)
+
+        dec._decode = counted
+        decode, prefill = LocalHost(dec), PrefillHost(engine(2))
+        router = Router([decode], prefill_hosts=[prefill],
+                        admit_queue=2 * B, avg_new_tokens=MT_NEW)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(B):
+            router.submit({"rid": f"d{i}", "prompt_ids": prompt.tolist(),
+                           "max_new_tokens": MT_NEW, "adapter": i % 3})
+        drive(router, [decode], B)
+        torch.cuda.synchronize()
+        return router, dec, time.perf_counter() - t0, steps[0]
+
+    def same_as(router, ref):
+        return all(router.completed[f"d{i}"]["tokens"] == ref[f"d{i}"].tokens
+                   for i in range(B))
+
+    # warm the allocator, the step objects' first calls and an adapter's
+    w = engine(2)
+    w.submit(Request(prompt, max_new_tokens=2, rid="w"))
+    w.submit(Request(prompt, max_new_tokens=2, rid="wa", adapter=1))
+    w.run()
+
+    def colocated():
+        col = engine(B)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(B):
+            col.submit(Request(prompt, max_new_tokens=MT_NEW, rid=f"d{i}",
+                               adapter=i % 3))
+        out = col.run()
+        return out, time.perf_counter() - t0
+
+    # (a) colocated, disaggregated, disaggregated, colocated: no
+    # instrumentation in the timed runs, and each side runs once first
+    # and once last; the launch counts are the first disaggregated run's
+    paths = {}
+    ref, col_s1 = colocated()
+    kernels.reset_launches()  # the disaggregated path starts here
+    router, dec, dis_s1, _ = disagg()
+    paths["router"] = _serving_launches(kernels, "router")  # and ends here
+    router2, dec2, dis_s2, _ = disagg()
+    ref2, col_s2 = colocated()
+    same = same_as(router, ref) and same_as(router2, ref) and all(
+        ref2[f"d{i}"].tokens == ref[f"d{i}"].tokens for i in range(B))
+    fallbacks = [r.disagg_fallbacks for r in (router, router2)]
+    handoffs = [r.disagg_prefills for r in (router, router2)]
+    dec_prefills = [d._prefill._n_steps for d in (dec, dec2)]
+    dis_s, col_s = (dis_s1 + dis_s2) / 2, (col_s1 + col_s2) / 2
+    print(f"disaggregated tier (PrefillHost 2 slots -> decode LocalHost "
+          f"{B} slots, cap {MT_CAP}, block {TIER_BLOCK}, adapters i % 3), "
+          f"tokens/s in the order run: colocated {B * MT_NEW / col_s1:.1f}, "
+          f"disaggregated {B * MT_NEW / dis_s1:.1f}, disaggregated "
+          f"{B * MT_NEW / dis_s2:.1f}, colocated {B * MT_NEW / col_s2:.1f}; "
+          f"serve_gpt_medium_tokens_per_sec_b8_disagg {B * MT_NEW / dis_s:.1f}"
+          f" against colocated {B * MT_NEW / col_s:.1f} (means of the "
+          f"times, {col_s / dis_s:.3f}x); handoffs {handoffs}, fallbacks "
+          f"{fallbacks}, decode-side prefills {dec_prefills}; tokens equal "
+          f"colocated: {same}")
+    if handoffs != [B, B] or any(fallbacks) or any(dec_prefills) \
+            or not same:
+        fail("the disaggregated tier fell back, prefilled on the decode "
+             "side, or disagrees with the colocated engine")
+    # host reads of the disaggregated run with the bus off, untimed: (d)
+    # holds the bus-on run against it
+    (r_off, _, _, _), reads_off = _count_host_reads(disagg)
+    if not same_as(r_off, ref):
+        fail("the disaggregated tier disagrees with itself across runs")
+
+    # one handoff's parts, timed apart through the hosts' own calls (the
+    # tier above runs them inline): extract = the engine's gather and
+    # seal; seal again on its leaves, alone; the router's verify; insert
+    parts = {"extract": [], "seal": [], "verify": [], "insert": []}
+    nbytes = 0
+    for rep in range(3):
+        src, dst = LocalHost(engine(2)), LocalHost(engine(2))
+        src.engine.submit(Request(prompt, max_new_tokens=MT_NEW, rid="h",
+                                  adapter=1))
+        src.engine._fill_free_slots({})  # the prefill and the first token
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = src.extract_kv("h")
+        t1 = time.perf_counter()
+        crcs = list(b.manifest["crcs"])
+        b.seal()
+        t2 = time.perf_counter()
+        bad = b.verify()
+        t3 = time.perf_counter()
+        ok = dst.insert_kv(b)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        if bad or not ok or b.manifest["crcs"] != crcs \
+                or b.n_blocks != PROMPT // TIER_BLOCK:
+            fail("a timed handoff did not verify or splice")
+        for k, a, z in (("extract", t0, t1), ("seal", t1, t2),
+                        ("verify", t2, t3), ("insert", t3, t4)):
+            parts[k].append((z - a) * 1e3)
+        nbytes = b.nbytes
+    want = (PROMPT // TIER_BLOCK) * TIER_BLOCK * 2 * LAYERS * D_MODEL * 4
+    print(f"per bundle: {nbytes} bytes (reckoned {want}: "
+          f"{PROMPT // TIER_BLOCK} blocks x {TIER_BLOCK} rows x {LAYERS} "
+          f"layers x K, V x {D_MODEL} x 4 B); ms over 3 handoffs: "
+          + ", ".join(f"{k} " + " / ".join(f"{v:.2f}" for v in vs)
+                      for k, vs in parts.items())
+          + " (extract = gather + seal)")
+    if nbytes != want:
+        fail(f"a bundle holds {nbytes} bytes, not {want}")
+
+    # (b) drain with migration, float32 and int8 KV
+    drain_prompt = 112  # + 48 new = the cap; ctx 128 at the drain: 8 blocks
+    prompts = [((np.arange(drain_prompt) + 7 * i) % 31000).astype(np.int32)
+               for i in range(6)]
+    drains = {}
+    for quant in (None, "int8"):
+        kv = quant or "float32"
+        if quant:
+            os.environ["PADDLE_SERVE_KV_QUANT"] = quant
+        try:
+            # the references, outside the counted window: greedy generate
+            # of the six prompts at B = 6 and of each prompt alone (B = 1,
+            # the batch of the engine's prefill)
+            greedy, glog = pt.generate(model, prompts, 48,
+                                       max_length=MT_CAP, return_logits=True)
+            alone = [list(pt.generate(model, [p], 48,
+                                      max_length=MT_CAP)[0])
+                     for p in prompts]
+            moved = []
+
+            class Survivor(LocalHost):
+                def insert_kv(self, bundle):
+                    ok = super().insert_kv(bundle)
+                    if ok:
+                        moved.append(bundle)
+                    return ok
+
+            kernels.reset_launches()  # the drain's path starts here
+            hosts = [LocalHost(engine(4)), Survivor(engine(4))]
+            r = Router(hosts, admit_queue=16, avg_new_tokens=48,
+                       drain_inplace_tokens=8)
+            for i, p in enumerate(prompts):
+                r.submit({"rid": f"m{i}", "prompt_ids": p.tolist(),
+                          "max_new_tokens": 48})
+            hosts[0].pump()  # prefill and one window on the source only
+            r.tick()
+            own = hosts[1].engine.queue_depth()
+            t0 = time.perf_counter()
+            summary = r.drain_host(0)
+            drain_ms = (time.perf_counter() - t0) * 1e3
+            eng1 = hosts[1].engine
+            same_bytes = True
+            for bnd in moved:
+                slot = next(s for s, x in eng1._active.items()
+                            if x.req.rid == bnd.manifest["rid"])
+                got = kvm.gather_leaves(
+                    eng1._state.caches,
+                    eng1._slot_blocks[slot][: bnd.n_blocks])
+                same_bytes &= all(
+                    torch.equal(qc.bits(x), qc.bits(y))
+                    for la, lb in zip(got, bnd.leaves)
+                    for x, y in zip(la, lb))
+            drive(r, hosts, 6)
+            paths[f"router_drain_{kv}"] = _serving_launches(
+                kernels, f"router drain ({kv} KV)")  # the drain's path ends
+            toks = {f"m{i}": r.completed[f"m{i}"]["tokens"]
+                    for i in range(6)}
+            moved_rids = sorted(bnd.manifest["rid"] for bnd in moved)
+            alone_eq = [toks[f"m{i}"] == alone[i] for i in range(6)]
+            gen_eq = [toks[f"m{i}"] == list(greedy[i]) for i in range(6)]
+            # where the drained tokens leave B = 6 generate: generate's
+            # logit lead of its own token over the engine's, and its top-2
+            # gap there (a near-tie says a last-bit difference flipped it)
+            diverge = []
+            for i in range(6):
+                j = next((j for j, (a, g) in enumerate(zip(
+                    toks[f"m{i}"], greedy[i])) if a != g), None)
+                if j is not None:
+                    lg = glog[i, j]
+                    top2 = np.sort(lg)[-2:]
+                    diverge.append(
+                        f"m{i} at token {j}: lead "
+                        f"{lg[greedy[i][j]] - lg[toks[f'm{i}'][j]]:.3e}, "
+                        f"top-2 gap {top2[1] - top2[0]:.3e}, max|logit| "
+                        f"{np.abs(lg).max():.3e}")
+            sizes = sorted({bnd.nbytes for bnd in moved})
+            drains[kv] = sizes
+            print(f"drain ({kv} KV): {summary}, moved {moved_rids}, "
+                  f"{r.migrations} migrations, {r.migrate_failed} failed, "
+                  f"{r.migrate_bytes} bytes moved (per bundle {sizes}) in "
+                  f"{drain_ms:.1f} ms; survivor prefills "
+                  f"{eng1._prefill._n_steps} for its own {own} requests; "
+                  f"spliced bytes equal the source's: {same_bytes}; tokens "
+                  f"equal greedy generate of each prompt alone (B = 1): "
+                  f"{sum(alone_eq)} of 6, at B = 6: {sum(gen_eq)} of "
+                  f"6 ({'; '.join(diverge) or 'no divergence'})")
+            # the gate in both KV types: greedy generate of each prompt;
+            # float32 also at B = 6 (an int8 cache can turn a last-bit
+            # difference between batch shapes into a quantization step,
+            # so there the B = 6 comparison is reported with its margins)
+            if r.migrations < 1 or r.migrate_failed \
+                    or not same_bytes or eng1._prefill._n_steps != own \
+                    or not all(alone_eq) \
+                    or (quant is None and not all(gen_eq)):
+                fail(f"drain with migration ({kv} KV) failed, re-prefilled "
+                     "a moved request or disagrees with greedy generate")
+        finally:
+            os.environ.pop("PADDLE_SERVE_KV_QUANT", None)
+    ratio = drains["int8"][0] / drains["float32"][0]
+    print(f"int8 bundle / float32 bundle: {ratio} (reckoned 0.265625)")
+    if ratio != 0.265625 or drains["float32"] != [want]:
+        fail("the bundles' sizes are off")
+
+    # (c) retire_slots relocates the live top slots
+    with tempfile.TemporaryDirectory() as d:
+        os.environ["PADDLE_OBS_BUS_FILE"] = os.path.join(d, "bus.jsonl")
+        try:
+            rp = [((np.arange(64) + 11 * i) % 31000).astype(np.int32)
+                  for i in range(4)]
+            want_t = pt.generate(model, rp, 32, max_length=MT_CAP)
+            kernels.reset_launches()  # the retire path starts here
+            eng = engine(4, sync_every=8)
+            for i, p in enumerate(rp):
+                eng.submit(Request(p, max_new_tokens=32, rid=i,
+                                   trace_id=f"retire-{i}"))
+            res = {}
+            eng.turn(res)
+            eng.cancel(0)
+            eng.cancel(1)
+            before = {s: x.req.rid for s, x in eng._active.items()}
+            still = eng.retire_slots(2)
+            after = {x.req.rid: s for s, x in eng._active.items()}
+            res.update(eng.run())
+            paths["router_retire"] = _serving_launches(
+                kernels, "router retire")  # the retire path ends here
+            spans = [x["payload"] for x in bus.read_stream(
+                os.environ["PADDLE_OBS_BUS_FILE"])
+                if x["kind"] == "span"
+                and x["payload"]["name"] == "kv_relocate"]
+        finally:
+            os.environ.pop("PADDLE_OBS_BUS_FILE")
+    # the pool gives up the free top of its id space at once, the rest as
+    # traffic frees it
+    tables = {int(c.k.table.shape[0]) for c in eng._state.caches}
+    ok = (before == {2: 2, 3: 3} and still == [] and eng.slots == 2
+          and tuple(eng._state.pos.shape) == (2,) and tables == {2}
+          and eng._pool.total < 4 * (MT_CAP // TIER_BLOCK)
+          and sorted(after) == [2, 3] and max(after.values()) < 2
+          and len(spans) == 2
+          and all(res[i].tokens == list(want_t[i]) for i in (2, 3)))
+    print(f"retire_slots(2) on 4 slots: relocated {before} -> "
+          f"{ {r: s for r, s in after.items()} }, {len(spans)} kv_relocate "
+          f"spans, {eng.slots} slots and {eng._pool.total} of "
+          f"{4 * (MT_CAP // TIER_BLOCK)} blocks left; "
+          f"tokens equal greedy generate: {ok}")
+    if not ok:
+        fail("retire_slots did not relocate and shrink, or changed tokens")
+
+    # (d) (a) with the telemetry bus on
+    with tempfile.TemporaryDirectory() as d:
+        os.environ["PADDLE_OBS_DIR"] = d
+        try:
+            kernels.reset_launches()  # the telemetry run starts here
+            (r2, dec2, _, steps2), reads_on = _count_host_reads(disagg)
+            paths["router_telemetry"] = _serving_launches(
+                kernels, "router telemetry")  # and ends here
+            rows = bus.read_stream(os.path.join(d, "telemetry.rank0.jsonl"))
+        finally:
+            os.environ.pop("PADDLE_OBS_DIR")
+    dm = [x["payload"] for x in rows if x["kind"] == "decode_metrics"]
+    dr = [x for x in rows if x["kind"] == "decode_request"]
+    windows = steps2 // dec2.sync_every
+    same2 = same_as(r2, ref)
+    print(f"telemetry on (a): {len(dm)} decode_metrics rows for {windows} "
+          f"readback windows ({steps2} decode steps), {len(dr)} "
+          f"decode_request rows for {B} requests, {len(rows)} rows in all; "
+          f"host reads {reads_on} with the bus on, {reads_off} off; tokens "
+          f"equal: {same2}")
+    if len(dm) != windows or len(dr) != B or reads_on != reads_off \
+            or not same2 or sum(p["steps"] for p in dm) != steps2:
+        fail("decode telemetry does not follow the readback windows or "
+             "adds host reads")
+    print(f"router plane on {card}: disagg "
+          f"{B * MT_NEW / dis_s:.1f} / colocated {B * MT_NEW / col_s:.1f} "
+          f"tokens/s, bundle {nbytes} bytes (extract "
+          f"{min(parts['extract']):.2f}, seal {min(parts['seal']):.2f}, "
+          f"verify {min(parts['verify']):.2f}, insert "
+          f"{min(parts['insert']):.2f} ms), drain migrations in float32 and "
+          f"int8 KV, retire relocation, telemetry rows; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1748,6 +2143,8 @@ def main() -> int:
     spec = speculative_phase(pt, kernels, card)
     print(f"speculative decoding phase done at "
           f"{time.perf_counter() - t_start:.1f} s")
+    routed = router_phase(pt, kernels, card)
+    print(f"router phase done at {time.perf_counter() - t_start:.1f} s")
     training = training_phase(pt, kernels)
     print(f"training phase done at {time.perf_counter() - t_start:.1f} s")
     amp_training = amp_training_phase(pt, kernels)
@@ -1772,6 +2169,7 @@ def main() -> int:
             "serving_tier": tier[e["name"]],
             "quant_serving": quant[e["name"]],
             "speculative": spec[e["name"]],
+            **{k: v[e["name"]] for k, v in routed.items()},
             "training": training[e["name"]],
             "amp_training": amp_training[e["name"]],
             "fp16_amp_training": fp16_training[e["name"]],

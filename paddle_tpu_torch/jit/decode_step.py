@@ -1,7 +1,7 @@
-"""Single-token decode step, bucketed prefill and the speculative round
-(counterpart of ``paddle_tpu/jit/decode_step.py``'s ``DecodeState``,
-``DecodeStep``, ``PrefillStep``, ``SpecDecodeState`` and
-``SpeculativeDecodeStep``).
+"""Single-token decode step, bucketed prefill, the speculative round and
+the migrated-KV insert (counterpart of ``paddle_tpu/jit/decode_step.py``'s
+``DecodeState``, ``DecodeStep``, ``PrefillStep``, ``SpecDecodeState``,
+``SpeculativeDecodeStep`` and ``MigrateInsert``).
 
 PyTorch runs them eagerly: where the JAX package compiles one program per
 step, each step here is the same sequence of kernel launches. The loop
@@ -23,7 +23,8 @@ import torch
 from ..core.random import generator as make_generator
 
 __all__ = ["NO_BUDGET", "DecodeState", "DecodeStep", "PrefillStep",
-           "spec_k_default", "SpecDecodeState", "SpeculativeDecodeStep"]
+           "MigrateInsert", "spec_k_default", "SpecDecodeState",
+           "SpeculativeDecodeStep"]
 
 #: effectively unbounded per-slot step budget (the host loop bounds it)
 NO_BUDGET = 1 << 30
@@ -188,6 +189,54 @@ class PrefillStep:
         last = torch.gather(
             logits, 1, idx[:, None, None].expand(B, 1, logits.shape[-1]))
         return last[:, 0, :].float(), caches, start + lengths
+
+
+class MigrateInsert:
+    """Insert with history: splice a migrated KV bundle's block rows into a
+    paged pool slot and reset that slot's state entries to the source's
+    mid-decode values::
+
+        MigrateInsert()(state, rows, slot, table_row, ctx=, last_tok=,
+                        temperature=, top_k=, top_p=, eos_id=, budget=,
+                        adapter=)
+
+    Where the engine's prefill insert writes a fresh cache at position 0
+    with a first sampled token, this writes ``ctx`` rows of decode history
+    and feeds the source's last emitted token at position ``ctx``: the
+    next ``DecodeStep`` continues the sequence as if the request had never
+    moved, with no ``PrefillStep`` work.
+
+    ``rows`` is a list over the cache's ``PagedKV`` buffers (layer by
+    layer, K then V), each the bundle's rows zero-padded to the table
+    width, ``[nmax, H, bs, D]``: a ``(payload,)`` tuple, or ``(payload,
+    scales)`` for a quantized pool, adopted narrow
+    (``paged_kv.paged_adopt``). ``table_row`` ([nmax] int) names the
+    slot's blocks, trash-padded past its allocation. The pool and the
+    state vectors are written in place; no tensor is read back. Returns
+    ``state``."""
+
+    @torch.no_grad()
+    def __call__(self, state: DecodeState, rows, slot: int, table_row, *,
+                 ctx: int, last_tok: int, temperature: float, top_k: int,
+                 top_p: float, eos_id: int, budget: int, adapter: int = 0):
+        from ..serving import paged_kv as pk
+
+        leaves = list(pk.paged_leaves(state.caches))
+        if len(leaves) != len(rows):
+            raise ValueError(f"{len(rows)} bundle leaves for a pool of "
+                             f"{len(leaves)} paged buffers")
+        for leaf, r in zip(leaves, rows):
+            pk.paged_adopt(leaf, r, slot, table_row)
+        state.pos[slot] = int(ctx)
+        state.tok[slot] = int(last_tok)
+        state.done[slot] = False
+        state.temperature[slot] = float(temperature)
+        state.top_k[slot] = int(top_k)
+        state.top_p[slot] = float(top_p)
+        state.eos[slot] = int(eos_id)
+        state.budget[slot] = int(budget)
+        state.adapter[slot] = int(adapter)
+        return state
 
 
 # ---------------------------------------------------------------------------

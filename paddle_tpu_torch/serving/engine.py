@@ -38,10 +38,22 @@ The engine's serving tier, as in the JAX package:
   paged, holds int8/fp8 payloads and their scales (``QuantKV``), and every
   splice and copy-on-write moves both.
 
-Not ported yet (each raises): KV migration (``extract_kv``,
-``insert_migrated``: ROADMAP queue A item 2(g)), the router's elastic
-slots (``expand_slots``, ``retire_slots``: 2(h)) and the
-``decode_metrics`` telemetry (2(i)).
+The router's plane, as in the JAX package:
+
+- **KV migration** (``extract_kv`` / ``insert_migrated``, paged pools):
+  an active request's blocks leave as a sealed ``kv_migration.KVBundle``
+  and splice into another engine's free slot through
+  ``jit.MigrateInsert``; decode goes on mid-sentence with no prefill.
+  ``Request(resume_tokens=)`` is the other road back: the engine prefills
+  prompt plus resumed tokens (``Request.prefill_ids``);
+- **elastic slots**: ``expand_slots`` grows the pool (state vectors,
+  cache rows, ``BlockPool.grow``); ``retire_slots`` stops refilling the
+  top slots, moves their active requests into free low slots through the
+  migration plane, and truncates the pool once the tail is free;
+- **telemetry** (``observability.metrics.DecodeMetricsSampler``):
+  ``decode_metrics`` rows at each readback, ``decode_request`` rows at
+  each retire, and span rows for traced requests (``Request(trace_id=)``),
+  all from host values the engine already holds: no extra device read.
 
 Env knobs, with the JAX package's meanings:
   ``PADDLE_SERVE_SYNC_EVERY``    decode steps per engine readback (16)
@@ -53,6 +65,8 @@ Env knobs, with the JAX package's meanings:
   ``PADDLE_SERVE_PREFIX_BLOCKS`` max prefix-cache entries (0 = the pool)
   ``PADDLE_SERVE_KV_QUANT``      int8 / fp8 KV cache (off)
   ``PADDLE_SERVE_SPEC_K``        draft tokens per speculative round (4)
+  ``PADDLE_SERVE_MIGRATE``       1 = move KV on slot retirement (default)
+  ``PADDLE_OBS_DECODE_METRICS``  0 = no decode telemetry rows (1)
 """
 from __future__ import annotations
 
@@ -67,9 +81,12 @@ import torch
 
 from ..core.random import generator as make_generator
 from ..distributed import quantized_comm as qc
-from ..jit.decode_step import (DecodeState, DecodeStep, PrefillStep,
-                               SpecDecodeState, SpeculativeDecodeStep,
-                               spec_k_default)
+from ..jit.decode_step import (NO_BUDGET, DecodeState, DecodeStep,
+                               MigrateInsert, PrefillStep, SpecDecodeState,
+                               SpeculativeDecodeStep, spec_k_default)
+from ..observability import bus
+from ..observability.metrics import DecodeMetricsSampler
+from . import kv_migration as kvm
 from . import paged_kv as pk
 from . import sampling
 from .prefix_cache import PrefixCache, prefix_cache_enabled
@@ -119,11 +136,6 @@ def bucket_for(length: int, cap: int,
         if b >= length:
             return min(b, cap)
     return cap
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet: ROADMAP queue A item {item}")
 
 
 class GenerationConfig:
@@ -321,11 +333,23 @@ _rid_counter = itertools.count()
 class Request:
     """One generation request for the engine. ``adapter`` names the
     fine-tune that serves it, a row of the model's ``AdapterSet``; 0
-    (default) is the base model."""
+    (default) is the base model.
+
+    ``resume_tokens`` carries tokens an earlier host already emitted for
+    this request (the router's failover and drain): the engine prefills
+    ``prompt_ids + resume_tokens`` as one prefix, the caller has already
+    taken them off ``max_new_tokens``, and a greedy request goes on token
+    for token where the earlier host stopped. The result holds only the
+    new tokens. ``trace_id`` (stamped by the router) keys the request's
+    span rows; None leaves them out."""
 
     def __init__(self, prompt_ids, max_new_tokens=16, temperature=0.0,
-                 top_k=0, top_p=1.0, eos_id=None, rid=None, adapter=0):
+                 top_k=0, top_p=1.0, eos_id=None, rid=None, trace_id=None,
+                 resume_tokens=None, adapter=0):
         self.prompt_ids = np.asarray(prompt_ids, np.int32).reshape(-1)
+        self.resume_tokens = (
+            np.asarray([], np.int32) if resume_tokens is None
+            else np.asarray(resume_tokens, np.int32).reshape(-1))
         self.max_new_tokens = int(max_new_tokens)
         self.temperature = float(temperature)
         self.top_k = int(top_k)
@@ -333,7 +357,16 @@ class Request:
         self.eos_id = -1 if eos_id is None else int(eos_id)
         self.adapter = int(adapter)
         self.rid = next(_rid_counter) if rid is None else rid
+        self.trace_id = trace_id
         self.t_submit: Optional[float] = None  # set by engine.submit
+
+    @property
+    def prefill_ids(self) -> np.ndarray:
+        """The tokens the engine prefills: the prompt and any resumed
+        tokens."""
+        if self.resume_tokens.size == 0:
+            return self.prompt_ids
+        return np.concatenate([self.prompt_ids, self.resume_tokens])
 
 
 class GeneratedResult:
@@ -342,12 +375,16 @@ class GeneratedResult:
     token on the host; ``ttft_ms`` from submit to that token (queue wait
     and chunked prefill included)."""
 
-    def __init__(self, rid, tokens, prefill_ms, total_ms, ttft_ms):
+    def __init__(self, rid, tokens, prefill_ms, total_ms, ttft_ms=None):
         self.rid = rid
         self.tokens = list(tokens)
         self.prefill_ms = prefill_ms
         self.total_ms = total_ms
-        self.ttft_ms = ttft_ms
+        self.ttft_ms = prefill_ms if ttft_ms is None else ttft_ms
+
+    @property
+    def ms_per_token(self):
+        return self.total_ms / max(len(self.tokens), 1)
 
 
 class _Slot:
@@ -378,6 +415,26 @@ class _Pending:
         self.prefill_s = 0.0
 
 
+def _map_buffers(caches, paged, dense):
+    """A cache list with each layer's K and V buffer mapped: ``paged`` for
+    a ``PagedKV``, ``dense`` for a contiguous tensor or ``QuantKV``."""
+    return [type(c)(*(paged(b) if isinstance(b, pk.PagedKV) else dense(b)
+                      for b in c)) for c in caches]
+
+
+def _on_rows(buf, fn):
+    """``fn`` on each tensor of a buffer (a ``QuantKV``'s payload and
+    scales alike), through its bytes for float8."""
+    out = [qc.from_bits(fn(qc.bits(t)), t.dtype) for t in qc.tensors_of(buf)]
+    return qc.QuantKV(*out) if isinstance(buf, qc.QuantKV) else out[0]
+
+
+def _pad_rows(t, n, fill=0):
+    """``t`` with ``n`` rows of ``fill`` appended along dim 0."""
+    return torch.cat([t, torch.full((n,) + tuple(t.shape[1:]), fill,
+                                    dtype=t.dtype, device=t.device)])
+
+
 class InferenceEngine:
     """Slot-based continuous batching over one model.
 
@@ -397,7 +454,10 @@ class InferenceEngine:
     requests), and a request no pool could cover raises at submit.
     Retired slots' table rows are redirected to the trash block before
     their blocks can be reallocated. ``prefix_cache`` (or the env default)
-    shares published prompt blocks between requests."""
+    shares published prompt blocks between requests. A paged engine also
+    hands a live request's KV out (:meth:`extract_kv`) and takes one in
+    (:meth:`insert_migrated`); any engine grows and shrinks its slot count
+    (:meth:`expand_slots`, :meth:`retire_slots`)."""
 
     def __init__(self, model, *, slots=4, max_length=256, sync_every=None,
                  seed=0, block_size=None, pool_blocks=None,
@@ -414,6 +474,7 @@ class InferenceEngine:
                               else prefill_chunk_default())
         self._prefill = PrefillStep(model)
         self._decode = DecodeStep(model)
+        self._migrate = MigrateInsert()
         #: the model's resident fine-tune fleet, if it carries one
         self.adapters = getattr(model, "_serve_adapters", None)
         self._prefix_hits = 0
@@ -424,8 +485,10 @@ class InferenceEngine:
         self._pending: Dict[int, _Pending] = {}
         self._pool: Optional[pk.BlockPool] = None
         self._slot_blocks: Dict[int, List[int]] = {}
+        self._retiring: set = set()
         self._nmax = 0
         self._admit_deferred = 0
+        self._ttft_window: List[float] = []
         if self.prefill_chunk > 0 and self.max_length % self.prefill_chunk:
             # every chunk writes a full chunk-wide window: with cap % C != 0
             # the last chunk of a near-capacity prompt would overrun the
@@ -461,13 +524,14 @@ class InferenceEngine:
             pos=np.zeros(self.slots, np.int32), seed=seed)
         self._state.done.fill_(True)  # every slot starts free
         self._gen = make_generator(seed, self._state.pos.device)
+        self._metrics = DecodeMetricsSampler()
 
     # -- public API --------------------------------------------------------
     def needed_blocks(self, req: Request) -> int:
         """Blocks the paged pool charges ``req`` (0 when contiguous)."""
         if self._pool is None:
             return 0
-        return pk.blocks_for(req.prompt_ids.size + req.max_new_tokens,
+        return pk.blocks_for(req.prefill_ids.size + req.max_new_tokens,
                              self.block_size)
 
     def free_blocks(self) -> Optional[int]:
@@ -509,28 +573,306 @@ class InferenceEngine:
             if st.req.rid == rid:
                 self._active.pop(slot)
                 self._state.done[slot] = True
+                self._metrics.span(
+                    "cancel", trace_id=st.req.trace_id, rid=rid,
+                    slot=slot, tokens=len(st.tokens))
                 self._release(slot, self._slot_blocks.pop(slot, None))
                 return True
         return False
 
+    # -- elastic slots -----------------------------------------------------
     def expand_slots(self, n: int) -> int:
-        _not_ported("InferenceEngine.expand_slots (elastic slots)", "2(h)")
+        """Grow the decode pool by ``n`` slots at a turn boundary: every
+        cache buffer gains ``n`` batch rows (paged: ``n * nmax`` fresh pool
+        blocks, registered with the ``BlockPool`` at once, and ``n``
+        all-trash table rows), and the state vectors gain free (done)
+        entries. The new slots fill from the queue at the next turn.
+        Emits an ``engine_expand`` bus row. Returns the new slot count."""
+        n = int(n)
+        if n <= 0:
+            return self.slots
+        t0 = time.perf_counter()
+        old = self.slots
+        st = self._state
+        if self._pool is not None:
+            extra = n * self._nmax
+            self._pool.grow(extra)
+            caches = _map_buffers(
+                st.caches,
+                lambda b: pk.PagedKV(
+                    _on_rows(b.kv, lambda t: _pad_rows(t, extra)),
+                    _pad_rows(b.table, n)),
+                lambda b: _on_rows(b, lambda t: _pad_rows(t, n)))
+        else:
+            caches = _map_buffers(
+                st.caches, None,
+                lambda b: _on_rows(b, lambda t: _pad_rows(t, n)))
+        self.slots = old + n
+        self._state = DecodeState(
+            caches, _pad_rows(st.pos, n), _pad_rows(st.tok, n),
+            _pad_rows(st.done, n, True), st.generator,
+            _pad_rows(st.temperature, n), _pad_rows(st.top_k, n),
+            _pad_rows(st.top_p, n, 1), _pad_rows(st.eos, n, -1),
+            _pad_rows(st.budget, n, NO_BUDGET), _pad_rows(st.adapter, n))
+        # what a lent device receives for the wider batch: static shapes
+        w_bytes = sum(int(t.numel()) * int(t.element_size())
+                      for t in list(self.model.parameters())
+                      + list(self.model.buffers()))
+        w_quant = sum(1 for name, _ in self.model.named_buffers()
+                      if name.endswith("weight_q_scale"))
+        bus.emit("engine_expand", {
+            "slots_before": old, "slots_after": self.slots,
+            "blocks_total": (None if self._pool is None
+                             else self._pool.total),
+            "weights_bytes": w_bytes, "weights_quantized": w_quant,
+            "dur_ms": round((time.perf_counter() - t0) * 1e3, 3)})
+        return self.slots
 
     def retire_slots(self, n: int) -> List[int]:
-        _not_ported("InferenceEngine.retire_slots (elastic slots)", "2(h)")
+        """Mark the top ``n`` slots retiring: a retiring slot is never
+        refilled, and nothing is cancelled. Its active request moves to a
+        free low slot through the migration plane where it can (extract,
+        splice, release: :meth:`_relocate_retiring`), else finishes in
+        place. Once the retiring tail is free (and, paged, the highest
+        block ids are free) the cache buffers, state vectors and
+        ``BlockPool`` shrink, checked at every turn. Returns the slots
+        still retiring."""
+        n = min(int(n), self.slots - 1)
+        if n > 0:
+            self._retiring.update(range(self.slots - n, self.slots))
+            self._relocate_retiring()
+            self._maybe_shrink()
+        return sorted(self._retiring)
+
+    def _maybe_shrink(self) -> None:
+        cut = 0
+        while True:
+            top = self.slots - 1 - cut
+            if (top not in self._retiring or top in self._active
+                    or top in self._pending):
+                break
+            cut += 1
+        if cut == 0:
+            return
+        t0 = time.perf_counter()
+        for s in range(self.slots - cut, self.slots):
+            self._retiring.discard(s)
+        old = self.slots
+        new = old - cut
+        st = self._state
+        if self._pool is not None:
+            # live low slots never reference the withdrawn ids: the pool
+            # gives up only free top-of-id-space blocks, and retired slots'
+            # table rows went to trash at release
+            if self._prefix is not None:
+                # idle index entries pinning top ids would stall the
+                # withdrawal: evict them first
+                self._prefix.evict_above(
+                    self._pool, self._pool.total - cut * self._nmax)
+            self._pool.shrink(cut * self._nmax)
+            P = self._pool.total + 1
+            caches = _map_buffers(
+                st.caches,
+                lambda b: pk.PagedKV(
+                    _on_rows(b.kv, lambda t: t[:P].clone()),
+                    b.table[:new].clone()),
+                None)
+        else:
+            caches = _map_buffers(
+                st.caches, None,
+                lambda b: _on_rows(b, lambda t: t[:new].clone()))
+        self.slots = new
+        self._state = DecodeState(
+            caches, *(getattr(st, f)[:new].clone() for f in
+                      ("pos", "tok", "done")), st.generator,
+            *(getattr(st, f)[:new].clone() for f in
+              ("temperature", "top_k", "top_p", "eos", "budget",
+               "adapter")))
+        bus.emit("engine_shrink", {
+            "slots_before": old, "slots_after": new,
+            "blocks_total": (None if self._pool is None
+                             else self._pool.total),
+            "dur_ms": round((time.perf_counter() - t0) * 1e3, 3)})
+
+    # -- KV migration ------------------------------------------------------
+    def _quant_name(self) -> Optional[str]:
+        """The pool's quant policy ("int8" / "fp8", None = raw): bundles
+        match by name, the narrow form never converts."""
+        for leaf in pk.paged_leaves(self._state.caches):
+            if isinstance(leaf.kv, qc.QuantKV):
+                return "int8" if leaf.kv.q.dtype == torch.int8 else "fp8"
+        return None
 
     def extract_kv(self, rid):
-        _not_ported("InferenceEngine.extract_kv (KV migration)", "2(g)")
+        """An active request's live KV as a sealed ``KVBundle`` (paged
+        pools only; None = nothing to move here, and the caller
+        re-prefills). Host state gives the cache position, feed token and
+        remaining budget (``ctx = len(prefill) + len(tokens) - 1``, the
+        decode step's feed contract), so no state vector is read: only one
+        gather per pool tensor. The source keeps serving until the caller
+        cancels: extraction is a copy."""
+        if self._pool is None:
+            return None
+        for slot, st in self._active.items():
+            if st.req.rid == rid:
+                break
+        else:
+            return None
+        req, k = st.req, len(st.tokens)
+        budget_left = int(req.max_new_tokens) - k
+        blocks = self._slot_blocks.get(slot)
+        if not blocks or k < 1 or budget_left < 1:
+            return None  # nothing left worth moving: finish in place
+        ctx = int(req.prefill_ids.size) + k - 1
+        n_used = pk.blocks_for(ctx, self.block_size)
+        leaves = kvm.gather_leaves(self._state.caches, blocks[:n_used])
+        bundle = kvm.KVBundle({
+            "rid": req.rid, "trace_id": req.trace_id,
+            "prompt_ids": [int(t) for t in req.prompt_ids],
+            "resume": [int(t) for t in req.resume_tokens],
+            "emitted": [int(t) for t in st.tokens],
+            "ctx": ctx, "last_tok": int(st.tokens[-1]),
+            "temperature": req.temperature, "top_k": req.top_k,
+            "top_p": req.top_p, "eos_id": req.eos_id,
+            "budget_left": budget_left,
+            "block_size": self.block_size, "n_blocks": n_used,
+            "quant": self._quant_name(),
+            "adapter": int(req.adapter),
+        }, leaves).seal()
+        self._metrics.span(
+            "kv_extract", trace_id=req.trace_id, rid=rid, slot=slot,
+            blocks=n_used, bytes=bundle.nbytes)
+        return bundle
 
     def insert_migrated(self, req: Request, bundle) -> bool:
-        _not_ported("InferenceEngine.insert_migrated (KV migration)",
-                    "2(g)")
+        """Splice a migrated bundle into a free slot and resume it
+        mid-decode. False = this engine cannot host it (contiguous pool,
+        block size, quant policy, adapter, leaf count, no free slot, or a
+        pool that cannot cover ``ctx + budget_left``), and the caller
+        re-prefills; True = the request decodes its next token here with
+        no prefill. The slot's blocks cover its whole remaining life, as a
+        prefilled insert's do."""
+        if self._pool is None:
+            return False
+        man = bundle.manifest
+        ctx = int(man.get("ctx", 0))
+        budget_left = int(man.get("budget_left", 0))
+        if (int(man.get("block_size", -1)) != self.block_size
+                or man.get("quant") != self._quant_name()
+                or budget_left < 1
+                or ctx + budget_left > self.max_length):
+            return False
+        aid = int(man.get("adapter", 0))
+        if aid and (self.adapters is None
+                    or not self.adapters.is_loaded(aid)):
+            return False  # this engine cannot serve the fine-tune
+        if len(bundle.leaves) != \
+                len(list(pk.paged_leaves(self._state.caches))):
+            return False
+        free = [s for s in range(self.slots)
+                if s not in self._active and s not in self._pending
+                and s not in self._retiring]
+        if not free:
+            return False
+        blocks = self._pool.alloc(
+            pk.blocks_for(ctx + budget_left, self.block_size))
+        if blocks is None:
+            return False
+        slot = free[0]
+        if req.t_submit is None:
+            req.t_submit = time.perf_counter()
+        self._splice_bundle(slot, bundle, blocks)
+        sl = _Slot(req, time.perf_counter(), 0.0, 0, ttft_ms=0.0)
+        sl.tokens = []  # the result holds the tokens emitted here only
+        self._active[slot] = sl
+        self._slot_blocks[slot] = blocks
+        self._metrics.span(
+            "kv_insert", trace_id=req.trace_id, rid=req.rid, slot=slot,
+            blocks=bundle.n_blocks, bytes=bundle.nbytes, ctx=ctx)
+        return True
 
+    def _splice_bundle(self, slot, bundle, blocks) -> None:
+        """Zero-pad the bundle's rows to the table width and splice them,
+        with the slot's state reset, through ``jit.MigrateInsert``."""
+        man = bundle.manifest
+        rows = []
+        for leaf in bundle.leaves:
+            padded = []
+            for t in leaf:
+                full = qc.from_bits(torch.zeros(
+                    (self._nmax,) + tuple(t.shape[1:]),
+                    dtype=qc.bits(t).dtype), t.dtype)
+                qc.bits(full)[: t.shape[0]] = qc.bits(t)
+                padded.append(full)
+            rows.append(tuple(padded))
+        row = np.zeros(self._nmax, np.int64)
+        row[: len(blocks)] = blocks  # trash-padded past the allocation
+        self._migrate(
+            self._state, rows, slot, row, ctx=int(man["ctx"]),
+            last_tok=int(man["last_tok"]),
+            temperature=float(man["temperature"]), top_k=int(man["top_k"]),
+            top_p=float(man["top_p"]), eos_id=int(man["eos_id"]),
+            budget=int(man["budget_left"]),
+            adapter=int(man.get("adapter", 0)))
+
+    def _relocate_retiring(self) -> None:
+        """Move active requests off retiring top slots into free low slots
+        through the migration plane (extract, splice low, release high) at
+        a turn boundary, so ``retire_slots`` need not wait for them to
+        finish. The pool charges both allocations for a moment, so a pool
+        too full for that tries again next turn. Nothing is cancelled."""
+        if self._pool is None or not self._retiring:
+            return
+        if not kvm.migrate_enabled():
+            return
+        for slot in sorted(self._retiring, reverse=True):
+            st = self._active.get(slot)
+            if st is None:
+                continue  # free or pending prefill: shrink or chunks
+            free = [s for s in range(self.slots)
+                    if s < slot and s not in self._active
+                    and s not in self._pending
+                    and s not in self._retiring]
+            if not free:
+                continue
+            bundle = self.extract_kv(st.req.rid)
+            if bundle is None:
+                continue  # e.g. one token from done: finish in place
+            blocks = self._pool.alloc(pk.blocks_for(
+                int(bundle.manifest["ctx"])
+                + int(bundle.manifest["budget_left"]),
+                self.block_size))
+            if blocks is None:
+                continue
+            tgt = free[0]
+            self._splice_bundle(tgt, bundle, blocks)
+            self._active.pop(slot)
+            self._state.done[slot] = True
+            self._release(slot, self._slot_blocks.pop(slot, None))
+            moved = _Slot(st.req, st.t_start, st.prefill_ms, 0, st.ttft_ms)
+            moved.tokens = list(st.tokens)  # same life, new slot
+            self._active[tgt] = moved
+            self._slot_blocks[tgt] = blocks
+            self._metrics.span(
+                "kv_relocate", trace_id=st.req.trace_id,
+                rid=st.req.rid, from_slot=slot, to_slot=tgt,
+                blocks=bundle.n_blocks, bytes=bundle.nbytes)
+
+    def poison_prefix(self, k: Optional[int] = None) -> bool:
+        """Corrupt the ``k``-th oldest prefix-cache entry's key (the
+        ``serve:prefix_stale`` fault, forwarded by the router): the next
+        lookup misses it and pays a full prefill. False without a prefix
+        cache."""
+        return (False if self._prefix is None
+                else self._prefix.poison(k))
+
+    # -- the queue ---------------------------------------------------------
     def submit(self, req: Request) -> None:
-        if req.prompt_ids.size + req.max_new_tokens > self.max_length:
+        if req.prefill_ids.size + req.max_new_tokens > self.max_length:
             raise ValueError(
-                f"request {req.rid}: prompt ({req.prompt_ids.size}) + "
-                f"max_new_tokens ({req.max_new_tokens}) exceeds "
+                f"request {req.rid}: prompt+resume "
+                f"({req.prefill_ids.size}) + max_new_tokens "
+                f"({req.max_new_tokens}) exceeds "
                 f"max_length={self.max_length}")
         if self._pool is not None and \
                 self.needed_blocks(req) > self._pool.total:
@@ -558,8 +900,9 @@ class InferenceEngine:
     @torch.no_grad()
     def turn(self, results: Dict[object, GeneratedResult]) -> bool:
         """One scheduling turn: advance pending prefills by a chunk, fill
-        free slots, run one decode window, collect its readback. True
-        while work remains."""
+        free slots, run one decode window, collect its readback, move
+        requests off retiring slots, and write the window's telemetry.
+        True while work remains."""
         if not (self._queue or self._active or self._pending):
             return False
         self._advance_prefills(results)
@@ -574,15 +917,40 @@ class InferenceEngine:
                     f"{self.free_blocks()} free, nothing in flight to free "
                     f"more")
             return bool(self._queue or self._pending)
+        window = self.sync_every
+        t0 = time.perf_counter()
         emits = []
-        for _ in range(self.sync_every):
+        for _ in range(window):
             emit, _, self._state = self._decode(self._state)
             emits.append(emit)
         # the readback: one stacked token transfer plus the done mask per
-        # window, the only recurring device-to-host reads of the loop
+        # window, the only recurring device-to-host reads of the loop; the
+        # telemetry below rides on these host values
         tok_block = torch.stack(emits, dim=0).cpu().numpy()
         done = self._state.done.cpu().numpy()
+        dt = time.perf_counter() - t0
+        self._metrics.window_span(
+            [s.req.trace_id for s in self._active.values()], steps=window)
         self._collect(tok_block, done, results)
+        if self._retiring:
+            self._relocate_retiring()
+            self._maybe_shrink()
+        ttfts, self._ttft_window = self._ttft_window, []
+        pool, px = self._pool, self._prefix
+        self._metrics.window(
+            steps=window, tokens=int((tok_block >= 0).sum()), wall_s=dt,
+            inflight=len(self._active), queue_depth=len(self._queue),
+            ttft_ms=ttfts,
+            blocks_in_use=None if pool is None else pool.in_use,
+            blocks_total=None if pool is None else pool.total,
+            blocks_freed=None if pool is None else pool.freed_total,
+            admit_deferred=self._admit_deferred,
+            prefix_hits=None if px is None else self._prefix_hits,
+            prefix_blocks_shared=(None if px is None
+                                  else self._prefix_blocks_shared),
+            cow_copies=None if px is None else self._cow_copies,
+            adapters_resident=(None if self.adapters is None
+                               else len(self.adapters.resident)))
         return bool(self._queue or self._active or self._pending)
 
     # -- internals ---------------------------------------------------------
@@ -602,7 +970,7 @@ class InferenceEngine:
         C = self.prefill_chunk
         for slot in list(self._pending):
             job = self._pending[slot]
-            p = job.req.prompt_ids
+            p = job.req.prefill_ids
             t0 = time.perf_counter()
             take = min(C, p.size - job.consumed)
             chunk = np.zeros((1, C), np.int32)
@@ -612,6 +980,11 @@ class InferenceEngine:
                 adapter=[job.req.adapter])
             job.consumed += take
             job.prefill_s += time.perf_counter() - t0
+            self._metrics.span(
+                "prefill_chunk", trace_id=job.req.trace_id,
+                rid=job.req.rid, slot=slot, consumed=job.consumed,
+                prompt_len=int(p.size),
+                chunk_ms=round((time.perf_counter() - t0) * 1e3, 3))
             if job.consumed >= p.size:
                 del self._pending[slot]
                 self._activate(slot, job.req, job.caches, last,
@@ -624,7 +997,8 @@ class InferenceEngine:
             return False
         progress = False
         free = [s for s in range(self.slots)
-                if s not in self._active and s not in self._pending]
+                if s not in self._active and s not in self._pending
+                and s not in self._retiring]
         for slot in free:
             if not self._queue:
                 break
@@ -635,7 +1009,7 @@ class InferenceEngine:
                 # the unshared blocks are charged; when even those do not
                 # fit, idle cached entries are evicted before deferring
                 if self._prefix is not None:
-                    share = self._prefix.lookup(req.prompt_ids)
+                    share = self._prefix.lookup(req.prefill_ids)
                 need = self.needed_blocks(req) - (
                     0 if share is None else len(share.ref_blocks))
                 blocks = self._pool.alloc(need)
@@ -648,17 +1022,22 @@ class InferenceEngine:
                     break
             self._queue.popleft()
             progress = True
+            self._metrics.span(
+                "admit", trace_id=req.trace_id, rid=req.rid, slot=slot,
+                queue_wait_ms=(
+                    round((time.perf_counter() - req.t_submit) * 1e3, 3)
+                    if req.t_submit is not None else None))
             if share is not None:
                 self._admit_shared(slot, req, share, blocks, results)
                 continue
-            L = req.prompt_ids.size
+            L = req.prefill_ids.size
             if 0 < self.prefill_chunk < L:
                 self._pending[slot] = _Pending(
                     req, slot, blocks, self._slot_cache(),
                     time.perf_counter())
                 continue
             t0 = time.perf_counter()
-            ids, lens = _pad_prompts([req.prompt_ids],
+            ids, lens = _pad_prompts([req.prefill_ids],
                                      bucket_for(L, self.max_length))
             last, slot_caches, _ = self._prefill(
                 self._slot_cache(), ids, lens, adapter=[req.adapter])
@@ -690,7 +1069,7 @@ class InferenceEngine:
         if self._prefix is not None:
             # the index's own references keep the blocks resident for the
             # next borrower even if the request finishes at once
-            self._prefix.publish(self._pool, req.prompt_ids, blocks)
+            self._prefix.publish(self._pool, req.prefill_ids, blocks)
         self._park_or_finish(slot, req, int(first[0]), blocks, t_enq,
                              prefill_ms, results)
 
@@ -714,14 +1093,15 @@ class InferenceEngine:
         for pool, one in zip(self._state.caches, scratch):
             pk.paged_fetch(pool.k, one.k, src)
             pk.paged_fetch(pool.v, one.v, src)
-        L = req.prompt_ids.size
+        ids_all = req.prefill_ids
+        L = ids_all.size
         start = int(share.tail_start)
         n_tail = L - start
         # the tail window writes start .. start+W-1 and must stay inside
         # the cache: a bucket against the remaining capacity fits
         W = bucket_for(n_tail, self.max_length - start)
         ids = np.zeros((1, W), np.int32)
-        ids[0, :n_tail] = req.prompt_ids[start:]
+        ids[0, :n_tail] = ids_all[start:]
         last, scratch, _ = self._prefill(scratch, ids, [n_tail],
                                          start=[start],
                                          adapter=[req.adapter])
@@ -736,9 +1116,13 @@ class InferenceEngine:
         self._prefix_hits += 1
         self._prefix_blocks_shared += len(share.ref_blocks)
         self._cow_copies += int(cow)
+        self._metrics.span(
+            "prefix_hit", trace_id=req.trace_id, rid=req.rid, slot=slot,
+            shared_blocks=len(share.ref_blocks), cow=int(cow),
+            tail_tokens=n_tail)
         # touches the indexed chain and indexes any full block the tail
         # added
-        self._prefix.publish(self._pool, req.prompt_ids, table)
+        self._prefix.publish(self._pool, ids_all, table)
         self._park_or_finish(slot, req, int(first[0]), table, t0,
                              (time.perf_counter() - t0) * 1e3, results)
 
@@ -754,7 +1138,7 @@ class InferenceEngine:
         """Point slot ``slot``'s state entries at a freshly prefilled
         request whose first token is ``first`` ([1] on the device)."""
         st = self._state
-        st.pos[slot] = req.prompt_ids.size
+        st.pos[slot] = req.prefill_ids.size
         st.tok[slot] = first[0]
         st.done[slot] = False
         st.temperature[slot] = req.temperature
@@ -767,11 +1151,22 @@ class InferenceEngine:
     def _park_or_finish(self, slot, req, first, blocks, t_enq, prefill_ms,
                         results) -> None:
         now = time.perf_counter()
-        ttft_ms = (now - req.t_submit) * 1e3
+        ttft_ms = ((now - req.t_submit) * 1e3
+                   if req.t_submit is not None else prefill_ms)
+        self._ttft_window.append(ttft_ms)
+        self._metrics.span(
+            "prefill", trace_id=req.trace_id, rid=req.rid, slot=slot,
+            prefill_ms=round(prefill_ms, 3), ttft_ms=round(ttft_ms, 3))
         if first == req.eos_id or req.max_new_tokens <= 1:
             # degenerate request: done at its first token
             results[req.rid] = GeneratedResult(
                 req.rid, [first], prefill_ms, prefill_ms, ttft_ms)
+            self._metrics.span("retire", trace_id=req.trace_id,
+                               rid=req.rid, slot=slot, tokens=1)
+            self._metrics.request_done(
+                rid=req.rid, tokens=1, latency_ms=prefill_ms,
+                prefill_ms=prefill_ms, ttft_ms=ttft_ms,
+                trace_id=req.trace_id)
             self._state.done[slot] = True
             self._release(slot, blocks)
         else:
@@ -803,7 +1198,14 @@ class InferenceEngine:
                 finished.append(slot)
         for slot in finished:
             st = self._active.pop(slot)
+            total_ms = (time.perf_counter() - st.t_start) * 1e3
             results[st.req.rid] = GeneratedResult(
-                st.req.rid, st.tokens, st.prefill_ms,
-                (time.perf_counter() - st.t_start) * 1e3, st.ttft_ms)
+                st.req.rid, st.tokens, st.prefill_ms, total_ms, st.ttft_ms)
+            self._metrics.span(
+                "retire", trace_id=st.req.trace_id, rid=st.req.rid,
+                slot=slot, tokens=len(st.tokens))
+            self._metrics.request_done(
+                rid=st.req.rid, tokens=len(st.tokens), latency_ms=total_ms,
+                prefill_ms=st.prefill_ms, ttft_ms=st.ttft_ms,
+                trace_id=st.req.trace_id)
             self._release(slot, self._slot_blocks.pop(slot, None))

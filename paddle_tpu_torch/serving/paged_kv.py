@@ -28,7 +28,7 @@ its float32 scales ``[P, H, bs, Dh/qb]``) takes the same block layout for
 both leaves: writes quantize the new rows along the head dim, reads
 gather narrow and dequantize the view, and the splices copy payload and
 scales alike, float8 through its bytes. ``BlockPool.grow``/``shrink``
-serve the router's elastic slots, which are not ported yet.
+serve the engine's elastic slots (``expand_slots``/``retire_slots``).
 
 Env knob, with the JAX package's meaning: ``PADDLE_SERVE_BLOCK_SIZE`` --
 KV block size in tokens; 0 (default) keeps the contiguous cache.
@@ -47,7 +47,8 @@ __all__ = [
     "PagedKV", "block_size_default", "is_paged", "num_blocks",
     "blocks_for", "paged_zero", "paged_write", "paged_gather",
     "paged_splice", "paged_splice_tail", "paged_fetch", "paged_adopt",
-    "retire_tables", "pool_bytes", "worst_case_bytes", "BlockPool",
+    "paged_leaves", "retire_tables", "pool_bytes", "worst_case_bytes",
+    "BlockPool",
 ]
 
 _BLOCK_ENV = "PADDLE_SERVE_BLOCK_SIZE"
@@ -235,9 +236,8 @@ def paged_adopt(paged, rows, slot, table_row):
     """Adopt gathered block rows ``[nmax, H, bs, D]`` (zero-padded to the
     table width; a ``(payload, scales)`` pair for a quantized pool, adopted
     narrow) into the blocks ``table_row`` names and point slot ``slot`` at
-    them, in place: the splice of a migrated KV bundle. The migration plane
-    itself (``serving/kv_migration.py``) is ROADMAP queue A item 2(g).
-    Returns ``paged``."""
+    them, in place: the splice of a migrated KV bundle
+    (``jit.MigrateInsert``). Returns ``paged``."""
     kv, table = paged
     row = torch.as_tensor(table_row, dtype=torch.int64,
                           device=table.device)
@@ -249,12 +249,14 @@ def paged_adopt(paged, rows, slot, table_row):
     return paged
 
 
-def _paged_leaves(tree):
+def paged_leaves(tree):
+    """The ``PagedKV`` buffers of a cache tree, in the JAX package's
+    tree-flatten order (layer by layer, K then V)."""
     if isinstance(tree, PagedKV):
         yield tree
     elif isinstance(tree, (list, tuple)):
         for sub in tree:
-            yield from _paged_leaves(sub)
+            yield from paged_leaves(sub)
 
 
 def retire_tables(cache_tree, slot: int):
@@ -263,7 +265,7 @@ def retire_tables(cache_tree, slot: int):
     blocks return to the pool, the done slot's keep-alive writes land in
     trash and not in a block a new request may already hold. Returns
     ``cache_tree``."""
-    for leaf in _paged_leaves(cache_tree):
+    for leaf in paged_leaves(cache_tree):
         leaf.table[slot] = 0
     return cache_tree
 
@@ -331,6 +333,34 @@ class BlockPool:
                 self._free.append(b)
             else:
                 self._refs[b] = n
+
+    def grow(self, extra: int) -> List[int]:
+        """Register ``extra`` new physical blocks (ids continue past the
+        pool) straight onto the free list: the engine's ``expand_slots``
+        pads the device pool by the same count. Returns the new ids."""
+        if int(extra) <= 0:
+            return []
+        ids = list(range(self.total + 1, self.total + 1 + int(extra)))
+        self.total += int(extra)
+        self._free.extend(ids)
+        return ids
+
+    def shrink(self, want: int) -> int:
+        """Withdraw up to ``want`` blocks from the top of the id space.
+        Only free ids can go: an in-use high block stops the withdrawal,
+        and the rest follows on a later call once traffic frees it (blocks
+        are fungible). Returns the count withdrawn; the caller truncates
+        the device pool to ``total + 1`` blocks."""
+        free = set(self._free)
+        withdrawn = 0
+        while withdrawn < int(want) and self.total >= 1 \
+                and self.total in free:
+            free.discard(self.total)
+            self.total -= 1
+            withdrawn += 1
+        if withdrawn:
+            self._free = [b for b in self._free if b <= self.total]
+        return withdrawn
 
 
 # ---------------------------------------------------------------------------

@@ -25,10 +25,11 @@ Env knobs, with the JAX package's meanings: ``PADDLE_SERVE_PREFIX_CACHE``
 (``1`` builds the index; default ``0``), ``PADDLE_SERVE_PREFIX_BLOCKS``
 (max cached entries; ``0`` = bounded only by the pool).
 
-The JAX package's ``lookup`` also fires the ``serve:prefix_stale`` fault
-site (``utils.fault_injection``); the fault plane is ROADMAP queue A item
-8, so the port's ``lookup`` fires nothing. :meth:`PrefixCache.poison`,
-what that fault does, is here.
+Fault hook: ``lookup`` fires the ``serve`` site when a
+``serve:prefix_stale:nth[:k]`` rule is armed (``utils.fault_injection``)
+and then poisons the ``k``-th oldest entry (:meth:`PrefixCache.poison`),
+so the next lookup misses it and pays a full prefill; stale K/V is never
+served.
 """
 from __future__ import annotations
 
@@ -120,8 +121,14 @@ class PrefixCache:
 
     def lookup(self, prompt_ids) -> Optional[PrefixShare]:
         """Walk the chain over the prompt's full blocks: None on a miss,
-        else the sharing plan. Matched entries become most recent."""
+        else the sharing plan. Matched entries become most recent. An armed
+        ``serve:prefix_stale`` fault poisons its entry first."""
+        from ..utils import fault_injection as fi
+
         self.lookups += 1
+        for _, arg in fi.consume_serve_matching(("prefix_stale",),
+                                                fire=True):
+            self.poison(arg)
         bs = self.block
         L = int(len(prompt_ids))
         h = _ROOT

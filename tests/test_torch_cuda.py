@@ -25,7 +25,11 @@ exactly (int8 and fp8); an fp8 cache's written bytes too, its attention
 within 1e-5 of the largest output (summation order); a narrow linear
 equals ``F.linear`` on its widened weight exactly (the same product on
 the same values); speculative tokens equal the plain loop's, one round
-under sync debug mode "error".
+under sync debug mode "error". KV migration: a bundle's gathered bytes
+equal the pool's blocks exactly (float32, int8, fp8), cross the wire
+bit-exact and resume to the unmoved run's tokens; ``MigrateInsert``
+resets the slot's state and reads nothing back; ``retire_slots``
+relocates a live request without changing its tokens.
 """
 
 import pytest
@@ -580,3 +584,130 @@ def test_fp8_engine_equals_fp8_generate(tier_model, monkeypatch, pool):
                                           max_length=64)[0]), r
     if pool == "paged":
         assert eng._prefix_hits >= 1
+
+
+# ---------------------------------------------------------------------------
+# KV migration on the card: the gather moves the pool's bytes, the splice
+# and its slot reset land, a bundle resumes token-exact, and retire_slots
+# relocates a live request
+# ---------------------------------------------------------------------------
+
+
+def _mid_decode(eng, rid="m", prompt=(5, 6, 7, 9, 11, 2, 3), budget=14):
+    eng.submit(pt.serving.Request(list(prompt), max_new_tokens=budget,
+                                  rid=rid))
+    results = {}
+    while not eng.progress().get(rid):
+        eng.turn(results)
+
+
+@pytest.mark.parametrize("quant", [None, "int8", "fp8"])
+def test_bundle_round_trip_on_the_card(tier_model, monkeypatch, quant):
+    """Gather, wire and ``MigrateInsert`` of a float32, int8 or fp8 pool:
+    the gathered bytes equal the pool's blocks, the wire form is
+    bit-exact, and the bundle resumes in a second engine to the
+    uninterrupted tokens with no prefill."""
+    from paddle_tpu_torch.distributed import quantized_comm as qc
+    from paddle_tpu_torch.serving import kv_migration as kvm
+    from paddle_tpu_torch.serving import paged_kv as pk
+
+    if quant is not None:
+        monkeypatch.setenv("PADDLE_SERVE_KV_QUANT", quant)
+    prompt = [5, 6, 7, 9, 11, 2, 3]
+    want = list(pt.generate(tier_model, [prompt], 14, max_length=64)[0])
+    src = pt.InferenceEngine(tier_model, slots=2, max_length=64,
+                             sync_every=2, block_size=8)
+    _mid_decode(src)
+    b = src.extract_kv("m")
+    blocks = src._slot_blocks[next(iter(src._active))][: b.n_blocks]
+    for leaf, pool in zip(b.leaves, pk.paged_leaves(src._state.caches)):
+        for t, p in zip(leaf, qc.tensors_of(pool.kv)):
+            assert t.device.type == "cpu" and t.dtype == p.dtype
+            assert torch.equal(qc.bits(t), qc.bits(p)[blocks].cpu())
+    back = kvm.KVBundle.from_wire(b.to_wire())
+    assert back.verify() == []
+    for la, lb in zip(b.leaves, back.leaves):
+        for x, y in zip(la, lb):
+            assert torch.equal(qc.bits(x), qc.bits(y))
+    man = back.manifest
+    dst = pt.InferenceEngine(tier_model, slots=2, max_length=64,
+                             sync_every=2, block_size=8)
+    req = pt.serving.Request(prompt, max_new_tokens=man["budget_left"],
+                             rid="m", resume_tokens=man["emitted"])
+    assert dst.insert_migrated(req, back) is True
+    got = man["emitted"] + dst.run()["m"].tokens
+    assert dst._prefill._n_steps == 0
+    if quant is None:
+        assert got == want
+    else:  # against the same quantized cache served without a move
+        ref = pt.InferenceEngine(tier_model, slots=2, max_length=64,
+                                 sync_every=2, block_size=8)
+        ref.submit(pt.serving.Request(prompt, max_new_tokens=14, rid="m"))
+        assert got == ref.run()["m"].tokens
+
+
+def test_migrate_insert_resets_slot_state_on_the_card(tier_model):
+    from paddle_tpu_torch.distributed import quantized_comm as qc
+    from paddle_tpu_torch.jit import DecodeState, MigrateInsert
+    from paddle_tpu_torch.serving import paged_kv as pk
+
+    caches = tier_model.gen_cache(3, 64, block_size=8, pool_blocks=13)
+    st = DecodeState.make(caches, first_tokens=[0, 0, 0], pos=[0, 0, 0])
+    rows = [tuple(torch.full((8,) + tuple(t.shape[1:]), float(i + 1))
+                  for t in qc.tensors_of(leaf.kv))
+            for i, leaf in enumerate(pk.paged_leaves(caches))]
+    # the splice copies the rows in and reads nothing back: count the
+    # calls that bring a CUDA tensor's values to the host
+    reads = []
+    names = ("cpu", "item", "tolist", "numpy", "__bool__", "__int__",
+             "__float__", "__index__")
+    saved = {n: getattr(torch.Tensor, n) for n in names}
+
+    def wrap(name, real):
+        def counting(self, *a, **kw):
+            if self.is_cuda:
+                reads.append(name)
+            return real(self, *a, **kw)
+        return counting
+
+    for n, real in saved.items():
+        setattr(torch.Tensor, n, wrap(n, real))
+    try:
+        MigrateInsert()(st, rows, 2, [4, 7, 9, 0, 0, 0, 0, 0], ctx=19,
+                        last_tok=33, temperature=0.5, top_k=3, top_p=0.9,
+                        eos_id=7, budget=5, adapter=1)
+    finally:
+        for n, real in saved.items():
+            setattr(torch.Tensor, n, real)
+    assert reads == []
+    assert st.pos.tolist() == [0, 0, 19] and st.tok.tolist() == [0, 0, 33]
+    assert st.done.tolist() == [False, False, False]
+    assert (st.top_k[2].item(), st.eos[2].item(), st.budget[2].item(),
+            st.adapter[2].item()) == (3, 7, 5, 1)
+    leaf = next(pk.paged_leaves(caches))
+    assert leaf.table[2].tolist() == [4, 7, 9, 0, 0, 0, 0, 0]
+    assert float(leaf.kv[9].mean()) == 1.0
+
+
+def test_retire_slots_relocates_on_the_card(tier_model):
+    eng = pt.InferenceEngine(tier_model, slots=4, max_length=64,
+                             sync_every=2, block_size=8)
+    want = list(pt.generate(tier_model, [[2, 3, 4]], 12, max_length=64)[0])
+    for i in range(4):
+        eng.submit(pt.serving.Request([2, 3, 4], max_new_tokens=12,
+                                      rid=f"r{i}"))
+    results = {}
+    while not all(eng.progress().get(f"r{i}") for i in range(4)):
+        eng.turn(results)
+    top = max(eng._active)
+    keep = eng._active[top].req.rid
+    for i in range(4):
+        if f"r{i}" != keep:
+            eng.cancel(f"r{i}")
+    steps = eng._prefill._n_steps
+    assert eng.retire_slots(2) == [] and eng.slots == 2
+    assert next(s for s, st in eng._active.items()
+                if st.req.rid == keep) < top
+    assert eng._state.pos.shape == (2,)
+    assert eng.run()[keep].tokens == want
+    assert eng._prefill._n_steps == steps

@@ -14,6 +14,8 @@ sums run in different orders through two layers); tokens (greedy) equal.
 """
 import ast
 import pathlib
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -218,6 +220,33 @@ def test_no_jax_imports_in_the_port():
                 top = n.split(".")[0]
                 assert top not in ("jax", "jaxlib", "paddle_tpu", "paddle"), \
                     f"{path.relative_to(REPO)} imports {n}"
+    # the files the mailbox worker runs import the standard library only
+    # at module level (no torch, no package-relative import) ...
+    port = REPO / "paddle_tpu_torch"
+    for rel in ("serving/router.py", "observability/bus.py",
+                "observability/monitor.py", "utils/fault_injection.py"):
+        tree = ast.parse((port / rel).read_text())
+        for node in tree.body:
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                assert node.level == 0, f"{rel}: relative import at top"
+                names = [node.module]
+            else:
+                continue
+            for n in names:
+                assert n.split(".")[0] in sys.stdlib_module_names \
+                    or n == "__future__", f"{rel} imports {n}"
+    # ... and every file the router's _load_rel loads lies in the port
+    calls = [node for node in ast.walk(ast.parse(
+        (port / "serving" / "router.py").read_text()))
+        if isinstance(node, ast.Call)
+        and getattr(node.func, "id", None) == "_load_rel"]
+    assert len(calls) == 3
+    for call in calls:
+        parts = [a.value for a in call.args[1:]]
+        target = (port / Path(*parts)).resolve()
+        assert target.is_file() and port.resolve() in target.parents, parts
 
 
 def test_default_device_is_cuda():

@@ -458,16 +458,25 @@ class TestPagedEngine:
         out = eng.run()
         assert set(out) == {"c"} and len(out["c"].tokens) == 6
 
-    def test_left_out_engine_features_raise(self, models):
+    def test_left_out_engine_features_raise(self, models, monkeypatch):
+        """What the engine leaves out answers as the JAX package's does: a
+        contiguous pool has no migration plane (``extract_kv`` None,
+        ``insert_migrated`` False), a no-op resize changes nothing, and a
+        fault rule for a site the port has no fault point for raises."""
+        from paddle_tpu_torch.utils import fault_injection as fi
+
         _, tm = models
-        eng = pt.InferenceEngine(tm, slots=2, max_length=64, block_size=8)
-        for call, item in ((lambda: eng.expand_slots(1), "2\\(h\\)"),
-                           (lambda: eng.retire_slots(1), "2\\(h\\)"),
-                           (lambda: eng.extract_kv(0), "2\\(g\\)"),
-                           (lambda: eng.insert_migrated(None, None),
-                            "2\\(g\\)")):
-            with pytest.raises(NotImplementedError, match=item):
-                call()
+        eng = pt.InferenceEngine(tm, slots=2, max_length=64, block_size=0)
+        eng.submit(Request([1, 2, 3], max_new_tokens=6, rid=0))
+        eng.turn({})
+        assert eng.extract_kv(0) is None
+        assert eng.insert_migrated(Request([1], rid=1), None) is False
+        assert eng.expand_slots(0) == 2 and eng.retire_slots(0) == []
+        monkeypatch.setenv("PADDLE_FAULT_SPEC", "grad:nan:1")
+        fi.reset()
+        with pytest.raises(NotImplementedError, match="item 8"):
+            fi.fault_point("serve")
+        fi.reset()
 
 
 # ---------------------------------------------------------------------------
