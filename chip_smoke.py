@@ -67,8 +67,10 @@
    autograd), then six steps on one fixed batch (the loss must fall), and
    checks that each of the six kernels was launched as often as a step
    needs;
-9. trains bench.py's GPT-medium program as published (``_bench_gpt``: no
-   final LayerNorm, ``strategy.amp`` through ``fleet``, bf16 AMP O1,
+9. trains bench.py's GPT-medium program as published (its
+   ``_gpt_medium`` and ``_bench_gpt``'s loss, copied below as bench.py
+   writes them with their import lines pointed at the port: no final
+   LayerNorm, ``strategy.amp`` through ``fleet``, bf16 AMP O1,
    ``fused_linear_cross_entropy`` with chunk 8192, AdamW lr 1e-4, weight
    decay 0.01, B = 4, S = 1024): a bf16 gradient oracle against the dense
    route under the same AMP, then six steps on bench's fixed batch (the
@@ -90,7 +92,14 @@
    1e-4/0.01, bf16 AMP): six steps each on one batch, with the rate,
    ms/step, peak memory, losses (which must fall) and launches (BERT's
    LayerNorms on B5/B7; the others none);
-13. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
+13. runs that program as written in a Paddle eager loop (``set_device``,
+   ``seed``, ``to_tensor``, ``loss.backward()``, ``opt.step()``,
+   ``opt.clear_grad()``; float32, three steps) against three
+   ``jit.TrainStep`` calls of the same model class from the same weights:
+   the losses, the first step's gradients and each kernel's float32
+   launches per step must agree (eager and TrainStep ms/step, peak
+   memory);
+14. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
    "device": ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device, outside a
@@ -201,6 +210,22 @@ AMP_LAUNCHES = {
     "add_layer_norm_fwd": {"float32+bfloat16": LAYERS},
     "layer_norm_bwd": {"float32": 2 * LAYERS},
 }
+
+
+# bench.py's GPT-medium program as written (_gpt_medium, _bench_gpt's loss),
+# float32, in a Paddle eager loop against TrainStep from the same weights:
+# the same kernels in the same order, so the losses and gradients agree to
+# float32 rounding (DYGRAPH_*_RTOL; the gradient relative to each leaf's
+# largest value)
+DYGRAPH_STEPS = 3
+DYGRAPH_LOSS_RTOL = 1e-5
+DYGRAPH_GRAD_RTOL = 1e-5
+#: launches of each kernel per eager step, float32 (24 layers, no ln_f)
+DYGRAPH_LAUNCHES = {
+    name: {"float32": n} for name, n in (
+        ("flash_attention_fwd", LAYERS), ("flash_attention_bwd_dq", LAYERS),
+        ("flash_attention_bwd_dkv", LAYERS), ("layer_norm_fwd", LAYERS),
+        ("add_layer_norm_fwd", LAYERS), ("layer_norm_bwd", 2 * LAYERS))}
 
 
 # head dim 256 (queue C's fault): one full-width ParallelGPTBlock
@@ -794,34 +819,77 @@ def training_phase(pt, kernels):
     return counts
 
 
-def bench_gpt(pt, layers, seq, seed):
-    """bench.py's ``_gpt_medium`` from the port's layers: token and
-    position embeddings, ``layers`` ParallelGPTBlocks (dropout 0), no
-    final LayerNorm, and a head that the loss uses
-    (``fused_linear_cross_entropy``); forward returns the hidden state."""
-    from paddle_tpu_torch.distributed import ParallelGPTBlock
+# -- bench.py's GPT-medium program, as bench.py writes it -------------------
+# The two functions below are bench.py's ``_gpt_medium`` and the loss of its
+# ``_bench_gpt`` (the fused-CE branch), with only their import lines
+# pointed at paddle_tpu_torch; tests/test_torch_dygraph_gpt.py checks the
+# text against bench.py.
 
-    class GPT(torch.nn.Module):
-        def __init__(self):
+
+def _gpt_medium(dense=False):
+    """GPT-medium-shaped causal decoder (the single-chip proxy for
+    BASELINE config 5's GPT-3 1.3B, which needs the dp x pp x mp hybrid
+    dryrun_multichip proves): 24 ParallelGPTBlock layers (trivial 1-chip
+    mesh — same code path the hybrid shards), d_model 1024, 16 heads,
+    seq 1024, tied-free 32k vocab head.
+
+    Round 6: the decoder hot path is the DEFAULT path — flash attention
+    routes automatically inside every block (PADDLE_FLASH_DEFAULT policy)
+    and the model returns the pre-head hidden state so the loss can run
+    the blockwise fused vocab CE. `dense=True` is the escape-hatch
+    configuration (forced dense attention + materialized-logits CE) used
+    to record the routed/unrouted pair."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed import ParallelGPTBlock, comm
+
+    if comm.hybrid_mesh() is None:
+        comm.init_hybrid_mesh(dp=1, mp=1, pp=1, sp=1)
+
+    class GPT(nn.Layer):
+        def __init__(self, vocab=32000, d=1024, heads=16, layers=24,
+                     seq=1024):
             super().__init__()
-            kw = dict(device="cuda", generator=torch.Generator(
-                device="cuda").manual_seed(seed))
-            self.embed = pt.nn.Embedding(VOCAB, D_MODEL, **kw)
-            self.pos = pt.nn.Embedding(seq, D_MODEL, **kw)
-            self.blocks = pt.nn.LayerList([
-                ParallelGPTBlock(D_MODEL, HEADS, FFN, dropout=0.0, **kw)
-                for _ in range(layers)])
-            self.head = pt.nn.Linear(D_MODEL, VOCAB, **kw)
+            self.embed = nn.Embedding(vocab, d)
+            self.pos = nn.Embedding(seq, d)
+            self.blocks = nn.LayerList([
+                ParallelGPTBlock(
+                    d, heads, dropout=0.0,
+                    use_flash_attention=False if dense else None,
+                )
+                for _ in range(layers)
+            ])
+            self.head = nn.Linear(d, vocab)
 
         def forward(self, ids):
-            pos_ids = pt.arange(ids.shape[1], dtype="int64",
-                                device=ids.device)
+            T = ids.shape[1]
+            pos_ids = paddle.arange(T, dtype="int64")
             h = self.embed(ids) + self.pos(pos_ids)
             for blk in self.blocks:
                 h = blk(h)
-            return h
+            # the head projection lives in the LOSS (blockwise fused CE
+            # streams it over vocab chunks); the dense escape hatch
+            # materializes the logits here as before
+            return self.head(h) if dense else h
 
     return GPT()
+
+
+def _bench_lm_loss(model):
+    """bench.py's ``_bench_gpt`` loss over ``model``'s head (its
+    ``fused_linear_cross_entropy`` branch)."""
+    from paddle_tpu_torch import nn
+
+    def lm_loss(h, labels):
+        d = h.shape[-1]
+        # blockwise fused head-projection + CE: the [B*S, 32k] f32
+        # logits/grads never materialize at once (PADDLE_CE_CHUNK)
+        return nn.functional.fused_linear_cross_entropy(
+            h.reshape([-1, d]), model.head.weight, model.head.bias,
+            labels.reshape([-1]),
+        )
+
+    return lm_loss
 
 
 def amp_training_phase(pt, kernels, amp_dtype="bfloat16"):
@@ -841,18 +909,15 @@ def amp_training_phase(pt, kernels, amp_dtype="bfloat16"):
     torch.backends.cudnn.allow_tf32 = False
     fp16 = amp_dtype == "float16"
     t0 = time.perf_counter()
-    model = bench_gpt(pt, LAYERS, TRAIN_S, seed=3 if fp16 else 2)
+    pt.seed(3 if fp16 else 2)
+    model = _gpt_medium()
     n_params = sum(p.numel() for p in model.parameters())
     n = TRAIN_B * TRAIN_S
     ids = torch.as_tensor((np.arange(n) % 31000).reshape(TRAIN_B, TRAIN_S),
                           device="cuda")
     labels = torch.as_tensor(((np.arange(n) + 1) % 31000).reshape(
         TRAIN_B, TRAIN_S), device="cuda")
-
-    def lm_loss(h, lab):
-        return pt.nn.functional.fused_linear_cross_entropy(
-            h.reshape(-1, D_MODEL), model.head.weight, model.head.bias,
-            lab.reshape(-1))
+    lm_loss = _bench_lm_loss(model)
 
     strategy = fleet.DistributedStrategy()
     strategy.amp = True
@@ -962,6 +1027,142 @@ def amp_training_phase(pt, kernels, amp_dtype="bfloat16"):
     return {k: sum(v.values()) for k, v in counts.items()}
 
 
+def dygraph_phase(pt, kernels, card):
+    """bench.py's GPT-medium program as written (``_gpt_medium`` and
+    ``_bench_gpt``'s loss, above) in a Paddle eager loop at bench's sizes,
+    float32 with TF32 off: ``set_device("gpu")``, ``seed(0)``, AdamW(1e-4,
+    weight decay 0.01), three steps of ``lm_loss(model(ids),
+    labels).backward(); opt.step(); opt.clear_grad()`` on bench's ids as
+    ``to_tensor``; then three ``jit.TrainStep`` calls of the same model
+    class from the same initial weights (``state_dict`` copied). Fails
+    unless each step's loss agrees within DYGRAPH_LOSS_RTOL, every
+    parameter's first-step gradient within DYGRAPH_GRAD_RTOL of its
+    largest value, and each kernel ran in float32 as often per step as in
+    the TrainStep run (DYGRAPH_LAUNCHES). Returns the eager run's launch
+    counts."""
+    paddle = pt  # the names of a dygraph script: import ... as paddle
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    t0 = time.perf_counter()
+    model = _gpt_medium()
+    twin = _gpt_medium()
+    twin.set_state_dict(model.state_dict())
+    n = TRAIN_B * TRAIN_S
+    ids = paddle.to_tensor((np.arange(n) % 31000).reshape(TRAIN_B, TRAIN_S))
+    labels = paddle.to_tensor(((np.arange(n) + 1) % 31000).reshape(
+        TRAIN_B, TRAIN_S))
+    torch.cuda.synchronize()
+    print(f"dygraph: two bench GPT-medium models built in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    def run(steps_fn):
+        losses, ms, counts = [], [], []
+        for i in range(DYGRAPH_STEPS):
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            losses.append(float(steps_fn(i)))  # a host read: syncs
+            ms.append((time.perf_counter() - t1) * 1e3)
+            counts.append(kernels.launches_by_dtype())
+        kernels.reset_launches()
+        return losses, ms, counts
+
+    # the eager loop, as a Paddle dygraph script writes it
+    opt = paddle.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                                 parameters=model.parameters())
+    lm_loss = _bench_lm_loss(model)
+    g_eager = {}
+
+    def eager_step(i):
+        loss = lm_loss(model(ids), labels)
+        loss.backward()
+        if i == 0:
+            g_eager.update({k: p.grad.clone()
+                            for k, p in model.named_parameters()})
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    torch.cuda.reset_peak_memory_stats()
+    e_loss, e_ms, e_counts = run(eager_step)
+    e_peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # the same program through TrainStep; its first step's gradients are
+    # caught as they are accumulated (TrainStep clears them after the
+    # update)
+    topt = paddle.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                                  parameters=twin.parameters())
+    step = paddle.jit.TrainStep(twin, _bench_lm_loss(twin), topt)
+    g_step = {}
+
+    def catch(name):
+        def hook(p):
+            if name not in g_step:
+                g_step[name] = p.grad.clone()
+
+        return hook
+
+    hooks = [p.register_post_accumulate_grad_hook(catch(k))
+             for k, p in twin.named_parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    s_loss, s_ms, s_counts = run(lambda i: step(ids, labels))
+    s_peak = torch.cuda.max_memory_allocated() / 2**30
+    for h in hooks:
+        h.remove()
+
+    rels = {}
+    for k, gs in g_step.items():
+        ge = g_eager.get(k)
+        if ge is None or not bool(torch.isfinite(ge).all()):
+            fail(f"dygraph: no finite eager gradient for {k}")
+        scale = gs.abs().max().item()
+        rels[k] = (ge - gs).abs().max().item() / max(scale, 1e-30)
+    worst_name = max(rels, key=rels.get)
+    worst = rels[worst_name]
+    if set(g_step) != set(g_eager):
+        fail("dygraph: the eager and TrainStep runs differ in which "
+             "parameters got gradients")
+    pdiff = max((p - q).abs().max().item() for p, q in zip(
+        model.parameters(), twin.parameters()))
+    bitwise = pdiff == 0.0
+    del g_eager, g_step
+    print(f"dygraph eager loop (bench GPT-medium, float32, B={TRAIN_B} "
+          f"S={TRAIN_S}, AdamW 1e-4/0.01): losses "
+          f"{[f'{x:.7f}' for x in e_loss]}; TrainStep "
+          f"{[f'{x:.7f}' for x in s_loss]}; first-step gradients: worst "
+          f"max|g_eager - g_step| / max|g_step| {worst:.3e} ({worst_name}; "
+          f"tolerance {DYGRAPH_GRAD_RTOL}); largest parameter difference "
+          f"after {DYGRAPH_STEPS} steps {pdiff:.3e} (a reading; bitwise "
+          f"equal: {bitwise})")
+    print(f"dygraph ms/step (host clock, median of steps 2-"
+          f"{DYGRAPH_STEPS}): eager {float(np.median(e_ms[1:])):.2f}, "
+          f"TrainStep {float(np.median(s_ms[1:])):.2f}; step ms eager "
+          f"{[f'{x:.1f}' for x in e_ms]}, TrainStep "
+          f"{[f'{x:.1f}' for x in s_ms]}; peak memory eager {e_peak:.2f} "
+          f"GiB, TrainStep {s_peak:.2f} GiB; {card}")
+    print(f"dygraph launches per step, eager {e_counts[0]}; TrainStep "
+          f"{s_counts[0]}")
+    for i, (le, ls) in enumerate(zip(e_loss, s_loss)):
+        if not np.isfinite(le) or abs(le - ls) > DYGRAPH_LOSS_RTOL * abs(ls):
+            fail(f"dygraph step {i + 1}: eager loss {le} against TrainStep "
+                 f"{ls}")
+    if worst > DYGRAPH_GRAD_RTOL:
+        fail("dygraph: eager first-step gradients disagree with TrainStep's")
+    for i, (ce, cs) in enumerate(zip(e_counts, s_counts)):
+        if ce != cs:
+            fail(f"dygraph step {i + 1}: launches {ce}, TrainStep {cs}")
+        for name, want in DYGRAPH_LAUNCHES.items():
+            if ce[name] != want:
+                fail(f"dygraph step {i + 1}: kernel {name} launched "
+                     f"{ce[name]}, expected {want}")
+    del model, twin, opt, topt, step
+    torch.cuda.empty_cache()
+    return {name: sum(sum(c[name].values()) for c in e_counts)
+            for name in DYGRAPH_LAUNCHES}
+
+
 def wide_block_phase(pt, kernels):
     """One ParallelGPTBlock at d_model 2048 with 8 heads (head dim 256), B
     = 2, S = 1024: the forward's output and the input's and every
@@ -1049,8 +1250,7 @@ def bench_bert(pt):
             self.head = pt.nn.Linear(BERT_D, 2, **kw)
 
         def forward(self, ids):
-            pos_ids = pt.arange(ids.shape[1], dtype="int64",
-                                device=ids.device)
+            pos_ids = torch.arange(ids.shape[1], device=ids.device)
             h = self.embed(ids) + self.pos(pos_ids)
             for lyr in self.encoder:
                 h = lyr(h)
@@ -2159,6 +2359,8 @@ def main() -> int:
     programs = bench_programs_phase(pt, kernels)
     print(f"bench programs phase done at {time.perf_counter() - t_start:.1f} "
           "s")
+    dygraph = dygraph_phase(pt, kernels, card)
+    print(f"dygraph phase done at {time.perf_counter() - t_start:.1f} s")
     entries = [flash, ln_entry, add_entry, dq_entry, dkv_entry, ln_bwd_entry]
     for e in entries:
         if hmma is not None and e["name"] in hmma:
@@ -2175,7 +2377,8 @@ def main() -> int:
             "fp16_amp_training": fp16_training[e["name"]],
             **{f"head_dim_{WIDE_D}_{k}": sum(v[e["name"]].values())
                for k, v in wide_block.items()},
-            **{k: sum(v[e["name"]].values()) for k, v in programs.items()}}
+            **{k: sum(v[e["name"]].values()) for k, v in programs.items()},
+            "dygraph": dygraph[e["name"]]}
     print(f"{card}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -1,25 +1,53 @@
 """paddle_tpu_torch — the PyTorch/CUDA port of paddle_tpu for NVIDIA Hopper.
 
-It serves ``TransformerLM`` through ``serving.generate`` and
-``serving.InferenceEngine``, and trains through ``jit.TrainStep`` with
-``optimizer.AdamW``, ``Adam`` or ``Momentum`` (LR schedulers, gradient
-clips, regularizers), ``nn.functional.cross_entropy`` or
-``fused_linear_cross_entropy``, and bf16 or float16 AMP (``amp``, switched
-on by ``distributed.fleet``'s strategy): bench.py's GPT-medium, LeNet,
-ResNet (``vision.models``) and BERT-base programs. Flash attention and
-LayerNorm, forward and backward, run on hand-written CUDA kernels
-(``ops/kernels``, sources in ``csrc/``). Entry points run on
-``cuda`` unless the caller passes ``device="cpu"``; there is no silent
-fallback to the CPU. The package imports ``torch`` and never ``jax`` or
-``paddle_tpu``.
+The top-level namespace is the Paddle 2.0 dygraph surface of
+``paddle_tpu/__init__.py`` for what the port has: ``Tensor``,
+``Parameter``, ``to_tensor``, autograd (``loss.backward()``, ``grad``,
+``no_grad``), the flat op namespace (``paddle_tpu_torch.matmul``...),
+``seed``, ``set_device``/``get_device``, ``get_flags``/``set_flags``,
+``ParamAttr`` and ``nn.Layer``; a name the port lacks is absent. Import it
+as ``paddle`` and a dygraph script runs on the card
+(``set_device("cpu")`` for the CPU).
+
+Beneath it, the port serves ``TransformerLM`` through ``serving.generate``
+and ``serving.InferenceEngine``, and trains through ``jit.TrainStep`` or
+the eager loop with ``optimizer.AdamW``, ``Adam`` or ``Momentum`` (LR
+schedulers, gradient clips, regularizers), ``nn.functional.cross_entropy``
+or ``fused_linear_cross_entropy``, and bf16 or float16 AMP (``amp``,
+switched on by ``distributed.fleet``'s strategy): bench.py's GPT-medium,
+LeNet, ResNet (``vision.models``) and BERT-base programs. Flash attention
+and LayerNorm, forward and backward, run on hand-written CUDA kernels
+(``ops/kernels``, sources in ``csrc/``). Entry points run on ``cuda``
+unless the caller passes ``device="cpu"`` or calls ``set_device("cpu")``;
+there is no silent fallback to the CPU. The package imports ``torch`` and
+never ``jax`` or ``paddle_tpu``.
 """
-from . import (amp, core, distributed, jit, nn, optimizer, regularizer,
-               serving, utils, vision, weights)
-from .core import resolve_device
-from .ops import arange
+from . import (amp, core, distributed, jit, nn, ops, optimizer, regularizer,
+               serving, tensor, utils, vision)
+from .core import (CPUPlace, CUDAPlace, Parameter, Place, Tensor,
+                   enable_grad, get_default_dtype, get_device, grad,
+                   is_compiled_with_cuda, is_grad_enabled, no_grad,
+                   resolve_device, seed, set_default_dtype, set_device,
+                   set_grad_enabled, to_tensor)
+from .core.flags import get_flags, set_flags
+from .nn.layer import ParamAttr
+from .ops import *  # noqa: F401,F403
+from .ops import creation, linalg, logic, manipulation, math, search
 from .serving import InferenceEngine, TransformerLM, generate
 
-__all__ = ["amp", "core", "distributed", "jit", "nn", "optimizer",
-           "regularizer", "serving", "utils", "vision", "weights",
-           "resolve_device",
-           "arange", "TransformerLM", "generate", "InferenceEngine"]
+
+def in_dynamic_mode() -> bool:
+    """The port runs dygraph (eager) programs only so far."""
+    return True
+
+
+__all__ = (["amp", "core", "distributed", "jit", "nn", "ops", "optimizer",
+            "regularizer", "serving", "tensor", "utils", "vision",
+            "CPUPlace", "CUDAPlace", "Parameter", "Place", "Tensor",
+            "enable_grad", "get_default_dtype", "get_device", "grad",
+            "is_compiled_with_cuda", "is_grad_enabled", "no_grad",
+            "resolve_device", "seed", "set_default_dtype", "set_device",
+            "set_grad_enabled", "to_tensor", "get_flags", "set_flags",
+            "ParamAttr", "in_dynamic_mode", "creation", "linalg", "logic",
+            "manipulation", "math", "search", "TransformerLM", "generate",
+            "InferenceEngine"] + ops.__all__)

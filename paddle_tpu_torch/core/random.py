@@ -1,18 +1,26 @@
-"""Seeding with explicit ``torch.Generator`` objects.
+"""Random state (counterpart of ``paddle_tpu/core/random.py``).
 
-Where ``paddle_tpu`` threads ``jax.random`` keys, the port threads a
-generator that the caller creates and passes; nothing here touches
-PyTorch's global RNG. The two give different numbers from one seed, so
-parity tests move weights and inputs across instead of re-seeding.
+Where the JAX package keeps one global key and splits it per draw, the
+port keeps one package-owned ``torch.Generator`` per device.
+``paddle.seed(s)`` reseeds them all (and seeds those made later); layers,
+initializers, dropout and the random creation ops draw from the
+generator of their device when the caller passes none. Nothing here
+touches PyTorch's global RNG. The two packages give different numbers
+from one seed, so parity tests move weights and inputs across instead of
+re-seeding.
 """
 from __future__ import annotations
 
-import math
-from typing import Sequence
+import threading
+from typing import Dict, Optional
 
 import torch
 
-__all__ = ["generator", "xavier_normal"]
+__all__ = ["generator", "seed", "get_seed", "default_generator"]
+
+_lock = threading.Lock()
+_seed_value = 0
+_generators: Dict[torch.device, torch.Generator] = {}
 
 
 def generator(seed: int, device: torch.device) -> torch.Generator:
@@ -20,12 +28,29 @@ def generator(seed: int, device: torch.device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(seed))
 
 
-def xavier_normal(shape: Sequence[int], fan_in: int, fan_out: int, *,
-                  generator: torch.Generator, device: torch.device,
-                  dtype: torch.dtype) -> torch.Tensor:
-    """Normal(0, sqrt(2 / (fan_in + fan_out))) draws: paddle's XavierNormal,
-    the default initializer of the layers this slice ports."""
-    std = math.sqrt(2.0 / float(fan_in + fan_out))
-    w = torch.randn(tuple(shape), generator=generator, device=device,
-                    dtype=torch.float32) * std
-    return w.to(dtype)
+def seed(s: int) -> int:
+    """paddle.seed(s): reseed the package's generator on every device."""
+    global _seed_value
+    with _lock:
+        _seed_value = int(s)
+        for g in _generators.values():
+            g.manual_seed(_seed_value)
+    return _seed_value
+
+
+def get_seed() -> int:
+    return _seed_value
+
+
+def default_generator(device: Optional[torch.device] = None
+                      ) -> torch.Generator:
+    """The package's generator on ``device`` (the ``set_device`` default
+    when None), made on first use from the last ``seed``."""
+    from .device import resolve_device
+
+    dev = resolve_device(device)
+    with _lock:
+        g = _generators.get(dev)
+        if g is None:
+            g = _generators[dev] = generator(_seed_value, dev)
+    return g

@@ -3,8 +3,11 @@ device (mp = 1).
 
 ``ColumnParallelLinear``, ``RowParallelLinear``,
 ``ParallelMultiHeadAttention`` and ``ParallelGPTBlock`` compute what the
-JAX layers compute on a trivial mesh. Sharding over ``mp`` belongs to a
-later slice: every layer here raises on ``mp > 1``.
+JAX layers compute on a trivial mesh, with the JAX package's arguments in
+its order; ``device``, ``dtype`` and ``generator`` are keyword-only (the
+package defaults when None). Sharding over ``mp`` belongs to a later
+slice: every layer here raises on a keyword ``mp`` other than 1, and
+``gather_output`` / ``input_is_parallel`` change nothing on one device.
 
 Under AMP O1 the block's types flow as in the JAX package: the residual
 stream stays float32, the projections (``linear``) and the attention
@@ -15,12 +18,12 @@ float32 tensor plus a bfloat16 one). Dropout draws its masks from the
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from .. import amp
 from . import quantized_comm as qc
 from ..nn import functional as F
 from ..nn.functional import attention as attn_route
+from ..nn.layer import Layer
 from ..nn.layers.common import Linear
 from ..nn.layers.norm import LayerNorm
 from ..nn.layers.transformer import MultiHeadAttention
@@ -37,53 +40,72 @@ def _single_device(mp: int, what: str) -> None:
 
 
 class ColumnParallelLinear(Linear):
-    """Column-partitioned linear; with mp = 1 a plain ``Linear``."""
+    """Column-partitioned linear; with mp = 1 a plain ``Linear``
+    (``has_bias=False`` drops the bias)."""
 
-    def __init__(self, in_features, out_features, *, mp=1, device,
-                 dtype=torch.float32, generator):
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 has_bias=True, gather_output=True, bias_attr=None,
+                 name=None, *, mp=1, device=None, dtype=None,
+                 generator=None):
         _single_device(mp, "ColumnParallelLinear")
-        super().__init__(in_features, out_features, device=device,
+        super().__init__(in_features, out_features, weight_attr,
+                         bias_attr if has_bias else False, device=device,
                          dtype=dtype, generator=generator)
 
 
 class RowParallelLinear(Linear):
-    """Row-partitioned linear; with mp = 1 a plain ``Linear``."""
+    """Row-partitioned linear; with mp = 1 a plain ``Linear``
+    (``has_bias=False`` drops the bias)."""
 
-    def __init__(self, in_features, out_features, *, mp=1, device,
-                 dtype=torch.float32, generator):
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 has_bias=True, input_is_parallel=False, bias_attr=None,
+                 name=None, *, mp=1, device=None, dtype=None,
+                 generator=None):
         _single_device(mp, "RowParallelLinear")
-        super().__init__(in_features, out_features, device=device,
+        super().__init__(in_features, out_features, weight_attr,
+                         bias_attr if has_bias else False, device=device,
                          dtype=dtype, generator=generator)
 
 
-class ParallelMultiHeadAttention(nn.Module):
-    """Causal self-attention with a fused ``[d, 3d]`` qkv projection.
+class ParallelMultiHeadAttention(Layer):
+    """Self-attention (causal unless ``causal=False``) with a fused ``[d,
+    3d]`` qkv projection.
 
-    Full forward: the flash kernel when ``flash_plan`` routes it (the
-    flash-by-default policy, which declines while attention dropout is
-    active: the kernel never materializes the probabilities), else the
-    dense form: scores (``matmul``), a ``triu(-1e9)`` mask, ``softmax``,
-    dropout, then the context product (``matmul``). Cached forward
-    (serving): write this step's K/V at per-slot ``pos`` first, then
-    attend over the whole capacity with the position mask
+    Full forward: the flash kernel when ``use_flash_attention`` is True,
+    or when it is None (the default) and ``flash_plan`` routes it (the
+    flash-by-default policy of ``PADDLE_FLASH_DEFAULT``, which declines
+    while attention dropout is active: the kernel never materializes the
+    probabilities); else, and always with ``use_flash_attention=False``,
+    the dense form: scores (``matmul``), a ``triu(-1e9)`` mask when
+    causal, ``softmax``, dropout, then the context product (``matmul``).
+    Cached forward (serving): write this step's K/V at per-slot ``pos``
+    first, then attend over the whole capacity with the position mask
     (``cached_attention``)."""
 
-    def __init__(self, embed_dim, num_heads, mp=1, *, dropout=0.0, device,
-                 dtype=torch.float32, generator):
-        super().__init__()
+    def __init__(self, embed_dim, num_heads, dropout=0.0, causal=True,
+                 weight_attr=None, bias_attr=None, use_flash_attention=None,
+                 *, mp=1, device=None, dtype=None, generator=None):
+        super().__init__(dtype=dtype)
         _single_device(mp, "ParallelMultiHeadAttention")
         if embed_dim % num_heads != 0:
             raise ValueError("embed_dim must divide into num_heads")
+        if use_flash_attention and dropout:
+            raise ValueError(
+                "use_flash_attention requires dropout=0.0: the flash "
+                "kernel never materializes the attention probabilities")
         self.num_heads = int(num_heads)
         self.head_dim = embed_dim // num_heads
+        self.causal = bool(causal)
         self.dropout = float(dropout)
+        self.use_flash_attention = use_flash_attention
         self._generator = generator
+        kw = dict(device=device, dtype=dtype, generator=generator)
         self.qkv = ColumnParallelLinear(
-            embed_dim, 3 * embed_dim, device=device, dtype=dtype,
-            generator=generator)
+            embed_dim, 3 * embed_dim, weight_attr, bias_attr=bias_attr,
+            gather_output=False, **kw)
         self.out_proj = RowParallelLinear(
-            embed_dim, embed_dim, device=device, dtype=dtype,
-            generator=generator)
+            embed_dim, embed_dim, weight_attr, bias_attr=bias_attr,
+            input_is_parallel=True, **kw)
 
     def gen_cache(self, batch_size, max_length, dtype=None,
                   block_size=None, pool_blocks=None):
@@ -100,8 +122,10 @@ class ParallelMultiHeadAttention(nn.Module):
         from ..serving import paged_kv as pk  # serving imports this module
 
         kvq = qc.kv_quant_policy(dtype)
-        dev = self.qkv.bias.device
-        dt = dtype or self.qkv.bias.dtype  # a narrow weight has no float type
+        dev = self.qkv.weight.device
+        # a narrow weight has no float type: the bias's is the cache's
+        b = self.qkv.bias
+        dt = dtype or (b.dtype if b is not None else self._dtype)
         bs = (int(block_size) if block_size is not None
               else pk.block_size_default())
         if bs > 0:
@@ -138,10 +162,13 @@ class ParallelMultiHeadAttention(nn.Module):
             ctx = attn_route.cached_attention(q, k, v, pos, scale=dh ** -0.5)
             ctx = ctx.transpose(1, 2).reshape(B, T, H * dh)
             return self.out_proj(ctx), MultiHeadAttention.Cache(k, v)
-        if attn_route.flash_plan(
-                T, T, causal=True, device=x.device,
-                dropout_active=bool(self.dropout) and self.training):
-            ctx = attn_route.flash_core(q, k, v, causal=True)
+        route = self.use_flash_attention
+        if route is None:
+            route = attn_route.flash_plan(
+                T, T, causal=self.causal, device=x.device,
+                dropout_active=bool(self.dropout) and self.training)
+        if route:
+            ctx = attn_route.flash_core(q, k, v, causal=self.causal)
         else:
             ctx = self._dense(q, k, v, T)
         ctx = ctx.transpose(1, 2).reshape(B, T, H * dh)
@@ -151,8 +178,10 @@ class ParallelMultiHeadAttention(nn.Module):
         qr, kr = amp.cast_if_amp("matmul", (q, k))
         scores = torch.matmul(qr, kr.transpose(-1, -2)) * (self.head_dim
                                                            ** -0.5)
-        scores = scores + torch.triu(torch.full(
-            (T, T), -1e9, device=q.device, dtype=torch.float32), diagonal=1)
+        if self.causal:
+            scores = scores + torch.triu(torch.full(
+                (T, T), -1e9, device=q.device, dtype=torch.float32),
+                diagonal=1)
         (scores,) = amp.cast_if_amp("softmax", (scores,))
         attn = torch.softmax(scores, dim=-1)
         if self.dropout:
@@ -162,7 +191,7 @@ class ParallelMultiHeadAttention(nn.Module):
         return torch.matmul(attn, vr)
 
 
-class ParallelGPTBlock(nn.Module):
+class ParallelGPTBlock(Layer):
     """Pre-LN GPT decoder block: ``ln1`` -> attention -> residual-add + LN
     (one B6 kernel when routed) -> fc1 -> exact GELU -> dropout -> fc2 ->
     residual. ``dropout`` applies to the attention probabilities (on the
@@ -172,9 +201,10 @@ class ParallelGPTBlock(nn.Module):
     int ids) adds each row's low-rank delta to ``fc1``'s output, after
     the add-LN."""
 
-    def __init__(self, d_model, num_heads, dim_feedforward=None, mp=1, *,
-                 dropout=0.0, device, dtype=torch.float32, generator):
-        super().__init__()
+    def __init__(self, d_model, num_heads, dim_feedforward=None,
+                 dropout=0.0, causal=True, use_flash_attention=None, *,
+                 mp=1, device=None, dtype=None, generator=None):
+        super().__init__(dtype=dtype)
         _single_device(mp, "ParallelGPTBlock")
         ffn = dim_feedforward or 4 * d_model
         kw = dict(device=device, dtype=dtype, generator=generator)
@@ -182,11 +212,14 @@ class ParallelGPTBlock(nn.Module):
         self.dropout = float(dropout)
         self._generator = generator
         self.ln1 = LayerNorm(d_model, device=device, dtype=dtype)
-        self.attn = ParallelMultiHeadAttention(d_model, num_heads,
-                                               dropout=dropout, **kw)
+        self.attn = ParallelMultiHeadAttention(
+            d_model, num_heads, dropout=dropout, causal=causal,
+            use_flash_attention=use_flash_attention, **kw)
         self.ln2 = LayerNorm(d_model, device=device, dtype=dtype)
-        self.fc1 = ColumnParallelLinear(d_model, ffn, **kw)
-        self.fc2 = RowParallelLinear(ffn, d_model, **kw)
+        self.fc1 = ColumnParallelLinear(d_model, ffn, gather_output=False,
+                                        **kw)
+        self.fc2 = RowParallelLinear(ffn, d_model, input_is_parallel=True,
+                                     **kw)
 
     def forward(self, x, cache=None, pos=None, adapter=None):
         if cache is not None:

@@ -23,9 +23,10 @@ import torch
 
 __all__ = [
     "SUPPORTED", "fp8_dtype", "resolve_policy", "bits", "from_bits",
-    "quantize_blockwise", "dequantize_blockwise", "quantize_lastaxis",
-    "dequantize_lastaxis", "QuantKV", "tensors_of", "quantize_like",
-    "kv_quant_policy", "kv_zero", "wire_bytes",
+    "quantize_blockwise", "dequantize_blockwise", "quantize_along",
+    "dequantize_along", "quantize_lastaxis", "dequantize_lastaxis",
+    "QuantKV", "tensors_of", "quantize_like", "kv_quant_policy", "kv_zero",
+    "wire_bytes",
 ]
 
 #: the quantized widths the policies accept
@@ -139,34 +140,54 @@ def dequantize_blockwise(payload, scales, shape, out_dtype=torch.float32):
     return flat.reshape(-1)[:n].reshape(tuple(shape)).to(out_dtype)
 
 
-def _lastaxis_block(d: int, block: int) -> int:
-    """The block width along a last axis of length ``d``: ``block`` when
-    it tiles ``d``, else the whole row (a head dim of 64 under block 128
+def _axis_block(d: int, block: int) -> int:
+    """The block width along an axis of length ``d``: ``block`` when it
+    tiles ``d``, else the whole axis (a head dim of 64 under block 128
     gets one scale per row: per token and head in a KV cache)."""
     return block if (block > 0 and d % block == 0) else d
 
 
+def _split_axis(shape, a: int, nb: int):
+    """``shape`` with axis ``a`` split into ``(nb, shape[a] // nb)``."""
+    shape = tuple(shape)
+    return shape[:a] + (nb, shape[a] // nb) + shape[a + 1:]
+
+
+def quantize_along(x, dtype: str = "int8", block: int = 128, axis=-1):
+    """``x`` -> (payload at ``x``'s shape narrow, float32 scales at
+    ``x``'s shape with ``axis`` cut to ``D/bs``): blocks of ``bs`` along
+    ``axis`` (``block`` when it tiles the axis, else the whole axis).
+    The KV cache quantizes along the last axis (per token and head), a
+    linear weight ``[in, out]`` along the contraction axis 0."""
+    qdtype, qmax = _qparams(dtype)
+    a = axis % x.dim()
+    bs = _axis_block(int(x.shape[a]), block)
+    xr = x.to(torch.float32).reshape(
+        _split_axis(x.shape, a, int(x.shape[a]) // bs))
+    scales = _scales(xr.abs().amax(dim=a + 1), qmax)
+    payload = _encode(xr, scales.unsqueeze(a + 1), qdtype, qmax)
+    return payload.reshape(x.shape), scales
+
+
+def dequantize_along(payload, scales, out_dtype=torch.float32, axis=-1):
+    """The inverse of :func:`quantize_along`."""
+    a = axis % payload.dim()
+    pr = payload.reshape(_split_axis(payload.shape, a, int(scales.shape[a])))
+    out = _widen(pr, scales.unsqueeze(a + 1))
+    return out.reshape(payload.shape).to(out_dtype)
+
+
 def quantize_lastaxis(x, dtype: str = "int8", block: int = 128):
     """``x [..., D]`` -> (payload ``[..., D]`` narrow, scales ``[...,
-    D/bs]`` float32): blocks along the last axis, so a ``[B, H, cap, Dh]``
-    KV buffer keeps its shape and its scales ride a parallel ``[B, H,
-    cap, nb]`` buffer."""
-    qdtype, qmax = _qparams(dtype)
-    d = int(x.shape[-1])
-    bs = _lastaxis_block(d, block)
-    xr = x.to(torch.float32).reshape(tuple(x.shape[:-1]) + (d // bs, bs))
-    scales = _scales(xr.abs().amax(dim=-1), qmax)
-    payload = _encode(xr, scales[..., None], qdtype, qmax)
-    return payload.reshape(x.shape), scales
+    D/bs]`` float32), :func:`quantize_along` the last axis, so a ``[B, H,
+    cap, Dh]`` KV buffer keeps its shape and its scales ride a parallel
+    ``[B, H, cap, nb]`` buffer."""
+    return quantize_along(x, dtype, block, axis=-1)
 
 
 def dequantize_lastaxis(payload, scales, out_dtype=torch.float32):
     """The inverse of :func:`quantize_lastaxis`."""
-    d = int(payload.shape[-1])
-    nb = int(scales.shape[-1])
-    pr = payload.reshape(tuple(payload.shape[:-1]) + (nb, d // nb))
-    out = _widen(pr, scales[..., None])
-    return out.reshape(payload.shape).to(out_dtype)
+    return dequantize_along(payload, scales, out_dtype, axis=-1)
 
 
 #: a quantized K or V cache buffer: ``q`` the narrow payload at the cache's
@@ -220,7 +241,7 @@ def kv_zero(shape, dtype: str = "int8", block: int = 128, *, device):
     float cache's zero fill."""
     qdtype, _ = _qparams(dtype)
     d = int(shape[-1])
-    bs = _lastaxis_block(d, block)
+    bs = _axis_block(d, block)
     raw = torch.uint8 if qdtype == fp8_dtype() else qdtype
     return QuantKV(
         # zero bytes are +0 in both widths

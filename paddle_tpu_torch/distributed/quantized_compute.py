@@ -3,11 +3,10 @@
 quantized matmul, the narrow layer form and its byte record).
 
 A linear weight carries an int8/fp8 payload at its own shape and float32
-scales per block along the contraction axis. The port's weights are
-``[out, in]``, where paddle's are ``[in, out]``: the payload is ``[out,
-in]`` and the scales ``[out, in/bs]``, the same blocks as the JAX
-package's ``[in/bs, out]``, transposed, so both packages encode the same
-bytes (``weights.from_paddle_tpu_quantized`` carries them across).
+scales per block along the contraction axis. Weights are paddle's ``[in,
+out]`` in both packages: the payload is ``[in, out]`` and the scales
+``[in/bs, out]``, the JAX package's layout, so both encode the same bytes
+and a checkpoint crosses as it is.
 
 :func:`quantized_matmul` widens the payload and multiplies: plain PyTorch,
 as the JAX package leaves the product to XLA. Eagerly the widened weight
@@ -52,24 +51,24 @@ def matmul_policy():
 
 
 def quantize_weight(w, dtype: str = "int8", block: int = DEFAULT_BLOCK):
-    """``w [out, in]`` -> (payload ``[out, in]`` narrow, scales ``[out,
-    in/bs]`` float32): one scale per ``bs`` inputs of one output, ``bs``
+    """``w [in, out]`` -> (payload ``[in, out]`` narrow, scales ``[in/bs,
+    out]`` float32): one scale per ``bs`` inputs of one output, ``bs``
     the whole input axis when ``block`` does not tile it."""
-    return qc.quantize_lastaxis(w, dtype, block)
+    return qc.quantize_along(w, dtype, block, axis=0)
 
 
 def dequantize_weight(payload, scales, out_dtype=torch.float32):
-    """The inverse of :func:`quantize_weight`: the wide ``[out, in]``
+    """The inverse of :func:`quantize_weight`: the wide ``[in, out]``
     weight at ``out_dtype``."""
-    return qc.dequantize_lastaxis(payload, scales, out_dtype)
+    return qc.dequantize_along(payload, scales, out_dtype, axis=0)
 
 
 def quantized_matmul(x, w_q, scales, bias=None):
-    """``x [..., in] @ dequant(w_q, scales)^T + bias``, the weight widened
+    """``x [..., in] @ dequant(w_q, scales) + bias``, the weight widened
     to ``x``'s type."""
     out_dtype = x.dtype if x.is_floating_point() else torch.float32
     return torch.nn.functional.linear(
-        x, dequantize_weight(w_q, scales, out_dtype), bias)
+        x, dequantize_weight(w_q, scales, out_dtype).t(), bias)
 
 
 def _linear_classes():

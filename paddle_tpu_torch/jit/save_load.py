@@ -5,12 +5,11 @@ The file format is the JAX package's own, so a checkpoint written by
 either package loads into the other: ``path + ".pdqparams"``, an npz of
 ``name::q`` (int8 payload, or the fp8 payload's bytes as uint8) and
 ``name::scale`` (float32 scales) for every linear weight in paddle's
-``[in, out]`` layout, plain ``name`` entries for the wide rest
-(embeddings, norms, biases, persistent buffers); and ``path +
+``[in, out]`` layout (the port's own), plain ``name`` entries for the
+wide rest (embeddings, norms, biases, persistent buffers); and ``path +
 ".pdqmeta"``, a JSON record ``{"format": "pdq1", "dtype", "block",
 "quantized": [names], "bytes_payload", "bytes_scales", "bytes_wide"}``.
-``weights.from_paddle_tpu_quantized`` / ``to_paddle_tpu_quantized`` do the
-transposition.
+The arrays cross as they are, an fp8 payload as its uint8 bytes.
 
 Not ported yet: ``save``, ``load`` and ``TranslatedLayer`` (ROADMAP queue A
 item 6), and the ``q_checkpoint`` bus record (item 8).
@@ -24,7 +23,6 @@ import time
 import numpy as np
 import torch
 
-from .. import weights
 from ..distributed import quantized_comm as qc
 from ..distributed import quantized_compute as qcp
 
@@ -33,6 +31,8 @@ __all__ = ["QPARAMS_SUFFIX", "QMETA_SUFFIX", "save_quantized",
 
 QPARAMS_SUFFIX = ".pdqparams"
 QMETA_SUFFIX = ".pdqmeta"
+#: the key suffixes of a linear weight's quantized pair
+Q_SUFFIXES = ("::q", "::scale")
 
 
 @torch.no_grad()
@@ -61,9 +61,10 @@ def save_quantized(layer, path, dtype: str = "int8", block: int = 128):
     for name, t in layer.state_dict().items():
         if name not in qnames:
             state[name] = t
-    arrays = weights.to_paddle_tpu_quantized(state, layer)
+    arrays = {n: np.array(qc.bits(t.detach()).cpu().numpy())
+              for n, t in state.items()}
     b_wide = sum(a.nbytes for n, a in arrays.items()
-                 if not n.endswith(weights.Q_SUFFIXES))
+                 if not n.endswith(Q_SUFFIXES))
     d = os.path.dirname(path)
     if d:
         os.makedirs(d, exist_ok=True)
@@ -107,7 +108,7 @@ def load_quantized(layer, path, deadline_ms=None):
         raise NotImplementedError(
             "this checkpoint holds fp8 payloads but this torch has no "
             "float8_e4m3fn; re-save as 'int8'")
-    state = weights.from_paddle_tpu_quantized(data, layer)
+    state = {n: torch.from_numpy(a) for n, a in data.items()}
     for pname in qnames:
         sub, w = qmap[pname]
         payload = state[f"{pname}::q"]
@@ -124,6 +125,11 @@ def load_quantized(layer, path, deadline_ms=None):
         if name not in own:
             unexpected.append(name)
             continue
+        if tuple(state[name].shape) != tuple(own[name].shape):
+            raise ValueError(
+                f"quantized checkpoint entry {name} has shape "
+                f"{tuple(state[name].shape)}, the layer's is "
+                f"{tuple(own[name].shape)}")
         own[name].copy_(state[name].to(own[name].dtype))
         covered.append(name)
     left = [n for n in own if n not in covered and n not in qset]

@@ -45,6 +45,7 @@ from typing import Callable
 import torch
 
 from .. import amp
+from ..core.tensor import to_torch
 from ..distributed.fleet.strategy import DistributedStrategy
 from ..utils import train_guard as _TG
 
@@ -65,7 +66,9 @@ class TrainStep:
         step = paddle_tpu_torch.jit.TrainStep(model, loss_fn, opt)
         loss = step(inputs, labels)      # tensors or numpy arrays
 
-    ``loss_fn(model_outputs, *labels)`` returns a scalar loss tensor. Each
+    ``loss_fn(model_outputs, *labels)`` returns a scalar loss tensor (a
+    ``Tensor`` of the Paddle surface too: a model written with Paddle's
+    ops runs as it is). Each
     call returns the loss, detached (and the detached outputs with
     ``return_outputs=True``); parameters' ``.grad`` is cleared after the
     update."""
@@ -128,7 +131,7 @@ class TrainStep:
         return amp.auto_cast(**self._amp_ctx)
 
     def _tensor(self, x):
-        return torch.as_tensor(x, device=self._device)
+        return torch.as_tensor(to_torch(x), device=self._device)
 
     def __call__(self, inputs, labels=None):
         ins = [self._tensor(x) for x in _as_list(inputs)]
@@ -139,7 +142,7 @@ class TrainStep:
         old_bufs = [b.clone() for b in self._buffers] if masked else []
         with torch.enable_grad(), self._amp_guard():
             outs = self.model(*ins)
-            loss = self.loss_fn(outs, *lbls)
+            loss = to_torch(self.loss_fn(outs, *lbls))
         scaling = self._loss_scale_cfg is not None
         if scaling:
             scale = self._scaler_state[0]
@@ -220,6 +223,7 @@ class TrainStep:
 
 
 def _detach(outs):
+    outs = to_torch(outs)
     if isinstance(outs, torch.Tensor):
         return outs.detach()
     if isinstance(outs, (list, tuple)):

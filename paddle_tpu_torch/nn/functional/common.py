@@ -3,15 +3,17 @@
 
 ``linear`` is the one seam every projection of the port goes through
 (``Linear`` and the parallel layers), and the AMP cast site of the
-white-listed name ``linear``. Its weight is PyTorch's ``[out, in]``, where
-paddle's is ``[in, out]``. A narrow weight (an int8/fp8 checkpoint, or
+white-listed name ``linear``. Its weight is paddle's ``[in, out]``, as in
+the JAX package; the product takes it as a transposed operand of the
+same GEMM, with no copy. A narrow weight (an int8/fp8 checkpoint, or
 ``distributed.quantized_compute.quantize_layer``) always takes the
 quantized matmul; ``PADDLE_Q_MATMUL`` (the fake-quant training matmul)
 raises: not ported.
 
-``dropout`` draws its mask from an explicit ``torch.Generator`` that the
-caller passes: the port touches no global RNG. Its bits are not JAX's;
-the same generator state gives the same mask.
+``dropout`` draws its mask from the ``torch.Generator`` the caller passes,
+else from the package's generator of the input's device (``paddle.seed``
+seeds it): the port touches no global RNG. Its bits are not JAX's; the
+same generator state gives the same mask.
 """
 from __future__ import annotations
 
@@ -20,12 +22,13 @@ from typing import Optional
 import torch
 
 from ... import amp
+from ...core.random import default_generator
 
 __all__ = ["linear", "dropout"]
 
 
 def linear(x, weight, bias=None, name=None):
-    """``x @ weight^T + bias`` with ``weight`` ``[out, in]``; under AMP the
+    """``x @ weight + bias`` with ``weight`` ``[in, out]``; under AMP the
     float inputs are cast to the AMP type first (white list). A weight
     that carries scales (``quantized_compute.attach_quantized``) is
     widened to ``x``'s type and multiplied (``quantized_matmul``). A wide
@@ -44,7 +47,7 @@ def linear(x, weight, bias=None, name=None):
             "is not ported yet: ROADMAP queue A item 7; unset it, or load "
             "int8/fp8 weights (jit.load_quantized) to serve them narrow")
     x, weight, bias = amp.cast_if_amp("linear", (x, weight, bias))
-    return torch.nn.functional.linear(x, weight, bias)
+    return torch.nn.functional.linear(x, weight.t(), bias)
 
 
 def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
@@ -55,8 +58,8 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
     keeps them unscaled in training and multiplies by ``1 - p`` at
     inference. ``axis`` (an int or a list) draws one decision per index
     of those axes, shared along the others. The mask comes from
-    ``generator`` (on ``x``'s device), which a training call with
-    ``0 < p < 1`` must be given."""
+    ``generator`` (on ``x``'s device), the package's generator of that
+    device when None."""
     if mode not in ("upscale_in_train", "downscale_in_infer"):
         raise ValueError(f"dropout: unknown mode {mode!r}")
     if not 0.0 <= p <= 1.0:
@@ -68,8 +71,7 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
     if p == 1.0:
         return torch.zeros_like(x)
     if generator is None:
-        raise ValueError("dropout: pass the torch.Generator that draws the "
-                         "mask (generator=)")
+        generator = default_generator(x.device)
     shape = list(x.shape)
     if axis is not None:
         axes = [a % x.dim() for a in

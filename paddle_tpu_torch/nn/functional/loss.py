@@ -65,26 +65,27 @@ def _ce_chunk_default() -> int:
 
 
 def _chunk_logits(h32, w, b, lo, hi):
-    """float32 logits of vocab columns ``lo:hi``: ``h @ w[lo:hi]^T +
+    """float32 logits of vocab columns ``lo:hi``: ``h @ w[:, lo:hi] +
     b[lo:hi]``, the product taken in float32 whatever the inputs' type
     (the JAX package's ``preferred_element_type=float32``)."""
-    logits = torch.matmul(h32, w[lo:hi].float().t())
+    logits = torch.matmul(h32, w[:, lo:hi].float())
     if b is not None:
         logits = logits + b[lo:hi].float()
     return logits
 
 
 class FusedLinearCEFunction(torch.autograd.Function):
-    """Per-row loss ``[N]`` of softmax cross-entropy over ``h @ w^T + b``,
+    """Per-row loss ``[N]`` of softmax cross-entropy over ``h @ w + b``,
     streamed over vocab chunks of width ``chunk``: an online logsumexp in
     the forward, and a backward that recomputes each chunk's softmax from
     the saved lse. The tail chunk is cut to the vocab (``w[lo:V]``) where
     the JAX package pads the weight and masks the padded columns with
-    ``_CE_NEG``; both give every column past V no weight in the sum."""
+    ``_CE_NEG``; both give every column past V no weight in the sum.
+    ``w`` is ``[d, V]``."""
 
     @staticmethod
     def forward(ctx, h, w, b, labels, chunk, ignore_index):
-        N, V = h.shape[0], w.shape[0]
+        N, V = h.shape[0], w.shape[1]
         labels = labels.to(torch.int64)
         valid = labels != ignore_index
         safe = torch.where(valid, labels, torch.zeros_like(labels))
@@ -111,7 +112,7 @@ class FusedLinearCEFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         h, w, b, labels, lse = ctx.saved_tensors
-        chunk, V = ctx.chunk, w.shape[0]
+        chunk, V = ctx.chunk, w.shape[1]
         valid = labels != ctx.ignore_index
         geff = torch.where(valid, g.float(), torch.zeros_like(lse))
         h32 = h.float()
@@ -127,8 +128,8 @@ class FusedLinearCEFunction(torch.autograd.Function):
             p.scatter_add_(1, rel.clamp(0, hi - lo - 1)[:, None],
                            -hit.to(p.dtype)[:, None])
             s = p * geff[:, None]
-            dh += torch.matmul(s, w[lo:hi].float())
-            dw[lo:hi] = torch.matmul(s.t(), h32).to(w.dtype)
+            dh += torch.matmul(s, w[:, lo:hi].float().t())
+            dw[:, lo:hi] = torch.matmul(h32.t(), s).to(w.dtype)
             if db is not None:
                 db[lo:hi] = s.sum(dim=0).to(b.dtype)
         return dh.to(h.dtype), dw, db, None, None, None
@@ -137,12 +138,11 @@ class FusedLinearCEFunction(torch.autograd.Function):
 def fused_linear_cross_entropy(input, weight, bias=None, label=None,
                                chunk=None, ignore_index=-100,
                                reduction="mean", name=None):
-    """Softmax cross-entropy of ``input @ weight^T + bias`` against
+    """Softmax cross-entropy of ``input @ weight + bias`` against
     ``label``, streamed over vocab chunks of width ``chunk`` (default
     ``PADDLE_CE_CHUNK``, 8192). ``input`` is the pre-head hidden state
-    ``[N, d]``; ``weight`` is the head's weight in the port's layout,
-    ``[V, d]`` (PyTorch's ``[out, in]``; the JAX package takes paddle's
-    ``[d, V]``), ``bias`` ``[V]``; pass ``model.head.weight`` and
+    ``[N, d]``; ``weight`` is the head's weight in paddle's layout,
+    ``[d, V]``, ``bias`` ``[V]``; pass ``model.head.weight`` and
     ``model.head.bias``, which get their gradients through the op. Labels
     are ``[N]`` or ``[N, 1]``; rows labelled ``ignore_index`` count for
     nothing. ``chunk <= 0`` or ``chunk >= V`` is the dense route:
@@ -152,7 +152,7 @@ def fused_linear_cross_entropy(input, weight, bias=None, label=None,
         raise ValueError(
             f"fused_linear_cross_entropy: unknown reduction {reduction!r}")
     chunk = _ce_chunk_default() if chunk is None else int(chunk)
-    V = int(weight.shape[0])
+    V = int(weight.shape[1])
     if chunk <= 0 or chunk >= V:
         return cross_entropy(linear(input, weight, bias), label,
                              ignore_index=ignore_index, reduction=reduction)

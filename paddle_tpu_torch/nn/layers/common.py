@@ -1,37 +1,40 @@
 """``Embedding``, ``Linear``, ``Dropout`` and ``Flatten`` (counterparts of
-``paddle_tpu/nn/layers/common.py``).
+``paddle_tpu/nn/layers/common.py``), with its arguments in its order.
 
-Weights follow PyTorch's layout: ``Linear.weight`` is ``[out, in]``, where
-paddle stores ``[in, out]`` (``weights.from_paddle_tpu_state`` transposes
-on the way in). Initialization is paddle's: XavierNormal weights, zero
-bias, drawn from the caller's generator.
+Weights are paddle's layout: ``Linear.weight`` is ``[in, out]``, as in
+the JAX package, so its ``state_dict()`` loads with no transposes. The
+initializers are paddle's: XavierNormal weights, zero bias, drawn from
+``generator`` (the package's generator of ``device``, which
+``paddle.seed`` seeds, when None). ``device`` is the ``set_device``
+default when None, ``dtype`` the default float type.
 """
 from __future__ import annotations
 
 import torch
-from torch import nn
 
-from ...core.random import xavier_normal
-from ...ops.manipulation import flatten
 from ..functional.common import dropout, linear
+from ..initializer import XavierNormal
+from ..layer import Layer
 
 __all__ = ["Embedding", "Linear", "Dropout", "Flatten"]
 
 
-class Linear(nn.Module):
-    """y = x W^T + b with W ``[out_features, in_features]``, through
+class Linear(Layer):
+    """y = x W + b with W ``[in_features, out_features]``, through
     ``functional.linear`` (the AMP cast site)."""
 
-    def __init__(self, in_features, out_features, *, device,
-                 dtype=torch.float32, generator):
-        super().__init__()
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 bias_attr=None, name=None, *, device=None, dtype=None,
+                 generator=None):
+        super().__init__(dtype=dtype)
         self.in_features = int(in_features)
         self.out_features = int(out_features)
-        self.weight = nn.Parameter(xavier_normal(
-            (out_features, in_features), in_features, out_features,
-            generator=generator, device=device, dtype=dtype))
-        self.bias = nn.Parameter(torch.zeros(out_features, device=device,
-                                             dtype=dtype))
+        kw = dict(device=device, generator=generator)
+        self.weight = self.create_parameter(
+            [in_features, out_features], weight_attr,
+            default_initializer=XavierNormal(), **kw)
+        self.bias = self.create_parameter([out_features], bias_attr,
+                                          is_bias=True, **kw)
 
     def forward(self, x):
         return linear(x, self.weight, self.bias)
@@ -41,28 +44,42 @@ class Linear(nn.Module):
                f"out_features={self.out_features}"
 
 
-class Embedding(nn.Module):
-    """Row lookup in a ``[num_embeddings, embedding_dim]`` table."""
+class Embedding(Layer):
+    """Row lookup in a ``[num_embeddings, embedding_dim]`` table; ids equal
+    to ``padding_idx`` (when given) look up zeros and send no gradient."""
 
-    def __init__(self, num_embeddings, embedding_dim, *, device,
-                 dtype=torch.float32, generator):
-        super().__init__()
-        self.weight = nn.Parameter(xavier_normal(
-            (num_embeddings, embedding_dim), num_embeddings, embedding_dim,
-            generator=generator, device=device, dtype=dtype))
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 sparse=False, weight_attr=None, name=None, *, device=None,
+                 dtype=None, generator=None):
+        super().__init__(dtype=dtype)
+        if sparse:
+            raise NotImplementedError("Embedding(sparse=True) is not ported")
+        self._padding_idx = None if padding_idx is None \
+            else padding_idx % num_embeddings
+        self.weight = self.create_parameter(
+            [num_embeddings, embedding_dim], weight_attr,
+            default_initializer=XavierNormal(), device=device,
+            generator=generator)
+        if self._padding_idx is not None:
+            with torch.no_grad():
+                self.weight[self._padding_idx] = 0
 
     def forward(self, ids):
-        return nn.functional.embedding(ids.to(torch.int64), self.weight)
+        ids = ids.long()
+        out = torch.nn.functional.embedding(ids, self.weight)
+        if self._padding_idx is not None:
+            out = out.masked_fill((ids == self._padding_idx)[..., None], 0.0)
+        return out
 
     def extra_repr(self):
         return f"{self.weight.shape[0]}, {self.weight.shape[1]}"
 
 
-class Dropout(nn.Module):
+class Dropout(Layer):
     """``functional.dropout`` in training, the identity (or the
     ``downscale_in_infer`` scaling) in eval; the mask comes from
-    ``generator``, which a layer with ``0 < p < 1`` must be given to
-    train."""
+    ``generator`` (the package's generator of the input's device when
+    None)."""
 
     def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None,
                  *, generator=None):
@@ -78,7 +95,15 @@ class Dropout(nn.Module):
         return f"p={self.p}, axis={self.axis}, mode={self.mode}"
 
 
-class Flatten(nn.Module):
+def flatten(x, start_axis=0, stop_axis=-1):
+    """Merge the axes ``start_axis..stop_axis`` (inclusive) of a
+    ``torch.Tensor`` into one (a 0-d tensor becomes ``[1]``)."""
+    if x.dim() == 0:
+        return x.reshape(1)
+    return torch.flatten(x, start_axis, stop_axis)
+
+
+class Flatten(Layer):
     """Merge the axes ``start_axis..stop_axis`` into one."""
 
     def __init__(self, start_axis=1, stop_axis=-1):

@@ -2,18 +2,20 @@
 ``paddle_tpu/nn/layers/pooling.py``)."""
 from __future__ import annotations
 
-from torch import nn
-
 from ..functional.pooling import adaptive_avg_pool2d, max_pool2d
+from ..layer import Layer
 
 __all__ = ["MaxPool2D", "AdaptiveAvgPool2D"]
 
 
-class MaxPool2D(nn.Module):
-    """Max pooling through ``functional.max_pool2d``."""
+class MaxPool2D(Layer):
+    """Max pooling through ``functional.max_pool2d`` (``exclusive`` and
+    ``divisor_override`` belong to average pooling: taken, as the JAX
+    package takes them, and unused)."""
 
     def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
-                 return_mask=False, data_format="NCHW", name=None):
+                 return_mask=False, exclusive=True, divisor_override=None,
+                 data_format="NCHW", name=None):
         super().__init__()
         self.kernel_size, self.stride = kernel_size, stride
         self.padding, self.ceil_mode = padding, ceil_mode
@@ -24,10 +26,15 @@ class MaxPool2D(nn.Module):
                           self.return_mask, self.ceil_mode, self.data_format)
 
 
-class AdaptiveAvgPool2D(nn.Module):
+class AdaptiveAvgPool2D(Layer):
     """Adaptive average pooling through ``functional.adaptive_avg_pool2d``."""
 
-    def __init__(self, output_size, data_format="NCHW", name=None):
+    def __init__(self, output_size, data_format="NCHW", return_mask=False,
+                 name=None):
+        if return_mask:
+            raise NotImplementedError(
+                "AdaptiveAvgPool2D(return_mask=True): average pooling has "
+                "no mask")
         super().__init__()
         self.output_size, self.data_format = output_size, data_format
 

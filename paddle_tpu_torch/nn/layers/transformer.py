@@ -5,8 +5,8 @@ Attention takes the JAX package's ``attn_impl="dense"`` route: the routed
 ``functional.scaled_dot_product_attention`` (the flash kernel for causal,
 mask-free, dropout-free attention; the dense form otherwise), or, with
 ``need_weights``, the dense form that returns the weights. The
-``blockwise``, ``ring`` and ``ulysses`` routes and ``ParamAttr`` are not
-ported yet, and raise. ``gen_cache`` builds the static-capacity cache
+``blockwise``, ``ring`` and ``ulysses`` routes are not ported yet, and
+raise. ``gen_cache`` builds the static-capacity cache
 contiguous or paged, full width or int8/fp8 (``QuantKV``).
 """
 from __future__ import annotations
@@ -14,19 +14,14 @@ from __future__ import annotations
 import collections
 
 import torch
-from torch import nn
 
 from .. import functional as F
 from ..functional import attention as attn_route
+from ..layer import Layer
 from .common import Dropout, Linear
 from .norm import LayerNorm
 
 __all__ = ["MultiHeadAttention", "TransformerEncoderLayer"]
-
-
-def _no_param_attr(what, weight_attr, bias_attr):
-    if weight_attr is not None or bias_attr is not None:
-        raise NotImplementedError(f"{what}: ParamAttr is not ported yet")
 
 
 def _convert_attention_mask(attn_mask, dtype):
@@ -39,10 +34,10 @@ def _convert_attention_mask(attn_mask, dtype):
                                   device=attn_mask.device))
 
 
-class MultiHeadAttention(nn.Module):
-    """Multi-head attention with paddle's parameters: one fused ``[3d, d]``
+class MultiHeadAttention(Layer):
+    """Multi-head attention with paddle's parameters: one fused ``[d, 3d]``
     ``qkv_proj`` when ``kdim == vdim == embed_dim`` (the q, k and v
-    projections are its row slices), else ``q_proj``/``k_proj``/
+    projections are its column slices), else ``q_proj``/``k_proj``/
     ``v_proj``; then ``out_proj``. ``forward`` returns the output, plus the
     attention weights with ``need_weights`` and the updated cache when one
     is passed.
@@ -59,13 +54,13 @@ class MultiHeadAttention(nn.Module):
     def __init__(self, embed_dim, num_heads, dropout=0.0, kdim=None,
                  vdim=None, need_weights=False, weight_attr=None,
                  bias_attr=None, attn_impl="dense", causal=False,
-                 block_size=512, *, device, dtype=torch.float32, generator):
-        super().__init__()
+                 block_size=512, *, device=None, dtype=None,
+                 generator=None):
+        super().__init__(dtype=dtype)
         if attn_impl != "dense":
             raise NotImplementedError(
                 f"MultiHeadAttention: attn_impl={attn_impl!r} is not ported "
                 "yet (dense only)")
-        _no_param_attr("MultiHeadAttention", weight_attr, bias_attr)
         self.attn_impl, self.causal = attn_impl, causal
         self.embed_dim = embed_dim
         self.kdim = kdim or embed_dim
@@ -78,24 +73,26 @@ class MultiHeadAttention(nn.Module):
             raise ValueError("embed_dim must be divisible by num_heads")
         self._generator = generator
         kw = dict(device=device, dtype=dtype, generator=generator)
+        attrs = (weight_attr, bias_attr)
         self._fused_qkv = self.kdim == embed_dim and self.vdim == embed_dim
         if self._fused_qkv:
-            self.qkv_proj = Linear(embed_dim, 3 * embed_dim, **kw)
+            self.qkv_proj = Linear(embed_dim, 3 * embed_dim, *attrs, **kw)
         else:
-            self.q_proj = Linear(embed_dim, embed_dim, **kw)
-            self.k_proj = Linear(self.kdim, embed_dim, **kw)
-            self.v_proj = Linear(self.vdim, embed_dim, **kw)
-        self.out_proj = Linear(embed_dim, embed_dim, **kw)
+            self.q_proj = Linear(embed_dim, embed_dim, *attrs, **kw)
+            self.k_proj = Linear(self.kdim, embed_dim, *attrs, **kw)
+            self.v_proj = Linear(self.vdim, embed_dim, *attrs, **kw)
+        self.out_proj = Linear(embed_dim, embed_dim, *attrs, **kw)
 
     def _proj(self, x, which):
-        """Project with q, k or v (0, 1, 2): a row slice of the fused
+        """Project with q, k or v (0, 1, 2): a column slice of the fused
         weight."""
         if not self._fused_qkv:
             return (self.q_proj, self.k_proj, self.v_proj)[which](x)
         d = self.embed_dim
-        rows = slice(which * d, (which + 1) * d)
-        return F.linear(x, self.qkv_proj.weight[rows],
-                        self.qkv_proj.bias[rows])
+        cols = slice(which * d, (which + 1) * d)
+        b = self.qkv_proj.bias
+        return F.linear(x, self.qkv_proj.weight[:, cols],
+                        None if b is None else b[cols])
 
     def _split_heads(self, x):
         B, T = int(x.shape[0]), int(x.shape[1])
@@ -131,7 +128,10 @@ class MultiHeadAttention(nn.Module):
         kvq = qc.kv_quant_policy(dtype)
         if kvq is not None and not cap and dtype is None:
             kvq = None  # the env default is for the serving form only
-        dev, dt = self.out_proj.bias.device, self.out_proj.bias.dtype
+        # a narrow weight has no float type: the bias's is the cache's
+        b = self.out_proj.bias
+        dev = self.out_proj.weight.device
+        dt = b.dtype if b is not None else self._dtype
         bs = (int(block_size) if block_size is not None
               else (pk.block_size_default() if cap else 0))
         if bs > 0:
@@ -214,7 +214,7 @@ class MultiHeadAttention(nn.Module):
         return self._finish_output(out, weights, cache)
 
 
-class TransformerEncoderLayer(nn.Module):
+class TransformerEncoderLayer(Layer):
     """Self-attention then a two-layer MLP, each with dropout and a
     residual sum and a LayerNorm (post-LN by default; ``normalize_before``
     for pre-LN). The LayerNorms route to the B5/B7 kernels when eligible."""
@@ -222,20 +222,22 @@ class TransformerEncoderLayer(nn.Module):
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
                  normalize_before=False, weight_attr=None, bias_attr=None,
-                 attn_impl="dense", causal=False, *, device,
-                 dtype=torch.float32, generator):
-        super().__init__()
-        _no_param_attr("TransformerEncoderLayer", weight_attr, bias_attr)
+                 attn_impl="dense", causal=False, *, device=None,
+                 dtype=None, generator=None):
+        super().__init__(dtype=dtype)
         attn_dropout = dropout if attn_dropout is None else attn_dropout
         act_dropout = dropout if act_dropout is None else act_dropout
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.normalize_before = normalize_before
+        attrs = (weight_attr, bias_attr)
         self.self_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
+                                            weight_attr=weight_attr,
+                                            bias_attr=bias_attr,
                                             attn_impl=attn_impl,
                                             causal=causal, **kw)
-        self.linear1 = Linear(d_model, dim_feedforward, **kw)
+        self.linear1 = Linear(d_model, dim_feedforward, *attrs, **kw)
         self.dropout = Dropout(act_dropout, generator=generator)
-        self.linear2 = Linear(dim_feedforward, d_model, **kw)
+        self.linear2 = Linear(dim_feedforward, d_model, *attrs, **kw)
         self.norm1 = LayerNorm(d_model, device=device, dtype=dtype)
         self.norm2 = LayerNorm(d_model, device=device, dtype=dtype)
         self.dropout1 = Dropout(dropout, generator=generator)

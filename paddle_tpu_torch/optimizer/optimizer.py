@@ -9,9 +9,10 @@ too. State lives in per-parameter accumulators named as in JAX
 happen in place, under ``torch.no_grad``, on the parameter and
 accumulator buffers, where JAX returns new arrays.
 
-Two entry points apply an update: ``step()`` from the accumulated
-``.grad`` (the eager path), and ``_functional_update`` then ``_write``
-(what ``jit.TrainStep`` calls), whose write can be masked on a device
+Two entry points apply an update: ``step()`` (or ``minimize(loss)``)
+from the accumulated ``.grad`` (the eager path), and
+``_functional_update`` then ``_write`` (what ``jit.TrainStep`` calls),
+whose write can be masked on a device
 flag so that a skipped step leaves parameters and moments unchanged.
 Both first add the regularizer terms to the gradients and then clip them
 (``_process_grads``), as the JAX package does.
@@ -176,6 +177,20 @@ class Optimizer:
     def clear_grad(self) -> None:
         for p in self._get_params():
             p.grad = None
+
+    clear_gradients = clear_grad
+
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        """``loss.backward()`` (unless it already ran on this loss, the
+        1.x idiom ``loss.backward(); opt.minimize(loss)``), then
+        ``step()``. Returns ``(None, None)``."""
+        if parameters is not None:
+            self._set_parameters(parameters)
+        if not getattr(loss, "_backward_ran", False):
+            loss.backward()
+        self.step()
+        return None, None
 
 
 class SGD(Optimizer):

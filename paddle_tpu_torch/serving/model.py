@@ -22,18 +22,19 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import torch
-from torch import nn
 
 from ..core.device import resolve_device
 from ..core.random import generator as make_generator
 from ..distributed.meta_parallel import ParallelGPTBlock
+from ..nn.layer import Layer
 from ..nn.layers.common import Embedding, Linear
+from ..nn.layers.container import LayerList
 from ..nn.layers.norm import LayerNorm
 
 __all__ = ["TransformerLM"]
 
 
-class TransformerLM(nn.Module):
+class TransformerLM(Layer):
     """Decoder-only LM. Weights are drawn from a generator seeded with
     ``seed`` on ``device`` (CUDA unless the caller passes ``"cpu"``; no
     fallback)."""
@@ -51,7 +52,7 @@ class TransformerLM(nn.Module):
         self.max_position = int(max_position)
         self.embed = Embedding(vocab_size, d_model, **kw)
         self.pos_embed = Embedding(max_position, d_model, **kw)
-        self.blocks = nn.ModuleList([
+        self.blocks = LayerList([
             ParallelGPTBlock(d_model, num_heads, dim_feedforward, **kw)
             for _ in range(num_layers)
         ])

@@ -1,25 +1,24 @@
 """LeNet-5 (counterpart of ``paddle_tpu/vision/models/lenet.py``)."""
 from __future__ import annotations
 
-from torch import nn
-
 from ... import nn as pnn
-from ...ops.manipulation import flatten
-from ._device import placement
+from ...core.device import resolve_device
+from ...nn.layer import Layer
+from ...nn.layers.common import flatten
 
 __all__ = ["LeNet"]
 
 
-class LeNet(nn.Module):
+class LeNet(Layer):
     """LeNet for 28 x 28 single-channel input (MNIST): two convolutions
     with ReLU and 2 x 2 max pooling, then three Linear layers. Weights are
-    drawn from ``generator`` on ``device`` (CUDA unless the caller passes
-    ``"cpu"``)."""
+    drawn from ``generator`` (the package's, which ``paddle.seed`` seeds,
+    when None) on ``device`` (the ``set_device`` default when None)."""
 
     def __init__(self, num_classes=10, *, device=None, generator=None):
         super().__init__()
-        dev, gen = placement(device, generator)
-        kw = dict(device=dev, generator=gen)
+        dev = resolve_device(device)
+        kw = dict(device=dev, generator=generator)
         self.num_classes = num_classes
         self.features = pnn.Sequential(
             pnn.Conv2D(1, 6, 3, stride=1, padding=1, **kw),

@@ -4,17 +4,16 @@
 weights only (``pretrained=True`` raises: the port downloads nothing)."""
 from __future__ import annotations
 
-from torch import nn
-
 from ... import nn as pnn
-from ...ops.manipulation import flatten
-from ._device import placement
+from ...core.device import resolve_device
+from ...nn.layer import Layer
+from ...nn.layers.common import flatten
 
 __all__ = ["BasicBlock", "BottleneckBlock", "ResNet", "resnet18",
            "resnet34", "resnet50", "resnet101", "resnet152"]
 
 
-class BasicBlock(nn.Module):
+class BasicBlock(Layer):
     """Two 3 x 3 convolutions with batch norm, and the residual sum."""
 
     expansion = 1
@@ -44,7 +43,7 @@ class BasicBlock(nn.Module):
         return self.relu(out + identity)
 
 
-class BottleneckBlock(nn.Module):
+class BottleneckBlock(Layer):
     """1 x 1, 3 x 3 (with the stride) and 1 x 1 convolutions with batch
     norm, and the residual sum."""
 
@@ -79,19 +78,20 @@ class BottleneckBlock(nn.Module):
         return self.relu(out + identity)
 
 
-class ResNet(nn.Module):
+class ResNet(Layer):
     """ResNet of ``depth`` (18, 34, 50, 101, 152) from ``block``: a 7 x 7
     stem with max pooling, four stages, average pooling and a Linear
-    classifier. Weights are drawn from ``generator`` on ``device`` (CUDA
-    unless the caller passes ``"cpu"``)."""
+    classifier. Weights are drawn from ``generator`` (the package's, which
+    ``paddle.seed`` seeds, when None) on ``device`` (the ``set_device``
+    default when None)."""
 
     def __init__(self, block, depth, num_classes=1000, with_pool=True, *,
                  device=None, generator=None):
         super().__init__()
         layers = {18: [2, 2, 2, 2], 34: [3, 4, 6, 3], 50: [3, 4, 6, 3],
                   101: [3, 4, 23, 3], 152: [3, 8, 36, 3]}[depth]
-        dev, gen = placement(device, generator)
-        kw = dict(device=dev, generator=gen)
+        dev = resolve_device(device)
+        kw = dict(device=dev, generator=generator)
         self.num_classes = num_classes
         self.with_pool = with_pool
         self._norm_layer = pnn.BatchNorm2D

@@ -6,7 +6,7 @@ inside ``fused_linear_cross_entropy``; ``strategy.amp`` through
 ``fleet``; AdamW lr 1e-4, weight decay 0.01) is built in both packages at
 2 layers, d_model 128, 2 heads, S = 128, B = 2, vocab 1000, CE chunk 256
 (so the vocab has a tail chunk), with the same random numpy weights
-(``weights.from_paddle_tpu_state``). Both packages run with
+(``set_state_dict``). Both packages run with
 ``PADDLE_FLASH_DEFAULT=interpret`` and ``PADDLE_FUSED_LN=interpret``:
 paddle_tpu through the Pallas interpreter, the port through its kernels'
 plain versions.
@@ -49,8 +49,6 @@ from paddle_tpu.jit import TrainStep as JaxTrainStep
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.distributed import ParallelGPTBlock
 from paddle_tpu_torch.distributed import fleet
-from paddle_tpu_torch.weights import from_paddle_tpu_state, \
-    to_paddle_tpu_state
 
 VOCAB, D, HEADS, LAYERS, S, B, CHUNK = 1000, 128, 2, 2, 128, 2, 256
 LR, WD = 1e-4, 0.01
@@ -93,11 +91,16 @@ class TorchGPT(torch.nn.Module):
         self.head = pt.nn.Linear(D, VOCAB, **kw)
 
     def forward(self, ids):
-        h = self.embed(ids) + self.pos(pt.arange(ids.shape[1], dtype="int64",
-                                                 device=ids.device))
+        h = self.embed(ids) + self.pos(torch.arange(ids.shape[1],
+                                                    device=ids.device))
         for blk in self.blocks:
             h = blk(h)
         return h
+
+
+def _numpy_state(state):
+    """The port's state (or gradients by name) as numpy copies."""
+    return {n: t.detach().cpu().numpy().copy() for n, t in state.items()}
 
 
 def _jax_loss(model):
@@ -157,7 +160,8 @@ def _models():
     missing, unexpected = jm.set_state_dict(state)
     assert not missing and not unexpected
     tm = TorchGPT()
-    tm.load_state_dict(from_paddle_tpu_state(state, tm), strict=True)
+    tm.load_state_dict({n: torch.from_numpy(np.asarray(a))
+                        for n, a in state.items()}, strict=True)
     return jm, tm
 
 
@@ -230,7 +234,7 @@ def test_seam_dtypes_match_the_reference(env):
         want = [str(t._data.dtype) for t in seams(jm, jnn.functional, jx)]
     with pt.amp.auto_cast(True, level="O1", dtype="bfloat16"):
         tx = tm.embed(torch.as_tensor(ids)) + tm.pos(
-            pt.arange(S, dtype="int64", device="cpu"))
+            torch.arange(S))
         got = [str(t.dtype)[6:] for t in seams(tm, pt.nn.functional, tx)]
     assert want == ["float32", "bfloat16", "float32", "float32", "bfloat16",
                     "bfloat16", "float32"]
@@ -255,8 +259,8 @@ def test_loss_and_gradients_under_amp_match(env):
         tloss = tstep.loss_fn(tm(torch.as_tensor(ids)),
                               torch.as_tensor(lab))
     tloss.backward()
-    got = to_paddle_tpu_state(
-        {n: p.grad for n, p in tm.named_parameters()}, tm)
+    got = _numpy_state(
+        {n: p.grad for n, p in tm.named_parameters()})
     np.testing.assert_allclose(tloss.item(), float(jloss), atol=LOSS_ATOL,
                                rtol=0)
     assert set(got) == set(want)
@@ -295,8 +299,8 @@ def test_fp16_loss_and_gradients_match(env):
         tloss = tstep.loss_fn(tm(torch.as_tensor(ids)),
                               torch.as_tensor(lab))
     tloss.backward()
-    got = to_paddle_tpu_state(
-        {n: p.grad for n, p in tm.named_parameters()}, tm)
+    got = _numpy_state(
+        {n: p.grad for n, p in tm.named_parameters()})
     np.testing.assert_allclose(tloss.item(), float(jloss), atol=LOSS_ATOL,
                                rtol=0)
     assert set(got) == set(want)
@@ -321,7 +325,7 @@ def test_three_train_steps_through_fleet_match(env):
     np.testing.assert_allclose(tl, jl, atol=LOSS_ATOL, rtol=0)
     assert tl[2] < tl[0]
     want = {k: np.array(v._data) for k, v in jm.state_dict().items()}
-    got = to_paddle_tpu_state(tm.state_dict(), tm)
+    got = _numpy_state(tm.state_dict())
     for name in want:
         np.testing.assert_allclose(got[name], want[name], atol=PARAM_ATOL,
                                    rtol=0, err_msg=name)

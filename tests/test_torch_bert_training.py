@@ -5,7 +5,7 @@ carried weights.
 ``TransformerEncoderLayer``s with ReLU and dropout 0, the mean over the
 sequence, a 2-way head) is built in both packages at 2 layers, d_model
 128, 4 heads, ffn 512, seq 16, batch 2, vocab 64, with the same random
-numpy weights (``weights.from_paddle_tpu_state``), and trained as
+numpy weights (``set_state_dict``), and trained as
 ``_bench_bert`` trains it: ``cross_entropy``, ``AdamW(1e-4, 0.01)``, in
 float32 and under ``strategy.amp`` (bf16 O1). Both packages run with
 ``PADDLE_FUSED_LN=interpret``: the LayerNorms (D 128, 32 rows) take the
@@ -56,8 +56,6 @@ from paddle_tpu.jit import TrainStep as JaxTrainStep
 
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.distributed import fleet
-from paddle_tpu_torch.weights import from_paddle_tpu_state, \
-    to_paddle_tpu_state
 
 VOCAB, D, HEADS, LAYERS, S, B = 64, 128, 4, 2, 16, 2
 LR, WD = 1e-4, 0.01
@@ -124,11 +122,16 @@ class TorchBert(torch.nn.Module):
         self.head = pt.nn.Linear(D, 2, **kw)
 
     def forward(self, ids):
-        h = self.embed(ids) + self.pos(pt.arange(ids.shape[1], dtype="int64",
-                                                 device=ids.device))
+        h = self.embed(ids) + self.pos(torch.arange(ids.shape[1],
+                                                    device=ids.device))
         for lyr in self.encoder:
             h = lyr(h)
         return self.head(h.mean(dim=1))
+
+
+def _numpy_state(state):
+    """The port's state (or gradients by name) as numpy copies."""
+    return {n: t.detach().cpu().numpy().copy() for n, t in state.items()}
 
 
 @pytest.fixture(scope="module")
@@ -168,7 +171,8 @@ def _models():
     missing, unexpected = jm.set_state_dict(state)
     assert not missing and not unexpected
     tm = TorchBert()
-    tm.load_state_dict(from_paddle_tpu_state(state, tm), strict=True)
+    tm.load_state_dict({n: torch.from_numpy(np.asarray(a))
+                        for n, a in state.items()}, strict=True)
     return jm, tm
 
 
@@ -231,8 +235,8 @@ def _torch_grads(tm, tstep, ids, y):
     with torch.enable_grad(), tstep._amp_guard():
         tloss = tstep.loss_fn(tm(torch.as_tensor(ids)), torch.as_tensor(y))
     tloss.backward()
-    return tloss.item(), to_paddle_tpu_state(
-        {n: p.grad for n, p in tm.named_parameters()}, tm)
+    return tloss.item(), _numpy_state(
+        {n: p.grad for n, p in tm.named_parameters()})
 
 
 def _amp_layer_types(jm, tm, ids):
@@ -324,7 +328,7 @@ def test_three_adamw_train_steps_match(env, amp):
         bound = max(bound, AMP_MARGIN * AMP_STEP_LOSS_READING)
     assert (np.abs(tl - jl) <= bound).all(), (tl, jl, bound)
     want = {k: np.array(v._data) for k, v in jm.state_dict().items()}
-    got = to_paddle_tpu_state(tm.state_dict(), tm)
+    got = _numpy_state(tm.state_dict())
     for name in want:
         np.testing.assert_allclose(got[name], want[name], atol=PARAM_ATOL,
                                    rtol=0, err_msg=name)
@@ -348,7 +352,7 @@ def test_multi_head_attention_forms_match(env, form):
     state = _random_state({k: tuple(v.shape)
                            for k, v in jl.state_dict().items()}, seed=12)
     jl.set_state_dict(state)
-    tl.load_state_dict(from_paddle_tpu_state(state, tl), strict=True)
+    assert tl.set_state_dict(state) == ([], [])
     jl.eval()
     tl.eval()
     r = np.random.RandomState(13)

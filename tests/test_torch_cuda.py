@@ -529,8 +529,8 @@ def test_quantized_linear_equals_dense_on_the_widened_weight(gen,
     assert info["quantized"] == ["weight"] and lin.weight.dtype == torch.int8
     wide = qcp.dequantize_weight(lin.weight, lin.weight_q_scale)
     with torch.no_grad():
-        assert torch.equal(lin(x), torch.nn.functional.linear(x, wide,
-                                                              lin.bias))
+        assert torch.equal(lin(x), torch.nn.functional.linear(
+            x, wide.t(), lin.bias))
 
 
 def test_speculative_round_reads_nothing_back(tier_model):
@@ -711,3 +711,79 @@ def test_retire_slots_relocates_on_the_card(tier_model):
     assert eng._state.pos.shape == (2,)
     assert eng.run()[keep].tokens == want
     assert eng._prefill._n_steps == steps
+
+
+# -- the Paddle surface on the card ------------------------------------------
+
+
+@pytest.fixture()
+def default_device():
+    """The package's default device, restored after the test."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from paddle_tpu_torch.core import device as dev
+
+    saved = dev._current
+    yield
+    dev._current = saved
+
+
+def test_to_tensor_lands_on_the_card_by_default(default_device):
+    from paddle_tpu_torch.core import device as dev
+
+    dev._current = None  # as a fresh process starts
+    x = pt.to_tensor([1.0, 2.0])
+    assert x._data.is_cuda and pt.get_device() == "gpu:0"
+    assert pt.arange(4)._data.is_cuda
+    assert pt.nn.Linear(4, 3).weight.is_cuda
+
+
+def test_set_device_cpu_is_honoured(default_device):
+    pt.set_device("cpu")
+    assert not pt.to_tensor([1.0])._data.is_cuda
+    assert not pt.nn.LayerNorm(8).weight.is_cuda
+    assert pt.get_device() == "cpu"
+    pt.set_device("gpu")
+    assert pt.to_tensor([1.0])._data.is_cuda
+
+
+def test_tensor_through_layer_norm_and_flash_launches_kernels(
+        default_device, gen):
+    """A CUDA ``Tensor`` through the functionals reaches the kernels (B5
+    forward, B1 forward, and their backward kernels), with gradients
+    equal to the plain torch tensors' through the same functionals."""
+    pt.set_device("gpu")
+    F = pt.nn.functional
+    x0 = torch.randn(64, 256, device="cuda", generator=gen)
+    w = torch.randn(256, device="cuda", generator=gen)
+    b = torch.randn(256, device="cuda", generator=gen)
+    q0 = torch.randn(2, 4, 128, 64, device="cuda", generator=gen)
+    kernels.reset_launches()
+    x = pt.to_tensor(x0, stop_gradient=False)
+    y = F.layer_norm(x, [256], w, b, 1e-5)
+    q = pt.to_tensor(q0, stop_gradient=False)
+    o = F.flash_core(q, q, q, causal=True)
+    assert isinstance(y, pt.Tensor) and isinstance(o, pt.Tensor)
+    (y.sum() + o.sum()).backward()
+    counts = kernels.launches()
+    for name in ("layer_norm_fwd", "layer_norm_bwd", "flash_attention_fwd",
+                 "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert counts[name] == 1, (name, counts)
+    xr, qr = x0.clone().requires_grad_(), q0.clone().requires_grad_()
+    (F.layer_norm(xr, [256], w, b, 1e-5).sum()
+     + F.flash_core(qr, qr, qr, causal=True).sum()).backward()
+    torch.testing.assert_close(x.grad._data, xr.grad, rtol=0, atol=0)
+    torch.testing.assert_close(q.grad._data, qr.grad, rtol=0, atol=0)
+
+
+def test_no_cpu_fallback_without_a_card(monkeypatch, default_device):
+    """With no card visible, the default device raises: nothing falls
+    back to the CPU in silence."""
+    from paddle_tpu_torch.core import device as dev
+
+    dev._current = None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pt.to_tensor([1.0])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pt.set_device("gpu")

@@ -6,7 +6,7 @@ directions.
 Both packages run in one process on the same numpy inputs; models are
 ``TransformerLM`` at vocab 48, d_model 64 or 128, 4 heads, 2 layers,
 capacity <= 64, weights made by numpy and carried into the port through
-``weights.from_paddle_tpu_state``, with ``PADDLE_FLASH_DEFAULT=interpret``
+``set_state_dict``, with ``PADDLE_FLASH_DEFAULT=interpret``
 and ``PADDLE_FUSED_LN=interpret``. The JAX oracles are
 ``tests/test_quantized_comm.py`` (``TestQuantizedKV``),
 ``tests/test_quantized_compute.py`` (``TestQuantizedCheckpoint``) and
@@ -59,7 +59,6 @@ from paddle_tpu_torch.nn.functional import attention as attn
 from paddle_tpu_torch.serving import Request
 from paddle_tpu_torch.serving import paged_kv as pk
 from paddle_tpu_torch.serving.adapters import AdapterSet
-from paddle_tpu_torch.weights import from_paddle_tpu_state
 
 from test_torch_serving_tier import _random_state, _serve
 
@@ -100,7 +99,7 @@ def _pair(d=64, cap=64, seed=7):
     assert not missing and not unexpected
     tm = pt.TransformerLM(VOCAB, d_model=d, num_heads=HEADS,
                           num_layers=LAYERS, max_position=cap, device="cpu")
-    tm.load_state_dict(from_paddle_tpu_state(state, tm))
+    assert tm.set_state_dict(state) == ([], [])
     tm.eval()
     return jm, tm
 
@@ -180,19 +179,18 @@ class TestQuantizer:
 
     @pytest.mark.parametrize("width", WIDTHS)
     def test_weight_quantizer_equals_paddle_tpu(self, width):
-        """paddle's ``[in, out]`` weight against the port's ``[out, in]``:
-        the same blocks, transposed (in = 256 tiles block 128; in = 96
-        falls back to one scale per output)."""
+        """paddle's ``[in, out]`` weight in both packages: the same bytes
+        and scales (in = 256 tiles block 128; in = 96 falls back to one
+        scale per output)."""
         for i, o in ((256, 40), (96, 24)):
             w = _blocks("random", width, (i, o))
             jp, js = jqcp.quantize_weight(jnp.asarray(w), width, 128)
-            tp, ts = qcp.quantize_weight(torch.tensor(w.T.copy()), width,
-                                         128)
-            np.testing.assert_array_equal(_u8(tp), _u8(jp).T)
-            np.testing.assert_array_equal(ts.numpy(), np.asarray(js).T)
+            tp, ts = qcp.quantize_weight(torch.tensor(w), width, 128)
+            np.testing.assert_array_equal(_u8(tp), _u8(jp))
+            np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
             np.testing.assert_array_equal(
                 qcp.dequantize_weight(tp, ts).numpy(),
-                np.asarray(jqcp.dequantize_weight(jp, js)).T)
+                np.asarray(jqcp.dequantize_weight(jp, js)))
             x = np.random.RandomState(0).randn(3, i).astype(np.float32)
             want = np.asarray(jqcp.quantized_matmul(jnp.asarray(x), jp, js))
             np.testing.assert_allclose(
@@ -461,7 +459,7 @@ def _narrow(model):
     out = {}
     if isinstance(model, pt.TransformerLM):
         for name, _, w in qcp.iter_quantizable(model):
-            out[name] = (_u8(w.detach()).T, qcp.scale_of(w).numpy().T)
+            out[name] = (_u8(w.detach()), qcp.scale_of(w).numpy())
     else:
         for name, _, w in jqcp.iter_quantizable(model):
             out[name] = (_u8(w._data), np.asarray(w._q_scale._data))

@@ -5,8 +5,8 @@ failover and drain with KV migration, the fault ladder, and the engine's
 
 The model is ``test_torch_serving_tier.py``'s (imported from it): a
 ``TransformerLM`` with vocab 48, d_model 128, 4 heads, 2 layers, capacity
-64, numpy weights carried into the port through
-``weights.from_paddle_tpu_state``, ``PADDLE_FLASH_DEFAULT=interpret`` and
+64, numpy weights loaded into the port by
+``set_state_dict``, ``PADDLE_FLASH_DEFAULT=interpret`` and
 ``PADDLE_FUSED_LN=interpret``; the engines page at block 16. The JAX
 oracles are ``tests/test_serving_tier.py::TestRouterInProcess``,
 ``tests/test_serving_multitenant.py::TestDisaggregation``,

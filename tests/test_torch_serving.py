@@ -3,7 +3,7 @@
 A tiny ``TransformerLM`` (d_model 128 so the fused-LN route fires, 4
 heads, 2 layers, vocab 48, capacity 32) is built in paddle_tpu with
 random weights made by numpy; the same weights go into
-paddle_tpu_torch's model through ``weights.from_paddle_tpu_state``. Both
+paddle_tpu_torch's model through ``set_state_dict``. Both
 packages run with ``PADDLE_FLASH_DEFAULT=interpret`` and
 ``PADDLE_FUSED_LN=interpret``: paddle_tpu through the Pallas interpreter,
 the port through its kernels' plain versions (the CPU route of the same
@@ -29,7 +29,6 @@ from paddle_tpu.serving import TransformerLM as JaxLM
 from paddle_tpu.serving import generate as jax_generate
 
 import paddle_tpu_torch as pt
-from paddle_tpu_torch.weights import from_paddle_tpu_state
 
 VOCAB, D, HEADS, LAYERS, CAP = 48, 128, 4, 2, 32
 LOGIT_ATOL = 1e-4
@@ -78,7 +77,7 @@ def models(env):
     assert not missing and not unexpected
     tm = pt.TransformerLM(VOCAB, d_model=D, num_heads=HEADS,
                           num_layers=LAYERS, max_position=CAP, device="cpu")
-    tm.load_state_dict(from_paddle_tpu_state(state, tm))
+    assert tm.set_state_dict(state) == ([], [])
     tm.eval()
     return jm, tm
 

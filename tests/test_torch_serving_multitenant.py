@@ -4,7 +4,7 @@ weights: the refcounted copy-on-write prefix cache and adapter fleets.
 The model, weights, knobs and helpers are ``test_torch_serving_tier.py``'s
 (imported from it): a ``TransformerLM`` with vocab 48, d_model 128, 4
 heads, 2 layers, capacity 64, numpy weights carried through
-``weights.from_paddle_tpu_state``, ``PADDLE_FLASH_DEFAULT=interpret`` and
+``set_state_dict``, ``PADDLE_FLASH_DEFAULT=interpret`` and
 ``PADDLE_FUSED_LN=interpret``. The JAX oracles are ``tests/test_serving.py``
 (``TestPrefixCacheUnit``, ``TestAdapterSetUnit``) and
 ``tests/test_serving_multitenant.py`` (``TestPrefixSharingE2E``,
@@ -27,8 +27,6 @@ from paddle_tpu_torch.serving import Request
 from paddle_tpu_torch.serving import paged_kv as pk
 from paddle_tpu_torch.serving import prefix_cache as px
 from paddle_tpu_torch.serving.adapters import AdapterSet
-from paddle_tpu_torch.weights import from_paddle_tpu_state, \
-    to_paddle_tpu_state
 
 # the shared model, knobs and serving helper; ``env`` and ``models`` are
 # module-scoped fixtures, instantiated anew for this module
@@ -37,6 +35,11 @@ from test_torch_serving_tier import (  # noqa: F401
 )
 
 PREAMBLE = [3, 1, 4, 1, 5, 9, 2, 6, 5, 3, 5, 8, 9, 7, 9, 3]  # 2 blocks of 8
+
+
+def _numpy_state(state):
+    """The port's state (or gradients by name) as numpy copies."""
+    return {n: t.detach().cpu().numpy().copy() for n, t in state.items()}
 
 
 @pytest.fixture(scope="module")
@@ -339,14 +342,14 @@ class TestAdapters:
         assert len(eng.run()["ok"].tokens) == 4
 
     def test_weights_carry_the_fleet(self, fleets, env):
-        """A paddle_tpu fleet's stacks ride ``from_paddle_tpu_state`` into
+        """A paddle_tpu fleet's stacks ride ``set_state_dict`` into
         a port model with a fleet of the same shape, and back."""
         jm, _, jad, _, _ = fleets
         state = {k: np.array(v._data) for k, v in jm.state_dict().items()}
         assert "blocks.1.adapter_B" in state
         _, tm = _pair()
         AdapterSet(tm, n_adapters=4, rank=2)
-        tm.load_state_dict(from_paddle_tpu_state(state, tm))
-        back = to_paddle_tpu_state(tm.state_dict(), tm)
+        assert tm.set_state_dict(state) == ([], [])
+        back = _numpy_state(tm.state_dict())
         for name in ("blocks.0.adapter_A", "blocks.1.adapter_B"):
             np.testing.assert_array_equal(back[name], state[name])

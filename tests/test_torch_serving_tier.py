@@ -6,7 +6,7 @@ model and helpers).
 The model is ``test_torch_serving.py``'s: a ``TransformerLM`` with vocab
 48, d_model 128, 4 heads, 2 layers (capacity 64 here, the engine tests'
 ``max_length``), its weights made by numpy and carried into the port
-through ``weights.from_paddle_tpu_state``; both packages run with
+through ``set_state_dict``; both packages run with
 ``PADDLE_FLASH_DEFAULT=interpret`` and ``PADDLE_FUSED_LN=interpret``. The
 JAX oracles are ``tests/test_serving_tier.py``'s ``TestPagedPrimitives``,
 ``TestPagedGenerateParity``, ``TestPagedEngine`` and
@@ -35,7 +35,6 @@ import paddle_tpu_torch as pt
 from paddle_tpu_torch.jit import PrefillStep
 from paddle_tpu_torch.serving import Request
 from paddle_tpu_torch.serving import paged_kv as pk
-from paddle_tpu_torch.weights import from_paddle_tpu_state
 
 VOCAB, D, HEADS, LAYERS, CAP = 48, 128, 4, 2, 64
 LOGIT_ATOL = 1e-4
@@ -90,7 +89,7 @@ def _pair():
     assert not missing and not unexpected
     tm = pt.TransformerLM(VOCAB, d_model=D, num_heads=HEADS,
                           num_layers=LAYERS, max_position=CAP, device="cpu")
-    tm.load_state_dict(from_paddle_tpu_state(state, tm))
+    assert tm.set_state_dict(state) == ([], [])
     tm.eval()
     return jm, tm
 

@@ -6,7 +6,7 @@ Both packages run in one process. The target is a ``TransformerLM`` at
 vocab 48, d_model 32, 4 heads, 2 layers, capacity 64; the draft is
 ``tests/test_serving_tier.py``'s ``_draft_lm`` shape (1 layer, d_model 16,
 2 heads); weights made by numpy and carried into the port through
-``weights.from_paddle_tpu_state``, with ``PADDLE_FLASH_DEFAULT=interpret``
+``set_state_dict``, with ``PADDLE_FLASH_DEFAULT=interpret``
 and ``PADDLE_FUSED_LN=interpret``. The JAX oracle is
 ``tests/test_serving_tier.py``'s ``TestSpeculativeDecode``.
 
@@ -40,7 +40,6 @@ from paddle_tpu_torch.jit import (PrefillStep, SpecDecodeState,
                                   SpeculativeDecodeStep, spec_k_default)
 from paddle_tpu_torch.serving import engine as engine_mod
 from paddle_tpu_torch.serving import sampling
-from paddle_tpu_torch.weights import from_paddle_tpu_state
 
 from test_torch_serving_tier import _random_state
 
@@ -73,7 +72,7 @@ def _pair(d, heads, layers, seed):
     assert not missing and not unexpected
     tm = pt.TransformerLM(VOCAB, d_model=d, num_heads=heads,
                           num_layers=layers, max_position=CAP, device="cpu")
-    tm.load_state_dict(from_paddle_tpu_state(state, tm))
+    assert tm.set_state_dict(state) == ([], [])
     tm.eval()
     return jm, tm
 

@@ -3,7 +3,7 @@
 A tiny ``TransformerLM`` (d_model 128 so the fused-LN route fires, 4
 heads, 2 layers, vocab 48, S = 16, B = 2) is built in paddle_tpu with
 random weights made by numpy; the same weights go into
-paddle_tpu_torch's model through ``weights.from_paddle_tpu_state``. Both
+paddle_tpu_torch's model through ``set_state_dict``. Both
 packages run with ``PADDLE_FLASH_DEFAULT=interpret`` and
 ``PADDLE_FUSED_LN=interpret``: paddle_tpu through the Pallas interpreter
 (forward and backward kernels), the port through its kernels' plain
@@ -13,7 +13,7 @@ Checked: the loss and every parameter's gradient of one batch (eager
 ``loss.backward()`` in both); then five ``jit.TrainStep`` calls with
 AdamW (lr 1e-3, epsilon 1e-6, so that no update is decided by rounding a
 gradient near zero; weight decay 0.01): the losses of steps 1-3 and the
-parameters after step 3, compared through ``weights.to_paddle_tpu_state``;
+parameters after step 3, compared as numpy arrays;
 a NaN batch at step 4, which the skip guard turns into a no-op that
 leaves parameters and both moments bitwise unchanged in each package;
 and step 5, which must again agree across the packages.
@@ -35,14 +35,17 @@ from paddle_tpu.nn import functional as JF
 from paddle_tpu.serving import TransformerLM as JaxLM
 
 import paddle_tpu_torch as pt
-from paddle_tpu_torch.weights import from_paddle_tpu_state, \
-    to_paddle_tpu_state
 
 VOCAB, D, HEADS, LAYERS, S, B = 48, 128, 4, 2, 16, 2
 LOSS_ATOL = 2e-5
 GRAD_TOL = dict(atol=2e-5, rtol=1e-4)
 PARAM_ATOL = 1e-4
 LR, EPS, WD = 1e-3, 1e-6, 0.01
+
+
+def _numpy_state(state):
+    """The port's state (or gradients by name) as numpy copies."""
+    return {n: t.detach().cpu().numpy().copy() for n, t in state.items()}
 
 
 @pytest.fixture(scope="module")
@@ -88,7 +91,7 @@ def models(env):
     assert not missing and not unexpected
     tm = pt.TransformerLM(VOCAB, d_model=D, num_heads=HEADS,
                           num_layers=LAYERS, max_position=S, device="cpu")
-    tm.load_state_dict(from_paddle_tpu_state(state, tm))
+    assert tm.set_state_dict(state) == ([], [])
     return jm, tm
 
 
@@ -124,8 +127,8 @@ def test_one_batch_loss_and_gradients_match(models):
         p.clear_grad()
     tloss = _torch_loss(tm(torch.as_tensor(ids)), torch.as_tensor(lab))
     tloss.backward()
-    got = to_paddle_tpu_state(
-        {n: p.grad for n, p in tm.named_parameters()}, tm)
+    got = _numpy_state(
+        {n: p.grad for n, p in tm.named_parameters()})
     tm.zero_grad(set_to_none=True)
     np.testing.assert_allclose(tloss.item(), float(jloss.numpy()),
                                atol=LOSS_ATOL, rtol=0)
@@ -157,13 +160,13 @@ def trained(models):
                     np.array(jopt._accumulators[n][id(p)])
                     for p in jm.parameters()
                     for n in ("moment1", "moment2")]),
-                "torch": (to_paddle_tpu_state(tm.state_dict(), tm), [
+                "torch": (_numpy_state(tm.state_dict()), [
                     topt._accumulators[n][id(p)].clone()
                     for p in tm.parameters()
                     for n in ("moment1", "moment2")]),
             }
     rec["final"] = (_jax_state(jm),
-                    to_paddle_tpu_state(tm.state_dict(), tm))
+                    _numpy_state(tm.state_dict()))
     return rec
 
 

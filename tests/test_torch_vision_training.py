@@ -4,7 +4,7 @@ paddle_tpu, on carried weights.
 LeNet as bench.py builds it ([4, 1, 28, 28], 10 classes) and ResNet-18 at
 [2, 3, 64, 64] with 10 classes are built in both packages with the same
 random numpy weights and batch-norm statistics
-(``weights.from_paddle_tpu_state``); batches are ``np.random.rand``
+(``set_state_dict``); batches are ``np.random.rand``
 images with ``arange % classes`` labels, as bench.py makes them. ResNet's
 input is 64 x 64, not 32 x 32: at 32 x 32 its last stage is 1 x 1, so
 batch norm there normalizes two values per channel, and where the two
@@ -74,8 +74,6 @@ from paddle_tpu.vision.models.resnet import BottleneckBlock as JaxBottleneck
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.distributed import fleet
 from paddle_tpu_torch.vision import models as pt_models
-from paddle_tpu_torch.weights import from_paddle_tpu_state, \
-    to_paddle_tpu_state
 
 LR, MOMENTUM = 1e-3, 0.9
 #: (loss atol, gradient share, state share) in float32 and under AMP
@@ -125,6 +123,11 @@ MODELS = {
 }
 
 
+def _numpy_state(state):
+    """The port's state (or gradients by name) as numpy copies."""
+    return {n: t.detach().cpu().numpy().copy() for n, t in state.items()}
+
+
 @pytest.fixture(scope="module")
 def env():
     """The skip guard on, and a trivial hybrid mesh (restored after)."""
@@ -167,7 +170,7 @@ def _pair(jm, tm, seed=3):
                            for k, v in jm.state_dict().items()}, seed)
     missing, unexpected = jm.set_state_dict(state)
     assert not missing and not unexpected
-    tm.load_state_dict(from_paddle_tpu_state(state, tm), strict=True)
+    assert tm.set_state_dict(state) == ([], [])
     return jm, tm
 
 
@@ -284,8 +287,8 @@ def _torch_grads(tm, tstep, x, y):
     with torch.enable_grad(), tstep._amp_guard():
         loss = tstep.loss_fn(tm(torch.as_tensor(x)), torch.as_tensor(y))
     loss.backward()
-    grads = to_paddle_tpu_state(
-        {n: p.grad for n, p in tm.named_parameters()}, tm)
+    grads = _numpy_state(
+        {n: p.grad for n, p in tm.named_parameters()})
     tm.zero_grad(set_to_none=True)
     return loss.item(), grads, {n: b.numpy().copy()
                                 for n, b in tm.named_buffers()}
@@ -402,8 +405,8 @@ def _resnet18_stage_checks(check_types=True):
         g = r.randn(*want.shape).astype(np.float32)
         (jout.astype("float32") * paddle_tpu.to_tensor(g)).sum().backward()
         (tout.float() * torch.as_tensor(g)).sum().backward()
-        got = to_paddle_tpu_state(
-            {k: p.grad for k, p in tl.named_parameters()}, tl)
+        got = _numpy_state(
+            {k: p.grad for k, p in tl.named_parameters()})
         _assert_share(
             {f"{n}.{k}": v for k, v in got.items()},
             {f"{n}.{k}": np.array(p.grad._data)
@@ -473,7 +476,7 @@ def test_three_momentum_train_steps_match(env, name, amp):
     jm, tm, jl, tl = _three_steps(name, amp)
     loss_atol, _, state_share = TOL[amp]
     assert np.isfinite(tl).all() and tl[2] < tl[0]
-    want, got = _jax_state(jm), to_paddle_tpu_state(tm.state_dict(), tm)
+    want, got = _jax_state(jm), _numpy_state(tm.state_dict())
     if amp:
         loss_atol = max(loss_atol,
                         AMP_MARGIN * AMP_STEP_LOSS_READINGS[name])
@@ -486,7 +489,7 @@ def test_three_momentum_train_steps_match(env, name, amp):
 def test_resnet50_train_steps_match(env):
     jm, tm, jl, tl = _three_steps("resnet50", False)
     np.testing.assert_allclose(tl, jl, atol=TOL[False][0], rtol=0)
-    _assert_share(to_paddle_tpu_state(tm.state_dict(), tm), _jax_state(jm),
+    _assert_share(_numpy_state(tm.state_dict()), _jax_state(jm),
                   TOL[False][2], "parameters and statistics")
 
 
@@ -556,7 +559,6 @@ def test_bottleneck_block_forward_and_backward_match(env):
     _assert_share({"x": tx.grad.numpy()}, {"x": np.array(jx.grad._data)},
                   TOL[False][1], "input gradient")
     _assert_share(
-        to_paddle_tpu_state({n: p.grad for n, p in tm.named_parameters()},
-                            tm),
+        _numpy_state({n: p.grad for n, p in tm.named_parameters()}),
         {n: np.array(p.grad._data) for n, p in jm.named_parameters()},
         TOL[False][1], "parameter gradients")

@@ -5,8 +5,9 @@
 Builds chip_smoke.py's GPT-medium ``TransformerLM`` (vocab 32000, d_model
 1024, 16 heads, ffn 4096, float32, random weights) and trains it in
 float32 with ``cross_entropy``; with ``--amp``, bench.py's program as
-published instead (chip_smoke.py's ``bench_gpt``: no final LayerNorm, bf16
-AMP O1 through ``fleet``, ``fused_linear_cross_entropy`` with chunk 8192).
+published instead (its ``_gpt_medium`` and loss as chip_smoke.py copies
+them: no final LayerNorm, bf16 AMP O1 through ``fleet``,
+``fused_linear_cross_entropy`` with chunk 8192).
 Takes two warm-up ``jit.TrainStep`` calls (AdamW lr 1e-4, weight decay
 0.01, B = 4, S = 1024, one fixed batch, TF32 off), then ``--steps`` more
 with the profiler off and ``--steps`` under ``torch.profiler``. Prints the
@@ -54,19 +55,18 @@ def main() -> int:
         0, V, size=(B, S + 1)), device="cuda")
     opt = pt.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01)
     if args.amp:
-        from chip_smoke import bench_gpt
+        from chip_smoke import _bench_lm_loss, _gpt_medium
         from paddle_tpu_torch.distributed import fleet
 
-        model = bench_gpt(pt, args.layers, S, seed=2)
+        pt.seed(2)
+        model = _gpt_medium()
+        if args.layers != 24:
+            model = type(model)(layers=args.layers)
         strategy = fleet.DistributedStrategy()
         strategy.amp = True
         fleet.init(is_collective=True, strategy=strategy)
         opt = fleet.distributed_optimizer(opt)
-
-        def loss_fn(h, lab):
-            return pt.nn.functional.fused_linear_cross_entropy(
-                h.reshape(-1, 1024), model.head.weight, model.head.bias,
-                lab.reshape(-1), chunk=8192)
+        loss_fn = _bench_lm_loss(model)
     else:
         model = pt.TransformerLM(V, 1024, 16, args.layers, max_position=S,
                                  dim_feedforward=4096, seed=1)
