@@ -18,7 +18,11 @@
    ragged lengths); times the kernel, the plain version and one PyTorch
    library call computing the same function, all from CUDA-graph replays
    (the attention kernels in each type beside SDPA in that type, also at
-   the head-dim-256 block's shape);
+   the head-dim-256 block's shape); the row LayerNorm forward (B5) also
+   with its inputs out of L2, beside its time before its redesign,
+   asserting which path each shape takes (its register path at every
+   shape above, its looped path at D = 200 and on rows one element into
+   their buffer) and that no instantiation of its register path spills;
 3. serves the GPT-medium-shaped ``TransformerLM`` (vocab 32000, d_model
    1024, 16 heads, 24 layers, ffn 4096, float32, random weights from a
    seeded generator) through ``generate`` and ``InferenceEngine``, checks
@@ -228,6 +232,16 @@ DYGRAPH_LAUNCHES = {
         ("add_layer_norm_fwd", LAYERS), ("layer_norm_bwd", 2 * LAYERS))}
 
 
+# B5 (layer_norm_fwd) before its redesign, float32 ms by shape: this
+# script's reading, on an H100 80GB HBM3 at 700 W, of the one-block-per-row
+# kernel that the one-warp-per-row kernel replaced (PERF.md, "earlier ms").
+# Printed beside this run's times, never in the kernels line: not measured
+# in this run.
+B5_EARLIER_MS = {"[4096,1024]": 0.0133, "[1024,1024]": 0.0045,
+                 "[8,1024]": 0.0027, "[40,1024]": 0.0027,
+                 "[32,1024]": 0.0027, "[4096,768]": 0.0138}
+
+
 # head dim 256 (queue C's fault): one full-width ParallelGPTBlock
 WIDE_D_MODEL, WIDE_HEADS, WIDE_B, WIDE_S = 2048, 8, 2, 1024
 WIDE_H, WIDE_D = WIDE_HEADS, WIDE_D_MODEL // WIDE_HEADS
@@ -293,6 +307,24 @@ def time_ms(fn, calls=20, reps=5, stream=None):
     return t0.elapsed_time(t1) / (reps * calls)
 
 
+def time_ms_l2_cold(fn, calls=20, reps=5):
+    """Device time of one ``fn()`` with its inputs out of L2: each call
+    follows a read of 64 MiB (more than the H100's 50 MB L2), and the
+    reads' own time, timed alone the same way, is taken off. What ``fn``
+    writes is written back to HBM within the measurement."""
+    flush = torch.ones(16 << 20, device="cuda")
+    sink = torch.empty((), device="cuda")
+
+    def read():
+        torch.sum(flush, dim=0, out=sink)
+
+    def both():
+        read()
+        fn()
+
+    return time_ms(both, calls, reps) - time_ms(read, calls, reps)
+
+
 def bound_ms(nbytes, flops, dtype, peak=PEAK_FLOPS):
     tb = nbytes / HBM_BYTES_S * 1e3
     tf = flops / peak[dtype] * 1e3
@@ -338,6 +370,38 @@ def tensor_core_counts(build, libs):
         if not per_fn or min(per_fn.values()) == 0:
             fail(f"{kernel} runs no product on the tensor cores")
     return counts
+
+
+def ln_fwd_registers(build):
+    """Registers and spills of each instantiation of B5's ln_fwd_kernel
+    (``-Xptxas -v``), as {"<type> kN=<n>": "<registers>; <spills>"}
+    (kN = 0: the looped path). Fails when the register path spills, or
+    when the log does not report every instantiation (float32 and bf16,
+    kN 0..8 and 16)."""
+    import re
+
+    out, key = {}, None
+    for line in build.build_log("layer_norm").splitlines():
+        if "Function properties for" in line:
+            m = re.search(r"\d+ln_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)E",
+                          line)
+            key = m and (f"{'float32' if m[1] == 'f' else 'bf16'} "
+                         f"kN={m[2]}")
+        elif key and "spill" in line:
+            out[key] = line.strip()
+        elif key and "registers" in line:
+            out[key] = f"{line.split(':', 1)[1].strip()}; {out[key]}"
+            print(f"  ln_fwd_kernel {key}: {out[key]}")
+            if not key.endswith("kN=0") and " 0 bytes spill stores" \
+                    not in out[key]:
+                fail(f"ln_fwd_kernel {key} spills")
+            key = None
+    want = {f"{t} kN={n}" for t in ("float32", "bf16")
+            for n in (*range(9), 16)}
+    if set(out) != want:
+        fail(f"ln_fwd_kernel: the build log reports {sorted(out)}, not "
+             f"the {len(want)} instantiations {sorted(want)}")
+    return out
 
 
 def flash_phase(fa, gen, rows):
@@ -423,8 +487,6 @@ def flash_phase(fa, gen, rows):
 def ln_phase(ln, gen, rows):
     """LN and add-LN vs their plain versions; returns two JSON entries,
     timed at the training rows with the serving prefill's beside them."""
-    import torch.nn.functional as tF
-
     timed = {}
     D = D_MODEL
     train_r, serve_r = TRAIN_B * TRAIN_S, BATCH * PROMPT
@@ -437,6 +499,7 @@ def ln_phase(ln, gen, rows):
                                 ).to(dtype) for _ in range(2))
             w, b = (torch.randn(D, device="cuda", generator=gen
                                 ).to(dtype) for _ in range(2))
+            expect_path(ln, x, w, b, D // 128)
             got = ln.layer_norm_fwd(x, w, b)
             ref = ln.layer_norm_fwd_plain(x, w, b)
             got2 = ln.add_layer_norm_fwd(x, y, w, b)
@@ -453,6 +516,10 @@ def ln_phase(ln, gen, rows):
             if not all(ok for _, ok in e1 + e2):
                 fail(f"layer norm kernels {dtype} R={R} disagree with "
                      "their plain versions")
+            if dtype == torch.bfloat16 and R == train_r:
+                timed["layer_norm_fwd_bf16"] = dict(time_ln_fwd(
+                    ln, x, w, b, max(e for e, _ in e1), rows),
+                    dtype="bfloat16")
             if dtype != torch.float32:
                 continue
             for ytype in (torch.bfloat16, torch.float16):
@@ -460,33 +527,23 @@ def ln_phase(ln, gen, rows):
                                      ytype)
                 if mixed is not None:
                     timed[f"float32+{str(ytype)[6:]}"] = mixed
+            timed.setdefault("layer_norm_fwd", {})[R] = time_ln_fwd(
+                ln, x, w, b, max(e for e, _ in e1), rows,
+                B5_EARLIER_MS[f"[{R},{D}]"])
             it = x.element_size()
-            for name, fn, plain, lib, nbytes, err in (
-                    ("layer_norm_fwd",
-                     lambda: ln.layer_norm_fwd(x, w, b),
-                     lambda: ln.layer_norm_fwd_plain(x, w, b),
-                     lambda: tF.layer_norm(x, (D,), w, b, 1e-5),
-                     2 * R * D * it + 2 * D * it + 2 * R * 4,
-                     max(e for e, _ in e1)),
-                    ("add_layer_norm_fwd",
-                     lambda: ln.add_layer_norm_fwd(x, y, w, b),
-                     lambda: ln.add_layer_norm_fwd_plain(x, y, w, b),
-                     None,
-                     4 * R * D * it + 2 * D * it + 2 * R * 4,
-                     max(e for e, _ in e2))):
-                ms = time_ms(fn)
-                plain_ms = time_ms(plain)
-                lib_ms = time_ms(lib) if lib is not None else None
-                bms, by = bound_ms(nbytes, 8 * R * D, dtype)
-                rows.append(
-                    f"{name} f32 [{R},{D}]: kernel {ms:.4f} ms, plain "
-                    f"{plain_ms:.4f} ms, library "
-                    f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
-                    f"bound {bms:.6f} ms ({by})")
-                timed.setdefault(name, {})[R] = dict(
-                    shape=f"[{R},{D}]", max_abs_err=err, ms=ms,
-                    plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                    library_ms=lib_ms)
+            ms = time_ms(lambda: ln.add_layer_norm_fwd(x, y, w, b))
+            plain_ms = time_ms(lambda: ln.add_layer_norm_fwd_plain(
+                x, y, w, b))
+            bms, by = bound_ms(4 * R * D * it + 2 * D * it + 2 * R * 4,
+                               8 * R * D, dtype)
+            rows.append(
+                f"add_layer_norm_fwd f32 [{R},{D}]: kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, library n/a, bound {bms:.6f} ms "
+                f"({by})")
+            timed.setdefault("add_layer_norm_fwd", {})[R] = dict(
+                shape=f"[{R},{D}]", max_abs_err=max(e for e, _ in e2),
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=None)
     for ytype in (torch.bfloat16, torch.float16):  # off the fast path
         mixed_add_ln(ln, gen, 37, 200, rows, False, ytype)
     entries = tuple(
@@ -500,18 +557,103 @@ def ln_phase(ln, gen, rows):
                            ("add_layer_norm_fwd", "68 (_add_ln_fwd_kernel)")))
     for pair in ("float32+bfloat16", "float32+float16"):
         entries[1][pair] = timed[pair]
+    entries[0]["bfloat16"] = timed["layer_norm_fwd_bf16"]
     entries[0]["bert_base"] = bert_width_ln(ln, gen, rows)
+    entries[0]["looped_path"] = ln_fwd_looped(ln, gen, rows)
     return entries
+
+
+def expect_path(ln, x, w, b, kn):
+    """Fail unless B5 takes the register path with ``kn`` (D = 128 kn) on
+    these tensors, or the looped path for ``kn`` 0."""
+    got = ln.layer_norm_fwd_path(x, w, b)
+    if got != kn:
+        fail(f"layer_norm_fwd {x.dtype} {list(x.shape)} at offset "
+             f"{x.storage_offset()} takes path kN = {got}, not {kn}")
+
+
+def time_ln_fwd(ln, x, w, b, err, rows, earlier_ms=None):
+    """B5 on ``x`` timed beside its plain version and ``F.layer_norm`` in
+    x's type (``w`` and ``b`` in x's type for it, float32 for the kernel,
+    whose wrapper would otherwise time their casts); the dict of the JSON
+    line. ``earlier_ms``, the earlier kernel's recorded time, goes on the
+    printed row only."""
+    import torch.nn.functional as tF
+
+    R, D = x.shape
+    w32, b32 = w.float(), b.float()
+    ms = time_ms(lambda: ln.layer_norm_fwd(x, w32, b32))
+    plain_ms = time_ms(lambda: ln.layer_norm_fwd_plain(x, w32, b32))
+    lib_ms = time_ms(lambda: tF.layer_norm(x, (D,), w, b, 1e-5))
+    cold_ms = time_ms_l2_cold(lambda: ln.layer_norm_fwd(x, w32, b32))
+    lib_cold_ms = time_ms_l2_cold(lambda: tF.layer_norm(x, (D,), w, b,
+                                                        1e-5))
+    # reads x, w, b (float32); writes y, mu, rstd (f32 arithmetic)
+    it = x.element_size()
+    bms, by = bound_ms(2 * R * D * it + 2 * D * 4 + 2 * R * 4, 8 * R * D,
+                       torch.float32)
+    rows.append(f"layer_norm_fwd {SHORT[x.dtype]} [{R},{D}]: kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                f"{lib_ms:.4f} ms, bound {bms:.6f} ms ({by}); L2-cold: "
+                f"kernel {cold_ms:.4f} ms, library {lib_cold_ms:.4f} ms"
+                + ("" if earlier_ms is None else
+                   f"; the earlier kernel read {earlier_ms:.4f} ms "
+                   "(recorded, PERF.md)"))
+    return dict(shape=f"[{R},{D}]",
+                path="register" if ln.layer_norm_fwd_path(x, w, b)
+                else "looped", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                l2_cold_ms=cold_ms, library_l2_cold_ms=lib_cold_ms)
+
+
+def ln_fwd_looped(ln, gen, rows):
+    """B5's looped path against its plain version: rows of D = 200 (not a
+    multiple of 128) and training rows given as a contiguous view one
+    element into its buffer (not aligned for the wide loads), in float32
+    and bfloat16; on those rows bit-equal to the register path on an
+    aligned copy; the misaligned float32 rows timed. Returns the dict."""
+    out = {}
+    R, D = TRAIN_B * TRAIN_S, D_MODEL
+    for dtype in (torch.float32, torch.bfloat16):
+        buf = torch.randn(R * D + 1, device="cuda", generator=gen).to(dtype)
+        for what, x in (("D=200", buf[:37 * 200].view(37, 200)),
+                        ("offset", buf[1:].view(R, D))):
+            d = x.shape[1]
+            w, b = (torch.randn(d, device="cuda", generator=gen)
+                    for _ in range(2))
+            expect_path(ln, x, w, b, 0)
+            got = ln.layer_norm_fwd(x, w, b)
+            ref = ln.layer_norm_fwd_plain(x, w, b)
+            torch.cuda.synchronize()
+            errs = [close(a, r, dtype if i == 0 else torch.float32)
+                    for i, (a, r) in enumerate(zip(got, ref))]
+            print(f"layer_norm_fwd looped path {SHORT[dtype]} "
+                  f"{list(x.shape)} ({what}): max err y/mu/rstd "
+                  f"{[f'{e:.3e}' for e, _ in errs]}")
+            if not all(ok for _, ok in errs):
+                fail(f"layer_norm_fwd looped path {dtype} {what} disagrees "
+                     "with its plain version")
+            if what == "offset":
+                aligned = x.clone()
+                expect_path(ln, aligned, w, b, D // 128)
+                if not all(torch.equal(a, c) for a, c in zip(
+                        got, ln.layer_norm_fwd(aligned, w, b))):
+                    fail(f"layer_norm_fwd {dtype}: the looped and register "
+                         "paths differ on the same rows")
+            if dtype == torch.float32 and what == "offset":
+                out = time_ln_fwd(ln, x, w, b, max(e for e, _ in errs),
+                                  rows)
+                out["path"] = "looped (x one element into its buffer)"
+    return out
 
 
 def bert_width_ln(ln, gen, rows):
     """B5 at BERT-base's rows (32 x 128 tokens, D 768, float32) against its
     plain version, timed beside ``F.layer_norm``; returns the dict."""
-    import torch.nn.functional as tF
-
     R, D = BERT_B * BERT_S, BERT_D
     x = torch.randn(R, D, device="cuda", generator=gen)
     w, b = (torch.randn(D, device="cuda", generator=gen) for _ in range(2))
+    expect_path(ln, x, w, b, D // 128)
     got = ln.layer_norm_fwd(x, w, b)
     ref = ln.layer_norm_fwd_plain(x, w, b)
     torch.cuda.synchronize()
@@ -521,17 +663,8 @@ def bert_width_ln(ln, gen, rows):
     if not all(ok for _, ok in errs):
         fail(f"layer_norm_fwd float32 [{R},{D}] disagrees with its plain "
              "version")
-    ms = time_ms(lambda: ln.layer_norm_fwd(x, w, b))
-    plain_ms = time_ms(lambda: ln.layer_norm_fwd_plain(x, w, b))
-    lib_ms = time_ms(lambda: tF.layer_norm(x, (D,), w, b, 1e-5))
-    bms, by = bound_ms(2 * R * D * 4 + 2 * D * 4 + 2 * R * 4, 8 * R * D,
-                       torch.float32)
-    rows.append(f"layer_norm_fwd f32 [{R},{D}]: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
-                f"{bms:.6f} ms ({by})")
-    return dict(shape=f"[{R},{D}]", max_abs_err=max(e for e, _ in errs),
-                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=lib_ms)
+    return time_ln_fwd(ln, x, w, b, max(e for e, _ in errs), rows,
+                       B5_EARLIER_MS[f"[{R},{D}]"])
 
 
 def mixed_add_ln(ln, gen, R, D, rows, timed, ytype):
@@ -671,7 +804,7 @@ def flash_bwd_phase(fa, gen, rows):
 
 def ln_bwd_phase(ln, gen, rows):
     """B7 vs the plain LayerNorm backward; returns the JSON entry."""
-    entry = bert_entry = None
+    entry = bert_entry = bf16_entry = None
     # the training rows, BERT-base's rows, a few rows, and rows off the
     # register path (D not a multiple of 128; R not a multiple of the
     # block's 8 warps)
@@ -694,8 +827,8 @@ def ln_bwd_phase(ln, gen, rows):
             if not all(ok for _, ok in errs):
                 fail(f"layer_norm_bwd {dtype} R={R} disagrees with its "
                      "plain version")
-            if dtype != torch.float32 or R not in (TRAIN_B * TRAIN_S,
-                                                   bert[0]):
+            if (R, D) not in ((TRAIN_B * TRAIN_S, D_MODEL), bert) or (
+                    dtype != torch.float32 and D == BERT_D):
                 continue
             ms = time_ms(lambda: ln.layer_norm_bwd(x, w, mu, rs, g))
             plain_ms = time_ms(lambda: ln.layer_norm_bwd_plain(
@@ -708,15 +841,20 @@ def ln_bwd_phase(ln, gen, rows):
             # reads x, g, w, mu, rstd; writes dx, dweight, dbias
             bms, by = bound_ms(3 * R * D * it + 3 * D * it + 2 * R * 4,
                                10 * R * D, dtype)
-            rows.append(f"layer_norm_bwd f32 [{R},{D}]: kernel {ms:.4f} "
+            rows.append(f"layer_norm_bwd {SHORT[dtype]} [{R},{D}]: kernel "
+                        f"{ms:.4f} "
                         f"ms, plain {plain_ms:.4f} ms, native_layer_norm_"
                         f"backward {lib_ms:.4f} ms, bound {bms:.6f} ms "
                         f"({by})")
-            if D == BERT_D:
-                bert_entry = dict(
+            if D == BERT_D or dtype != torch.float32:
+                row = dict(
                     shape=f"[{R},{D}]", max_abs_err=max(e for e, _ in errs),
                     ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                     library_ms=lib_ms)
+                if D == BERT_D:
+                    bert_entry = row
+                else:
+                    bf16_entry = row
                 continue
             entry = dict(
                 name="layer_norm_bwd", route="cuda", source=ln.SOURCE,
@@ -727,6 +865,7 @@ def ln_bwd_phase(ln, gen, rows):
                 plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=lib_ms)
     entry["bert_base"] = bert_entry
+    entry["bfloat16"] = bf16_entry
     return entry
 
 
@@ -2322,11 +2461,13 @@ def main() -> int:
                 print(f"  {src}: {fn}: {line.split(':', 1)[1].strip()}; "
                       f"{spill}")
     hmma = tensor_core_counts(_build, libs)
+    b5_registers = ln_fwd_registers(_build)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     flash = flash_phase(fa, gen, rows)
     ln_entry, add_entry = ln_phase(ln, gen, rows)
+    ln_entry["registers"] = b5_registers
     dq_entry, dkv_entry = flash_bwd_phase(fa, gen, rows)
     ln_bwd_entry = ln_bwd_phase(ln, gen, rows)
     for r in rows:

@@ -4,14 +4,33 @@
 // Replaces paddle_tpu/ops/pallas/layer_norm.py::_ln_fwd_kernel (B5),
 // ::_add_ln_fwd_kernel (B6) and ::_ln_bwd_kernel (B7, see ln_bwd_kernel).
 //
-// What bounds it on the H100: bytes. Per row of D elements the kernel does
+// What bounds them on the H100: bytes. Per row of D elements a kernel does
 // ~8 flops per element against 2 (LN) or 4 (add-LN) element reads/writes, far
 // below the ~20 flop/byte balance point of f32, so the floor is HBM traffic.
-// Design: one thread block per row, f32 statistics from block-wide sums
-// (mean, then mean((x - mean)^2), as the Pallas kernel), the row re-read from
-// L1/L2 for the second and third passes instead of HBM (a 4 KB row of the
-// serving shapes stays cache-resident between passes), and mean/rstd written
-// as [R] f32 instead of the TPU's (R, 128) lane-broadcast.
+// All keep f32 statistics, two-pass as the Pallas kernels (mean, then
+// mean((x - mean)^2)), and write mean/rstd as [R] f32 instead of the TPU's
+// (R, 128) lane-broadcast.
+//
+// B5 (ln_fwd_kernel) has to keep enough loads in flight to fill HBM, so one
+// warp owns a row and the row sits in registers: for D = 128 kN each lane
+// loads its 4 kN values once (16-byte loads for f32, 8-byte loads of 4
+// values for bf16: kN loads in flight per lane before the first reduction),
+// takes the mean and then the centred sum of squares from those registers
+// with warp shuffles (no block barrier; in a fixed order, see
+// ln_fwd_kernel), and writes y from them, with w and b in 16-byte loads that
+// the block's warps share through L1. A block has 4 warps, one row each,
+// and the grid at most as many blocks as fit on the card at once, whose
+// warps then stride over the rows (the decode step's 8 rows are two blocks):
+// float32 rows of 1024 take 121 registers a thread, so an SM holds 4 such
+// blocks, and one row per warp over 4,096 rows would need a second wave of
+// blocks. The register path takes kN in 1..8 and 16 (D 128 to 1024, and
+// 2048); any other D, or x or y not aligned for the wide loads (a
+// contiguous view at an offset), takes the looped path of the same kernel
+// (kN = 0): three passes over the row, the second and third from L1/L2.
+// ln_fwd_path says which path a call takes.
+//
+// B6 (add_ln_fwd_kernel) gives each row one thread block and block-wide sums
+// (the row re-read from L1/L2 for the second and third passes).
 //
 // add-LN stores s = x + y in x's type first and normalizes the STORED
 // (rounded) s -- bf16 parity with the dense x + y depends on it. The addends
@@ -30,39 +49,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                  const float* __restrict__ b, T* __restrict__ y,
-                  float* __restrict__ mu, float* __restrict__ rstd, int D,
-                  float eps) {
-  __shared__ float scratch[32];
-  const size_t row = blockIdx.x;
-  const T* xr = x + row * D;
-  T* yr = y + row * D;
-
-  float acc = 0.f;
-  for (int i = threadIdx.x; i < D; i += kThreads) acc += pt::to_f32(xr[i]);
-  const float mean = pt::block_sum(acc, scratch) / D;
-
-  acc = 0.f;
-  for (int i = threadIdx.x; i < D; i += kThreads) {
-    const float c = pt::to_f32(xr[i]) - mean;
-    acc += c * c;
-  }
-  const float var = pt::block_sum(acc, scratch) / D;
-  const float rs = 1.f / sqrtf(var + eps);
-
-  for (int i = threadIdx.x; i < D; i += kThreads) {
-    const float c = (pt::to_f32(xr[i]) - mean) * rs;
-    pt::store(yr + i, c * w[i] + b[i]);
-  }
-  if (threadIdx.x == 0) {
-    mu[row] = mean;
-    rstd[row] = rs;
-  }
-}
 
 template <typename T, typename TR>
 __global__ void __launch_bounds__(kThreads)
@@ -151,6 +137,199 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
   a.x = *reinterpret_cast<const uint32_t*>(&lo);
   a.y = *reinterpret_cast<const uint32_t*>(&hi);
   *reinterpret_cast<uint2*>(p) = a;
+}
+
+// Row LayerNorm forward (B5): one warp a row, rows striding by the grid's
+// warps. kN > 0: the register path for D = 128 kN; kN = 0: the looped path
+// for any D.
+//
+// Both paths add in the order of a 256-thread block that sums its row with
+// pt::block_sum, thread t adding columns t, t + 256, t + 512, ... in turn,
+// as add_ln_fwd_kernel does: the row's sum and centred sum of squares, and
+// so y, mu and rstd, are bit for bit those of that one-block-per-row design
+// on either path. The two paths agree exactly on the same row, and a greedy
+// token at a one-ulp tie does not move with the kernel's layout.
+constexpr int kFwdWarps = 4;  // warps per block
+// Blocks an SM must hold at once: a budget of 170 registers a thread, in
+// which no instantiation spills (ptxas spilled float32 kN = 5 with the
+// thread count alone, and float32 kN = 16 at 4 blocks, 128 registers).
+constexpr int kFwdMinBlocks = 3;
+
+// pt::block_sum's second stage on the 8 warp sums of a 256-thread block:
+// lanes 0..7 hold them, the rest 0, and the xor shuffles add lanes 16 and 8
+// (zeros), then 4, 2 and 1 apart.
+__device__ __forceinline__ float block_order_total(const float (&ws)[8]) {
+  float t[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) t[i] = ws[i] + 0.f;
+  return ((t[0] + t[4]) + (t[2] + t[6])) + ((t[1] + t[5]) + (t[3] + t[7]));
+}
+
+// The register path's layout holds, in lane l, the whole share of the block
+// threads t = 128 h + 4 l + e (h in 0..1, e in 0..3): p[h][e] is thread t's
+// partial. Block warp 4 h + l / 8 is lanes 8 (l / 8) .. + 7, its lane
+// 4 (l % 8) + e: its xor shuffles 16, 8 and 4 apart are this warp's 4, 2 and
+// 1 apart, and 2 and 1 apart are within p[h][.].
+__device__ __forceinline__ float block_order_sum(float (&p)[2][4]) {
+#pragma unroll
+  for (int o = 4; o > 0; o >>= 1)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        p[h][e] += __shfl_xor_sync(0xffffffffu, p[h][e], o);
+  float ws[8];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float s = (p[h][0] + p[h][2]) + (p[h][1] + p[h][3]);
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      ws[4 * h + g] = __shfl_sync(0xffffffffu, s, 8 * g);
+  }
+  return block_order_total(ws);
+}
+
+template <typename T, int kN>
+__global__ void __launch_bounds__(kFwdWarps * 32, kFwdMinBlocks)
+    ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                  const float* __restrict__ b, T* __restrict__ y,
+                  float* __restrict__ mu, float* __restrict__ rstd, int R,
+                  int D, float eps) {
+  const int lane = threadIdx.x & 31;
+  const int stride = gridDim.x * kFwdWarps;
+  for (int row = blockIdx.x * kFwdWarps + (threadIdx.x >> 5); row < R;
+       row += stride) {
+    float mean, rs;
+    if constexpr (kN > 0) {
+      // column 128 j + 4 lane + e is block thread 128 (j % 2) + 4 lane + e's
+      // (j / 2)-th
+      const size_t off = (size_t)row * D + 4 * lane;
+      float v[kN][4], p[2][4];
+#pragma unroll
+      for (int j = 0; j < kN; ++j) load4(x + off + 128 * j, v[j]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[h][e] = 0.f;
+#pragma unroll
+          for (int j = h; j < kN; j += 2) p[h][e] += v[j][e];
+        }
+      mean = block_order_sum(p) / D;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[h][e] = 0.f;
+#pragma unroll
+          for (int j = h; j < kN; j += 2) {
+            const float c = v[j][e] - mean;
+            p[h][e] += c * c;
+          }
+        }
+      rs = 1.f / sqrtf(block_order_sum(p) / D + eps);
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+        float wv[4], bv[4], o[4];
+        load4(w + 4 * lane + 128 * j, wv);
+        load4(b + 4 * lane + 128 * j, bv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float c = (v[j][e] - mean) * rs;
+          o[e] = c * wv[e] + bv[e];
+        }
+        store4(y + off + 128 * j, o);
+      }
+    } else {
+      // lane l plays block thread 32 i + l of block warp i
+      const T* xr = x + (size_t)row * D;
+      T* yr = y + (size_t)row * D;
+      float ws[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        ws[i] = 0.f;
+        for (int c = 32 * i + lane; c < D; c += 256)
+          ws[i] += pt::to_f32(xr[c]);
+        ws[i] = pt::warp_sum(ws[i]);
+      }
+      mean = block_order_total(ws) / D;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        ws[i] = 0.f;
+        for (int c = 32 * i + lane; c < D; c += 256) {
+          const float d = pt::to_f32(xr[c]) - mean;
+          ws[i] += d * d;
+        }
+        ws[i] = pt::warp_sum(ws[i]);
+      }
+      rs = 1.f / sqrtf(block_order_total(ws) / D + eps);
+      for (int c = lane; c < D; c += 32) {
+        const float d = (pt::to_f32(xr[c]) - mean) * rs;
+        pt::store(yr + c, d * w[c] + b[c]);
+      }
+    }
+    if (lane == 0) {
+      mu[row] = mean;
+      rstd[row] = rs;
+    }
+  }
+}
+
+template <typename T>
+using LnFwdKernel = void (*)(const T*, const float*, const float*, T*,
+                             float*, float*, int, int, float);
+
+// kN of the register path for rows of D elements, or 0 (the looped path):
+// D = 128 kN for kN in 1..8 or 16, and `wide` (x and y aligned for
+// 4-element loads, w and b for 16-byte loads).
+int ln_fwd_kn(int D, bool wide) {
+  if (!wide || D % 128 != 0) return 0;
+  const int kn = D / 128;
+  return (kn <= 8 || kn == 16) ? kn : 0;
+}
+
+template <typename T>
+LnFwdKernel<T> ln_fwd_pick(int kn) {
+  switch (kn) {
+    case 1: return ln_fwd_kernel<T, 1>;
+    case 2: return ln_fwd_kernel<T, 2>;
+    case 3: return ln_fwd_kernel<T, 3>;
+    case 4: return ln_fwd_kernel<T, 4>;
+    case 5: return ln_fwd_kernel<T, 5>;
+    case 6: return ln_fwd_kernel<T, 6>;
+    case 7: return ln_fwd_kernel<T, 7>;
+    case 8: return ln_fwd_kernel<T, 8>;
+    case 16: return ln_fwd_kernel<T, 16>;
+  }
+  return ln_fwd_kernel<T, 0>;
+}
+
+template <typename T>
+bool ln_fwd_wide(const void* x, const void* w, const void* b, const void* y) {
+  return ((uintptr_t)x | (uintptr_t)y) % (4 * sizeof(T)) == 0 &&
+         ((uintptr_t)w | (uintptr_t)b) % 16 == 0;
+}
+
+// One row per warp, up to as many blocks as fit on the card at once.
+template <typename T>
+int launch_ln_fwd(const void* x, const float* w, const float* b, void* y,
+                  float* mu, float* rs, int R, int D, float eps,
+                  cudaStream_t st) {
+  const LnFwdKernel<T> fn = ln_fwd_pick<T>(ln_fwd_kn(D, ln_fwd_wide<T>(
+      x, w, b, y)));
+  int per_sm = 0, dev = 0, n_sm = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, fn, 32 * kFwdWarps, 0);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const long long rows = (R + kFwdWarps - 1) / kFwdWarps;
+  const int blocks =
+      (int)std::min(rows, (long long)std::max(per_sm, 1) * n_sm);
+  fn<<<blocks, 32 * kFwdWarps, 0, st>>>(static_cast<const T*>(x), w, b,
+                                        static_cast<T*>(y), mu, rs, R, D, eps);
+  return cudaGetLastError();
 }
 
 // Shared memory: dgamma sums [n_warps][D], then dbeta sums [n_warps][D].
@@ -376,6 +555,10 @@ int launch_ln_bwd_reduce(const float* dwp, const float* dbp, int n, int D,
 // C interface (bound with ctypes). Pointers are device pointers; w and b are
 // f32 [D]; x, y, s are [R, D] row-major of `dtype` (pt::kF32 / pt::kBF16);
 // mu and rstd are f32 [R]. Returns cudaGetLastError() after the launch.
+//
+// ln_fwd_path returns the kN of B5's register path that a call on these
+// pointers would take (D = 128 kN), 0 for the looped path, -1 for an
+// unknown dtype.
 extern "C" int ln_fwd(const void* x, const void* w, const void* b, void* y,
                       void* mu, void* rstd, int R, int D, float eps, int dtype,
                       void* stream) {
@@ -385,18 +568,19 @@ extern "C" int ln_fwd(const void* x, const void* w, const void* b, void* y,
   const float* bf = static_cast<const float*>(b);
   float* m = static_cast<float*>(mu);
   float* rs = static_cast<float*>(rstd);
-  if (dtype == pt::kF32) {
-    ln_fwd_kernel<float><<<R, kThreads, 0, st>>>(
-        static_cast<const float*>(x), wf, bf, static_cast<float*>(y), m, rs,
-        D, eps);
-  } else if (dtype == pt::kBF16) {
-    ln_fwd_kernel<__nv_bfloat16><<<R, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), wf, bf,
-        static_cast<__nv_bfloat16*>(y), m, rs, D, eps);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  if (dtype == pt::kF32)
+    return launch_ln_fwd<float>(x, wf, bf, y, m, rs, R, D, eps, st);
+  if (dtype == pt::kBF16)
+    return launch_ln_fwd<__nv_bfloat16>(x, wf, bf, y, m, rs, R, D, eps, st);
+  return cudaErrorInvalidValue;
+}
+
+extern "C" int ln_fwd_path(const void* x, const void* w, const void* b,
+                           const void* y, int D, int dtype) {
+  if (dtype == pt::kF32) return ln_fwd_kn(D, ln_fwd_wide<float>(x, w, b, y));
+  if (dtype == pt::kBF16)
+    return ln_fwd_kn(D, ln_fwd_wide<__nv_bfloat16>(x, w, b, y));
+  return -1;
 }
 
 template <typename T, typename TR>

@@ -8,6 +8,15 @@ wins (``x + 2.0`` keeps float16); host arrays and lists become tensors on
 the device of the tensor beside them (the ``set_device`` default when
 there is none). ``torch.Tensor`` arguments are taken as they are, so a
 ``Parameter`` mixes with ``Tensor`` freely; the result is a ``Tensor``.
+
+Promotion. torch refuses integer and bool tensors in ops that compute only
+in floats (``std``, ``qr``, ``hypot``, ...) and bool tensors in some
+integer ops (``abs``, ``argmax``), where jnp promotes them. An op that
+the JAX package computes on such inputs opts into :func:`float_args`
+(integer and bool tensors to the default float type, the type jnp gives)
+or :func:`bool_args` (bool tensors as uint8, and a uint8 result back to
+bool: jnp keeps ``abs``, ``ceil``, ``floor`` and ``trunc`` of a bool
+tensor bool).
 """
 from __future__ import annotations
 
@@ -17,10 +26,11 @@ import numpy as np
 import torch
 
 from ..core import autograd as AG
+from ..core.dtype import default_float_dtype
 from ..core.tensor import Tensor, _as_raw
 
 __all__ = ["canon_shape", "raw", "raws", "apply", "unary", "binary",
-           "nondiff"]
+           "nondiff", "to_float", "float_args", "bool_args"]
 
 
 def canon_shape(shape):
@@ -97,3 +107,34 @@ def nondiff(fn, opname):
 
     op.__name__ = opname
     return op
+
+
+def to_float(a):
+    """An integer or bool tensor in the default float type; a float or
+    complex one, or a non-tensor, as it is."""
+    if not isinstance(a, torch.Tensor) or a.is_floating_point() \
+            or a.is_complex():
+        return a
+    return a.to(default_float_dtype())
+
+
+def float_args(fn):
+    """``fn`` with its integer and bool tensor arguments in the default
+    float type first."""
+    def f(*args, **kw):
+        return fn(*(to_float(a) for a in args), **kw)
+
+    return f
+
+
+def bool_args(fn):
+    """``fn`` with its bool tensor arguments as uint8; a uint8 result of
+    bool inputs comes back as bool."""
+    def f(*args, **kw):
+        was_bool = any(isinstance(a, torch.Tensor) and a.dtype == torch.bool
+                       for a in args)
+        out = fn(*(a.to(torch.uint8) if isinstance(a, torch.Tensor)
+                   and a.dtype == torch.bool else a for a in args), **kw)
+        return out.bool() if was_bool and out.dtype == torch.uint8 else out
+
+    return f

@@ -18,7 +18,7 @@ from ..core import random as rnd
 from ..core.device import resolve_device
 from ..core.dtype import convert_dtype, default_float_dtype
 from ..core.tensor import Tensor, to_tensor
-from ._dispatch import apply, canon_shape as _shape, raw
+from ._dispatch import apply, canon_shape as _shape, float_args, raw
 
 __all__ = [
     "to_tensor", "zeros", "ones", "full", "empty", "zeros_like",
@@ -248,7 +248,7 @@ def poisson(x, name=None):
 
 
 def polar(abs, angle, name=None):
-    return apply(torch.polar, abs, angle, name="polar")
+    return apply(float_args(torch.polar), abs, angle, name="polar")
 
 
 def complex(real, imag, name=None):

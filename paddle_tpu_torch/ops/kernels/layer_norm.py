@@ -39,6 +39,7 @@ from ._build import upcast as _up
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "ln_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+    "ln_fwd_path": [_P, _P, _P, _P, _I, _I],
     "add_ln_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
     "ln_bwd": [_P] * 10 + [_I, _I, _I, _I, _I, _P],
     "ln_bwd_blocks": [_I, _I, _I],
@@ -101,7 +102,9 @@ def _check(what, x2d, weight, bias, *more):
 
 
 def layer_norm_fwd(x2d, weight, bias, eps=1e-5):
-    """LayerNorm forward of ``[R, D]`` rows -> (y, mean [R], rstd [R])."""
+    """LayerNorm forward of ``[R, D]`` rows -> (y, mean [R], rstd [R]).
+    The kernel takes its register path or its looped path as
+    :func:`layer_norm_fwd_path` says."""
     _build.refuse_grad("layer_norm_fwd", _FUNCTIONS, x2d, weight, bias)
     if x2d.device.type == "cpu":
         return layer_norm_fwd_plain(x2d, weight, bias, eps)
@@ -120,6 +123,18 @@ def layer_norm_fwd(x2d, weight, bias, eps=1e-5):
     _build.check(rc, "layer_norm_fwd")
     _build.count_launch(layer_norm_fwd, x2d)
     return y, mu, rs
+
+
+def layer_norm_fwd_path(x2d, weight, bias):
+    """The path :func:`layer_norm_fwd` takes on these CUDA tensors: kN > 0
+    for the register path (D = 128 kN; kN in 1..8 or 16, with ``x2d``
+    aligned for 4-element loads), 0 for the looped path. The output the
+    wrapper allocates is always aligned."""
+    _check("layer_norm_fwd_path", x2d, weight, bias)
+    w, b = weight.float().contiguous(), bias.float().contiguous()
+    lib = _build.library("layer_norm", _SIGNATURES)
+    return lib.ln_fwd_path(x2d.data_ptr(), w.data_ptr(), b.data_ptr(), None,
+                           x2d.shape[1], _build.DTYPE_CODE[x2d.dtype])
 
 
 def add_layer_norm_fwd(x2d, y2d, weight, bias, eps=1e-5):

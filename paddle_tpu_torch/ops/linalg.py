@@ -1,14 +1,22 @@
 """Linear algebra (counterpart of ``paddle_tpu/ops/linalg.py``): every
 name of its ``__all__`` over ``torch.matmul`` and ``torch.linalg``. A
 plain matmul stays ``torch.matmul`` (cuBLAS): the JAX package computes it
-outside any Pallas kernel too.
+outside any Pallas kernel too. The factorizations, norms and statistics
+take integer and bool inputs in the default float type, as jnp promotes
+them (``_dispatch.float_args``).
+
+Where the two differ: ``eigh``/``eigvalsh`` read one triangle (``UPLO``),
+where jnp symmetrizes; ``histogram`` counts in int64, where the JAX
+package returns float32; ranks are int64, where it gives int32.
 """
 from __future__ import annotations
+
+import builtins
 
 import torch
 
 from ..core.tensor import Tensor
-from ._dispatch import apply, nondiff, raw
+from ._dispatch import apply, float_args, nondiff, raw, to_float
 
 __all__ = [
     "addmm", "bincount", "bmm", "cholesky", "corrcoef", "cov", "cross",
@@ -82,8 +90,8 @@ def norm(x, p="fro", axis=None, keepdim=False, name=None):
 
 
 def dist(x, y, p=2, name=None):
-    return apply(lambda a, b: torch.linalg.vector_norm(
-        (a - b).reshape(-1), _ord(p)), x, y, name="dist")
+    return apply(float_args(lambda a, b: torch.linalg.vector_norm(
+        (a - b).reshape(-1), _ord(p))), x, y, name="dist")
 
 
 def cross(x, y, axis=None, name=None):
@@ -106,9 +114,8 @@ def inverse(x, name=None):
 
 
 def pinv(x, rcond=1e-15, hermitian=False, name=None):
-    return apply(lambda a: torch.linalg.pinv(a, rtol=rcond,
-                                             hermitian=hermitian), x,
-                 name="pinv")
+    return apply(float_args(lambda a: torch.linalg.pinv(
+        a, rtol=rcond, hermitian=hermitian)), x, name="pinv")
 
 
 def slogdet(x, name=None):
@@ -126,25 +133,32 @@ def matrix_power(x, n, name=None):
 
 
 def matrix_rank(x, tol=None, hermitian=False, name=None):
-    return nondiff(lambda a: torch.linalg.matrix_rank(
-        a, rtol=tol, hermitian=hermitian), "matrix_rank")(x)
+    return nondiff(float_args(lambda a: torch.linalg.matrix_rank(
+        a, rtol=tol, hermitian=hermitian)), "matrix_rank")(x)
 
 
 def svd(x, full_matrices=False, name=None):
-    return apply(lambda a: tuple(torch.linalg.svd(
-        a, full_matrices=full_matrices)), x, name="svd")
+    return apply(float_args(lambda a: tuple(torch.linalg.svd(
+        a, full_matrices=full_matrices))), x, name="svd")
 
 
 def qr(x, mode="reduced", name=None):
-    return apply(lambda a: tuple(torch.linalg.qr(a, mode)), x, name="qr")
+    return apply(float_args(lambda a: tuple(torch.linalg.qr(a, mode))), x,
+                 name="qr")
 
 
 def eigh(x, UPLO="L", name=None):
+    """Eigenvalues (ascending) and eigenvectors of the symmetric matrix
+    whose ``UPLO`` triangle ``x`` holds; the other triangle is not read,
+    as upstream Paddle and numpy do. The JAX package symmetrizes
+    (``(x + x^H) / 2``) first, so the two agree on symmetric inputs only:
+    for ``[[1, 2], [0, 3]]`` it gives [0.5858, 3.4142], this [1, 3]."""
     return apply(lambda a: tuple(torch.linalg.eigh(a, UPLO)), x,
                  name="eigh")
 
 
 def eigvalsh(x, UPLO="L", name=None):
+    """The eigenvalues of :func:`eigh`, read from the same triangle."""
     return apply(lambda a: torch.linalg.eigvalsh(a, UPLO), x,
                  name="eigvalsh")
 
@@ -168,16 +182,36 @@ def triangular_solve(x, y, upper=True, transpose=False, unitriangular=False,
     return apply(f, x, y, name="triangular_solve")
 
 
+def _lstsq(a, b, rcond):
+    """jnp.linalg.lstsq's algorithm: the minimum-norm solution through the
+    SVD of ``a`` ``[M, N]``, singular values below ``rcond`` times the
+    largest cut (``rcond`` None: eps * max(M, N)); residuals are
+    ``|b - a x|^2`` per column of ``b`` ``[M]`` or ``[M, K]`` whatever the
+    rank and shape (``(1,)`` for a vector ``b``)."""
+    dtype = torch.promote_types(a.dtype, b.dtype)
+    a, b = a.to(dtype), b.to(dtype)
+    vec = b.dim() == 1
+    if vec:
+        b = b[:, None]
+    eps = torch.finfo(dtype).eps
+    cut = eps * builtins.max(a.shape) if rcond is None else (
+        eps if rcond < 0 else rcond)
+    u, s, vh = torch.linalg.svd(a, full_matrices=False)
+    mask = (s > 0) & (s >= cut * s[0])
+    s_inv = torch.where(mask, 1 / torch.where(mask, s, 1), 0).to(dtype)
+    sol = vh.mH @ (s_inv[:, None] * (u.mH @ b))
+    resid = torch.linalg.vector_norm(b - a @ sol, dim=0) ** 2
+    return (sol.reshape(-1) if vec else sol), resid, mask.sum(), s
+
+
 def lstsq(x, y, rcond=None, driver=None, name=None):
     """(solution, residuals, rank, singular values) of the least-squares
-    problem; the last three as the driver gives them (on the CPU
-    ``gelsd`` unless ``driver`` names another)."""
-    def f(a, b):
-        drv = driver or ("gelsd" if a.device.type == "cpu" else None)
-        return tuple(torch.linalg.lstsq(a, b, rcond=rcond, driver=drv))
-
+    problem ``x @ solution = y``, computed as the JAX package computes
+    them (:func:`_lstsq`), on either device; ``driver`` is not read (on
+    the card torch has only ``gels``, which assumes a full-rank ``x``)."""
     with torch.no_grad():
-        return apply(f, x, y, name="lstsq")
+        return apply(lambda a, b: _lstsq(to_float(a), to_float(b), rcond),
+                     x, y, name="lstsq")
 
 
 def multi_dot(tensors, name=None):
@@ -187,7 +221,8 @@ def multi_dot(tensors, name=None):
 
 def histogram(x, bins=100, min=0, max=0, name=None):
     """Counts in ``bins`` equal bins over [min, max] (the data's range
-    when both are 0)."""
+    when both are 0), as int64, upstream Paddle's type; the JAX package
+    returns them as float32 (the same values)."""
     def f(a):
         a = a.float()
         lo, hi = (min, max) if (min != 0 or max != 0) else (
@@ -204,14 +239,13 @@ def bincount(x, weights=None, minlength=0, name=None):
 
 
 def corrcoef(x, rowvar=True, name=None):
-    return apply(lambda a: torch.corrcoef(a if rowvar else a.t()), x,
-                 name="corrcoef")
+    return apply(float_args(lambda a: torch.corrcoef(
+        a if rowvar else a.t())), x, name="corrcoef")
 
 
 def cov(x, rowvar=True, ddof=True, fweights=None, aweights=None, name=None):
-    return apply(lambda a: torch.cov(a if rowvar else a.t(),
-                                     correction=int(bool(ddof))), x,
-                 name="cov")
+    return apply(float_args(lambda a: torch.cov(
+        a if rowvar else a.t(), correction=int(bool(ddof)))), x, name="cov")
 
 
 def addmm(input, x, y, beta=1.0, alpha=1.0, name=None):
@@ -255,7 +289,8 @@ def matrix_exp(x, name=None):
 
 
 def cond(x, p=None, name=None):
-    return apply(lambda a: torch.linalg.cond(a, p), x, name="cond")
+    return apply(float_args(lambda a: torch.linalg.cond(a, p)), x,
+                 name="cond")
 
 
 def cdist(x, y, p=2.0, compute_mode="use_mm_for_euclid_dist_if_necessary",

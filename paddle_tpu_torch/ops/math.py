@@ -3,10 +3,12 @@
 under the name the JAX package gives it (the AMP and NaN/Inf seam of
 ``core.autograd.apply``).
 
-Where the two differ: integer reductions return int64 (the JAX package
-int32 without x64); ``exponential_`` fills ``x`` in place with
-Exponential(``lam``) draws from the package's generator, as Paddle does,
-where the JAX package computes ``exp``.
+Integer and bool inputs promote as the JAX package's do (``_dispatch``'s
+``float_args`` and ``bool_args``). Where the two differ: integer
+reductions return int64 (the JAX package int32 without x64);
+``exponential_`` fills ``x`` in place with Exponential(``lam``) draws
+from the package's generator, as Paddle does, where the JAX package
+computes ``exp``.
 """
 from __future__ import annotations
 
@@ -15,9 +17,10 @@ import builtins
 import torch
 
 from ..core import random as rnd
-from ..core.dtype import convert_dtype, default_float_dtype
+from ..core.dtype import convert_dtype
 from ..core.tensor import Tensor
-from ._dispatch import apply, binary, nondiff, raw, raws, unary
+from ._dispatch import (apply, binary, bool_args, float_args, nondiff, raw,
+                        raws, to_float, unary)
 
 __all__ = [
     "abs", "acos", "acosh", "add", "all", "amax", "amin", "angle", "any",
@@ -55,13 +58,13 @@ minimum = binary(torch.minimum, "minimum")
 fmax = binary(torch.fmax, "fmax")
 fmin = binary(torch.fmin, "fmin")
 atan2 = binary(torch.atan2, "atan2")
-hypot = binary(torch.hypot, "hypot")
-logaddexp = binary(torch.logaddexp, "logaddexp")
+hypot = binary(float_args(torch.hypot), "hypot")
+logaddexp = binary(float_args(torch.logaddexp), "logaddexp")
 heaviside = binary(lambda a, b: torch.where(
     a > 0, torch.ones_like(a), torch.where(a < 0, torch.zeros_like(a),
                                            torch.as_tensor(b).to(a))),
     "heaviside")
-nextafter = binary(torch.nextafter, "nextafter")
+nextafter = binary(float_args(torch.nextafter), "nextafter")
 copysign = binary(torch.copysign, "copysign")
 gcd = nondiff(torch.gcd, "gcd")
 lcm = nondiff(torch.lcm, "lcm")
@@ -76,14 +79,14 @@ log1p = unary(torch.log1p, "log1p")
 sqrt = unary(torch.sqrt, "sqrt")
 rsqrt = unary(torch.rsqrt, "rsqrt")
 square = unary(torch.square, "square")
-abs = unary(torch.abs, "abs")
+abs = unary(bool_args(torch.abs), "abs")
 sign = unary(torch.sign, "sign")
 neg = unary(torch.neg, "neg")
 reciprocal = unary(torch.reciprocal, "reciprocal")
-floor = unary(torch.floor, "floor")
-ceil = unary(torch.ceil, "ceil")
+floor = unary(bool_args(torch.floor), "floor")
+ceil = unary(bool_args(torch.ceil), "ceil")
 round = unary(torch.round, "round")
-trunc = unary(torch.trunc, "trunc")
+trunc = unary(bool_args(torch.trunc), "trunc")
 frac = unary(lambda a: a - torch.trunc(a), "frac")
 sin = unary(torch.sin, "sin")
 cos = unary(torch.cos, "cos")
@@ -206,11 +209,6 @@ def _dims(a, ax):
     return ax if isinstance(ax, tuple) else (ax,)
 
 
-def _float(a):
-    return a if a.is_floating_point() or a.is_complex() \
-        else a.to(default_float_dtype())
-
-
 def sum(x, axis=None, dtype=None, keepdim=False, name=None):
     ax, d = _axis(axis), convert_dtype(dtype)
     return apply(lambda a: torch.sum(a, _dims(a, ax), keepdim=keepdim,
@@ -219,7 +217,7 @@ def sum(x, axis=None, dtype=None, keepdim=False, name=None):
 
 def mean(x, axis=None, keepdim=False, name=None):
     ax = _axis(axis)
-    return apply(lambda a: torch.mean(_float(a), _dims(a, ax),
+    return apply(lambda a: torch.mean(to_float(a), _dims(a, ax),
                                       keepdim=keepdim), x, name="mean")
 
 
@@ -271,14 +269,16 @@ def logsumexp(x, axis=None, keepdim=False, name=None):
 
 def std(x, axis=None, unbiased=True, keepdim=False, name=None):
     ax = _axis(axis)
-    return apply(lambda a: torch.std(a, _dims(a, ax), correction=int(
-        unbiased), keepdim=keepdim), x, name="std")
+    return apply(float_args(lambda a: torch.std(
+        a, _dims(a, ax), correction=int(unbiased), keepdim=keepdim)), x,
+        name="std")
 
 
 def var(x, axis=None, unbiased=True, keepdim=False, name=None):
     ax = _axis(axis)
-    return apply(lambda a: torch.var(a, _dims(a, ax), correction=int(
-        unbiased), keepdim=keepdim), x, name="var")
+    return apply(float_args(lambda a: torch.var(
+        a, _dims(a, ax), correction=int(unbiased), keepdim=keepdim)), x,
+        name="var")
 
 
 def _quantile(a, q, ax, keepdim, fn):
@@ -304,32 +304,36 @@ def _quantile(a, q, ax, keepdim, fn):
 
 def median(x, axis=None, keepdim=False, name=None):
     ax = _axis(axis)
-    return apply(lambda a: _quantile(a, 0.5, ax, keepdim, torch.quantile),
+    return apply(float_args(lambda a: _quantile(a, 0.5, ax, keepdim,
+                                                torch.quantile)),
                  x, name="median")
 
 
 def quantile(x, q, axis=None, keepdim=False, name=None):
     ax = _axis(axis)
-    return apply(lambda a: _quantile(a, q, ax, keepdim, torch.quantile), x,
+    return apply(float_args(lambda a: _quantile(a, q, ax, keepdim,
+                                                torch.quantile)), x,
                  name="quantile")
 
 
 def nanmedian(x, axis=None, keepdim=False, name=None):
     ax = _axis(axis)
-    return apply(lambda a: _quantile(a, 0.5, ax, keepdim,
-                                     torch.nanquantile), x,
+    return apply(float_args(lambda a: _quantile(a, 0.5, ax, keepdim,
+                                                torch.nanquantile)), x,
                  name="nanmedian")
 
 
 def nanquantile(x, q, axis=None, keepdim=False, name=None):
     ax = _axis(axis)
-    return apply(lambda a: _quantile(a, q, ax, keepdim, torch.nanquantile),
+    return apply(float_args(lambda a: _quantile(a, q, ax, keepdim,
+                                                torch.nanquantile)),
                  x, name="nanquantile")
 
 
 def nanmean(x, axis=None, keepdim=False, name=None):
     ax = _axis(axis)
-    return apply(lambda a: torch.nanmean(a, _dims(a, ax), keepdim=keepdim),
+    return apply(float_args(lambda a: torch.nanmean(a, _dims(a, ax),
+                                                   keepdim=keepdim)),
                  x, name="nanmean")
 
 

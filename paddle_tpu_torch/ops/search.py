@@ -7,7 +7,7 @@ from __future__ import annotations
 import torch
 
 from ..core.dtype import convert_dtype
-from ._dispatch import apply, nondiff, raw
+from ._dispatch import apply, bool_args, nondiff, raw
 
 __all__ = ["argmax", "argmin", "argsort", "index_of_max", "kthvalue",
            "mode", "searchsorted", "sort", "topk"]
@@ -28,8 +28,8 @@ def _arg(tfn, opname):
     return op
 
 
-argmax = _arg(torch.argmax, "argmax")
-argmin = _arg(torch.argmin, "argmin")
+argmax = _arg(bool_args(torch.argmax), "argmax")
+argmin = _arg(bool_args(torch.argmin), "argmin")
 
 
 def argsort(x, axis=-1, descending=False, name=None):

@@ -106,8 +106,11 @@ def test_flash_forward_kernel(gen, dtype, S, Sk, D, causal, qo, ko):
         assert (o[:, :, :ko] == 0).all() and (lse[:, :, :ko] == -1e30).all()
 
 
+# (R, D): the training rows, the decode step's, rows of the register path
+# at D 384 and BERT-base's 768, and its widest, 2048 (kN = 16)
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("R,D", [(1024, 1024), (8, 1024), (48, 384)])
+@pytest.mark.parametrize("R,D", [(1024, 1024), (8, 1024), (48, 384),
+                                 (4096, 768), (256, 2048)])
 def test_layer_norm_kernels(gen, dtype, R, D):
     x, y = (torch.randn(R, D, device="cuda", generator=gen).to(dtype)
             for _ in range(2))
@@ -122,6 +125,74 @@ def test_layer_norm_kernels(gen, dtype, R, D):
     assert_near(got2[1], ref2[1], dtype)
     for a, r in zip(got[1:] + got2[2:], ref[1:] + ref2[2:]):
         assert_near(a, r, torch.float32)
+
+
+def _ln_rows(gen, dtype, R, D, offset):
+    """[R, D] rows of ``dtype``, ``offset`` elements into their buffer (a
+    contiguous view), with float32 weight and bias."""
+    buf = torch.randn(R * D + offset, device="cuda", generator=gen).to(dtype)
+    w, b = (torch.randn(D, device="cuda", generator=gen) for _ in range(2))
+    return buf[offset:].view(R, D), w, b
+
+
+# (R, D, offset, kN): the register path for D = 128 kN (kN 1..8, 16) on
+# aligned rows; the looped path (kN = 0) for D not a multiple of 128, for
+# D = 128 kN outside the register path's kN, and for rows one element
+# into their buffer (not aligned for the wide loads)
+LN_FWD_PATHS = [(4096, 768, 0, 6), (4096, 1024, 0, 8), (8, 1024, 0, 8),
+                (32, 1024, 0, 8), (40, 1024, 0, 8), (48, 128, 0, 1),
+                (256, 2048, 0, 16), (37, 200, 0, 0), (16, 1152, 0, 0),
+                (64, 4096, 0, 0), (4096, 1024, 1, 0), (40, 768, 1, 0)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("R,D,offset,kn", LN_FWD_PATHS)
+def test_layer_norm_forward_paths(gen, dtype, R, D, offset, kn):
+    """Which path B5 takes (its C query), and that path against the plain
+    version: y in x's type, mu and rstd in float32."""
+    x, w, b = _ln_rows(gen, dtype, R, D, offset)
+    assert ln.layer_norm_fwd_path(x, w, b) == kn
+    before = ln.layer_norm_fwd.launches
+    got, ref = ln.layer_norm_fwd(x, w, b), ln.layer_norm_fwd_plain(x, w, b)
+    torch.cuda.synchronize()
+    assert ln.layer_norm_fwd.launches == before + 1
+    assert got[0].dtype == dtype
+    assert_near(got[0], ref[0], dtype)
+    for a, r in zip(got[1:], ref[1:]):
+        assert_near(a, r, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("R,D", [(40, 1024), (4096, 768), (37, 384),
+                                 (8, 128), (16, 2048)])
+def test_layer_norm_forward_paths_agree_bit_for_bit(gen, dtype, R, D):
+    """Both paths add in one order (a 256-thread block's): the looped path
+    on rows one element into their buffer gives the register path's bits
+    on an aligned copy of the same rows."""
+    x, w, b = _ln_rows(gen, dtype, R, D, 1)
+    aligned = x.clone()
+    assert ln.layer_norm_fwd_path(x, w, b) == 0
+    assert ln.layer_norm_fwd_path(aligned, w, b) == D // 128
+    looped = ln.layer_norm_fwd(x, w, b)
+    register = ln.layer_norm_fwd(aligned, w, b)
+    torch.cuda.synchronize()
+    for a, c in zip(looped, register):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("R,D,offset", [(4096, 768, 0), (37, 200, 0),
+                                        (40, 1024, 1)])
+def test_layer_norm_forward_kernel_is_deterministic(gen, dtype, R, D,
+                                                    offset):
+    """Each row's sums run in a fixed order in either path: two calls on
+    the same inputs are bit-equal."""
+    x, w, b = _ln_rows(gen, dtype, R, D, offset)
+    first = ln.layer_norm_fwd(x, w, b)
+    second = ln.layer_norm_fwd(x, w, b)
+    torch.cuda.synchronize()
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
 
 
 @pytest.mark.parametrize("ytype", [torch.bfloat16, torch.float16], ids=str)
@@ -787,3 +858,23 @@ def test_no_cpu_fallback_without_a_card(monkeypatch, default_device):
         pt.to_tensor([1.0])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pt.set_device("gpu")
+
+
+def test_underdetermined_lstsq_on_the_card(default_device):
+    """A [3, 4] by [3, 2] system on the card: the minimum-norm solution
+    (numpy's and the JAX package's), residuals |b - a x|^2 of shape (2,),
+    rank 3, the singular values; equal to the CPU's within float32
+    rounding of a 4 x 4 problem (1e-5)."""
+    import numpy as np
+
+    a = np.random.RandomState(0).uniform(-1, 1, (3, 4)).astype(np.float32)
+    b = np.array([[1, 2], [0, 1], [3, 1]], dtype=np.float32)
+    sol, resid, rank, sv = pt.lstsq(pt.to_tensor(a), pt.to_tensor(b))
+    assert sol._data.is_cuda and tuple(resid.shape) == (2,)
+    np.testing.assert_allclose(sol.numpy(), np.linalg.lstsq(
+        a, b, rcond=None)[0], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(resid.numpy(), np.sum(
+        (b - a @ sol.numpy()) ** 2, axis=0), rtol=1e-5, atol=1e-5)
+    assert int(rank.numpy()) == 3
+    np.testing.assert_allclose(sv.numpy(), np.linalg.svd(a)[1], rtol=1e-5,
+                               atol=1e-5)
