@@ -103,7 +103,20 @@
    the losses, the first step's gradients and each kernel's float32
    launches per step must agree (eager and TrainStep ms/step, peak
    memory);
-14. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
+14. its ``translation_phase``: Transformer-base (``nn.Transformer`` at
+   its defaults: d_model 512, 8 heads, 6 + 6 layers, ffn 2048, dropout
+   0.1, post-LN; a shared 37000-token embedding, padding id 0, scaled by
+   sqrt(512), sinusoidal positions, the output projection tied to it) as
+   a Paddle translation script writes it, float32: a gradient oracle
+   against the dense LayerNorm at dropout 0, five Adam steps (NoamDecay)
+   of ``CrossEntropyLoss(soft_label=True)`` over ``label_smooth(
+   one_hot(.))`` on 32 x 128 source and target tokens (losses finite and
+   falling, B5 and B7 30 launches a step, nothing else), then greedy
+   decoding of 8 sources for 32 tokens through the decoder's incremental
+   cache (B5 12 + 18 a token) against a full teacher-forced forward
+   (ms/step, target tokens/s, peak memory, decode tokens/s); B5 and B7
+   are also held at its [4096, 512] rows in step 2;
+15. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
    "device": ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device, outside a
@@ -112,6 +125,7 @@ checkout of the repository, or when any check fails.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -253,6 +267,22 @@ BENCH_STEPS = 6
 LENET_BATCH, RESNET_BATCH = 256, 256
 BERT_B, BERT_S, BERT_D, BERT_HEADS, BERT_LAYERS = 32, 128, 768, 12, 12
 BERT_VOCAB, BERT_POS = 30522, 512
+
+# Transformer-base translation (Vaswani et al. 2017, Table 3 "base", the
+# defaults of nn.Transformer) in the shape of Paddle's machine-translation
+# example: the shared 37000-token BPE vocabulary of WMT14 en-de (the paper's
+# section 5.1), B = 32 sentences of 128 source and 128 target tokens, five
+# eager Adam steps (beta2 0.98, epsilon 1e-9) under NoamDecay(512, 4000) at
+# the example's scale 2.0, then greedy decoding of 8 sources for 32 tokens
+TB_VOCAB, TB_D, TB_B, TB_S, TB_STEPS = 37000, 512, 32, 128, 5
+TB_DECODE_B, TB_DECODE_NEW = 8, 32
+TB_LAYERS = 6
+#: launches per training step (2 LayerNorms an encoder layer, 3 a decoder
+#: layer) and per greedy decode (the encoder once, the decoder per token)
+TB_STEP_LAUNCHES = {"layer_norm_fwd": {"float32": 5 * TB_LAYERS},
+                    "layer_norm_bwd": {"float32": 5 * TB_LAYERS}}
+TB_DECODE_LAUNCHES = {"layer_norm_fwd": {
+    "float32": 2 * TB_LAYERS + 3 * TB_LAYERS * TB_DECODE_NEW}}
 
 
 def fail(msg: str) -> None:
@@ -558,7 +588,16 @@ def ln_phase(ln, gen, rows):
     for pair in ("float32+bfloat16", "float32+float16"):
         entries[1][pair] = timed[pair]
     entries[0]["bfloat16"] = timed["layer_norm_fwd_bf16"]
-    entries[0]["bert_base"] = bert_width_ln(ln, gen, rows)
+    entries[0]["bert_base"] = width_ln(
+        ln, gen, rows, BERT_B * BERT_S, BERT_D, "BERT-base",
+        B5_EARLIER_MS[f"[{BERT_B * BERT_S},{BERT_D}]"])
+    entries[0]["transformer_base"] = width_ln(
+        ln, gen, rows, TB_B * TB_S, TB_D, "Transformer-base")
+    entries[0]["transformer_base_decode"] = {
+        f"[{R},{TB_D}]": width_ln(ln, gen, rows, R, TB_D, what)
+        for R, what in ((TB_DECODE_B * TB_S, "Transformer-base encoder "
+                         "in the decode"),
+                        (TB_DECODE_B, "Transformer-base decoder, a token"))}
     entries[0]["looped_path"] = ln_fwd_looped(ln, gen, rows)
     return entries
 
@@ -647,10 +686,11 @@ def ln_fwd_looped(ln, gen, rows):
     return out
 
 
-def bert_width_ln(ln, gen, rows):
-    """B5 at BERT-base's rows (32 x 128 tokens, D 768, float32) against its
-    plain version, timed beside ``F.layer_norm``; returns the dict."""
-    R, D = BERT_B * BERT_S, BERT_D
+def width_ln(ln, gen, rows, R, D, what, earlier_ms=None):
+    """B5 at a model's rows (``what``: BERT-base's [4096, 768],
+    Transformer-base's [4096, 512] in training and its decode's [1024, 512]
+    and [8, 512]; float32) against its plain version on its register path,
+    timed beside ``F.layer_norm``; returns the dict."""
     x = torch.randn(R, D, device="cuda", generator=gen)
     w, b = (torch.randn(D, device="cuda", generator=gen) for _ in range(2))
     expect_path(ln, x, w, b, D // 128)
@@ -658,13 +698,13 @@ def bert_width_ln(ln, gen, rows):
     ref = ln.layer_norm_fwd_plain(x, w, b)
     torch.cuda.synchronize()
     errs = [close(a, r, torch.float32) for a, r in zip(got, ref)]
-    print(f"layer_norm_fwd float32 [{R},{D}] (BERT-base): max err y/mu/rstd "
+    print(f"layer_norm_fwd float32 [{R},{D}] ({what}): max err y/mu/rstd "
           f"{[f'{e:.3e}' for e, _ in errs]}")
     if not all(ok for _, ok in errs):
         fail(f"layer_norm_fwd float32 [{R},{D}] disagrees with its plain "
              "version")
     return time_ln_fwd(ln, x, w, b, max(e for e, _ in errs), rows,
-                       B5_EARLIER_MS[f"[{R},{D}]"])
+                       earlier_ms)
 
 
 def mixed_add_ln(ln, gen, R, D, rows, timed, ytype):
@@ -804,14 +844,16 @@ def flash_bwd_phase(fa, gen, rows):
 
 def ln_bwd_phase(ln, gen, rows):
     """B7 vs the plain LayerNorm backward; returns the JSON entry."""
-    entry = bert_entry = bf16_entry = None
-    # the training rows, BERT-base's rows, a few rows, and rows off the
-    # register path (D not a multiple of 128; R not a multiple of the
-    # block's 8 warps)
+    entry = bf16_entry = None
+    widths = {}  # float32 rows of BERT-base and Transformer-base
+    # the training rows, BERT-base's and Transformer-base's rows, a few
+    # rows, and rows off the register path (D not a multiple of 128; R not
+    # a multiple of the block's 8 warps)
     bert = BERT_B * BERT_S, BERT_D
+    tbase = TB_B * TB_S, TB_D
     for dtype in (torch.float32, torch.bfloat16):
-        for R, D in ((TRAIN_B * TRAIN_S, D_MODEL), bert, (40, D_MODEL),
-                     (37, 200)):
+        for R, D in ((TRAIN_B * TRAIN_S, D_MODEL), bert, tbase,
+                     (40, D_MODEL), (37, 200)):
             x, g = (torch.randn(R, D, device="cuda", generator=gen
                                 ).to(dtype) for _ in range(2))
             w, b = (torch.randn(D, device="cuda", generator=gen
@@ -827,8 +869,9 @@ def ln_bwd_phase(ln, gen, rows):
             if not all(ok for _, ok in errs):
                 fail(f"layer_norm_bwd {dtype} R={R} disagrees with its "
                      "plain version")
-            if (R, D) not in ((TRAIN_B * TRAIN_S, D_MODEL), bert) or (
-                    dtype != torch.float32 and D == BERT_D):
+            if (R, D) not in ((TRAIN_B * TRAIN_S, D_MODEL), bert, tbase) or (
+                    dtype != torch.float32 and (R, D) != (
+                        TRAIN_B * TRAIN_S, D_MODEL)):
                 continue
             ms = time_ms(lambda: ln.layer_norm_bwd(x, w, mu, rs, g))
             plain_ms = time_ms(lambda: ln.layer_norm_bwd_plain(
@@ -846,13 +889,13 @@ def ln_bwd_phase(ln, gen, rows):
                         f"ms, plain {plain_ms:.4f} ms, native_layer_norm_"
                         f"backward {lib_ms:.4f} ms, bound {bms:.6f} ms "
                         f"({by})")
-            if D == BERT_D or dtype != torch.float32:
+            if D != D_MODEL or dtype != torch.float32:
                 row = dict(
                     shape=f"[{R},{D}]", max_abs_err=max(e for e, _ in errs),
                     ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                     library_ms=lib_ms)
-                if D == BERT_D:
-                    bert_entry = row
+                if D != D_MODEL:
+                    widths[D] = row
                 else:
                     bf16_entry = row
                 continue
@@ -864,7 +907,8 @@ def ln_bwd_phase(ln, gen, rows):
                 max_abs_err=max(e for e, _ in errs), ms=ms,
                 plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=lib_ms)
-    entry["bert_base"] = bert_entry
+    entry["bert_base"] = widths[BERT_D]
+    entry["transformer_base"] = widths[TB_D]
     entry["bfloat16"] = bf16_entry
     return entry
 
@@ -2429,6 +2473,244 @@ def router_phase(pt, kernels, card):
     return paths
 
 
+# -- Transformer-base translation, as a Paddle 2.0 script writes it --------
+# translation_model, padding_mask, smoothed_loss and greedy are the script;
+# tests/test_torch_transformer.py imports them and runs them through both
+# packages at a small size.
+
+
+def translation_model(paddle, vocab, d_model=512, nhead=8, layers=6,
+                      ffn=2048, dropout=0.1):
+    """Transformer-base for translation (Vaswani et al. 2017, Table 3
+    "base"), written against the Paddle surface ``paddle``."""
+    nn = paddle.nn
+
+    class Translator(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.emb = nn.Embedding(vocab, d_model, padding_idx=0)
+            self.transformer = nn.Transformer(d_model, nhead, layers, layers,
+                                              ffn, dropout)
+
+        def embed(self, ids, start=0):
+            n = ids.shape[1]
+            pos = paddle.arange(start, start + n, dtype="float32")
+            inv = paddle.exp(paddle.arange(0, d_model, 2, dtype="float32")
+                             * (-math.log(10000.0) / d_model))
+            angle = pos.unsqueeze(1) * inv.unsqueeze(0)
+            table = paddle.concat([paddle.sin(angle), paddle.cos(angle)],
+                                  axis=1)
+            return self.emb(ids) * d_model ** 0.5 + table
+
+        def logits(self, h):
+            return paddle.matmul(h, self.emb.weight, transpose_y=True)
+
+        def forward(self, src, tgt, src_mask, tgt_mask):
+            h = self.transformer(self.embed(src), self.embed(tgt), src_mask,
+                                 tgt_mask, src_mask)
+            return self.logits(h)
+
+    return Translator()
+
+
+def padding_mask(paddle, src):
+    """[B, 1, 1, S] additive: -1e9 at padding ids (0)."""
+    return paddle.cast(src == 0, "float32").unsqueeze([1, 2]) * -1e9
+
+
+def smoothed_loss(paddle, logits, label, vocab):
+    soft = paddle.nn.functional.label_smooth(
+        paddle.nn.functional.one_hot(label, vocab), epsilon=0.1)
+    return paddle.nn.CrossEntropyLoss(soft_label=True)(logits, soft)
+
+
+def greedy(paddle, model, src, src_mask, steps, bos=1):
+    """Greedy decoding through the encoder and the decoder's incremental
+    cache -> (tokens [B, steps], logits [B, steps, V])."""
+    t = model.transformer
+    memory = t.encoder(model.embed(src), src_mask)
+    cache = t.decoder.gen_cache(memory)
+    tok = paddle.full([src.shape[0], 1], bos, dtype="int64")
+    toks, logits = [], []
+    for i in range(steps):
+        h, cache = t.decoder(model.embed(tok, start=i), memory, None,
+                             src_mask, cache)
+        lg = model.logits(h)
+        tok = paddle.argmax(lg, axis=-1).astype("int64")
+        toks.append(tok)
+        logits.append(lg)
+    return paddle.concat(toks, axis=1), paddle.concat(logits, axis=1)
+
+
+def _launches_off_path(counts, want):
+    """Kernels launched where ``want`` (name -> {types: n}) expects other
+    counts, as (name, got, expected)."""
+    return [(name, got, want.get(name, {}))
+            for name, got in counts.items() if got != want.get(name, {})]
+
+
+def translation_phase(pt, kernels, card):
+    """Transformer-base translation at full width on the card, float32 with
+    TF32 off (the script above, in a Paddle eager loop): a gradient oracle
+    (a dropout-0 twin on the same weights, the kernel route against
+    ``PADDLE_FUSED_LN=0`` on the kernel route's ReLU branches, per
+    parameter within GRAD_RTOL of its largest value), TB_STEPS Adam steps on one fixed batch (finite, falling
+    losses; B5 and B7 launched 30 times a step, on [4096, 512] float32,
+    and no other kernel), then greedy decoding of TB_DECODE_B sources for
+    TB_DECODE_NEW tokens through the incremental cache (B5 12 + 18 a token
+    and no other kernel), its logits against one full teacher-forced
+    forward over the same tokens within LOGIT_ATOL. Returns each path's
+    launches by kernel."""
+    import os
+
+    paddle = pt  # the names of a dygraph script: import ... as paddle
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    t0 = time.perf_counter()
+    model = translation_model(paddle, TB_VOCAB)
+    twin = translation_model(paddle, TB_VOCAB, dropout=0.0)
+    twin.set_state_dict(model.state_dict())
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.RandomState(0)
+    src = rng.randint(2, TB_VOCAB, (TB_B, TB_S))
+    src[::2, -16:] = 0  # half the rows end in 16 padding tokens
+    tgt = rng.randint(2, TB_VOCAB, (TB_B, TB_S + 1))
+    s, t = paddle.to_tensor(src), paddle.to_tensor(tgt[:, :-1])
+    label = paddle.to_tensor(tgt[:, 1:])
+    src_mask = padding_mask(paddle, s)
+    tgt_mask = paddle.nn.Transformer.generate_square_subsequent_mask(TB_S)
+
+    # ReLU's derivative jumps at 0: an input within float32 rounding of 0
+    # (~3e-6 here) may take the other branch in the other route, and one
+    # such element moves its linear1 gradients by ~5e-3 of their largest
+    # value (measured, PERF.md). So the dense route replays the kernel
+    # route's ReLU branches, and the comparison sees the LayerNorms alone;
+    # the inputs that changed sides are counted and printed.
+    branches, flips = [], []
+
+    def record(x):
+        keep = x > 0
+        branches.append(keep)
+        return x * keep
+
+    def replay(x):
+        keep = branches.pop(0)
+        flips.append(int(((x > 0) != keep).sum()))
+        return x * keep
+
+    def grads(route, relu):
+        os.environ["PADDLE_FUSED_LN"] = route
+        for layer in list(twin.transformer.encoder.layers) \
+                + list(twin.transformer.decoder.layers):
+            layer.activation = relu
+        loss = smoothed_loss(paddle, twin(s, t, src_mask, tgt_mask), label,
+                             TB_VOCAB)
+        loss.backward()
+        out = {n: p.grad.clone() for n, p in twin.named_parameters()}
+        twin.clear_gradients()
+        return float(loss), out
+
+    def worst(ga, gb):
+        rels = {n: (ga[n] - g).abs().max().item()
+                / max(g.abs().max().item(), 1e-30) for n, g in gb.items()}
+        name = max(rels, key=rels.get)
+        return rels[name], name
+
+    loss_k, g_k = grads("1", record)
+    loss_d, g_d = grads("0", replay)
+    # a reading: the dense route on its own branches
+    free, free_name = worst(g_k, grads("0", paddle.nn.functional.relu)[1])
+    os.environ.pop("PADDLE_FUSED_LN")
+    rel, rel_name = worst(g_k, g_d)
+    print(f"translation: Transformer-base ({n_params} float32 parameters, "
+          f"vocab {TB_VOCAB}) built in {time.perf_counter() - t0:.2f} s; "
+          f"gradient oracle at dropout 0, B={TB_B} S={TB_S}: loss kernels "
+          f"{loss_k:.6f} dense LN {loss_d:.6f}; worst max|g_kernel - "
+          f"g_dense| / max|g_dense| {rel:.3e} ({rel_name}; tolerance "
+          f"{GRAD_RTOL}) on the same ReLU branches; {sum(flips)} ReLU "
+          f"inputs on the other side of 0 in the dense route, which on its "
+          f"own branches reads {free:.3e} ({free_name}; not gated)")
+    if not all(torch.isfinite(g).all() for g in g_k.values()) \
+            or rel > GRAD_RTOL or abs(loss_k - loss_d) > 1e-4:
+        fail("translation: kernel-route gradients disagree with the dense "
+             "LayerNorm's")
+    del twin, g_k, g_d
+
+    sched = paddle.optimizer.lr.NoamDecay(d_model=TB_D, warmup_steps=4000,
+                                          learning_rate=2.0)
+    opt = paddle.optimizer.Adam(learning_rate=sched, beta1=0.9, beta2=0.98,
+                                epsilon=1e-9, parameters=model.parameters())
+    losses, ms, counts = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(TB_STEPS):
+        kernels.reset_launches()  # the training path, one step
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss = smoothed_loss(paddle, model(s, t, src_mask, tgt_mask), label,
+                             TB_VOCAB)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        losses.append(float(loss))  # a host read: syncs
+        ms.append((time.perf_counter() - t1) * 1e3)
+        counts.append(kernels.launches_by_dtype())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = float(np.mean(ms[1:]))
+
+    model.eval()
+    dsrc = s[:TB_DECODE_B]
+    dmask = padding_mask(paddle, dsrc)
+    with paddle.no_grad():
+        kernels.reset_launches()  # the decode path
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        toks, cached = greedy(paddle, model, dsrc, dmask, TB_DECODE_NEW)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t1
+        decode_counts = kernels.launches_by_dtype()
+        kernels.reset_launches()
+        bos = paddle.full([TB_DECODE_B, 1], 1, dtype="int64")
+        full = model(dsrc, paddle.concat([bos, toks[:, :-1]], axis=1), dmask,
+                     paddle.nn.Transformer.generate_square_subsequent_mask(
+                         TB_DECODE_NEW))
+    err = float((full - cached).abs().max())
+    print(f"translation training (Adam 0.9/0.98/1e-9, NoamDecay(512, 4000, "
+          f"2.0), dropout 0.1, label smoothing 0.1): losses "
+          f"{[f'{x:.6f}' for x in losses]}; step ms "
+          f"{[f'{x:.1f}' for x in ms]}; {step_ms:.2f} ms/step (mean of steps "
+          f"2-{TB_STEPS}), {TB_B * TB_S / step_ms * 1e3:.1f} target "
+          f"tokens/s; peak memory {peak:.2f} GiB; {card}")
+    print(f"translation greedy decode of {TB_DECODE_B} sources x "
+          f"{TB_DECODE_NEW} tokens: {decode_s * 1e3:.1f} ms, "
+          f"{TB_DECODE_B * TB_DECODE_NEW / decode_s:.1f} tokens/s; cached "
+          f"against full logits max |err| {err:.3e} (tolerance "
+          f"{LOGIT_ATOL}); {card}")
+    print(f"translation launches per training step {counts[0]}; decode "
+          f"{decode_counts}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail("translation: the loss is not finite or did not fall")
+    for i, c in enumerate(counts):
+        off = _launches_off_path(c, TB_STEP_LAUNCHES)
+        if off:
+            fail(f"translation step {i + 1}: launches off the path {off}")
+    off = _launches_off_path(decode_counts, TB_DECODE_LAUNCHES)
+    if off:
+        fail(f"translation decode: launches off the path {off}")
+    if not err <= LOGIT_ATOL:
+        fail("translation: cached decode logits disagree with the full "
+             "forward")
+    del model, opt
+    torch.cuda.empty_cache()
+    return {"translation_training": {
+        name: sum(sum(c[name].values()) for c in counts)
+        for name in kernels.WRAPPERS},
+        "translation_decode": {name: sum(decode_counts[name].values())
+                               for name in kernels.WRAPPERS}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2502,6 +2784,8 @@ def main() -> int:
           "s")
     dygraph = dygraph_phase(pt, kernels, card)
     print(f"dygraph phase done at {time.perf_counter() - t_start:.1f} s")
+    translation = translation_phase(pt, kernels, card)
+    print(f"translation phase done at {time.perf_counter() - t_start:.1f} s")
     entries = [flash, ln_entry, add_entry, dq_entry, dkv_entry, ln_bwd_entry]
     for e in entries:
         if hmma is not None and e["name"] in hmma:
@@ -2519,7 +2803,8 @@ def main() -> int:
             **{f"head_dim_{WIDE_D}_{k}": sum(v[e["name"]].values())
                for k, v in wide_block.items()},
             **{k: sum(v[e["name"]].values()) for k, v in programs.items()},
-            "dygraph": dygraph[e["name"]]}
+            "dygraph": dygraph[e["name"]],
+            **{k: v[e["name"]] for k, v in translation.items()}}
     print(f"{card}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

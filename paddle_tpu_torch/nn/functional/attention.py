@@ -28,7 +28,7 @@ from .common import dropout
 
 __all__ = [
     "flash_default_enabled", "flash_append_enabled", "flash_plan",
-    "flash_core", "scaled_dot_product_attention", "dense_attention",
+    "flash_routable", "flash_core", "scaled_dot_product_attention", "dense_attention",
     "cache_update", "cached_attention",
 ]
 
@@ -76,6 +76,24 @@ def flash_plan(seq_q, seq_k, *, causal, device, has_mask=False,
     if torch.device(device).type != "cuda" and not _interpret_forced():
         return False
     return _flash_block(int(seq_q)) >= 8 and _flash_block(int(seq_k)) >= 8
+
+
+def flash_routable(seq_q, seq_k, *, causal, has_mask=False,
+                   dropout_active=False, need_weights=False,
+                   has_cache=False, mesh=None, batch=None,
+                   heads=None) -> bool:
+    """Would the default router send this attention to the flash kernel
+    on the ``set_device`` default device? The JAX package's signature;
+    ``batch`` and ``heads`` only matter to its sharded route, and a
+    ``mesh`` (more than one device) is ROADMAP queue A item 7."""
+    if mesh is not None:
+        raise NotImplementedError("flash_routable(mesh=): multi-device "
+                                  "routing is ROADMAP queue A item 7")
+    from ...core.device import resolve_device
+
+    return flash_plan(seq_q, seq_k, causal=causal, device=resolve_device(),
+                      has_mask=has_mask, dropout_active=dropout_active,
+                      need_weights=need_weights, has_cache=has_cache)
 
 
 def flash_core(q, k, v, *, causal=True, scale=None, q_offset=0):

@@ -1,5 +1,6 @@
 """Batch norm, the LayerNorm functionals and their route to the
-hand-written kernels.
+hand-written kernels, and group, instance, local-response and Lp
+normalization.
 
 Counterpart of ``paddle_tpu/nn/functional/norm.py``'s ``batch_norm``,
 ``layer_norm``, ``fused_residual_layer_norm`` and ``_fused_ln_route``
@@ -31,7 +32,8 @@ import torch
 from ... import amp
 from ...ops.kernels import layer_norm as _ln
 
-__all__ = ["batch_norm", "layer_norm", "fused_residual_layer_norm"]
+__all__ = ["batch_norm", "layer_norm", "fused_residual_layer_norm",
+           "group_norm", "instance_norm", "normalize", "local_response_norm"]
 
 
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
@@ -139,3 +141,68 @@ def fused_residual_layer_norm(x, residual, normalized_shape, weight=None,
         return _ln.fused_add_layer_norm(x, residual, weight, bias, epsilon)
     s = x + residual
     return s, layer_norm(s, normalized_shape, weight, bias, epsilon)
+
+
+def _channel_axis(x, data_format):
+    return 1 if data_format.startswith("NC") else x.dim() - 1
+
+
+def _affine(out, weight, bias, ch):
+    shape = [1] * out.dim()
+    shape[ch] = out.shape[ch]
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out
+
+
+def group_norm(x, num_groups, epsilon=1e-5, weight=None, bias=None,
+               data_format="NCHW", name=None):
+    """Normalize each sample's channels in ``num_groups`` groups (biased
+    variance), then the per-channel affine."""
+    ch = _channel_axis(x, data_format)
+    if x.shape[ch] % num_groups != 0:
+        raise ValueError("channels not divisible by num_groups")
+    a = torch.movedim(x, ch, 1)
+    g = a.reshape(a.shape[0], num_groups, -1)
+    mean = g.mean(dim=-1, keepdim=True)
+    var = g.var(dim=-1, keepdim=True, correction=0)
+    out = ((g - mean) / torch.sqrt(var + epsilon)).reshape(a.shape)
+    return torch.movedim(_affine(out, weight, bias, 1), 1, ch)
+
+
+def instance_norm(x, running_mean=None, running_var=None, weight=None,
+                  bias=None, use_input_stats=True, momentum=0.9, eps=1e-5,
+                  data_format="NCHW", name=None):
+    """Normalize each sample's channels over their spatial axes, then the
+    per-channel affine. ``running_mean``, ``running_var``,
+    ``use_input_stats`` and ``momentum`` are taken and unused, as in the
+    JAX package."""
+    ch = _channel_axis(x, data_format)
+    axes = tuple(i for i in range(x.dim()) if i not in (0, ch))
+    mean = x.mean(dim=axes, keepdim=True)
+    var = x.var(dim=axes, keepdim=True, correction=0)
+    return _affine((x - mean) / torch.sqrt(var + eps), weight, bias, ch)
+
+
+def normalize(x, p=2, axis=1, epsilon=1e-12, name=None):
+    """``x / max(||x||_p, epsilon)`` along ``axis``."""
+    n = (x.abs() ** p).sum(dim=axis, keepdim=True) ** (1.0 / p)
+    return x / torch.clamp(n, min=epsilon)
+
+
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
+                        data_format="NCHW", name=None):
+    """``x / (k + alpha * sum of x^2 over a window of size channels)^beta``;
+    the window around channel c runs from ``c - size // 2`` to ``c + (size
+    - 1) // 2`` (``alpha`` not divided by ``size``, as in the JAX
+    package)."""
+    ch = _channel_axis(x, data_format)
+    sq = torch.movedim(x * x, ch, 1)
+    half = size // 2
+    pads = [0, 0] * (sq.dim() - 2) + [half, size - half - 1]
+    padded = torch.nn.functional.pad(sq, pads)
+    C = sq.shape[1]
+    acc = sum(padded.narrow(1, i, C) for i in range(size))
+    return x / (k + alpha * torch.movedim(acc, 1, ch)) ** beta

@@ -1,14 +1,17 @@
-"""Layers of the port's serving and training slices and of bench.py's
-LeNet, ResNet and BERT programs."""
-from .activation import ReLU
-from .common import Dropout, Embedding, Flatten, Linear
-from .container import LayerList, Sequential
-from .conv import Conv2D
-from .norm import BatchNorm2D, LayerNorm
-from .pooling import AdaptiveAvgPool2D, MaxPool2D
-from .transformer import MultiHeadAttention, TransformerEncoderLayer
+"""The layers of ``nn`` (counterparts of ``paddle_tpu/nn/layers``), each
+module's ``__all__`` re-exported; the recurrent layers (``rnn.py``) are
+ROADMAP queue A item 2."""
+from . import (activation, common, container, conv, loss, norm, pooling,
+               transformer, vision)
+from .activation import *  # noqa: F401,F403
+from .common import *  # noqa: F401,F403
+from .container import *  # noqa: F401,F403
+from .conv import *  # noqa: F401,F403
+from .loss import *  # noqa: F401,F403
+from .norm import *  # noqa: F401,F403
+from .pooling import *  # noqa: F401,F403
+from .transformer import *  # noqa: F401,F403
 
-__all__ = ["ReLU", "Dropout", "Embedding", "Flatten", "Linear",
-           "LayerList", "Sequential", "Conv2D", "BatchNorm2D", "LayerNorm",
-           "AdaptiveAvgPool2D", "MaxPool2D", "MultiHeadAttention",
-           "TransformerEncoderLayer"]
+__all__ = [name for mod in (activation, common, container, conv, loss, norm,
+                            pooling, transformer)
+           for name in mod.__all__]

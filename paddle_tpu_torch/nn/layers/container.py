@@ -1,8 +1,8 @@
-"""``Sequential`` and ``LayerList`` (counterparts of
-``paddle_tpu/nn/layers/container.py``): ``Layer``s over
-``torch.nn.Sequential`` and ``torch.nn.ModuleList``, sublayers named
-``"0"``, ``"1"``, ... (or by the names given), so parameter names match
-the JAX package's."""
+"""``Sequential``, ``LayerList``, ``ParameterList`` and ``LayerDict``
+(counterparts of ``paddle_tpu/nn/layers/container.py``): ``Layer``s over
+``torch.nn.Sequential``, ``ModuleList``, ``ParameterList`` and
+``ModuleDict``, entries named ``"0"``, ``"1"``, ... (or by the names or
+keys given), so state-dict names match the JAX package's."""
 from __future__ import annotations
 
 import collections
@@ -11,7 +11,7 @@ from torch import nn
 
 from ..layer import Layer
 
-__all__ = ["Sequential", "LayerList"]
+__all__ = ["Sequential", "LayerList", "ParameterList", "LayerDict"]
 
 
 class Sequential(Layer, nn.Sequential):
@@ -39,3 +39,23 @@ class LayerList(Layer, nn.ModuleList):
         super().__init__()
         if sublayers is not None:
             self.extend(sublayers)
+
+
+class ParameterList(Layer, nn.ParameterList):
+    """``ParameterList(parameters)``: indexable, iterable, ``append``able;
+    the parameters are named ``"0"``, ``"1"``, ..."""
+
+    def __init__(self, parameters=None):
+        super().__init__()
+        if parameters is not None:
+            self.extend(parameters)
+
+
+class LayerDict(Layer, nn.ModuleDict):
+    """``LayerDict(sublayers)`` (a dict or ``(key, layer)`` pairs):
+    sublayers by key, in insertion order."""
+
+    def __init__(self, sublayers=None):
+        super().__init__()
+        if sublayers is not None:
+            self.update(sublayers)

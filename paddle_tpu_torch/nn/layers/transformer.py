@@ -1,5 +1,6 @@
-"""``MultiHeadAttention`` and ``TransformerEncoderLayer`` (counterparts of
-``paddle_tpu/nn/layers/transformer.py``), on one device.
+"""``MultiHeadAttention``, the encoder and decoder layers and stacks, and
+``Transformer`` (counterparts of ``paddle_tpu/nn/layers/transformer.py``),
+on one device.
 
 Attention takes the JAX package's ``attn_impl="dense"`` route: the routed
 ``functional.scaled_dot_product_attention`` (the flash kernel for causal,
@@ -8,20 +9,38 @@ mask-free, dropout-free attention; the dense form otherwise), or, with
 ``blockwise``, ``ring`` and ``ulysses`` routes are not ported yet, and
 raise. ``gen_cache`` builds the static-capacity cache
 contiguous or paged, full width or int8/fp8 (``QuantKV``).
+
+``TransformerEncoder`` and ``TransformerDecoder`` clone their first layer
+with ``copy.deepcopy``, as the JAX package does, so every layer starts
+from the same weights; a generator the layer draws dropout masks from is
+shared by the clones, not copied (a copy would repeat its masks).
+``Transformer`` is post-LN Transformer-base at its defaults (d_model 512,
+8 heads, 6 + 6 layers, ffn 2048, dropout 0.1, ReLU); its decoder's
+``gen_cache(memory)`` gives each layer an incremental ``Cache`` for its
+self-attention and a ``StaticCache`` of the memory's keys and values for
+its cross-attention. Its LayerNorms route to the B5/B7 kernels when
+eligible; a ``tgt_mask`` tensor (not ``causal``) and active dropout keep
+its attention on the dense route, as in the JAX package.
 """
 from __future__ import annotations
 
 import collections
+import copy
 
 import torch
 
+from ...core.tensor import tensor_boundary
 from .. import functional as F
 from ..functional import attention as attn_route
 from ..layer import Layer
 from .common import Dropout, Linear
+from .container import LayerList
 from .norm import LayerNorm
 
-__all__ = ["MultiHeadAttention", "TransformerEncoderLayer"]
+__all__ = [
+    "MultiHeadAttention", "TransformerEncoderLayer", "TransformerEncoder",
+    "TransformerDecoderLayer", "TransformerDecoder", "Transformer",
+]
 
 
 def _convert_attention_mask(attn_mask, dtype):
@@ -98,6 +117,7 @@ class MultiHeadAttention(Layer):
         B, T = int(x.shape[0]), int(x.shape[1])
         return x.reshape(B, T, self.num_heads, self.head_dim).transpose(1, 2)
 
+    @tensor_boundary
     def gen_cache(self, key=None, value=None, type=None, max_length=None,
                   batch_size=None, dtype=None, block_size=None,
                   pool_blocks=None):
@@ -264,5 +284,190 @@ class TransformerEncoderLayer(Layer):
             src = self.norm2(src)
         return src if cache is None else (src, cache)
 
+    @tensor_boundary
     def gen_cache(self, src):
         return self.self_attn.gen_cache(src)
+
+
+def _clones(layer, n):
+    """``layer`` and ``n - 1`` deep copies of it that share its
+    generators."""
+    memo = {id(v): v for m in layer.modules() for v in vars(m).values()
+            if isinstance(v, torch.Generator)}
+    return LayerList([layer] + [copy.deepcopy(layer, dict(memo))
+                                for _ in range(n - 1)])
+
+
+class TransformerEncoder(Layer):
+    """``num_layers`` encoder layers (``encoder_layer`` and its clones),
+    then ``norm`` when given."""
+
+    def __init__(self, encoder_layer, num_layers, norm=None):
+        super().__init__()
+        self.layers = _clones(encoder_layer, num_layers)
+        self.num_layers = num_layers
+        self.norm = norm
+
+    def forward(self, src, src_mask=None, cache=None):
+        output, new_caches = src, []
+        for i, mod in enumerate(self.layers):
+            if cache is None:
+                output = mod(output, src_mask)
+            else:
+                output, c = mod(output, src_mask, cache[i])
+                new_caches.append(c)
+        if self.norm is not None:
+            output = self.norm(output)
+        return output if cache is None else (output, new_caches)
+
+    @tensor_boundary
+    def gen_cache(self, src):
+        return [layer.gen_cache(src) for layer in self.layers]
+
+
+class TransformerDecoderLayer(Layer):
+    """Self-attention (``tgt_mask``), cross-attention over ``memory``
+    (``memory_mask``), then a two-layer MLP, each with dropout, a residual
+    sum and a LayerNorm (post-LN by default). With ``cache`` (``(Cache,
+    StaticCache)`` from :meth:`gen_cache`) the self-attention appends to
+    its cache and the cross-attention reads the memory's projected keys
+    and values; returns ``(out, new cache)``."""
+
+    def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
+                 activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False, weight_attr=None, bias_attr=None,
+                 *, device=None, dtype=None, generator=None):
+        super().__init__(dtype=dtype)
+        attn_dropout = dropout if attn_dropout is None else attn_dropout
+        act_dropout = dropout if act_dropout is None else act_dropout
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        self.normalize_before = normalize_before
+        attrs = (weight_attr, bias_attr)
+        self.self_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
+                                            weight_attr=weight_attr,
+                                            bias_attr=bias_attr, **kw)
+        self.cross_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
+                                             weight_attr=weight_attr,
+                                             bias_attr=bias_attr, **kw)
+        self.linear1 = Linear(d_model, dim_feedforward, *attrs, **kw)
+        self.dropout = Dropout(act_dropout, generator=generator)
+        self.linear2 = Linear(dim_feedforward, d_model, *attrs, **kw)
+        self.norm1 = LayerNorm(d_model, device=device, dtype=dtype)
+        self.norm2 = LayerNorm(d_model, device=device, dtype=dtype)
+        self.norm3 = LayerNorm(d_model, device=device, dtype=dtype)
+        self.dropout1 = Dropout(dropout, generator=generator)
+        self.dropout2 = Dropout(dropout, generator=generator)
+        self.dropout3 = Dropout(dropout, generator=generator)
+        self.activation = getattr(F, activation)
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                cache=None):
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm1(tgt)
+        if cache is None:
+            tgt = self.self_attn(tgt, tgt, tgt, tgt_mask)
+        else:
+            tgt, incr = self.self_attn(tgt, tgt, tgt, tgt_mask, cache[0])
+        tgt = residual + self.dropout1(tgt)
+        if not self.normalize_before:
+            tgt = self.norm1(tgt)
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm2(tgt)
+        tgt = self.cross_attn(tgt, memory, memory, memory_mask,
+                              None if cache is None else cache[1])
+        tgt = residual + self.dropout2(tgt)
+        if not self.normalize_before:
+            tgt = self.norm2(tgt)
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm3(tgt)
+        tgt = self.linear2(self.dropout(self.activation(self.linear1(tgt))))
+        tgt = residual + self.dropout3(tgt)
+        if not self.normalize_before:
+            tgt = self.norm3(tgt)
+        return tgt if cache is None else (tgt, (incr, cache[1]))
+
+    @tensor_boundary
+    def gen_cache(self, memory):
+        return (self.self_attn.gen_cache(memory),
+                self.cross_attn.gen_cache(
+                    memory, memory, type=MultiHeadAttention.StaticCache))
+
+
+class TransformerDecoder(Layer):
+    """``num_layers`` decoder layers (``decoder_layer`` and its clones),
+    then ``norm`` when given."""
+
+    def __init__(self, decoder_layer, num_layers, norm=None):
+        super().__init__()
+        self.layers = _clones(decoder_layer, num_layers)
+        self.num_layers = num_layers
+        self.norm = norm
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                cache=None):
+        output, new_caches = tgt, []
+        for i, mod in enumerate(self.layers):
+            if cache is None:
+                output = mod(output, memory, tgt_mask, memory_mask)
+            else:
+                output, c = mod(output, memory, tgt_mask, memory_mask,
+                                cache[i])
+                new_caches.append(c)
+        if self.norm is not None:
+            output = self.norm(output)
+        return output if cache is None else (output, new_caches)
+
+    @tensor_boundary
+    def gen_cache(self, memory, do_zip=False):
+        cache = [layer.gen_cache(memory) for layer in self.layers]
+        return list(zip(*cache)) if do_zip else cache
+
+
+class Transformer(Layer):
+    """Encoder-decoder Transformer (Transformer-base at its defaults);
+    ``forward(src, tgt, src_mask, tgt_mask, memory_mask)`` returns the
+    decoder's output ``[B, T, d_model]``."""
+
+    def __init__(self, d_model=512, nhead=8, num_encoder_layers=6,
+                 num_decoder_layers=6, dim_feedforward=2048, dropout=0.1,
+                 activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False, weight_attr=None, bias_attr=None,
+                 custom_encoder=None, custom_decoder=None, *, device=None,
+                 dtype=None, generator=None):
+        super().__init__(dtype=dtype)
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        args = (d_model, nhead, dim_feedforward, dropout, activation,
+                attn_dropout, act_dropout, normalize_before, weight_attr,
+                bias_attr)
+
+        def final_norm():
+            return LayerNorm(d_model, device=device, dtype=dtype) \
+                if normalize_before else None
+
+        self.encoder = custom_encoder if custom_encoder is not None else \
+            TransformerEncoder(TransformerEncoderLayer(*args, **kw),
+                               num_encoder_layers, final_norm())
+        self.decoder = custom_decoder if custom_decoder is not None else \
+            TransformerDecoder(TransformerDecoderLayer(*args, **kw),
+                               num_decoder_layers, final_norm())
+        self.d_model, self.nhead = d_model, nhead
+
+    def forward(self, src, tgt, src_mask=None, tgt_mask=None,
+                memory_mask=None):
+        memory = self.encoder(src, src_mask)
+        return self.decoder(tgt, memory, tgt_mask, memory_mask)
+
+    @staticmethod
+    def generate_square_subsequent_mask(length):
+        """``[length, length]`` float32: 0 on and below the diagonal, -1e9
+        above it (the JAX package's value, not -inf), on the
+        ``set_device`` default device. Returns a ``Tensor``."""
+        from ...core.device import resolve_device
+        from ...core.tensor import Tensor
+
+        keep = torch.ones(length, length, dtype=torch.bool,
+                          device=resolve_device()).tril()
+        return Tensor._wrap(torch.where(keep, 0.0, -1e9).to(torch.float32))

@@ -37,10 +37,14 @@ __all__ = ["TransformerLM"]
 class TransformerLM(Layer):
     """Decoder-only LM. Weights are drawn from a generator seeded with
     ``seed`` on ``device`` (CUDA unless the caller passes ``"cpu"``; no
-    fallback)."""
+    fallback). ``dropout`` and ``use_flash_attention`` go to every block
+    (``ParallelGPTBlock``): dropout on the attention probabilities and the
+    MLP in training, and the flash route's policy (None: the router's
+    default; False: the dense route)."""
 
     def __init__(self, vocab_size, d_model=256, num_heads=8, num_layers=4,
-                 max_position=2048, dim_feedforward=None, *,
+                 max_position=2048, dim_feedforward=None, dropout=0.0,
+                 use_flash_attention=None, *,
                  device: Optional[Union[str, torch.device]] = None,
                  dtype: torch.dtype = torch.float32, seed: int = 0):
         super().__init__()
@@ -53,7 +57,9 @@ class TransformerLM(Layer):
         self.embed = Embedding(vocab_size, d_model, **kw)
         self.pos_embed = Embedding(max_position, d_model, **kw)
         self.blocks = LayerList([
-            ParallelGPTBlock(d_model, num_heads, dim_feedforward, **kw)
+            ParallelGPTBlock(d_model, num_heads, dim_feedforward,
+                             dropout=dropout,
+                             use_flash_attention=use_flash_attention, **kw)
             for _ in range(num_layers)
         ])
         self.ln_f = LayerNorm(d_model, device=dev, dtype=dtype)

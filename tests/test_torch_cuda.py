@@ -107,10 +107,12 @@ def test_flash_forward_kernel(gen, dtype, S, Sk, D, causal, qo, ko):
 
 
 # (R, D): the training rows, the decode step's, rows of the register path
-# at D 384 and BERT-base's 768, and its widest, 2048 (kN = 16)
+# at D 384, BERT-base's 768 and Transformer-base's 512 (its training rows
+# and its decode step's), and its widest, 2048 (kN = 16)
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("R,D", [(1024, 1024), (8, 1024), (48, 384),
-                                 (4096, 768), (256, 2048)])
+                                 (4096, 768), (4096, 512), (8, 512),
+                                 (256, 2048)])
 def test_layer_norm_kernels(gen, dtype, R, D):
     x, y = (torch.randn(R, D, device="cuda", generator=gen).to(dtype)
             for _ in range(2))
@@ -140,6 +142,7 @@ def _ln_rows(gen, dtype, R, D, offset):
 # D = 128 kN outside the register path's kN, and for rows one element
 # into their buffer (not aligned for the wide loads)
 LN_FWD_PATHS = [(4096, 768, 0, 6), (4096, 1024, 0, 8), (8, 1024, 0, 8),
+                (4096, 512, 0, 4), (8, 512, 0, 4),
                 (32, 1024, 0, 8), (40, 1024, 0, 8), (48, 128, 0, 1),
                 (256, 2048, 0, 16), (37, 200, 0, 0), (16, 1152, 0, 0),
                 (64, 4096, 0, 0), (4096, 1024, 1, 0), (40, 768, 1, 0)]
@@ -309,11 +312,12 @@ def test_flash_backward_kernel_is_deterministic(gen, dtype, kernel):
         assert torch.equal(a, b)
 
 
-# (R, D): the training rows, rows of the register path (D a multiple of
-# 128 up to 1024), R not a multiple of a block's 8 warps, and D off the
-# register path (not a multiple of 128; wider than 1024)
-LN_BWD_CASES = [(4096, 1024), (8, 1024), (40, 384), (37, 1024), (37, 200),
-                (300, 2048)]
+# (R, D): the training rows (GPT's and Transformer-base's), rows of the
+# register path (D a multiple of 128 up to 1024), R not a multiple of a
+# block's 8 warps, and D off the register path (not a multiple of 128;
+# wider than 1024)
+LN_BWD_CASES = [(4096, 1024), (4096, 512), (8, 1024), (40, 384), (37, 1024),
+                (37, 200), (300, 2048)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -878,3 +882,38 @@ def test_underdetermined_lstsq_on_the_card(default_device):
     assert int(rank.numpy()) == 3
     np.testing.assert_allclose(sv.numpy(), np.linalg.svd(a)[1], rtol=1e-5,
                                atol=1e-5)
+
+
+def test_translation_path_launches(default_device, monkeypatch):
+    """``chip_smoke.py``'s translation script at Transformer-base width and
+    depth (B 8, 64 tokens): a training step launches B5 and B7 30 times
+    each, on float32 rows, and nothing else; greedy decoding of 8 sources
+    for 4 tokens launches B5 12 + 18 x 4 times and nothing else."""
+    import numpy as np
+
+    from chip_smoke import greedy, padding_mask, smoothed_loss, \
+        translation_model
+
+    monkeypatch.delenv("PADDLE_FUSED_LN", raising=False)
+    paddle = pt
+    paddle.set_device("gpu")
+    model = translation_model(paddle, 1000)
+    rng = np.random.RandomState(0)
+    src = rng.randint(2, 1000, (8, 64))
+    src[::2, -8:] = 0
+    tgt = rng.randint(2, 1000, (8, 65))
+    s = paddle.to_tensor(src)
+    kernels.reset_launches()
+    logits = model(s, paddle.to_tensor(tgt[:, :-1]), padding_mask(paddle, s),
+                   paddle.nn.Transformer.generate_square_subsequent_mask(64))
+    smoothed_loss(paddle, logits, paddle.to_tensor(tgt[:, 1:]),
+                  1000).backward()
+    want = {name: {} for name in kernels.WRAPPERS}
+    want.update(layer_norm_fwd={"float32": 30}, layer_norm_bwd={"float32": 30})
+    assert kernels.launches_by_dtype() == want
+    model.eval()
+    kernels.reset_launches()
+    with paddle.no_grad():
+        greedy(paddle, model, s, padding_mask(paddle, s), 4)
+    want.update(layer_norm_fwd={"float32": 12 + 18 * 4}, layer_norm_bwd={})
+    assert kernels.launches_by_dtype() == want

@@ -328,11 +328,22 @@ def test_cross_entropy_matches(reduction):
 
 
 def test_cross_entropy_refuses_what_is_not_ported():
+    """Class weights, soft labels and ``use_softmax=False`` are ported
+    (held against paddle_tpu in ``test_torch_nn_loss.py``): on uniform
+    logits each gives its formula's value. What ``cross_entropy`` still
+    refuses is a reduction it does not know."""
     x, y = torch.zeros(3, 4), torch.zeros(3, dtype=torch.int64)
-    for kw in ({"weight": torch.ones(4)}, {"soft_label": True},
-               {"use_softmax": False}):
-        with pytest.raises(NotImplementedError):
-            pt.nn.functional.cross_entropy(x, y, **kw)
+    soft = torch.full((3, 4), 0.25)
+    F = pt.nn.functional
+    log4 = torch.log(torch.tensor(4.0))
+    torch.testing.assert_close(F.cross_entropy(x, y, weight=torch.ones(4)),
+                               log4)
+    torch.testing.assert_close(F.cross_entropy(x, soft, soft_label=True),
+                               log4)
+    torch.testing.assert_close(F.cross_entropy(x, y, use_softmax=False),
+                               -torch.log(torch.tensor(1e-30)))
+    with pytest.raises(ValueError):
+        F.cross_entropy(x, y, reduction="avg")
 
 
 
