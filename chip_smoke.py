@@ -116,7 +116,25 @@
    cache (B5 12 + 18 a token) against a full teacher-forced forward
    (ms/step, target tokens/s, peak memory, decode tokens/s); B5 and B7
    are also held at its [4096, 512] rows in step 2;
-15. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
+15. its ``rnn_lm_phase``: the PTB "medium" LSTM language model (Zaremba
+   et al. 2014; vocabulary 10000, 650 wide, 2 layers, dropout 0.5,
+   uniform init 0.05, batch 20 x 35 steps, SGD 1.0 under global-norm clip
+   5) as Paddle's language_model script writes it, float32: its first step
+   (dropout off) against the port's CPU step in float64 (loss and every
+   gradient within 1e-4 of the largest), then six eager steps with the
+   state carried and detached (losses falling, no kernel of the port
+   launched; ms/step, tokens/s, peak memory);
+16. its ``blockwise_bert_phase``: bench.py's BERT-base with its encoder on
+   ``attn_impl="blockwise"`` (block 128), trained with ``Lamb(1e-3,
+   0.01)`` through fleet bf16 O1 and ``TrainStep``: gradient oracles,
+   each route against a float64 copy (the blockwise route within the
+   dense twin's distance + 1e-3 in float32, + 2e-2 under bf16 O1), six
+   steps (losses falling;
+   B1, B3, B4 twelve launches a step in bf16, not causal, and B5, B7 24
+   each; the torch blockwise program never runs), and the twin's six
+   steps beside them (ms/step, samples/s, peak memory). Step 2 holds B1,
+   B3 and B4 at that shape, [32, 12, 128, 64] bf16 not causal, too;
+17. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
    "device": ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device, outside a
@@ -267,6 +285,42 @@ BENCH_STEPS = 6
 LENET_BATCH, RESNET_BATCH = 256, 256
 BERT_B, BERT_S, BERT_D, BERT_HEADS, BERT_LAYERS = 32, 128, 768, 12, 12
 BERT_VOCAB, BERT_POS = 30522, 512
+
+# BERT-base on blockwise attention: bench.py's _bert_base with its encoder
+# layers built with attn_impl="blockwise" and block 128 (one key block a row
+# at S = 128, so B1/B3/B4 run not causal at [32, 12, 128, 64]), trained with
+# LAMB (You et al. 2019, arXiv:1904.00962, BERT's pretraining optimizer) at
+# 1e-3 and weight decay 0.01 through fleet bf16 O1 and TrainStep; its twin on
+# the dense route (the same weights) and a float64 copy are the gradient
+# oracles, and the twin's rate is printed beside its own
+BERT_BLOCK = 128
+BERT_BLOCKWISE_ROW = "BERT not causal S=128"
+#: launches per step on the dense BERT route: its two LayerNorms a layer on
+#: the float32 residual sums ([4096, 768]), B5 forward and B7 backward
+BERT_LN_LAUNCHES = {"layer_norm_fwd": {"float32": 2 * BERT_LAYERS},
+                    "layer_norm_bwd": {"float32": 2 * BERT_LAYERS}}
+#: on the blockwise route the attention adds B1, B3 and B4 once a layer,
+#: in bf16 (q, k and v come from bf16 products under O1)
+BLOCKWISE_BERT_LAUNCHES = {
+    **{k: {"bfloat16": BERT_LAYERS} for k in (
+        "flash_attention_fwd", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv")}, **BERT_LN_LAUNCHES}
+
+# the PTB "medium" LSTM language model (Zaremba, Sutskever & Vinyals 2014,
+# "Recurrent Neural Network Regularization", section 4.1; PaddlePaddle's
+# models/language_model "medium"): vocabulary 10000, 650 wide, 2 layers,
+# dropout 0.5 on the non-recurrent connections, uniform init +-0.05, batch
+# 20 x 35 unrolled steps with the state carried and detached, SGD at 1.0
+# under ClipGradByGlobalNorm(5.0), float32, six eager steps. Token ids are
+# drawn from a Zipf distribution over the vocabulary (PTB's unigram counts
+# fall about so), from a seed: no dataset is read. No kernel of the port
+# runs on it: its check is the port's CPU run of the same first step in
+# float64, dropout off, loss and every gradient within PTB_RTOL of the
+# largest
+PTB_VOCAB, PTB_D, PTB_LAYERS = 10000, 650, 2
+PTB_B, PTB_T, PTB_STEPS = 20, 35, 6
+PTB_DROPOUT, PTB_INIT, PTB_LR, PTB_CLIP = 0.5, 0.05, 1.0, 5.0
+PTB_RTOL = 1e-4
 
 # Transformer-base translation (Vaswani et al. 2017, Table 3 "base", the
 # defaults of nn.Transformer) in the shape of Paddle's machine-translation
@@ -444,8 +498,11 @@ def flash_phase(fa, gen, rows):
     D0 = D_MODEL // HEADS
     serve, train, wide = "serving S=136", "training S=1024", \
         f"D={WIDE_D} block S={WIDE_S}"
+    bert = BERT_BLOCKWISE_ROW
     cases = [  # (B, H, Sq, Sk, D, causal, q_offset, kv_offset, what)
         (BATCH, HEADS, 128, 128, D0, True, 0, 0, "causal"),
+        (BERT_B, BERT_HEADS, BERT_S, BERT_S, BERT_D // BERT_HEADS, False, 0,
+         0, bert),
         (BATCH, HEADS, 64, 128, D0, True, 64, 0,
          "end-aligned q_offset=Sk-Sq"),
         (BATCH, HEADS, 128, 128, D0, True, 0, 64, "64 fully masked rows"),
@@ -482,16 +539,18 @@ def flash_phase(fa, gen, rows):
                 fail(f"flash_attention_fwd {dtype} D={D} {what} disagrees "
                      "with its plain version")
             # timed: every type at the training and D = 256 block shapes,
-            # float32 at the serving shape too
+            # float32 at the serving shape too, bf16 at BERT's non-causal
             if what not in (train, wide) and not (
-                    what == serve and dtype == torch.float32):
+                    what == serve and dtype == torch.float32) and not (
+                    what == bert and dtype == torch.bfloat16):
                 continue
             calls = 20 if S <= 256 else 5
             ms = time_ms(lambda: fa.flash_attention_fwd(
                 q, k, v, block_q=8, block_k=8, **kw), calls=calls)
             lib_ms = time_ms(lambda: tF.scaled_dot_product_attention(
-                q, k, v, is_causal=True), calls=calls)
-            pairs = S * (S + 1) // 2  # visible (q, k) pairs per head
+                q, k, v, is_causal=causal), calls=calls)
+            # visible (q, k) pairs per head
+            pairs = S * (S + 1) // 2 if causal else S * Sk
             nbytes = (3 * B * H * S * D + B * H * S * D) \
                 * q.element_size() + B * H * S * 4
             bms, by = bound_ms(nbytes, 4 * D * pairs * B * H, dtype,
@@ -499,11 +558,14 @@ def flash_phase(fa, gen, rows):
             plain_ms = time_ms(lambda: fa.flash_attention_fwd_plain(
                 q, k, v, **kw), calls=calls)
             timed[what, SHORT[dtype]] = dict(
-                shape=f"[{B},{H},{S},{D}] causal", max_abs_err=max(eo, el),
+                shape=f"[{B},{H},{S},{D}] "
+                      f"{'causal' if causal else 'not causal'}",
+                max_abs_err=max(eo, el),
                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=lib_ms)
-            rows.append(f"flash_attention_fwd {str(dtype)[6:]} [{B},{H},{S},"
-                        f"{D}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            rows.append(f"flash_attention_fwd {str(dtype)[6:]} "
+                        f"{timed[what, SHORT[dtype]]['shape']}: kernel "
+                        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, "
                         f"sdpa {lib_ms:.4f} ms, bound {bms:.6f} ms ({by})")
     return dict(name="flash_attention_fwd", route="cuda", source=fa.SOURCE,
                 replaces="paddle_tpu/ops/pallas/flash_attention.py:49 "
@@ -511,7 +573,8 @@ def flash_phase(fa, gen, rows):
                 dtype="float32", **timed[train, "float32"],
                 at_serving_shape=timed[serve, "float32"],
                 bf16=timed[train, "bf16"], float16=timed[train, "float16"],
-                head_dim_256={t: timed[wide, t] for t in SHORT.values()})
+                head_dim_256={t: timed[wide, t] for t in SHORT.values()},
+                bert_not_causal_bf16=timed[bert, "bf16"])
 
 
 def ln_phase(ln, gen, rows):
@@ -752,8 +815,11 @@ def flash_bwd_phase(fa, gen, rows):
 
     S, D0 = TRAIN_S, D_MODEL // HEADS
     train, wide = "training S=1024", f"D={WIDE_D} block S={WIDE_S}"
+    bert = BERT_BLOCKWISE_ROW
     cases = [  # (B, H, Sq, Sk, D, causal, q_offset, kv_offset, what)
         (TRAIN_B, HEADS, S, S, D0, True, 0, 0, train),
+        (BERT_B, BERT_HEADS, BERT_S, BERT_S, BERT_D // BERT_HEADS, False, 0,
+         0, bert),
         (2, HEADS, 128, 256, D0, True, 128, 0, "end-aligned q_offset=Sk-Sq"),
         (2, HEADS, 256, 256, D0, True, 0, 64, "64 fully masked rows"),
         (1, HEADS, 4 * S, 4 * S, D0, True, 0, 0, "long S=4096"),
@@ -791,7 +857,8 @@ def flash_bwd_phase(fa, gen, rows):
             if ko and not bool((dq[:, :, :ko] == 0).all()):
                 fail(f"flash backward {what}: fully masked rows must get "
                      "dq = 0")
-            if what not in (train, wide):
+            if what not in (train, wide) and not (
+                    what == bert and dtype == torch.bfloat16):
                 continue
             ms_dq = time_ms(lambda: fa.flash_attention_bwd_dq(
                 q, k, v, do, lse, delta, **kw), calls=5)
@@ -804,11 +871,12 @@ def flash_bwd_phase(fa, gen, rows):
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
                 lib_out = tF.scaled_dot_product_attention(ql, kl, vl,
-                                                          is_causal=True)
+                                                          is_causal=causal)
             lib_ms = time_ms(lambda: torch.autograd.grad(
                 lib_out, (ql, kl, vl), do, retain_graph=True), calls=5,
                 stream=side)
-            pairs = b * h * sq * (sq + 1) // 2  # visible (q, k) pairs
+            # visible (q, k) pairs
+            pairs = b * h * (sq * (sq + 1) // 2 if causal else sq * sk)
             el, it = b * h * sq * D, q.element_size()
             # dq: reads q, k, v, dO, lse, delta, writes dq; 3 products
             # of length D per visible pair. dk/dv: the same reads, writes
@@ -824,10 +892,13 @@ def flash_bwd_phase(fa, gen, rows):
                     ("flash_attention_bwd_dkv", ms_dkv, b_dkv,
                      max(errs[1][0], errs[2][0]))):
                 timed[name, what, SHORT[dtype]] = dict(
-                    shape=f"[{b},{h},{sq},{D}] causal", max_abs_err=err,
+                    shape=f"[{b},{h},{sq},{D}] "
+                          f"{'causal' if causal else 'not causal'}",
+                    max_abs_err=err,
                     ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                     library_ms=lib_ms)
-                rows.append(f"{name} {str(dtype)[6:]} [{b},{h},{sq},{D}]: "
+                rows.append(f"{name} {str(dtype)[6:]} "
+                            f"{timed[name, what, SHORT[dtype]]['shape']}: "
                             f"kernel {ms:.4f} ms, plain (dq, dk, dv) "
                             f"{plain_ms:.4f} ms, sdpa backward (dq, dk, dv) "
                             f"{lib_ms:.4f} ms, bound {bms:.6f} ms ({by})")
@@ -837,7 +908,8 @@ def flash_bwd_phase(fa, gen, rows):
              dtype="float32", **timed[name, train, "float32"],
              bf16=timed[name, train, "bf16"],
              float16=timed[name, train, "float16"],
-             head_dim_256={t: timed[name, wide, t] for t in SHORT.values()})
+             head_dim_256={t: timed[name, wide, t] for t in SHORT.values()},
+             bert_not_causal_bf16=timed[name, bert, "bf16"])
         for name, line in (("flash_attention_bwd_dq", "171 (_dq_kernel)"),
                            ("flash_attention_bwd_dkv", "224 (_dkv_kernel)")))
 
@@ -1075,6 +1147,19 @@ def _bench_lm_loss(model):
     return lm_loss
 
 
+def worst_grad(got, want):
+    """The largest ``max|got - want| / max|want|`` over the parameters of
+    ``want`` (inf where ``want`` is all zeros), and its name."""
+    w, name = 0.0, ""
+    for k, gd in want.items():
+        scale = gd.abs().max().item()
+        rel = (got[k].float() - gd.float()).abs().max().item() \
+            / max(scale, 1e-30)
+        if scale == 0 or rel > w:
+            w, name = (rel, k) if scale else (float("inf"), k)
+    return w, name
+
+
 def amp_training_phase(pt, kernels, amp_dtype="bfloat16"):
     """Train bench.py's GPT-medium as bench.py does: ``strategy.amp``
     through ``fleet.init``, ``fleet.distributed_optimizer(AdamW(1e-4,
@@ -1131,16 +1216,6 @@ def amp_training_phase(pt, kernels, amp_dtype="bfloat16"):
             os.environ.pop(knob)
         return loss.item(), out
 
-    def worst(got, want):
-        w, name = 0.0, ""
-        for k, gd in want.items():
-            scale = gd.abs().max().item()
-            rel = (got[k].float() - gd.float()).abs().max().item() \
-                / max(scale, 1e-30)
-            if scale == 0 or rel > w:
-                w, name = (rel, k) if scale else (float("inf"), k)
-        return w, name
-
     kernels.reset_launches()
     loss_k, g_k = grads("1")
     oracle_counts = kernels.launches_by_dtype()
@@ -1149,10 +1224,10 @@ def amp_training_phase(pt, kernels, amp_dtype="bfloat16"):
         if g is None or g.dtype != torch.float32 \
                 or not bool(torch.isfinite(g).all()):
             fail(f"kernel route gives no finite float32 gradient for {k}")
-    w_kd, n_kd = worst(g_k, g_d)
+    w_kd, n_kd = worst_grad(g_k, g_d)
     loss_f, g_f = grads("0", amp_on=False)  # float32, for scale only
-    w_kf, _ = worst(g_k, g_f)
-    w_df, _ = worst(g_d, g_f)
+    w_kf, _ = worst_grad(g_k, g_f)
+    w_df, _ = worst_grad(g_d, g_f)
     del g_f
     print(f"AMP gradient oracle, {n_params} float32 parameters under "
           f"{amp_dtype} O1 (loss scale {scale}), B={TRAIN_B} S={TRAIN_S}: "
@@ -1413,11 +1488,12 @@ def wide_block_phase(pt, kernels):
     return counts
 
 
-def bench_bert(pt):
+def bench_bert(pt, attn_impl="dense"):
     """bench.py's ``_bert_base`` from the port's layers: token and
     position embeddings, 12 post-LN TransformerEncoderLayers (768 wide, 12
     heads, ffn 3072, dropout 0), the mean over the sequence, a 2-way
-    head."""
+    head; ``attn_impl="blockwise"`` builds the encoder layers on blockwise
+    attention with blocks of BERT_BLOCK."""
 
     class Bert(torch.nn.Module):
         def __init__(self):
@@ -1428,8 +1504,11 @@ def bench_bert(pt):
             self.pos = pt.nn.Embedding(BERT_POS, BERT_D, **kw)
             self.encoder = pt.nn.LayerList([
                 pt.nn.TransformerEncoderLayer(BERT_D, BERT_HEADS, 4 * BERT_D,
-                                              dropout=0.0, **kw)
+                                              dropout=0.0,
+                                              attn_impl=attn_impl, **kw)
                 for _ in range(BERT_LAYERS)])
+            for lyr in self.encoder:
+                lyr.self_attn.block_size = BERT_BLOCK
             self.head = pt.nn.Linear(BERT_D, 2, **kw)
 
         def forward(self, ids):
@@ -1443,7 +1522,7 @@ def bench_bert(pt):
 
 
 def bench_program_phase(pt, kernels, name, model, opt, x, y, amp, unit,
-                        launches):
+                        launches, stats=None):
     """Train one of bench.py's programs as ``_bench_train`` /
     ``_bench_bert`` do (``TrainStep`` with ``cross_entropy``; bf16 AMP
     through ``fleet`` when ``amp``) for BENCH_STEPS steps on one batch
@@ -1451,7 +1530,8 @@ def bench_program_phase(pt, kernels, name, model, opt, x, y, amp, unit,
     host time of steps 2-6 around a synchronize), the step times, peak
     memory, the losses (which must be finite and fall) and the kernels'
     launches by input types (which must equal ``launches`` per step).
-    Returns the launches."""
+    Returns the launches; fills ``stats`` (a dict) with ms/step, the rate
+    and peak GiB."""
     from paddle_tpu_torch.distributed import fleet
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1475,6 +1555,10 @@ def bench_program_phase(pt, kernels, name, model, opt, x, y, amp, unit,
         ms.append((time.perf_counter() - t1) * 1e3)
     counts = kernels.launches_by_dtype()  # and ends here
     steady = float(np.mean(ms[1:]))
+    if stats is not None:
+        stats.update(ms_per_step=steady, rate=x.shape[0] / steady * 1e3,
+                     peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                     losses=losses)
     print(f"{name}: batch {x.shape[0]}, {x.shape[0] / steady * 1e3:.1f} "
           f"{unit}/s, {steady:.2f} ms/step (mean of steps 2-"
           f"{BENCH_STEPS}); step ms {[f'{t:.1f}' for t in ms]}; peak memory "
@@ -1517,14 +1601,10 @@ def bench_programs_phase(pt, kernels):
     ids = torch.arange(BERT_B * BERT_S, device="cuda").reshape(
         BERT_B, BERT_S) % 30000
     y = torch.arange(BERT_B, device="cuda") % 2
-    # the post-LN encoder's two LayerNorms a layer on the float32 residual
-    # sums ([4096, 768]): B5 forward, B7 backward
-    ln_per_step = {"float32": 2 * BERT_LAYERS}
     out["bert"] = bench_program_phase(
         pt, kernels, "BERT-base (AdamW 1e-4/0.01, bf16 AMP)", bench_bert(pt),
         pt.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01), ids, y,
-        True, "samples", {"layer_norm_fwd": ln_per_step,
-                          "layer_norm_bwd": ln_per_step})
+        True, "samples", BERT_LN_LAUNCHES)
     return out
 
 
@@ -2711,6 +2791,239 @@ def translation_phase(pt, kernels, card):
                                for name in kernels.WRAPPERS}}
 
 
+# -- the PTB language model, as Paddle's language_model script writes it ----
+# ptb_lm and ptb_loss are the script; tests/test_torch_rnn.py imports them
+# and runs them through both packages at a small size.
+
+
+def ptb_lm(paddle, vocab=PTB_VOCAB, d=PTB_D, layers=PTB_LAYERS,
+           dropout=PTB_DROPOUT, init=PTB_INIT):
+    """Embedding, dropout, a ``layers``-deep LSTM (dropout between its
+    layers), dropout, the vocabulary projection; every weight uniform in
+    [-init, init]. ``forward(x, h, c) -> (logits, h, c)``."""
+    nn = paddle.nn
+
+    def attr():
+        return paddle.ParamAttr(
+            initializer=nn.initializer.Uniform(-init, init))
+
+    class PtbLM(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embedding = nn.Embedding(vocab, d, weight_attr=attr())
+            self.lstm = nn.LSTM(d, d, num_layers=layers, dropout=dropout,
+                                weight_ih_attr=attr(), weight_hh_attr=attr(),
+                                bias_ih_attr=attr(), bias_hh_attr=attr())
+            self.dropout = nn.Dropout(dropout)
+            self.fc = nn.Linear(d, vocab, weight_attr=attr(),
+                                bias_attr=attr())
+
+        def forward(self, x, h, c):
+            y, (h, c) = self.lstm(self.dropout(self.embedding(x)), (h, c))
+            return self.fc(self.dropout(y)), h, c
+
+    return PtbLM()
+
+
+def ptb_loss(paddle, logits, y, vocab=PTB_VOCAB):
+    return paddle.nn.functional.cross_entropy(
+        logits.reshape([-1, vocab]), y.reshape([-1]))
+
+
+def rnn_lm_phase(pt, kernels, card):
+    """The PTB "medium" LSTM language model at full width (the constants'
+    notes): a first-step oracle (dropout off) of the card's float32 step
+    against the port's CPU step in float64 on the same weights and
+    tokens, then six eager training steps as the script runs them (the
+    state carried and detached), which must lower the loss and launch no
+    kernel of the port. Returns the launches (all 0)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    pt.set_device("gpu")
+    pt.seed(7)
+    model = ptb_lm(pt)
+    n_params = sum(p.numel() for p in model.parameters())
+    zipf = 1.0 / np.arange(1, PTB_VOCAB + 1)
+    stream = np.random.RandomState(7).choice(
+        PTB_VOCAB, size=(PTB_B, PTB_T * PTB_STEPS + 1), p=zipf / zipf.sum())
+
+    def batch(i):
+        return (stream[:, i * PTB_T:(i + 1) * PTB_T],
+                stream[:, i * PTB_T + 1:(i + 1) * PTB_T + 1])
+
+    def first_step(m, device, dtype):
+        m.eval()
+        x, y = (torch.as_tensor(a, device=device) for a in batch(0))
+        h0 = torch.zeros(PTB_LAYERS, PTB_B, PTB_D, device=device,
+                         dtype=dtype)
+        loss = ptb_loss(pt, m(x, h0, h0)[0], y)
+        loss.backward()
+        out = {n: p.grad.double().cpu() for n, p in m.named_parameters()}
+        m.clear_gradients()
+        m.train()
+        return loss.item(), out
+
+    loss_g, g_g = first_step(model, "cuda", torch.float32)
+    pt.set_device("cpu")
+    twin = ptb_lm(pt).to(dtype="float64")
+    twin.set_state_dict({k: v.detach().cpu().numpy()
+                         for k, v in model.state_dict().items()})
+    loss_c, g_c = first_step(twin, "cpu", torch.float64)
+    pt.set_device("gpu")
+    del twin
+    w, name = worst_grad(g_g, g_c)
+    loss_err = abs(loss_g - loss_c) / abs(loss_c)
+    print(f"PTB LSTM LM oracle, {n_params} float32 parameters, B={PTB_B} "
+          f"T={PTB_T}, dropout off: loss card {loss_g:.7f} CPU float64 "
+          f"{loss_c:.7f} (relative {loss_err:.3e}); worst max|g_card - "
+          f"g_cpu64| / max|g_cpu64| {w:.3e} ({name}; tolerance {PTB_RTOL}); "
+          f"{time.perf_counter() - t0:.2f} s")
+    if loss_err > PTB_RTOL or w > PTB_RTOL:
+        fail("PTB LSTM LM: the card's first step disagrees with the CPU's "
+             "float64 step")
+    del g_g, g_c
+
+    opt = pt.optimizer.SGD(learning_rate=PTB_LR,
+                           parameters=model.parameters(),
+                           grad_clip=pt.nn.ClipGradByGlobalNorm(PTB_CLIP))
+    h = c = pt.zeros([PTB_LAYERS, PTB_B, PTB_D])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()  # the recurrent path starts here
+    losses, ms = [], []
+    for i in range(PTB_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        x, y = (pt.to_tensor(a) for a in batch(i))
+        logits, h, c = model(x, h, c)
+        loss = ptb_loss(pt, logits, y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        h, c = h.detach(), c.detach()
+        losses.append(loss.item())  # .item() syncs
+        ms.append((time.perf_counter() - t1) * 1e3)
+    counts = kernels.launches()  # and ends here
+    steady = float(np.mean(ms[1:]))
+    print(f"PTB LSTM LM (SGD {PTB_LR}, clip {PTB_CLIP}, dropout "
+          f"{PTB_DROPOUT}, float32, eager): {steady:.2f} ms/step (mean of "
+          f"steps 2-{PTB_STEPS}), {PTB_B * PTB_T / steady * 1e3:.1f} "
+          f"tokens/s; step ms {[f'{t:.1f}' for t in ms]}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; losses "
+          f"{[f'{v:.5f}' for v in losses]}; launches {counts}; {card}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail("PTB LSTM LM: loss is not finite or did not fall")
+    if any(counts.values()):
+        fail(f"PTB LSTM LM: a kernel of the port launched on a path that "
+             f"has none: {counts}")
+    del model, opt
+    torch.cuda.empty_cache()
+    return counts
+
+
+def blockwise_bert_phase(pt, kernels, card):
+    """bench.py's BERT-base with its encoder on blockwise attention,
+    trained with LAMB through fleet bf16 O1 and TrainStep: first the
+    gradient oracles, then six steps (losses falling, B1, B3 and B4
+    twelve times a step in bf16 and the torch blockwise program never,
+    B5 and B7 as on the dense route), then its dense twin's six steps
+    under the same optimizer for the rate beside it. Returns both paths'
+    launches.
+
+    The oracles hold one batch's gradients on the blockwise route against
+    the dense twin's with the same weights, each against the dense route
+    in float64: the blockwise route's worst distance from float64 (of
+    each parameter's largest gradient) may exceed the dense route's by
+    GRAD_RTOL in float32 and AMP_GRAD_RTOL under bf16 O1, and their
+    losses agree within the same shares. The two routes' distance from
+    each other is printed too: this model's backward (post-LN, the mean
+    over the sequence into a 2-way head, embeddings at XavierNormal's
+    scale) moves its embedding gradients far for small differences in the
+    layers above, so two float32 routes that each lie near float64 lie
+    further from each other, and bf16 O1 moves both routes ~6% of the
+    largest gradient from float32."""
+    from paddle_tpu_torch.nn.layers import ring_attention as ra
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    model = bench_bert(pt, "blockwise")
+    twin = bench_bert(pt)
+    twin.load_state_dict(model.state_dict())
+    ids = torch.arange(BERT_B * BERT_S, device="cuda").reshape(
+        BERT_B, BERT_S) % 30000
+    y = torch.arange(BERT_B, device="cuda") % 2
+
+    def grads(m, amp_on=False):
+        m.zero_grad(set_to_none=True)
+        with pt.amp.auto_cast(amp_on, level="O1", dtype="bfloat16"):
+            loss = pt.nn.functional.cross_entropy(m(ids), y)
+        loss.backward()
+        out = {k: p.grad for k, p in m.named_parameters()}
+        m.zero_grad(set_to_none=True)
+        return loss.item(), out
+
+    wide = bench_bert(pt).to(torch.float64)
+    wide.load_state_dict(model.state_dict())
+    loss_64, g_64 = grads(wide)
+    del wide
+    for amp_on, tol in ((False, GRAD_RTOL), (True, AMP_GRAD_RTOL)):
+        kernels.reset_launches()
+        loss_b, g_b = grads(model, amp_on)
+        launches = kernels.launches_by_dtype()
+        loss_d, g_d = grads(twin, amp_on)
+        w_b, n_b = worst_grad(g_b, g_64)
+        w_d, n_d = worst_grad(g_d, g_64)
+        w_bd, n_bd = worst_grad(g_b, g_d)
+        del g_b, g_d
+        what = "bf16 O1" if amp_on else "float32"
+        print(f"BERT-base blockwise gradient oracle, {what} (B={BERT_B} "
+              f"S={BERT_S}, block {BERT_BLOCK}, TF32 off): loss blockwise "
+              f"{loss_b:.7f} dense {loss_d:.7f} float64 {loss_64:.7f}; worst "
+              f"max|g - g_float64| / max|g_float64|: blockwise {w_b:.3e} "
+              f"({n_b}), dense {w_d:.3e} ({n_d}) (tolerance: dense + {tol}); "
+              f"blockwise against dense {w_bd:.3e} ({n_bd}); launches "
+              f"{launches}")
+        if w_b > w_d + tol or abs(loss_b - loss_d) > tol * abs(loss_d):
+            fail(f"BERT blockwise {what} gradients stray further from "
+                 "float64 than the dense route's")
+        if amp_on and launches != {k: BLOCKWISE_BERT_LAUNCHES.get(k, {})
+                                   for k in launches}:
+            fail(f"BERT blockwise oracle launches {launches}, expected "
+                 f"{BLOCKWISE_BERT_LAUNCHES}")
+    del g_64
+    print(f"BERT-base oracles done in {time.perf_counter() - t0:.2f} s")
+    torch.cuda.empty_cache()
+
+    scan_calls = []
+    real = ra._blockwise_raw
+    ra._blockwise_raw = lambda *a, **kw: scan_calls.append(1) or real(
+        *a, **kw)
+    blk, dns = {}, {}
+    try:
+        counts = bench_program_phase(
+            pt, kernels, f"BERT-base on blockwise attention (block "
+            f"{BERT_BLOCK}; Lamb 1e-3/0.01, bf16 AMP)", model,
+            pt.optimizer.Lamb(learning_rate=1e-3, lamb_weight_decay=0.01),
+            ids, y, True, "samples", BLOCKWISE_BERT_LAUNCHES, blk)
+    finally:
+        ra._blockwise_raw = real
+    if scan_calls:
+        fail(f"BERT blockwise: the torch blockwise program ran "
+             f"{len(scan_calls)} times on the card's path")
+    dense_counts = bench_program_phase(
+        pt, kernels, "BERT-base, its dense twin (Lamb 1e-3/0.01, bf16 AMP)",
+        twin, pt.optimizer.Lamb(learning_rate=1e-3, lamb_weight_decay=0.01),
+        ids, y, True, "samples", BERT_LN_LAUNCHES, dns)
+    print(f"BERT-base Lamb bf16 O1, blockwise against dense: "
+          f"{blk['ms_per_step']:.2f} / {dns['ms_per_step']:.2f} ms/step, "
+          f"{blk['rate']:.1f} / {dns['rate']:.1f} samples/s, peak "
+          f"{blk['peak_gib']:.2f} / {dns['peak_gib']:.2f} GiB; {card}")
+    return {"blockwise_bert": counts, "blockwise_bert_dense_twin":
+            dense_counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2786,6 +3099,11 @@ def main() -> int:
     print(f"dygraph phase done at {time.perf_counter() - t_start:.1f} s")
     translation = translation_phase(pt, kernels, card)
     print(f"translation phase done at {time.perf_counter() - t_start:.1f} s")
+    rnn_lm = rnn_lm_phase(pt, kernels, card)
+    print(f"PTB LSTM LM phase done at {time.perf_counter() - t_start:.1f} s")
+    blockwise = blockwise_bert_phase(pt, kernels, card)
+    print(f"BERT blockwise phase done at {time.perf_counter() - t_start:.1f} "
+          "s")
     entries = [flash, ln_entry, add_entry, dq_entry, dkv_entry, ln_bwd_entry]
     for e in entries:
         if hmma is not None and e["name"] in hmma:
@@ -2804,7 +3122,10 @@ def main() -> int:
                for k, v in wide_block.items()},
             **{k: sum(v[e["name"]].values()) for k, v in programs.items()},
             "dygraph": dygraph[e["name"]],
-            **{k: v[e["name"]] for k, v in translation.items()}}
+            **{k: v[e["name"]] for k, v in translation.items()},
+            "ptb_lstm_lm": rnn_lm[e["name"]],
+            **{k: sum(v[e["name"]].values())
+               for k, v in blockwise.items()}}
     print(f"{card}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -24,9 +24,11 @@ from typing import Iterable, Tuple
 
 import torch
 
-__all__ = ["WHITE_LIST", "BLACK_LIST", "auto_cast", "is_enabled",
-           "amp_dtype", "should_cast_down", "cast_if_amp", "decorate",
-           "GradScaler"]
+from ..core.dtype import convert_dtype  # noqa: F401 (paddle_tpu.amp's)
+
+__all__ = ["WHITE_LIST", "BLACK_LIST", "auto_cast", "amp_guard",
+           "is_enabled", "amp_dtype", "should_cast_down", "cast_if_amp",
+           "decorate", "GradScaler", "AmpScaler"]
 
 # op categories (imperative/amp_auto_cast.cc AmpOperators)
 WHITE_LIST = {"matmul", "linear", "conv2d", "conv1d", "conv3d", "einsum",
@@ -131,6 +133,10 @@ def auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
          _state.custom_white, _state.custom_black) = prev
 
 
+#: the fluid-era name of ``auto_cast``
+amp_guard = auto_cast
+
+
 def decorate(models, optimizers=None, level="O1", dtype="bfloat16",
              master_weight=None, save_dtype=None):
     """paddle.amp.decorate: at O2 the models' float parameters and buffers
@@ -220,8 +226,17 @@ class GradScaler:
         self.step(optimizer)
         optimizer.clear_grad()
 
+    def is_enable(self) -> bool:
+        return self._enable
+
+    def is_use_dynamic_loss_scaling(self) -> bool:
+        return self._dynamic
+
     def get_loss_scaling(self) -> float:
         return self._scale
+
+    def set_init_loss_scaling(self, v) -> None:
+        self._scale = float(v)
 
     def state_dict(self) -> dict:
         return {
@@ -238,3 +253,7 @@ class GradScaler:
         self._scale = state.get("scale", self._scale)
         self._good_steps = state.get("good_steps", 0)
         self._bad_steps = state.get("bad_steps", 0)
+
+
+#: the fluid-era name of ``GradScaler``
+AmpScaler = GradScaler

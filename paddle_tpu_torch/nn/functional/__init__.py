@@ -8,24 +8,30 @@ was one). The submodules keep the torch-only functions. ``sigmoid``,
 return ``Tensor``; ``relu_``, ``tanh_``, ``softmax_`` and ``elu_`` are the
 functional forms under Paddle's in-place names, as in the JAX package.
 The fluid-era tail (``extras.py``: ``rnn``, ``birnn``, ``nce``, ...) is
-ROADMAP queue A item 2.
+exported the same way, but for its tensor-array names, which take and
+give Python lists as they are.
 """
 from ...core.tensor import tensor_boundary as _boundary
 from ...ops.manipulation import pad
 from ...ops.math import sigmoid, tanh
-from . import activation, attention, common, conv, loss, norm, pooling
+from . import (activation, attention, common, conv, extras, loss, norm,
+               pooling)
 from .attention import flash_default_enabled, flash_plan, flash_routable
 
 _TENSOR_FUNCTIONS = (
     (activation, activation.__all__), (common, common.__all__),
     (conv, conv.__all__), (loss, loss.__all__), (norm, norm.__all__),
     (pooling, pooling.__all__),
+    (extras, [n for n in extras.__all__ if n not in extras.ARRAY_FUNCTIONS]),
     (attention, ("flash_core", "scaled_dot_product_attention",
                  "cache_update", "cached_attention")))
 for _mod, _names in _TENSOR_FUNCTIONS:
     for _name in _names:
         globals()[_name] = _boundary(getattr(_mod, _name))
 del _mod, _names, _name
+for _name in extras.ARRAY_FUNCTIONS:
+    globals()[_name] = getattr(extras, _name)
+del _name
 
 relu_ = relu  # noqa: F821
 tanh_ = tanh
@@ -33,5 +39,6 @@ softmax_ = softmax  # noqa: F821
 elu_ = elu  # noqa: F821
 
 __all__ = ([n for _, names in _TENSOR_FUNCTIONS for n in names]
+           + list(extras.ARRAY_FUNCTIONS)
            + ["sigmoid", "tanh", "pad", "relu_", "tanh_", "softmax_", "elu_",
               "flash_default_enabled", "flash_plan", "flash_routable"])

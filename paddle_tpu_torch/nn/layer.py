@@ -41,9 +41,9 @@ _PACKAGE = __name__.split(".")[0]
 
 class ParamAttr:
     """A parameter's attributes: ``name``, ``initializer``,
-    ``learning_rate`` (1.0 only so far: the port's optimizers have no
-    per-parameter rate yet), ``regularizer`` (read by the optimizers),
-    ``trainable`` and ``need_clip`` (read by the gradient clips)."""
+    ``learning_rate`` (the optimizers multiply their rate by it for this
+    parameter), ``regularizer`` (read by the optimizers), ``trainable``
+    and ``need_clip`` (read by the gradient clips)."""
 
     def __init__(self, name=None, initializer=None, learning_rate=1.0,
                  regularizer=None, trainable=True, need_clip=True):
@@ -108,10 +108,6 @@ class Layer(torch.nn.Module):
         attr = ParamAttr._to_attr(attr)
         if attr is False:
             return None
-        if attr.learning_rate != 1.0:
-            raise NotImplementedError(
-                "ParamAttr(learning_rate=) other than 1.0: the port's "
-                "optimizers have no per-parameter learning rate yet")
         init = attr.initializer or default_initializer or (
             Constant(0.0) if is_bias else XavierUniform())
         data = _resolve_initializer(init)(
@@ -119,6 +115,7 @@ class Layer(torch.nn.Module):
             device=resolve_device(device), generator=generator)
         p = Parameter(data, requires_grad=bool(attr.trainable) and (
             data.is_floating_point() or data.is_complex()), name=attr.name)
+        p.optimize_attr["learning_rate"] = attr.learning_rate
         p.regularizer = attr.regularizer
         p.need_clip = attr.need_clip
         return p

@@ -234,25 +234,33 @@ class HSigmoidLoss(Layer):
             self.num_classes)
 
     def forward(self, input, label, path_table=None, path_code=None):
-        w = self.weight
-        y = label.reshape(-1).long()
-        if self.is_custom:
-            if path_table is None or path_code is None:
-                raise ValueError("is_custom HSigmoidLoss needs path_table "
-                                 "and path_code")
-            tbl = path_table.long()[y]
-            idx = tbl.clamp(min=0)
-            bits = path_code[y].to(torch.float32)
-            mask = (tbl >= 0).to(torch.float32)
-        else:
-            idx, bits, mask = (torch.as_tensor(t, device=w.device)[y]
-                               for t in self._tables)
-        pre = torch.einsum("blf,bf->bl", w[idx], input.to(w.dtype))
-        if self.bias is not None:
-            pre = pre + self.bias[idx]
-        pre = pre.clamp(-40.0, 40.0)
-        loss = (torch.nn.functional.softplus(pre) - bits * pre) * mask
-        return loss.sum(dim=-1, keepdim=True)
+        if self.is_custom and (path_table is None or path_code is None):
+            raise ValueError("is_custom HSigmoidLoss needs path_table "
+                             "and path_code")
+        return _hsigmoid_apply(input, label, self.weight, self.bias,
+                               self._tables, path_table, path_code)
+
+
+def _hsigmoid_apply(input, label, weight, bias, tables, path_table=None,
+                    path_code=None):
+    """``softplus(pre) - bit * pre`` summed over each label's path, ``pre``
+    clipped to [-40, 40]: on the caller's ``path_table``/``path_code``
+    when given, else on the default tree's ``tables``."""
+    y = label.reshape(-1).long()
+    if path_table is not None:
+        tbl = path_table.long()[y]
+        idx = tbl.clamp(min=0)
+        bits = path_code[y].to(torch.float32)
+        mask = (tbl >= 0).to(torch.float32)
+    else:
+        idx, bits, mask = (torch.as_tensor(t, device=weight.device)[y]
+                           for t in tables)
+    pre = torch.einsum("blf,bf->bl", weight[idx], input.to(weight.dtype))
+    if bias is not None:
+        pre = pre + bias[idx]
+    pre = pre.clamp(-40.0, 40.0)
+    loss = (torch.nn.functional.softplus(pre) - bits * pre) * mask
+    return loss.sum(dim=-1, keepdim=True)
 
 
 class NCELoss(Layer):
@@ -280,17 +288,27 @@ class NCELoss(Layer):
             [num_classes], bias_attr, is_bias=True, **kw)
 
     def forward(self, input, label):
-        B = input.shape[0]
-        gen = self._generator or default_generator(input.device)
-        noise = torch.randint(0, self.num_classes, (B, self.num_neg),
-                              generator=gen, device=input.device)
-        ids = torch.cat([label.reshape(B, 1).long(), noise.long()], dim=1)
-        logits = torch.einsum("bsd,bd->bs", self.weight[ids].float(),
-                              input.float())
-        if self.bias is not None:
-            logits = logits + self.bias[ids]
-        o = torch.sigmoid(logits)
-        q = self.num_neg / self.num_classes
-        true_cost = -torch.log(o[:, :1] / (o[:, :1] + q) + 1e-20)
-        noise_cost = -torch.log(q / (o[:, 1:] + q) + 1e-20)
-        return (true_cost.sum(-1) + noise_cost.sum(-1))[:, None]
+        return _nce_apply(input, label, self.weight, self.bias,
+                          self.num_classes, self.num_neg, self._generator)
+
+
+def _nce_apply(input, label, weight, bias, num_classes, num_neg,
+               generator=None):
+    """NCE with ``[N, num_neg]`` noise classes drawn uniformly from
+    ``generator`` (the package's generator of the input's device when
+    None): ``o = sigmoid(logit)``, ``q = num_neg / num_classes``, cost
+    ``-log(o / (o + q))`` for the label and ``-log(q / (o + q))`` for each
+    noise class, ``[N, 1]``."""
+    B = input.shape[0]
+    gen = generator or default_generator(input.device)
+    noise = torch.randint(0, num_classes, (B, num_neg), generator=gen,
+                          device=input.device)
+    ids = torch.cat([label.reshape(B, 1).long(), noise.long()], dim=1)
+    logits = torch.einsum("bsd,bd->bs", weight[ids].float(), input.float())
+    if bias is not None:
+        logits = logits + bias[ids]
+    o = torch.sigmoid(logits)
+    q = num_neg / num_classes
+    true_cost = -torch.log(o[:, :1] / (o[:, :1] + q) + 1e-20)
+    noise_cost = -torch.log(q / (o[:, 1:] + q) + 1e-20)
+    return (true_cost.sum(-1) + noise_cost.sum(-1))[:, None]

@@ -2,11 +2,15 @@
 ``Transformer`` (counterparts of ``paddle_tpu/nn/layers/transformer.py``),
 on one device.
 
-Attention takes the JAX package's ``attn_impl="dense"`` route: the routed
-``functional.scaled_dot_product_attention`` (the flash kernel for causal,
-mask-free, dropout-free attention; the dense form otherwise), or, with
-``need_weights``, the dense form that returns the weights. The
-``blockwise``, ``ring`` and ``ulysses`` routes are not ported yet, and
+Attention takes the JAX package's ``attn_impl="dense"`` route by default:
+the routed ``functional.scaled_dot_product_attention`` (the flash kernel
+for causal, mask-free, dropout-free attention; the dense form otherwise),
+or, with ``need_weights``, the dense form that returns the weights.
+``attn_impl="blockwise"`` runs ``ring_attention.blockwise_attention``
+(the flash kernels for block-divisible shapes on the card, causal or not)
+and refuses, as the JAX package does, an ``attn_mask``, weight dropout in
+training, ``need_weights`` and a cache. The ``ring``, ``ring_pallas`` and
+``ulysses`` routes (sequence parallel) are ROADMAP queue A item 7, and
 raise. ``gen_cache`` builds the static-capacity cache
 contiguous or paged, full width or int8/fp8 (``QuantKV``).
 
@@ -36,6 +40,7 @@ from ..layer import Layer
 from .common import Dropout, Linear
 from .container import LayerList
 from .norm import LayerNorm
+from .ring_attention import blockwise_attention
 
 __all__ = [
     "MultiHeadAttention", "TransformerEncoderLayer", "TransformerEncoder",
@@ -76,11 +81,15 @@ class MultiHeadAttention(Layer):
                  block_size=512, *, device=None, dtype=None,
                  generator=None):
         super().__init__(dtype=dtype)
-        if attn_impl != "dense":
+        if attn_impl not in ("dense", "blockwise", "ring", "ring_pallas",
+                             "ulysses"):
+            raise ValueError(f"unknown attn_impl {attn_impl!r}")
+        if attn_impl not in ("dense", "blockwise"):
             raise NotImplementedError(
-                f"MultiHeadAttention: attn_impl={attn_impl!r} is not ported "
-                "yet (dense only)")
+                f"MultiHeadAttention: attn_impl={attn_impl!r} (sequence "
+                "parallel) is ROADMAP queue A item 7")
         self.attn_impl, self.causal = attn_impl, causal
+        self.block_size = block_size
         self.embed_dim = embed_dim
         self.kdim = kdim or embed_dim
         self.vdim = vdim or embed_dim
@@ -185,8 +194,34 @@ class MultiHeadAttention(Layer):
             outs.append(cache)
         return out if len(outs) == 1 else tuple(outs)
 
+    def _refuse_blockwise(self, attn_mask, cache, pos):
+        """What the blockwise route does not compute, refused as the JAX
+        package refuses it: it never forms the weights and masks by local
+        query positions."""
+        if cache is not None and pos is not None:
+            raise NotImplementedError(
+                "static-capacity decode requires attn_impl='dense' "
+                "(blockwise/ring paths have no traced-position masking)")
+        if attn_mask is not None:
+            raise NotImplementedError(
+                "blockwise/ring attention support causal=True masking only; "
+                "arbitrary attn_mask needs the dense impl")
+        if self.dropout and self.training:
+            raise NotImplementedError(
+                "attention-weight dropout requires the dense impl "
+                "(flash-style paths never materialize the weights)")
+        if self.need_weights:
+            raise NotImplementedError("need_weights requires the dense impl")
+        if cache is not None:
+            raise NotImplementedError(
+                "incremental-decode Cache needs query-position offsets the "
+                "blockwise/ring paths do not implement yet; use the dense "
+                "impl for decoding")
+
     def forward(self, query, key=None, value=None, attn_mask=None,
                 cache=None, pos=None):
+        if self.attn_impl == "blockwise":
+            self._refuse_blockwise(attn_mask, cache, pos)
         key = query if key is None else key
         value = key if value is None else value
         static = isinstance(cache, MultiHeadAttention.StaticCache)
@@ -221,6 +256,10 @@ class MultiHeadAttention(Layer):
                 k = torch.cat([cache.k, k], dim=2)
                 v = torch.cat([cache.v, v], dim=2)
                 cache = MultiHeadAttention.Cache(k, v)
+        if self.attn_impl == "blockwise":
+            out = blockwise_attention(q, k, v, causal=self.causal,
+                                      block_size=self.block_size)
+            return self._finish_output(out, None, cache)
         mask = _convert_attention_mask(attn_mask, q.dtype)
         if not self.need_weights:
             out = F.scaled_dot_product_attention(

@@ -39,6 +39,17 @@ class LRScheduler:
     def get_lr(self):
         raise NotImplementedError
 
+    def state_dict(self):
+        """The scheduler's plain attributes (numbers, strings, lists), as
+        the JAX package saves them."""
+        return {k: v for k, v in self.__dict__.items()
+                if isinstance(v, (int, float, bool, str, list, tuple))}
+
+    def set_state_dict(self, state_dict):
+        self.__dict__.update(state_dict)
+
+    set_dict = set_state_dict
+
 
 class NoamDecay(LRScheduler):
     def __init__(self, d_model, warmup_steps, learning_rate=1.0,

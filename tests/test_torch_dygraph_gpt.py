@@ -363,28 +363,11 @@ def _reference_names():
 #: names of paddle_tpu's sub-namespaces the port does not have yet, by the
 #: ROADMAP queue A item that brings them; each list only shrinks
 KNOWN_NAMESPACE_GAPS = {
-    # item 2: nn/layers/rnn.py
-    "nn": {"BiRNN", "GRU", "GRUCell", "LSTM", "LSTMCell", "RNN",
-           "RNNCellBase", "SimpleRNN", "SimpleRNNCell", "rnn"},
-    # item 2: nn/functional/extras.py, the fluid-era tail
-    "nn.functional": {
-        "extras", "add_position_encoding", "affine_channel", "affine_grid",
-        "array_length", "array_read", "array_write",
-        "bilinear_tensor_product", "birnn", "bpr_loss", "create_array",
-        "density_prior_box", "dice_loss", "fc", "fsp_matrix", "grid_sample",
-        "hsigmoid_loss", "image_resize", "image_resize_short", "nce", "pad2d",
-        "pad_constant_like", "pool2d", "pool3d", "random_crop",
-        "resize_bilinear", "resize_nearest", "resize_trilinear", "rnn",
-        "roi_pool", "shuffle_channel", "smooth_l1", "soft_relu",
-        "space_to_depth", "spectral_norm", "temporal_shift",
-        "tensor_array_to_tensor", "warpctc"},
-    # item 3: the other optimizers and optimizer/extras.py
-    "optimizer": {"Adadelta", "Adagrad", "Adamax", "Lamb", "Lars",
-                  "LarsMomentum", "RMSProp", "extras",
-                  "ExponentialMovingAverage", "LookaheadOptimizer",
-                  "ModelAverage"},
-    # item 3: the rest of amp
-    "amp": {"AmpScaler", "amp_guard", "convert_dtype"},
+    # items 2 and 3 (the rest of nn, the optimizers and AMP): ported
+    "nn": set(),
+    "nn.functional": set(),
+    "optimizer": set(),
+    "amp": set(),
     # item 6: static graphs and to_static, jit.save/load
     "jit": {"InputSpec", "StaticFunction", "TranslatedLayer", "case", "cond",
             "control_flow", "declarative", "functional_call", "load",

@@ -291,9 +291,11 @@ def test_param_attr():
                      bias_attr=nn.initializer.Constant(1.0))
     assert lin2.weight.name == "w2"
     np.testing.assert_array_equal(lin2.bias.numpy(), 1.0)
-    with pytest.raises(NotImplementedError):
-        nn.Linear(3, 2, weight_attr=nn.ParamAttr(learning_rate=0.5))
     for pkg in (jnn, nn):
+        lr_lin = pkg.Linear(3, 2, weight_attr=pkg.ParamAttr(
+            learning_rate=0.5))
+        assert lr_lin.weight.optimize_attr["learning_rate"] == 0.5
+        assert lr_lin.bias.optimize_attr["learning_rate"] == 1.0
         attr = pkg.ParamAttr._to_attr(None)
         assert (attr.learning_rate, attr.trainable, attr.need_clip) == (
             1.0, True, True)

@@ -42,17 +42,25 @@ def _sim_chain(prompt, n):
 
 
 class _Fleet:
-    """Worker processes, one per rank, over ``<tmp>/mail/host{rank}``."""
+    """Worker processes, one per rank, over ``<tmp>/mail/host{rank}``,
+    spawned at once or, with ``start=False``, by :meth:`start` (requests
+    submitted before then wait in the inboxes)."""
 
     def __init__(self, tmp_path, ranks=(0, 1), rate="800", poll="0.02",
-                 **env):
+                 start=True, **env):
         self.base = str(tmp_path / "mail")
         self.logs = str(tmp_path / "logs")
         os.makedirs(self.logs, exist_ok=True)
         base_env = {k: v for k, v in os.environ.items()
                     if k != "PADDLE_OBS_BUS_FILE"}
         base_env.update(env)
+        self._spawn = (ranks, rate, poll, base_env)
         self.procs = {}
+        if start:
+            self.start()
+
+    def start(self):
+        ranks, rate, poll, base_env = self._spawn
         for r in ranks:
             e = dict(base_env, PADDLE_TRAINER_ID=str(r),
                      PADDLE_OBS_DIR=self.logs)
@@ -135,19 +143,39 @@ def test_burst_and_slow_host(fleet, monkeypatch):
     """A ``serve:slow_host`` fault degrades rank 0, visible only through
     its telemetry, so it gets less traffic; a ``serve:burst`` is
     admission-limited; nothing admitted is dropped; queue depth and TTFT
-    rows land on each worker's stream."""
+    rows land on each worker's stream.
+
+    The order is fixed, not left to the wall clock: the first three
+    requests and the burst (router tick 3) are routed before the workers
+    start, on the router's own pending counts, so the burst meets queues
+    that no worker drains meanwhile; the rest are routed once rank 0's
+    telemetry shows its throughput and rank 1's shows its queue drained,
+    while rank 0's backlog lasts."""
     spec = "serve:slow_host:1:0,serve:burst:3:12"
     monkeypatch.setenv("PADDLE_FAULT_SPEC", spec)
-    f = fleet(rate="600", poll="0.01", PADDLE_FAULT_SPEC=spec)
+    f = fleet(rate="600", poll="0.01", start=False, PADDLE_FAULT_SPEC=spec)
     hosts = f.hosts()
     router = Router(hosts, admit_queue=6, avg_new_tokens=8)
     placed = {0: 0, 1: 0, None: 0}
-    for i in range(12):
+
+    def submit(i):
         placed[router.submit({"rid": f"r{i}", "prompt_ids": [1, 2],
                               "max_new_tokens": 8})] += 1
         for b in router.tick():
             placed[b] += 1
-        time.sleep(0.12)
+
+    for i in range(3):
+        submit(i)
+    f.start()
+
+    def ready():
+        slow, fast = hosts[0].stats(), hosts[1].stats()
+        return slow.tokens_per_sec is not None and fast.age_s is not None \
+            and fast.queue_depth == fast.inflight == 0
+
+    assert _until(ready, 30)
+    for i in range(3, 12):
+        submit(i)
     assert _until(lambda: router.inflight() == 0, 30, router)
     rcs = f.stop()
     router.tick()

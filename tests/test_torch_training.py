@@ -230,10 +230,11 @@ def test_train_step_refuses_what_is_not_ported(models, monkeypatch):
     opt.user_defined_strategy = strategy
     with pytest.raises(NotImplementedError, match="recompute"):
         pt.jit.TrainStep(tm, _torch_loss, opt)
+    # lr_ratio, multi_precision and lazy_mode are ported (their updates:
+    # tests/test_torch_optimizers.py)
     for kw in ({"lr_ratio": lambda p: 1.0}, {"multi_precision": True},
                {"lazy_mode": True}):
-        with pytest.raises(NotImplementedError):
-            pt.optimizer.AdamW(**kw)
+        pt.optimizer.AdamW(**kw)
     # grad_clip and LRScheduler learning rates are ported; a rate that is
     # neither a number nor a scheduler is refused
     with pytest.raises(TypeError):
