@@ -134,7 +134,23 @@
    each; the torch blockwise program never runs), and the twin's six
    steps beside them (ms/step, samples/s, peak memory). Step 2 holds B1,
    B3 and B4 at that shape, [32, 12, 128, 64] bf16 not causal, too;
-17. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
+17. its ``mnist_fit_phase``: tests/reference_scripts/hapi_mnist_fit.py's
+   program (``paddle.Model(LeNet())``, Adam 1e-3, ``Accuracy``) on MNIST
+   IDX files it writes under a temporary PADDLE_DATASET_HOME, through
+   ``vision.datasets.MNIST``, ``fit`` (2 epochs, batch 64, 8 steps) and
+   ``evaluate``: the loss must fall and ``evaluate`` report an accuracy;
+18. its ``model_fit_phase``: ResNet-50 trained by ``Model.fit`` from a
+   DataLoader of 8 spawned workers (ImageNet-shaped uint8 images made per
+   index, RandomResizedCrop(224) and a flip, the native fused uint8 ->
+   float32 collation, /dev/shm, one pinned copy to the card a batch),
+   Momentum with L2Decay, ``Accuracy(topk=(1, 5))``, float32, one epoch
+   of 8 batches of 256 with ``ModelCheckpoint``: the first step equal to
+   ``TrainStep``'s bit for bit, ``evaluate`` equal to ``predict``'s
+   outputs, a checkpoint that resumes bit for bit and keeps its crc32,
+   the staging library used for every batch; imgs/s through the loader
+   beside a batch already on the card, the wait on the loader and the
+   host-to-device copy per batch, ``Model.save``'s time, peak memory;
+19. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
    "device": ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device, outside a
@@ -144,6 +160,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -338,9 +355,47 @@ TB_STEP_LAUNCHES = {"layer_norm_fwd": {"float32": 5 * TB_LAYERS},
 TB_DECODE_LAUNCHES = {"layer_norm_fwd": {
     "float32": 2 * TB_LAYERS + 3 * TB_LAYERS * TB_DECODE_NEW}}
 
+# ResNet-50 trained through hapi's Model.fit from a multi-process DataLoader
+# (the Paddle 2.0 vision entry point, paddle.Model(net).prepare(...).fit):
+# ImageNet-shaped uint8 CHW 3 x 256 x 256 images made per index from a seed
+# (labels idx % 1000), RandomResizedCrop(224) and RandomHorizontalFlip in 8
+# spawned workers, the native fused uint8 -> float32 /255 collation
+# (vision_collate_fn), batches through /dev/shm and one pinned copy to the
+# card each; Momentum 0.1 / 0.9 with L2Decay(1e-4) (bench.py's ResNet
+# optimizer, the usual ImageNet weight decay), CrossEntropyLoss and
+# Accuracy(topk=(1, 5)); float32 with TF32 off, one epoch of 8 batches,
+# then evaluate on 2 batches (center crops) and predict on the same 2
+FIT_BATCH, FIT_IMG, FIT_CROP, FIT_WORKERS = 256, 256, 224, 8
+FIT_STEPS, FIT_EVAL_BATCHES = 8, 2
+FIT_BATCH_BYTES = FIT_BATCH * 3 * FIT_CROP * FIT_CROP * 4  # 154,140,672
+# tests/reference_scripts/hapi_mnist_fit.py's program (LeNet, Adam 1e-3,
+# Accuracy) at tests/test_reference_scripts.py's caps: batch 64, 8 steps,
+# on striped MNIST IDX files written here (512 train, 256 test images)
+MNIST_BATCH, MNIST_STEPS, MNIST_EPOCHS = 64, 8, 2
+
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+class ImageNetLike:
+    """``n`` uint8 CHW 3 x FIT_IMG x FIT_IMG images, each drawn from its own
+    seed (``seed + idx``), labels ``idx % 1000``; ``transform`` runs on the
+    uint8 image. Module-level, so that the DataLoader's spawned workers,
+    which import this file again, find it."""
+
+    def __init__(self, n, transform=None, seed=0):
+        self.n, self.transform, self.seed = n, transform, seed
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, idx):
+        img = np.random.RandomState(self.seed + idx).randint(
+            0, 256, (3, FIT_IMG, FIT_IMG), dtype=np.uint8)
+        if self.transform is not None:
+            img = np.ascontiguousarray(self.transform(img))
+        return img, np.int64(idx % 1000)
 
 
 def close(a, b, dtype):
@@ -3024,6 +3079,325 @@ def blockwise_bert_phase(pt, kernels, card):
             dense_counts}
 
 
+# -- hapi's Model.fit from a multi-process DataLoader ------------------------
+
+
+def _write_mnist(root, n, prefix, seed):
+    """Striped MNIST images (noise and a class band) and labels as the gzip
+    IDX files ``vision.datasets.MNIST`` reads."""
+    import gzip
+    import os
+    import struct
+
+    rng = np.random.RandomState(seed)
+    labels = (np.arange(n) % 10).astype(np.uint8)
+    rng.shuffle(labels)
+    imgs = (rng.rand(n, 28, 28) * 50).astype(np.uint8)
+    for i, lbl in enumerate(labels):
+        col = (int(lbl) * 28) // 10
+        imgs[i, :, col:col + 2] = 250
+    with gzip.open(os.path.join(root, f"{prefix}-images-idx3-ubyte.gz"),
+                   "wb") as f:
+        f.write(struct.pack(">IIII", 2051, n, 28, 28) + imgs.tobytes())
+    with gzip.open(os.path.join(root, f"{prefix}-labels-idx1-ubyte.gz"),
+                   "wb") as f:
+        f.write(struct.pack(">II", 2049, n) + labels.tobytes())
+
+
+def mnist_fit_phase(pt, kernels, card):
+    """tests/reference_scripts/hapi_mnist_fit.py's program on the card:
+    ``vision.datasets.MNIST`` from IDX files under a temporary
+    PADDLE_DATASET_HOME, ``Model(LeNet())`` with Adam 1e-3,
+    CrossEntropyLoss and Accuracy, ``fit`` for MNIST_EPOCHS epochs capped
+    at MNIST_STEPS steps of MNIST_BATCH, then ``evaluate``. The last loss
+    must be below the first and ``evaluate`` must report a finite
+    accuracy; no kernel of the port runs. Returns the launches."""
+    import os
+    import tempfile
+
+    from paddle_tpu_torch.vision.datasets import MNIST
+    from paddle_tpu_torch.vision.models import LeNet
+
+    t0 = time.perf_counter()
+    losses = []
+
+    class Losses(pt.hapi.callbacks.Callback):
+        def on_train_batch_end(self, step, logs=None):
+            losses.append(logs["loss"])
+
+    saved = os.environ.get("PADDLE_DATASET_HOME")
+    with tempfile.TemporaryDirectory() as home:
+        os.makedirs(os.path.join(home, "mnist"))
+        _write_mnist(os.path.join(home, "mnist"), 512, "train", 0)
+        _write_mnist(os.path.join(home, "mnist"), 256, "t10k", 1)
+        os.environ["PADDLE_DATASET_HOME"] = home
+        try:
+            train, val = MNIST(mode="train"), MNIST(mode="test")
+        finally:
+            if saved is None:
+                del os.environ["PADDLE_DATASET_HOME"]
+            else:
+                os.environ["PADDLE_DATASET_HOME"] = saved
+    pt.set_device("gpu")
+    pt.seed(3)
+    np.random.seed(3)
+    model = pt.Model(LeNet())
+    optim = pt.optimizer.Adam(learning_rate=0.001,
+                              parameters=model.parameters())
+    model.prepare(optim, pt.nn.CrossEntropyLoss(), pt.metric.Accuracy())
+    kernels.reset_launches()  # the LeNet fit path starts here
+    model.fit(train, epochs=MNIST_EPOCHS, batch_size=MNIST_BATCH,
+              num_iters=MNIST_STEPS, verbose=2, callbacks=[Losses()])
+    result = model.evaluate(val, batch_size=MNIST_BATCH, verbose=0)
+    counts = kernels.launches()  # and ends here
+    print(f"LeNet MNIST Model.fit (hapi_mnist_fit.py's program): losses "
+          f"{[f'{v:.5f}' for v in losses]}; evaluate {result}; launches "
+          f"{counts}; {time.perf_counter() - t0:.2f} s; {card}")
+    if not (len(losses) == MNIST_STEPS and all(np.isfinite(losses))
+            and losses[-1] < losses[0]):
+        fail("LeNet MNIST fit: the loss is not finite or did not fall")
+    if not np.isfinite(result.get("acc", np.nan)):
+        fail("LeNet MNIST fit: evaluate reported no accuracy")
+    if any(counts.values()):
+        fail(f"LeNet MNIST fit: a kernel of the port launched: {counts}")
+    return counts
+
+
+def _fit_model(pt, net):
+    """``Model(net)`` prepared as the phase trains it."""
+    opt = pt.optimizer.Momentum(
+        learning_rate=0.1, momentum=0.9, parameters=net.parameters(),
+        weight_decay=pt.regularizer.L2Decay(1e-4))
+    model = pt.Model(net)
+    model.prepare(opt, pt.nn.CrossEntropyLoss(),
+                  pt.metric.Accuracy(topk=(1, 5)))
+    return model
+
+
+def _params(net):
+    return {n: t.detach().clone() for n, t in net.state_dict().items()}
+
+
+def model_fit_phase(pt, kernels, card):
+    """ResNet-50 through hapi's ``Model.fit`` from a multi-process
+    DataLoader at full width (the constants' notes), float32 with TF32 off.
+    Gates: the staging library is available and every batch's fused
+    collation ran in it; the first ``train_batch`` loss equals, bit for
+    bit, a ``TrainStep`` driven directly from the same weights on the same
+    batch; losses are finite; ``evaluate``'s top-1 and top-5 equal those
+    recomputed from ``predict``'s outputs on the same batches; a
+    checkpoint that ``ModelCheckpoint`` wrote passes ``crc32_file`` before
+    and after ``Model.load`` and resumes a fresh model and optimizer whose
+    next ``train_batch`` gives the uninterrupted model's loss and
+    parameters bit for bit (cuDNN deterministic for those two steps); no
+    kernel of the port runs. Prints imgs/s of ``fit`` (loader included,
+    batches 2-8) beside the same model's ``train_batch`` on a batch
+    already on the card, the consumer's wait on the loader per batch,
+    the host-to-device copy per batch, the time of one ``Model.save`` and
+    peak memory. Returns the launches."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import native
+    from paddle_tpu_torch.framework.io import crc32_file
+    from paddle_tpu_torch.hapi.callbacks import Callback, ModelCheckpoint
+    from paddle_tpu_torch.io import DataLoader, vision_collate_fn
+    from paddle_tpu_torch.io.dataloader import LoaderTiming
+    from paddle_tpu_torch.vision import transforms as T
+    from paddle_tpu_torch.vision.models import resnet50
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    if not native.available():
+        fail(f"the native staging library is not available on the card's "
+             f"host: {native.build_error()}")
+    shm = shutil.disk_usage("/dev/shm")
+    fits = shm.free // FIT_BATCH_BYTES
+    print(f"/dev/shm: total {shm.total}, free {shm.free} bytes; one float32 "
+          f"batch {FIT_BATCH_BYTES} bytes; {fits} fit")
+    if fits < FIT_WORKERS:
+        fail(f"/dev/shm holds {fits} batches of {FIT_BATCH_BYTES} bytes: "
+             f"{FIT_WORKERS} workers keep at least {FIT_WORKERS} in flight")
+    prefetch = min(2, fits // FIT_WORKERS)
+
+    pt.set_device("gpu")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    net = resnet50(num_classes=1000, generator=gen)
+    init = _params(net)
+    model = _fit_model(pt, net)
+    train = ImageNetLike(FIT_STEPS * FIT_BATCH, T.Compose([
+        T.RandomResizedCrop(FIT_CROP), T.RandomHorizontalFlip()]))
+    loader = DataLoader(train, batch_size=FIT_BATCH, shuffle=True,
+                        drop_last=True, num_workers=FIT_WORKERS,
+                        use_shared_memory=True, prefetch_factor=prefetch,
+                        collate_fn=vision_collate_fn)
+    loader.timing = LoaderTiming()
+
+    class FirstBatch:
+        """The loader's batches, keeping the first."""
+
+        def __init__(self):
+            self.first = None
+
+        def __len__(self):
+            return len(loader)
+
+        def __iter__(self):
+            for b in loader:
+                if self.first is None:
+                    self.first = b
+                yield b
+
+    stamps, losses, accs = [], [], []
+
+    class Clock(Callback):
+        def on_train_batch_end(self, step, logs=None):
+            stamps.append(time.perf_counter())  # logs hold host floats
+            losses.append(logs["loss"])
+            accs.append((logs["acc_top1"], logs["acc_top5"]))
+
+    batches = FirstBatch()
+    tmp = tempfile.TemporaryDirectory()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()  # the Model.fit path starts here
+    native.reset_calls()
+    t_fit = time.perf_counter()
+    model.fit(batches, epochs=1, verbose=2, log_freq=1,
+              callbacks=[ModelCheckpoint(save_dir=tmp.name), Clock()])
+    fit_s = time.perf_counter() - t_fit
+    staged = native.calls()
+    x, y = batches.first
+    if not (x.shape == [FIT_BATCH, 3, FIT_CROP, FIT_CROP]
+            and x.dtype == torch.float32 and x.place.kind == "gpu"
+            and y.dtype == torch.int64 and y.place.kind == "gpu"):
+        fail(f"Model.fit: a loader batch is {x.shape} {x.dtype} on "
+             f"{x.place}, labels {y.dtype} on {y.place}")
+    fit_rate = (len(stamps) - 1) * FIT_BATCH / (stamps[-1] - stamps[0])
+    # one batch's copy from pinned memory with nothing else running
+    pinned = torch.empty(FIT_BATCH_BYTES, dtype=torch.uint8,
+                         pin_memory=True)
+    dev = torch.empty(FIT_BATCH_BYTES, dtype=torch.uint8, device="cuda")
+    alone = time_ms(lambda: dev.copy_(pinned, non_blocking=True), calls=1,
+                    reps=5)
+    del pinned, dev
+    waits = np.asarray(loader.timing.wait_s) * 1e3
+    stage = np.asarray(loader.timing.stage_s) * 1e3
+    decode = np.asarray(loader.timing.decode_s) * 1e3
+    h2d = np.asarray(loader.timing.h2d_ms())
+    step_ms = np.diff(stamps) * 1e3
+    print(f"ResNet-50 Model.fit (Momentum 0.1/0.9, L2Decay 1e-4, float32, "
+          f"TF32 off; {FIT_WORKERS} process workers, prefetch_factor "
+          f"{prefetch}, vision_collate_fn; consumer waits on the pinning "
+          f"thread's queue): {fit_rate:.1f} imgs/s over "
+          f"batches 2-{len(stamps)} (loader included); fit() {fit_s:.2f} s "
+          f"with worker start-up and 2 checkpoints; losses "
+          f"{[f'{v:.5f}' for v in losses]}; top-1/top-5 {accs[-1]}; wait "
+          f"on the loader per batch: first {waits[0]:.2f} ms, then mean "
+          f"{waits[1:].mean():.2f} / max {waits[1:].max():.2f} ms; "
+          f"/dev/shm decode into pinned memory (pinning thread) mean "
+          f"{decode.mean():.2f} / max {decode.max():.2f} ms; copies' launch "
+          f"(consumer; the first batches allocate their pinned buffers) ms "
+          f"{[f'{t:.2f}' for t in stage]}; between events around them "
+          f"(device) ms {[f'{t:.3f}' for t in h2d]}; one batch's copy "
+          f"alone {alone:.3f} ms; step ms "
+          f"{[f'{t:.1f}' for t in step_ms]}; native staging calls {staged}")
+    if len(losses) != FIT_STEPS or not all(np.isfinite(losses)):
+        fail(f"Model.fit: losses {losses}")
+    if not (staged["stack_u8_to_f32"]["native"] >= FIT_STEPS
+            and staged["stack_u8_to_f32"]["numpy"] == 0):
+        fail(f"Model.fit: the loader did not collate through the native "
+             f"staging library: {staged}")
+
+    # the first train_batch against TrainStep from the same weights
+    twin = resnet50(num_classes=1000, generator=gen)
+    twin.set_state_dict(init)
+    del init
+    opt = pt.optimizer.Momentum(
+        learning_rate=0.1, momentum=0.9, parameters=twin.parameters(),
+        weight_decay=pt.regularizer.L2Decay(1e-4))
+    ce = pt.nn.CrossEntropyLoss()
+    twin.train()
+    step_loss = pt.jit.TrainStep(twin, lambda out, lab: ce(out, lab), opt)(
+        x, y).item()
+    print(f"first train_batch loss {losses[0]!r}, TrainStep on the same "
+          f"weights and batch {step_loss!r}")
+    if step_loss != losses[0]:
+        fail("Model.fit's first step differs from TrainStep's")
+    del twin, opt
+
+    # resume: the final checkpoint into a fresh model and optimizer
+    ckpt = f"{tmp.name}/final"
+    crc = crc32_file(ckpt + ".pdparams")
+    fresh = _fit_model(pt, resnet50(num_classes=1000, generator=gen))
+    fresh.load(ckpt)
+    crc_after = crc32_file(ckpt + ".pdparams")
+    torch.backends.cudnn.deterministic = True
+    try:
+        cont = model.train_batch([x], [y])
+        resumed = fresh.train_batch([x], [y])
+        a, b = _params(model.network), _params(fresh.network)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    same = all(torch.equal(a[k], b[k]) for k in a)
+    print(f"resume from {ckpt}: crc32 {crc:#010x} before load, "
+          f"{crc_after:#010x} after; next step uninterrupted {cont[0]!r}, "
+          f"resumed {resumed[0]!r}; parameters and buffers bitwise equal: "
+          f"{same}")
+    if crc != crc_after:
+        fail("Model.load changed the checkpoint's crc32")
+    if cont[0] != resumed[0] or not same:
+        fail("a resumed Model does not continue bit for bit")
+    del fresh, a, b
+
+    t1 = time.perf_counter()
+    model.save(f"{tmp.name}/timed")
+    save_s = time.perf_counter() - t1
+    nbytes = sum(os.path.getsize(f"{tmp.name}/timed{e}")
+                 for e in (".pdparams", ".pdopt"))
+
+    # evaluate and predict on the same batches
+    evals = DataLoader(ImageNetLike(FIT_EVAL_BATCHES * FIT_BATCH,
+                                    T.CenterCrop(FIT_CROP), seed=10 ** 6),
+                       batch_size=FIT_BATCH, num_workers=2,
+                       use_shared_memory=False, collate_fn=vision_collate_fn)
+    result = model.evaluate(evals, verbose=0)
+    logits = model.predict(evals, stack_outputs=True, verbose=0)[0]
+    labels = np.arange(FIT_EVAL_BATCHES * FIT_BATCH) % 1000
+    order = np.argsort(-logits, axis=-1, kind="stable")
+    want = [float((order[:, :k] == labels[:, None]).any(-1).sum()
+                  / len(labels)) for k in (1, 5)]
+    got = [result["acc_top1"], result["acc_top5"]]
+    print(f"evaluate on {FIT_EVAL_BATCHES} batches: {result}; from "
+          f"predict's outputs top-1/top-5 {want}")
+    if got != want:
+        fail("evaluate's accuracy differs from predict's outputs")
+
+    # the same model on a batch already on the card
+    ms = []
+    for _ in range(BENCH_STEPS):
+        t1 = time.perf_counter()
+        model.train_batch([x], [y])  # reads the loss: synchronizes
+        ms.append((time.perf_counter() - t1) * 1e3)
+    steady = float(np.mean(ms[1:]))
+    counts = kernels.launches()  # the path ends here
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"ResNet-50 Model: {FIT_BATCH / steady * 1e3:.1f} imgs/s on a "
+          f"batch staged on the card ({steady:.2f} ms/step, mean of steps "
+          f"2-{BENCH_STEPS}) against {fit_rate:.1f} through the loader "
+          f"({fit_rate / (FIT_BATCH / steady * 1e3):.3f}x); Model.save "
+          f"{save_s * 1e3:.1f} ms for {nbytes} bytes (fsync included); peak "
+          f"memory {peak:.2f} GiB; launches {counts}; "
+          f"{time.perf_counter() - t0:.2f} s; {card}")
+    if any(counts.values()):
+        fail(f"Model.fit: a kernel of the port launched: {counts}")
+    tmp.cleanup()
+    del model, net, loader, batches, x, y
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3104,6 +3478,12 @@ def main() -> int:
     blockwise = blockwise_bert_phase(pt, kernels, card)
     print(f"BERT blockwise phase done at {time.perf_counter() - t_start:.1f} "
           "s")
+    mnist_fit = mnist_fit_phase(pt, kernels, card)
+    print(f"LeNet MNIST Model.fit phase done at "
+          f"{time.perf_counter() - t_start:.1f} s")
+    model_fit = model_fit_phase(pt, kernels, card)
+    print(f"ResNet-50 Model.fit phase done at "
+          f"{time.perf_counter() - t_start:.1f} s")
     entries = [flash, ln_entry, add_entry, dq_entry, dkv_entry, ln_bwd_entry]
     for e in entries:
         if hmma is not None and e["name"] in hmma:
@@ -3125,7 +3505,9 @@ def main() -> int:
             **{k: v[e["name"]] for k, v in translation.items()},
             "ptb_lstm_lm": rnn_lm[e["name"]],
             **{k: sum(v[e["name"]].values())
-               for k, v in blockwise.items()}}
+               for k, v in blockwise.items()},
+            "lenet_mnist_model_fit": mnist_fit[e["name"]],
+            "resnet50_model_fit": model_fit[e["name"]]}
     print(f"{card}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

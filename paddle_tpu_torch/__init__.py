@@ -15,21 +15,31 @@ the eager loop with ``optimizer.AdamW``, ``Adam`` or ``Momentum`` (LR
 schedulers, gradient clips, regularizers), ``nn.functional.cross_entropy``
 or ``fused_linear_cross_entropy``, and bf16 or float16 AMP (``amp``,
 switched on by ``distributed.fleet``'s strategy): bench.py's GPT-medium,
-LeNet, ResNet (``vision.models``) and BERT-base programs. Flash attention
+LeNet, ResNet (``vision.models``) and BERT-base programs. ``Model``
+(``hapi``) trains, evaluates and predicts from ``io.DataLoader``, which
+collates in worker processes through the native staging library
+(``native``, host C++) and copies each batch to the card once, from pinned
+memory; ``save``/``load`` read and write the JAX package's checkpoint
+format; ``metric``, ``reader``, ``batch`` and ``vision.datasets`` /
+``vision.transforms`` are there too. Flash attention
 and LayerNorm, forward and backward, run on hand-written CUDA kernels
 (``ops/kernels``, sources in ``csrc/``). Entry points run on ``cuda``
 unless the caller passes ``device="cpu"`` or calls ``set_device("cpu")``;
 there is no silent fallback to the CPU. The package imports ``torch`` and
 never ``jax`` or ``paddle_tpu``.
 """
-from . import (amp, core, distributed, jit, nn, ops, optimizer, regularizer,
-               serving, tensor, utils, vision)
+from . import (amp, core, distributed, framework, hapi, io, jit, metric,
+               native, nn, ops, optimizer, reader, regularizer, serving,
+               tensor, utils, vision)
+from .batch import batch
 from .core import (CPUPlace, CUDAPlace, Parameter, Place, Tensor,
                    enable_grad, get_default_dtype, get_device, grad,
                    is_compiled_with_cuda, is_grad_enabled, no_grad,
                    resolve_device, seed, set_default_dtype, set_device,
                    set_grad_enabled, to_tensor)
 from .core.flags import get_flags, set_flags
+from .framework.io import load, save
+from .hapi import Model, flops, summary
 from .nn.layer import ParamAttr
 from .ops import *  # noqa: F401,F403
 from .ops import creation, linalg, logic, manipulation, math, search
@@ -41,8 +51,10 @@ def in_dynamic_mode() -> bool:
     return True
 
 
-__all__ = (["amp", "core", "distributed", "jit", "nn", "ops", "optimizer",
-            "regularizer", "serving", "tensor", "utils", "vision",
+__all__ = (["amp", "core", "distributed", "framework", "hapi", "io", "jit",
+            "metric", "native", "nn", "ops", "optimizer", "reader",
+            "regularizer", "serving", "tensor", "utils", "vision", "batch",
+            "load", "save", "Model", "flops", "summary",
             "CPUPlace", "CUDAPlace", "Parameter", "Place", "Tensor",
             "enable_grad", "get_default_dtype", "get_device", "grad",
             "is_compiled_with_cuda", "is_grad_enabled", "no_grad",

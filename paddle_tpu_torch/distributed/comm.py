@@ -5,12 +5,16 @@ job-wide hybrid mesh that bench.py's ``_gpt_medium`` declares.
 device and ``hybrid_mesh()`` returns it (None before). A degree above 1
 on any axis raises ``NotImplementedError``: meshes over several cards,
 and the collectives over them, are a later slice of the port.
+``get_world_size()`` and ``get_rank()`` give the one-process world (1 and
+0); a launch of several trainers (``PADDLE_TRAINERS_NUM`` > 1) raises.
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
 
-__all__ = ["HybridMesh", "init_hybrid_mesh", "hybrid_mesh"]
+__all__ = ["HybridMesh", "init_hybrid_mesh", "hybrid_mesh",
+           "get_world_size", "get_rank"]
 
 
 class HybridMesh:
@@ -45,3 +49,20 @@ def init_hybrid_mesh(dp: int = 1, mp: int = 1, pp: int = 1, sp: int = 1,
 
 def hybrid_mesh() -> Optional[HybridMesh]:
     return _mesh
+
+
+def get_world_size() -> int:
+    """The number of trainer processes: 1. ``PADDLE_TRAINERS_NUM`` above 1
+    raises: several trainers are a later slice of the port."""
+    n = int(os.environ.get("PADDLE_TRAINERS_NUM", "1"))
+    if n > 1:
+        raise NotImplementedError(
+            f"PADDLE_TRAINERS_NUM={n}: the port runs one trainer so far; "
+            "several ranks are ROADMAP queue A item 7 (distributed)")
+    return 1
+
+
+def get_rank() -> int:
+    """This trainer's rank: 0 (see ``get_world_size``)."""
+    get_world_size()
+    return 0

@@ -1,5 +1,6 @@
-"""Utilities of the port: the in-step half of the training guard, and the
-env-spec fault injector (``fault_injection``, standard library only)."""
-from . import fault_injection, train_guard
+"""Utilities of the port: the in-step half of the training guard, the
+env-spec fault injector (``fault_injection``, standard library only) and
+the dataset staging paths (``download``)."""
+from . import download, fault_injection, train_guard
 
-__all__ = ["train_guard", "fault_injection"]
+__all__ = ["download", "train_guard", "fault_injection"]

@@ -5,14 +5,16 @@
 
     site:action:nth[:arg]
 
-- ``site``   a fault point. The port instruments two: ``serve`` (each
+- ``site``   a fault point. The port instruments five: ``serve`` (each
   router tick, each mailbox-worker poll, each router submit and each
   prefix-cache lookup that a ``prefix_stale`` / ``adapter_missing`` rule
-  names) and ``mon`` (each telemetry-bus row write). A rule for a site
-  the JAX package instruments and the port does not yet (``io.save``,
-  ``io.save.post``, ``io.load``, ``acp.save``, ``epoch``, ``coll``,
-  ``grad``, ``rank``, ``ctl``) raises ``NotImplementedError`` naming the
-  ROADMAP item that brings it; so does any other site.
+  names), ``mon`` (each telemetry-bus row write), and ``io.save`` (before
+  a ``framework.io.save`` write), ``io.save.post`` (after its atomic
+  replace, where ``corrupt`` bites) and ``io.load``. A rule for a site
+  the JAX package instruments and the port does not yet (``acp.save``,
+  ``epoch``, ``coll``, ``grad``, ``rank``, ``ctl``) raises
+  ``NotImplementedError`` naming the ROADMAP item that brings it; so does
+  any other site.
 - ``action`` ``fail`` (raise :class:`InjectedFault`, an IOError), ``kill``
   (``os._exit(arg)``, default 17), ``hang`` (at ``serve``: an event, the
   targeted worker -- ``arg`` = its rank -- stops draining its mailbox but
@@ -26,8 +28,11 @@
   (the ``arg``-th oldest prefix-cache entry's key is poisoned) and
   ``adapter_missing`` (the next submit names an unloaded adapter, ``arg``
   or an id past any fleet), or the ``mon`` actions ``drop`` / ``dup``
-  (that bus row is lost or written twice). The other actions of the
-  grammar (``corrupt``, ``desync``, ``nan``/``inf``/``spike``,
+  (that bus row is lost or written twice), or ``corrupt`` (truncate the
+  file ``io.save.post`` passed to half its bytes: a torn write; a
+  ``corrupt`` rule written against ``io.save`` means ``io.save.post``, so
+  it corrupts a complete file). The other actions of the
+  grammar (``desync``, ``nan``/``inf``/``spike``,
   ``depart``/``return``, ``flap``/``die``/``lend_crash`` and the serve
   event ``lent_worker_crash``) parse as in the JAX package and then raise
   ``NotImplementedError``: their sites are not instrumented here.
@@ -75,13 +80,13 @@ LEND_PHASES = ("depart", "deliver", "join")
 RECLAIM_PHASES = ("drain", "leave", "rejoin")
 _CORRUPT_SITES = ("io.save.post",)
 
+_IO_SITES = ("io.save", "io.save.post", "io.load")
+
 #: the sites the port has fault points for
-PORTED_SITES = _SERVE_SITES + _MON_SITES
+PORTED_SITES = _SERVE_SITES + _MON_SITES + _IO_SITES
 #: the JAX package's other sites -> the ROADMAP queue A item that ports
 #: the code they sit in
 _SITE_ITEMS = {
-    "io.save": "4 (framework/io.py)", "io.save.post": "4 (framework/io.py)",
-    "io.load": "4 (framework/io.py)",
     "acp.save": "5 (auto_checkpoint)", "epoch": "5 (auto_checkpoint)",
     "coll": "7 (distributed, the comm monitor)",
     "rank": "7 (distributed, resharding)",
@@ -164,13 +169,13 @@ class FaultInjector:
                             f"the serve event {action!r}")
             self._rules.append(_Rule(site, action, nth, arg))
 
-    def fire(self, site: str) -> None:
+    def fire(self, site: str, path: Optional[str] = None) -> None:
         count = self._counts[site] = self._counts.get(site, 0) + 1
         for r in self._rules:
             if r.site == site and r.nth == count:
-                self._act(r, site, count)
+                self._act(r, site, count, path)
 
-    def _act(self, r: _Rule, site, count):
+    def _act(self, r: _Rule, site, count, path=None):
         tag = f"{site} (hit {count})"
         if r.action == "fail":
             raise InjectedFault(f"injected failure at {tag}")
@@ -209,6 +214,16 @@ class FaultInjector:
             print(f"fault_injection: arming mon:{r.action} at {tag}",
                   file=sys.stderr, flush=True)
             self.mon_events.append(r.action)
+            return
+        if r.action == "corrupt":
+            if path is None:
+                return  # the site carries no file: nothing to corrupt
+            size = os.path.getsize(path)
+            with open(path, "r+b") as f:
+                f.truncate(size // 2)
+            print(f"fault_injection: truncated {path} "
+                  f"{size}->{size // 2}B at {tag}",
+                  file=sys.stderr, flush=True)
 
 
 _active: Optional[FaultInjector] = None
@@ -222,9 +237,10 @@ def _injector() -> FaultInjector:
     return _active
 
 
-def fault_point(site: str) -> None:
-    """Instrumentation hook: no-op unless a spec rule matches this hit."""
-    _injector().fire(site)
+def fault_point(site: str, path: Optional[str] = None) -> None:
+    """Instrumentation hook: no-op unless a spec rule matches this hit
+    (``path``: the file a ``corrupt`` rule truncates)."""
+    _injector().fire(site, path)
 
 
 def consume_serve_events() -> List:

@@ -1,4 +1,5 @@
-"""``vision`` of the port: the model zoo's LeNet and ResNets."""
-from . import models
+"""``vision`` of the port: the model zoo, the datasets and the numpy
+transforms (``ops`` is ROADMAP queue A item 5)."""
+from . import datasets, models, transforms
 
-__all__ = ["models"]
+__all__ = ["datasets", "models", "transforms"]

@@ -917,3 +917,35 @@ def test_translation_path_launches(default_device, monkeypatch):
         greedy(paddle, model, s, padding_mask(paddle, s), 4)
     want.update(layer_norm_fwd={"float32": 12 + 18 * 4}, layer_norm_bwd={})
     assert kernels.launches_by_dtype() == want
+
+
+@pytest.mark.parametrize("num_workers", [0, 2])
+def test_loader_reuses_pinned_buffers_only_after_their_copy(
+        default_device, num_workers):
+    """Two DataLoader epochs back to back, each batch's copy queued behind
+    a spin kernel so it is still in flight when the next batch is staged:
+    every device batch must equal its numpy batch (a pinned buffer taken
+    again before its copy ran would carry the next batch's bytes). Thread
+    workers (2) and the consumer's own loop (0)."""
+    import numpy as np
+
+    from paddle_tpu_torch.io import DataLoader, TensorDataset
+
+    pt.set_device("gpu")
+    data = np.random.RandomState(0).rand(96, 3, 128, 128).astype(np.float32)
+    labels = np.arange(96, dtype=np.int64)
+    loader = DataLoader(TensorDataset([data, labels]), batch_size=8,
+                        num_workers=num_workers, use_shared_memory=False)
+    got = []
+    for _ in range(2):
+        for x, y in loader:
+            assert x.place.kind == "gpu" and y.place.kind == "gpu"
+            got.append((x, y))
+            torch.cuda._sleep(20_000_000)  # hold the stream ~10 ms
+    torch.cuda.synchronize()
+    assert len(got) == 24
+    for i, (x, y) in enumerate(got):
+        lo = (i % 12) * 8
+        assert np.array_equal(x.numpy(), data[lo:lo + 8]), i
+        assert np.array_equal(y.numpy(), labels[lo:lo + 8]), i
+    assert len(loader._stager._free) <= loader._stager._MAX_FREE

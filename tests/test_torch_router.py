@@ -417,7 +417,7 @@ class TestRouterInProcess:
         _, tm = models
         r = Router([LocalHost(_engine(tm))])
         for spec, item in (("grad:nan:1", "item 8"),
-                           ("io.save:fail:1", "item 4"),
+                           ("acp.save:fail:1", "item 5"),
                            ("rank:depart:2", "item 7"),
                            ("ctl:flap:1", "item 8"),
                            ("serve:lent_worker_crash:1", "item 8")):
