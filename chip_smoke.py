@@ -150,7 +150,28 @@
    the staging library used for every batch; imgs/s through the loader
    beside a batch already on the card, the wait on the loader and the
    host-to-device copy per batch, ``Model.save``'s time, peak memory;
-19. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
+19. its ``reference_scripts_phase``: the four scripts of
+   tests/reference_scripts/ verbatim, each through ``python -m
+   paddle_tpu_torch.run`` in a subprocess of its own on the card (the four
+   at once), on MNIST IDX files and a UCI housing file it writes under a
+   temporary PADDLE_DATASET_HOME, at tests/test_reference_scripts.py's
+   caps: each must exit 0 with a falling loss (that harness's pattern),
+   and the launcher's exit line must name a CUDA device with peak memory
+   above 0, no ``jax`` or ``paddle_tpu`` module loaded and no kernel
+   launched (LeNet and the linear model reach no kernel of the port);
+20. its ``static_bert_phase``: bench.py's BERT-base (vocab 30522, d 768,
+   12 heads, 12 layers, ffn 3072, batch 32 x 128, AdamW 1e-4 / 0.01),
+   float32 with TF32 off, as a static program (``enable_static``, fixed
+   [32, 128] int64 ``static.data``, ``opt.minimize``, ``Executor.run`` of
+   the startup program, then six runs of the main one) beside an eager
+   twin on the same weights and batch: the first run's loss within 1e-6
+   of the eager step's, whatever the parameters read, and every parameter
+   after it equal to the eager step's (bit for bit, or within 1e-6 of
+   each parameter's largest value, the reading printed), the
+   losses falling, B5 and B7 as many launches a run as in the eager step
+   and no other kernel; ms per run (mean of runs 2-6) beside the eager
+   ms per step (a static run and an eager step in turns), peak memory;
+21. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
    "device": ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device, outside a
@@ -372,6 +393,30 @@ FIT_BATCH_BYTES = FIT_BATCH * 3 * FIT_CROP * FIT_CROP * 4  # 154,140,672
 # Accuracy) at tests/test_reference_scripts.py's caps: batch 64, 8 steps,
 # on striped MNIST IDX files written here (512 train, 256 test images)
 MNIST_BATCH, MNIST_STEPS, MNIST_EPOCHS = 64, 8, 2
+# the verbatim scripts and tests/test_reference_scripts.py's caps for each
+REF_SCRIPTS = {
+    "dygraph_lenet_mnist.py": {"BATCH_SIZE": "64", "MAX_STEPS": "8",
+                               "EPOCHS": "1"},
+    "fluid_fit_a_line.py": {"BATCH_SIZE": "20", "NUM_EPOCHS": "5"},
+    "fluid_recognize_digits.py": {"BATCH_SIZE": "64", "NUM_EPOCHS": "1",
+                                  "MAX_STEPS": "8"},
+    "hapi_mnist_fit.py": {"BATCH_SIZE": "64", "EPOCHS": "1",
+                          "MAX_STEPS": "8"},
+}
+#: that harness's loss pattern, and the launcher's exit line
+REF_LOSS_PATTERN = (r"(?:Loss at epoch \d+ step \d+|Pass \d+, Cost|Pass \d+, "
+                    r"Batch \d+, Cost|loss):?\s*([0-9]*\.?[0-9]+(?:[eE][-+]?"
+                    r"[0-9]+)?)")
+RUN_EXIT_PATTERN = (r"paddle_tpu_torch\.run: device=(\S+) "
+                    r"max_memory_allocated=(\d+) jax_loaded=(\w+) "
+                    r"paddle_tpu_loaded=(\w+) kernel_launches=(\S+)")
+# bench.py's BERT-base (_bench_bert, the BERT_* sizes above) as a static
+# program: AdamW 1e-4 / 0.01, float32 with TF32 off, six runs; the first
+# run's loss against the eager step's within STATIC_BERT_ATOL of it, and its
+# parameters within STATIC_BERT_ATOL of each parameter's largest value (when
+# not bit-equal)
+STATIC_BERT_RUNS = 6
+STATIC_BERT_ATOL = 1e-6
 
 
 def fail(msg: str) -> None:
@@ -3398,6 +3443,253 @@ def model_fit_phase(pt, kernels, card):
     return counts
 
 
+# -- the verbatim reference scripts through the port's paddle route --------
+
+
+def write_housing(root, n=400, seed=2):
+    """A UCI housing file (``housing.data``: 14 whitespace-separated
+    columns, 13 features and a target from a planted linear map plus
+    noise) as ``text.datasets.UCIHousing`` reads it."""
+    import os
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    x = rng.rand(n, 13) * 10.0
+    y = x @ rng.randn(13) + 1.0 + rng.randn(n) * 0.1
+    with open(os.path.join(root, "housing.data"), "w") as f:
+        for row in np.concatenate([x, y[:, None]], axis=1):
+            f.write(" ".join(f"{v:.6f}" for v in row) + "\n")
+
+
+def run_reference_scripts(home, device=None, timeout=600, only=None):
+    """Each script of tests/reference_scripts/ (or the one named ``only``)
+    verbatim through ``python -m paddle_tpu_torch.run [--device cpu]`` in a
+    subprocess of its own, the four at once, with
+    PADDLE_DATASET_HOME=``home`` and REF_SCRIPTS' caps. Returns {script: (exit code, stdout, stderr, seconds, losses,
+    the launcher's exit line as (device, peak bytes, jax loaded,
+    paddle_tpu loaded, {kernel: launches}) or None)}."""
+    import os
+    import re
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = {}
+    for name, caps in REF_SCRIPTS.items():
+        if only is not None and name != only:
+            continue
+        env = dict(os.environ, PADDLE_DATASET_HOME=home, **caps)
+        cmd = [sys.executable, "-m", "paddle_tpu_torch.run"]
+        cmd += ["--device", device] if device else []
+        cmd.append(os.path.join(root, "tests", "reference_scripts", name))
+        procs[name] = (time.perf_counter(), subprocess.Popen(
+            cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    out = {}
+    for name, (t0, proc) in procs.items():
+        try:
+            so, se = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            so, se = proc.communicate()
+        m = re.search(RUN_EXIT_PATTERN, se)
+        exit_line = None if m is None else (
+            m.group(1), int(m.group(2)), m.group(3) == "True",
+            m.group(4) == "True", json.loads(m.group(5)))
+        losses = [float(v) for v in re.findall(REF_LOSS_PATTERN, so)]
+        out[name] = (proc.returncode, so, se, time.perf_counter() - t0,
+                     losses, exit_line)
+    return out
+
+
+def reference_scripts_phase(card):
+    """The four verbatim scripts on the card through the launcher: each
+    must exit 0, its loss fall, and its exit line name a CUDA device with
+    peak memory above 0, no jax or paddle_tpu module loaded and no kernel
+    launched."""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as home:
+        os.makedirs(os.path.join(home, "mnist"))
+        _write_mnist(os.path.join(home, "mnist"), 512, "train", 0)
+        _write_mnist(os.path.join(home, "mnist"), 256, "t10k", 1)
+        write_housing(os.path.join(home, "uci_housing"))
+        runs = run_reference_scripts(home)
+    for name, (rc, so, se, sec, losses, line) in runs.items():
+        print(f"verbatim {name} through paddle_tpu_torch.run: exit {rc}, "
+              f"{sec:.2f} s, losses {losses}, exit line {line}")
+        if rc != 0:
+            fail(f"verbatim {name} exited {rc}:\n{so[-2000:]}\n{se[-3000:]}")
+        if len(losses) < 2 or not losses[-1] < losses[0]:
+            fail(f"verbatim {name}: the loss did not fall: {losses}")
+        if line is None or not line[0].startswith("cuda") or line[1] <= 0:
+            fail(f"verbatim {name}: the run was not on the card: {line}")
+        if line[2] or line[3]:
+            fail(f"verbatim {name}: jax or paddle_tpu was loaded: {line}")
+        if any(line[4].values()):
+            fail(f"verbatim {name}: kernels launched: {line[4]}")
+    print(f"verbatim reference scripts done in "
+          f"{time.perf_counter() - t0:.2f} s (the four at once); {card}")
+
+
+# -- bench.py's BERT-base as a static program --------------------------------
+
+
+def static_bert(paddle, vocab=BERT_VOCAB, d=BERT_D, heads=BERT_HEADS,
+                layers=BERT_LAYERS, max_pos=BERT_POS, **kw):
+    """bench.py's ``_bert_base`` as a Paddle script writes it with
+    ``paddle`` (either package): token and position embeddings, post-LN
+    ``TransformerEncoderLayer`` s (ffn 4 d, dropout 0), the mean over the
+    sequence, a 2-way head. The position ids are an input beside the token
+    ids (``position_ids``), so that a static program reads both from its
+    feeds. ``kw`` goes to each layer (the port's ``device`` and
+    ``generator``)."""
+
+    class Bert(paddle.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embed = paddle.nn.Embedding(vocab, d, **kw)
+            self.pos = paddle.nn.Embedding(max_pos, d, **kw)
+            self.encoder = paddle.nn.LayerList([
+                paddle.nn.TransformerEncoderLayer(d, heads, 4 * d,
+                                                  dropout=0.0, **kw)
+                for _ in range(layers)])
+            self.head = paddle.nn.Linear(d, 2, **kw)
+
+        def forward(self, ids, pos):
+            h = self.embed(ids) + self.pos(pos)
+            for lyr in self.encoder:
+                h = lyr(h)
+            return self.head(paddle.mean(h, axis=1))
+
+    return Bert()
+
+
+def static_bert_program(paddle, model, batch, seq, lr=1e-4, wd=0.01):
+    """``model`` (``static_bert``) as a static program: the main and
+    startup programs, fixed [batch, seq] int64 ``ids`` and ``pos`` and
+    [batch] int64 ``label`` placeholders, the cross entropy and
+    ``AdamW(lr, wd).minimize``. Returns (main, startup, loss)."""
+    main, startup = paddle.static.Program(), paddle.static.Program()
+    with paddle.static.program_guard(main, startup):
+        ids = paddle.static.data("ids", [batch, seq], "int64")
+        pos = paddle.static.data("pos", [batch, seq], "int64")
+        label = paddle.static.data("label", [batch], "int64")
+        loss = paddle.nn.functional.cross_entropy(model(ids, pos), label)
+        paddle.optimizer.AdamW(learning_rate=lr,
+                               weight_decay=wd).minimize(loss)
+    return main, startup, loss
+
+
+def static_bert_phase(pt, kernels, card):
+    """bench.py's BERT-base as a static program on the card beside an
+    eager twin on the same weights and batch (the gate of step 20 of this
+    script's docstring), a static run and an eager step in turns. Returns
+    the static path's launches a run."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    pt.set_device("gpu")
+    gen = dict(device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(15))
+    model = static_bert(pt, **gen)
+    twin = static_bert(pt, **gen)
+    twin.set_state_dict(model.state_dict())
+    ids = (np.arange(BERT_B * BERT_S).reshape(BERT_B, BERT_S) % 30000
+           ).astype(np.int64)
+    pos = np.tile(np.arange(BERT_S, dtype=np.int64), (BERT_B, 1))
+    y = (np.arange(BERT_B) % 2).astype(np.int64)
+    feed = {"ids": ids, "pos": pos, "label": y}
+    t_models = time.perf_counter() - t0
+    pt.enable_static()
+    try:
+        t0 = time.perf_counter()
+        main, startup, loss = static_bert_program(pt, model, BERT_B, BERT_S)
+        t_build = time.perf_counter() - t0
+        exe = pt.static.Executor(pt.CUDAPlace(0))
+        exe.run(startup)
+    finally:
+        pt.disable_static()
+    F = pt.nn.functional
+    opt = pt.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                             parameters=twin.parameters())
+    ids_t, pos_t, y_t = pt.to_tensor(ids), pt.to_tensor(pos), pt.to_tensor(y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs = {"static": ([], [], []), "eager": ([], [], [])}  # loss, ms, runs
+    # the allocator's new segments (cudaMalloc calls) in each run: the
+    # first runs of either path take new ones, which their times show
+    segments = {"static": [], "eager": []}
+    for i in range(STATIC_BERT_RUNS):
+        for path in ("static", "eager"):
+            seg0 = torch.cuda.memory_stats().get("segment.all.allocated", 0)
+            kernels.reset_launches()  # one run of this path
+            t1 = time.perf_counter()
+            if path == "static":
+                pt.enable_static()
+                try:
+                    (lv,) = exe.run(main, feed=feed, fetch_list=[loss])
+                finally:
+                    pt.disable_static()
+            else:
+                lv = F.cross_entropy(twin(ids_t, pos_t), y_t)
+                lv.backward()
+                opt.step()
+                opt.clear_grad()
+            lv = float(lv)  # a host value: synchronized
+            losses, ms, counts = runs[path]
+            ms.append((time.perf_counter() - t1) * 1e3)
+            counts.append(kernels.launches())  # and ends here
+            losses.append(lv)
+            segments[path].append(torch.cuda.memory_stats().get(
+                "segment.all.allocated", 0) - seg0)
+        if i == 0:
+            bits, worst, worst_name = True, 0.0, ""
+            for (n, a), b in zip(model.named_parameters(),
+                                 twin.parameters()):
+                bits = bits and torch.equal(a, b)
+                w = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)
+                     ).item()
+                if w > worst:
+                    worst, worst_name = w, n
+    peak = torch.cuda.max_memory_allocated()
+    (losses, ms, counts), (e_losses, e_ms, e_counts) = runs.values()
+    steady, e_steady = float(np.mean(ms[1:])), float(np.mean(e_ms[1:]))
+    print(f"BERT-base static program (B={BERT_B} S={BERT_S}, AdamW "
+          f"1e-4/0.01, float32, TF32 off): two models built in "
+          f"{t_models:.2f} s, {len(main.ops)} ops recorded in {t_build:.2f} "
+          f"s; first run against the eager step: loss {losses[0]!r} / "
+          f"{e_losses[0]!r}, parameters bit-equal {bits}, worst max|static "
+          f"- eager| / max|eager| {worst:.3e} ({worst_name}; tolerance "
+          f"{STATIC_BERT_ATOL}); losses {[f'{v:.6f}' for v in losses]}, "
+          f"eager {[f'{v:.6f}' for v in e_losses]}; {steady:.2f} ms/run "
+          f"(mean of runs 2-{STATIC_BERT_RUNS}) against eager {e_steady:.2f} "
+          f"ms/step, in turns; run ms {[f'{t:.1f}' for t in ms]}, eager "
+          f"{[f'{t:.1f}' for t in e_ms]}; new allocator segments "
+          f"{segments['static']}, eager {segments['eager']}; peak memory "
+          f"(both models) "
+          f"{peak / 2**30:.2f} GiB; launches a run {counts[0]}, eager step "
+          f"{e_counts[0]}; {card}")
+    if abs(losses[0] - e_losses[0]) > STATIC_BERT_ATOL * abs(e_losses[0]):
+        fail("static BERT: the first run's loss is not the eager step's")
+    if not bits and worst > STATIC_BERT_ATOL:
+        fail("static BERT: the parameters after the first run differ from "
+             "the eager step's")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail("static BERT: the losses are not finite or did not fall")
+    for c, e in zip(counts, e_counts):
+        if c != e or any(v for k, v in c.items() if k not in (
+                "layer_norm_fwd", "layer_norm_bwd")):
+            fail(f"static BERT: launches a run {c}, the eager step's {e} "
+                 "(B5 and B7 only)")
+    if not (e_counts[0]["layer_norm_fwd"] == e_counts[0]["layer_norm_bwd"]
+            == 2 * BERT_LAYERS):
+        fail(f"static BERT: the eager step launched {e_counts[0]}")
+    del model, twin, opt, exe, main, startup, loss
+    torch.cuda.empty_cache()
+    return counts[0]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3484,6 +3776,11 @@ def main() -> int:
     model_fit = model_fit_phase(pt, kernels, card)
     print(f"ResNet-50 Model.fit phase done at "
           f"{time.perf_counter() - t_start:.1f} s")
+    reference_scripts_phase(card)
+    print(f"reference scripts phase done at "
+          f"{time.perf_counter() - t_start:.1f} s")
+    static_bert_counts = static_bert_phase(pt, kernels, card)
+    print(f"static BERT phase done at {time.perf_counter() - t_start:.1f} s")
     entries = [flash, ln_entry, add_entry, dq_entry, dkv_entry, ln_bwd_entry]
     for e in entries:
         if hmma is not None and e["name"] in hmma:
@@ -3507,7 +3804,8 @@ def main() -> int:
             **{k: sum(v[e["name"]].values())
                for k, v in blockwise.items()},
             "lenet_mnist_model_fit": mnist_fit[e["name"]],
-            "resnet50_model_fit": model_fit[e["name"]]}
+            "resnet50_model_fit": model_fit[e["name"]],
+            "static_bert_per_run": static_bert_counts[e["name"]]}
     print(f"{card}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -82,11 +82,36 @@ def _check_backward(name: str, outs) -> None:
         fn.register_hook(hook)
 
 
+#: the ``static`` package once imported: its mode flag decides whether a
+#: symbolic input is recorded (``static/program.py``)
+_static = None
+
+
+def recording(values) -> bool:
+    """Static mode is on and one of ``values`` (torch tensors, or
+    ``Tensor`` objects) is symbolic: the call is to be recorded into the
+    default program, not run."""
+    if _static is None or not _static._STATIC_MODE:
+        return False
+    for v in values:
+        raw = getattr(v, "_data", v)
+        if getattr(raw, "_static_var", None) is not None:
+            return True
+    return False
+
+
 def apply(fn: Callable, raws: Sequence, name: Optional[str] = None):
     """Run ``fn`` on torch tensors ``raws`` (AMP-cast by ``name``) and wrap
-    its result (a tensor, or a tuple/list of them) as ``Tensor``."""
+    its result (a tensor, or a tuple/list of them) as ``Tensor``. In
+    static mode a symbolic input records the call into the default
+    program instead (before the AMP cast, as in the JAX package)."""
     from .tensor import Tensor
 
+    if _static is not None and _static._STATIC_MODE and recording(raws):
+        from ..static.program import record_apply
+
+        out = record_apply(fn, raws, name)
+        return tuple(out) if isinstance(out, (tuple, list)) else out
     raws = amp.cast_if_amp(name, raws)
     out = fn(*raws)
     multi = isinstance(out, (tuple, list))

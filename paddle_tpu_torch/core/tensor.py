@@ -108,7 +108,14 @@ class Tensor:
 
     @property
     def shape(self):
-        return list(self._data.shape)
+        raw = self._data
+        v = getattr(raw, "_static_var", None) if type(raw) is not \
+            torch.Tensor else None
+        if v is not None and v.is_data:
+            # feed placeholders report unknown dims as -1 (framework.py
+            # Variable.shape semantics)
+            return list(v.shape)
+        return list(raw.shape)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -390,14 +397,28 @@ def _has_tensor(args, kwargs) -> bool:
     return False
 
 
+def _has_symbolic(args, kwargs) -> bool:
+    for v in (*args, *kwargs.values()):
+        if autograd.recording(v if isinstance(v, (tuple, list)) else (v,)):
+            return True
+    return False
+
+
 def tensor_boundary(fn):
     """Decorate a torch-native function so that ``Tensor`` arguments go in
     as their ``torch.Tensor`` and, when one did, the results come back as
-    ``Tensor``. A call with no ``Tensor`` is ``fn`` itself."""
+    ``Tensor``. A call with no ``Tensor`` is ``fn`` itself. In static mode a
+    call with a symbolic ``Tensor`` is recorded into the default program
+    instead (``static/program.py``)."""
     @functools.wraps(fn)
     def call(*args, **kwargs):
         if not _has_tensor(args, kwargs):
             return fn(*args, **kwargs)
+        if autograd._static is not None and autograd._static._STATIC_MODE \
+                and _has_symbolic(args, kwargs):
+            from ..static.program import record_call
+
+            return record_call(fn, args, kwargs, fn.__name__)
         return wrap_like(fn(*_unwrap(args), **{
             k: _unwrap(v) for k, v in kwargs.items()}))
 

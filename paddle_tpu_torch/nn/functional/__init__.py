@@ -7,13 +7,20 @@ was one). The submodules keep the torch-only functions. ``sigmoid``,
 ``tanh`` and ``pad`` are the op namespace's (``ops/``), which always
 return ``Tensor``; ``relu_``, ``tanh_``, ``softmax_`` and ``elu_`` are the
 functional forms under Paddle's in-place names, as in the JAX package.
-The fluid-era tail (``extras.py``: ``rnn``, ``birnn``, ``nce``, ...) is
+The LoD sequence ops of ``ops/sequence.py`` are re-exported here, as the
+JAX package does. The fluid-era tail (``extras.py``: ``rnn``, ``birnn``, ``nce``, ...) is
 exported the same way, but for its tensor-array names, which take and
 give Python lists as they are.
 """
 from ...core.tensor import tensor_boundary as _boundary
 from ...ops.manipulation import pad
 from ...ops.math import sigmoid, tanh
+from ...ops.sequence import (  # noqa: F401  (the reference re-exports)
+    sequence_concat, sequence_conv, sequence_enumerate, sequence_erase,
+    sequence_expand, sequence_expand_as, sequence_first_step,
+    sequence_last_step, sequence_mask, sequence_pad, sequence_pool,
+    sequence_reshape, sequence_reverse, sequence_scatter, sequence_slice,
+    sequence_softmax, sequence_unpad)
 from . import (activation, attention, common, conv, extras, loss, norm,
                pooling)
 from .attention import flash_default_enabled, flash_plan, flash_routable

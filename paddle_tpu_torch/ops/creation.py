@@ -81,19 +81,20 @@ def empty(shape, dtype=None, name=None):
 
 
 def zeros_like(x, dtype=None, name=None):
-    r = raw(x)
-    return _new(torch.zeros_like(r, dtype=_dt(dtype, r.dtype)))
+    d = _dt(dtype, raw(x).dtype)
+    return apply(lambda r: torch.zeros_like(r, dtype=d), x,
+                 name="zeros_like")
 
 
 def ones_like(x, dtype=None, name=None):
-    r = raw(x)
-    return _new(torch.ones_like(r, dtype=_dt(dtype, r.dtype)))
+    d = _dt(dtype, raw(x).dtype)
+    return apply(lambda r: torch.ones_like(r, dtype=d), x, name="ones_like")
 
 
 def full_like(x, fill_value, dtype=None, name=None):
-    r = raw(x)
-    return _new(torch.full_like(r, _value(fill_value),
-                                dtype=_dt(dtype, r.dtype)))
+    d, v = _dt(dtype, raw(x).dtype), _value(fill_value)
+    return apply(lambda r: torch.full_like(r, v, dtype=d), x,
+                 name="full_like")
 
 
 def empty_like(x, dtype=None, name=None):

@@ -14,6 +14,7 @@ launch never runs, and no later synchronize reports it).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -22,6 +23,7 @@ from pathlib import Path
 from typing import Dict, Iterable, Sequence
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -148,6 +150,27 @@ def upcast(t: torch.Tensor) -> torch.Tensor:
     for float32 and narrower types, float64 for float64 (the gradient
     checks run the plain route in float64)."""
     return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def probe_shapes(shapes):
+    """Decorate a kernel wrapper with its outputs' shapes for a static-graph
+    shape probe (``static/program.py``, which calls the wrapper under a
+    fake tensor mode). When an argument is a fake tensor, the wrapper
+    returns ``shapes(*args, **kwargs)``, empty outputs of the kernel's
+    shapes and types: it launches nothing and computes nothing through the
+    plain version."""
+
+    def decorate(wrapper):
+        @functools.wraps(wrapper)
+        def call(*args, **kwargs):
+            if any(isinstance(a, FakeTensor)
+                   for a in (*args, *kwargs.values())):
+                return shapes(*args, **kwargs)
+            return wrapper(*args, **kwargs)
+
+        return call
+
+    return decorate
 
 
 def refuse_grad(what: str, function: str, *tensors: torch.Tensor) -> None:

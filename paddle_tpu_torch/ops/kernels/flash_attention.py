@@ -118,6 +118,13 @@ def flash_attention_fwd_plain(q, k, v, *, causal=False, scale=None,
     return out.to(q.dtype), lse[..., 0]
 
 
+def _fwd_shapes(q, k, v, **kw):
+    B, H, S, _, _ = _check_qkv(q, k, v)
+    return torch.empty_like(q), torch.empty((B, H, S), device=q.device,
+                                            dtype=torch.float32)
+
+
+@_build.probe_shapes(_fwd_shapes)
 def flash_attention_fwd(q, k, v, *, causal=False, block_q=256,
                         block_k=256, scale=None, q_offset=0, kv_offset=0):
     """Flash-attention forward -> (out ``[B, H, S, D]`` in q's type, lse
@@ -185,6 +192,7 @@ def _bwd_args(what, q, k, v, dout, lse, delta):
     return dev, B, H, S, Sk, D
 
 
+@_build.probe_shapes(lambda q, *a, **kw: torch.empty_like(q))
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, *, causal=False,
                            scale=None, q_offset=0, kv_offset=0):
     """dq of the flash backward (B3, ``_dq_kernel``)."""
@@ -208,6 +216,8 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, *, causal=False,
     return dq
 
 
+@_build.probe_shapes(
+    lambda q, k, v, *a, **kw: (torch.empty_like(k), torch.empty_like(v)))
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, *, causal=False,
                             scale=None, q_offset=0, kv_offset=0):
     """(dk, dv) of the flash backward (B4, ``_dkv_kernel``)."""
@@ -239,6 +249,8 @@ flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dkv.by_dtype = {}
 
 
+@_build.probe_shapes(lambda q, k, v, *a, **kw: (
+    torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)))
 def flash_attention_bwd(q, k, v, dout, lse, delta, *, causal=False,
                         block_q=256, block_k=256, scale=None, q_offset=0,
                         kv_offset=0):

@@ -101,6 +101,15 @@ def _check(what, x2d, weight, bias, *more):
     return _build.require_cuda(what, x2d, weight, bias, *more)
 
 
+def _stats_probe(x2d):
+    """Empty ``[R]`` f32 mean and rstd: the statistics' shapes, for a
+    shape probe."""
+    return tuple(torch.empty(x2d.shape[0], device=x2d.device,
+                             dtype=torch.float32) for _ in range(2))
+
+
+@_build.probe_shapes(
+    lambda x2d, *a, **kw: (torch.empty_like(x2d),) + _stats_probe(x2d))
 def layer_norm_fwd(x2d, weight, bias, eps=1e-5):
     """LayerNorm forward of ``[R, D]`` rows -> (y, mean [R], rstd [R]).
     The kernel takes its register path or its looped path as
@@ -137,6 +146,8 @@ def layer_norm_fwd_path(x2d, weight, bias):
                            x2d.shape[1], _build.DTYPE_CODE[x2d.dtype])
 
 
+@_build.probe_shapes(lambda x2d, *a, **kw: (
+    torch.empty_like(x2d), torch.empty_like(x2d)) + _stats_probe(x2d))
 def add_layer_norm_fwd(x2d, y2d, weight, bias, eps=1e-5):
     """(s = x + y, LN(s), mean [R], rstd [R]) of ``[R, D]`` rows in one
     pass; s and LN(s) in x's type. The addends' types are a pair of
@@ -187,6 +198,9 @@ def layer_norm_bwd_plain(x2d, weight, mu, rstd, g2d):
             g.sum(dim=0).to(weight.dtype))
 
 
+@_build.probe_shapes(lambda x2d, weight, *a, **kw: (
+    torch.empty_like(x2d), torch.empty_like(weight),
+    torch.empty_like(weight)))
 def layer_norm_bwd(x2d, weight, mu, rstd, g2d):
     """LayerNorm backward of ``[R, D]`` rows -> (dx in x's type, dweight,
     dbias in weight's type). ``g2d`` is the output cotangent in x's type;

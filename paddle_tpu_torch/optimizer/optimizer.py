@@ -291,9 +291,23 @@ class Optimizer:
                  no_grad_set=None):
         """``loss.backward()`` (unless it already ran on this loss, the
         1.x idiom ``loss.backward(); opt.minimize(loss)``), then
-        ``step()``. Returns ``(None, None)``."""
+        ``step()``. Returns ``(None, None)``. In static mode a symbolic
+        loss RECORDS the backward and update into the default program
+        instead (the append_backward analog, fluid/backward.py:1337):
+        ``static.Executor.run`` applies them, through this ``step()``."""
         if parameters is not None:
             self._set_parameters(parameters)
+        from ..static.program import default_main_program, static_var
+
+        loss_var = static_var(loss)
+        if loss_var is not None:
+            prog = default_main_program()
+            if self._parameter_list is None:
+                self._parameter_list = [
+                    p for p in prog.all_parameters() if p.requires_grad]
+            prog.optimize_directives.append((self, loss_var))
+            prog._version += 1
+            return None, None
         if not getattr(loss, "_backward_ran", False):
             loss.backward()
         self.step()

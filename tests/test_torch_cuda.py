@@ -949,3 +949,68 @@ def test_loader_reuses_pinned_buffers_only_after_their_copy(
         assert np.array_equal(x.numpy(), data[lo:lo + 8]), i
         assert np.array_equal(y.numpy(), labels[lo:lo + 8]), i
     assert len(loader._stager._free) <= loader._stager._MAX_FREE
+
+
+def test_static_program_launches_as_its_eager_step(default_device):
+    """``chip_smoke.py``'s static BERT at 2 layers, d 256, B 4 x 128 on the
+    card, float32, TF32 off: the first ``Executor.run`` launches B5 and B7
+    as many times as the eager step (twice a layer each), nothing else,
+    and leaves every parameter equal to the eager step's."""
+    import numpy as np
+
+    from chip_smoke import static_bert, static_bert_program
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pt.set_device("gpu")
+    kw = dict(vocab=512, d=256, heads=4, layers=2, max_pos=128)
+    model = static_bert(pt, **kw)
+    twin = static_bert(pt, **kw)
+    twin.set_state_dict(model.state_dict())
+    feed = {"ids": np.arange(512).reshape(4, 128) % 500,
+            "pos": np.tile(np.arange(128), (4, 1)),
+            "label": np.arange(4) % 2}
+    pt.enable_static()
+    try:
+        main, startup, loss = static_bert_program(pt, model, 4, 128)
+        exe = pt.static.Executor()
+        exe.run(startup)
+        kernels.reset_launches()
+        (lv,) = exe.run(main, feed=feed, fetch_list=[loss])
+        static_counts = kernels.launches()
+    finally:
+        pt.disable_static()
+    opt = pt.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                             parameters=twin.parameters())
+    kernels.reset_launches()
+    e_loss = pt.nn.functional.cross_entropy(
+        twin(pt.to_tensor(feed["ids"]), pt.to_tensor(feed["pos"])),
+        pt.to_tensor(feed["label"]))
+    opt.minimize(e_loss)
+    eager_counts = kernels.launches()
+    want = {name: 0 for name in kernels.WRAPPERS}
+    want.update(layer_norm_fwd=4, layer_norm_bwd=4)
+    assert static_counts == eager_counts == want
+    np.testing.assert_allclose(float(lv), float(e_loss), rtol=1e-6)
+    for p, q in zip(model.parameters(), twin.parameters()):
+        assert (p - q).abs().max() <= 1e-6 * q.abs().max()
+
+
+def test_launcher_runs_a_verbatim_script_on_the_card(tmp_path):
+    """tests/reference_scripts/fluid_fit_a_line.py verbatim through
+    ``python -m paddle_tpu_torch.run`` on the card: exit 0, the loss
+    falls, the exit line names the card with peak memory above 0, no
+    jax or paddle_tpu module and no kernel launch (a linear model)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import os
+
+    from chip_smoke import run_reference_scripts, write_housing
+
+    write_housing(os.path.join(tmp_path, "uci_housing"))
+    runs = run_reference_scripts(str(tmp_path), only="fluid_fit_a_line.py")
+    rc, out, err, _, losses, line = runs["fluid_fit_a_line.py"]
+    assert rc == 0, err[-3000:]
+    assert len(losses) >= 2 and losses[-1] < losses[0]
+    assert line[0].startswith("cuda") and line[1] > 0
+    assert line[2:4] == (False, False)
+    assert line[4] == {name: 0 for name in kernels.WRAPPERS}

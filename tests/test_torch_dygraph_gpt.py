@@ -319,21 +319,8 @@ def test_parallel_gpt_block_positional_dropout():
 #: names of paddle_tpu's namespace the port does not have yet, by the
 #: ROADMAP queue A item that brings them; the list only shrinks
 KNOWN_GAPS = {
-    # sequence ops (LoD), ops/sequence.py
-    "sequence", "sequence_concat", "sequence_conv", "sequence_enumerate",
-    "sequence_erase", "sequence_expand", "sequence_expand_as",
-    "sequence_first_step", "sequence_last_step", "sequence_mask",
-    "sequence_pad", "sequence_pool", "sequence_reshape", "sequence_reverse",
-    "sequence_scatter", "sequence_slice", "sequence_softmax",
-    "sequence_unpad", "segment_max", "segment_mean", "segment_min",
-    "segment_sum",
-    # item 5: text datasets (paddle.dataset wraps them) and script
-    # compatibility
-    "dataset", "text", "distribution",
-    # item 6: static graphs
-    "static", "enable_static", "disable_static",
-    # item 7: distributed training
-    "DataParallel",
+    # item 5: distribution
+    "distribution",
     # item 9: the tail
     "onnx", "inference", "device", "profiler", "sysconfig", "incubate",
     # TPU places: the port has CUDA and CPU places
@@ -374,22 +361,26 @@ KNOWN_NAMESPACE_GAPS = {
     "vision.models": set(),
     "vision.datasets": set(),
     "vision.transforms": set(),
-    # item 5: vision/ops.py
-    "vision": {"ops"},
-    # item 6: static graphs and to_static, jit.save/load
-    "jit": {"InputSpec", "StaticFunction", "TranslatedLayer", "case", "cond",
-            "control_flow", "declarative", "functional_call", "load",
-            "named_state", "not_to_static", "program", "raw_state",
-            "recompute", "save", "scan", "switch_case", "to_static",
-            "while_loop"},
+    "vision": set(),
+    # item 5: the rest of vision/ops.py (deform_conv2d and DeformConv2D
+    # are ported); "AG" is that module's alias of core.autograd, no API
+    "vision.ops": {"AG", "anchor_generator", "bipartite_match", "box_clip",
+                   "box_coder", "iou_similarity", "multiclass_nms", "nms",
+                   "prior_box", "roi_align", "roi_pool", "target_assign",
+                   "yolo_box", "yolo_loss"},
+    # item 6: to_static, jit.save/load
+    "jit": {"InputSpec", "StaticFunction", "TranslatedLayer",
+            "declarative", "functional_call", "load", "named_state",
+            "not_to_static", "program", "raw_state", "recompute", "save",
+            "to_static"},
     "distributed": {
         # item 7: collectives, parallel, pipeline, resharding, elastic
-        "DataParallel", "Group", "ParallelEnv", "PipelineLayer",
+        "Group", "PipelineLayer",
         "PipelineParallel", "ReduceOp", "VocabParallelEmbedding",
         "all_gather", "all_reduce", "alltoall", "barrier", "broadcast",
         "collective", "elastic", "get_group", "get_rank", "get_world_size",
-        "in_spmd_region", "init_parallel_env", "is_initialized", "launch",
-        "monitored_barrier", "new_group", "parallel", "pipeline", "reduce",
+        "in_spmd_region", "is_initialized", "launch",
+        "monitored_barrier", "new_group", "pipeline", "reduce",
         "reduce_scatter", "replicate", "resharding", "scatter",
         "shard_rank_axis", "spawn", "split", "spmd_region", "wait",
         # item 8: the comm monitor

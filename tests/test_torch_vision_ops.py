@@ -7,7 +7,9 @@ with padding and ``ceil_mode`` (padded cells never win); the adaptive
 average pool; ``flatten``; ``batch_norm``'s three forms (inference,
 ``use_global_stats``, batch statistics); the ``SGD`` and ``Momentum``
 rules (nesterov too) against paddle_tpu's eager ``step``; the model zoo's
-refusal of ``pretrained=True``; and the layer names of ``Sequential``.
+refusal of ``pretrained=True``; the layer names of ``Sequential``; and
+``vision.ops``' deformable convolution (v1 and the modulated v2, with
+deformable groups and groups) and its layer, outputs and gradients.
 
 Tolerances: atol 1e-5 + rtol 1e-5 (float32 sums in different orders;
 pooling and flatten are exact).
@@ -26,6 +28,7 @@ import paddle_tpu_torch as pt
 from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.ops import flatten as torch_flatten
 from paddle_tpu_torch.vision import models as pt_models
+from paddle_tpu_torch.vision import ops as pt_vops
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -144,3 +147,53 @@ def test_sequential_names_its_layers_as_paddle_does():
                          jnn.Linear(3, 1))
     assert list(seq.state_dict()) == list(ref.state_dict())
     assert isinstance(seq[1], pt.nn.ReLU) and len(seq) == 3
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(mask=True, deformable_groups=2, groups=2, stride=2,
+                 padding=1, dilation=(1, 2))], ids=["v1", "v2"])
+def test_deform_conv2d_matches(kw, monkeypatch):
+    """Output and the gradients of x, offset, weight, bias (and mask) of
+    ``sum(out * w)``, on offsets that put samples outside the image."""
+    import paddle_tpu.vision.ops as jvops
+    from paddle_tpu_torch.core import device as pt_device
+
+    monkeypatch.setattr(pt_device, "_current", pt_device._current)
+    pt.set_device("cpu")
+
+    kw = dict(kw)
+    use_mask, dg, g = kw.pop("mask", False), kw.get("deformable_groups",
+                                                      1), kw.get("groups", 1)
+    s, p = kw.get("stride", 1), kw.get("padding", 0)
+    dil = kw.get("dilation", 1)
+    dil = dil if isinstance(dil, tuple) else (dil, dil)
+    r = np.random.RandomState(2)
+    H, W = 7, 8
+    Ho = (H + 2 * p - (dil[0] * 2 + 1)) // s + 1
+    Wo = (W + 2 * p - (dil[1] * 2 + 1)) // s + 1
+    arrays = [r.randn(2, 4, H, W), r.uniform(-2.5, 2.5, (2, 18 * dg, Ho, Wo)),
+              r.randn(6, 4 // g, 3, 3), r.randn(6)]
+    if use_mask:
+        arrays.append(r.rand(2, 9 * dg, Ho, Wo))
+    arrays = [a.astype(np.float32) for a in arrays]
+    cot = r.randn(2, 6, Ho, Wo).astype(np.float32)
+    res = []
+    for pkg, ops in ((paddle_tpu, jvops), (pt, pt_vops)):
+        ts = [pkg.to_tensor(a, stop_gradient=False) for a in arrays]
+        out = ops.deform_conv2d(*ts[:4], mask=ts[4] if use_mask else None,
+                                **kw)
+        (out * pkg.to_tensor(cot)).sum().backward()
+        res.append([out.numpy()] + [t.grad.numpy() for t in ts])
+    for i, (a, b) in enumerate(zip(*res)):
+        np.testing.assert_allclose(np.asarray(b), np.asarray(a),
+                                   err_msg=f"{i}", **TOL)
+    # the layer: its weights carried, the same function
+    layers = [jvops.DeformConv2D(4, 6, 3, **kw),
+              pt_vops.DeformConv2D(4, 6, 3, **kw)]
+    layers[1].set_state_dict({k: np.asarray(v._data) for k, v in
+                              layers[0].state_dict().items()})
+    outs = [lyr(pkg.to_tensor(arrays[0]), pkg.to_tensor(arrays[1]),
+                mask=pkg.to_tensor(arrays[4]) if use_mask else None).numpy()
+            for pkg, lyr in zip((paddle_tpu, pt), layers)]
+    np.testing.assert_allclose(np.asarray(outs[1]), np.asarray(outs[0]),
+                               **TOL)
