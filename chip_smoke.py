@@ -171,7 +171,26 @@
    losses falling, B5 and B7 as many launches a run as in the eager step
    and no other kernel; ms per run (mean of runs 2-6) beside the eager
    ms per step (a static run and an eager step in turns), peak memory;
-21. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
+21. its ``to_static_phase``: bench.py's GPT-medium program as the dygraph
+   phase builds it (float32, TF32 off, AdamW 1e-4 / 0.01, B = 4, S =
+   1024) under ``paddle.jit.to_static`` (a ``torch.export`` capture run on
+   the live weights) for three steps beside an eager twin on the same
+   weights and ids, in turns: each loss within 1e-5, every first-step
+   gradient within 1e-5 of its largest value, the dygraph step's launches
+   of all six kernels a step, one cached program; then one step of the
+   twin with each of its 24 blocks under ``paddle.jit.recompute`` against
+   its plain step (gradients within 1e-5, the forward kernels twice a
+   block, a lower peak); ms/step of each, capture seconds, peak memory;
+22. its ``jit_save_phase``: the same program with its head applied (ids ->
+   logits) in ``eval()``, saved by ``paddle.jit.save`` at ``InputSpec([8,
+   128], "int64")`` and served from a process of its own that imports
+   the port and neither this script nor any module defining the model,
+   through ``paddle.jit.load`` and ``paddle.inference`` (``Config``,
+   ``copy_from_cpu`` / ``run`` / ``copy_to_cpu``): the logits bit-equal
+   to the eager forward's, or within 1e-5 of the largest, the eager
+   forward's launches, no ``jax``, ``paddle_tpu`` or model source loaded;
+   save, load and forward ms, the artifact's bytes;
+23. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
    "device": ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device, outside a
@@ -417,6 +436,26 @@ RUN_EXIT_PATTERN = (r"paddle_tpu_torch\.run: device=(\S+) "
 # not bit-equal)
 STATIC_BERT_RUNS = 6
 STATIC_BERT_ATOL = 1e-6
+# to_static: bench.py's GPT-medium program (the dygraph phase's)
+# under paddle.jit.to_static beside an eager twin, with the dygraph phase's
+# tolerances and launches a step; then one step with each block under
+# paddle.jit.recompute against the plain step (DYGRAPH_GRAD_RTOL), whose
+# forward kernels run twice a block
+TO_STATIC_STEPS = 3
+RECOMPUTE_LAUNCHES = {
+    name: {"float32": n} for name, n in (
+        ("flash_attention_fwd", 2 * LAYERS),
+        ("flash_attention_bwd_dq", LAYERS),
+        ("flash_attention_bwd_dkv", LAYERS),
+        ("layer_norm_fwd", 2 * LAYERS),
+        ("add_layer_norm_fwd", 2 * LAYERS),
+        ("layer_norm_bwd", 2 * LAYERS))}
+# jit.save: the same program with its head, in eval(), saved at the
+# serving cells' batch and prompt and served from a process that holds no
+# model source, through jit.load and paddle.inference: its logits bit-equal
+# to the eager forward's, or within SAVE_LOGIT_RTOL of the largest |logit|
+SAVE_B, SAVE_S = BATCH, PROMPT
+SAVE_LOGIT_RTOL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -3690,6 +3729,303 @@ def static_bert_phase(pt, kernels, card):
     return counts[0]
 
 
+def to_static_phase(pt, kernels, card):
+    """bench.py's GPT-medium program (``_gpt_medium`` and ``_bench_gpt``'s
+    loss) as the dygraph phase builds it, float32 with TF32 off, AdamW(1e-4,
+    weight decay 0.01), B = TRAIN_B, S = TRAIN_S: ``model =
+    paddle.jit.to_static(model)`` takes TO_STATIC_STEPS steps of the eager
+    loop beside an eager twin on the same weights and ids, in turns. Fails
+    unless each step's loss agrees within DYGRAPH_LOSS_RTOL, every
+    parameter's first-step gradient within DYGRAPH_GRAD_RTOL of its
+    largest value, each kernel launched in float32 as often a step as in
+    the eager step (DYGRAPH_LAUNCHES), and the program cache holds one
+    entry. Then one step of the twin with each block under
+    ``paddle.jit.recompute`` against its plain step on the same weights:
+    gradients within DYGRAPH_GRAD_RTOL, the forward kernels twice a block
+    (RECOMPUTE_LAUNCHES), a lower peak. Returns the launches of the
+    to_static steps and of the recompute step."""
+    paddle = pt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    model = _gpt_medium()
+    twin = _gpt_medium()
+    twin.set_state_dict(model.state_dict())
+    n = TRAIN_B * TRAIN_S
+    ids = paddle.to_tensor((np.arange(n) % 31000).reshape(TRAIN_B, TRAIN_S))
+    labels = paddle.to_tensor(((np.arange(n) + 1) % 31000).reshape(
+        TRAIN_B, TRAIN_S))
+    model = paddle.jit.to_static(model)
+    runs = {}
+    for name, m in (("to_static", model), ("eager", twin)):
+        opt = paddle.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                                     parameters=m.parameters())
+        runs[name] = dict(model=m, opt=opt, loss_of=_bench_lm_loss(m),
+                          losses=[], ms=[], counts=[], grads={}, peak=0)
+    torch.cuda.synchronize()
+    for i in range(TO_STATIC_STEPS):
+        for name, r in runs.items():  # a static step and an eager one
+            kernels.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            loss = r["loss_of"](r["model"](ids), labels)
+            loss.backward()
+            if i == 0:
+                r["grads"] = {k: p.grad.clone()
+                              for k, p in r["model"].named_parameters()}
+            r["opt"].step()
+            r["opt"].clear_grad()
+            r["losses"].append(float(loss))  # a host read: syncs
+            r["ms"].append((time.perf_counter() - t1) * 1e3)
+            r["counts"].append(kernels.launches_by_dtype())  # ends here
+            r["peak"] = max(r["peak"], torch.cuda.max_memory_allocated())
+    kernels.reset_launches()
+    s, e = runs["to_static"], runs["eager"]
+    cache = model.forward.program_cache
+    capture_s = sum(p.capture_s for p in cache.values())
+    worst, worst_name = 0.0, ""
+    for k, ge in e["grads"].items():
+        gs = s["grads"].get(k)
+        if gs is None or not bool(torch.isfinite(gs).all()):
+            fail(f"to_static: no finite gradient for {k}")
+        rel = (gs - ge).abs().max().item() / max(ge.abs().max().item(),
+                                                 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, k
+    if set(s["grads"]) != set(e["grads"]):
+        fail("to_static: the runs differ in which parameters got gradients")
+    s["grads"] = e["grads"] = None
+    print(f"to_static (bench GPT-medium, float32, B={TRAIN_B} S={TRAIN_S}, "
+          f"AdamW 1e-4/0.01): losses {[f'{x:.7f}' for x in s['losses']]}, "
+          f"eager {[f'{x:.7f}' for x in e['losses']]}; first-step "
+          f"gradients: worst max|g_static - g_eager| / max|g_eager| "
+          f"{worst:.3e} ({worst_name}; tolerance {DYGRAPH_GRAD_RTOL}); "
+          f"captured in {capture_s:.2f} s, {len(cache)} program(s) cached")
+    print(f"to_static ms/step (host clock, median of steps 2-"
+          f"{TO_STATIC_STEPS}, in turns): to_static "
+          f"{float(np.median(s['ms'][1:])):.2f}, eager "
+          f"{float(np.median(e['ms'][1:])):.2f}; step ms to_static "
+          f"{[f'{x:.1f}' for x in s['ms']]}, eager "
+          f"{[f'{x:.1f}' for x in e['ms']]}; peak memory to_static "
+          f"{s['peak'] / 2**30:.2f} GiB, eager {e['peak'] / 2**30:.2f} GiB "
+          f"(both models held); {card}")
+    print(f"to_static launches per step {s['counts'][0]}; eager "
+          f"{e['counts'][0]}")
+    for i, (ls, le) in enumerate(zip(s["losses"], e["losses"])):
+        if not np.isfinite(ls) or abs(ls - le) > DYGRAPH_LOSS_RTOL * abs(le):
+            fail(f"to_static step {i + 1}: loss {ls} against eager {le}")
+    if worst > DYGRAPH_GRAD_RTOL:
+        fail("to_static: first-step gradients disagree with the eager "
+             "step's")
+    for i, (cs, ce) in enumerate(zip(s["counts"], e["counts"])):
+        if cs != ce or any(cs[k] != w for k, w in DYGRAPH_LAUNCHES.items()):
+            fail(f"to_static step {i + 1}: launches {cs}, eager {ce}, "
+                 f"expected {DYGRAPH_LAUNCHES}")
+    if len(cache) != 1:
+        fail(f"to_static: {len(cache)} programs cached after "
+             f"{TO_STATIC_STEPS} steps")
+    static_counts = {k: sum(sum(c[k].values()) for c in s["counts"])
+                     for k in DYGRAPH_LAUNCHES}
+    del runs, s, e, model
+    torch.cuda.empty_cache()
+
+    # recompute: each block of the twin under paddle.jit.recompute
+    lm_loss = _bench_lm_loss(twin)
+
+    def forward(recompute):
+        T = ids.shape[1]
+        h = twin.embed(ids) + twin.pos(paddle.arange(T, dtype="int64"))
+        for blk in twin.blocks:
+            h = paddle.jit.recompute(blk, h) if recompute else blk(h)
+        return h
+
+    out = {}
+    for name in ("plain", "recompute"):
+        twin.clear_gradients()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t1 = time.perf_counter()
+        loss = lm_loss(forward(name == "recompute"), labels)
+        loss.backward()
+        lv = float(loss)
+        ms = (time.perf_counter() - t1) * 1e3
+        out[name] = dict(loss=lv, ms=ms,
+                         counts=kernels.launches_by_dtype(),  # ends here
+                         peak=torch.cuda.max_memory_allocated(),
+                         grads={k: p.grad.clone()
+                                for k, p in twin.named_parameters()})
+    kernels.reset_launches()
+    worst, worst_name = 0.0, ""
+    for k, g in out["plain"]["grads"].items():
+        rel = (out["recompute"]["grads"][k] - g).abs().max().item() \
+            / max(g.abs().max().item(), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, k
+    p, r = out["plain"], out["recompute"]
+    print(f"recompute (each of the {LAYERS} blocks): loss {r['loss']!r} / "
+          f"plain {p['loss']!r}; gradients: worst max|g_recompute - "
+          f"g_plain| / max|g_plain| {worst:.3e} ({worst_name}); step ms "
+          f"{r['ms']:.1f}, plain {p['ms']:.1f} (forward + backward, no "
+          f"update); peak memory {r['peak'] / 2**30:.2f} GiB, plain "
+          f"{p['peak'] / 2**30:.2f} GiB; launches {r['counts']}; {card}")
+    if worst > DYGRAPH_GRAD_RTOL or not np.isfinite(r["loss"]):
+        fail("recompute: gradients disagree with the plain step's")
+    if r["counts"] != RECOMPUTE_LAUNCHES:
+        fail(f"recompute: launches {r['counts']}, expected "
+             f"{RECOMPUTE_LAUNCHES}")
+    if not r["peak"] < p["peak"]:
+        fail("recompute: peak memory not below the plain step's")
+    del out, twin, lm_loss
+    torch.cuda.empty_cache()
+    return {"to_static": static_counts,
+            "to_static_recompute": {k: sum(v.values()) for k, v in
+                                    r["counts"].items()}}
+
+
+#: the serving side of jit_save_phase, run in a process of its own that
+#: imports the port and neither this script nor any module that defines
+#: the model; argv: artifact path, ids (.npy), output directory
+SERVE_ARTIFACT = r"""
+import json, sys, time
+import numpy as np
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import paddle_tpu_torch as paddle
+from paddle_tpu_torch.ops import kernels
+path, ids_file, out = sys.argv[1:4]
+ids = np.load(ids_file)
+report = {}
+t = time.perf_counter()
+layer = paddle.jit.load(path)
+torch.cuda.synchronize()
+report["load_ms"] = (time.perf_counter() - t) * 1e3
+x = paddle.to_tensor(ids)
+with paddle.no_grad():
+    kernels.reset_launches()
+    logits = layer(x)
+    report["jit_load_launches"] = kernels.launches_by_dtype()
+    np.save(out + "/jit_load.npy", logits.numpy())
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        layer(x)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    report["forward_ms"] = ms
+config = paddle.inference.Config(path + ".pdmodel")
+config.enable_use_gpu(100, 0)
+predictor = paddle.inference.create_predictor(config)
+predictor.get_input_handle(predictor.get_input_names()[0]).copy_from_cpu(ids)
+kernels.reset_launches()
+predictor.run()
+report["inference_launches"] = kernels.launches_by_dtype()
+name = predictor.get_output_names()[0]
+np.save(out + "/inference.npy",
+        predictor.get_output_handle(name).copy_to_cpu())
+report["device"] = torch.cuda.get_device_name(0)
+report["modules"] = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "paddle_tpu", "chip_smoke", "bench", "paddle"))
+print(json.dumps(report))
+"""
+
+
+def jit_save_phase(pt, kernels, card):
+    """The same GPT-medium program with its head (ids -> logits), float32,
+    TF32 off, in ``eval()``: ``paddle.jit.save`` at ``InputSpec([SAVE_B,
+    SAVE_S], "int64")``, then, in a process that imports the port and
+    neither this script nor any module defining the model, ``paddle.jit.
+    load(path)(ids)`` and ``inference.create_predictor(Config(path))``
+    through ``copy_from_cpu`` / ``run`` / ``copy_to_cpu``. Fails unless
+    both give the eager forward's logits (bit-equal, or within
+    SAVE_LOGIT_RTOL of the largest |logit|), each launches every kernel as
+    often as the eager forward, and the process loaded no ``jax``,
+    ``paddle_tpu`` or model-defining module. Returns the launches of the
+    two loaded forwards."""
+    import tempfile
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pt.set_device("gpu")
+    pt.seed(16)
+
+    class WithHead(pt.nn.Layer):
+        """bench.py's GPT program with its head applied: ids -> logits."""
+
+        def __init__(self, gpt):
+            super().__init__()
+            self.gpt = gpt
+
+        def forward(self, ids):
+            return self.gpt.head(self.gpt(ids))
+
+    lm = WithHead(_gpt_medium())
+    lm.eval()
+    ids = (np.arange(SAVE_B * SAVE_S) % 31000).reshape(SAVE_B, SAVE_S)
+    with pt.no_grad():
+        kernels.reset_launches()
+        want = lm(pt.to_tensor(ids))
+        eager_counts = kernels.launches_by_dtype()  # the eager forward
+        kernels.reset_launches()
+    want = want._data.float()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "gpt_medium")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pt.jit.save(lm, path, input_spec=[pt.jit.InputSpec(
+            [SAVE_B, SAVE_S], "int64")])
+        save_ms = (time.perf_counter() - t1) * 1e3
+        nbytes = {s: os.path.getsize(path + s)
+                  for s in (".pdmodel", ".pdiparams", ".pdmeta")}
+        del lm
+        torch.cuda.empty_cache()
+        np.save(os.path.join(tmp, "ids.npy"), ids)
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=root)
+        proc = subprocess.run(
+            [sys.executable, "-c", SERVE_ARTIFACT, path,
+             os.path.join(tmp, "ids.npy"), tmp], capture_output=True,
+            text=True, env=env, cwd=tmp, timeout=600)
+        if proc.returncode != 0:
+            fail(f"jit.save: serving the artifact failed:\n"
+                 f"{proc.stderr[-3000:]}")
+        report = json.loads(proc.stdout.strip().splitlines()[-1])
+        got = {k: torch.from_numpy(np.load(os.path.join(tmp, k + ".npy")))
+               for k in ("jit_load", "inference")}
+    want = want.cpu()
+    scale = want.abs().max().item()
+    errs = {k: (v - want).abs().max().item() / scale for k, v in got.items()}
+    bits = {k: torch.equal(v, want) for k, v in got.items()}
+    print(f"jit.save (bench GPT-medium with its head, float32, eval, "
+          f"[{SAVE_B}, {SAVE_S}] int64): save {save_ms:.1f} ms, artifact "
+          f"{sum(nbytes.values())} bytes ({nbytes}); served in a process "
+          f"of its own on {report['device']}: jit.load {report['load_ms']:.1f}"
+          f" ms, forward ms {[f'{x:.2f}' for x in report['forward_ms']]}; "
+          f"logits against the eager forward's: bit-equal {bits}, max|err| "
+          f"/ max|logit| {errs} (tolerance {SAVE_LOGIT_RTOL}); modules of "
+          f"jax, paddle_tpu or the model's source loaded: "
+          f"{report['modules']}; launches jit.load "
+          f"{report['jit_load_launches']}, inference "
+          f"{report['inference_launches']}, eager {eager_counts}; {card}")
+    for k in got:
+        if not bits[k] and not errs[k] <= SAVE_LOGIT_RTOL:
+            fail(f"jit.save: {k} logits disagree with the eager forward's")
+        if report[f"{k}_launches"] != eager_counts:
+            fail(f"jit.save: {k} launches {report[f'{k}_launches']}, the "
+                 f"eager forward's {eager_counts}")
+    if report["modules"]:
+        fail(f"jit.save: the serving process loaded {report['modules']}")
+    for name in SERVING_KERNELS:
+        if eager_counts[name] != {"float32": LAYERS}:
+            fail(f"jit.save: the eager forward launched {eager_counts}")
+    torch.cuda.empty_cache()
+    return {k: {n: sum(v.values()) for n, v in report[f"{k}_launches"].items()}
+            for k in ("jit_load", "inference")}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3781,6 +4117,10 @@ def main() -> int:
           f"{time.perf_counter() - t_start:.1f} s")
     static_bert_counts = static_bert_phase(pt, kernels, card)
     print(f"static BERT phase done at {time.perf_counter() - t_start:.1f} s")
+    to_static = to_static_phase(pt, kernels, card)
+    print(f"to_static phase done at {time.perf_counter() - t_start:.1f} s")
+    saved = jit_save_phase(pt, kernels, card)
+    print(f"jit.save phase done at {time.perf_counter() - t_start:.1f} s")
     entries = [flash, ln_entry, add_entry, dq_entry, dkv_entry, ln_bwd_entry]
     for e in entries:
         if hmma is not None and e["name"] in hmma:
@@ -3805,7 +4145,9 @@ def main() -> int:
                for k, v in blockwise.items()},
             "lenet_mnist_model_fit": mnist_fit[e["name"]],
             "resnet50_model_fit": model_fit[e["name"]],
-            "static_bert_per_run": static_bert_counts[e["name"]]}
+            "static_bert_per_run": static_bert_counts[e["name"]],
+            **{k: v[e["name"]] for k, v in to_static.items()},
+            **{f"jit_save_{k}": v[e["name"]] for k, v in saved.items()}}
     print(f"{card}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -33,9 +33,10 @@ paddle`` route (with the fluid tree), which ``python -m
 paddle_tpu_torch.run script.py`` puts first on the path; importing this
 package does not install it.
 """
-from . import (amp, core, distributed, framework, hapi, io, jit, metric,
-               native, nn, ops, optimizer, reader, regularizer, serving,
-               static, tensor, text, utils, vision)
+from . import (amp, core, distributed, distribution, framework, hapi,
+               inference, io, jit, metric, native, nn, onnx, ops, optimizer,
+               reader, regularizer, serving, static, tensor, text, utils,
+               vision)
 from . import dataset
 from .batch import batch
 from .core import (CPUPlace, CUDAPlace, Parameter, Place, Tensor,
@@ -68,8 +69,9 @@ def in_dynamic_mode() -> bool:
     return not static._static_mode_on()
 
 
-__all__ = (["amp", "core", "distributed", "framework", "hapi", "io", "jit",
-            "metric", "native", "nn", "ops", "optimizer", "reader",
+__all__ = (["amp", "core", "distributed", "distribution", "framework",
+            "hapi", "inference", "io", "jit", "metric", "native", "nn",
+            "onnx", "ops", "optimizer", "reader",
             "regularizer", "serving", "static", "tensor", "text", "utils",
             "vision", "dataset", "batch", "DataParallel", "enable_static",
             "disable_static", "sequence",

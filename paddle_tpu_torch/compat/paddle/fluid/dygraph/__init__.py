@@ -20,6 +20,7 @@ import paddle_tpu_torch.static as _static
 from paddle_tpu_torch.core import Tensor, no_grad  # noqa: F401
 from paddle_tpu_torch.nn import Layer, LayerList, Sequential, ParameterList  # noqa: F401
 from paddle_tpu_torch.distributed.parallel import DataParallel  # noqa: F401
+from paddle_tpu_torch.jit import declarative, to_static  # noqa: F401
 
 from .nn import BatchNorm, Conv2D, Embedding, Linear, Pool2D  # noqa: F401
 from . import nn  # noqa: F401
@@ -29,7 +30,7 @@ __all__ = [
     "to_variable", "Layer", "LayerList", "Sequential", "ParameterList",
     "Linear", "Conv2D", "Pool2D", "BatchNorm", "Embedding",
     "no_grad", "save_dygraph", "load_dygraph", "DataParallel",
-    "prepare_context", "TracedLayer",
+    "prepare_context", "TracedLayer", "declarative", "to_static",
 ]
 
 
@@ -107,8 +108,9 @@ class TracedLayer:
     def __init__(self, *a, **kw):
         raise NotImplementedError(
             "fluid.dygraph.TracedLayer is out of scope: use "
-            "paddle.jit.to_static / paddle.jit.save (the TPU path traces "
-            "whole programs through XLA, not a per-op static graph)"
+            "paddle.jit.to_static / paddle.jit.save (whole programs are "
+            "captured by torch.export, not traced into a per-op static "
+            "graph)"
         )
 
     @staticmethod

@@ -64,17 +64,18 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
                          main_program=None, model_filename=None,
                          params_filename=None, **kw):
     """io.py:1002: the deployment artifact. Refused, as the JAX package
-    refuses it (a fluid Program-desc file has no interpreter here), with
-    its message."""
+    refuses it (a fluid Program-desc file has no interpreter here),
+    pointing at the port's artifact as its message points at its own."""
     raise NotImplementedError(
-        "fluid.io.save_inference_model is out of scope: export compiled "
-        "programs with paddle.jit.save (StableHLO), see paddle_tpu.jit"
+        "fluid.io.save_inference_model is out of scope: export programs "
+        "with paddle.jit.save (a torch.export program), served by "
+        "paddle.jit.load and paddle.inference"
     )
 
 
 def load_inference_model(dirname, executor, model_filename=None,
                          params_filename=None):
     raise NotImplementedError(
-        "fluid.io.load_inference_model is out of scope: load StableHLO "
-        "exports with paddle.jit.load"
+        "fluid.io.load_inference_model is out of scope: load "
+        "paddle.jit.save artifacts with paddle.jit.load"
     )

@@ -19,6 +19,7 @@ mode), ``is_grad_enabled``, ``grad`` with Paddle's arguments, and
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -27,7 +28,8 @@ from .. import amp
 from .flags import flag
 
 __all__ = ["no_grad", "enable_grad", "set_grad_enabled", "is_grad_enabled",
-           "grad", "run_backward", "apply", "NanInfError"]
+           "grad", "run_backward", "apply", "NanInfError", "trace_mode",
+           "in_trace"]
 
 no_grad = torch.no_grad
 enable_grad = torch.enable_grad
@@ -80,6 +82,29 @@ def _check_backward(name: str, outs) -> None:
     for fn in {o.grad_fn for o in outs
                if isinstance(o, torch.Tensor) and o.grad_fn is not None}:
         fn.register_hook(hook)
+
+
+#: depth of nested ``to_static`` captures (``jit/program.py``)
+_trace_depth = 0
+
+
+@contextlib.contextmanager
+def trace_mode():
+    """A ``to_static`` capture is running (``torch.export`` of the
+    converted function): tensor control flow lowers to torch's
+    higher-order ops (``jit/control_flow.py``) and random draws to the
+    package's draw op (``core/random.py``)."""
+    global _trace_depth
+    _trace_depth += 1
+    try:
+        yield
+    finally:
+        _trace_depth -= 1
+
+
+def in_trace() -> bool:
+    """Is a ``to_static`` capture running?"""
+    return _trace_depth > 0
 
 
 #: the ``static`` package once imported: its mode flag decides whether a

@@ -12,9 +12,19 @@ op into the default program: its branches (or the loop's condition and
 body) are traced into sub-programs, and the op picks a branch, or loops,
 at replay, over the values the sub-programs read from the enclosing
 program. ``scan`` runs ``body_fn`` over the leading axis of ``xs``, in
-eager and static mode alike. The JAX package lowers these to
-``lax.cond`` / ``lax.while_loop`` / ``lax.switch`` / ``lax.scan`` under
-its ``to_static`` capture, which the port has not yet.
+eager and static mode alike.
+
+During a ``to_static`` capture (``torch.export``; ``AG.in_trace()``), a
+tensor predicate of ``cond`` lowers to the ``cond`` higher-order op (what
+``torch.cond`` records) and a tensor loop of ``while_loop`` to torch's
+``while_loop`` op, where the JAX package lowers to ``lax.cond`` /
+``lax.while_loop``: the captured program picks the branch, or loops,
+whenever it runs. The ops are called directly, not through ``torch.cond``
+(which hands the branches to ``torch.compile`` outside ``torch.export``'s
+strict mode): a dry run of the branches finds the tensors they read from
+outside (closures, parameters), which enter the op as operands. A Python
+``if`` on a tensor there would be a data-dependent guard, which the
+capture refuses.
 """
 from __future__ import annotations
 
@@ -24,7 +34,7 @@ import torch
 import torch.utils._pytree as pytree
 
 from ..core import autograd as AG
-from ..core.tensor import Tensor
+from ..core.tensor import Tensor, to_torch
 
 __all__ = ["cond", "while_loop", "scan", "case", "switch_case"]
 
@@ -122,10 +132,145 @@ def _tensors(leaves):
     return [o for o in leaves if isinstance(o, torch.Tensor)]
 
 
+def _raw_operand(v, like):
+    """A tensor operand of torch's control-flow ops: a Python number
+    becomes a tensor on ``like``'s device."""
+    raw = to_torch(v)
+    if isinstance(raw, torch.Tensor):
+        return raw
+    return torch.as_tensor(raw, device=like.device)
+
+
+def _wrapped(leaves):
+    return [Tensor._wrap(v) if isinstance(v, torch.Tensor) else v
+            for v in leaves]
+
+
+class _Reads(torch.overrides.TorchFunctionMode):
+    """The tensors a function's torch calls read that it neither takes
+    nor makes (its closure's, a layer's parameters): the free inputs of
+    a branch or loop body."""
+
+    def __init__(self, own):
+        super().__init__()
+        self.known = {id(t) for t in own}
+        self.free = {}
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        for a in pytree.tree_leaves((args, kwargs or {})):
+            if isinstance(a, torch.Tensor) and id(a) not in self.known:
+                self.free.setdefault(id(a), a)
+        out = func(*args, **(kwargs or {}))
+        for o in pytree.tree_leaves(out):
+            if isinstance(o, torch.Tensor):
+                self.known.add(id(o))
+        return out
+
+
+class _Substitute(torch.overrides.TorchFunctionMode):
+    """Inside a traced branch: each free tensor read goes in as the
+    branch's own input that stands for it."""
+
+    def __init__(self, subs):
+        super().__init__()
+        self.subs = subs
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        args, kwargs = pytree.tree_map(
+            lambda a: self.subs.get(id(a), a) if isinstance(
+                a, torch.Tensor) else a, (args, kwargs or {}))
+        return func(*args, **kwargs)
+
+
+def _free_tensors(calls):
+    """Run each ``(fn, raw args)`` once without recording (a dry run on
+    the capture's fake tensors) and return the free tensors they read."""
+    from torch.fx.experimental.proxy_tensor import \
+        disable_proxy_modes_tracing
+
+    free = {}
+    for fn, raws in calls:
+        with disable_proxy_modes_tracing(), _Reads(raws) as reads:
+            fn(*raws)
+        free.update(reads.free)
+    return list(free.values())
+
+
+def _closed(fn, free, n):
+    """``fn`` over its first ``n`` inputs, the free tensors substituted by
+    the inputs after them."""
+    def run(*vals):
+        subs = {id(f): v for f, v in zip(free, vals[n:])}
+        with _Substitute(subs):
+            return fn(*vals[:n])
+
+    return run
+
+
+def _captured_cond(pred, true_fn, false_fn, operands):
+    """The ``cond`` higher-order op (what ``torch.cond`` records) over the
+    raw operands and the free tensors the branches read; the branches see
+    ``Tensor`` handles and return tensors."""
+    from torch._higher_order_ops.cond import cond_op
+
+    p = to_torch(pred)
+    if p.dim():
+        p = p.reshape(())
+    if p.dtype != torch.bool:
+        p = p != 0
+    raws = tuple(_raw_operand(o, p) for o in operands)
+    spec = []
+
+    def branch(fn):
+        def run(*vals):
+            out = fn(*_wrapped(vals))
+            leaves, tree = pytree.tree_flatten(
+                out, is_leaf=lambda v: isinstance(v, Tensor))
+            spec[:] = [tree]
+            return tuple(_raw_operand(v, p) for v in leaves)
+
+        return run
+
+    tb, fb = branch(true_fn), branch(false_fn)
+    free = _free_tensors([(tb, raws), (fb, raws)])
+    n = len(raws)
+    outs = cond_op(p, _closed(tb, free, n), _closed(fb, free, n),
+                   raws + tuple(free))
+    return pytree.tree_unflatten(_wrapped(outs), spec[0])
+
+
+def _captured_while(cond_fn, body_fn, loop_vars):
+    """The ``while_loop`` higher-order op over the raw loop variables and
+    the free tensors the condition and body read."""
+    from torch._higher_order_ops.while_loop import while_loop_op
+
+    first = next(to_torch(v) for v in loop_vars
+                 if isinstance(to_torch(v), torch.Tensor))
+    raws = tuple(_raw_operand(v, first) for v in loop_vars)
+
+    def cf(*vals):
+        r = to_torch(cond_fn(*_wrapped(vals)))
+        return r.reshape(()) if r.dim() else r
+
+    def bf(*vals):
+        out = body_fn(*_wrapped(vals))
+        out = out if isinstance(out, (list, tuple)) else [out]
+        return tuple(_raw_operand(v, first) for v in out)
+
+    free = _free_tensors([(cf, raws), (bf, raws)])
+    n = len(raws)
+    outs = while_loop_op(_closed(cf, free, n), _closed(bf, free, n), raws,
+                         tuple(free))
+    return _wrapped(outs)
+
+
 def cond(pred, true_fn: Callable, false_fn: Callable, *operands):
     """paddle.static.nn.cond: ``true_fn(*operands)`` if ``pred`` else
     ``false_fn(*operands)``; with a symbolic ``pred`` in static mode, one
-    recorded op that picks the branch at replay."""
+    recorded op that picks the branch at replay; with a tensor ``pred``
+    during a ``to_static`` capture, torch's ``cond`` op."""
+    if isinstance(pred, Tensor) and AG.in_trace():
+        return _captured_cond(pred, true_fn, false_fn, operands)
     if isinstance(pred, Tensor) and _symbolic_in(pred, operands):
         args = [_placeholder(o) for o in operands]
         tb, fb = _Branch(true_fn, args), _Branch(false_fn, args)
@@ -144,7 +289,10 @@ def cond(pred, true_fn: Callable, false_fn: Callable, *operands):
 def while_loop(cond_fn: Callable, body_fn: Callable, loop_vars: Sequence):
     """paddle.static.nn.while_loop: ``loop_vars = body_fn(*loop_vars)``
     while ``cond_fn(*loop_vars)``; with a symbolic loop variable in static
-    mode, one recorded op that loops at replay."""
+    mode, one recorded op that loops at replay; with a tensor loop
+    variable during a ``to_static`` capture, torch's ``while_loop``."""
+    if AG.in_trace() and any(isinstance(v, Tensor) for v in loop_vars):
+        return _captured_while(cond_fn, body_fn, loop_vars)
     if _symbolic_in(loop_vars):
         args = [_placeholder(v) for v in loop_vars]
         cb = _Branch(cond_fn, args)

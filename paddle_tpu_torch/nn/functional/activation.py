@@ -20,7 +20,7 @@ import torch
 
 from ... import amp
 from ...core.dtype import convert_dtype
-from ...core.random import default_generator
+from ...core import random as rnd
 
 __all__ = [
     "relu", "relu6", "gelu", "softmax", "log_softmax", "leaky_relu", "elu",
@@ -173,10 +173,8 @@ def gumbel_softmax(x, temperature=1.0, hard=False, axis=-1, name=None, *,
     -log(u + 1e-20) + 1e-20)``, ``u`` uniform from ``generator``. With
     ``hard``, the forward is the one-hot of the argmax and the gradient
     the soft sample's (straight through)."""
-    if generator is None:
-        generator = default_generator(x.device)
-    u = torch.rand(x.shape, generator=generator, device=x.device,
-                   dtype=x.dtype)
+    u = rnd.rand(x.shape, generator=generator, device=x.device,
+                 dtype=x.dtype)
     g = -torch.log(-torch.log(u + 1e-20) + 1e-20)
     y = torch.softmax((x + g) / temperature, dim=axis)
     if not hard:

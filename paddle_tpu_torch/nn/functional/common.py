@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ... import amp
+from ...core import random as rnd
 from ...core.random import default_generator
 
 __all__ = [
@@ -88,14 +89,12 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
         return x
     if p == 1.0:
         return torch.zeros_like(x)
-    if generator is None:
-        generator = default_generator(x.device)
     shape = list(x.shape)
     if axis is not None:
         axes = [a % x.dim() for a in
                 (axis if isinstance(axis, (list, tuple)) else [axis])]
         shape = [s if i in axes else 1 for i, s in enumerate(shape)]
-    keep = torch.rand(shape, generator=generator, device=x.device) < 1.0 - p
+    keep = rnd.rand(shape, generator=generator, device=x.device) < 1.0 - p
     kept = x / (1.0 - p) if mode == "upscale_in_train" else x
     return torch.where(keep, kept, torch.zeros((), dtype=x.dtype,
                                                device=x.device))
@@ -126,10 +125,7 @@ def alpha_dropout(x, p=0.5, training=True, name=None, *,
     the mean and variance stay."""
     if not training or p == 0.0:
         return x
-    if generator is None:
-        generator = default_generator(x.device)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) \
-        < 1.0 - p
+    keep = rnd.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
     alpha_p = -_SELU_ALPHA * _SELU_SCALE
     q = 1.0 - p
     a = (q + alpha_p ** 2 * q * p) ** -0.5

@@ -170,13 +170,11 @@ def clone(x, name=None):
 
 
 def rand(shape, dtype=None, name=None):
-    return _new(torch.rand(_shape(shape), generator=_gen(), device=_dev(),
-                           dtype=_dt(dtype)))
+    return _new(rnd.rand(_shape(shape), device=_dev(), dtype=_dt(dtype)))
 
 
 def randn(shape, dtype=None, name=None):
-    return _new(torch.randn(_shape(shape), generator=_gen(), device=_dev(),
-                            dtype=_dt(dtype)))
+    return _new(rnd.randn(_shape(shape), device=_dev(), dtype=_dt(dtype)))
 
 
 standard_normal = randn
@@ -196,9 +194,8 @@ def randperm(n, dtype=None, name=None):
 
 
 def uniform(shape, dtype=None, min=-1.0, max=1.0, seed=0, name=None):
-    gen = rnd.generator(seed, _dev()) if seed else _gen()
-    u = torch.rand(_shape(shape), generator=gen, device=_dev(),
-                   dtype=_dt(dtype))
+    u = rnd.rand(_shape(shape), device=_dev(), dtype=_dt(dtype),
+                 seed=int(seed))
     return _new(u * (max - min) + min)
 
 
@@ -214,8 +211,8 @@ def normal(mean=0.0, std=1.0, shape=None, name=None):
                         device=dev, dtype=default_float_dtype())
         return _new(z * s.to(dev) + m.to(dev))
     shp = _shape(shape) if shape is not None else ()
-    return _new(torch.randn(shp, generator=_gen(), device=_dev(),
-                            dtype=default_float_dtype()) * std + mean)
+    return _new(rnd.randn(shp, device=_dev(), dtype=default_float_dtype())
+                * std + mean)
 
 
 def bernoulli(x, name=None):

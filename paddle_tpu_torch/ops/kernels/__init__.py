@@ -1,8 +1,10 @@
 """Hand-written CUDA kernels for Hopper, one module per Pallas kernel
-source of ``paddle_tpu/ops/pallas``: each wrapper launches its kernel on
-a CUDA tensor, takes its plain PyTorch version on a CPU tensor, and counts
-its launches in ``<wrapper>.launches`` (and by input types in
-``<wrapper>.by_dtype``)."""
+source of ``paddle_tpu/ops/pallas``: each kernel is a ``torch.library``
+custom op (``torch.ops.paddle_tpu_torch.<name>``, the names of
+:data:`WRAPPERS`) that launches its kernel on a CUDA tensor, takes its
+plain PyTorch version on a CPU tensor, and counts its launches in
+``<wrapper>.launches`` (and by input types in ``<wrapper>.by_dtype``);
+importing the package registers them."""
 from . import flash_attention, layer_norm
 
 #: every kernel wrapper of the port, by the name the chip run reports

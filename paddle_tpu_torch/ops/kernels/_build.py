@@ -14,7 +14,6 @@ launch never runs, and no later synchronize reports it).
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
@@ -23,13 +22,16 @@ from pathlib import Path
 from typing import Dict, Iterable, Sequence
 
 import torch
-from torch._subclasses.fake_tensor import FakeTensor
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: the ``torch.library`` namespace of the kernels' custom ops
+#: (``torch.ops.paddle_tpu_torch.<name>``)
+NAMESPACE = "paddle_tpu_torch"
 
 #: dtype codes of the C interface (csrc/common.cuh)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -152,32 +154,11 @@ def upcast(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
-def probe_shapes(shapes):
-    """Decorate a kernel wrapper with its outputs' shapes for a static-graph
-    shape probe (``static/program.py``, which calls the wrapper under a
-    fake tensor mode). When an argument is a fake tensor, the wrapper
-    returns ``shapes(*args, **kwargs)``, empty outputs of the kernel's
-    shapes and types: it launches nothing and computes nothing through the
-    plain version."""
-
-    def decorate(wrapper):
-        @functools.wraps(wrapper)
-        def call(*args, **kwargs):
-            if any(isinstance(a, FakeTensor)
-                   for a in (*args, *kwargs.values())):
-                return shapes(*args, **kwargs)
-            return wrapper(*args, **kwargs)
-
-        return call
-
-    return decorate
-
-
 def refuse_grad(what: str, function: str, *tensors: torch.Tensor) -> None:
-    """A kernel's outputs carry no autograd graph. Raise, on any device,
-    when grad mode is on and an input requires grad: such a call goes
-    through ``function`` (a ``torch.autograd.Function`` whose forward runs
-    with grad mode off and whose backward launches the backward kernels)."""
+    """A kernel wrapper's outputs carry no autograd graph. Raise, on any
+    device, when grad mode is on and an input requires grad: such a call
+    goes through ``function`` (a caller of the forward custom op, whose
+    registered autograd formula launches the backward kernels)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{what}: an input requires grad and the kernel's outputs would "

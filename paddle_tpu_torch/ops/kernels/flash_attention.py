@@ -1,5 +1,5 @@
 """Flash attention (B1-B4): the forward ``(out, lse)`` of softmax
-attention, its backward ``(dq, dk, dv)``, and the autograd Function that
+attention, its backward ``(dq, dk, dv)``, and the autograd formula that
 joins them.
 
 The port of ``paddle_tpu/ops/pallas/flash_attention.py``. The forward
@@ -8,8 +8,8 @@ function, and one hand-written CUDA kernel for Hopper computes it here
 (``csrc/flash_attention_fwd.cu``). The backward kernels ``_dq_kernel``
 (B3) and ``_dkv_kernel`` (B4) stay two kernels
 (``csrc/flash_attention_bwd.cu``). Each wrapper has its plain PyTorch
-version and a launch count beside it. :class:`FlashAttentionFunction` is
-the counterpart of the ``flash_attention`` custom_vjp: it saves what
+version and a launch count beside it. The forward op's autograd formula
+is the counterpart of the ``flash_attention`` custom_vjp: it saves what
 ``_fa_fwd`` saves, ``(q, k, v, out, lse)``, and its backward computes
 ``delta = rowsum(dO * O)`` outside the kernels, as ``_backward`` does.
 
@@ -28,14 +28,21 @@ in backward ``p`` is forced to 0 wherever ``s <= -1e30 / 2``; outputs come
 back in the input type and lse as ``[B, H, S]`` f32; the block contract
 raises when S or Sk is not divisible by its block.
 
-A tensor on the CPU takes the plain version; a CUDA tensor launches the
-kernel or raises. A wrapper called directly with an input that requires
-grad while grad mode is on raises on either device (its outputs would be
-cut from the graph): training goes through :class:`FlashAttentionFunction`.
+Each kernel is a ``torch.library`` custom op,
+``torch.ops.paddle_tpu_torch.flash_attention_{fwd,bwd_dq,bwd_dkv}``, with
+a fake implementation (its outputs' shapes and types, for fake-tensor
+tracing: ``torch.export``, the static recorder's probe) and, on the
+forward, an autograd formula that runs the backward ops; so an exported
+program records the op itself and keeps its gradient. A tensor on the CPU
+takes the plain version; a CUDA tensor launches the kernel or raises. A
+wrapper function called directly with an input that requires grad while
+grad mode is on raises on either device (its outputs would be cut from
+the graph): training goes through :class:`FlashAttentionFunction`.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
@@ -118,13 +125,6 @@ def flash_attention_fwd_plain(q, k, v, *, causal=False, scale=None,
     return out.to(q.dtype), lse[..., 0]
 
 
-def _fwd_shapes(q, k, v, **kw):
-    B, H, S, _, _ = _check_qkv(q, k, v)
-    return torch.empty_like(q), torch.empty((B, H, S), device=q.device,
-                                            dtype=torch.float32)
-
-
-@_build.probe_shapes(_fwd_shapes)
 def flash_attention_fwd(q, k, v, *, causal=False, block_q=256,
                         block_k=256, scale=None, q_offset=0, kv_offset=0):
     """Flash-attention forward -> (out ``[B, H, S, D]`` in q's type, lse
@@ -192,7 +192,6 @@ def _bwd_args(what, q, k, v, dout, lse, delta):
     return dev, B, H, S, Sk, D
 
 
-@_build.probe_shapes(lambda q, *a, **kw: torch.empty_like(q))
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, *, causal=False,
                            scale=None, q_offset=0, kv_offset=0):
     """dq of the flash backward (B3, ``_dq_kernel``)."""
@@ -216,8 +215,6 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, *, causal=False,
     return dq
 
 
-@_build.probe_shapes(
-    lambda q, k, v, *a, **kw: (torch.empty_like(k), torch.empty_like(v)))
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, *, causal=False,
                             scale=None, q_offset=0, kv_offset=0):
     """(dk, dv) of the flash backward (B4, ``_dkv_kernel``)."""
@@ -249,8 +246,6 @@ flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dkv.by_dtype = {}
 
 
-@_build.probe_shapes(lambda q, k, v, *a, **kw: (
-    torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)))
 def flash_attention_bwd(q, k, v, dout, lse, delta, *, causal=False,
                         block_q=256, block_k=256, scale=None, q_offset=0,
                         kv_offset=0):
@@ -270,27 +265,105 @@ def flash_attention_bwd(q, k, v, dout, lse, delta, *, causal=False,
     return dq, dk, dv
 
 
-class FlashAttentionFunction(torch.autograd.Function):
+# -- the custom ops: each runs its wrapper above (inside the op, grad mode
+# is off, as in an autograd Function's forward); the fake implementations
+# give the outputs' shapes and types, and the forward op's autograd formula
+# runs the backward ops
+
+@torch.library.custom_op(f"{_build.NAMESPACE}::flash_attention_fwd",
+                         mutates_args=())
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool = False, block_q: int = 256, block_k: int = 256,
+            scale: Optional[float] = None, q_offset: int = 0,
+            kv_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    return flash_attention_fwd(q, k, v, causal=causal, block_q=block_q,
+                               block_k=block_k, scale=scale,
+                               q_offset=q_offset, kv_offset=kv_offset)
+
+
+@_fwd_op.register_fake
+def _(q, k, v, causal=False, block_q=256, block_k=256, scale=None,
+      q_offset=0, kv_offset=0):
+    B, H, S, Sk, _ = _check_qkv(q, k, v)
+    _check_blocks(S, Sk, block_q, block_k)
+    # lse in the compute type: float32, float64 on the float64 plain route
+    lse_type = torch.promote_types(q.dtype, torch.float32)
+    return torch.empty_like(q), q.new_empty((B, H, S), dtype=lse_type)
+
+
+@torch.library.custom_op(f"{_build.NAMESPACE}::flash_attention_bwd_dq",
+                         mutates_args=())
+def _dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           dout: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+           causal: bool = False, scale: Optional[float] = None,
+           q_offset: int = 0, kv_offset: int = 0) -> torch.Tensor:
+    return flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal=causal,
+                                  scale=scale, q_offset=q_offset,
+                                  kv_offset=kv_offset)
+
+
+@_dq_op.register_fake
+def _(q, k, v, dout, lse, delta, causal=False, scale=None, q_offset=0,
+      kv_offset=0):
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op(f"{_build.NAMESPACE}::flash_attention_bwd_dkv",
+                         mutates_args=())
+def _dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            dout: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+            causal: bool = False, scale: Optional[float] = None,
+            q_offset: int = 0, kv_offset: int = 0
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal=causal,
+                                   scale=scale, q_offset=q_offset,
+                                   kv_offset=kv_offset)
+
+
+@_dkv_op.register_fake
+def _(q, k, v, dout, lse, delta, causal=False, scale=None, q_offset=0,
+      kv_offset=0):
+    return torch.empty_like(k), torch.empty_like(v)
+
+
+def _fwd_setup(ctx, inputs, output):
+    q, k, v, causal, _, _, scale, q_offset, kv_offset = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.kw = (causal, scale, q_offset, kv_offset)
+
+
+def _fwd_backward(ctx, g, _g_lse):
+    """The custom_vjp's backward: ``delta = rowsum(dO * O)`` outside the
+    kernels, as ``_backward`` computes it, then the B3 and B4 ops (the
+    lse cotangent is dropped, as ``flash_attention``'s residual has none).
+    On the CPU one plain backward gives dq, dk and dv together."""
+    q, k, v, out, lse = ctx.saved_tensors
+    delta = (_up(g) * _up(out)).sum(dim=-1).to(lse.dtype)
+    g = g.to(q.dtype).contiguous()
+    if q.device.type == "cpu":
+        causal, scale, q_offset, kv_offset = ctx.kw
+        dq, dk, dv = flash_attention_bwd_plain(
+            q, k, v, g, lse, delta, causal=causal, scale=scale,
+            q_offset=q_offset, kv_offset=kv_offset)
+    else:
+        dq = _dq_op(q, k, v, g, lse, delta, *ctx.kw)
+        dk, dv = _dkv_op(q, k, v, g, lse, delta, *ctx.kw)
+    return dq, dk, dv, None, None, None, None, None, None
+
+
+_fwd_op.register_autograd(_fwd_backward, setup_context=_fwd_setup)
+
+
+class FlashAttentionFunction:
     """``flash_attention`` with its backward on the B3/B4 kernels (the
-    custom_vjp of ``flash_attention.py:376``). On the CPU its forward and
+    custom_vjp of ``flash_attention.py:376``): a caller of the custom op
+    ``flash_attention_fwd``, whose registered autograd formula launches
+    the backward ops, so ``torch.export`` records the op itself and a
+    captured program keeps its gradient. On the CPU its forward and
     backward run the plain versions. Returns ``out``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal=False, block_q=256, block_k=256,
-                scale=None, q_offset=0, kv_offset=0):
-        out, lse = flash_attention_fwd(
-            q, k, v, causal=causal, block_q=block_q, block_k=block_k,
-            scale=scale, q_offset=q_offset, kv_offset=kv_offset)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.kw = dict(causal=causal, block_q=block_q, block_k=block_k,
-                      scale=scale, q_offset=q_offset, kv_offset=kv_offset)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v, out, lse = ctx.saved_tensors
-        delta = (_up(g) * _up(out)).sum(dim=-1)
-        dq, dk, dv = flash_attention_bwd(
-            q, k, v, g.to(q.dtype).contiguous(), lse, delta.to(lse.dtype),
-            **ctx.kw)
-        return dq, dk, dv, None, None, None, None, None, None
+    def apply(q, k, v, causal=False, block_q=256, block_k=256, scale=None,
+              q_offset=0, kv_offset=0):
+        return _fwd_op(q, k, v, causal, block_q, block_k, scale, q_offset,
+                       kv_offset)[0]

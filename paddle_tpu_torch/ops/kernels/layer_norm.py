@@ -4,10 +4,10 @@ LayerNorm backward (B7), and the autograd Functions that join them.
 The port of ``paddle_tpu/ops/pallas/layer_norm.py``'s ``_ln_fwd_kernel``,
 ``_add_ln_fwd_kernel`` and ``_ln_bwd_kernel``: hand-written CUDA kernels
 for Hopper (``csrc/layer_norm.cu``), each with its plain PyTorch version
-and a launch count per wrapper. :class:`LayerNormFunction` and
-:class:`AddLayerNormFunction` are the counterparts of the
-``fused_layer_norm`` / ``fused_add_layer_norm`` custom_vjps: they save what
-``_fln_fwd`` / ``_fadd_ln_fwd`` save, ``(x2d or s2d, weight, mu, rstd)``.
+and a launch count per wrapper. The forward ops' autograd formulas are
+the counterparts of the ``fused_layer_norm`` / ``fused_add_layer_norm``
+custom_vjps: they save what ``_fln_fwd`` / ``_fadd_ln_fwd`` save, ``(x2d
+or s2d, weight, mu, rstd)``.
 
 What bounds the kernels on the H100 is bytes, not flops (a few flops per
 element moved); the CUDA source says what its design does about it. Stats
@@ -22,14 +22,20 @@ normalized axis last; ``weight``/``bias`` are ``[D]``. The router in
 ``nn/functional/norm.py`` only sends shapes the Pallas kernel accepts
 (rows % 8 for f32, % 16 for bf16; D % 128).
 
-A tensor on the CPU takes the plain version; a CUDA tensor launches the
-kernel or raises. A wrapper called directly with an input that requires
-grad while grad mode is on raises on either device (its outputs would be
-cut from the graph): training goes through the Functions.
+Each kernel is a ``torch.library`` custom op,
+``torch.ops.paddle_tpu_torch.{layer_norm_fwd,add_layer_norm_fwd,
+layer_norm_bwd}``, with a fake implementation and, on the two forwards,
+an autograd formula that runs ``layer_norm_bwd``. A tensor on the CPU
+takes the plain version; a CUDA tensor launches the kernel or raises. A
+wrapper function called directly with an input that requires grad while
+grad mode is on raises on either device (its outputs would be cut from
+the graph): training goes through the callers of the forward ops,
+:class:`LayerNormFunction` and :class:`AddLayerNormFunction`.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -101,15 +107,6 @@ def _check(what, x2d, weight, bias, *more):
     return _build.require_cuda(what, x2d, weight, bias, *more)
 
 
-def _stats_probe(x2d):
-    """Empty ``[R]`` f32 mean and rstd: the statistics' shapes, for a
-    shape probe."""
-    return tuple(torch.empty(x2d.shape[0], device=x2d.device,
-                             dtype=torch.float32) for _ in range(2))
-
-
-@_build.probe_shapes(
-    lambda x2d, *a, **kw: (torch.empty_like(x2d),) + _stats_probe(x2d))
 def layer_norm_fwd(x2d, weight, bias, eps=1e-5):
     """LayerNorm forward of ``[R, D]`` rows -> (y, mean [R], rstd [R]).
     The kernel takes its register path or its looped path as
@@ -146,8 +143,6 @@ def layer_norm_fwd_path(x2d, weight, bias):
                            x2d.shape[1], _build.DTYPE_CODE[x2d.dtype])
 
 
-@_build.probe_shapes(lambda x2d, *a, **kw: (
-    torch.empty_like(x2d), torch.empty_like(x2d)) + _stats_probe(x2d))
 def add_layer_norm_fwd(x2d, y2d, weight, bias, eps=1e-5):
     """(s = x + y, LN(s), mean [R], rstd [R]) of ``[R, D]`` rows in one
     pass; s and LN(s) in x's type. The addends' types are a pair of
@@ -198,9 +193,6 @@ def layer_norm_bwd_plain(x2d, weight, mu, rstd, g2d):
             g.sum(dim=0).to(weight.dtype))
 
 
-@_build.probe_shapes(lambda x2d, weight, *a, **kw: (
-    torch.empty_like(x2d), torch.empty_like(weight),
-    torch.empty_like(weight)))
 def layer_norm_bwd(x2d, weight, mu, rstd, g2d):
     """LayerNorm backward of ``[R, D]`` rows -> (dx in x's type, dweight,
     dbias in weight's type). ``g2d`` is the output cotangent in x's type;
@@ -249,54 +241,124 @@ layer_norm_bwd.launches = 0
 layer_norm_bwd.by_dtype = {}
 
 
-class LayerNormFunction(torch.autograd.Function):
+# -- the custom ops: each runs its wrapper above (inside the op, grad mode
+# is off, as in an autograd Function's forward); the fake implementations
+# give the outputs' shapes and types, and the forward ops' autograd
+# formulas run the backward op
+
+def _stats_fake(x2d):
+    """Empty ``[R]`` mean and rstd in the compute type (float32, or
+    float64 for the float64 plain route)."""
+    t = torch.promote_types(x2d.dtype, torch.float32)
+    return tuple(x2d.new_empty((x2d.shape[0],), dtype=t) for _ in range(2))
+
+
+_T3 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+_T4 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+@torch.library.custom_op(f"{_build.NAMESPACE}::layer_norm_fwd",
+                         mutates_args=())
+def _ln_fwd_op(x2d: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> _T3:
+    return layer_norm_fwd(x2d, weight, bias, eps)
+
+
+@_ln_fwd_op.register_fake
+def _(x2d, weight, bias, eps=1e-5):
+    return (torch.empty_like(x2d),) + _stats_fake(x2d)
+
+
+@torch.library.custom_op(f"{_build.NAMESPACE}::add_layer_norm_fwd",
+                         mutates_args=())
+def _add_ln_fwd_op(x2d: torch.Tensor, y2d: torch.Tensor,
+                   weight: torch.Tensor, bias: torch.Tensor,
+                   eps: float = 1e-5) -> _T4:
+    return add_layer_norm_fwd(x2d, y2d, weight, bias, eps)
+
+
+@_add_ln_fwd_op.register_fake
+def _(x2d, y2d, weight, bias, eps=1e-5):
+    return (torch.empty_like(x2d), torch.empty_like(x2d)) + _stats_fake(x2d)
+
+
+@torch.library.custom_op(f"{_build.NAMESPACE}::layer_norm_bwd",
+                         mutates_args=())
+def _ln_bwd_op(x2d: torch.Tensor, weight: torch.Tensor, mu: torch.Tensor,
+               rstd: torch.Tensor, g2d: torch.Tensor) -> _T3:
+    return layer_norm_bwd(x2d, weight, mu, rstd, g2d)
+
+
+@_ln_bwd_op.register_fake
+def _(x2d, weight, mu, rstd, g2d):
+    return (torch.empty_like(x2d), torch.empty_like(weight),
+            torch.empty_like(weight))
+
+
+def _ln_setup(ctx, inputs, output):
+    x2d, weight, _, _ = inputs
+    ctx.save_for_backward(x2d, weight, output[1], output[2])
+
+
+def _ln_backward(ctx, g, _g_mu, _g_rs):
+    """B7 on the cotangent of y (the statistics' are dropped: the
+    custom_vjp's residuals have none)."""
+    x2d, weight, mu, rs = ctx.saved_tensors
+    dx, dw, db = _ln_bwd_op(x2d, weight, mu, rs,
+                            g.to(x2d.dtype).contiguous())
+    return dx, dw, db, None
+
+
+def _add_ln_setup(ctx, inputs, output):
+    _, y2d, weight, _, _ = inputs
+    s, _, mu, rs = output
+    ctx.save_for_backward(s, weight, mu, rs)
+    ctx.y_dtype = y2d.dtype
+
+
+def _add_ln_backward(ctx, gs, go, _g_mu, _g_rs):
+    """Both addends get ``dLN/ds + g_s``, each in its own type."""
+    s2d, weight, mu, rs = ctx.saved_tensors
+    ds, dw, db = _ln_bwd_op(s2d, weight, mu, rs,
+                            go.to(s2d.dtype).contiguous())
+    dsum = ds if gs is None else (ds + gs.to(ds.dtype)).to(ds.dtype)
+    # each addend's gradient in its own type (the JAX package returns
+    # dsum in s's type for both; PyTorch would cast it the same way)
+    return dsum, dsum.to(ctx.y_dtype), dw, db, None
+
+
+_ln_fwd_op.register_autograd(_ln_backward, setup_context=_ln_setup)
+_add_ln_fwd_op.register_autograd(_add_ln_backward,
+                                 setup_context=_add_ln_setup)
+
+
+class LayerNormFunction:
     """LayerNorm over the last axis of ``x`` ([..., D]) on the B5 forward
-    and B7 backward kernels (the custom_vjp of ``layer_norm.py:175``). On
-    the CPU it runs their plain versions."""
-
-    @staticmethod
-    def forward(ctx, x, weight, bias, eps=1e-5):
-        x2d = x.reshape(-1, x.shape[-1]).contiguous()
-        y, mu, rs = layer_norm_fwd(x2d, weight, bias, eps)
-        ctx.save_for_backward(x2d, weight, mu, rs)
-        ctx.shape = x.shape
-        return y.reshape(x.shape)
-
-    @staticmethod
-    def backward(ctx, g):
-        x2d, weight, mu, rs = ctx.saved_tensors
-        dx, dw, db = layer_norm_bwd(
-            x2d, weight, mu, rs, g.reshape(x2d.shape).to(x2d.dtype)
-            .contiguous())
-        return dx.reshape(ctx.shape), dw, db, None
-
-
-class AddLayerNormFunction(torch.autograd.Function):
-    """``(s, LN(s))`` with ``s = x + y`` on the B6 forward and B7 backward
-    kernels (the custom_vjp of ``layer_norm.py:207``): both addends get
-    ``dLN/ds + g_s``, each in its own type. On the CPU it runs the plain
+    and B7 backward kernels (the custom_vjp of ``layer_norm.py:175``): a
+    caller of the custom op ``layer_norm_fwd``, whose registered autograd
+    formula launches ``layer_norm_bwd``. On the CPU it runs their plain
     versions."""
 
     @staticmethod
-    def forward(ctx, x, y, weight, bias, eps=1e-5):
-        D = x.shape[-1]
-        s, out, mu, rs = add_layer_norm_fwd(
-            x.reshape(-1, D).contiguous(), y.reshape(-1, D).contiguous(),
-            weight, bias, eps)
-        ctx.save_for_backward(s, weight, mu, rs)
-        ctx.shape, ctx.y_dtype = x.shape, y.dtype
-        return s.reshape(x.shape), out.reshape(x.shape)
+    def apply(x, weight, bias, eps=1e-5):
+        y = _ln_fwd_op(x.reshape(-1, x.shape[-1]).contiguous(), weight,
+                       bias, eps)[0]
+        return y.reshape(x.shape)
+
+
+class AddLayerNormFunction:
+    """``(s, LN(s))`` with ``s = x + y`` on the B6 forward and B7 backward
+    kernels (the custom_vjp of ``layer_norm.py:207``): a caller of the
+    custom op ``add_layer_norm_fwd``. On the CPU it runs the plain
+    versions."""
 
     @staticmethod
-    def backward(ctx, gs, go):
-        s2d, weight, mu, rs = ctx.saved_tensors
-        ds, dw, db = layer_norm_bwd(
-            s2d, weight, mu, rs, go.reshape(s2d.shape).to(s2d.dtype)
-            .contiguous())
-        dsum = (ds.reshape(ctx.shape) + gs.to(ds.dtype)).to(ds.dtype)
-        # each addend's gradient in its own type (the JAX package returns
-        # dsum in s's type for both; PyTorch would cast it the same way)
-        return dsum, dsum.to(ctx.y_dtype), dw, db, None
+    def apply(x, y, weight, bias, eps=1e-5):
+        D = x.shape[-1]
+        s, out, _, _ = _add_ln_fwd_op(
+            x.reshape(-1, D).contiguous(), y.reshape(-1, D).contiguous(),
+            weight, bias, eps)
+        return s.reshape(x.shape), out.reshape(x.shape)
 
 
 def fused_layer_norm(x, weight, bias, eps=1e-5):

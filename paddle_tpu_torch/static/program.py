@@ -19,11 +19,12 @@ Shape inference, the counterpart of ``jax.eval_shape``: the function runs
 once under one process-wide ``FakeTensorMode`` on probe tensors, with the
 ``-1`` dims of the placeholders at extent 1, and again at extent 2 when
 there are such dims; output dims that move with the probe are recorded as
-``-1``. A probe never computes a value: the kernel wrappers
-(``ops/kernels``, each decorated with ``_build.probe_shapes``) return
-empty outputs of the right shapes for fake inputs, and each real tensor a probe's torch call takes (a parameter, a
-buffer, a captured constant) goes in as a fake of it (a
-``TorchFunctionMode``), so an in-place write lands on the fake.
+``-1``. A probe never computes a value: the kernels are ``torch.library``
+custom ops (``ops/kernels``), whose fake implementations give their
+outputs' shapes and types, and each real tensor a probe's torch call takes
+(a parameter, a buffer, a captured constant) goes in as a fake of it (a
+``TorchFunctionMode``, which sees the custom ops' calls too), so an
+in-place write lands on the fake.
 """
 from __future__ import annotations
 
@@ -309,8 +310,8 @@ def record_apply(raw_fn, tensors, name, differentiable=True, params=()):
 
     The parameters the probe's torch calls take (a layer's own, which its
     closure reads) are recorded beside the inputs, in the order they are
-    first taken, then those of ``params`` the probe did not see (a kernel
-    wrapper's probe rule reads none of its inputs): ``Program.
+    first taken, then those of ``params`` the probe did not see (a
+    layer's parameter that this call leaves unused): ``Program.
     all_parameters()`` lists them so.
 
     Dynamic-dim propagation: placeholder dims declared -1/None are

@@ -1014,3 +1014,127 @@ def test_launcher_runs_a_verbatim_script_on_the_card(tmp_path):
     assert line[0].startswith("cuda") and line[1] > 0
     assert line[2:4] == (False, False)
     assert line[4] == {name: 0 for name in kernels.WRAPPERS}
+
+
+# -- the kernels as custom ops, to_static and jit.save on the card ----------
+
+
+def _opcheck_cases(gen):
+    ops = torch.ops.paddle_tpu_torch
+    q, k, v = (torch.randn(4, 16, 1024, 64, device="cuda", generator=gen)
+               for _ in range(3))
+    out, lse = ops.flash_attention_fwd(q, k, v, True, 256, 256, None, 0, 0)
+    dout = torch.randn_like(out)
+    delta = (dout * out).sum(-1)
+    x, y = (torch.randn(4096, 1024, device="cuda", generator=gen)
+            for _ in range(2))
+    w = 1 + 0.1 * torch.randn(1024, device="cuda", generator=gen)
+    b = 0.1 * torch.randn(1024, device="cuda", generator=gen)
+    _, mu, rs = ops.layer_norm_fwd(x, w, b, 1e-5)
+    grad = [t.clone().requires_grad_(True) for t in (q, k, v, x, y, w, b)]
+    gq, gk, gv, gx, gy, gw, gb = grad
+    bwd = (q, k, v, dout, lse, delta, True, None, 0, 0)
+    return {
+        "flash_attention_fwd": (gq, gk, gv, True, 256, 256, None, 0, 0),
+        "flash_attention_bwd_dq": bwd, "flash_attention_bwd_dkv": bwd,
+        "layer_norm_fwd": (gx, gw, gb, 1e-5),
+        "add_layer_norm_fwd": (gx, gy, gw, gb, 1e-5),
+        "layer_norm_bwd": (x, w, mu, rs, torch.randn_like(x))}
+
+
+def test_custom_ops_opcheck_at_the_cards_shapes(gen):
+    """``torch.library.opcheck`` of the six ops at the GPT training
+    shapes (float32): schema, fake implementation, autograd registration
+    on the forwards, AOT dispatch."""
+    for name, args in _opcheck_cases(gen).items():
+        result = torch.library.opcheck(
+            getattr(torch.ops.paddle_tpu_torch, name), args)
+        assert set(result.values()) == {"SUCCESS"}, (name, result)
+
+
+def test_to_static_step_launches_as_the_eager_step(gen):
+    """A ``to_static`` training step on the card: the same loss and
+    gradients as the eager step of a twin (float32, TF32 off), and each
+    kernel launched as often."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = pt.TransformerLM(64, d_model=128, num_heads=2, num_layers=2,
+                             max_position=64, seed=1)
+    twin = pt.TransformerLM(64, d_model=128, num_heads=2, num_layers=2,
+                            max_position=64, seed=1)
+    twin.load_state_dict(model.state_dict())
+    ids = torch.randint(0, 64, (2, 65), device="cuda", generator=gen)
+    static = pt.jit.to_static(model)
+
+    def step(m):
+        kernels.reset_launches()
+        logits = m(ids[:, :-1])
+        logits = logits._data if hasattr(logits, "_data") else logits
+        loss = torch.nn.functional.cross_entropy(logits.reshape(-1, 64),
+                                                 ids[:, 1:].reshape(-1))
+        loss.backward()
+        return loss.item(), kernels.launches()
+
+    (ls, cs), (le, ce) = step(static), step(twin)
+    assert cs == ce == {"flash_attention_fwd": 2,
+                        "flash_attention_bwd_dq": 2,
+                        "flash_attention_bwd_dkv": 2, "layer_norm_fwd": 3,
+                        "add_layer_norm_fwd": 2, "layer_norm_bwd": 5}
+    assert abs(ls - le) <= 1e-6 * abs(le)
+    for (n, a), b in zip(model.named_parameters(), twin.parameters()):
+        torch.testing.assert_close(a.grad, b.grad, rtol=0,
+                                   atol=1e-5 * b.grad.abs().max().item(),
+                                   msg=n)
+
+
+def test_jit_save_load_round_trip_on_the_card(gen, tmp_path):
+    """Saved on the card, the artifact loads on the card (the kernels
+    launched as in the eager forward, the logits bit-equal) and on the
+    CPU (the plain versions, within float32 rounding)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = pt.TransformerLM(64, d_model=128, num_heads=2, num_layers=2,
+                             max_position=64, seed=1)
+    model.eval()
+    ids = torch.randint(0, 64, (2, 64), device="cuda", generator=gen)
+    with torch.no_grad():
+        kernels.reset_launches()
+        want = model(ids)
+        eager = kernels.launches()
+    path = str(tmp_path / "lm")
+    pt.jit.save(model, path, input_spec=[pt.jit.InputSpec([2, 64],
+                                                          "int64")])
+    with torch.no_grad():
+        kernels.reset_launches()
+        got = pt.jit.load(path)(ids)
+        assert kernels.launches() == eager
+        on_cpu = pt.jit.load(path, device="cpu")(ids.cpu())
+    # torch tensors in, torch tensors out
+    assert torch.equal(got, want)
+    torch.testing.assert_close(on_cpu, want.cpu(), rtol=1e-5,
+                               atol=1e-5 * want.abs().max().item())
+
+
+def test_captured_cond_and_while_loop_on_the_card(gen):
+    """The card's torch captures a tensor ``cond`` and ``while_loop`` under
+    ``to_static`` as torch's higher-order ops, and the captured programs
+    pick the branch, or loop, at run time."""
+    pt.set_device("gpu")
+
+    def branch(x):
+        return pt.jit.cond(pt.sum(x) > 0, lambda a: a * 2.0,
+                           lambda a: a - 1.0, x)
+
+    def loop(n):
+        i, s = pt.to_tensor(0), pt.to_tensor(0)
+        i, s = pt.jit.while_loop(lambda i, s: i < n,
+                                 lambda i, s: (i + 1, s + i), [i, s])
+        return s
+
+    sb, sl = pt.jit.to_static(branch), pt.jit.to_static(loop)
+    assert sb(pt.to_tensor([1.0, 2.0])).numpy().tolist() == [2.0, 4.0]
+    assert sb(pt.to_tensor([-5.0, 1.0])).numpy().tolist() == [-6.0, 0.0]
+    assert sl(pt.to_tensor(5)).item() == 10
+    assert sl(pt.to_tensor(7)).item() == 21
+    for fn, op in ((sb, "cond"), (sl, "while_loop")):
+        (prog,) = fn.program_cache.values()
+        assert any(getattr(n.target, "__name__", "") == op
+                   for n in prog.exported.graph.nodes), op

@@ -319,10 +319,8 @@ def test_parallel_gpt_block_positional_dropout():
 #: names of paddle_tpu's namespace the port does not have yet, by the
 #: ROADMAP queue A item that brings them; the list only shrinks
 KNOWN_GAPS = {
-    # item 5: distribution
-    "distribution",
     # item 9: the tail
-    "onnx", "inference", "device", "profiler", "sysconfig", "incubate",
+    "device", "profiler", "sysconfig", "incubate",
     # TPU places: the port has CUDA and CPU places
     "TPUPlace", "is_compiled_with_tpu",
 }
@@ -368,11 +366,8 @@ KNOWN_NAMESPACE_GAPS = {
                    "box_coder", "iou_similarity", "multiclass_nms", "nms",
                    "prior_box", "roi_align", "roi_pool", "target_assign",
                    "yolo_box", "yolo_loss"},
-    # item 6: to_static, jit.save/load
-    "jit": {"InputSpec", "StaticFunction", "TranslatedLayer",
-            "declarative", "functional_call", "load", "named_state",
-            "not_to_static", "program", "raw_state", "recompute", "save",
-            "to_static"},
+    # item 6 (to_static, jit.save/load): ported
+    "jit": set(),
     "distributed": {
         # item 7: collectives, parallel, pipeline, resharding, elastic
         "Group", "PipelineLayer",

@@ -39,20 +39,16 @@ GAPS = {
     "paddle": {
         # TPU places: the port has CUDA and CPU places
         "TPUPlace", "is_compiled_with_tpu",
-        # ROADMAP queue A item 5: distribution; item 9: the tail
-        "distribution", "device", "incubate", "inference", "onnx",
-        "profiler", "sysconfig"},
+        # ROADMAP queue A item 9: the tail
+        "device", "incubate", "profiler", "sysconfig"},
     "fluid": {"TPUPlace", "is_compiled_with_tpu"},
     # modules the JAX package's star imports of nn.functional and ops carry
     # into fluid.layers under names its source uses otherwise (the port's
     # namespaces list their names in __all__): no API
     "fluid.layers": {"activation", "loss", "sequence"},
     "fluid.dygraph": set(),
-    # ROADMAP queue A item 6: to_static, jit.save/load and their names
-    "jit": {"InputSpec", "StaticFunction", "TranslatedLayer",
-            "declarative", "functional_call", "load",
-            "named_state", "not_to_static", "program", "raw_state",
-            "recompute", "save", "to_static"},
+    # ROADMAP queue A item 6 (to_static, jit.save/load): ported
+    "jit": set(),
 }
 
 
