@@ -190,7 +190,31 @@
    to the eager forward's, or within 1e-5 of the largest, the eager
    forward's launches, no ``jax``, ``paddle_tpu`` or model source loaded;
    save, load and forward ms, the artifact's bytes;
-23. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
+23. its ``guarded_training_phase``: bench.py's GPT-medium program (float32,
+   TF32 off, AdamW 1e-4 / 0.01, B = 4, S = 1024) through ``TrainStep``
+   under the numerical guard and ``train_epoch_range``: guard on against
+   guard off from the same weights (losses and parameters bit-equal, the
+   same launches), a trace window of the guarded steps (no pageable
+   device-to-host copy, one pinned guard copy every
+   ``PADDLE_GUARD_SYNC_EVERY`` steps, the six kernels and the
+   ``TrainStep::guard`` span), ``step_metrics`` rows with the step's MFU;
+   ``grad:nan:3:2`` skipped bit for bit; a child process of this script
+   (``--acp-child``) preempted by SIGTERM mid-epoch (exit 143) and a
+   second that resumes, ending bit for bit where an uninterrupted run
+   ends; a poisoned streak past ``PADDLE_GUARD_MAX_SKIPS`` rolled back to
+   the newest generation; a flipped byte in it falling back to the one
+   before; generation bytes, save and restore seconds (the checkpoints
+   in a temporary directory, removed after);
+24. its ``detection_phase``: YOLOv3's head at PaddleDetection's COCO sizes
+   (the port's ResNet-50 C3-C5 through 1 x 1 convolutions, 608 x 608,
+   batch 8, 80 classes) trains five Momentum steps of ``yolo_loss`` (the
+   loss must fall); its untrained heads' 22,743 boxes go through
+   ``yolo_box`` and ``multiclass_nms``; the other detection ops run at SSD300 (8,732
+   priors) or Faster R-CNN (512 RoIs on a 1024-channel stride-16 map of
+   800 x 1333) sizes; each result on the card equals the port's CPU
+   result on the same tensors within 1e-4 (NMS's kept rows equal but at
+   score ties, reported); step and NMS ms;
+25. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
    "device": ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device, outside a
@@ -4026,6 +4050,720 @@ def jit_save_phase(pt, kernels, card):
             for k in ("jit_load", "inference")}
 
 
+# -- phase (a): bench's GPT-medium guarded, checkpointed and observed -------
+# The guard reads its state every GUARD_SYNC_EVERY steps; gate 1 runs
+# GUARD_STEPS steps with the guard off, then on (bit-equal), then a traced
+# window of GUARD_STEPS more. The preemption gate runs ACP_EPOCHS epochs of
+# ACP_STEPS steps, a generation every ACP_INTER epochs and at the last;
+# the rollback gate poisons every step after a restore with
+# PADDLE_GUARD_MAX_SKIPS = GUARD_MAX_SKIPS.
+GUARD_SYNC_EVERY, GUARD_STEPS = 2, 4
+ACP_EPOCHS, ACP_STEPS, ACP_INTER = 3, 2, 2
+GUARD_MAX_SKIPS = 2
+#: the six kernels' functions, as the trace names them
+TRACE_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
+                 "ln_fwd_kernel", "add_ln_fwd_kernel", "ln_bwd_kernel")
+GUARD_KNOBS = ("PADDLE_GUARD_MODE", "PADDLE_GUARD_SYNC_EVERY",
+               "PADDLE_GUARD_MAX_SKIPS", "PADDLE_FAULT_SPEC",
+               "PADDLE_GUARD_EVENT_FILE", "PADDLE_OBS_BUS_FILE")
+
+
+def _bench_batch(paddle):
+    """bench.py's fixed GPT batch (the dygraph phase's)."""
+    n = TRAIN_B * TRAIN_S
+    ids = paddle.to_tensor((np.arange(n) % 31000).reshape(TRAIN_B, TRAIN_S))
+    labels = paddle.to_tensor(((np.arange(n) + 1) % 31000).reshape(
+        TRAIN_B, TRAIN_S))
+    return ids, labels
+
+
+def _acp_trainer(paddle, model=None):
+    """bench's GPT-medium program (built from seed 0 unless given), AdamW
+    1e-4 / weight decay 0.01, and its TrainStep under the current guard
+    knobs."""
+    if model is None:
+        paddle.seed(0)
+        model = _gpt_medium()
+    opt = paddle.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                                 parameters=model.parameters())
+    return model, opt, paddle.jit.TrainStep(model, _bench_lm_loss(model),
+                                            opt)
+
+
+def _guard_knobs(**knobs):
+    """Set the guard's knobs (unset the others) and re-arm the injector."""
+    from paddle_tpu_torch.utils import fault_injection
+
+    for k in GUARD_KNOBS:
+        os.environ.pop(k, None)
+    os.environ.update({k: str(v) for k, v in knobs.items()})
+    fault_injection.reset()
+
+
+def _params_equal(model, want) -> bool:
+    return all(torch.equal(v, want[k])
+               for k, v in model.state_dict().items())
+
+
+def acp_child(argv) -> int:
+    """``python3 chip_smoke.py --acp-child DIR MODE``: one trainer process of
+    phase (a)'s preemption gate. It trains bench's GPT-medium (seed 0)
+    inside ``TrainEpochRange(ACP_EPOCHS, checkpoint_path=DIR)`` under the
+    guard (skip). MODE ``preempt``: at epoch 1's first step it writes
+    ``DIR/notice.ready`` and waits for the SIGTERM the parent then sends;
+    the range snapshots that epoch and exits 143. MODE ``resume``: it
+    restores the newest generation and finishes. Prints its save and
+    restore seconds."""
+    root, mode = argv
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.incubate.checkpoint.auto_checkpoint import (
+        TrainEpochRange)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    paddle.set_device("gpu")
+    model, opt, step = _acp_trainer(paddle)
+    ids, labels = _bench_batch(paddle)
+    r = TrainEpochRange(ACP_EPOCHS, name="gpt", checkpoint_path=root,
+                        save_checkpoint_inter=ACP_INTER)
+    r.register(model=model, optimizer=opt, scaler=step)
+    epochs = r.get()
+    t0 = time.perf_counter()
+    epoch = next(epochs, None)
+    print(f"acp child {mode}: restore {time.perf_counter() - t0:.2f} s, "
+          f"first epoch {epoch}", flush=True)
+    while epoch is not None:
+        for i in range(ACP_STEPS):
+            step(ids, labels)
+            if mode == "preempt" and epoch == 1 and i == 0:
+                torch.cuda.synchronize()
+                open(os.path.join(root, "notice.ready"), "w").close()
+                deadline = time.monotonic() + 120
+                while not r._preempted and time.monotonic() < deadline:
+                    time.sleep(0.01)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            epoch = next(epochs, None)
+        finally:
+            print(f"acp child {mode}: end of epoch, snapshot and next "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return 0
+
+
+def _trace_rows(trace_dir):
+    """The Chrome trace of the window under ``trace_dir``: its events."""
+    import glob
+
+    paths = glob.glob(os.path.join(trace_dir, "*", "trace.json"))
+    if len(paths) != 1:
+        fail(f"guarded training: {len(paths)} trace windows in {trace_dir}")
+    with open(paths[0]) as f:
+        return json.load(f)["traceEvents"]
+
+
+def guarded_training_phase(pt, kernels, card):
+    """Phase (a): bench.py's GPT-medium (24 layers, d 1024, 16 heads, vocab
+    32000, float32, B 4, S 1024, AdamW through ``TrainStep``) under the
+    guard (skip) and inside ``train_epoch_range``. Gates:
+
+    1. guard on, no fault: losses and parameters bit-equal to the guard-off
+       steps, each kernel launched as often (DYGRAPH_LAUNCHES a step); a
+       trace window of GUARD_STEPS steps holds no blocking (pageable)
+       device-to-host copy, exactly one pinned one every GUARD_SYNC_EVERY
+       steps, the six kernels and the ``TrainStep::guard`` span (the
+       synchronizing calls that sync debug mode sees, and the trace's
+       synchronizes, are printed);
+    2. ``grad:nan:3:2``: the parameters after step 4 equal those after step
+       2 bit for bit, ``total_skips`` 2, the events in
+       ``PADDLE_GUARD_EVENT_FILE``;
+    3. (after 4) a poisoned streak past PADDLE_GUARD_MAX_SKIPS rolls back
+       to the newest generation, bit for bit;
+    4. a child process (this script, ``--acp-child``) gets SIGTERM mid-epoch
+       and exits 143; a second resumes and finishes; its final parameters
+       equal an uninterrupted run's bit for bit;
+    5. a flipped byte in the newest generation: the restore falls back to
+       the one before (bit for bit the uninterrupted run's at that epoch);
+    6. ``step_metrics`` rows with their MFU print, with the step's FLOPs.
+
+    The checkpoints live in a temporary directory, removed at the end.
+    Returns the guarded run's launches."""
+    import shutil
+    import signal
+    import tempfile
+
+    paddle = pt
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.incubate.checkpoint.auto_checkpoint import (
+        TrainEpochRange)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    paddle.set_device("gpu")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_acp_")
+    print(f"guarded training: checkpoints under {tmp}, "
+          f"{shutil.disk_usage(tmp).free / 2**30:.1f} GiB free")
+    try:
+        return _guarded_training(paddle, kernels, card, tmp, profiler,
+                                 TrainEpochRange, signal)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        for k in GUARD_KNOBS:
+            os.environ.pop(k, None)
+        torch.cuda.empty_cache()
+
+
+def _guarded_training(paddle, kernels, card, tmp, profiler, TrainEpochRange,
+                      signal):
+    t_phase = time.perf_counter()
+    paddle.seed(0)
+    model = _gpt_medium()
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    ids, labels = _bench_batch(paddle)
+
+    def steps(step, n, window=None):
+        """n steps, no host read between them (in a trace window of
+        ``window`` when given, closed before any read): losses, host ms
+        per call, wall ms per step (the first step included), launches;
+        the synchronizing calls the steps made (sync debug mode "warn")
+        are printed."""
+        import warnings
+
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        if window:
+            profiler.arm_trace(steps=n, reason="gate1", trace_dir=window)
+        losses, host_ms = [], []
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for _ in range(n):
+                    t1 = time.perf_counter()
+                    losses.append(step(ids, labels))
+                    host_ms.append((time.perf_counter() - t1) * 1e3)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        if window:
+            profiler.disarm_trace()     # writes the window's trace
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+        syncs = sorted({str(w.message)[:160] for w in caught
+                        if "called a synchronizing" in str(w.message)})
+        if syncs:
+            print(f"guarded training: synchronizing calls in the steps: "
+                  f"{syncs}")
+        return ([float(x) for x in losses], host_ms, wall,
+                kernels.launches_by_dtype())
+
+    # gate 1: guard off, then on, from the same weights
+    runs = {}
+    bus = os.path.join(tmp, "bus.jsonl")
+    for mode in ("off", "skip"):
+        _guard_knobs(PADDLE_GUARD_MODE=mode,
+                     PADDLE_GUARD_SYNC_EVERY=GUARD_SYNC_EVERY,
+                     PADDLE_OBS_BUS_FILE=bus)
+        model.set_state_dict(init)
+        _, _, step = _acp_trainer(paddle, model)
+        runs[mode] = steps(step, GUARD_STEPS) + (
+            {k: v.detach().clone() for k, v in model.state_dict().items()},)
+    (off_l, off_host, off_wall, off_n, off_p) = runs["off"]
+    (on_l, on_host, on_wall, on_n, on_p) = runs["skip"]
+    bit_equal = on_l == off_l and all(torch.equal(on_p[k], v)
+                                      for k, v in off_p.items())
+    del runs, off_p, on_p
+    want = {k: {t: c * GUARD_STEPS for t, c in v.items()}
+            for k, v in DYGRAPH_LAUNCHES.items()}
+    print(f"guarded training gate 1 ({GUARD_STEPS} steps from the same "
+          f"weights): losses off {off_l}, on {on_l}; "
+          f"bit-equal {bit_equal}; host ms/step (call) off "
+          f"{[f'{x:.1f}' for x in off_host]}, on "
+          f"{[f'{x:.1f}' for x in on_host]} (median of steps 2-"
+          f"{GUARD_STEPS}: off {float(np.median(off_host[1:])):.2f}, on "
+          f"{float(np.median(on_host[1:])):.2f}); wall ms/step off "
+          f"{off_wall:.2f}, on {on_wall:.2f} (step 1 included); launches "
+          f"off {off_n}, on {on_n}; {card}")
+    if not bit_equal:
+        fail("guarded training: the guarded steps differ from the unguarded")
+    if on_n != off_n or on_n != want:
+        fail(f"guarded training: launches {on_n}, unguarded {off_n}, "
+             f"expected {want}")
+
+    # the same guarded step, GUARD_STEPS more, in a trace window
+    trace_dir = os.path.join(tmp, "traces")
+    steps(step, GUARD_STEPS, window=trace_dir)
+    events = _trace_rows(trace_dir)
+    memcpy = [e["name"] for e in events if e.get("cat") == "gpu_memcpy"
+              and "DtoH" in e.get("name", "")]
+    pinned = sum("Pinned" in n for n in memcpy)
+    kern = [e["name"] for e in events if e.get("cat") == "kernel"]
+    found = {k: sum(k in n for n in kern) for k in TRACE_KERNELS}
+    spans = sum(e.get("name") == "TrainStep::guard"
+                and e.get("cat") == "user_annotation" for e in events)
+    syncs = sum(e.get("name") in ("cudaStreamSynchronize",
+                                  "cudaDeviceSynchronize") for e in events)
+    print(f"guarded training trace window ({GUARD_STEPS} steps): "
+          f"device-to-host copies {memcpy}; kernels found {found}; "
+          f"TrainStep::guard spans {spans}; stream/device synchronizes "
+          f"{syncs}; {len(kern)} kernel events")
+    if len(memcpy) != pinned or pinned != GUARD_STEPS // GUARD_SYNC_EVERY:
+        fail(f"guarded training: device-to-host copies {memcpy}, expected "
+             f"{GUARD_STEPS // GUARD_SYNC_EVERY} pinned ones")
+    if not all(found.values()) or spans != GUARD_STEPS:
+        fail("guarded training: the trace window lacks a kernel or the "
+             "guard span")
+
+    # gate 6: step_metrics rows and the step's model FLOPs; the guarded
+    # step's time (each step synchronized) for its MFU
+    timed = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step(ids, labels)
+        torch.cuda.synchronize()
+        timed.append((time.perf_counter() - t1) * 1e3)
+    step_ms = float(np.median(timed))
+    flops = step.flops_per_step()
+    from paddle_tpu_torch.observability import bus as _bus
+
+    rows = [r for r in _bus.read_stream(bus) if r["kind"] == "step_metrics"]
+    for r in rows:
+        r["payload"]["mfu_pct"] = step.mfu_pct(r["payload"]["step_ms"] / 1e3)
+    print(f"guarded training step_metrics rows: "
+          f"{json.dumps([dict(r['payload'], step=r['step']) for r in rows])}")
+    print(f"guarded training FLOPs a step (matrix products, forward and "
+          f"backward, attention at the full S^2): {flops}; guarded step "
+          f"{[f'{x:.2f}' for x in timed]} ms (synchronized), MFU at the "
+          f"median {step_ms:.2f} ms: {step.mfu_pct(step_ms / 1e3)} % of "
+          f"{paddle.observability.mfu.peak_flops():.4g} FLOP/s; {card}")
+    if not rows or not flops or not all(
+            r["payload"]["mfu_pct"] for r in rows):
+        fail("guarded training: no step_metrics row with an MFU")
+    del step
+
+    # gate 2: grad:nan:3:2
+    ev = os.path.join(tmp, "events.jsonl")
+    _guard_knobs(PADDLE_GUARD_MODE="skip",
+                 PADDLE_GUARD_SYNC_EVERY=GUARD_SYNC_EVERY,
+                 PADDLE_FAULT_SPEC="grad:nan:3:2", PADDLE_GUARD_EVENT_FILE=ev)
+    model.set_state_dict(init)
+    _, _, step = _acp_trainer(paddle, model)
+    after = []
+    for i in range(4):
+        step(ids, labels)
+        if i in (1, 3):
+            after.append({k: v.detach().clone()
+                          for k, v in model.state_dict().items()})
+    step._guard.flush()
+    skips = step._guard._last[1]
+    events = [json.loads(line) for line in open(ev)] \
+        if os.path.exists(ev) else []
+    skipped_bitwise = all(torch.equal(after[0][k], v)
+                          for k, v in after[1].items())
+    print(f"guarded training gate 2 (grad:nan:3:2): parameters after step 4 "
+          f"equal after step 2: {skipped_bitwise}; total_skips {skips}; "
+          f"events {[(e['event'], e.get('total_skips')) for e in events]}")
+    if not skipped_bitwise or skips != 2.0 or not any(
+            e["event"] == "guard_skip" and e["total_skips"] == 2
+            for e in events):
+        fail("guarded training: the poisoned steps were not skipped")
+    del after, step
+
+    # gate 4: an uninterrupted run, then a preempted child and its resume
+    _guard_knobs(PADDLE_GUARD_MODE="skip",
+                 PADDLE_GUARD_SYNC_EVERY=GUARD_SYNC_EVERY)
+    model.set_state_dict(init)
+    _, _, step = _acp_trainer(paddle, model)
+    for i in range(ACP_EPOCHS * ACP_STEPS):
+        step(ids, labels)
+        if i + 1 == (ACP_EPOCHS - 1) * ACP_STEPS:
+            p_mid = {k: v.detach().clone()
+                     for k, v in model.state_dict().items()}
+    p_end = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del step
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ck = os.path.join(tmp, "ck")
+    os.makedirs(ck)
+    child = [sys.executable, os.path.abspath(__file__), "--acp-child", ck]
+    env = dict(os.environ)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(child + ["preempt"], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    ready = os.path.join(ck, "notice.ready")
+    deadline = time.monotonic() + 300
+    while not os.path.exists(ready) and proc.poll() is None \
+            and time.monotonic() < deadline:
+        time.sleep(0.02)
+    if proc.poll() is None and os.path.exists(ready):
+        proc.send_signal(signal.SIGTERM)
+    try:
+        out_a, _ = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        fail("guarded training: the preempted child did not end")
+    t_a = time.perf_counter() - t0
+    gens = sorted(os.listdir(os.path.join(ck, "default_job", "gpt")))
+    print(f"guarded training gate 4: preempted child rc {proc.returncode} "
+          f"in {t_a:.1f} s, generations {gens}; its lines: "
+          f"{[x for x in out_a.splitlines() if 'acp child' in x]}")
+    if proc.returncode != 143:
+        print(out_a[-4000:])
+        fail("guarded training: the preempted child did not exit 143")
+    t0 = time.perf_counter()
+    res = subprocess.run(child + ["resume"], env=env, capture_output=True,
+                         text=True, timeout=600)
+    t_b = time.perf_counter() - t0
+    snap_dir = os.path.join(ck, "default_job", "gpt")
+    gens = sorted(os.listdir(snap_dir))
+    newest = os.path.join(snap_dir, gens[-1])
+    gen_bytes = sum(os.path.getsize(os.path.join(newest, f))
+                    for f in os.listdir(newest))
+    print(f"guarded training gate 4: resumed child rc {res.returncode} in "
+          f"{t_b:.1f} s, generations {gens}, {gen_bytes} bytes a "
+          f"generation; its lines: "
+          f"{[x for x in res.stdout.splitlines() if 'acp child' in x]}")
+    if res.returncode != 0:
+        print(res.stdout[-4000:], res.stderr[-4000:])
+        fail("guarded training: the resumed child failed")
+
+    # gates 4 and 3: restore the resumed run's last generation, then a
+    # poisoned streak past the budget rolls back to it
+    _guard_knobs(PADDLE_GUARD_MODE="skip", PADDLE_GUARD_SYNC_EVERY=1,
+                 PADDLE_GUARD_MAX_SKIPS=GUARD_MAX_SKIPS,
+                 PADDLE_FAULT_SPEC="grad:nan:1:99")
+    _, opt, step = _acp_trainer(paddle, model)
+    r = TrainEpochRange(ACP_EPOCHS + 2, name="gpt", checkpoint_path=ck,
+                        save_checkpoint_inter=ACP_INTER)
+    r.register(model=model, optimizer=opt, scaler=step)
+    epochs = r.get()
+    t0 = time.perf_counter()
+    epoch = next(epochs)
+    restore_s = time.perf_counter() - t0
+    resumed_equal = _params_equal(model, p_end)
+    rolled = None
+    for i in range(GUARD_MAX_SKIPS + 2):
+        step(ids, labels)
+        if step._guard.rollbacks:
+            rolled = i + 1
+            break
+    rollback_equal = _params_equal(model, p_end)
+    epochs.close()
+    print(f"guarded training gates 4 and 3: restore of {gen_bytes} bytes in "
+          f"{restore_s:.2f} s (next epoch {epoch}); resumed run = "
+          f"uninterrupted run bit for bit: {resumed_equal}; rollback at "
+          f"poisoned step {rolled} (budget {GUARD_MAX_SKIPS}), parameters = "
+          f"the newest generation's: {rollback_equal}")
+    if epoch != ACP_EPOCHS or not resumed_equal:
+        fail("guarded training: the resumed run differs from the "
+             "uninterrupted one")
+    if rolled is None or not rollback_equal:
+        fail("guarded training: no rollback to the last generation")
+
+    # gate 5: a flipped byte in the newest generation
+    target = os.path.join(newest, "model_0.pdparams")
+    with open(target, "r+b") as f:
+        f.seek(os.path.getsize(target) // 2)
+        b = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([b[0] ^ 0xFF]))
+    _guard_knobs(PADDLE_GUARD_MODE="skip")
+    _, opt, step = _acp_trainer(paddle, model)
+    r = TrainEpochRange(ACP_EPOCHS, name="gpt", checkpoint_path=ck)
+    r.register(model=model, optimizer=opt, scaler=step)
+    t0 = time.perf_counter()
+    nxt = r.restore()
+    fallback_s = time.perf_counter() - t0
+    fell_back = _params_equal(model, p_mid)
+    print(f"guarded training gate 5: flipped byte in {gens[-1]}: restore "
+          f"fell back to next epoch {nxt} in {fallback_s:.2f} s; parameters "
+          f"= the uninterrupted run's after epoch {ACP_EPOCHS - 2}: "
+          f"{fell_back}")
+    if nxt != ACP_EPOCHS - 1 or not fell_back:
+        fail("guarded training: no fallback to the previous generation")
+    print(f"guarded training phase: {time.perf_counter() - t_phase:.1f} s")
+    return on_n
+
+
+# -- phase (b): the detection ops at PaddleDetection's sizes -----------------
+# YOLOv3 on COCO (PaddleDetection's yolov3 config): 608 x 608, batch 8, 80
+# classes, the nine COCO anchors, masks [[6,7,8],[3,4,5],[0,1,2]] on strides
+# 32/16/8, ignore_thresh 0.7, up to 50 ground-truth boxes an image; decoding
+# with conf_thresh 0.005 and multiclass NMS (score 0.01, nms_top_k 1000,
+# keep_top_k 100, IoU 0.45). SSD300's 8,732 priors for the box ops, and a
+# Faster R-CNN stride-16 map of 800 x 1333 (1024 channels, 512 RoIs, 7 x 7)
+# for the RoI ops.
+YOLO_ANCHORS = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
+                156, 198, 373, 326]
+YOLO_MASKS = ([6, 7, 8], [3, 4, 5], [0, 1, 2])
+YOLO_STRIDES = (32, 16, 8)
+YOLO_SIZE, YOLO_BATCH, YOLO_CLASSES, YOLO_MAX_GT = 608, 8, 80, 50
+YOLO_STEPS, YOLO_LR = 5, 1e-5
+SSD_MAPS = ((38, 30.0, 60.0, (2.0,), 8), (19, 60.0, 111.0, (2.0, 3.0), 16),
+            (10, 111.0, 162.0, (2.0, 3.0), 32),
+            (5, 162.0, 213.0, (2.0, 3.0), 64), (3, 213.0, 264.0, (2.0,), 100),
+            (1, 264.0, 315.0, (2.0,), 300))
+FRCNN_H, FRCNN_W, FRCNN_C, FRCNN_ROIS = 800, 1333, 1024, 512
+DET_RTOL = DET_ATOL = 1e-4
+
+
+def yolo_head(paddle):
+    """The port's ResNet-50, its C3-C5 features (strides 8, 16, 32) each
+    through a 1 x 1 convolution to 3 x (5 + 80) = 255 channels: the three
+    heads of YOLOv3, largest stride first."""
+    from paddle_tpu_torch import nn
+
+    class YOLOv3Head(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.backbone = paddle.vision.models.resnet50(num_classes=0,
+                                                          with_pool=False)
+            self.heads = nn.LayerList([
+                nn.Conv2D(c, 3 * (5 + YOLO_CLASSES), 1)
+                for c in (2048, 1024, 512)])
+
+        def forward(self, x):
+            b = self.backbone
+            x = b.maxpool(b.relu(b.bn1(b.conv1(x))))
+            c3 = b.layer2(b.layer1(x))
+            c4 = b.layer3(c3)
+            c5 = b.layer4(c4)
+            return [h(c) for h, c in zip(self.heads, (c5, c4, c3))]
+
+    return YOLOv3Head()
+
+
+def yolo_loss_fn(paddle):
+    """yolo_loss of each head (mean over the batch), summed."""
+    ops = paddle.vision.ops
+
+    def loss(outs, gt_box, gt_label):
+        total = 0.0
+        for out, mask, stride in zip(outs, YOLO_MASKS, YOLO_STRIDES):
+            total = total + ops.yolo_loss(
+                out, gt_box, gt_label, YOLO_ANCHORS, mask, YOLO_CLASSES,
+                0.7, stride, use_label_smooth=False).mean()
+        return total
+
+    return loss
+
+
+def yolo_batch(seed=0):
+    """Images and ground truth from a seed: 5-50 boxes an image, centre
+    format relative to the image, the rest zero rows."""
+    r = np.random.RandomState(seed)
+    img = r.randn(YOLO_BATCH, 3, YOLO_SIZE, YOLO_SIZE).astype(np.float32)
+    gt = np.zeros((YOLO_BATCH, YOLO_MAX_GT, 4), np.float32)
+    lab = np.zeros((YOLO_BATCH, YOLO_MAX_GT), np.int32)
+    for i in range(YOLO_BATCH):
+        n = r.randint(5, YOLO_MAX_GT + 1)
+        wh = r.uniform(0.02, 0.5, (n, 2))
+        c = r.uniform(wh / 2, 1 - wh / 2)
+        gt[i, :n] = np.concatenate([c, wh], 1)
+        lab[i, :n] = r.randint(0, YOLO_CLASSES, n)
+    return img, gt, lab
+
+
+def _on(dev, fn, *args, **kwargs):
+    """``fn`` on Tensors of the numpy ``args`` on ``dev`` ("gpu" / "cpu");
+    numpy results (the ms on the card)."""
+    import paddle_tpu_torch as paddle
+
+    paddle.set_device(dev)
+    ts = [paddle.to_tensor(a) if isinstance(a, np.ndarray) else a
+          for a in args]
+    if dev == "gpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*ts, **kwargs)
+    if dev == "gpu":
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    out = list(out) if isinstance(out, (tuple, list)) else [out]
+    return [o.numpy() for o in out], ms
+
+
+def _compare(name, fn, *args, ties=None, **kwargs):
+    """``fn`` on the card and on the CPU on the same inputs: floats within
+    DET_RTOL/DET_ATOL, integers equal. With ``ties`` (a list), NMS rows
+    [label, score, box] may differ only at slots whose CPU score ties with
+    another kept slot's; those are appended to ``ties``. Returns the card's
+    outputs and ms."""
+    gpu, ms = _on("gpu", fn, *args, **kwargs)
+    cpu, _ = _on("cpu", fn, *args, **kwargs)
+    errs = []
+    for g, c in zip(gpu, cpu):
+        if g.shape != c.shape:
+            fail(f"detection ops: {name} shapes {g.shape} vs {c.shape}")
+        close = np.allclose(g, c, rtol=DET_RTOL, atol=DET_ATOL) \
+            if c.dtype.kind == "f" else np.array_equal(g, c)
+        if c.dtype.kind == "f" and c.size:
+            errs.append(float(np.abs(g.astype(np.float64) - c).max()))
+        if close:
+            continue
+        if ties is None or g.ndim != 3:
+            fail(f"detection ops: {name} on the card differs from the CPU"
+                 + (f" by {errs[-1]:.3e}" if errs else ""))
+        for n in range(g.shape[0]):
+            s = c[n, :, 1]
+            for j in np.nonzero(~np.isclose(g[n], c[n], rtol=DET_RTOL,
+                                            atol=DET_ATOL).all(-1))[0]:
+                if np.sum(s == s[j]) < 2:
+                    fail(f"detection ops: {name} keeps another box on the "
+                         f"card (image {n}, slot {j}) with no score tie")
+                ties.append((name, n, int(j)))
+    print(f"  {name}: shapes {[tuple(g.shape) for g in gpu]}, card {ms:.2f} "
+          f"ms, max |card - cpu| {max(errs) if errs else 0.0:.3e}")
+    return gpu, ms
+
+
+def detection_phase(pt, kernels, card):
+    """Phase (b): YOLOv3's head at PaddleDetection's COCO sizes (see the
+    constants above) takes YOLO_STEPS Momentum steps of ``yolo_loss``
+    through ``TrainStep`` (the loss must fall); its heads before training
+    are decoded with ``yolo_box`` and go through ``multiclass_nms``; the other detection ops run once each at
+    SSD300 or Faster R-CNN sizes. Every result on the card equals the
+    port's CPU result on the same tensors within 1e-4 (rtol and atol);
+    ``multiclass_nms``'s kept rows are equal, or differ only at slots
+    whose scores tie (reported); ``nms``'s kept indices are equal.
+    Prints the step and NMS ms. Returns the launches of the run (none: the
+    detection ops and ResNet-50 use no hand-written kernel)."""
+    paddle = pt
+    ops = paddle.vision.ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    paddle.set_device("gpu")
+    paddle.seed(7)
+    t_phase = time.perf_counter()
+    model = yolo_head(paddle)
+    img, gt, lab = yolo_batch()
+    opt = paddle.optimizer.Momentum(learning_rate=YOLO_LR, momentum=0.9,
+                                    parameters=model.parameters())
+    step = paddle.jit.TrainStep(model, yolo_loss_fn(paddle), opt)
+    x = paddle.to_tensor(img)
+    gtb, gtl = paddle.to_tensor(gt), paddle.to_tensor(lab)
+    # the heads decoded below are the network's before training: a few
+    # steps push every objectness logit below conf_thresh (the negative
+    # cells dominate the loss), which would leave NMS nothing to keep
+    with paddle.no_grad():
+        heads = [h.numpy() for h in model(x)]
+    kernels.reset_launches()
+    losses, ms = [], []
+    for _ in range(YOLO_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(x, [gtb, gtl])))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = kernels.launches()
+    print(f"detection: YOLOv3 (ResNet-50 C3-C5, {YOLO_SIZE}x{YOLO_SIZE}, "
+          f"batch {YOLO_BATCH}, {YOLO_CLASSES} classes, "
+          f"{int((gt[..., 2] > 0).sum())} ground-truth boxes) Momentum "
+          f"{YOLO_LR}: losses {[f'{v:.4f}' for v in losses]}; step ms "
+          f"{[f'{v:.1f}' for v in ms]}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {card}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail("detection: the YOLOv3 loss is not finite or did not fall")
+    with paddle.no_grad():
+        trained = model(x)
+        above = [int((paddle.nn.functional.sigmoid(
+            h.reshape([YOLO_BATCH, 3, 5 + YOLO_CLASSES, -1])[:, :, 4])
+            >= 0.005).sum()) for h in trained]
+    print(f"detection: after {YOLO_STEPS} steps, boxes above conf_thresh "
+          f"0.005 by head: {above} (before: the heads decoded below)")
+    del step, opt, model, x, trained
+    torch.cuda.empty_cache()
+
+    print("detection ops, card against CPU on the same tensors:")
+    total = 0.0
+    for i, (h, mask, stride) in enumerate(zip(heads, YOLO_MASKS,
+                                              YOLO_STRIDES)):
+        (loss,), _ = _compare(
+            f"yolo_loss head {i}", ops.yolo_loss, h, gt, lab, YOLO_ANCHORS,
+            mask, YOLO_CLASSES, 0.7, stride, use_label_smooth=False)
+        total += float(loss.mean())
+    sizes = np.full((YOLO_BATCH, 2), YOLO_SIZE, np.int32)
+    boxes, scores = [], []
+    for i, (h, mask, stride) in enumerate(zip(heads, YOLO_MASKS,
+                                              YOLO_STRIDES)):
+        (b, s), _ = _compare(
+            f"yolo_box head {i}", ops.yolo_box, h, sizes,
+            [YOLO_ANCHORS[2 * a + j] for a in mask for j in (0, 1)],
+            YOLO_CLASSES, 0.005, stride)
+        boxes.append(b)
+        scores.append(s)
+    boxes = np.concatenate(boxes, 1)
+    scores = np.ascontiguousarray(np.concatenate(scores, 1).transpose(
+        0, 2, 1))
+    ties = []
+    nms_args = (boxes, scores, 0.01, 1000, 100, 0.45, False, 1.0, -1)
+    _on("gpu", ops.multiclass_nms, *nms_args)          # warm-up
+    (out, counts_nms), nms_ms = _compare("multiclass_nms",
+                                         ops.multiclass_nms, *nms_args,
+                                         ties=ties)
+    print(f"detection: {boxes.shape[1]} boxes an image, "
+          f"multiclass_nms kept {counts_nms.tolist()} in {nms_ms:.2f} ms "
+          f"(IoU tensor [{YOLO_BATCH}, {YOLO_CLASSES}, 1000, 1000] float32); "
+          f"kept rows differing only at score ties: {ties or 'none'}; "
+          f"yolo_loss on the card's heads {total:.4f}; {card}")
+
+    # SSD300's priors, and the box ops over them
+    priors, pvars = [], []
+    for size, lo, hi, ars, stride in SSD_MAPS:
+        (p, v), _ = _compare(
+            f"prior_box {size}x{size}", ops.prior_box,
+            np.zeros((1, 1, size, size), np.float32),
+            np.zeros((1, 1, 300, 300), np.float32), [lo], [hi], list(ars),
+            flip=True, clip=True, steps=(float(stride), float(stride)))
+        priors.append(p.reshape(-1, 4))
+        pvars.append(v.reshape(-1, 4))
+    priors, pvars = np.concatenate(priors), np.concatenate(pvars)
+    if priors.shape[0] != 8732:
+        fail(f"detection ops: SSD300 gives {priors.shape[0]} priors")
+    r = np.random.RandomState(3)
+    lo = r.uniform(0, 0.7, (YOLO_MAX_GT, 2))
+    gtc = np.concatenate([lo, lo + r.uniform(0.05, 0.3, (YOLO_MAX_GT, 2))],
+                         1).astype(np.float32)
+    deltas = (r.randn(YOLO_BATCH, priors.shape[0], 4) * 0.1).astype(
+        np.float32)
+    _compare("box_coder encode", ops.box_coder, priors, pvars, gtc)
+    (dec,), _ = _compare("box_coder decode", ops.box_coder, priors, pvars,
+                         deltas, "decode_center_size")
+    _compare("iou_similarity", ops.iou_similarity, gtc, priors)
+    dist = r.rand(YOLO_BATCH, YOLO_MAX_GT, priors.shape[0]).astype(
+        np.float32)
+    (match, _), _ = _compare("bipartite_match", ops.bipartite_match, dist,
+                             "per_prediction", 0.5)
+    _compare("target_assign", ops.target_assign,
+             np.repeat(gtc[None], YOLO_BATCH, 0), match, mismatch_value=0.0)
+    info = np.tile(np.array([[300, 300, 1.0]], np.float32), (YOLO_BATCH, 1))
+    _compare("box_clip", ops.box_clip, dec * 300, info)
+    _compare("nms", ops.nms, dec[0] * 300, 0.45, r.rand(
+        priors.shape[0]).astype(np.float32), top_k=200)
+
+    # Faster R-CNN's stride-16 map
+    fh, fw = FRCNN_H // 16, -(-FRCNN_W // 16)
+    feat = r.randn(2, FRCNN_C, fh, fw).astype(np.float32)
+    x1 = r.uniform(0, FRCNN_W - 64, (FRCNN_ROIS, 1))
+    y1 = r.uniform(0, FRCNN_H - 64, (FRCNN_ROIS, 1))
+    rois = np.concatenate([x1, y1, x1 + r.uniform(16, 400, (FRCNN_ROIS, 1)),
+                           y1 + r.uniform(16, 300, (FRCNN_ROIS, 1))],
+                          1).astype(np.float32)
+    per = np.array([FRCNN_ROIS // 2] * 2, np.int32)
+    _compare("anchor_generator", ops.anchor_generator, feat[:1],
+             [32, 64, 128, 256, 512], [0.5, 1.0, 2.0], stride=(16.0, 16.0))
+    _compare("roi_align", ops.roi_align, feat, rois, per, 7,
+             spatial_scale=1 / 16, sampling_ratio=2)
+    _compare("roi_pool", ops.roi_pool, feat, rois, per, 7,
+             spatial_scale=1 / 16)
+    paddle.set_device("gpu")
+    torch.cuda.empty_cache()
+    print(f"detection phase: {time.perf_counter() - t_phase:.1f} s; "
+          f"YOLOv3 step {float(np.median(ms[1:])):.1f} ms (median of steps "
+          f"2-{YOLO_STEPS}), multiclass_nms {nms_ms:.2f} ms; {card}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4121,6 +4859,11 @@ def main() -> int:
     print(f"to_static phase done at {time.perf_counter() - t_start:.1f} s")
     saved = jit_save_phase(pt, kernels, card)
     print(f"jit.save phase done at {time.perf_counter() - t_start:.1f} s")
+    guarded = guarded_training_phase(pt, kernels, card)
+    print(f"guarded training phase done at "
+          f"{time.perf_counter() - t_start:.1f} s")
+    detection = detection_phase(pt, kernels, card)
+    print(f"detection phase done at {time.perf_counter() - t_start:.1f} s")
     entries = [flash, ln_entry, add_entry, dq_entry, dkv_entry, ln_bwd_entry]
     for e in entries:
         if hmma is not None and e["name"] in hmma:
@@ -4147,7 +4890,9 @@ def main() -> int:
             "resnet50_model_fit": model_fit[e["name"]],
             "static_bert_per_run": static_bert_counts[e["name"]],
             **{k: v[e["name"]] for k, v in to_static.items()},
-            **{f"jit_save_{k}": v[e["name"]] for k, v in saved.items()}}
+            **{f"jit_save_{k}": v[e["name"]] for k, v in saved.items()},
+            "guarded_training": sum(guarded[e["name"]].values()),
+            "detection": detection[e["name"]]}
     print(f"{card}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
@@ -4157,4 +4902,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--acp-child"]:
+        sys.exit(acp_child(sys.argv[2:]))
     sys.exit(main())

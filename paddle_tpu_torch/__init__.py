@@ -5,7 +5,8 @@ The top-level namespace is the Paddle 2.0 dygraph surface of
 ``Parameter``, ``to_tensor``, autograd (``loss.backward()``, ``grad``,
 ``no_grad``), the flat op namespace (``paddle_tpu_torch.matmul``...),
 ``seed``, ``set_device``/``get_device``, ``get_flags``/``set_flags``,
-``ParamAttr`` and ``nn.Layer``, static graphs (``enable_static``,
+``ParamAttr`` and ``nn.Layer``, ``profiler``, ``incubate``
+(``checkpoint.auto_checkpoint``), static graphs (``enable_static``,
 ``static.Program``/``Executor``/``static.nn``), the LoD sequence ops,
 ``dataset`` and ``text``; a name the port lacks is absent. Import it
 as ``paddle`` and a dygraph script runs on the card
@@ -34,9 +35,9 @@ paddle_tpu_torch.run script.py`` puts first on the path; importing this
 package does not install it.
 """
 from . import (amp, core, distributed, distribution, framework, hapi,
-               inference, io, jit, metric, native, nn, onnx, ops, optimizer,
-               reader, regularizer, serving, static, tensor, text, utils,
-               vision)
+               incubate, inference, io, jit, metric, native, nn, onnx, ops,
+               optimizer, profiler, reader, regularizer, serving, static,
+               tensor, text, utils, vision)
 from . import dataset
 from .batch import batch
 from .core import (CPUPlace, CUDAPlace, Parameter, Place, Tensor,
@@ -70,8 +71,8 @@ def in_dynamic_mode() -> bool:
 
 
 __all__ = (["amp", "core", "distributed", "distribution", "framework",
-            "hapi", "inference", "io", "jit", "metric", "native", "nn",
-            "onnx", "ops", "optimizer", "reader",
+            "hapi", "incubate", "inference", "io", "jit", "metric",
+            "native", "nn", "onnx", "ops", "optimizer", "profiler", "reader",
             "regularizer", "serving", "static", "tensor", "text", "utils",
             "vision", "dataset", "batch", "DataParallel", "enable_static",
             "disable_static", "sequence",

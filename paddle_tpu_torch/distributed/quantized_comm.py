@@ -26,7 +26,7 @@ __all__ = [
     "quantize_blockwise", "dequantize_blockwise", "quantize_along",
     "dequantize_along", "quantize_lastaxis", "dequantize_lastaxis",
     "QuantKV", "tensors_of", "quantize_like", "kv_quant_policy", "kv_zero",
-    "wire_bytes",
+    "wire_bytes", "grad_comm_info",
 ]
 
 #: the quantized widths the policies accept
@@ -261,3 +261,24 @@ def wire_bytes(n_elems: int, dtype, block: int = 128) -> int:
     itemsize = {"float32": 4, "bfloat16": 2, "float16": 2}.get(
         str(dtype), 4)
     return int(n_elems) * itemsize
+
+
+def grad_comm_info(n_elems: int, policy=None, *,
+                   fp16_allreduce: bool = False) -> dict:
+    """The static ``grad_comm`` record of one gradient reduction: its type
+    and bytes on the wire (payload and scales) beside the float32
+    baseline. ``policy`` is a :func:`resolve_policy` pair or None."""
+    if policy is not None:
+        dtype, block = policy
+    else:
+        dtype, block = ("bfloat16" if fp16_allreduce else "float32"), 0
+    wire = wire_bytes(n_elems, dtype, block or 128)
+    f32 = 4 * int(n_elems)
+    return {
+        "dtype": dtype,
+        "block": int(block),
+        "grad_elems": int(n_elems),
+        "bytes_on_wire": int(wire),
+        "bytes_f32": int(f32),
+        "reduction_x": round(f32 / wire, 2) if wire else 1.0,
+    }

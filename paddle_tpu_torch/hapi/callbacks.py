@@ -4,9 +4,9 @@ reference: python/paddle/hapi/callbacks.py: Callback :117, CallbackList
 EarlyStopping :653). ``VisualDL`` is the in-memory scalar sink of the JAX
 package (tag -> [(step, value)]).
 
-``TerminateOnPreempt`` and ``GuardCallback`` raise ``NotImplementedError``
-when made: the first needs ``distributed.elastic`` (ROADMAP queue A item
-7), the second the guard's host half (item 8).
+``TerminateOnPreempt`` is the hapi face of the preemption notice
+(``distributed.elastic``); ``GuardCallback`` the numerical guard's hapi
+policy (``utils/train_guard.py``).
 """
 from __future__ import annotations
 
@@ -253,29 +253,163 @@ class EarlyStopping(Callback):
 
 
 class TerminateOnPreempt(Callback):
-    """Preemption-notice handler: the hapi face of the elastic runtime
-    (SIGTERM: finish the epoch, save ``save_dir/preempt``, stop). Not
-    ported: it needs ``distributed.elastic``, ROADMAP queue A item 7."""
+    """Preemption-notice handler: the hapi face of the elastic runtime.
+
+    On SIGTERM (the cloud's eviction warning): finish the batch and the
+    epoch in flight, save a ``save_dir/preempt`` checkpoint and stop
+    training. Touches the rank's heartbeat
+    (``distributed.elastic.heartbeat``) every batch, so the launcher's
+    hung-rank watchdog sees a live trainer between epochs. (The JAX
+    package also prints the collective flight recorder's dump, which the
+    port does not have yet: ROADMAP queue A item 7.)
+    """
 
     def __init__(self, save_dir=None, verbose=1):
-        raise NotImplementedError(
-            "TerminateOnPreempt needs distributed.elastic (its SIGTERM "
-            "notice and heartbeat), which the port does not have yet: "
-            "ROADMAP queue A item 7")
+        super().__init__()
+        self.save_dir = save_dir
+        self.verbose = verbose
+        self.preempted = False
+        self._old_handler = None
+
+    def _on_notice(self):
+        self.preempted = True
+
+    def on_train_begin(self, logs=None):
+        from ..distributed.elastic import install_preempt_notice
+
+        self.preempted = False
+        self._old_handler = install_preempt_notice(self._on_notice)
+
+    def on_train_batch_end(self, step, logs=None):
+        from ..distributed.elastic import heartbeat
+
+        heartbeat()
+        if self.preempted:
+            self.model.stop_training = True
+
+    def on_epoch_end(self, epoch, logs=None):
+        if not self.preempted:
+            return
+        self.model.stop_training = True
+        save_dir = self.save_dir or getattr(self.model, "_save_dir", None)
+        if save_dir:
+            path = os.path.join(save_dir, "preempt")
+            self.model.save(path)
+            if self.verbose:
+                print(f"TerminateOnPreempt: SIGTERM received — saved "
+                      f"{path}, stopping after epoch {epoch}")
+
+    def on_train_end(self, logs=None):
+        from ..distributed.elastic import restore_preempt_notice
+
+        restore_preempt_notice(self._old_handler)
+        self._old_handler = None
 
 
 class GuardCallback(Callback):
-    """The numerical guard's hapi policy (bad-batch budget, last-good
-    snapshot, rollback). Not ported: it needs the guard's host half,
-    ROADMAP queue A item 8; the in-step guard of ``TrainStep`` runs
-    without it."""
+    """The numerical guard's hapi policy (``utils/train_guard.py``), on
+    the per-batch loss the fit loop already read to the host (so it costs
+    nothing more). ``Model.fit`` trains through ``jit.TrainStep``, whose
+    in-step guard masks bad steps already; on top of it:
+
+    - a nonfinite logged loss, or with ``spike_factor`` > 0 a finite loss
+      above ``spike_factor x EWMA``, counts as a bad batch;
+    - every healthy epoch end writes a ``save_dir/guard_last_good``
+      snapshot (``Model.save``);
+    - past ``max_skips`` consecutive bad batches it restores that snapshot
+      (``Model.load``) when there is one, else stops training, emitting a
+      ``guard_rollback`` / ``guard_stop`` event either way
+      (``PADDLE_GUARD_EVENT_FILE`` and the telemetry bus).
+    """
 
     def __init__(self, max_skips=None, save_dir=None, spike_factor=None,
                  ewma_decay=0.9, warmup=20, verbose=1):
-        raise NotImplementedError(
-            "GuardCallback needs the guard's host half (spike detection, "
-            "events, rollback), which the port does not have yet: ROADMAP "
-            "queue A item 8")
+        super().__init__()
+        from ..utils import train_guard as tg
+
+        self.max_skips = (max_skips if max_skips is not None
+                          else tg._envi(tg._MAX_SKIPS_ENV, 8))
+        self.spike_factor = (spike_factor if spike_factor is not None
+                             else tg._envf(tg._SPIKE_ENV, 0.0))
+        self.save_dir = save_dir
+        self.ewma_decay = float(ewma_decay)
+        self.warmup = int(warmup)
+        self.verbose = verbose
+        self._reset()
+
+    def _reset(self):
+        self.consec = 0
+        self.total_bad = 0
+        self.rollbacks = 0
+        self._ewma = None
+        self._healthy = 0
+        self._anchor = None
+
+    def _loss_of(self, logs):
+        v = (logs or {}).get("loss")
+        if isinstance(v, (list, tuple, np.ndarray)):
+            v = np.asarray(v).reshape(-1)[0]
+        return None if v is None else float(v)
+
+    def on_train_begin(self, logs=None):
+        self._reset()
+
+    def on_train_batch_end(self, step, logs=None):
+        from ..utils import train_guard as tg
+
+        loss = self._loss_of(logs)
+        if loss is None:
+            return
+        bad = not np.isfinite(loss)
+        spiked = (not bad and self.spike_factor > 0.0
+                  and self._healthy >= self.warmup
+                  and self._ewma is not None
+                  and loss > self.spike_factor * abs(self._ewma))
+        if bad or spiked:
+            self.consec += 1
+            self.total_bad += 1
+            tg.emit_event(
+                "guard_skip", step=step, consec=self.consec,
+                loss=loss if np.isfinite(loss) else None,
+                detail=f"hapi batch {step}: "
+                       + ("loss nonfinite" if bad else
+                          f"loss spike {loss:.6g} > "
+                          f"{self.spike_factor:g}x ewma {self._ewma:.6g}"))
+            if self.consec >= self.max_skips:
+                self._rescue(step)
+            return
+        self.consec = 0
+        self._healthy += 1
+        self._ewma = (loss if self._ewma is None
+                      else self.ewma_decay * self._ewma
+                      + (1.0 - self.ewma_decay) * loss)
+
+    def _rescue(self, step):
+        from ..utils import train_guard as tg
+
+        detail = (f"hapi divergence: {self.consec} consecutive bad "
+                  f"batches (budget {self.max_skips})")
+        if self._anchor:
+            self.model.load(self._anchor)
+            self.rollbacks += 1
+            self.consec = 0
+            tg.emit_event("guard_rollback", step=step, anchor=self._anchor,
+                          detail=detail)
+            if self.verbose:
+                print(f"GuardCallback: {detail}; restored {self._anchor}")
+        else:
+            self.model.stop_training = True
+            tg.emit_event("guard_stop", step=step, detail=detail)
+            if self.verbose:
+                print(f"GuardCallback: {detail}; no last-good snapshot — "
+                      "stopping training")
+
+    def on_epoch_end(self, epoch, logs=None):
+        save_dir = self.save_dir or getattr(self.model, "_save_dir", None)
+        if save_dir and self.consec == 0:
+            path = os.path.join(save_dir, "guard_last_good")
+            self.model.save(path)
+            self._anchor = path
 
 
 class VisualDL(Callback):

@@ -22,11 +22,33 @@ step, and the scale grows or backs off on the device, with no host read.
 The bias correction then counts applied updates only. Every other
 strategy option raises ``NotImplementedError``.
 
-The guard (``utils/train_guard.py``) runs unless ``PADDLE_GUARD_MODE=off``:
-a step whose loss, gradients (or, with ``PADDLE_GUARD_CHECK_PARAMS=1``,
-new parameters) are not finite leaves parameters and moments bitwise
-unchanged, decided on the device with no host read. As in JAX the step
-count ``t`` of the bias correction advances on every call.
+The guard (``utils/train_guard.py``) runs unless ``PADDLE_GUARD_MODE=off``.
+Each step computes its health word and folds it into the guard's state
+vector (``update_guard_state``: the streak, the totals, the loss and
+grad-norm EWMAs, spike detection under ``PADDLE_GUARD_SPIKE_FACTOR``),
+all on the device, and masks parameters, moments and buffers with its
+``ok_apply``: a step whose loss, gradients (or, with
+``PADDLE_GUARD_CHECK_PARAMS=1``, new parameters) are not finite, or whose
+grad norm spiked, leaves them bitwise unchanged, and a healthy step's
+values are bitwise those of the step with the guard off. The guard's host
+half (``TrainGuard``) reads the state vector every
+``PADDLE_GUARD_SYNC_EVERY`` steps, one interval late, through a
+``non_blocking`` copy into pinned memory; past ``PADDLE_GUARD_MAX_SKIPS``
+consecutive bad steps it rolls back to the ``auto_checkpoint`` range's
+last generation (then :meth:`TrainStep._after_rollback` refreshes the
+state vector), raises, or exits 96 (``PADDLE_GUARD_MODE=abort``). As in
+JAX the step count ``t`` of the bias correction advances on every call.
+
+A ``PADDLE_FAULT_SPEC`` rule for the ``grad`` site (``grad:nan:3:2``)
+multiplies that step's gradients in place by NaN, Inf or 1e4, after the
+loss scale is divided out and before the clip. Each call also sets the
+bus's step (``observability.bus.set_step``), crosses the profiler's
+``step_boundary`` (the trace window), and names ``TrainStep::opt_update``
+and ``TrainStep::guard`` on a trace. :meth:`TrainStep.flops_per_step`
+counts one step's FLOPs on fake tensors (``observability/mfu.py``);
+:meth:`TrainStep.mfu_pct` divides by a step time and the card's peak.
+:meth:`TrainStep.state_dict` carries the loss scaler's state and the
+guard's counters (register the step as an ``auto_checkpoint`` extra).
 
 Buffers that the forward updates (batch norm's running statistics) are
 masked with the same verdict: a skipped step leaves them bitwise
@@ -35,7 +57,7 @@ off, the JAX package masks them on neither skip; the port masks them on
 the fp16 scaler's skip as well, so a non-finite batch never reaches the
 running statistics.)
 
-Not ported yet, and refused: ``grad_post_hook`` and the guard's host half.
+Not ported yet: ``grad_post_hook``.
 """
 from __future__ import annotations
 
@@ -45,11 +67,18 @@ from typing import Callable
 import torch
 
 from .. import amp
+from .. import profiler as _prof
 from ..core.tensor import to_torch
 from ..distributed.fleet.strategy import DistributedStrategy
+from ..observability import bus as _bus
+from ..utils import fault_injection as _FI
 from ..utils import train_guard as _TG
 
 __all__ = ["TrainStep"]
+
+
+#: the gradients' factor of each GRAD_POISONS code: [clean, nan, inf, spike]
+_POISON = (1.0, float("nan"), float("inf"), 1e4)
 
 
 def _as_list(x):
@@ -90,12 +119,36 @@ class TrainStep:
         self._params = [p for p in optimizer._get_params()
                         if p.requires_grad]
         self._buffers = list(model.buffers())
-        self._guard = _TG.guard_mode() != "off"
         self._device = self._params[0].device if self._params \
             else torch.device("cpu")
         if self._loss_scale_cfg is not None:
             self._scaler_state = self._scaler_tensors(
                 self._loss_scale_cfg["init_loss_scaling"], 0, 0, 0)
+        # the guard's host half; its state vector rides the step on the
+        # device, read every PADDLE_GUARD_SYNC_EVERY steps
+        mode = _TG.guard_mode()
+        self._guard = _TG.TrainGuard(mode=mode, model=model) \
+            if mode != "off" else None
+        self._guard_state = None
+        if self._guard is not None:
+            self._guard._on_rollback = self._after_rollback
+            self._guard_state = _TG.init_guard_state(self._device)
+        # the grad-poison fault site, decided once: a clean spec adds no op
+        self._inject_enabled = _FI.has_site("grad")
+        self._n_steps = 0
+        self._example = None   # the first call's batch, for the FLOP count
+        self._flops = None
+        from ..distributed import quantized_comm as _qc
+
+        self._grad_comm_info = _qc.grad_comm_info(
+            sum(p.numel() for p in self._params))
+        if self._guard is not None:
+            self._guard._sampler.set_grad_comm(self._grad_comm_info)
+        if _bus.enabled():
+            from ..observability import ledger as _ledger
+
+            _ledger.install_backend_listener()
+            _bus.emit("grad_comm", self._grad_comm_info, step=0)
 
     def _read_strategy(self, strategy) -> None:
         if not isinstance(strategy, DistributedStrategy):
@@ -133,12 +186,30 @@ class TrainStep:
     def _tensor(self, x):
         return torch.as_tensor(to_torch(x), device=self._device)
 
+    def _rng_state(self):
+        from ..core import random as _rnd
+
+        return _rnd.default_generator(self._device).get_state()
+
     def __call__(self, inputs, labels=None):
+        with _prof.RecordEvent("TrainStep"):
+            return self._call_impl(inputs, labels)
+
+    def _call_impl(self, inputs, labels):
         ins = [self._tensor(x) for x in _as_list(inputs)]
         lbls = [self._tensor(y) for y in _as_list(labels)]
+        if self._example is None:
+            self._example = (ins, lbls)
         for p in self._params:
             p.grad = None
-        masked = self._guard or self._loss_scale_cfg is not None
+        inject = _FI.consume_grad_action() if self._inject_enabled else 0
+        if self._guard is not None:
+            self._guard.capture(ins, lbls, rng_state=self._rng_state)
+        self._n_steps += 1
+        _bus.set_step(self._n_steps)
+        # the trace window opens before the work it covers
+        _prof.step_boundary(self._n_steps)
+        masked = self._guard is not None or self._loss_scale_cfg is not None
         old_bufs = [b.clone() for b in self._buffers] if masked else []
         with torch.enable_grad(), self._amp_guard():
             outs = self.model(*ins)
@@ -155,16 +226,28 @@ class TrainStep:
             if scaling:
                 grads = [None if g is None else g / scale.to(g.dtype)
                          for g in grads]
+            if inject:
+                for g in grads:
+                    if g is not None:
+                        g.mul_(_POISON[inject])
             grads = opt._process_grads(self._params, grads)
         opt._step_count += 1
         # with loss scaling the bias correction counts applied updates
         t = (self._scaler_state[3] + 1).float() if scaling \
             else opt._step_count
-        news = opt._functional_update(self._params, grads, opt.get_lr(), t)
+        with _prof.device_annotation("TrainStep::opt_update"):
+            news = opt._functional_update(self._params, grads, opt.get_lr(),
+                                          t)
         ok = None
-        if self._guard:
-            ok, _, _ = _TG.grad_health(loss, grads,
-                                       [new_p for _, new_p, _, _ in news])
+        if self._guard is not None:
+            # the sentinel and the policy counters; ok_apply masks a
+            # nonfinite step and an exploding grad norm
+            with _prof.device_annotation("TrainStep::guard"), \
+                    torch.no_grad():
+                ok, bits, gnorm = _TG.grad_health(
+                    loss, grads, [new_p for _, new_p, _, _ in news])
+                self._guard_state, ok = _TG.update_guard_state(
+                    self._guard_state, ok, bits, gnorm, loss)
         if scaling:
             # the scaler's skip doubles as the guard's; a guard trip is a
             # bad step and backs the scale off
@@ -180,9 +263,49 @@ class TrainStep:
                     b.copy_(new)
         for p in self._params:
             p.grad = None
+        if self._guard is not None:
+            # the interval read; a rollback has refreshed the state
+            # vector through _after_rollback
+            self._guard.observe(self._guard_state)
         if self._ret_out:
             return loss.detach(), _detach(outs)
         return loss.detach()
+
+    def _after_rollback(self) -> None:
+        """The guard restored a checkpoint (parameters and optimizer, and
+        through :meth:`set_state_dict` the guard's counters): reseed the
+        device state vector from the restored counters."""
+        if self._guard is not None:
+            self._guard_state = self._guard.restored_device_state(
+                self._device)
+
+    # -- model-FLOPs utilization (observability/mfu.py) --------------------
+    def flops_per_step(self):
+        """FLOPs of one step's forward and backward (the matrix products;
+        the optimizer update counts 0), counted once on fake tensors at the
+        first call's shapes: no launch, no gradient written. None before
+        the first call, or when the step cannot run on fake tensors."""
+        if self._flops is None and self._example is not None:
+            from ..observability import mfu as _mfu
+
+            ins, lbls = self._example
+
+            def loss():
+                with torch.enable_grad(), self._amp_guard():
+                    return to_torch(self.loss_fn(self.model(*ins), *lbls))
+
+            self._flops = _mfu.count_flops(loss, module=self.model)
+        return self._flops
+
+    def mfu_pct(self, step_seconds: float):
+        """Model-FLOPs utilization of a measured step time, percent of the
+        card's peak (None on the CPU without ``PADDLE_OBS_PEAK_FLOPS``).
+        The peak is asked first: without it the count is not paid for."""
+        from ..observability import mfu as _mfu
+
+        if _mfu.peak_flops() is None:
+            return None
+        return _mfu.mfu_pct(self.flops_per_step(), step_seconds)
 
     @torch.no_grad()
     def _update_scaler(self, finite: torch.Tensor) -> None:
@@ -206,20 +329,30 @@ class TrainStep:
     # -- persisted step state ------------------------------------------------
     def state_dict(self) -> dict:
         """The dynamic loss scaler's state (scale, good and bad step
-        counts, applied updates), read to the host."""
-        if self._loss_scale_cfg is None:
-            return {}
-        scale, good, bad, applied = self._scaler_state
-        return {"scaler": {"scale": float(scale), "good_steps": int(good),
-                           "bad_steps": int(bad),
-                           "applied_steps": int(applied)}}
+        counts, applied updates), read to the host, and the guard's
+        counters: the step state an ``auto_checkpoint`` generation carries
+        when the step is registered as an extra
+        (``register(scaler=step)``)."""
+        out = {}
+        if self._loss_scale_cfg is not None:
+            scale, good, bad, applied = self._scaler_state
+            out["scaler"] = {"scale": float(scale), "good_steps": int(good),
+                             "bad_steps": int(bad),
+                             "applied_steps": int(applied)}
+        if self._guard is not None:
+            out["guard"] = self._guard.state_dict()
+        return out
 
     def set_state_dict(self, state) -> None:
-        sc = dict(state or {}).get("scaler")
+        state = dict(state or {})
+        sc = state.get("scaler")
         if self._loss_scale_cfg is not None and sc:
             self._scaler_state = self._scaler_tensors(
                 sc["scale"], sc["good_steps"], sc["bad_steps"],
                 sc["applied_steps"])
+        if self._guard is not None and state.get("guard"):
+            self._guard.set_state_dict(state["guard"])
+            self._after_rollback()
 
 
 def _detach(outs):

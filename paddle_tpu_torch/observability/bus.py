@@ -7,7 +7,10 @@ tools)::
      "payload": {...}}
 
 - ``v``     schema version.
-- ``kind``  event name: the engine's ``decode_metrics`` /
+- ``kind``  event name: the guard's ``guard_*``, ``step_metrics``, the
+  ledger's ``recompile`` / ``recompile_storm`` / ``backend_compile``, the
+  profiler's ``trace_armed`` / ``trace_captured``, the engine's
+  ``decode_metrics`` /
   ``decode_request`` / ``span`` / ``engine_expand`` / ``engine_shrink``,
   the router's ``router_*`` and ``kv_migrate_fail``, the mailbox
   worker's ``worker_ack`` / ``worker_progress`` / ``kv_extract``.
@@ -113,12 +116,26 @@ def _mon_fault_action() -> Optional[str]:
 
 
 def emit(kind: str, payload: Optional[Dict] = None, *,
-         step: Optional[int] = None, rank: Optional[int] = None) -> None:
-    """Append one bus row. An I/O failure is swallowed: telemetry never
+         step: Optional[int] = None, rank: Optional[int] = None,
+         legacy_env: Optional[str] = None) -> None:
+    """Append one bus row and, with ``legacy_env``, the old flat row
+    ``{"event": kind, "time", "rank", **payload}`` to the file that env
+    names (``PADDLE_GUARD_EVENT_FILE``, which the elastic launcher reads
+    for kill attribution). An I/O failure is swallowed: telemetry never
     takes the program down."""
     payload = dict(payload or {})
     r = _rank() if rank is None else int(rank)
     now = time.time()
+    if legacy_env:
+        legacy_path = os.environ.get(legacy_env)
+        if legacy_path:
+            legacy_row = {"event": kind, "time": now, "rank": r}
+            legacy_row.update(payload)
+            try:
+                with _lock, open(legacy_path, "a") as f:
+                    f.write(json.dumps(legacy_row, default=str) + "\n")
+            except (OSError, TypeError, ValueError):
+                pass
     path = bus_path(rank=r)
     if not path:
         return

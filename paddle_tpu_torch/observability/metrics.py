@@ -1,13 +1,31 @@
-"""Serving telemetry on the engine's readback cadence (counterpart of
-``paddle_tpu/observability/metrics.py``'s ``DecodeMetricsSampler``).
+"""Step and serving telemetry on the cadences the program already reads
+the device at (counterpart of ``paddle_tpu/observability/metrics.py``).
 
-The continuous-batching engine reads one stacked token block and the done
-mask back to the host every ``PADDLE_SERVE_SYNC_EVERY`` decode steps. The
-sampler builds its rows from exactly those host values and the host's
-wall clock: nothing here reads a tensor, so turning the rows on changes
+Training: ``StepMetricsSampler`` rides the numerical guard
+(``utils/train_guard.py``), which copies its state vector to the host
+every ``PADDLE_GUARD_SYNC_EVERY`` steps, one interval late. When that
+copy is read, the sampler builds one ``step_metrics`` row from
+
+- the guard's floats, already on the host (last loss, the loss and
+  grad-norm EWMAs, skip and spike totals);
+- the host clock between reads (steps in the window, ms per step);
+- examples and tokens per step from the inputs' shapes (host ints);
+- the caching allocator's counters (:func:`device_memory`, a host query
+  of ``torch.cuda.memory_stats``; None on the CPU);
+- the step's static grad-comm record (``grad_comm``).
+
+It adds no device read of its own. ``PADDLE_OBS_STEP_METRICS=0`` turns
+the rows off; with the guard off (``PADDLE_GUARD_MODE=off``) there is no
+read to ride and no row.
+
+Serving: the continuous-batching engine reads one stacked token block
+and the done mask back to the host every ``PADDLE_SERVE_SYNC_EVERY``
+decode steps; ``DecodeMetricsSampler`` builds its rows from exactly
+those host values and the host's wall clock, so turning them on changes
 the engine's device-to-host reads by zero.
 
 Rows:
+  ``step_metrics``    one per guard read (:class:`StepMetricsSampler`);
   ``decode_metrics``  one per readback window: decode steps, emitted
     tokens, tokens/s over the window's wall clock, inflight slots, queue
     depth; the TTFT of the requests that reached their first token in the
@@ -20,18 +38,119 @@ Rows:
     one ``decode_window`` row per window naming every traced inflight
     request (:meth:`window_span`).
 
-``PADDLE_OBS_DECODE_METRICS=0`` turns the rows off. The training half of
-this module (``StepMetricsSampler``) is ROADMAP queue A item 8.
+``PADDLE_OBS_DECODE_METRICS=0`` turns the serving rows off.
 """
 from __future__ import annotations
 
 import os
+import time
+from typing import Optional
 
 from . import bus
 
-__all__ = ["DecodeMetricsSampler", "decode_metrics_enabled"]
+__all__ = ["StepMetricsSampler", "step_metrics_enabled", "device_memory",
+           "DecodeMetricsSampler", "decode_metrics_enabled"]
 
+_ENABLE_ENV = "PADDLE_OBS_STEP_METRICS"
 _DECODE_ENABLE_ENV = "PADDLE_OBS_DECODE_METRICS"
+
+
+def step_metrics_enabled() -> bool:
+    v = os.environ.get(_ENABLE_ENV, "1").strip().lower()
+    return v not in ("0", "false", "off")
+
+
+def device_memory() -> Optional[dict]:
+    """The caching allocator's counters of the current card
+    (``bytes_in_use`` / ``peak_bytes_in_use`` / ``bytes_limit``, the JAX
+    package's keys), or None without an initialized card. A host query of
+    the allocator's bookkeeping: no launch, no device sync."""
+    try:
+        import torch
+
+        if not torch.cuda.is_available() or not torch.cuda.is_initialized():
+            return None
+        stats = torch.cuda.memory_stats()
+        limit = torch.cuda.get_device_properties(
+            torch.cuda.current_device()).total_memory
+    except Exception:  # noqa: BLE001 -- metrics stay best-effort
+        return None
+    if not stats:
+        return None
+    return {"bytes_in_use": int(stats.get("allocated_bytes.all.current", 0)),
+            "peak_bytes_in_use": int(stats.get("allocated_bytes.all.peak",
+                                               0)),
+            "bytes_limit": int(limit)}
+
+
+class StepMetricsSampler:
+    """Owned by a ``TrainGuard``: :meth:`tick` per step (integer adds on
+    the inputs' shapes), :meth:`sample` once per guard read, with the
+    guard's state already on the host."""
+
+    def __init__(self):
+        self.enabled = step_metrics_enabled()
+        self._t_last: Optional[float] = None
+        self._step_last = 0
+        self._examples = 0
+        self._tokens = 0
+        self._grad_comm: Optional[dict] = None
+
+    def set_grad_comm(self, info: Optional[dict]) -> None:
+        """The step's static grad-comm record (dtype and bytes of one
+        gradient reduction, from the parameters' shapes), carried by every
+        row."""
+        self._grad_comm = dict(info) if info else None
+
+    def tick(self, inputs) -> None:
+        """Per-step accounting from the inputs' shapes (host ints)."""
+        if not self.enabled:
+            return
+        x = inputs[0] if inputs else None
+        shape = getattr(x, "shape", None)
+        if not shape:
+            return
+        n = int(shape[0])
+        self._examples += n
+        if len(shape) >= 2:
+            self._tokens += n * int(shape[1])
+
+    def sample(self, step: int, guard_last) -> None:
+        """One ``step_metrics`` row for the window ending at ``step``
+        (``guard_last``: the guard's newest state vector as floats)."""
+        if not self.enabled or not bus.enabled():
+            return
+        now = time.perf_counter()
+        t0, s0 = self._t_last, self._step_last
+        self._t_last, self._step_last = now, step
+        examples, tokens = self._examples, self._tokens
+        self._examples = self._tokens = 0
+        if t0 is None or step <= s0:
+            return  # the first window has no baseline
+        dt = now - t0
+        nsteps = step - s0
+        payload = {
+            "steps": nsteps,
+            "step_ms": round(dt / nsteps * 1e3, 3),
+            "loss": float(guard_last[7]),
+            "loss_ewma": float(guard_last[3]),
+            "gnorm": float(guard_last[4]),
+            "gnorm_ewma": float(guard_last[8]),
+            "consec_bad": int(guard_last[0]),
+            "total_skips": int(guard_last[1]),
+            "total_spikes": int(guard_last[2]),
+        }
+        if dt > 0:
+            if examples:
+                payload["examples_per_sec"] = round(examples / dt, 2)
+            if tokens:
+                payload["tokens_per_sec"] = round(tokens / dt, 1)
+        if self._grad_comm:
+            payload["grad_comm"] = self._grad_comm
+        mem = device_memory()
+        if mem:
+            payload["device_memory"] = mem
+        bus.emit("step_metrics", payload, step=step)
 
 
 def decode_metrics_enabled() -> bool:

@@ -18,8 +18,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Callable, Dict, Iterable, List, Sequence
 
 import torch
 
@@ -80,11 +81,17 @@ def _start(name: str):
     return proc, log, tmp, out
 
 
+#: called with (source name, seconds) after each successful build (the
+#: recompile ledger's ``backend_compile`` rows)
+BUILD_LISTENERS: List[Callable[[str, float], None]] = []
+
+
 def build(names: Iterable[str]) -> Dict[str, Path]:
     """Compile the named sources in parallel (one ``nvcc`` each) and
     return name -> library path. Raises with the compiler's output when
     any build fails."""
     names = list(names)
+    t0 = time.perf_counter()
     jobs = {n: _start(n) for n in names}
     errors = []
     for n, job in jobs.items():
@@ -95,6 +102,8 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
         log.close()
         if rc == 0:
             os.replace(tmp, out)
+            for listener in BUILD_LISTENERS:
+                listener(n, time.perf_counter() - t0)
         else:
             errors.append(f"nvcc failed on csrc/{n}.cu (rc {rc}):\n"
                           + out.with_suffix(".log").read_text())

@@ -55,7 +55,6 @@ import numpy as np
 import torch
 
 from ..regularizer import L2Decay, WeightDecayRegularizer
-from ..utils.train_guard import mask_step
 from .lr import LRScheduler
 
 __all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adamax",
@@ -259,16 +258,17 @@ class Optimizer:
     def _write(news, ok: Optional[torch.Tensor] = None) -> None:
         """Write the updates of ``_functional_update`` into the parameter
         and accumulator buffers. With ``ok`` (a 0-dim bool tensor on the
-        device) each value written is ``where(ok, new, old)``: a step whose
-        ``ok`` is False leaves them bitwise unchanged, and the host never
-        reads ``ok``."""
+        device) each value written is ``where(ok, new, old)``, in place (one
+        kernel a buffer, as the plain copy): a step whose ``ok`` is False
+        leaves them bitwise unchanged, and the host never reads ``ok``."""
         for p, new_p, accs, new_accs in news:
             olds = [p] + [accs[n] for n in accs]
             fresh = [new_p] + [new_accs[n] for n in accs]
-            if ok is not None:
-                fresh = mask_step(ok, fresh, olds)
             for o, f in zip(olds, fresh):
-                o.copy_(f)
+                if ok is None:
+                    o.copy_(f)
+                else:
+                    torch.where(ok, f, o, out=o)
 
     def step(self) -> None:
         """Apply one update from the accumulated ``.grad`` (eager path)."""

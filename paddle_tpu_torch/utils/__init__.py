@@ -1,4 +1,4 @@
-"""Utilities of the port: the in-step half of the training guard, the
+"""Utilities of the port: the training guard (both halves), the
 env-spec fault injector (``fault_injection``, standard library only) and
 the dataset staging paths (``download``)."""
 from . import download, fault_injection, train_guard

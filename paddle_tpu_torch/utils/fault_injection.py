@@ -5,37 +5,40 @@
 
     site:action:nth[:arg]
 
-- ``site``   a fault point. The port instruments five: ``serve`` (each
+- ``site``   a fault point. The port instruments eight: ``serve`` (each
   router tick, each mailbox-worker poll, each router submit and each
   prefix-cache lookup that a ``prefix_stale`` / ``adapter_missing`` rule
-  names), ``mon`` (each telemetry-bus row write), and ``io.save`` (before
+  names), ``mon`` (each telemetry-bus row write), ``io.save`` (before
   a ``framework.io.save`` write), ``io.save.post`` (after its atomic
-  replace, where ``corrupt`` bites) and ``io.load``. A rule for a site
-  the JAX package instruments and the port does not yet (``acp.save``,
-  ``epoch``, ``coll``, ``grad``, ``rank``, ``ctl``) raises
-  ``NotImplementedError`` naming the ROADMAP item that brings it; so does
-  any other site.
+  replace, where ``corrupt`` bites), ``io.load``, ``acp.save`` (before an
+  auto-checkpoint snapshot), ``epoch`` (on entering each
+  ``TrainEpochRange`` epoch) and ``grad`` (once per ``jit.TrainStep``
+  call). A rule for a site the JAX package instruments and the port does
+  not yet (``coll``, ``rank``, ``ctl``) raises ``NotImplementedError``
+  naming the ROADMAP item that brings it; so does any other site.
 - ``action`` ``fail`` (raise :class:`InjectedFault`, an IOError), ``kill``
   (``os._exit(arg)``, default 17), ``hang`` (at ``serve``: an event, the
   targeted worker -- ``arg`` = its rank -- stops draining its mailbox but
-  keeps its telemetry heartbeat; elsewhere: sleep ``arg`` seconds,
-  default 3600), the ``serve`` events ``burst`` (``arg`` requests at that
-  router tick, default 8), ``slow_host`` (the rank's simulated work
-  slows 20x), ``straggler`` (a fixed delay per window), ``host_crash``
-  (SIGKILL at the rank's next mid-decode window), ``kv_corrupt`` (one bit
-  of block ``arg`` of the next migration bundle flips, so its CRC
-  fails), ``kv_lost`` (the next bundle never arrives), ``prefix_stale``
-  (the ``arg``-th oldest prefix-cache entry's key is poisoned) and
-  ``adapter_missing`` (the next submit names an unloaded adapter, ``arg``
-  or an id past any fleet), or the ``mon`` actions ``drop`` / ``dup``
-  (that bus row is lost or written twice), or ``corrupt`` (truncate the
-  file ``io.save.post`` passed to half its bytes: a torn write; a
-  ``corrupt`` rule written against ``io.save`` means ``io.save.post``, so
-  it corrupts a complete file). The other actions of the
-  grammar (``desync``, ``nan``/``inf``/``spike``,
-  ``depart``/``return``, ``flap``/``die``/``lend_crash`` and the serve
-  event ``lent_worker_crash``) parse as in the JAX package and then raise
-  ``NotImplementedError``: their sites are not instrumented here.
+  keeps its telemetry heartbeat; elsewhere: sleep ``arg`` seconds, default
+  3600), ``nan`` / ``inf`` / ``spike`` (``grad`` only: that step's gradients
+  are multiplied by NaN, Inf or 1e4 in place; ``arg`` = how many consecutive
+  step calls the rule stays armed, default 1, so ``grad:nan:3:2`` poisons
+  steps 3 and 4), the ``serve`` events ``burst`` (``arg`` requests at that
+  router tick, default 8), ``slow_host`` (the rank's simulated work slows
+  20x), ``straggler`` (a fixed delay per window), ``host_crash`` (SIGKILL at
+  the rank's next mid-decode window), ``kv_corrupt`` (one bit of block
+  ``arg`` of the next migration bundle flips, so its CRC fails), ``kv_lost``
+  (the next bundle never arrives), ``prefix_stale`` (the ``arg``-th oldest
+  prefix-cache entry's key is poisoned) and ``adapter_missing`` (the next
+  submit names an unloaded adapter, ``arg`` or an id past any fleet), or the
+  ``mon`` actions ``drop`` / ``dup`` (that bus row is lost or written
+  twice), or ``corrupt`` (truncate the file ``io.save.post`` passed to half
+  its bytes: a torn write; a ``corrupt`` rule written against ``io.save``
+  means ``io.save.post``, so it corrupts a complete file). The other actions
+  of the grammar (``desync``, ``depart``/``return``,
+  ``flap``/``die``/``lend_crash`` and the serve event ``lent_worker_crash``)
+  parse as in the JAX package and then raise ``NotImplementedError``: their
+  sites are not instrumented here.
 - ``nth``    the 1-based per-process hit count of that site at which the
   rule fires.
 - ``arg``    the action's parameter.
@@ -51,7 +54,8 @@ import sys
 import time
 from typing import Dict, List, Optional
 
-__all__ = ["InjectedFault", "FaultInjector", "fault_point",
+__all__ = ["InjectedFault", "FaultInjector", "fault_point", "consume_flag",
+           "has_site", "consume_grad_action", "GRAD_POISONS",
            "consume_serve_events", "consume_serve_matching",
            "consume_mon_action", "LEND_PHASES", "RECLAIM_PHASES",
            "PORTED_SITES", "reset"]
@@ -81,16 +85,16 @@ RECLAIM_PHASES = ("drain", "leave", "rejoin")
 _CORRUPT_SITES = ("io.save.post",)
 
 _IO_SITES = ("io.save", "io.save.post", "io.load")
+_ACP_SITES = ("acp.save", "epoch")
 
 #: the sites the port has fault points for
-PORTED_SITES = _SERVE_SITES + _MON_SITES + _IO_SITES
+PORTED_SITES = _SERVE_SITES + _MON_SITES + _IO_SITES + _ACP_SITES \
+    + _GRAD_SITES
 #: the JAX package's other sites -> the ROADMAP queue A item that ports
 #: the code they sit in
 _SITE_ITEMS = {
-    "acp.save": "5 (auto_checkpoint)", "epoch": "5 (auto_checkpoint)",
     "coll": "7 (distributed, the comm monitor)",
     "rank": "7 (distributed, resharding)",
-    "grad": "8 (the guard's host half and the poisoned TrainStep)",
     "ctl": "8 (the fleet controller)",
 }
 #: serve-site events of planes the port does not have yet
@@ -125,6 +129,7 @@ class FaultInjector:
         self.spec = spec
         self._rules: List[_Rule] = []
         self._counts: Dict[str, int] = {}
+        self.flags: set = set()  # armed markers ("grad:nan" ...)
         self.serve_events: List = []  # armed (action, arg|None), ordered
         self.mon_events: List = []  # armed drop/dup bus-line actions
         for item in filter(None, (s.strip() for s in spec.split(","))):
@@ -172,7 +177,18 @@ class FaultInjector:
     def fire(self, site: str, path: Optional[str] = None) -> None:
         count = self._counts[site] = self._counts.get(site, 0) + 1
         for r in self._rules:
-            if r.site == site and r.nth == count:
+            if r.site != site:
+                continue
+            if r.action in _GRAD_ACTIONS:
+                # a grad poison stays armed for `arg` consecutive calls
+                repeat = int(r.arg) if r.arg else 1
+                if r.nth <= count < r.nth + repeat:
+                    print(f"fault_injection: arming grad:{r.action} at "
+                          f"{site} (hit {count})", file=sys.stderr,
+                          flush=True)
+                    self.flags.add(f"grad:{r.action}")
+                continue
+            if r.nth == count:
                 self._act(r, site, count, path)
 
     def _act(self, r: _Rule, site, count, path=None):
@@ -241,6 +257,37 @@ def fault_point(site: str, path: Optional[str] = None) -> None:
     """Instrumentation hook: no-op unless a spec rule matches this hit
     (``path``: the file a ``corrupt`` rule truncates)."""
     _injector().fire(site, path)
+
+
+def consume_flag(flag: str) -> bool:
+    """One-shot read of a marker an action armed: True once after the
+    rule fires, then cleared."""
+    inj = _active
+    if inj is not None and flag in inj.flags:
+        inj.flags.discard(flag)
+        return True
+    return False
+
+
+def has_site(site: str) -> bool:
+    """Does the active spec carry any rule for ``site``? ``TrainStep``
+    asks once at construction whether to poison gradients at all."""
+    return any(r.site == site for r in _injector()._rules)
+
+
+#: the poison codes ``TrainStep`` consumes: the gradients' factor is
+#: [1, NaN, Inf, 1e4][code]
+GRAD_POISONS = {"nan": 1, "inf": 2, "spike": 3}
+
+
+def consume_grad_action() -> int:
+    """Fire the ``grad`` site for this step call and consume an armed
+    poison: its ``GRAD_POISONS`` code, 0 for a clean step."""
+    fault_point("grad")
+    for name, code in GRAD_POISONS.items():
+        if consume_flag(f"grad:{name}"):
+            return code
+    return 0
 
 
 def consume_serve_events() -> List:

@@ -1138,3 +1138,154 @@ def test_captured_cond_and_while_loop_on_the_card(gen):
         (prog,) = fn.program_cache.values()
         assert any(getattr(n.target, "__name__", "") == op
                    for n in prog.exported.graph.nodes), op
+
+
+# -- the detection ops, the guarded step (card against CPU) -----------------
+
+def _detection_cases():
+    """(op, args as numpy, kwargs, indices of differentiable args) at small
+    sizes; the same inputs go to the card and to the CPU."""
+    import numpy as np
+
+    r = np.random.RandomState(0)
+
+    def corners(n, seed, scale):
+        q = np.random.RandomState(seed)
+        lo = q.rand(n, 2) * 0.6 * scale
+        return np.concatenate([lo, lo + (q.rand(n, 2) * 0.3 + 0.05)
+                               * scale], 1).astype(np.float32)
+
+    head = r.randn(2, 3 * 9, 8, 8).astype(np.float32)
+    gt = (r.rand(2, 6, 4) * 0.5 + 0.1).astype(np.float32)
+    feat = r.randn(2, 4, 16, 20).astype(np.float32)
+    rois = np.concatenate([corners(5, 1, 15.0), corners(3, 2, 15.0)])
+    nb = np.array([5, 3], np.int32)
+    boxes = np.stack([corners(40, 3, 50.0), corners(40, 4, 50.0)])
+    scores = r.rand(2, 5, 40).astype(np.float32)
+    pri = corners(6, 5, 1.0)
+    var = np.full((6, 4), 0.1, np.float32)
+    dist = r.rand(2, 4, 9).astype(np.float32)
+    anchors = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119]
+    return {
+        "yolo_box": ([head, np.array([[256, 256], [200, 240]], np.int32),
+                      anchors[:6], 4, 0.1, 32], {}, (0,)),
+        "yolo_loss": ([head, gt, r.randint(0, 4, (2, 6)).astype(np.int32),
+                       anchors, [0, 1, 2], 4, 0.7, 32], {}, (0,)),
+        "prior_box": ([feat, np.zeros((2, 3, 64, 80), np.float32), [8.0],
+                       [16.0], [2.0]], dict(flip=True), ()),
+        "anchor_generator": ([feat, [32, 64], [0.5, 1.0, 2.0]], {}, ()),
+        "box_coder": ([pri, var, corners(3, 6, 1.0)], {}, (0, 2)),
+        "iou_similarity": ([pri, corners(4, 7, 1.0)], {}, (0, 1)),
+        "box_clip": ([boxes * 2, np.array([[60, 70, 1.0], [80, 90, 2.0]],
+                                          np.float32)], {}, ()),
+        "roi_align": ([feat, rois, nb, 3], dict(spatial_scale=0.5),
+                      (0, 1)),
+        "roi_pool": ([feat, rois, nb, 3], {}, (0,)),
+        "multiclass_nms": ([boxes, scores, 0.05, 20, 30, 0.45, False, 0.8,
+                            -1], {}, ()),
+        "bipartite_match": ([dist, "per_prediction", 0.4], {}, ()),
+        "target_assign": ([r.randn(2, 4, 3).astype(np.float32),
+                           r.randint(-1, 4, (2, 9)).astype(np.int32)],
+                          {}, ()),
+        "nms": ([boxes[0], 0.3, scores[0, 0]], {}, ()),
+    }
+
+
+@pytest.mark.parametrize("op", sorted(_detection_cases()))
+def test_detection_op_on_the_card_equals_the_cpu(default_device, op):
+    """Each detection op on CUDA tensors against the same call on CPU
+    tensors: outputs within 1e-4 (integers exact), and the gradients of
+    the differentiable ones."""
+    import numpy as np
+
+    from paddle_tpu_torch.vision import ops
+
+    args, kwargs, diff = _detection_cases()[op]
+    outs, grads = {}, {}
+    for dev in ("cpu", "gpu"):
+        pt.set_device(dev)
+        ts = [pt.to_tensor(a, stop_gradient=i not in diff)
+              if isinstance(a, np.ndarray) else a
+              for i, a in enumerate(args)]
+        got = getattr(ops, op)(*ts, **kwargs)
+        got = list(got) if isinstance(got, (tuple, list)) else [got]
+        assert all(g._data.is_cuda == (dev == "gpu") for g in got)
+        outs[dev] = [g.numpy() for g in got]
+        if diff:
+            sum(pt.sum(g * g) for g in got
+                if g._data.dtype == torch.float32).backward()
+            grads[dev] = [ts[i].gradient() for i in diff]
+    for c, g in zip(outs["cpu"], outs["gpu"]):
+        if c.dtype.kind == "f":
+            np.testing.assert_allclose(g, c, rtol=1e-4, atol=1e-4)
+        else:
+            np.testing.assert_array_equal(g, c)
+    for c, g in zip(grads.get("cpu", []), grads.get("gpu", [])):
+        np.testing.assert_allclose(g, c, rtol=1e-4, atol=1e-4)
+
+
+def _gpt_step(guard, monkeypatch, spec=None):
+    monkeypatch.setenv("PADDLE_GUARD_MODE", "skip" if guard else "off")
+    monkeypatch.setenv("PADDLE_GUARD_SYNC_EVERY", "2")
+    if spec:
+        monkeypatch.setenv("PADDLE_FAULT_SPEC", spec)
+    else:
+        monkeypatch.delenv("PADDLE_FAULT_SPEC", raising=False)
+    from paddle_tpu_torch.utils import fault_injection
+
+    fault_injection.reset()
+    pt.seed(3)
+    model = pt.TransformerLM(64, d_model=128, num_heads=2, num_layers=2,
+                             max_position=128, seed=3)
+    step = pt.jit.TrainStep(
+        model, lambda o, y: pt.nn.functional.cross_entropy(
+            o.reshape(-1, 64), y.reshape(-1)),
+        pt.optimizer.AdamW(learning_rate=1e-3,
+                           parameters=model.parameters()))
+    return model, step
+
+
+def test_guarded_step_equals_the_unguarded_on_the_card(default_device,
+                                                       monkeypatch):
+    """Guard on (no fault) against guard off: the same losses and
+    parameters bit for bit; the guarded steps make no synchronizing call
+    (sync debug mode "error"); its state is read one interval late."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(1)
+    ids = torch.randint(0, 64, (2, 129), device="cuda", generator=g)
+    runs = {}
+    for guard in (False, True):
+        model, step = _gpt_step(guard, monkeypatch)
+        step(ids[:, :-1], ids[:, 1:])      # warm-up: builds, allocates
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            losses = [step(ids[:, :-1], ids[:, 1:]) for _ in range(4)]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        runs[guard] = ([float(x) for x in losses],
+                       {k: v.clone() for k, v in model.state_dict().items()})
+        if guard:
+            # steps 1-5, reads at steps 2 and 4: step 4 read step 2's state
+            assert step._guard._last_step == 2 and step._guard._last[1] == 0
+            assert step._guard_state.is_cuda
+    assert runs[True][0] == runs[False][0]
+    for k, v in runs[False][1].items():
+        assert torch.equal(runs[True][1][k], v), k
+
+
+def test_grad_nan_skips_bitwise_on_the_card(default_device, monkeypatch):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(2)
+    ids = torch.randint(0, 64, (2, 129), device="cuda", generator=g)
+    model, step = _gpt_step(True, monkeypatch, spec="grad:nan:2:2")
+    after = []
+    for _ in range(4):
+        step(ids[:, :-1], ids[:, 1:])
+        after.append({k: v.clone() for k, v in model.state_dict().items()})
+    step._guard.flush()
+    assert step._guard._last[1] == 2.0
+    for k in after[0]:
+        assert torch.equal(after[0][k], after[2][k]), k
+    # the FLOP count on fake CUDA tensors is the CPU count of one step
+    assert step.flops_per_step() > 0

@@ -39,8 +39,8 @@ GAPS = {
     "paddle": {
         # TPU places: the port has CUDA and CPU places
         "TPUPlace", "is_compiled_with_tpu",
-        # ROADMAP queue A item 9: the tail
-        "device", "incubate", "profiler", "sysconfig"},
+        # ROADMAP queue A item 9: the tail (incubate and profiler: ported)
+        "device", "sysconfig"},
     "fluid": {"TPUPlace", "is_compiled_with_tpu"},
     # modules the JAX package's star imports of nn.functional and ops carry
     # into fluid.layers under names its source uses otherwise (the port's

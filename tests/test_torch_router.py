@@ -416,14 +416,16 @@ class TestRouterInProcess:
     def test_fault_site_the_port_lacks_raises(self, models, monkeypatch):
         _, tm = models
         r = Router([LocalHost(_engine(tm))])
-        for spec, item in (("grad:nan:1", "item 8"),
-                           ("acp.save:fail:1", "item 5"),
+        for spec, item in (("coll:desync:1", "item 7"),
                            ("rank:depart:2", "item 7"),
                            ("ctl:flap:1", "item 8"),
                            ("serve:lent_worker_crash:1", "item 8")):
             monkeypatch.setenv("PADDLE_FAULT_SPEC", spec)
             with pytest.raises(NotImplementedError, match=item):
                 r.tick()
+        # the training sites are instrumented now: their rules parse
+        for spec in ("grad:nan:1", "acp.save:fail:1", "epoch:hang:2"):
+            fi.FaultInjector(spec)
         # the grammar's own errors stay ValueErrors, as in paddle_tpu
         for spec in ("grad:burst:1", "serve:bogus:1", "serve:burst"):
             with pytest.raises(ValueError):

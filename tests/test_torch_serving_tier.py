@@ -471,7 +471,7 @@ class TestPagedEngine:
         assert eng.extract_kv(0) is None
         assert eng.insert_migrated(Request([1], rid=1), None) is False
         assert eng.expand_slots(0) == 2 and eng.retire_slots(0) == []
-        monkeypatch.setenv("PADDLE_FAULT_SPEC", "grad:nan:1")
+        monkeypatch.setenv("PADDLE_FAULT_SPEC", "ctl:flap:1")
         fi.reset()
         with pytest.raises(NotImplementedError, match="item 8"):
             fi.fault_point("serve")

@@ -217,13 +217,19 @@ def test_train_step_refuses_what_is_not_ported(models, monkeypatch):
     opt.user_defined_strategy = object()
     with pytest.raises(NotImplementedError, match="strategy"):
         pt.jit.TrainStep(tm, _torch_loss, opt)
+    # the guard's host half is ported: abort and spike detection are
+    # accepted (their behaviour: tests/test_torch_train_guard.py)
     for knob, value in (("PADDLE_GUARD_MODE", "abort"),
                         ("PADDLE_GUARD_SPIKE_FACTOR", "4")):
         monkeypatch.setenv(knob, value)
-        with pytest.raises(NotImplementedError):
-            pt.jit.TrainStep(tm, _torch_loss,
-                             pt.optimizer.AdamW(learning_rate=LR))
+        step = pt.jit.TrainStep(tm, _torch_loss,
+                                pt.optimizer.AdamW(learning_rate=LR))
+        assert step._guard.mode == ("abort" if value == "abort" else "skip")
         monkeypatch.delenv(knob)
+    with pytest.raises(ValueError):
+        monkeypatch.setenv("PADDLE_GUARD_MODE", "bogus")
+        pt.jit.TrainStep(tm, _torch_loss, pt.optimizer.AdamW(learning_rate=LR))
+    monkeypatch.delenv("PADDLE_GUARD_MODE")
     strategy = pt.distributed.fleet.DistributedStrategy()
     strategy.recompute = True
     opt = pt.optimizer.AdamW(learning_rate=LR)
