@@ -190,8 +190,10 @@
    to the eager forward's, or within 1e-5 of the largest, the eager
    forward's launches, no ``jax``, ``paddle_tpu`` or model source loaded;
    save, load and forward ms, the artifact's bytes;
-23. its ``guarded_training_phase``: bench.py's GPT-medium program (float32,
-   TF32 off, AdamW 1e-4 / 0.01, B = 4, S = 1024) through ``TrainStep``
+23. its ``guarded_training_phase``: bench.py's GPT-medium program at its
+   full width and 4 of its 24 blocks (a depth cut, ``GUARD_LAYERS``;
+   float32, TF32 off, AdamW 1e-4 / 0.01, B = 4, S = 1024) through
+   ``TrainStep``
    under the numerical guard and ``train_epoch_range``: guard on against
    guard off from the same weights (losses and parameters bit-equal, the
    same launches), a trace window of the guarded steps (no pageable
@@ -214,7 +216,18 @@
    800 x 1333) sizes; each result on the card equals the port's CPU
    result on the same tensors within 1e-4 (NMS's kept rows equal but at
    score ties, reported); step and NMS ms;
-25. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
+25. its ``multichip_gpt_phase``: bench.py's ``_bench_gpt_multichip``
+   program (GPT-medium at full width and depth, fleet dp2 x mp2, global
+   batch 8) as a world of 4 ranks of this script (``--rank-child``)
+   started by ``paddle_tpu_torch.distributed.launch``, all on this card
+   over gloo (the backend rule for ranks that share a card): float32
+   against the same program in one process (each loss within 1e-5, every
+   first-step gradient gathered to full within 1e-5 of its largest, the
+   attention kernels at [4, 8, 1024, 64], 24 a step), one step under
+   ``PADDLE_FLASH_SHARD=0`` (no kernel, the same loss), and the bf16 AMP
+   program as bench writes it (ms/step, global tokens/s, collective ms by
+   op and transport, peak memory by rank: 4 ranks sharing one H100);
+26. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
    "device": ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device, outside a
@@ -343,6 +356,31 @@ DYGRAPH_LAUNCHES = {
         ("flash_attention_fwd", LAYERS), ("flash_attention_bwd_dq", LAYERS),
         ("flash_attention_bwd_dkv", LAYERS), ("layer_norm_fwd", LAYERS),
         ("add_layer_norm_fwd", LAYERS), ("layer_norm_bwd", 2 * LAYERS))}
+
+
+# bench.py's _bench_gpt_multichip program (GPT-medium, fleet dp x mp2,
+# global batch 4 * dp) as a world of 4 ranks of this script
+# (--rank-child) on the one card, over gloo: every rank's tensors and
+# kernels are on cuda:0, and the speeds are those of 4 ranks sharing one
+# H100 over gloo, which say nothing of NCCL across cards
+MC_DP, MC_MP = 2, 2
+MC_WORLD = MC_DP * MC_MP
+MC_BATCH = 4 * MC_DP
+MC_STEPS = 3
+# float32, TF32 off: each step's dp-mean loss within MC_LOSS_RTOL of the
+# one-process step on the global batch, every first-step gradient
+# (gathered to full) within MC_GRAD_RTOL of its largest value (the row-
+# parallel all-reduce adds two partial products where one process sums
+# one contraction, and the dp mean averages two local means: float32
+# rounding, about 1e-7 relative)
+MC_LOSS_RTOL = 1e-5
+MC_GRAD_RTOL = 1e-5
+#: a world still running after this many seconds is killed and fails
+MC_DEADLINE_S = 480
+#: the attention kernels' shape on each rank: [B/dp, H/mp, S, D]
+MC_RANK_SHAPE = (MC_BATCH // MC_DP, HEADS // MC_MP, TRAIN_S,
+                 D_MODEL // HEADS)
+MC_RANK_ROW = "per rank dp2 x mp2 S=1024"
 
 
 # B5 (layer_norm_fwd) before its redesign, float32 ms by shape: this
@@ -671,6 +709,8 @@ def flash_phase(fa, gen, rows):
         (BATCH, HEADS, 128, 128, D0, True, 0, 64, "64 fully masked rows"),
         (BATCH, HEADS, PROMPT + 8, PROMPT + 8, D0, True, 0, 0, serve),
         (TRAIN_B, HEADS, TRAIN_S, TRAIN_S, D0, True, 0, 0, train),
+        (TRAIN_B, HEADS // MC_MP, TRAIN_S, TRAIN_S, D0, True, 0, 0,
+         MC_RANK_ROW),
         (1, HEADS, 4 * TRAIN_S, 4 * TRAIN_S, D0, True, 0, 0, "long S=4096"),
         (WIDE_B, WIDE_H, WIDE_S, WIDE_S, WIDE_D, True, 0, 0, wide),
         (2, 4, 200, 200, 256, False, 0, 0, "ragged, not causal"),
@@ -705,7 +745,8 @@ def flash_phase(fa, gen, rows):
             # float32 at the serving shape too, bf16 at BERT's non-causal
             if what not in (train, wide) and not (
                     what == serve and dtype == torch.float32) and not (
-                    what == bert and dtype == torch.bfloat16):
+                    what == bert and dtype == torch.bfloat16) and not (
+                    what == MC_RANK_ROW and dtype != torch.float16):
                 continue
             calls = 20 if S <= 256 else 5
             ms = time_ms(lambda: fa.flash_attention_fwd(
@@ -737,7 +778,9 @@ def flash_phase(fa, gen, rows):
                 at_serving_shape=timed[serve, "float32"],
                 bf16=timed[train, "bf16"], float16=timed[train, "float16"],
                 head_dim_256={t: timed[wide, t] for t in SHORT.values()},
-                bert_not_causal_bf16=timed[bert, "bf16"])
+                bert_not_causal_bf16=timed[bert, "bf16"],
+                per_rank_dp2_mp2={t: timed[MC_RANK_ROW, t]
+                                  for t in ("float32", "bf16")})
 
 
 def ln_phase(ln, gen, rows):
@@ -981,6 +1024,7 @@ def flash_bwd_phase(fa, gen, rows):
     bert = BERT_BLOCKWISE_ROW
     cases = [  # (B, H, Sq, Sk, D, causal, q_offset, kv_offset, what)
         (TRAIN_B, HEADS, S, S, D0, True, 0, 0, train),
+        (TRAIN_B, HEADS // MC_MP, S, S, D0, True, 0, 0, MC_RANK_ROW),
         (BERT_B, BERT_HEADS, BERT_S, BERT_S, BERT_D // BERT_HEADS, False, 0,
          0, bert),
         (2, HEADS, 128, 256, D0, True, 128, 0, "end-aligned q_offset=Sk-Sq"),
@@ -1021,7 +1065,8 @@ def flash_bwd_phase(fa, gen, rows):
                 fail(f"flash backward {what}: fully masked rows must get "
                      "dq = 0")
             if what not in (train, wide) and not (
-                    what == bert and dtype == torch.bfloat16):
+                    what == bert and dtype == torch.bfloat16) and not (
+                    what == MC_RANK_ROW and dtype != torch.float16):
                 continue
             ms_dq = time_ms(lambda: fa.flash_attention_bwd_dq(
                 q, k, v, do, lse, delta, **kw), calls=5)
@@ -1072,7 +1117,9 @@ def flash_bwd_phase(fa, gen, rows):
              bf16=timed[name, train, "bf16"],
              float16=timed[name, train, "float16"],
              head_dim_256={t: timed[name, wide, t] for t in SHORT.values()},
-             bert_not_causal_bf16=timed[name, bert, "bf16"])
+             bert_not_causal_bf16=timed[name, bert, "bf16"],
+             per_rank_dp2_mp2={t: timed[name, MC_RANK_ROW, t]
+                               for t in ("float32", "bf16")})
         for name, line in (("flash_attention_bwd_dq", "171 (_dq_kernel)"),
                            ("flash_attention_bwd_dkv", "224 (_dkv_kernel)")))
 
@@ -4059,6 +4106,12 @@ def jit_save_phase(pt, kernels, card):
 # PADDLE_GUARD_MAX_SKIPS = GUARD_MAX_SKIPS.
 GUARD_SYNC_EVERY, GUARD_STEPS = 2, 4
 ACP_EPOCHS, ACP_STEPS, ACP_INTER = 3, 2, 2
+# the depth cut that keeps the script's phases near half its time limit
+# once the multichip phase joined them: the guarded phase's GPT keeps
+# bench's width and its first GUARD_LAYERS of 24 blocks (named in PERF.md;
+# CHIP_SMOKE_GUARD_LAYERS sets another depth, which the --acp-child
+# processes inherit: tools/time_guarded_depth.py times the phase at two)
+GUARD_LAYERS = int(os.environ.get("CHIP_SMOKE_GUARD_LAYERS", "4"))
 GUARD_MAX_SKIPS = 2
 #: the six kernels' functions, as the trace names them
 TRACE_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
@@ -4077,13 +4130,23 @@ def _bench_batch(paddle):
     return ids, labels
 
 
+def _gpt_cut(layers):
+    """bench's GPT-medium at its full width with only its first ``layers``
+    blocks (the guarded phase's depth cut)."""
+    from paddle_tpu_torch import nn
+
+    model = _gpt_medium()
+    model.blocks = nn.LayerList(list(model.blocks)[:layers])
+    return model
+
+
 def _acp_trainer(paddle, model=None):
-    """bench's GPT-medium program (built from seed 0 unless given), AdamW
-    1e-4 / weight decay 0.01, and its TrainStep under the current guard
-    knobs."""
+    """bench's GPT-medium program at GUARD_LAYERS (built from seed 0 unless
+    given), AdamW 1e-4 / weight decay 0.01, and its TrainStep under the
+    current guard knobs."""
     if model is None:
         paddle.seed(0)
-        model = _gpt_medium()
+        model = _gpt_cut(GUARD_LAYERS)
     opt = paddle.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
                                  parameters=model.parameters())
     return model, opt, paddle.jit.TrainStep(model, _bench_lm_loss(model),
@@ -4162,12 +4225,14 @@ def _trace_rows(trace_dir):
 
 
 def guarded_training_phase(pt, kernels, card):
-    """Phase (a): bench.py's GPT-medium (24 layers, d 1024, 16 heads, vocab
-    32000, float32, B 4, S 1024, AdamW through ``TrainStep``) under the
-    guard (skip) and inside ``train_epoch_range``. Gates:
+    """Phase (a): bench.py's GPT-medium at its full width (d 1024, 16
+    heads, vocab 32000, float32, B 4, S 1024, AdamW through ``TrainStep``)
+    and GUARD_LAYERS of its 24 blocks (a depth cut) under the guard (skip)
+    and inside ``train_epoch_range``. Gates:
 
     1. guard on, no fault: losses and parameters bit-equal to the guard-off
-       steps, each kernel launched as often (DYGRAPH_LAUNCHES a step); a
+       steps, each kernel launched as often (DYGRAPH_LAUNCHES a step, at
+       GUARD_LAYERS of LAYERS); a
        trace window of GUARD_STEPS steps holds no blocking (pageable)
        device-to-host copy, exactly one pinned one every GUARD_SYNC_EVERY
        steps, the six kernels and the ``TrainStep::guard`` span (the
@@ -4216,7 +4281,7 @@ def _guarded_training(paddle, kernels, card, tmp, profiler, TrainEpochRange,
                       signal):
     t_phase = time.perf_counter()
     paddle.seed(0)
-    model = _gpt_medium()
+    model = _gpt_cut(GUARD_LAYERS)
     init = {k: v.detach().clone() for k, v in model.state_dict().items()}
     ids, labels = _bench_batch(paddle)
 
@@ -4272,7 +4337,8 @@ def _guarded_training(paddle, kernels, card, tmp, profiler, TrainEpochRange,
     bit_equal = on_l == off_l and all(torch.equal(on_p[k], v)
                                       for k, v in off_p.items())
     del runs, off_p, on_p
-    want = {k: {t: c * GUARD_STEPS for t, c in v.items()}
+    want = {k: {t: c * GUARD_STEPS * GUARD_LAYERS // LAYERS
+                for t, c in v.items()}
             for k, v in DYGRAPH_LAUNCHES.items()}
     print(f"guarded training gate 1 ({GUARD_STEPS} steps from the same "
           f"weights): losses off {off_l}, on {on_l}; "
@@ -4764,6 +4830,290 @@ def detection_phase(pt, kernels, card):
     return counts
 
 
+def _mc_batch():
+    """bench.py's _bench_gpt_multichip batch: the global [4 * dp, S] ids and
+    next-token labels, as numpy."""
+    n = MC_BATCH * TRAIN_S
+    ids = (np.arange(n) % 31000).reshape(MC_BATCH, TRAIN_S).astype(np.int64)
+    labels = ((np.arange(n) + 1) % 31000).reshape(MC_BATCH, TRAIN_S) \
+        .astype(np.int64)
+    return ids, labels
+
+
+def multichip_gpt_phase(pt, kernels, card):
+    """bench.py's ``_bench_gpt_multichip`` program at GPT-medium's full
+    width and depth, as a world of 4 ranks (dp2 x mp2) of this script
+    (``--rank-child``), all on this card, over gloo (the backend rule for
+    ranks that share a card), started by the port's launcher
+    (``distributed.launch``) with a deadline.
+
+    The parent first runs the program in one process on the same global
+    batch (B = 8) and weights (seed 0): the first-step gradients, then
+    ``MC_STEPS`` float32 steps (TF32 off), and writes the weights and the
+    gradients to a temporary directory (``/dev/shm`` where there is one);
+    then it frees the card before the world starts. Each rank loads the
+    full weights through ``set_state_dict``, which keeps its shard, and:
+
+    (a) float32: its first-step gradients, averaged over dp and gathered
+        to full, within ``MC_GRAD_RTOL`` of the one-process gradient's
+        largest value; ``MC_STEPS`` steps of ``TrainStep`` (AdamW 1e-4 /
+        0.01, ``fused_linear_cross_entropy``), each dp-mean loss within
+        ``MC_LOSS_RTOL`` of the one-process loss and the same on all 4
+        ranks; B1, B3 and B4 launched 24 times a step at ``[4, 8, 1024,
+        64]`` float32, B5/B6/B7 at the one-process step's counts, no other
+        kernel type. Parameters after the steps are not gated: Adam turns
+        sub-ulp gradient differences into lr-sized ones.
+    (c) one float32 step from the same weights under
+        ``PADDLE_FLASH_SHARD=0``: no kernel launch (the dense attention and
+        LayerNorm), its loss within ``MC_LOSS_RTOL`` of (a)'s first.
+    (b) bench's program as written (bf16 AMP O1 through the strategy):
+        one warm-up step, then ``MC_STEPS`` timed: step ms and global
+        tokens/s, host ms in collectives by (op, transport), per-rank peak
+        memory, B1/B3/B4 launches in bf16; finite losses, the same on all
+        ranks.
+
+    Fails when a rank exits non-zero or outlives ``MC_DEADLINE_S``, when a
+    collective ran on another backend than the rule's, or when a gate or
+    a kernel of the path fails. Returns rank 0's launch counts of (a) and
+    (b)."""
+    import gc
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.distributed import launch as dlaunch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    shm = "/dev/shm" if os.path.isdir("/dev/shm") else None
+    root = tempfile.mkdtemp(prefix="mc_gpt_", dir=shm)
+    try:
+        pt.seed(0)
+        model = _gpt_medium()
+        lm_loss = _bench_lm_loss(model)
+        torch.save({k: v.detach().cpu() for k, v in
+                    model.state_dict().items()},
+                   os.path.join(root, "state.pt"))
+        ids, labels = (torch.as_tensor(a, device="cuda")
+                       for a in _mc_batch())
+        torch.cuda.reset_peak_memory_stats()
+        loss = lm_loss(model(ids), labels)
+        loss.backward()
+        torch.save({k: p.grad.detach().cpu()
+                    for k, p in model.named_parameters()},
+                   os.path.join(root, "grads.pt"))
+        model.clear_gradients()
+        step = pt.jit.TrainStep(model, lm_loss, pt.optimizer.AdamW(
+            learning_rate=1e-4, weight_decay=0.01,
+            parameters=model.parameters()))
+        ref = [step(ids, labels).item() for _ in range(MC_STEPS)]
+        ref_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del model, step, loss, lm_loss, ids, labels
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        print(f"multichip GPT: one-process reference, B={MC_BATCH} "
+              f"S={TRAIN_S} float32: first-step loss {ref[0]:.6f}, losses "
+              f"{[f'{x:.6f}' for x in ref]}, peak {ref_peak:.2f} GiB, "
+              f"{time.perf_counter() - t0:.1f} s with the weights and "
+              "gradients written")
+        logs = os.path.join(root, "logs")
+        t1 = time.perf_counter()
+        rc = dlaunch.launch(os.path.abspath(__file__),
+                            ["--rank-child", root],
+                            nproc_per_node=MC_WORLD, log_dir=logs,
+                            deadline=MC_DEADLINE_S)
+        world_s = time.perf_counter() - t1
+        for r in range(MC_WORLD):
+            with open(os.path.join(logs, f"workerlog.{r}")) as f:
+                text = f.read()
+            if rc != 0 or r == 0:
+                print(f"--- rank {r} log ---\n{text.rstrip()}")
+        if rc != 0:
+            fail(f"multichip GPT: the world of {MC_WORLD} ranks exited "
+                 f"with code {rc}")
+        res = []
+        for r in range(MC_WORLD):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"multichip GPT: world of {MC_WORLD} ranks (dp{MC_DP} x mp{MC_MP})"
+          f" ran in {world_s:.1f} s on {card}, 4 ranks sharing one H100 over "
+          "gloo")
+    for r, o in enumerate(res):
+        bad = [c for c in o["a_counts"] + o["b_counts"]
+               if c["backend"] != "gloo" or c["transport"] != "gloo-cuda"]
+        if o["backend"] != "gloo" or bad:
+            fail(f"multichip GPT rank {r}: a collective left the rule's "
+                 f"backend (gloo, gloo-cuda): {o['backend']}, {bad}")
+        for i, (got, want) in enumerate(zip(o["a_losses"], ref)):
+            if abs(got - want) > MC_LOSS_RTOL * abs(want):
+                fail(f"multichip GPT rank {r} step {i + 1}: loss {got!r} "
+                     f"against one process's {want!r}")
+        if o["grad_worst"] > MC_GRAD_RTOL:
+            fail(f"multichip GPT rank {r}: gradient {o['grad_worst_name']} "
+                 f"off by {o['grad_worst']:.3e} of its largest value")
+        want = {k: {t: n * MC_STEPS for t, n in v.items()}
+                for k, v in DYGRAPH_LAUNCHES.items()}
+        if o["a_launches"] != want:
+            fail(f"multichip GPT rank {r}: float32 launches "
+                 f"{o['a_launches']}, expected {want}")
+        for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                     "flash_attention_bwd_dkv"):
+            if o["a_shapes"][name] != [list(MC_RANK_SHAPE)]:
+                fail(f"multichip GPT rank {r}: {name} at "
+                     f"{o['a_shapes'][name]}, expected {MC_RANK_SHAPE}")
+            if o["b_launches"][name] != {"bfloat16": MC_STEPS * LAYERS}:
+                fail(f"multichip GPT rank {r}: {name} bf16 launches "
+                     f"{o['b_launches'][name]}")
+        if any(o["c_launches"].values()) or o["c_declines"]["flash"] == 0:
+            fail(f"multichip GPT rank {r}: PADDLE_FLASH_SHARD=0 launched "
+                 f"{o['c_launches']} (declines {o['c_declines']})")
+        if abs(o["c_loss"] - ref[0]) > MC_LOSS_RTOL * abs(ref[0]):
+            fail(f"multichip GPT rank {r}: PADDLE_FLASH_SHARD=0 loss "
+                 f"{o['c_loss']!r} against {ref[0]!r}")
+        if not all(np.isfinite(o["b_losses"])):
+            fail(f"multichip GPT rank {r}: bf16 losses {o['b_losses']}")
+    for key in ("a_losses", "b_losses", "c_loss"):
+        if any(o[key] != res[0][key] for o in res):
+            fail(f"multichip GPT: {key} differ across ranks: "
+                 f"{[o[key] for o in res]}")
+    r0 = res[0]
+    ms = float(np.mean(r0["b_ms"]))
+    print(f"multichip GPT (a) float32: losses {r0['a_losses']} (one "
+          f"process {ref}); worst first-step gradient "
+          f"{max(o['grad_worst'] for o in res):.3e} of its largest "
+          f"({r0['grad_worst_name']}); launches a rank "
+          f"{r0['a_launches']} at {r0['a_shapes']['flash_attention_fwd']}")
+    print(f"multichip GPT (c) PADDLE_FLASH_SHARD=0: loss {r0['c_loss']!r}, "
+          f"launches {r0['c_launches']}, declines {r0['c_declines']}")
+    print(f"multichip GPT (b) bf16 AMP, {MC_STEPS} steps after one warm-up "
+          f"(4 ranks sharing one H100 over gloo): losses {r0['b_losses']}; "
+          f"step ms {[round(x, 1) for x in r0['b_ms']]}, mean {ms:.1f} ms, "
+          f"{MC_BATCH * TRAIN_S / ms * 1e3:.1f} global tokens/s; peak "
+          f"memory by rank {[round(o['b_peak_gib'], 2) for o in res]} GiB; "
+          f"load {[round(o['load_s'], 2) for o in res]} s; bf16 launches "
+          f"{ {k: v for k, v in r0['b_launches'].items()} }")
+    for c in r0["b_counts"]:
+        print(f"multichip GPT (b) rank 0 collectives, {MC_STEPS} steps: "
+              f"{c['op']} {c['backend']}/{c['transport']}: {c['calls']} "
+              f"calls, {c['bytes'] / 2 ** 20:.1f} MiB, {c['ms']:.1f} host ms")
+    return {"multichip_gpt_f32": {k: sum(v.values()) for k, v in
+                                  r0["a_launches"].items()},
+            "multichip_gpt_bf16": {k: sum(v.values()) for k, v in
+                                   r0["b_launches"].items()}}
+
+
+def rank_child(argv) -> int:
+    """``python3 chip_smoke.py --rank-child DIR``: one rank of the multichip
+    GPT phase's world, started by the port's launcher with its rank's env.
+    Writes its results to ``DIR/rank<r>.json``."""
+    root, = argv
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import comm, fleet
+    from paddle_tpu_torch.nn.functional import attention as attn
+    from paddle_tpu_torch.ops import kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_parallel_env()
+    rank = dist.get_rank()
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": MC_DP, "mp_degree": MC_MP}
+    fleet.init(is_collective=True, strategy=strategy)
+    pt.seed(0)
+    model = _gpt_medium()
+    lm_loss = _bench_lm_loss(model)
+    state = os.path.join(root, "state.pt")
+
+    t = time.perf_counter()
+    model.set_state_dict(torch.load(state, mmap=True))
+    torch.cuda.synchronize()
+    out = {"rank": rank, "backend": comm.backend(),
+           "load_s": time.perf_counter() - t}
+    # the loaded shards, kept on the card to start (c) and (b) from
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    fl = fleet.distributed_model(model)
+    ids, labels = (fl.shard_input(a) for a in _mc_batch())
+    mon = dist.comm_monitor.monitor()
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    # (a) the first-step gradients, averaged over dp, gathered to full
+    loss = lm_loss(fl(ids), labels)
+    loss.backward()
+    want = torch.load(os.path.join(root, "grads.pt"), mmap=True)
+    worst, worst_name = 0.0, ""
+    for name, p in model.named_parameters():
+        shard = getattr(p, "_tp_shard", None)
+        full = shard.gather(p.grad) if shard is not None else p.grad
+        w = want[name].to(dev)
+        rel = ((full - w).abs().max() / w.abs().max()).item()
+        if rel > worst:
+            worst, worst_name = rel, name
+    out.update(grad_worst=worst, grad_worst_name=worst_name)
+    model.clear_gradients()
+    del loss, want
+
+    def trainer(strat=None):
+        opt = pt.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                                 parameters=model.parameters())
+        return pt.jit.TrainStep(fl, lm_loss, fleet.distributed_optimizer(
+            opt, strategy=strat))
+
+    # (a) float32 steps
+    step = trainer()
+    mon.reset_counts()
+    kernels.reset_launches()  # the float32 multichip path starts here
+    out["a_losses"] = [step(ids, labels).item() for _ in range(MC_STEPS)]
+    out["a_launches"] = kernels.launches_by_dtype()  # ... and ends here
+    out["a_shapes"] = kernels.launch_shapes()
+    out["a_counts"] = mon.comm_counts()
+    del step
+
+    # (c) one float32 step from the same weights under PADDLE_FLASH_SHARD=0
+    model.set_state_dict(init)
+    os.environ["PADDLE_FLASH_SHARD"] = "0"
+    step = trainer()
+    for k in attn.SHARD_DECLINES:
+        attn.SHARD_DECLINES[k] = 0
+    kernels.reset_launches()
+    out["c_loss"] = step(ids, labels).item()
+    out["c_launches"] = kernels.launches()
+    out["c_declines"] = dict(attn.SHARD_DECLINES)
+    os.environ.pop("PADDLE_FLASH_SHARD")
+    del step
+
+    # (b) bench's program as written: bf16 AMP through the strategy
+    model.set_state_dict(init)
+    del init
+    amp = fleet.DistributedStrategy()
+    amp.amp = True
+    amp.hybrid_configs = {"dp_degree": MC_DP, "mp_degree": MC_MP}
+    step = trainer(amp)
+    step_ms = []
+    step(ids, labels).item()  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    mon.reset_counts()
+    kernels.reset_launches()  # the bf16 multichip path starts here
+    losses = []
+    for _ in range(MC_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(step(ids, labels).item())  # .item() syncs
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    out["b_launches"] = kernels.launches_by_dtype()  # ... and ends here
+    out.update(b_losses=losses, b_ms=step_ms, b_counts=mon.comm_counts(),
+               b_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    print(f"rank {rank}: {json.dumps(out)}", flush=True)
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    comm.destroy_parallel_env()
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4864,6 +5214,9 @@ def main() -> int:
           f"{time.perf_counter() - t_start:.1f} s")
     detection = detection_phase(pt, kernels, card)
     print(f"detection phase done at {time.perf_counter() - t_start:.1f} s")
+    multichip = multichip_gpt_phase(pt, kernels, card)
+    print(f"multichip GPT phase done at {time.perf_counter() - t_start:.1f} "
+          "s")
     entries = [flash, ln_entry, add_entry, dq_entry, dkv_entry, ln_bwd_entry]
     for e in entries:
         if hmma is not None and e["name"] in hmma:
@@ -4892,7 +5245,8 @@ def main() -> int:
             **{k: v[e["name"]] for k, v in to_static.items()},
             **{f"jit_save_{k}": v[e["name"]] for k, v in saved.items()},
             "guarded_training": sum(guarded[e["name"]].values()),
-            "detection": detection[e["name"]]}
+            "detection": detection[e["name"]],
+            **{k: v[e["name"]] for k, v in multichip.items()}}
     print(f"{card}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
@@ -4904,4 +5258,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--acp-child"]:
         sys.exit(acp_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--rank-child"]:
+        sys.exit(rank_child(sys.argv[2:]))
     sys.exit(main())

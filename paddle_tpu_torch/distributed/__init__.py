@@ -1,20 +1,61 @@
-"""Distributed layers of the port (single-device form so far), ``fleet``,
-``parallel`` (``DataParallel``, ``ParallelEnv``, ``init_parallel_env`` at a
-world size of one),
-the one-device mesh of ``comm``, the quantization plane's serving
-half (``quantized_comm``: the quantizer and the KV layout;
-``quantized_compute``: narrow weights), and the trainer's half of
-``elastic`` (heartbeat, the preemption notice)."""
-from . import (comm, elastic, fleet, parallel, quantized_comm,
-               quantized_compute)
+"""``paddle_tpu_torch.distributed`` (counterpart of
+``paddle_tpu/distributed/__init__.py``; reference surface:
+python/paddle/distributed/__init__.py).
+
+**A rank is a process** of a ``torch.distributed`` process group, each
+with its own tensors: the JAX package's single-controller model, where a
+per-rank value is a global array with a leading rank axis, becomes
+upstream Paddle's (and PyTorch's) model, where row ``r`` of that axis is
+what rank ``r`` holds (``comm.py``). The backend follows a rule: ``nccl``
+when each rank of a host has a card of its own, ``gloo`` when ranks share
+a card or run on the CPU.
+
+Ported: the world and its groups (``comm``), the collectives
+(``collective``), the comm monitor (``comm_monitor``), ``spawn`` and the
+``python -m paddle_tpu_torch.distributed.launch`` launcher,
+``DataParallel`` across trainers (``parallel``), the tensor-parallel
+layers at any mp (``meta_parallel``), ``fleet`` at any dp x mp, the
+quantization plane's serving half (``quantized_comm``,
+``quantized_compute``) and the trainer's half of ``elastic``. The
+pipeline, ring and Ulysses attention, MoE, quantized gradient comm,
+resharding, ZeRO sharding and the elastic launcher are ROADMAP queue A
+item 7's later parts.
+"""
+from . import (comm, comm_monitor, collective, elastic, fleet, parallel,
+               quantized_comm, quantized_compute)
+from .collective import (ReduceOp, all_gather, all_reduce, alltoall,
+                         barrier, broadcast, monitored_barrier, reduce,
+                         reduce_scatter, scatter, wait)
+from .comm import (Group, ParallelEnv, get_group, get_rank, get_world_size,
+                   in_spmd_region, init_parallel_env, is_initialized,
+                   new_group, replicate, shard_rank_axis, spmd_region)
 from .meta_parallel import (
     ColumnParallelLinear, ParallelGPTBlock, ParallelMultiHeadAttention,
-    RowParallelLinear,
+    RowParallelLinear, VocabParallelEmbedding, split,
 )
-from .parallel import DataParallel, ParallelEnv, init_parallel_env
+from .parallel import DataParallel
+from .spawn import spawn
 
-__all__ = ["comm", "elastic", "fleet", "parallel", "quantized_comm",
-           "quantized_compute",
-           "DataParallel", "ParallelEnv", "init_parallel_env",
+
+def __getattr__(name):
+    # .launch is the `python -m paddle_tpu_torch.distributed.launch` entry
+    # point: imported on first use, since importing it with the package
+    # would trip runpy's re-execution warning
+    if name == "launch":
+        import importlib
+
+        return importlib.import_module(".launch", __name__)
+    raise AttributeError(name)
+
+
+__all__ = ["comm", "comm_monitor", "collective", "elastic", "fleet",
+           "parallel", "quantized_comm", "quantized_compute",
+           "ReduceOp", "all_gather", "all_reduce", "alltoall", "barrier",
+           "broadcast", "monitored_barrier", "reduce", "reduce_scatter",
+           "scatter", "wait", "Group", "ParallelEnv", "get_group",
+           "get_rank", "get_world_size", "in_spmd_region",
+           "init_parallel_env", "is_initialized", "new_group", "replicate",
+           "shard_rank_axis", "spmd_region", "DataParallel", "spawn",
            "ColumnParallelLinear", "RowParallelLinear",
-           "ParallelMultiHeadAttention", "ParallelGPTBlock"]
+           "VocabParallelEmbedding", "ParallelMultiHeadAttention",
+           "ParallelGPTBlock", "split"]

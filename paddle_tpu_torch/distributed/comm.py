@@ -1,49 +1,411 @@
-"""The one-process part of ``paddle_tpu/distributed/comm.py``: the
-job-wide hybrid mesh that bench.py's ``_gpt_medium`` declares.
+"""Communication core: the trainer world, groups and the hybrid mesh
+(counterpart of ``paddle_tpu/distributed/comm.py``).
 
-``init_hybrid_mesh(dp=1, mp=1, pp=1, sp=1)`` records a mesh of one
-device and ``hybrid_mesh()`` returns it (None before). A degree above 1
-on any axis raises ``NotImplementedError``: meshes over several cards,
-and the collectives over them, are a later slice of the port.
-``get_world_size()`` and ``get_rank()`` give the one-process world (1 and
-0); a launch of several trainers (``PADDLE_TRAINERS_NUM`` > 1) raises.
+**A rank is a process.** The JAX package is single-controller SPMD: one
+process drives every device, and a per-rank value is a global array whose
+leading axis is the rank axis. The port returns to upstream Paddle's model,
+which is also PyTorch's: each rank is a process of a ``torch.distributed``
+process group and holds its own tensor. Row ``r`` of the JAX package's rank
+axis is what rank ``r`` of the port holds: :func:`shard_rank_axis` takes the
+global ``[N, ...]`` array and returns this rank's row, :func:`replicate`
+returns the rank's copy, and :func:`spmd_region` / :func:`in_spmd_region`
+keep their names and contract (every port call is already per rank).
+
+``init_parallel_env`` reads the launch env that ``launch.build_cluster_env``
+writes (``PADDLE_TRAINER_ID``, ``PADDLE_TRAINERS_NUM``,
+``PADDLE_CURRENT_ENDPOINT``, ``PADDLE_TRAINER_ENDPOINTS``) and meets its
+peers at rank 0's endpoint (``tcp://``), or at ``init_method`` (a
+``file://`` store needs no port). Each rank's device is ``cuda:{local_rank %
+device_count}``, or the CPU when the caller asks (``device="cpu"``, or
+``set_device("cpu")`` before).
+
+**The backend, by rule:** ``nccl`` when every rank of the host has a card of
+its own; ``gloo`` when ranks share a card (several ranks on one H100) or run
+on the CPU. NCCL refuses two ranks on one device, so the rule is not a
+preference: a ``backend=`` that disagrees with it raises, and nothing picks
+another backend in silence. :func:`backend` names the job's.
+
+``init_hybrid_mesh(dp, mp)`` lays the world out as the JAX package's mesh,
+axis order ``(dp, pp, sp, mp)`` with mp innermost (rank = dp_index * mp +
+mp_index), and makes the dp and mp subgroups once, on every rank in the same
+order. ``pp``, ``sp`` and ``dp_inner`` above 1 raise, naming the ROADMAP
+item that brings them.
 """
 from __future__ import annotations
 
+import atexit
+import datetime
 import os
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
-__all__ = ["HybridMesh", "init_hybrid_mesh", "hybrid_mesh",
-           "get_world_size", "get_rank"]
+import torch
+import torch.distributed as dist
+
+__all__ = ["Group", "HybridMesh", "ParallelEnv", "init_parallel_env",
+           "is_initialized", "get_group", "new_group", "get_rank",
+           "get_world_size", "backend", "backend_rule", "rank_device",
+           "init_hybrid_mesh", "hybrid_mesh", "dp_axes", "dp_size",
+           "mp_mesh", "mp_group", "dp_group", "shard_rank_axis",
+           "replicate", "spmd_region", "in_spmd_region",
+           "destroy_parallel_env"]
+
+
+class Group:
+    """A communicator: a set of trainer ranks and the ``torch.distributed``
+    process group over them (None for a group of one rank, whose
+    collectives are local). ``rank`` is this process's index in the group,
+    -1 when it is not a member."""
+
+    def __init__(self, ranks: Sequence[int], gid: int,
+                 axis_name: Optional[str] = None, pg=None,
+                 backend_name: str = "local"):
+        self.ranks = [int(r) for r in ranks]
+        self.nranks = len(self.ranks)
+        self.id = int(gid)
+        self.axis_name = axis_name or f"g{self.id}"
+        self.pg = pg
+        self.backend = backend_name if self.nranks > 1 else "local"
+        self.rank = self.get_group_rank(get_rank())
+
+    @property
+    def world_size(self) -> int:
+        return self.nranks
+
+    @property
+    def is_member(self) -> bool:
+        return self.rank >= 0
+
+    def get_group_rank(self, rank: int) -> int:
+        return self.ranks.index(rank) if rank in self.ranks else -1
+
+    def __repr__(self):
+        return (f"Group(id={self.id}, nranks={self.nranks}, "
+                f"axis='{self.axis_name}', backend={self.backend})")
 
 
 class HybridMesh:
-    """The axes of the job's mesh and their degrees (all 1 here)."""
+    """The job's rank grid: axes ``(dp, pp, sp, mp)``, mp innermost. ``shape``
+    maps each axis to its degree; :meth:`group` is this rank's Group along
+    an axis and :meth:`axis_rank` its index there."""
 
-    def __init__(self, shape: Dict[str, int]):
+    def __init__(self, shape: Dict[str, int], groups: Dict[str, Group],
+                 coords: Dict[str, int]):
         self.shape = dict(shape)
         self.axis_names = tuple(self.shape)
         self.size = 1
+        for v in self.shape.values():
+            self.size *= int(v)
+        self._groups = groups
+        self._coords = coords
+
+    def group(self, axis: str) -> Group:
+        return self._groups[axis]
+
+    def axis_rank(self, axis: str) -> int:
+        return self._coords[axis]
 
     def __repr__(self):
         return f"HybridMesh({self.shape})"
 
 
+class _CommState:
+    def __init__(self):
+        self.default_group: Optional[Group] = None
+        self.groups: Dict[int, Group] = {}
+        self.next_gid = 1
+        self.spmd_axes: Tuple[str, ...] = ()
+        self.backend: Optional[str] = None
+        self.device: Optional[torch.device] = None
+
+
+_state = _CommState()
+#: the job's hybrid mesh (None before ``init_hybrid_mesh``)
 _mesh: Optional[HybridMesh] = None
+
+
+def _env_int(name: str, default: int) -> int:
+    raw = os.environ.get(name, "")
+    return int(raw) if raw.strip() else default
+
+
+def get_rank() -> int:
+    """This trainer's rank: the process group's, else
+    ``PADDLE_TRAINER_ID`` (0 when unset)."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return _env_int("PADDLE_TRAINER_ID", 0)
+
+
+def get_world_size() -> int:
+    """The number of trainer processes: the process group's, else
+    ``PADDLE_TRAINERS_NUM`` (1 when unset)."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return _env_int("PADDLE_TRAINERS_NUM", 1)
+
+
+def _local_rank_and_size() -> Tuple[int, int]:
+    """This rank's index among the ranks of its host, and their number,
+    from the launch env's endpoints (all ranks local when it has none)."""
+    rank, world = get_rank(), get_world_size()
+    eps = [e for e in os.environ.get(
+        "PADDLE_TRAINER_ENDPOINTS", "").split(",") if e]
+    if len(eps) != world:
+        return rank, world
+    host = eps[rank].rpartition(":")[0]
+    local = [i for i, e in enumerate(eps) if e.rpartition(":")[0] == host]
+    return local.index(rank), len(local)
+
+
+def backend_rule(device: torch.device, local_world: int) -> str:
+    """``nccl`` when each rank of the host has a card of its own, ``gloo``
+    when ranks share a card or run on the CPU."""
+    if device.type != "cuda":
+        return "gloo"
+    return "nccl" if local_world <= torch.cuda.device_count() else "gloo"
+
+
+def rank_device(device=None) -> torch.device:
+    """The device of this rank: the CPU when asked (``device="cpu"``, or
+    ``set_device("cpu")`` before), else ``cuda:{local_rank %
+    device_count}`` (raising on a host without a card)."""
+    from ..core import device as _dev
+
+    if device is not None:
+        return _dev.resolve_device(device)
+    if _dev._current is not None and _dev._current.type == "cpu":
+        return _dev._current
+    if not torch.cuda.is_available():
+        return _dev.resolve_device(None)  # raises: no CUDA device
+    local, _ = _local_rank_and_size()
+    return torch.device("cuda", local % torch.cuda.device_count())
+
+
+def init_parallel_env(backend: Optional[str] = None, *,
+                      init_method: Optional[str] = None,
+                      device=None) -> "ParallelEnv":
+    """Set up this trainer's world (reference: parallel.py:57): its device
+    (made the package default), and above one trainer the process group,
+    met at ``init_method`` or at rank 0's endpoint of
+    ``PADDLE_TRAINER_ENDPOINTS``. ``backend`` (None, ``"auto"`` or
+    ``PADDLE_DISTRI_BACKEND`` when unset) takes the rule's; another that
+    disagrees with the rule raises. ``PADDLE_RDV_DEADLINE`` (seconds, 600
+    when unset) bounds the rendezvous and each collective of gloo. A
+    second call returns the same world. The process group is torn down
+    at exit (:func:`destroy_parallel_env`)."""
+    from ..core import device as _dev
+
+    if _state.default_group is not None:
+        return ParallelEnv()
+    backend = backend or os.environ.get("PADDLE_DISTRI_BACKEND") or None
+    dev = rank_device(device)
+    world = get_world_size()
+    rank = get_rank()
+    _, local_world = _local_rank_and_size()
+    rule = backend_rule(dev, local_world)
+    if backend not in (None, "auto", rule):
+        raise ValueError(
+            f"init_parallel_env(backend={backend!r}): the rule gives "
+            f"{rule!r} for {local_world} rank(s) of this host on {dev} "
+            f"({torch.cuda.device_count() if dev.type == 'cuda' else 0} "
+            "card(s)); nccl needs a card per rank, gloo serves ranks "
+            "that share one")
+    meet = world > 1 and not dist.is_initialized()
+    if meet and init_method is None:
+        eps = [e for e in os.environ.get(
+            "PADDLE_TRAINER_ENDPOINTS", "").split(",") if e]
+        if not eps or ":" not in eps[0]:
+            raise ValueError(
+                f"PADDLE_TRAINERS_NUM={world} needs "
+                "PADDLE_TRAINER_ENDPOINTS (host:port entries) or an "
+                "init_method")
+        init_method = f"tcp://{eps[0]}"
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        _dev.set_device(f"gpu:{dev.index}")
+    else:
+        _dev.set_device("cpu")
+    _state.device = dev
+    _state.backend = rule
+    if meet:
+        secs = float(os.environ.get("PADDLE_RDV_DEADLINE", "") or 600.0)
+        dist.init_process_group(
+            rule, init_method=init_method, rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=secs))
+        atexit.register(destroy_parallel_env)
+    pg = dist.group.WORLD if world > 1 else None
+    _state.default_group = Group(range(world), 0, "dp", pg, rule)
+    _state.groups[0] = _state.default_group
+    _publish_streams()
+    return ParallelEnv()
+
+
+def _ensure_init() -> Group:
+    if _state.default_group is None:
+        init_parallel_env()
+    return _state.default_group
+
+
+def _default_group() -> Group:
+    return _ensure_init()
+
+
+def is_initialized() -> bool:
+    return _state.default_group is not None
+
+
+def backend() -> Optional[str]:
+    """The job's backend by the rule (None before ``init_parallel_env``)."""
+    return _state.backend
+
+
+def get_group(gid: int = 0) -> Optional[Group]:
+    return _state.groups.get(gid)
+
+
+def new_group(ranks: Optional[List[int]] = None,
+              backend: Optional[str] = None,
+              axis_name: Optional[str] = None) -> Group:
+    """A communicator over ``ranks`` (collective.py new_group). Every rank
+    of the world calls it, members or not, in the same order (a
+    ``torch.distributed`` rule); a non-member gets a Group whose ``rank``
+    is -1 and whose collectives return at once."""
+    world = _ensure_init()
+    ranks = list(range(world.nranks)) if ranks is None else \
+        sorted(int(r) for r in ranks)
+    if backend not in (None, "auto", _state.backend):
+        raise ValueError(f"new_group(backend={backend!r}): the job's rule "
+                         f"gives {_state.backend!r}")
+    pg = None
+    if world.nranks > 1 and len(ranks) > 1:
+        pg = dist.new_group(ranks, backend=_state.backend)
+    gid = _state.next_gid
+    _state.next_gid += 1
+    g = Group(ranks, gid, axis_name, pg, _state.backend)
+    _state.groups[gid] = g
+    return g
+
+
+class ParallelEnv:
+    """Env facade (reference: fluid/dygraph/parallel.py ParallelEnv)."""
+
+    @property
+    def rank(self) -> int:
+        return get_rank()
+
+    @property
+    def world_size(self) -> int:
+        return get_world_size()
+
+    @property
+    def nranks(self) -> int:
+        return self.world_size
+
+    @property
+    def local_rank(self) -> int:
+        return _local_rank_and_size()[0]
+
+    @property
+    def dev_id(self) -> int:
+        dev = _state.device
+        return int(dev.index or 0) if dev is not None and \
+            dev.type == "cuda" else 0
+
+    @property
+    def device_id(self) -> int:
+        return self.dev_id
+
+    @property
+    def current_endpoint(self) -> str:
+        return os.environ.get("PADDLE_CURRENT_ENDPOINT", "")
+
+    @property
+    def trainer_endpoints(self) -> list:
+        eps = os.environ.get("PADDLE_TRAINER_ENDPOINTS", "")
+        return [e for e in eps.split(",") if e]
+
+
+# ---------------------------------------------------------------------------
+# spmd regions: every port call is per rank already; the marker keeps the
+# JAX package's contract for code that asks
+# ---------------------------------------------------------------------------
+
+
+class _SpmdRegion:
+    def __init__(self, axes: Tuple[str, ...]):
+        self.axes = axes
+
+    def __enter__(self):
+        self._prev = _state.spmd_axes
+        _state.spmd_axes = self._prev + self.axes
+        return self
+
+    def __exit__(self, *exc):
+        _state.spmd_axes = self._prev
+
+
+def spmd_region(*axes: str) -> _SpmdRegion:
+    """Mark code that runs per rank over ``axes`` (on the process model all
+    of it does: collectives inside behave as outside)."""
+    return _SpmdRegion(tuple(axes))
+
+
+def in_spmd_region(axis_name: Optional[str] = None) -> bool:
+    if axis_name is None:
+        return bool(_state.spmd_axes)
+    return axis_name in _state.spmd_axes
+
+
+# ---------------------------------------------------------------------------
+# the hybrid mesh
+# ---------------------------------------------------------------------------
 
 
 def init_hybrid_mesh(dp: int = 1, mp: int = 1, pp: int = 1, sp: int = 1,
                      dp_inner: int = 1) -> HybridMesh:
-    """Declare the job's mesh (the JAX package's axis order: dp, pp, sp,
-    mp). Only the one-device mesh is ported."""
+    """Lay the world out as the job's mesh (axes dp, pp, sp, mp; mp
+    innermost) and make its dp and mp groups. ``dp * mp`` must be the
+    world size; ``pp``, ``sp`` and ``dp_inner`` above 1 raise."""
     global _mesh
-    degrees = dict(dp=dp, pp=pp, sp=sp, mp=mp)
-    if any(int(v) != 1 for v in degrees.values()) or int(dp_inner) != 1:
-        raise NotImplementedError(
-            f"init_hybrid_mesh({degrees}, dp_inner={dp_inner}): the port "
-            "runs one device so far; meshes over several cards are a later "
-            "slice")
-    _mesh = HybridMesh(degrees)
+    for name, v, item in (("pp", pp, "7 (the pipeline)"),
+                          ("sp", sp, "7 (ring and Ulysses attention)"),
+                          ("dp_inner", dp_inner,
+                           "7 (hierarchical allreduce)")):
+        if int(v) != 1:
+            raise NotImplementedError(
+                f"init_hybrid_mesh({name}={v}): not ported yet, ROADMAP "
+                f"queue A item {item}")
+    dp, mp = int(dp), int(mp)
+    need = dp * mp
+    world = get_world_size()
+    if need != world:
+        raise ValueError(
+            f"hybrid topology dp={dp} x mp={mp} = {need} ranks, but the "
+            f"world has {world}: launch dp * mp trainers")
+    if world > 1:
+        _ensure_init()
+    shape = dict(dp=dp, pp=1, sp=1, mp=mp)
+    if world == 1:
+        one = Group([0], -1, "mp")
+        groups = {a: one for a in shape}
+        coords = {a: 0 for a in shape}
+    else:
+        me = get_rank()
+        coords = dict(dp=me // mp, pp=0, sp=0, mp=me % mp)
+        groups = {}
+        # every rank makes every subgroup, in one order
+        for j in range(mp):
+            g = new_group([i * mp + j for i in range(dp)], axis_name="dp")
+            if j == coords["mp"]:
+                groups["dp"] = g
+        for i in range(dp):
+            g = new_group([i * mp + j for j in range(mp)], axis_name="mp")
+            if i == coords["dp"]:
+                groups["mp"] = g
+        solo = Group([me], -1, "solo")
+        groups["pp"] = groups["sp"] = solo
+    _mesh = HybridMesh(shape, groups, coords)
+    _publish_streams()
     return _mesh
 
 
@@ -51,18 +413,122 @@ def hybrid_mesh() -> Optional[HybridMesh]:
     return _mesh
 
 
-def get_world_size() -> int:
-    """The number of trainer processes: 1. ``PADDLE_TRAINERS_NUM`` above 1
-    raises: several trainers are a later slice of the port."""
-    n = int(os.environ.get("PADDLE_TRAINERS_NUM", "1"))
-    if n > 1:
-        raise NotImplementedError(
-            f"PADDLE_TRAINERS_NUM={n}: the port runs one trainer so far; "
-            "several ranks are ROADMAP queue A item 7 (distributed)")
-    return 1
+def dp_axes(mesh: Optional[HybridMesh] = None) -> str:
+    """The axis data-parallel work shards over: ``dp`` (the JAX package's
+    hierarchical ``dcn`` x ``ici`` pair is not ported: ``dp_inner``
+    raises)."""
+    return "dp"
 
 
-def get_rank() -> int:
-    """This trainer's rank: 0 (see ``get_world_size``)."""
-    get_world_size()
-    return 0
+def dp_size(mesh: Optional[HybridMesh] = None) -> int:
+    m = mesh if mesh is not None else _mesh
+    return 1 if m is None else int(m.shape["dp"])
+
+
+def mp_mesh() -> HybridMesh:
+    """The mesh tensor-parallel layers shard over (its ``mp`` axis)."""
+    if _mesh is None:
+        raise RuntimeError(
+            "model-parallel layers need a hybrid mesh: call "
+            "fleet.init(strategy=DistributedStrategy with "
+            "hybrid_configs={'mp_degree': N}) or "
+            "distributed.comm.init_hybrid_mesh(mp=N) first")
+    return _mesh
+
+
+def mp_group() -> Optional[Group]:
+    """This rank's mp Group (None without a mesh)."""
+    return None if _mesh is None else _mesh.group("mp")
+
+
+def dp_group() -> Optional[Group]:
+    """This rank's dp Group: the mesh's, else the default group (None
+    before ``init_parallel_env``)."""
+    if _mesh is not None:
+        return _mesh.group("dp")
+    return _state.default_group
+
+
+# ---------------------------------------------------------------------------
+# per-rank values
+# ---------------------------------------------------------------------------
+
+
+def _rank_in(group: Optional[Group]) -> Tuple[int, int]:
+    g = group or _ensure_init()
+    return g.rank, g.nranks
+
+
+def shard_rank_axis(raw, group: Optional[Group] = None):
+    """The global ``[nranks, ...]`` array of the JAX package's per-rank
+    convention -> this rank's row, a ``Tensor`` on the rank's device."""
+    from ..core.tensor import to_tensor
+
+    r, n = _rank_in(group)
+    arr = raw.numpy() if hasattr(raw, "numpy") else raw
+    if getattr(arr, "ndim", 0) == 0 or arr.shape[0] != n:
+        raise ValueError(f"shard_rank_axis: leading axis of length {n} "
+                         f"expected, got shape {tuple(arr.shape)}")
+    return to_tensor(arr[r], place=_state.device)
+
+
+def replicate(raw, group: Optional[Group] = None):
+    """The value every rank holds: a ``Tensor`` of ``raw`` on the rank's
+    device."""
+    from ..core.tensor import to_tensor
+
+    _ensure_init()
+    arr = raw.numpy() if hasattr(raw, "numpy") else raw
+    return to_tensor(arr, place=_state.device)
+
+
+# ---------------------------------------------------------------------------
+# random streams
+# ---------------------------------------------------------------------------
+
+
+def _publish_streams() -> None:
+    """Name this rank's random streams in ``core.random`` (outside a world
+    of several ranks none is named, and the package's generator serves):
+
+    - ``dropout``: per dp index. The batch is split over dp, so each dp
+      rank draws its own masks, while mp peers, which hold the same
+      activations, draw the same ones.
+    - ``dropout_mp``: per dp and mp index, for activations that tensor
+      parallelism shards (the heads, the MLP's hidden units).
+    - ``shard_init``: per mp index, for the shards of tensor-parallel
+      weights (dp peers hold the same shard; mp peers different ones, so
+      no two shards start equal).
+    """
+    from ..core import random as _rnd
+
+    keys = {}
+    if get_world_size() > 1 and _state.default_group is not None:
+        dp_i = _mesh.axis_rank("dp") if _mesh is not None else get_rank()
+        mp_i = _mesh.axis_rank("mp") if _mesh is not None else -1
+        keys = {"dropout": (1, dp_i, -1), "dropout_mp": (1, dp_i, mp_i)}
+    if _mesh is not None and _mesh.shape["mp"] > 1:
+        keys["shard_init"] = (2, _mesh.axis_rank("mp"))
+    _rnd.set_streams(keys)
+
+
+def _reset() -> None:
+    """Forget the world, its groups and the mesh (tests; the process group
+    itself is destroyed by whoever made it)."""
+    global _state, _mesh
+    _state = _CommState()
+    _mesh = None
+    _publish_streams()
+
+
+def destroy_parallel_env() -> None:
+    """Tear this rank's world down before the process exits: drop the
+    port's groups, then destroy the process groups while the interpreter
+    still runs (a gloo process group left to the interpreter's own
+    teardown can end the process with ``std::terminate``)."""
+    import gc
+
+    _reset()
+    gc.collect()
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()

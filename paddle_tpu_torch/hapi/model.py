@@ -108,7 +108,11 @@ class Model:
                 "amp via Model.prepare: use fleet DistributedStrategy.amp "
                 "(the TrainStep consumes it)"
             )
-        comm.get_world_size()  # several trainers: ROADMAP item 7
+        if comm.get_world_size() > 1:
+            raise NotImplementedError(
+                "Model.prepare with several trainers: hapi's data-parallel "
+                "Model is not ported yet, ROADMAP queue A item 7 (use "
+                "DataParallel and jit.TrainStep)")
         self._train_step = None
         self._prepared = True
         return self

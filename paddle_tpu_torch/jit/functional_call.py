@@ -44,23 +44,15 @@ def raw_state(layer) -> Tuple[Dict[str, torch.Tensor],
 
 @contextlib.contextmanager
 def _seeded(key):
-    """Draws of the package's generators inside come from generators
-    seeded with ``key`` (an int), so the call's randomness is a function
-    of it; the package's generators are put back after."""
+    """Draws of the package's generators (and of a world's named streams)
+    inside come from generators seeded from ``key`` (an int), so the
+    call's randomness is a function of it; the generators are put back
+    after."""
     if key is None:
         yield
         return
-    saved = dict(rnd._generators)
-    try:
-        for dev in list(saved) or [None]:
-            from ..core.device import resolve_device
-
-            d = resolve_device(dev)
-            rnd._generators[d] = rnd.generator(int(key), d)
+    with rnd.seeded(int(key)):
         yield
-    finally:
-        rnd._generators.clear()
-        rnd._generators.update(saved)
 
 
 def _raw(v):

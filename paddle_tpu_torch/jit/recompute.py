@@ -11,9 +11,9 @@ trading device time for memory (the JAX package's ``jax.checkpoint``).
 The parameters of the Layers the segment touches are found as the JAX
 package finds them and enter the checkpoint as explicit inputs, so their
 gradients flow. The random state is preserved: the package's generators
-(and, through ``preserve_rng_state``, PyTorch's) are set back to their
-state at the forward before the recomputation, so dropout draws the same
-masks twice.
+and a world's named streams (``core.random.get_states``) and, through
+``preserve_rng_state``, PyTorch's are set back to their state at the
+forward before the recomputation, so dropout draws the same masks twice.
 """
 from __future__ import annotations
 
@@ -43,10 +43,7 @@ def recompute(function, *args, preserve_rng_state=True, **kwargs):
     template = [("t", None) if isinstance(a, (Tensor, torch.Tensor))
                 else ("c", a) for a in args]
     n_in, n_p = len(tensor_args), len(state.params)
-    for a in tensor_args:  # the generators the segment's draws will use
-        rnd.default_generator(getattr(a, "_data", a).device)
-    gens = list(rnd._generators.values()) if preserve_rng_state else []
-    at_forward = [g.get_state() for g in gens]
+    at_forward = rnd.get_states() if preserve_rng_state else None
     runs = [0]
     treedef = []
 
@@ -55,10 +52,10 @@ def recompute(function, *args, preserve_rng_state=True, **kwargs):
         rebuilt = [Tensor._wrap(next(it)) if kind == "t" else const
                    for kind, const in template]
         later = None
-        if runs[0] and gens:  # the recomputation: the forward's draws
-            later = [g.get_state() for g in gens]
-            for g, s in zip(gens, at_forward):
-                g.set_state(s)
+        if runs[0] and at_forward is not None:
+            # the recomputation: the forward's draws
+            later = rnd.get_states()
+            rnd.set_states(at_forward)
         runs[0] += 1
         saved = state.swap(raws[n_in:n_in + n_p], state.buffers)
         try:
@@ -66,8 +63,7 @@ def recompute(function, *args, preserve_rng_state=True, **kwargs):
         finally:
             state.restore(saved)
             if later is not None:
-                for g, s in zip(gens, later):
-                    g.set_state(s)
+                rnd.set_states(later)
         if isinstance(out, (list, tuple)):
             treedef[:] = [type(out)]
             return tuple(o._data if isinstance(o, Tensor) else o

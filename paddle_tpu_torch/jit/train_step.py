@@ -57,6 +57,18 @@ off, the JAX package masks them on neither skip; the port masks them on
 the fp16 scaler's skip as well, so a non-finite batch never reaches the
 running statistics.)
 
+**Across a world of ranks** (``distributed``: a rank is a process), the
+step makes explicit what the JAX package's one controller gives for free.
+The gradients are averaged over the dp group before the loss scale is
+divided out and before the clip (by the model's ``DataParallel`` hooks,
+``fleet.distributed_model``, or else by the step, through
+``distributed.parallel.reduce_gradients``); the global-norm clip sums
+the tensor-parallel shards' squares over mp. The returned loss is the dp
+mean, the same on every rank. The guard's verdict (its health bits and
+grad norm, the norm over the full gradients) and the float16 scaler's
+found-inf are reduced over the world with MAX before they mask the
+update, so a step that one rank skips is skipped by all.
+
 Not ported yet: ``grad_post_hook``.
 """
 from __future__ import annotations
@@ -130,6 +142,7 @@ class TrainStep:
         self._guard = _TG.TrainGuard(mode=mode, model=model) \
             if mode != "off" else None
         self._guard_state = None
+        self._world_reduce = self._world_plan(model)
         if self._guard is not None:
             self._guard._on_rollback = self._after_rollback
             self._guard_state = _TG.init_guard_state(self._device)
@@ -149,6 +162,36 @@ class TrainStep:
 
             _ledger.install_backend_listener()
             _bus.emit("grad_comm", self._grad_comm_info, step=0)
+
+    @staticmethod
+    def _world_plan(model):
+        """(world Group, dp Group, reduce the gradients here?) in a world
+        of several ranks; None in a world of one."""
+        from ..distributed import comm
+        from ..distributed.parallel import DataParallel
+
+        if comm.get_world_size() <= 1:
+            return None
+        world = comm._ensure_init()
+        dp = comm.dp_group()
+        hooked = isinstance(model, DataParallel) and model.group is dp
+        return world, dp, dp.nranks > 1 and not hooked
+
+    @torch.no_grad()
+    def _agree(self, bits, gnorm):
+        """The guard's verdict reduced over the world: the health bits'
+        flags and the grad norm (already that of the full gradients), each
+        the MAX over the ranks."""
+        from ..distributed import collective
+
+        b = bits.int()
+        v = torch.stack([((b & f) > 0).float() for f in (
+            _TG.HEALTH_LOSS, _TG.HEALTH_GRAD, _TG.HEALTH_PARAM)] + [gnorm])
+        collective.all_reduce_(v, collective.ReduceOp.MAX,
+                               self._world_reduce[0])
+        bits = v[0] * _TG.HEALTH_LOSS + v[1] * _TG.HEALTH_GRAD \
+            + v[2] * _TG.HEALTH_PARAM
+        return bits == 0, bits, v[3]
 
     def _read_strategy(self, strategy) -> None:
         if not isinstance(strategy, DistributedStrategy):
@@ -220,6 +263,17 @@ class TrainStep:
             (loss * scale.to(loss.dtype)).backward()
         else:
             loss.backward()
+        world = self._world_reduce
+        if world is not None:
+            from ..distributed import collective
+            from ..distributed.parallel import reduce_gradients
+
+            if world[2]:
+                reduce_gradients(self._params, world[1])
+            # the dp mean, the same on every rank
+            loss = collective.all_reduce_(
+                loss.detach().clone().reshape(1), collective.ReduceOp.AVG,
+                world[1]).reshape(())
         grads = [p.grad for p in self._params]
         opt = self.opt
         with torch.no_grad():
@@ -244,8 +298,13 @@ class TrainStep:
             # nonfinite step and an exploding grad norm
             with _prof.device_annotation("TrainStep::guard"), \
                     torch.no_grad():
+                from ..distributed.meta_parallel import global_square_sum
+
                 ok, bits, gnorm = _TG.grad_health(
-                    loss, grads, [new_p for _, new_p, _, _ in news])
+                    loss, grads, [new_p for _, new_p, _, _ in news],
+                    square_sum=global_square_sum(zip(self._params, grads)))
+                if world is not None:
+                    ok, bits, gnorm = self._agree(bits, gnorm)
                 self._guard_state, ok = _TG.update_guard_state(
                     self._guard_state, ok, bits, gnorm, loss)
         if scaling:
@@ -254,6 +313,13 @@ class TrainStep:
             if ok is None:
                 ok = torch.stack([torch.isfinite(g).all() for g in grads
                                   if g is not None]).all()
+                if world is not None:
+                    from ..distributed import collective
+
+                    bad = (~ok).float().reshape(1)
+                    collective.all_reduce_(bad, collective.ReduceOp.MAX,
+                                           world[0])
+                    ok = bad[0] == 0
             self._update_scaler(ok)
         opt._write(news, ok)
         if old_bufs:

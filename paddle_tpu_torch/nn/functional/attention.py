@@ -14,6 +14,15 @@ Knobs, with the JAX package's meanings: ``PADDLE_FLASH_DEFAULT=0`` keeps
 the dense path everywhere; ``=interpret`` routes on the CPU too, where the
 kernel wrapper runs its plain version. ``PADDLE_FLASH_APPEND=0`` sends
 every Sq != Sk shape to the dense end-aligned form.
+``PADDLE_FLASH_SHARD=0`` sends a job of more than one rank to the dense
+attention and the dense LayerNorm (the JAX package's decline of its
+shard_map seams); each route it declines adds one to
+``SHARD_DECLINES[kind]`` (``"flash"``, ``"layer_norm"``).
+
+In a job of several ranks no seam wraps the kernels: each rank calls them
+on its own ``[B/dp, H/mp, S, D]`` shard (``distributed/meta_parallel.py``),
+and the LayerNorm parameters' gradients are reduced with the others over
+dp (``distributed/parallel.py``).
 """
 from __future__ import annotations
 
@@ -27,7 +36,8 @@ from ...ops.kernels.flash_attention import FlashAttentionFunction
 from .common import dropout
 
 __all__ = [
-    "flash_default_enabled", "flash_append_enabled", "flash_plan",
+    "flash_default_enabled", "flash_append_enabled", "flash_shard_enabled",
+    "shard_route_allowed", "SHARD_DECLINES", "flash_plan",
     "flash_routable", "flash_core", "scaled_dot_product_attention", "dense_attention",
     "cache_update", "cached_attention",
 ]
@@ -41,6 +51,28 @@ def flash_default_enabled() -> bool:
 def flash_append_enabled() -> bool:
     v = os.environ.get("PADDLE_FLASH_APPEND", "1").strip().lower()
     return v not in ("0", "false", "off")
+
+
+def flash_shard_enabled() -> bool:
+    """May a job of more than one rank run the kernels?
+    ``PADDLE_FLASH_SHARD=0`` says no."""
+    v = os.environ.get("PADDLE_FLASH_SHARD", "1").strip().lower()
+    return v not in ("0", "false", "off")
+
+
+#: routes ``PADDLE_FLASH_SHARD=0`` declined in a job of several ranks
+SHARD_DECLINES = {"flash": 0, "layer_norm": 0}
+
+
+def shard_route_allowed(kind: str) -> bool:
+    """False, counted in ``SHARD_DECLINES[kind]``, when this process is one
+    rank of several and ``PADDLE_FLASH_SHARD=0``; else True."""
+    from ...distributed import comm
+
+    if comm.get_world_size() > 1 and not flash_shard_enabled():
+        SHARD_DECLINES[kind] += 1
+        return False
+    return True
 
 
 def _interpret_forced() -> bool:
@@ -75,7 +107,9 @@ def flash_plan(seq_q, seq_k, *, causal, device, has_mask=False,
             return False
     if torch.device(device).type != "cuda" and not _interpret_forced():
         return False
-    return _flash_block(int(seq_q)) >= 8 and _flash_block(int(seq_k)) >= 8
+    if _flash_block(int(seq_q)) < 8 or _flash_block(int(seq_k)) < 8:
+        return False
+    return shard_route_allowed("flash")
 
 
 def flash_routable(seq_q, seq_k, *, causal, has_mask=False,
@@ -83,13 +117,20 @@ def flash_routable(seq_q, seq_k, *, causal, has_mask=False,
                    has_cache=False, mesh=None, batch=None,
                    heads=None) -> bool:
     """Would the default router send this attention to the flash kernel
-    on the ``set_device`` default device? The JAX package's signature;
-    ``batch`` and ``heads`` only matter to its sharded route, and a
-    ``mesh`` (more than one device) is ROADMAP queue A item 7."""
-    if mesh is not None:
-        raise NotImplementedError("flash_routable(mesh=): multi-device "
-                                  "routing is ROADMAP queue A item 7")
+    on the ``set_device`` default device? The JAX package's signature.
+    With a ``mesh`` of several ranks (``distributed.comm.HybridMesh``) it
+    answers for this rank's local shapes: a ``batch`` that dp does not
+    divide, ``heads`` that mp does not divide, or ``PADDLE_FLASH_SHARD=0``
+    decline, as the JAX package's shard factoring does."""
     from ...core.device import resolve_device
+
+    if mesh is not None and mesh.size > 1:
+        dp, mp = int(mesh.shape["dp"]), int(mesh.shape["mp"])
+        if not flash_shard_enabled():
+            return False
+        if (dp > 1 and (batch is None or int(batch) % dp)) or \
+                (mp > 1 and (heads is None or int(heads) % mp)):
+            return False
 
     return flash_plan(seq_q, seq_k, causal=causal, device=resolve_device(),
                       has_mask=has_mask, dropout_active=dropout_active,

@@ -70,15 +70,18 @@ def linear(x, weight, bias=None, name=None):
 
 
 def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
-            name=None, *, generator: Optional[torch.Generator] = None):
+            name=None, *, generator: Optional[torch.Generator] = None,
+            stream: str = "dropout"):
     """paddle.nn.functional.dropout. ``upscale_in_train`` keeps each
     element with probability ``1 - p`` and divides the kept ones by
     ``1 - p`` in training (identity at inference); ``downscale_in_infer``
     keeps them unscaled in training and multiplies by ``1 - p`` at
     inference. ``axis`` (an int or a list) draws one decision per index
     of those axes, shared along the others. The mask comes from
-    ``generator`` (on ``x``'s device), the package's generator of that
-    device when None."""
+    ``generator`` (on ``x``'s device); when None, the package's generator
+    of that device, or in a job of several ranks this rank's named
+    ``stream`` (``core.random``: "dropout" per dp rank, "dropout_mp" per
+    dp and mp rank)."""
     if mode not in ("upscale_in_train", "downscale_in_infer"):
         raise ValueError(f"dropout: unknown mode {mode!r}")
     if not 0.0 <= p <= 1.0:
@@ -94,7 +97,8 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
         axes = [a % x.dim() for a in
                 (axis if isinstance(axis, (list, tuple)) else [axis])]
         shape = [s if i in axes else 1 for i, s in enumerate(shape)]
-    keep = rnd.rand(shape, generator=generator, device=x.device) < 1.0 - p
+    keep = rnd.rand(shape, generator=generator, device=x.device,
+                    stream=stream) < 1.0 - p
     kept = x / (1.0 - p) if mode == "upscale_in_train" else x
     return torch.where(keep, kept, torch.zeros((), dtype=x.dtype,
                                                device=x.device))

@@ -78,17 +78,52 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     return out
 
 
+def sync_batch_norm(x, running_mean, running_var, weight, bias, group,
+                    momentum=0.9, epsilon=1e-5, data_format="NCHW"):
+    """:func:`batch_norm`'s training form over the whole batch of the
+    ranks of ``group`` (a ``distributed.comm.Group``): each channel's sum,
+    sum of squares and count, in float32, all-reduced (the backward
+    all-reduces their gradients), then the same folded normalization and
+    running-statistics update."""
+    from ...distributed.parallel import all_reduce_sum
+
+    ch = 1 if data_format.startswith("NC") else x.dim() - 1
+    axes = tuple(i for i in range(x.dim()) if i != ch)
+    bshape = [1] * x.dim()
+    bshape[ch] = x.shape[ch]
+    xf = x.float()
+    n = torch.tensor([float(x.numel() // x.shape[ch])], device=x.device)
+    sums = all_reduce_sum(torch.cat([xf.sum(dim=axes),
+                                     (xf * xf).sum(dim=axes), n]), group)
+    C = x.shape[ch]
+    count = sums[2 * C]
+    mean = sums[:C] / count
+    var = (sums[C:2 * C] / count - mean * mean).clamp(min=0.0)
+    r = torch.rsqrt(var + epsilon)
+    scale = weight.float() * r if weight is not None else r
+    shift = bias.float() - mean * scale if bias is not None \
+        else -mean * scale
+    out = x * scale.to(x.dtype).reshape(bshape) \
+        + shift.to(x.dtype).reshape(bshape)
+    with torch.no_grad():
+        running_mean.copy_(running_mean * momentum + mean * (1 - momentum))
+        running_var.copy_(running_var * momentum + var * (1 - momentum))
+    return out
+
+
 def _fused_ln_route(x: torch.Tensor, normalized_shape, weight, bias) -> bool:
     """Route this LayerNorm to the B5/B6 kernel wrappers?
 
     The JAX package's eligibility rule, unchanged: last-axis-only
     normalization with both affine params, float32 or bfloat16, D % 128
     == 0 and rows a multiple of 8 (float32) or 16 (bfloat16).
-    ``PADDLE_FUSED_LN=0`` keeps the dense path everywhere. "Backend has
-    the kernel" is a CUDA tensor; on the CPU ``PADDLE_FUSED_LN=interpret``
-    routes to the wrappers, which run the kernels' plain versions there
-    (where JAX runs the Pallas interpreter), so one test drives both
-    packages down the same route."""
+    ``PADDLE_FUSED_LN=0`` keeps the dense path everywhere, and
+    ``PADDLE_FLASH_SHARD=0`` in a job of several ranks (counted in
+    ``attention.SHARD_DECLINES``). "Backend has the kernel" is a CUDA
+    tensor; on the CPU ``PADDLE_FUSED_LN=interpret`` routes to the
+    wrappers, which run the kernels' plain versions there (where JAX runs
+    the Pallas interpreter), so one test drives both packages down the
+    same route."""
     mode = os.environ.get("PADDLE_FUSED_LN", "1").strip().lower()
     if mode in ("0", "false", "off"):
         return False
@@ -101,7 +136,11 @@ def _fused_ln_route(x: torch.Tensor, normalized_shape, weight, bias) -> bool:
     row_floor = 16 if x.dtype == torch.bfloat16 else 8
     if D % 128 != 0 or rows == 0 or rows % row_floor != 0:
         return False
-    return x.is_cuda or mode == "interpret"
+    if not (x.is_cuda or mode == "interpret"):
+        return False
+    from .attention import shard_route_allowed
+
+    return shard_route_allowed("layer_norm")
 
 
 def _shape(normalized_shape) -> tuple:

@@ -174,7 +174,9 @@ class Layer(torch.nn.Module):
         """Copy values (numpy arrays, ``Tensor`` or torch tensors) into
         the parameters and persistent buffers of the same names, each
         cast to its target's type; returns ``(missing, unexpected)``
-        names. A shape that differs raises."""
+        names. A shape that differs raises, except the full shape of a
+        tensor-parallel shard (``_tp_shard``, ``distributed.meta_parallel``),
+        of which this rank's part is kept."""
         own = self.state_dict(keep_vars=True)
         missing = [n for n in own if n not in state_dict]
         unexpected = [k for k in state_dict if k not in own]
@@ -184,6 +186,9 @@ class Layer(torch.nn.Module):
             v = to_torch(state_dict[name])
             v = v.detach() if isinstance(v, torch.Tensor) \
                 else torch.tensor(np.asarray(v))
+            shard = getattr(target, "_tp_shard", None)
+            if shard is not None and tuple(v.shape) == shard.full_shape:
+                v = shard.take(v)
             if tuple(v.shape) != tuple(target.shape):
                 raise ValueError(
                     f"set_state_dict: {name} has shape {tuple(v.shape)}, "

@@ -4,10 +4,14 @@
 ``LocalResponseNorm`` and ``SpectralNorm``.
 
 ``SyncBatchNorm`` on one device is ``BatchNorm`` (the JAX package's
-reasoning: inside one program the batch axis is already global);
-``convert_sync_batchnorm`` turns a model's batch norms into it. More than
-one device is ROADMAP queue A item 7. ``SpectralNorm`` raises
-``NotImplementedError`` on construction, as the JAX package's does.
+reasoning: inside one program the batch axis is already global); in a
+world of several ranks it takes its training statistics over the dp
+group's whole batch (the JAX package's global batch), through a
+differentiable all-reduce of the per-channel sums.
+``convert_sync_batchnorm`` turns a model's batch norms into it; the other
+batch norms keep each rank's own statistics, as upstream Paddle's do.
+``SpectralNorm`` raises ``NotImplementedError`` on construction, as the
+JAX package's does.
 """
 from __future__ import annotations
 
@@ -146,7 +150,20 @@ class BatchNorm(_BatchNormBase):
 
 
 class SyncBatchNorm(_BatchNormBase):
-    """Batch norm across replicas; on one device, ``BatchNorm2D``."""
+    """Batch norm across replicas: in training, the statistics of the dp
+    group's whole batch; on one rank, ``BatchNorm2D``."""
+
+    def forward(self, x):
+        from ...distributed import comm
+
+        g = comm.dp_group() if comm.get_world_size() > 1 else None
+        if g is None or g.nranks == 1 or not self.training \
+                or self._use_global_stats:
+            return super().forward(x)
+        return N.sync_batch_norm(
+            x, self._mean, self._variance, self.weight, self.bias, g,
+            momentum=self._momentum, epsilon=self._epsilon,
+            data_format=self._data_format)
 
     @classmethod
     def convert_sync_batchnorm(cls, layer):

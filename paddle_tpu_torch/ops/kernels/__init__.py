@@ -3,7 +3,8 @@ source of ``paddle_tpu/ops/pallas``: each kernel is a ``torch.library``
 custom op (``torch.ops.paddle_tpu_torch.<name>``, the names of
 :data:`WRAPPERS`) that launches its kernel on a CUDA tensor, takes its
 plain PyTorch version on a CPU tensor, and counts its launches in
-``<wrapper>.launches`` (and by input types in ``<wrapper>.by_dtype``);
+``<wrapper>.launches`` (and by input types in ``<wrapper>.by_dtype``,
+the first input's shapes in ``<wrapper>.shapes``);
 importing the package registers them."""
 from . import flash_attention, layer_norm
 
@@ -25,6 +26,7 @@ def reset_launches() -> None:
     for w in WRAPPERS.values():
         w.launches = 0
         w.by_dtype = {}
+        w.shapes = set()
 
 
 def launches() -> dict:
@@ -34,3 +36,8 @@ def launches() -> dict:
 def launches_by_dtype() -> dict:
     """Each wrapper's launches by the types of its inputs."""
     return {name: dict(w.by_dtype) for name, w in WRAPPERS.items()}
+
+
+def launch_shapes() -> dict:
+    """The shapes of each wrapper's first input since the last reset."""
+    return {name: sorted(w.shapes) for name, w in WRAPPERS.items()}

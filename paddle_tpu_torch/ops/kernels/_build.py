@@ -144,10 +144,12 @@ def check(rc: int, what: str) -> None:
 def count_launch(wrapper, *tensors: torch.Tensor) -> None:
     """One launch of ``wrapper``'s kernel: add one to ``wrapper.launches``
     and to ``wrapper.by_dtype`` under the input types (``"bfloat16"``, or
-    ``"float32+bfloat16"`` for addends of two types)."""
+    ``"float32+bfloat16"`` for addends of two types), and note the first
+    input's shape in ``wrapper.shapes``."""
     key = "+".join(dict.fromkeys(str(t.dtype)[6:] for t in tensors))
     wrapper.launches += 1
     wrapper.by_dtype[key] = wrapper.by_dtype.get(key, 0) + 1
+    wrapper.shapes.add(tuple(tensors[0].shape))
 
 
 def stream_ptr(device: torch.device) -> int:

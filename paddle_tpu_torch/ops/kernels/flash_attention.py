@@ -159,6 +159,7 @@ def flash_attention_fwd(q, k, v, *, causal=False, block_q=256,
 
 flash_attention_fwd.launches = 0
 flash_attention_fwd.by_dtype = {}
+flash_attention_fwd.shapes = set()
 
 
 def flash_attention_bwd_plain(q, k, v, dout, lse, delta, *, causal=False,
@@ -242,8 +243,10 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, *, causal=False,
 
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dq.by_dtype = {}
+flash_attention_bwd_dq.shapes = set()
 flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dkv.by_dtype = {}
+flash_attention_bwd_dkv.shapes = set()
 
 
 def flash_attention_bwd(q, k, v, dout, lse, delta, *, causal=False,

@@ -172,8 +172,10 @@ def add_layer_norm_fwd(x2d, y2d, weight, bias, eps=1e-5):
 
 layer_norm_fwd.launches = 0
 layer_norm_fwd.by_dtype = {}
+layer_norm_fwd.shapes = set()
 add_layer_norm_fwd.launches = 0
 add_layer_norm_fwd.by_dtype = {}
+add_layer_norm_fwd.shapes = set()
 
 
 def layer_norm_bwd_plain(x2d, weight, mu, rstd, g2d):
@@ -239,6 +241,7 @@ def layer_norm_bwd(x2d, weight, mu, rstd, g2d):
 
 layer_norm_bwd.launches = 0
 layer_norm_bwd.by_dtype = {}
+layer_norm_bwd.shapes = set()
 
 
 # -- the custom ops: each runs its wrapper above (inside the op, grad mode

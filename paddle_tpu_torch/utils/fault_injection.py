@@ -5,16 +5,17 @@
 
     site:action:nth[:arg]
 
-- ``site``   a fault point. The port instruments eight: ``serve`` (each
+- ``site``   a fault point. The port instruments nine: ``serve`` (each
   router tick, each mailbox-worker poll, each router submit and each
   prefix-cache lookup that a ``prefix_stale`` / ``adapter_missing`` rule
   names), ``mon`` (each telemetry-bus row write), ``io.save`` (before
   a ``framework.io.save`` write), ``io.save.post`` (after its atomic
   replace, where ``corrupt`` bites), ``io.load``, ``acp.save`` (before an
   auto-checkpoint snapshot), ``epoch`` (on entering each
-  ``TrainEpochRange`` epoch) and ``grad`` (once per ``jit.TrainStep``
-  call). A rule for a site the JAX package instruments and the port does
-  not yet (``coll``, ``rank``, ``ctl``) raises ``NotImplementedError``
+  ``TrainEpochRange`` epoch), ``grad`` (once per ``jit.TrainStep``
+  call) and ``coll`` (each collective, inside the comm monitor's
+  watch). A rule for a site the JAX package instruments and the port does
+  not yet (``rank``, ``ctl``) raises ``NotImplementedError``
   naming the ROADMAP item that brings it; so does any other site.
 - ``action`` ``fail`` (raise :class:`InjectedFault`, an IOError), ``kill``
   (``os._exit(arg)``, default 17), ``hang`` (at ``serve``: an event, the
@@ -34,8 +35,10 @@
   ``mon`` actions ``drop`` / ``dup`` (that bus row is lost or written
   twice), or ``corrupt`` (truncate the file ``io.save.post`` passed to half
   its bytes: a torn write; a ``corrupt`` rule written against ``io.save``
-  means ``io.save.post``, so it corrupts a complete file). The other actions
-  of the grammar (``desync``, ``depart``/``return``,
+  means ``io.save.post``, so it corrupts a complete file), or
+  ``desync`` (``coll`` only: arm a flag the comm monitor consumes to
+  mutate this rank's op fingerprint; ``arg`` = the rank it fires on,
+  default 0). The other actions of the grammar (``depart``/``return``,
   ``flap``/``die``/``lend_crash`` and the serve event ``lent_worker_crash``)
   parse as in the JAX package and then raise ``NotImplementedError``: their
   sites are not instrumented here.
@@ -89,11 +92,10 @@ _ACP_SITES = ("acp.save", "epoch")
 
 #: the sites the port has fault points for
 PORTED_SITES = _SERVE_SITES + _MON_SITES + _IO_SITES + _ACP_SITES \
-    + _GRAD_SITES
+    + _GRAD_SITES + _DESYNC_SITES
 #: the JAX package's other sites -> the ROADMAP queue A item that ports
 #: the code they sit in
 _SITE_ITEMS = {
-    "coll": "7 (distributed, the comm monitor)",
     "rank": "7 (distributed, resharding)",
     "ctl": "8 (the fleet controller)",
 }
@@ -230,6 +232,14 @@ class FaultInjector:
             print(f"fault_injection: arming mon:{r.action} at {tag}",
                   file=sys.stderr, flush=True)
             self.mon_events.append(r.action)
+            return
+        if r.action == "desync":
+            target = int(r.arg) if r.arg else 0
+            if int(os.environ.get("PADDLE_TRAINER_ID", "0")) != target:
+                return  # the rule desyncs exactly one rank of the job
+            print(f"fault_injection: arming desync at {tag}",
+                  file=sys.stderr, flush=True)
+            self.flags.add("desync")
             return
         if r.action == "corrupt":
             if path is None:

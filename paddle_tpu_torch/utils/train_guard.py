@@ -123,22 +123,27 @@ def init_guard_state(device=None) -> torch.Tensor:
 
 def grad_health(loss: torch.Tensor, grads: Sequence[Optional[torch.Tensor]],
                 new_params: Optional[Sequence[torch.Tensor]] = None,
-                check_params: Optional[bool] = None):
+                check_params: Optional[bool] = None,
+                square_sum: Optional[torch.Tensor] = None):
     """The sentinel: (ok, health_bits, gnorm), all 0-dim tensors on the
     device. ``gnorm`` is the global gradient norm in f32 (0 when it is not
     finite), from ``torch._foreach_norm`` (the JAX package sums the
     squares: the two agree to rounding); a gradient large enough to
     overflow f32 when its norm is squared reads as nonfinite, as in the
-    JAX package."""
+    JAX package. ``square_sum``, when given, is that squared norm as the
+    caller already has it (a ``TrainStep`` under tensor parallelism: the
+    full gradients', ``distributed.meta_parallel.global_square_sum``)."""
     if check_params is None:
         check_params = _envi(_CHECK_PARAMS_ENV, 0) != 0
     loss_ok = torch.isfinite(loss.detach().float()).all()
     gs: List[torch.Tensor] = [g for g in grads if g is not None]
-    if gs:
-        # one fused pass over all gradients: the per-tensor norms in f32
-        # (a NaN or Inf anywhere propagates), squared and summed
-        norms = torch._foreach_norm(gs, 2, dtype=torch.float32)
-        sq = torch.stack(norms).square().sum()
+    if square_sum is not None or gs:
+        sq = square_sum
+        if sq is None:
+            # one fused pass over all gradients: the per-tensor norms in
+            # f32 (a NaN or Inf anywhere propagates), squared and summed
+            norms = torch._foreach_norm(gs, 2, dtype=torch.float32)
+            sq = torch.stack(norms).square().sum()
         grad_ok = torch.isfinite(sq)
         gnorm = torch.sqrt(torch.where(grad_ok, sq, torch.zeros_like(sq)))
     else:

@@ -1289,3 +1289,92 @@ def test_grad_nan_skips_bitwise_on_the_card(default_device, monkeypatch):
         assert torch.equal(after[0][k], after[2][k]), k
     # the FLOP count on fake CUDA tensors is the CPU count of one step
     assert step.flops_per_step() > 0
+
+
+# -- worlds of ranks on the card --------------------------------------------
+#
+# Two ranks share the one card (the backend rule gives gloo: NCCL refuses
+# two ranks on one device), started by the port's spawn; the ranks run
+# tests/helpers/torch_world.py's cases and return their results.
+
+
+def test_collectives_on_cuda_tensors(default_device, tmp_path):
+    """Every collective on CUDA tensors of a 2-rank world on the card:
+    float32 results equal numpy's (rtol 1e-6; 1e-5 for PROD and AVG),
+    bf16 within one bf16 rounding; each counted on gloo, transport
+    gloo-cuda (gloo takes the CUDA tensors itself)."""
+    import numpy as np
+    from helpers import torch_world as tw
+
+    rng = np.random.RandomState(0)
+    x = (rng.rand(2, 3, 4) + 0.5).astype(np.float32)
+    rs = rng.rand(2, 4, 3).astype(np.float32)
+    out = tw.run_world(["cuda_collectives"], str(tmp_path),
+                       {"x": x, "rs": rs}, nprocs=2, device="gpu")
+    res = out["cuda_collectives"]
+    want = {"sum": x.sum(0), "max": x.max(0), "min": x.min(0),
+            "prod": x.prod(0), "avg": x.mean(0)}
+    for r, o in enumerate(res):
+        assert o["backend"] == "gloo" and o["device"] == "cuda:0"
+        for key, rtol in (("float32", 1e-5), ("bfloat16", 2 ** -7)):
+            for name, w in want.items():
+                np.testing.assert_allclose(o[key, name], w, rtol=rtol,
+                                           err_msg=f"{key} {name}")
+            np.testing.assert_allclose(
+                o[key, "reduce"], x.sum(0) if r == 1 else x[r], rtol=rtol)
+            for i in range(2):
+                np.testing.assert_allclose(o[key, "all_gather"][i], x[i],
+                                           rtol=rtol)
+                np.testing.assert_allclose(o[key, "alltoall"][i], x[r],
+                                           rtol=rtol)
+            np.testing.assert_allclose(o[key, "broadcast"], x[1],
+                                       rtol=rtol)
+            np.testing.assert_allclose(o[key, "reduce_scatter"],
+                                       rs.sum(0)[2 * r:2 * r + 2],
+                                       rtol=rtol)
+            np.testing.assert_allclose(o[key, "scatter"], x[r], rtol=rtol)
+        ops = {c["op"] for c in o["counts"]}
+        assert ops == {"all_reduce", "reduce", "all_gather", "broadcast",
+                       "reduce_scatter", "scatter", "alltoall", "barrier"}
+        for c in o["counts"]:
+            assert (c["backend"], c["transport"]) == ("gloo", "gloo-cuda"), c
+
+
+def test_parallel_gpt_block_at_mp2_on_the_card(default_device, tmp_path):
+    """``ParallelGPTBlock`` at mp2 (2 ranks on the card, 2 heads each)
+    against the block in one process, float32 with TF32 off, through the
+    kernels: output, input gradient and every parameter gradient (gathered
+    to full) within 1e-5 of each one's largest value (the row-parallel
+    all-reduce sums two partial products)."""
+    import numpy as np
+    from helpers import torch_world as tw
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pt.seed(5)
+    d, heads = 256, 4
+    blk = pt.distributed.ParallelGPTBlock(d, heads, dropout=0.0,
+                                          device="gpu")
+    rng = np.random.RandomState(1)
+    x = rng.randn(2, 256, d).astype(np.float32)
+    cot = rng.randn(2, 256, d).astype(np.float32)
+    want = tw._fwd_bwd(blk, x, cot, "cuda")
+    inputs = {"d": d, "heads": heads, "x": x, "cot": cot,
+              "block": {k: v.detach().cpu() for k, v in
+                        blk.state_dict().items()}}
+    out = tw.run_world(["cuda_gpt_block"], str(tmp_path), inputs, nprocs=2,
+                       device="gpu")
+
+    def near(got, w, what):
+        err = np.abs(got - w).max() / max(np.abs(w).max(), 1e-30)
+        assert err <= 1e-5, (what, err)
+
+    for r, o in enumerate(out["cuda_gpt_block"]):
+        near(o["out"], want["out"], "out")
+        near(o["gx"], want["gx"], "dx")
+        for k, w in want["grads"].items():
+            near(o["grads"][k], w, k)
+        for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                     "flash_attention_bwd_dkv", "layer_norm_fwd",
+                     "add_layer_norm_fwd", "layer_norm_bwd"):
+            assert o["launches"][name] >= 1, (r, name)
+        assert o["shapes"]["flash_attention_fwd"] == [(2, 2, 256, 64)]

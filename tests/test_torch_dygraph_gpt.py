@@ -377,17 +377,8 @@ KNOWN_NAMESPACE_GAPS = {
     # item 6 (to_static, jit.save/load): ported
     "jit": set(),
     "distributed": {
-        # item 7: collectives, parallel, pipeline, resharding, elastic
-        "Group", "PipelineLayer",
-        "PipelineParallel", "ReduceOp", "VocabParallelEmbedding",
-        "all_gather", "all_reduce", "alltoall", "barrier", "broadcast",
-        "collective", "get_group", "get_rank", "get_world_size",
-        "in_spmd_region", "is_initialized", "launch",
-        "monitored_barrier", "new_group", "pipeline", "reduce",
-        "reduce_scatter", "replicate", "resharding", "scatter",
-        "shard_rank_axis", "spawn", "split", "spmd_region", "wait",
-        # item 8: the comm monitor
-        "comm_monitor"},
+        # item 7's later parts: the pipeline and resharding
+        "PipelineLayer", "PipelineParallel", "pipeline", "resharding"},
 }
 
 
@@ -470,11 +461,16 @@ def test_set_device_and_no_fallback():
 
 
 def test_one_device_mesh():
+    """The one-process mesh; a degree the world cannot hold raises
+    (ValueError: the world has fewer ranks), and so do the axes not
+    ported yet (NotImplementedError)."""
     prev = tcomm._mesh
     try:
         mesh = tcomm.init_hybrid_mesh(dp=1, mp=1, pp=1, sp=1)
         assert tcomm.hybrid_mesh() is mesh and mesh.shape["mp"] == 1
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="the world has 1"):
             tcomm.init_hybrid_mesh(dp=2)
+        with pytest.raises(NotImplementedError, match="item 7"):
+            tcomm.init_hybrid_mesh(pp=2)
     finally:
         tcomm._mesh = prev

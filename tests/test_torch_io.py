@@ -135,6 +135,9 @@ def test_random_split_and_the_generator_departure():
 
 
 def test_distributed_sampler_defaults_to_the_one_process_world(monkeypatch):
+    """The one-process world by default; a launched trainer's rank and
+    world size (``PADDLE_TRAINER_ID`` / ``PADDLE_TRAINERS_NUM``) shard the
+    indices as the JAX package's sampler does."""
     ds = list(range(10))
     s = pio.DistributedBatchSampler(ds, 4, shuffle=True)
     assert (s.nranks, s.local_rank) == (1, 0)
@@ -144,8 +147,11 @@ def test_distributed_sampler_defaults_to_the_one_process_world(monkeypatch):
     r.set_epoch(3)
     assert list(s) == list(r) and len(s) == len(r)
     monkeypatch.setenv("PADDLE_TRAINERS_NUM", "2")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        pio.DistributedBatchSampler(ds, 4)
+    monkeypatch.setenv("PADDLE_TRAINER_ID", "1")
+    s = pio.DistributedBatchSampler(ds, 4, shuffle=True)
+    r = jio.DistributedBatchSampler(ds, 4, shuffle=True)
+    assert (s.nranks, s.local_rank) == (r.nranks, r.local_rank) == (2, 1)
+    assert list(s) == list(r) and len(s) == len(r)
 
 
 def test_datasets_give_the_reference_items():

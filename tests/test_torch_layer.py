@@ -124,7 +124,8 @@ def test_parallel_gpt_block_arguments_in_the_jax_order(mesh):
         with pytest.raises(ValueError):
             pkg.ParallelMultiHeadAttention(16, 4, 0.1,
                                            use_flash_attention=True)
-    with pytest.raises(NotImplementedError):
+    # mp = 2 needs a hybrid mesh of mp 2 (tests/test_torch_tensor_parallel.py)
+    with pytest.raises(ValueError, match="mp degree is 1"):
         tmp.ParallelGPTBlock(16, 4, mp=2)
 
 

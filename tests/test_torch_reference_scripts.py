@@ -161,8 +161,8 @@ def test_reference_script_verbatim_on_the_port(script_runs, name):
 def test_data_parallel_at_one_trainer(monkeypatch):
     """``fluid.dygraph.DataParallel`` (``distributed/parallel.py``) at a
     world size of one: the wrapped layer itself, inputs passed as given
-    (a user's ``forward`` gets ``Tensor``), its state dict; above one
-    trainer it raises."""
+    (a user's ``forward`` gets ``Tensor``), its state dict; launched as
+    one of several trainers without their endpoints, it raises."""
     pt = paddle_tpu_torch
     seen = []
 
@@ -185,8 +185,16 @@ def test_data_parallel_at_one_trainer(monkeypatch):
     assert (out.numpy() == net(x).numpy()).all()
     assert dp.scale_loss(out) is out
     assert list(dp.state_dict()) == list(net.state_dict())
-    monkeypatch.setenv("PADDLE_TRAINERS_NUM", "2")
-    with pytest.raises(NotImplementedError):
-        pt.distributed.init_parallel_env()
-    with pytest.raises(NotImplementedError):
-        pt.DataParallel(net)
+    # a fresh process launched as one of two trainers needs their
+    # endpoints to meet (a world of several: tests/test_torch_collective.py)
+    comm = pt.distributed.comm
+    saved = comm._state
+    comm._state = comm._CommState()
+    try:
+        monkeypatch.setenv("PADDLE_TRAINERS_NUM", "2")
+        with pytest.raises(ValueError, match="PADDLE_TRAINER_ENDPOINTS"):
+            pt.distributed.init_parallel_env()
+        with pytest.raises(ValueError, match="PADDLE_TRAINER_ENDPOINTS"):
+            pt.DataParallel(net)
+    finally:
+        comm._state = saved
