@@ -24,8 +24,9 @@
    shape above, its looped path at D = 200 and on rows one element into
    their buffer) and that no instantiation of its register path spills;
 3. serves the GPT-medium-shaped ``TransformerLM`` (vocab 32000, d_model
-   1024, 16 heads, 24 layers, ffn 4096, float32, random weights from a
-   seeded generator) through ``generate`` and ``InferenceEngine``, checks
+   1024, 16 heads, ffn 4096, float32, random weights from a seeded
+   generator; 4 of its 24 layers in steps 3-7, a depth cut,
+   ``SERVE_LAYERS``) through ``generate`` and ``InferenceEngine``, checks
    the cached decode against a full forward that goes through the flash
    kernel, and checks that every forward kernel was launched on that path
    and no backward kernel;
@@ -182,7 +183,8 @@
    its plain step (gradients within 1e-5, the forward kernels twice a
    block, a lower peak); ms/step of each, capture seconds, peak memory;
 22. its ``jit_save_phase``: the same program with its head applied (ids ->
-   logits) in ``eval()``, saved by ``paddle.jit.save`` at ``InputSpec([8,
+   logits) in ``eval()``, 4 of its 24 blocks (a depth cut,
+   ``SAVE_LAYERS``), saved by ``paddle.jit.save`` at ``InputSpec([8,
    128], "int64")`` and served from a process of its own that imports
    the port and neither this script nor any module defining the model,
    through ``paddle.jit.load`` and ``paddle.inference`` (``Config``,
@@ -217,18 +219,31 @@
    result on the same tensors within 1e-4 (NMS's kept rows equal but at
    score ties, reported); step and NMS ms;
 25. its ``multichip_gpt_phase``: bench.py's ``_bench_gpt_multichip``
-   program (GPT-medium at full width and depth, fleet dp2 x mp2, global
-   batch 8) as a world of 4 ranks of this script (``--rank-child``)
+   program (GPT-medium at full width and 4 of its 24 blocks, a depth cut,
+   ``MC_LAYERS``; fleet dp2 x mp2, global batch 8) as a world of 4 ranks
+   of this script (``--rank-child``)
    started by ``paddle_tpu_torch.distributed.launch``, all on this card
    over gloo (the backend rule for ranks that share a card): float32
    against the same program in one process (each loss within 1e-5, every
    first-step gradient gathered to full within 1e-5 of its largest, the
-   attention kernels at [4, 8, 1024, 64], 24 a step), one step under
+   attention kernels at [4, 8, 1024, 64], 4 a step), one step under
    ``PADDLE_FLASH_SHARD=0`` (no kernel, the same loss), and the bf16 AMP
    program as bench writes it (ms/step, global tokens/s, collective ms by
    op and transport, peak memory by rank: 4 ranks sharing one H100);
-26. prints one ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
-   "device": ...}`` line.
+26. its ``sp_pp_ep_phase``: sequence, pipeline and expert parallelism as
+   one world of 4 ranks of this script (``--sp-child``) on this card over
+   gloo: GPT-medium-shaped at sp4 on ``ring_pallas`` (S 8192, 2048 a
+   rank) against one process on ``blockwise`` (losses within 1e-5, first-
+   step gradients within 1e-4, rank r launching B1/B3/B4 24 (r + 1) times
+   a step), a bf16 Ulysses step against a bf16 ring step; bench's
+   GPT-medium as a ``PipelineLayer`` at pp2 x mp2 (1F1B over 4
+   microbatches; F-then-B's loss = 1F1B's) against one process's
+   ``TrainStep``; ``ExpertParallelMoE`` at ep4 against one process's;
+   before the world, step 2 also holds ``flash_attention_partial`` (B1;
+   B3/B4 with the lse cotangent) against its plain version at the ring's
+   [1, 16, 2048, 64], and B1/B3/B4 at the ring's and Ulysses' shapes;
+27. prints one ``{"kernels": [...]}`` line (the seven kernels' entries and
+   the partial op's) and, last, the ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device, outside a
 checkout of the repository, or when any check fails.
@@ -282,6 +297,12 @@ SHORT = {torch.float32: "float32", torch.bfloat16: "bf16",
 # kernel), float32 with TF32 off: the two paths sum in different orders
 # through 24 layers
 LOGIT_ATOL = 2e-3
+
+# the serving paths (serving, the tier, quantized, speculative, the router
+# plane) run GPT-medium at its full width and SERVE_LAYERS of its 24 layers:
+# a depth cut that makes room for the sequence, pipeline and expert phase
+# (named in PERF.md; CHIP_SMOKE_SERVE_LAYERS sets another depth)
+SERVE_LAYERS = int(os.environ.get("CHIP_SMOKE_SERVE_LAYERS", "4"))
 
 # the serving tier: bench.py's _bench_decode_paged (block 16, chunk 32,
 # engine requests of 16 new tokens) and _bench_serve_multitenant (prompt
@@ -364,6 +385,11 @@ DYGRAPH_LAUNCHES = {
 # kernels are on cuda:0, and the speeds are those of 4 ranks sharing one
 # H100 over gloo, which say nothing of NCCL across cards
 MC_DP, MC_MP = 2, 2
+# the world's GPT keeps bench's width and MC_LAYERS of its 24 blocks: a
+# depth cut that makes room for the sequence, pipeline and expert phase
+# (named in PERF.md; CHIP_SMOKE_MC_LAYERS sets another depth, which the
+# --rank-child processes inherit)
+MC_LAYERS = int(os.environ.get("CHIP_SMOKE_MC_LAYERS", "4"))
 MC_WORLD = MC_DP * MC_MP
 MC_BATCH = 4 * MC_DP
 MC_STEPS = 3
@@ -381,6 +407,53 @@ MC_DEADLINE_S = 480
 MC_RANK_SHAPE = (MC_BATCH // MC_DP, HEADS // MC_MP, TRAIN_S,
                  D_MODEL // HEADS)
 MC_RANK_ROW = "per rank dp2 x mp2 S=1024"
+
+# sequence, pipeline and expert parallelism: one world of 4 ranks of this
+# script (--sp-child) on the one card over gloo, in three parts:
+# (a) sp4: a GPT-medium-shaped causal decoder (24 TransformerEncoderLayer
+#     1024 / 16 / 4096 on attn_impl="ring_pallas", a 32k head), batch 1 x
+#     seq 8192 (2048 a rank), float32, against one process on "blockwise"
+#     (B1-B4 at S 8192); one bf16 step on "ulysses" against one on
+#     "ring_pallas";
+# (b) pp2 x mp2: bench.py's _gpt_medium as a PipelineLayer (embedding, 24
+#     ParallelGPTBlock, head), accumulate_steps 4, 1F1B, batch 8 x 1024,
+#     float32, against one process's TrainStep;
+# (c) ep4: ExpertParallelMoE(1024, 4096, 8 experts) over mp4, x [4, 1024,
+#     1024] float32, against one process's layer.
+SP_WORLD = 4
+SP_SEQ = 8192
+SP_STEPS = 3
+# float32, TF32 off: the ring merges 1-4 partials where the one-process
+# run's flash kernel sums one row; each loss within SP_LOSS_RTOL, each
+# first-step gradient within SP_GRAD_RTOL of its largest value
+SP_LOSS_RTOL = 1e-5
+SP_GRAD_RTOL = 1e-4
+# one bf16 AMP O1 step, Ulysses against the ring: both round q, k, v and
+# the products to bf16 in other places (2e-2 is ~5 bf16 ulps)
+SP_ULYSSES_RTOL = 2e-2
+#: the attention kernels' shapes on a rank: the ring's shard and Ulysses'
+#: head shard over the whole sequence
+SP_RING_SHAPE = (1, HEADS, SP_SEQ // SP_WORLD, D_MODEL // HEADS)
+SP_ULYSSES_SHAPE = (1, HEADS // SP_WORLD, SP_SEQ, D_MODEL // HEADS)
+SP_RING_ROW, SP_ULYSSES_ROW = "ring shard S=2048", "Ulysses S=8192"
+#: the flash kernels' checks and timings at those shapes: the ring's
+#: diagonal shard (causal) and an earlier rank's (not causal), Ulysses'
+SP_ROWS = (f"{SP_RING_ROW} diagonal", f"{SP_RING_ROW} full", SP_ULYSSES_ROW)
+SP_CASES = [(*SP_RING_SHAPE[:3], SP_RING_SHAPE[2], SP_RING_SHAPE[3], True,
+             0, 0, SP_ROWS[0]),
+            (*SP_RING_SHAPE[:3], SP_RING_SHAPE[2], SP_RING_SHAPE[3], False,
+             0, 0, SP_ROWS[1]),
+            (*SP_ULYSSES_SHAPE[:3], SP_ULYSSES_SHAPE[2],
+             SP_ULYSSES_SHAPE[3], True, 0, 0, SP_ROWS[2])]
+PP_MICRO, PP_BATCH, PP_STEPS = 4, 8, 3
+# the one-F-then-B step's loss against 1F1B's: the same products in
+# another order of microbatches
+PP_SCHEDULE_RTOL = 1e-6
+EP_EXPERTS, EP_HIDDEN, EP_X = 8, 4096, (4, 1024, 1024)
+EP_AUX_W = 0.01
+EP_RTOL = 1e-5
+#: a world still running after this many seconds is killed and fails
+SP_DEADLINE_S = 600
 
 
 # B5 (layer_norm_fwd) before its redesign, float32 ms by shape: this
@@ -518,6 +591,9 @@ RECOMPUTE_LAUNCHES = {
 # to the eager forward's, or within SAVE_LOGIT_RTOL of the largest |logit|
 SAVE_B, SAVE_S = BATCH, PROMPT
 SAVE_LOGIT_RTOL = 1e-5
+# the saved program keeps bench's width and SAVE_LAYERS of its 24 blocks
+# (a depth cut, as MC_LAYERS; CHIP_SMOKE_SAVE_LAYERS sets another depth)
+SAVE_LAYERS = int(os.environ.get("CHIP_SMOKE_SAVE_LAYERS", "4"))
 
 
 def fail(msg: str) -> None:
@@ -716,7 +792,7 @@ def flash_phase(fa, gen, rows):
         (2, 4, 200, 200, 256, False, 0, 0, "ragged, not causal"),
         (2, 4, 136, 136, 192, True, 0, 0, "ragged causal"),
         (2, 4, 72, 200, 192, True, 128, 0, "end-aligned q_offset=Sk-Sq"),
-    ]
+    ] + SP_CASES
     timed = {}
     for dtype in FLASH_DTYPES:
         for B, H, S, Sk, D, causal, qo, ko, what in cases:
@@ -746,7 +822,8 @@ def flash_phase(fa, gen, rows):
             if what not in (train, wide) and not (
                     what == serve and dtype == torch.float32) and not (
                     what == bert and dtype == torch.bfloat16) and not (
-                    what == MC_RANK_ROW and dtype != torch.float16):
+                    what in (MC_RANK_ROW, *SP_ROWS)
+                    and dtype != torch.float16):
                 continue
             calls = 20 if S <= 256 else 5
             ms = time_ms(lambda: fa.flash_attention_fwd(
@@ -780,7 +857,17 @@ def flash_phase(fa, gen, rows):
                 head_dim_256={t: timed[wide, t] for t in SHORT.values()},
                 bert_not_causal_bf16=timed[bert, "bf16"],
                 per_rank_dp2_mp2={t: timed[MC_RANK_ROW, t]
-                                  for t in ("float32", "bf16")})
+                                  for t in ("float32", "bf16")},
+                **_sp_timed(timed))
+
+
+def _sp_timed(timed, name=None):
+    """The sp rows of a kernel's timings, for its JSON entry."""
+    key = (lambda row, t: (row, t)) if name is None else \
+        (lambda row, t: (name, row, t))
+    return {row.replace(" ", "_").replace("=", ""): {
+        t: timed[key(row, t)] for t in ("float32", "bf16")}
+        for row in SP_ROWS}
 
 
 def ln_phase(ln, gen, rows):
@@ -1034,7 +1121,7 @@ def flash_bwd_phase(fa, gen, rows):
         (2, 4, 200, 200, 256, False, 0, 0, "ragged, not causal"),
         (2, 4, 136, 136, 192, True, 0, 0, "ragged causal"),
         (2, 4, 72, 200, 192, True, 128, 0, "end-aligned q_offset=Sk-Sq"),
-    ]
+    ] + SP_CASES
     timed = {}
     for dtype in FLASH_DTYPES:
         for b, h, sq, sk, D, causal, qo, ko, what in cases:
@@ -1066,7 +1153,8 @@ def flash_bwd_phase(fa, gen, rows):
                      "dq = 0")
             if what not in (train, wide) and not (
                     what == bert and dtype == torch.bfloat16) and not (
-                    what == MC_RANK_ROW and dtype != torch.float16):
+                    what in (MC_RANK_ROW, *SP_ROWS)
+                    and dtype != torch.float16):
                 continue
             ms_dq = time_ms(lambda: fa.flash_attention_bwd_dq(
                 q, k, v, do, lse, delta, **kw), calls=5)
@@ -1119,9 +1207,89 @@ def flash_bwd_phase(fa, gen, rows):
              head_dim_256={t: timed[name, wide, t] for t in SHORT.values()},
              bert_not_causal_bf16=timed[name, bert, "bf16"],
              per_rank_dp2_mp2={t: timed[name, MC_RANK_ROW, t]
-                               for t in ("float32", "bf16")})
+                               for t in ("float32", "bf16")},
+             **_sp_timed(timed, name))
         for name, line in (("flash_attention_bwd_dq", "171 (_dq_kernel)"),
                            ("flash_attention_bwd_dkv", "224 (_dkv_kernel)")))
+
+
+def partial_phase(fa, gen, rows):
+    """``flash_attention_partial`` (the ring's building block: B1 forward,
+    B3/B4 backward with the lse cotangent folded into delta) against its
+    plain version on the card at the ring's per-rank shape [1, 16, 2048,
+    64], float32 and bf16: the diagonal shard (causal), a full shard (not
+    causal) and a fully masked one (causal, every key in the future:
+    out = 0, lse = -1e30, gradients 0). The backward's plain version is
+    ``flash_attention_bwd_plain`` with ``delta = rowsum(g_out * out) -
+    g_lse``. Timed (forward) at the diagonal in float32 beside the plain
+    forward and ``aten._scaled_dot_product_efficient_attention`` with its
+    log-sum-exp (one PyTorch call computing (out, lse)); the backward's
+    time beside it. Returns the JSON entry."""
+    B, H, S, D = SP_RING_SHAPE
+    cases = ((True, 0, "diagonal shard"), (False, 0, "full shard"),
+             (True, S, "fully masked shard"))
+    timed = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal, ko, what in cases:
+            q, k, v, go = (torch.randn(B, H, S, D, device="cuda",
+                                       generator=gen).to(dtype)
+                           for _ in range(4))
+            gl = torch.randn(B, H, S, device="cuda", generator=gen)
+            kw = dict(causal=causal, q_offset=0, kv_offset=ko)
+            out, lse = fa.flash_attention_partial(q, k, v, causal, S, S,
+                                                  None, 0, ko)
+            dq, dk, dv = fa.partial_backward(q, k, v, out, lse, go, gl, **kw)
+            po, pl = fa.flash_attention_fwd_plain(q, k, v, **kw)
+            delta = (go.float() * po.float()).sum(-1) - gl
+            ref = fa.flash_attention_bwd_plain(q, k, v, go, pl, delta, **kw)
+            torch.cuda.synchronize()
+            errs = [close(a, b, dtype) for a, b in
+                    ((out, po), (dq, ref[0]), (dk, ref[1]), (dv, ref[2]))]
+            el, ok_l = close(lse, pl, torch.float32)
+            print(f"flash_attention_partial {str(dtype)[6:]} {list(q.shape)}"
+                  f" {what}: max|out err| {errs[0][0]:.3e} max|lse err| "
+                  f"{el:.3e} max|dq, dk, dv err| "
+                  f"{[f'{e:.3e}' for e, _ in errs[1:]]}")
+            if not (ok_l and all(ok for _, ok in errs)):
+                fail(f"flash_attention_partial {dtype} {what} disagrees "
+                     "with its plain version")
+            if ko and not (bool((out == 0).all()) and bool(
+                    (lse <= -1e29).all()) and all(
+                    bool((t == 0).all()) for t in (dq, dk, dv))):
+                fail(f"flash_attention_partial {what}: a fully masked "
+                     "shard must give out 0, lse -1e30 and no gradient")
+            if what != "diagonal shard":
+                continue
+            ms = time_ms(lambda: fa.flash_attention_partial(
+                q, k, v, causal, S, S, None, 0, 0), calls=5)
+            bwd_ms = time_ms(lambda: fa.partial_backward(
+                q, k, v, out, lse, go, gl, **kw), calls=5)
+            plain_ms = time_ms(lambda: fa.flash_attention_fwd_plain(
+                q, k, v, **kw), calls=5)
+            lib_ms = time_ms(
+                lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+                    q, k, v, None, True, 0.0, causal), calls=5)
+            pairs = S * (S + 1) // 2
+            nbytes = 4 * B * H * S * D * q.element_size() + B * H * S * 4
+            bms, by = bound_ms(nbytes, 4 * D * pairs * B * H, dtype,
+                               PEAK_MMA_FLOPS)
+            timed[SHORT[dtype]] = dict(
+                shape=f"[{B},{H},{S},{D}] causal", max_abs_err=max(
+                    [el] + [e for e, _ in errs]),
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=lib_ms, backward_ms=bwd_ms)
+            rows.append(f"flash_attention_partial {str(dtype)[6:]} "
+                        f"{timed[SHORT[dtype]]['shape']}: forward {ms:.4f} "
+                        f"ms, backward (delta, B3, B4) {bwd_ms:.4f} ms, "
+                        f"plain forward {plain_ms:.4f} ms, efficient "
+                        f"attention with lse {lib_ms:.4f} ms, bound "
+                        f"{bms:.6f} ms ({by})")
+    return dict(name="flash_attention_partial", route="cuda",
+                source=f"{fa.SOURCE}, {fa.BWD_SOURCE} (the B1 forward; B3 "
+                       "and B4 with the lse cotangent folded into delta)",
+                replaces="paddle_tpu/ops/pallas/flash_attention.py:421 "
+                         "(flash_attention_partial, _fap_fwd, _fap_bwd)",
+                dtype="float32", **timed["float32"], bf16=timed["bf16"])
 
 
 def ln_bwd_phase(ln, gen, rows):
@@ -1836,8 +2004,8 @@ def serving_phase(pt, kernels):
             return out
 
     t0 = time.perf_counter()
-    model = pt.TransformerLM(VOCAB, D_MODEL, HEADS, LAYERS, max_position=CAP,
-                             dim_feedforward=FFN, seed=0)
+    model = pt.TransformerLM(VOCAB, D_MODEL, HEADS, SERVE_LAYERS,
+                             max_position=CAP, dim_feedforward=FFN, seed=0)
     torch.cuda.synchronize()
     print(f"model: {sum(p.numel() for p in model.parameters())} float32 "
           f"parameters on {model.device}, built in "
@@ -1941,8 +2109,8 @@ def serving_tier_phase(pt, kernels, card):
     torch.backends.cudnn.allow_tf32 = False
     cap = PROMPT + NEW
     cap += (-cap) % TIER_BLOCK  # engine pools splice block-aligned
-    model = pt.TransformerLM(VOCAB, D_MODEL, HEADS, LAYERS, max_position=cap,
-                             dim_feedforward=FFN, seed=2)
+    model = pt.TransformerLM(VOCAB, D_MODEL, HEADS, SERVE_LAYERS,
+                             max_position=cap, dim_feedforward=FFN, seed=2)
     # bench's prompts: rows of arange % 31000
     prompts = (np.arange(BATCH * PROMPT) % 31000).reshape(BATCH, PROMPT)
     one = (np.arange(PROMPT) % 31000).astype(np.int32)
@@ -1999,7 +2167,7 @@ def serving_tier_phase(pt, kernels, card):
     ttfts = sorted(r.ttft_ms for r in res.values())
     held = paged_kv.pool_bytes(eng._state.caches)
     worst = paged_kv.worst_case_bytes(4, HEADS, cap, D_MODEL // HEADS,
-                                      itemsize=4, layers=LAYERS)
+                                      itemsize=4, layers=SERVE_LAYERS)
     print(f"chunked paged engine (slots 4, chunk {TIER_CHUNK}, "
           f"{demand} blocks): 8 x {TIER_ENGINE_NEW} tokens in "
           f"{eng_s * 1e3:.1f} ms, median TTFT {ttfts[len(ttfts) // 2]:.2f} "
@@ -2112,7 +2280,7 @@ def quant_serving_phase(pt, kernels, card):
     cap = PROMPT + NEW  # a multiple of the block and the chunk
 
     def lm(seed):
-        return pt.TransformerLM(VOCAB, D_MODEL, HEADS, LAYERS,
+        return pt.TransformerLM(VOCAB, D_MODEL, HEADS, SERVE_LAYERS,
                                 max_position=cap, dim_feedforward=FFN,
                                 seed=seed)
 
@@ -2141,7 +2309,7 @@ def quant_serving_phase(pt, kernels, card):
           f"{4.0 * info['bytes_payload'] / payload:.2f}; wide rest "
           f"{info['bytes_wide'] / 1e6:.1f} MB")
     narrow = {n: w for n, _, w in qcp.iter_quantizable(qmodel)}
-    if len(narrow) != 4 * LAYERS + 1 or any(
+    if len(narrow) != 4 * SERVE_LAYERS + 1 or any(
             w.dtype != torch.int8 for w in narrow.values()):
         fail("load_quantized left linear weights wide")
     # the float model becomes the same function in two spellings: its
@@ -2306,7 +2474,7 @@ def speculative_phase(pt, kernels, card):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cap = PROMPT + NEW + SPEC_K  # the round's headroom
-    target = pt.TransformerLM(VOCAB, D_MODEL, HEADS, LAYERS,
+    target = pt.TransformerLM(VOCAB, D_MODEL, HEADS, SERVE_LAYERS,
                               max_position=cap, dim_feedforward=FFN, seed=6)
     small = pt.TransformerLM(VOCAB, D_MODEL, HEADS, DRAFT_LAYERS,
                              max_position=cap, dim_feedforward=FFN, seed=7)
@@ -2438,7 +2606,7 @@ def router_phase(pt, kernels, card):
               "PADDLE_SERVE_DISAGG", "PADDLE_FAULT_SPEC"):
         os.environ.pop(k, None)
     t_phase = time.perf_counter()
-    model = pt.TransformerLM(VOCAB, D_MODEL, HEADS, LAYERS,
+    model = pt.TransformerLM(VOCAB, D_MODEL, HEADS, SERVE_LAYERS,
                              max_position=MT_CAP, dim_feedforward=FFN,
                              seed=8)
     adapters = AdapterSet(model, n_adapters=4, rank=8)
@@ -2570,9 +2738,11 @@ def router_phase(pt, kernels, card):
                         ("verify", t2, t3), ("insert", t3, t4)):
             parts[k].append((z - a) * 1e3)
         nbytes = b.nbytes
-    want = (PROMPT // TIER_BLOCK) * TIER_BLOCK * 2 * LAYERS * D_MODEL * 4
+    want = (PROMPT // TIER_BLOCK) * TIER_BLOCK * 2 * SERVE_LAYERS \
+        * D_MODEL * 4
     print(f"per bundle: {nbytes} bytes (reckoned {want}: "
-          f"{PROMPT // TIER_BLOCK} blocks x {TIER_BLOCK} rows x {LAYERS} "
+          f"{PROMPT // TIER_BLOCK} blocks x {TIER_BLOCK} rows x "
+          f"{SERVE_LAYERS} "
           f"layers x K, V x {D_MODEL} x 4 B); ms over 3 handoffs: "
           + ", ".join(f"{k} " + " / ".join(f"{v:.2f}" for v in vs)
                       for k, vs in parts.items())
@@ -4033,7 +4203,7 @@ def jit_save_phase(pt, kernels, card):
         def forward(self, ids):
             return self.gpt.head(self.gpt(ids))
 
-    lm = WithHead(_gpt_medium())
+    lm = WithHead(_gpt_cut(SAVE_LAYERS))
     lm.eval()
     ids = (np.arange(SAVE_B * SAVE_S) % 31000).reshape(SAVE_B, SAVE_S)
     with pt.no_grad():
@@ -4090,7 +4260,7 @@ def jit_save_phase(pt, kernels, card):
     if report["modules"]:
         fail(f"jit.save: the serving process loaded {report['modules']}")
     for name in SERVING_KERNELS:
-        if eager_counts[name] != {"float32": LAYERS}:
+        if eager_counts[name] != {"float32": SAVE_LAYERS}:
             fail(f"jit.save: the eager forward launched {eager_counts}")
     torch.cuda.empty_cache()
     return {k: {n: sum(v.values()) for n, v in report[f"{k}_launches"].items()}
@@ -4110,7 +4280,7 @@ ACP_EPOCHS, ACP_STEPS, ACP_INTER = 3, 2, 2
 # once the multichip phase joined them: the guarded phase's GPT keeps
 # bench's width and its first GUARD_LAYERS of 24 blocks (named in PERF.md;
 # CHIP_SMOKE_GUARD_LAYERS sets another depth, which the --acp-child
-# processes inherit: tools/time_guarded_depth.py times the phase at two)
+# processes inherit: tools/time_depth_cuts.py times the phase at two)
 GUARD_LAYERS = int(os.environ.get("CHIP_SMOKE_GUARD_LAYERS", "4"))
 GUARD_MAX_SKIPS = 2
 #: the six kernels' functions, as the trace names them
@@ -4132,7 +4302,7 @@ def _bench_batch(paddle):
 
 def _gpt_cut(layers):
     """bench's GPT-medium at its full width with only its first ``layers``
-    blocks (the guarded phase's depth cut)."""
+    blocks (the guarded, jit.save and multichip phases' depth cuts)."""
     from paddle_tpu_torch import nn
 
     model = _gpt_medium()
@@ -4842,7 +5012,8 @@ def _mc_batch():
 
 def multichip_gpt_phase(pt, kernels, card):
     """bench.py's ``_bench_gpt_multichip`` program at GPT-medium's full
-    width and depth, as a world of 4 ranks (dp2 x mp2) of this script
+    width and ``MC_LAYERS`` of its 24 blocks (a depth cut), as a world of
+    4 ranks (dp2 x mp2) of this script
     (``--rank-child``), all on this card, over gloo (the backend rule for
     ranks that share a card), started by the port's launcher
     (``distributed.launch``) with a deadline.
@@ -4859,8 +5030,9 @@ def multichip_gpt_phase(pt, kernels, card):
         largest value; ``MC_STEPS`` steps of ``TrainStep`` (AdamW 1e-4 /
         0.01, ``fused_linear_cross_entropy``), each dp-mean loss within
         ``MC_LOSS_RTOL`` of the one-process loss and the same on all 4
-        ranks; B1, B3 and B4 launched 24 times a step at ``[4, 8, 1024,
-        64]`` float32, B5/B6/B7 at the one-process step's counts, no other
+        ranks; B1, B3 and B4 launched ``MC_LAYERS`` times a step at ``[4, 8,
+        1024, 64]`` float32, B5/B6/B7 at the one-process step's counts
+        (scaled to ``MC_LAYERS``), no other
         kernel type. Parameters after the steps are not gated: Adam turns
         sub-ulp gradient differences into lr-sized ones.
     (c) one float32 step from the same weights under
@@ -4889,7 +5061,7 @@ def multichip_gpt_phase(pt, kernels, card):
     root = tempfile.mkdtemp(prefix="mc_gpt_", dir=shm)
     try:
         pt.seed(0)
-        model = _gpt_medium()
+        model = _gpt_cut(MC_LAYERS)
         lm_loss = _bench_lm_loss(model)
         torch.save({k: v.detach().cpu() for k, v in
                     model.state_dict().items()},
@@ -4954,7 +5126,8 @@ def multichip_gpt_phase(pt, kernels, card):
         if o["grad_worst"] > MC_GRAD_RTOL:
             fail(f"multichip GPT rank {r}: gradient {o['grad_worst_name']} "
                  f"off by {o['grad_worst']:.3e} of its largest value")
-        want = {k: {t: n * MC_STEPS for t, n in v.items()}
+        want = {k: {t: n * MC_STEPS * MC_LAYERS // LAYERS
+                    for t, n in v.items()}
                 for k, v in DYGRAPH_LAUNCHES.items()}
         if o["a_launches"] != want:
             fail(f"multichip GPT rank {r}: float32 launches "
@@ -4964,7 +5137,7 @@ def multichip_gpt_phase(pt, kernels, card):
             if o["a_shapes"][name] != [list(MC_RANK_SHAPE)]:
                 fail(f"multichip GPT rank {r}: {name} at "
                      f"{o['a_shapes'][name]}, expected {MC_RANK_SHAPE}")
-            if o["b_launches"][name] != {"bfloat16": MC_STEPS * LAYERS}:
+            if o["b_launches"][name] != {"bfloat16": MC_STEPS * MC_LAYERS}:
                 fail(f"multichip GPT rank {r}: {name} bf16 launches "
                      f"{o['b_launches'][name]}")
         if any(o["c_launches"].values()) or o["c_declines"]["flash"] == 0:
@@ -5024,7 +5197,7 @@ def rank_child(argv) -> int:
     strategy.hybrid_configs = {"dp_degree": MC_DP, "mp_degree": MC_MP}
     fleet.init(is_collective=True, strategy=strategy)
     pt.seed(0)
-    model = _gpt_medium()
+    model = _gpt_cut(MC_LAYERS)
     lm_loss = _bench_lm_loss(model)
     state = os.path.join(root, "state.pt")
 
@@ -5114,6 +5287,539 @@ def rank_child(argv) -> int:
     return 0
 
 
+def sp_decoder(paddle, attn_impl, layers=LAYERS):
+    """The sp part's GPT-medium-shaped causal decoder: token and position
+    embeddings, ``layers`` post-LN ``TransformerEncoderLayer(1024, 16,
+    4096, dropout=0)`` on ``attn_impl`` (causal) with GPT's GELU (a
+    ReLU's kink turns a pre-activation within rounding of 0 into a
+    gradient that differs by a whole token's term, 7.3e-3 of
+    ``linear1.weight``'s largest value at sp4 against one process, where
+    the 1e-4 oracle means to see the ring's rounding) and a 32k head
+    (applied in the loss, ``_bench_lm_loss``). On an sp mesh its positions
+    are those of the rank's shard (from ``sp_rank * T``)."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed import comm
+
+    class Decoder(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(VOCAB, D_MODEL)
+            self.pos = nn.Embedding(SP_SEQ, D_MODEL)
+            self.layers = nn.LayerList([
+                nn.TransformerEncoderLayer(D_MODEL, HEADS, FFN, dropout=0.0,
+                                           activation="gelu",
+                                           attn_impl=attn_impl, causal=True)
+                for _ in range(layers)])
+            self.head = nn.Linear(D_MODEL, VOCAB)
+
+        def forward(self, ids):
+            T = ids.shape[1]
+            mesh = comm.hybrid_mesh()
+            start = mesh.axis_rank("sp") * T if mesh is not None else 0
+            h = self.embed(ids) + self.pos(paddle.arange(start, start + T,
+                                                         dtype="int64"))
+            for lyr in self.layers:
+                h = lyr(h)
+            return h
+
+    return Decoder()
+
+
+def _set_attn(model, impl):
+    for lyr in model.layers:
+        lyr.self_attn.attn_impl = impl
+
+
+def _sp_batch():
+    """The sp part's batch: [1, SP_SEQ] ids and next-token labels."""
+    ids = (np.arange(SP_SEQ) % 31000).reshape(1, SP_SEQ).astype(np.int64)
+    return ids, (ids + 1) % 31000
+
+
+def pp_gpt_layers(paddle):
+    """bench.py's ``_gpt_medium`` as a layer sequence for ``PipelineLayer``:
+    the embeddings (token + position), 24 ``ParallelGPTBlock``s and the
+    32k head."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed import ParallelGPTBlock
+
+    class Embedding(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(VOCAB, D_MODEL)
+            self.pos = nn.Embedding(TRAIN_S, D_MODEL)
+
+        def forward(self, ids):
+            T = ids.shape[1]
+            return self.embed(ids) + self.pos(paddle.arange(T,
+                                                            dtype="int64"))
+
+    return ([Embedding()]
+            + [ParallelGPTBlock(D_MODEL, HEADS, dropout=0.0)
+               for _ in range(LAYERS)]
+            + [nn.Linear(D_MODEL, VOCAB)])
+
+
+def pp_loss(logits, labels):
+    """Cross-entropy of the head's logits, the mean over the tokens."""
+    import paddle_tpu_torch as paddle
+
+    return paddle.nn.functional.cross_entropy(
+        logits.reshape([-1, VOCAB]), labels.reshape([-1]))
+
+
+def sp_pp_ep_phase(pt, kernels, card):
+    """Sequence, pipeline and expert parallelism at full width, as one
+    world of 4 ranks of this script (``--sp-child``) started by the port's
+    launcher, all on this card over gloo, three parts in turn, each with
+    the launch counts reset:
+
+    (a) sp4: ``sp_decoder`` on ``ring_pallas`` (each rank 2048 of the 8192
+        positions, fleet ``sp_degree`` 4, ``TrainStep`` with AdamW 1e-4 /
+        0.01, ``_bench_lm_loss``): the first-step gradients (averaged over
+        sp) within ``SP_GRAD_RTOL`` of each largest value of one process's
+        on ``blockwise`` (B1-B4 at S 8192), ``SP_STEPS`` losses within
+        ``SP_LOSS_RTOL``; rank r launches B1, B3 and B4 exactly 24 (r + 1)
+        times a step (the diagonal and r earlier shards a layer; the masked
+        shards launch nothing) at [1, 16, 2048, 64]. Then one bf16 AMP O1
+        step on ``ulysses`` (B1, B3, B4 24 a step at [1, 4, 8192, 64] bf16)
+        against one on ``ring_pallas`` (losses within ``SP_ULYSSES_RTOL``),
+        and one direct ``ulysses_attention(use_pallas=True)`` against the
+        flash kernel on the global tensors. ms/step, global tokens/s, host
+        ms in the ring's shifts and in ``all_reduce`` by transport, peak by
+        rank.
+    (b) pp2 x mp2: bench's GPT-medium as ``PipelineLayer`` (embeddings, 24
+        ``ParallelGPTBlock``, head; 13 layers a stage) through fleet,
+        ``accumulate_steps`` 4, 1F1B, batch 8 x 1024: the first-step
+        gradients (before the update) within ``SP_GRAD_RTOL`` of one
+        process's, one F-then-B pass's loss within ``PP_SCHEDULE_RTOL`` of
+        1F1B's, ``PP_STEPS`` ``train_batch`` losses within ``SP_LOSS_RTOL``
+        of one process's ``TrainStep``; every kernel of the block on every
+        rank (12 blocks x 4 microbatches a step); ms/step, tokens/s, peak
+        by stage.
+    (c) ep4: ``ExpertParallelMoE(1024, 4096, 8)`` over mp4 (2 experts a
+        rank) on x [4, 1024, 1024]: out, aux and the gradients of x, gate,
+        wi and wo within ``EP_RTOL`` of each largest value of one
+        process's layer.
+
+    The one-process references run first, in this process, and their
+    weights, batches and results reach the ranks through ``/dev/shm``;
+    the card is freed before the world starts. Returns rank 0's launch
+    counts by path."""
+    import gc
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.distributed import launch as dlaunch
+    from paddle_tpu_torch.incubate import ExpertParallelMoE
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    shm = "/dev/shm" if os.path.isdir("/dev/shm") else None
+    root = tempfile.mkdtemp(prefix="sp_pp_ep_", dir=shm)
+
+    def save(obj, name):
+        torch.save(obj, os.path.join(root, name))
+
+    def cpu_state(layer):
+        return {k: v.detach().cpu() for k, v in layer.state_dict().items()}
+
+    def grads(layer):
+        return {k: p.grad.detach().cpu()
+                for k, p in layer.named_parameters()}
+
+    def adamw(model):
+        return pt.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                                  parameters=model.parameters())
+
+    try:
+        ref = {}
+        # (a) one process on blockwise attention: B1-B4 at S 8192
+        pt.seed(0)
+        model = sp_decoder(pt, "blockwise")
+        lm_loss = _bench_lm_loss(model)
+        save(cpu_state(model), "sp_state.pt")
+        ids, labels = (torch.as_tensor(a, device="cuda")
+                       for a in _sp_batch())
+        lm_loss(model(ids), labels).backward()
+        save(grads(model), "sp_grads.pt")
+        model.clear_gradients()
+        step = pt.jit.TrainStep(model, lm_loss, adamw(model))
+        ref["sp"] = [step(ids, labels).item() for _ in range(SP_STEPS)]
+        del model, step, lm_loss, ids, labels
+        # (b) one process's TrainStep over the pipeline's layers
+        pt.seed(1)
+        layer = pt.distributed.PipelineLayer(pp_gpt_layers(pt),
+                                             loss_fn=pp_loss)
+        save(cpu_state(layer), "pp_state.pt")
+        ids, labels = (torch.as_tensor(a, device="cuda")
+                       for a in _mc_batch())
+        pp_loss(layer(ids), labels).backward()
+        save(grads(layer), "pp_grads.pt")
+        layer.clear_gradients()
+        step = pt.jit.TrainStep(layer, pp_loss, adamw(layer))
+        ref["pp"] = [step(ids, labels).item() for _ in range(PP_STEPS)]
+        del layer, step, ids, labels
+        # (c) one process's MoE layer
+        pt.seed(2)
+        moe = ExpertParallelMoE(D_MODEL, EP_HIDDEN, EP_EXPERTS)
+        save(cpu_state(moe), "ep_state.pt")
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        x = torch.randn(EP_X, device="cuda", generator=gen)
+        cot = torch.randn(EP_X, device="cuda", generator=gen)
+        save({"x": x.cpu(), "cot": cot.cpu()}, "ep_inputs.pt")
+        x.requires_grad_()
+        out, aux = moe(x)
+        ((out * cot).sum() + EP_AUX_W * aux).backward()
+        save({"out": out.detach().cpu(), "aux": aux.detach().cpu(),
+              "x": x.grad.cpu(), **{k: v for k, v in grads(moe).items()}},
+             "ep_ref.pt")
+        ref["ep_aux"] = aux.item()
+        del moe, x, cot, out, aux
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        with open(os.path.join(root, "ref.json"), "w") as f:
+            json.dump(ref, f)
+        print(f"sp/pp/ep: one-process references in "
+              f"{time.perf_counter() - t0:.1f} s: sp (blockwise, S="
+              f"{SP_SEQ}) losses {ref['sp']}, pp losses {ref['pp']}, "
+              f"MoE aux {ref['ep_aux']!r}")
+        logs = os.path.join(root, "logs")
+        t1 = time.perf_counter()
+        rc = dlaunch.launch(os.path.abspath(__file__), ["--sp-child", root],
+                            nproc_per_node=SP_WORLD, log_dir=logs,
+                            deadline=SP_DEADLINE_S)
+        world_s = time.perf_counter() - t1
+        for r in range(SP_WORLD):
+            with open(os.path.join(logs, f"workerlog.{r}")) as f:
+                text = f.read()
+            if rc != 0 or r == 0:
+                print(f"--- rank {r} log ---\n{text.rstrip()}")
+        if rc != 0:
+            fail(f"sp/pp/ep: the world of {SP_WORLD} ranks exited with "
+                 f"code {rc}")
+        res = []
+        for r in range(SP_WORLD):
+            with open(os.path.join(root, f"sp_rank{r}.json")) as f:
+                res.append(json.load(f))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"sp/pp/ep: world of {SP_WORLD} ranks ran in {world_s:.1f} s on "
+          f"{card}, 4 ranks sharing one H100 over gloo")
+    for r, o in enumerate(res):
+        bad = [c for part in ("a", "b", "c") for c in o[f"{part}_counts"]
+               if c["backend"] != "gloo" or c["transport"] != "gloo-cuda"]
+        if bad:
+            fail(f"sp/pp/ep rank {r}: a collective left the rule's backend "
+                 f"(gloo, gloo-cuda): {bad}")
+        # (a)
+        for i, (got, want) in enumerate(zip(o["a_losses"], ref["sp"])):
+            if abs(got - want) > SP_LOSS_RTOL * abs(want):
+                fail(f"sp4 rank {r} step {i + 1}: loss {got!r} against one "
+                     f"process's {want!r}")
+        if o["a_grad_worst"] > SP_GRAD_RTOL:
+            fail(f"sp4 rank {r}: gradient {o['a_grad_worst_name']} off by "
+                 f"{o['a_grad_worst']:.3e} of its largest value")
+        want = SP_STEPS * LAYERS * (r + 1)
+        for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                     "flash_attention_bwd_dkv"):
+            if o["a_launches"][name] != {"float32": want}:
+                fail(f"sp4 rank {r}: {name} launches "
+                     f"{o['a_launches'][name]}, expected {want} float32")
+            if o["a_shapes"][name] != [list(SP_RING_SHAPE)]:
+                fail(f"sp4 rank {r}: {name} at {o['a_shapes'][name]}")
+            if o["u_launches"][name] != {"bfloat16": LAYERS} or \
+                    o["u_shapes"][name] != [list(SP_ULYSSES_SHAPE)]:
+                fail(f"sp4 Ulysses rank {r}: {name} launches "
+                     f"{o['u_launches'][name]} at {o['u_shapes'][name]}")
+            if o["rb_launches"][name] != {"bfloat16": LAYERS * (r + 1)}:
+                fail(f"sp4 bf16 ring rank {r}: {name} launches "
+                     f"{o['rb_launches'][name]}")
+        if o["a_partials"] != want:
+            fail(f"sp4 rank {r}: {o['a_partials']} partial-op calls, "
+                 f"expected {want}")
+        if abs(o["u_loss"] - o["rb_loss"]) > SP_ULYSSES_RTOL * abs(
+                o["rb_loss"]):
+            fail(f"sp4 rank {r}: bf16 Ulysses loss {o['u_loss']!r} against "
+                 f"the bf16 ring's {o['rb_loss']!r}")
+        if o["u_direct_err"] > 2 ** -7 * o["u_direct_max"]:
+            fail(f"sp4 rank {r}: ulysses_attention(use_pallas) off the "
+                 f"flash kernel by {o['u_direct_err']:.3e}")
+        # (b)
+        for i, (got, want) in enumerate(zip(o["b_losses"], ref["pp"])):
+            if abs(got - want) > SP_LOSS_RTOL * abs(want):
+                fail(f"pp2 x mp2 rank {r} step {i + 1}: loss {got!r} "
+                     f"against one process's {want!r}")
+        if o["b_grad_worst"] > SP_GRAD_RTOL:
+            fail(f"pp2 x mp2 rank {r}: gradient {o['b_grad_worst_name']} "
+                 f"off by {o['b_grad_worst']:.3e} of its largest value")
+        if abs(o["b_fthenb_loss"] - o["b_1f1b_loss"]) > \
+                PP_SCHEDULE_RTOL * abs(o["b_1f1b_loss"]):
+            fail(f"pp2 x mp2 rank {r}: F-then-B loss {o['b_fthenb_loss']!r}"
+                 f" against 1F1B's {o['b_1f1b_loss']!r}")
+        per = PP_STEPS * PP_MICRO * (LAYERS // 2)
+        want = {k: {"float32": n * per} for k, n in (
+            ("flash_attention_fwd", 1), ("flash_attention_bwd_dq", 1),
+            ("flash_attention_bwd_dkv", 1), ("layer_norm_fwd", 1),
+            ("add_layer_norm_fwd", 1), ("layer_norm_bwd", 2))}
+        if o["b_launches"] != want:
+            fail(f"pp2 x mp2 rank {r}: launches {o['b_launches']}, "
+                 f"expected {want}")
+        # (c)
+        if o["c_worst"] > EP_RTOL:
+            fail(f"ep4 rank {r}: {o['c_worst_name']} off by "
+                 f"{o['c_worst']:.3e} of its largest value")
+    for key in ("a_losses", "b_losses", "u_loss", "rb_loss"):
+        if any(o[key] != res[0][key] for o in res):
+            fail(f"sp/pp/ep: {key} differ across ranks: "
+                 f"{[o[key] for o in res]}")
+    r0 = res[0]
+    a_ms, b_ms = float(np.mean(r0["a_ms"])), float(np.mean(r0["b_ms"]))
+    print(f"sp4 (a) float32 ring_pallas: losses {r0['a_losses']} (one "
+          f"process, blockwise: {ref['sp']}); worst first-step gradient "
+          f"{max(o['a_grad_worst'] for o in res):.3e} of its largest "
+          f"({r0['a_grad_worst_name']}); B1/B3/B4 launches by rank "
+          f"{[o['a_launches']['flash_attention_fwd'] for o in res]} over "
+          f"{SP_STEPS} steps at {list(SP_RING_SHAPE)}")
+    print(f"sp4 (a) {SP_STEPS} steps: step ms {[round(x, 1) for x in r0['a_ms']]}"
+          f", mean {a_ms:.1f} ms, {SP_SEQ / a_ms * 1e3:.1f} global "
+          f"tokens/s; peak memory by rank "
+          f"{[round(o['a_peak_gib'], 2) for o in res]} GiB")
+    for c in r0["a_counts"]:
+        print(f"sp4 (a) rank 0 collectives, {SP_STEPS} steps: {c['op']} "
+              f"{c['backend']}/{c['transport']}: {c['calls']} calls, "
+              f"{c['bytes'] / 2 ** 20:.1f} MiB, {c['ms']:.1f} host ms")
+    print(f"sp4 bf16 AMP step: Ulysses loss {r0['u_loss']!r}, ring_pallas "
+          f"loss {r0['rb_loss']!r}; Ulysses launches "
+          f"{r0['u_launches']['flash_attention_fwd']} at "
+          f"{list(SP_ULYSSES_SHAPE)}; direct ulysses_attention(use_pallas) "
+          f"max|err| {r0['u_direct_err']:.3e} (max|out| "
+          f"{r0['u_direct_max']:.3e})")
+    print(f"pp2 x mp2 (b) 1F1B: losses {r0['b_losses']} (one process "
+          f"{ref['pp']}); F-then-B pass {r0['b_fthenb_loss']!r} against "
+          f"1F1B {r0['b_1f1b_loss']!r}; worst first-step gradient "
+          f"{max(o['b_grad_worst'] for o in res):.3e} "
+          f"({r0['b_grad_worst_name']}); step ms "
+          f"{[round(x, 1) for x in r0['b_ms']]}, mean {b_ms:.1f} ms, "
+          f"{PP_BATCH * TRAIN_S / b_ms * 1e3:.1f} tokens/s; peak memory "
+          f"by rank (stage) {[(round(o['b_peak_gib'], 2), o['b_stage']) for o in res]} GiB")
+    for c in res[0]["b_counts"] + res[2]["b_counts"]:
+        print(f"pp2 x mp2 (b) collectives, {PP_STEPS} steps: {c['op']} "
+              f"{c['backend']}/{c['transport']}: {c['calls']} calls, "
+              f"{c['bytes'] / 2 ** 20:.1f} MiB, {c['ms']:.1f} host ms")
+    print(f"ep4 (c) MoE: worst {max(o['c_worst'] for o in res):.3e} of the "
+          f"largest ({r0['c_worst_name']}); aux {r0['c_aux']!r} (one "
+          f"process {ref['ep_aux']!r}); local experts "
+          f"{r0['c_local']}")
+    return {"sp4_ring_pallas": {k: sum(v.values()) for k, v in
+                                r0["a_launches"].items()},
+            "sp4_ulysses_bf16": {k: sum(v.values()) for k, v in
+                                 r0["u_launches"].items()},
+            "pp2_mp2_1f1b": {k: sum(v.values()) for k, v in
+                             r0["b_launches"].items()},
+            "ep4_moe": {k: sum(v.values()) for k, v in
+                        r0["c_launches"].items()},
+            "partial_op": r0["a_partials"]}
+
+
+def sp_child(argv) -> int:
+    """``python3 chip_smoke.py --sp-child DIR``: one rank of
+    ``sp_pp_ep_phase``'s world, started by the port's launcher. Writes its
+    results to ``DIR/sp_rank<r>.json``."""
+    import gc
+
+    root, = argv
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.core.tensor import to_torch
+    from paddle_tpu_torch.distributed import comm, fleet
+    from paddle_tpu_torch.incubate import ExpertParallelMoE
+    from paddle_tpu_torch.nn.layers import ring_attention as ra
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_parallel_env()
+    rank = dist.get_rank()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mon = dist.comm_monitor.monitor()
+    out = {"rank": rank}
+    t_start = time.perf_counter()
+
+    def done(what):
+        print(f"rank {rank}: {what} done at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+    def init(**degrees):
+        comm._mesh = None
+        s = fleet.DistributedStrategy()
+        s.hybrid_configs = {f"{k}_degree": v for k, v in degrees.items()}
+        return s
+
+    def load(name):
+        return torch.load(os.path.join(root, name), mmap=True)
+
+    def worst(model, want_name):
+        want = load(want_name)
+        w, wn = 0.0, ""
+        for name, p in model.named_parameters():
+            if p.grad is None:
+                continue
+            shard = getattr(p, "_tp_shard", None)
+            full = shard.gather(p.grad) if shard is not None else p.grad
+            ref = want[name].to(dev)
+            rel = ((full - ref).abs().max() / ref.abs().max()).item()
+            if rel > w:
+                w, wn = rel, name
+        return w, wn
+
+    def adamw(model):
+        return pt.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                                  parameters=model.parameters())
+
+    def timed(fn, n):
+        ms, vals = [], []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            vals.append(fn())
+            ms.append((time.perf_counter() - t) * 1e3)
+        return vals, ms
+
+    # (a) sp4 on ring_pallas
+    fleet.init(is_collective=True, strategy=init(sp=SP_WORLD))
+    pt.seed(0)
+    model = sp_decoder(pt, "ring_pallas")
+    model.set_state_dict(load("sp_state.pt"))
+    lm_loss = _bench_lm_loss(model)
+    fl = fleet.distributed_model(model)
+    ids, labels = (fl.shard_input(a) for a in _sp_batch())
+    loss = lm_loss(fl(ids), labels)
+    loss.backward()
+    out["a_grad_worst"], out["a_grad_worst_name"] = worst(model,
+                                                          "sp_grads.pt")
+    model.clear_gradients()
+    del loss
+    step = pt.jit.TrainStep(fl, lm_loss, fleet.distributed_optimizer(
+        adamw(model)))
+    torch.cuda.reset_peak_memory_stats()
+    mon.reset_counts()
+    kernels.reset_launches()  # the sp4 path starts here
+    losses, ms = timed(lambda: step(ids, labels).item(), SP_STEPS)
+    out.update(a_launches=kernels.launches_by_dtype(),  # ... and ends here
+               a_shapes=kernels.launch_shapes(),
+               a_partials=fa.flash_attention_partial.launches,
+               a_losses=losses, a_ms=ms, a_counts=mon.comm_counts(),
+               a_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del step
+    gc.collect()
+
+    # one bf16 AMP O1 step on ring_pallas, then on ulysses, same weights
+    def bf16_step(impl):
+        model.set_state_dict(load("sp_state.pt"))
+        _set_attn(model, impl)
+        kernels.reset_launches()
+        with pt.amp.auto_cast(True, level="O1", dtype="bfloat16"):
+            loss = to_torch(lm_loss(fl(ids), labels))
+        with fl.no_sync():  # the gradients are not read
+            loss.backward()
+        model.clear_gradients()
+        val = loss.detach().reshape(1).float()
+        dist.collective.all_reduce_(val, dist.ReduceOp.AVG,
+                                    comm.data_group())
+        return val.item(), kernels.launches_by_dtype(), \
+            kernels.launch_shapes()
+
+    done("(a) sp4 float32")
+    out["rb_loss"], out["rb_launches"], _ = bf16_step("ring_pallas")
+    out["u_loss"], out["u_launches"], out["u_shapes"] = bf16_step("ulysses")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = (torch.randn((1, HEADS, SP_SEQ, D_MODEL // HEADS),
+                           device=dev, generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    with torch.no_grad():
+        got = ra.ulysses_attention(q, k, v, causal=True, use_pallas=True)
+        want = fa.FlashAttentionFunction.apply(q, k, v, True, 512, 512)
+    out["u_direct_err"] = (got.float() - want.float()).abs().max().item()
+    out["u_direct_max"] = want.float().abs().max().item()
+    del model, fl, ids, labels, lm_loss, q, k, v, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    done("(a) sp4 bf16 Ulysses and ring")
+
+    # (b) pp2 x mp2, 1F1B over 4 microbatches
+    s = init(pp=2, mp=2)
+    s.pipeline = True
+    s.pipeline_configs = {"accumulate_steps": PP_MICRO,
+                          "schedule_mode": "1F1B"}
+    fleet.init(is_collective=True, strategy=s)
+    pt.seed(1)
+    layer = pt.distributed.PipelineLayer(pp_gpt_layers(pt), loss_fn=pp_loss)
+    layer.set_state_dict(load("pp_state.pt"))
+    model = fleet.distributed_model(layer)
+    data = list(_mc_batch())
+    out["b_1f1b_loss"] = model.forward_backward_pipeline(data).item()
+    out["b_grad_worst"], out["b_grad_worst_name"] = worst(layer,
+                                                          "pp_grads.pt")
+    layer.clear_gradients()
+    model.schedule_mode = "F-then-B"
+    out["b_fthenb_loss"] = model.forward_backward_pipeline(data).item()
+    model.schedule_mode = "1F1B"
+    layer.clear_gradients()
+    opt = fleet.distributed_optimizer(adamw(model))
+    torch.cuda.reset_peak_memory_stats()
+    mon.reset_counts()
+    kernels.reset_launches()  # the pp2 x mp2 path starts here
+    losses, ms = timed(lambda: model.train_batch(data, opt).item(),
+                       PP_STEPS)
+    out.update(b_launches=kernels.launches_by_dtype(),  # ... and ends here
+               b_losses=losses, b_ms=ms, b_counts=mon.comm_counts(),
+               b_stage=model.stage_id,
+               b_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del model, layer, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    done("(b) pp2 x mp2")
+
+    # (c) ep4: 2 of the 8 experts a rank
+    fleet.init(is_collective=True, strategy=init(mp=SP_WORLD))
+    pt.seed(2)
+    moe = ExpertParallelMoE(D_MODEL, EP_HIDDEN, EP_EXPERTS)
+    moe.set_state_dict(load("ep_state.pt"))
+    inputs = load("ep_inputs.pt")
+    x = inputs["x"].to(dev).requires_grad_()
+    mon.reset_counts()
+    kernels.reset_launches()  # the ep4 path starts here
+    o, aux = moe(x)
+    ((o * inputs["cot"].to(dev)).sum() + EP_AUX_W * aux).backward()
+    out.update(c_launches=kernels.launches_by_dtype(),  # ... ends here
+               c_counts=mon.comm_counts(), c_aux=aux.item(),
+               c_local={n: list(p.shape) for n, p in
+                        moe.named_parameters()})
+    want = load("ep_ref.pt")
+    got = {"out": o.detach(), "aux": aux.detach(), "x": x.grad}
+    for n, p in moe.named_parameters():
+        shard = getattr(p, "_tp_shard", None)
+        got[n] = shard.gather(p.grad) if shard is not None else p.grad
+    w, wn = 0.0, ""
+    for n, g in got.items():
+        ref = want[n].to(dev)
+        rel = ((g - ref).abs().max() / ref.abs().max().clamp(min=1e-30)
+               ).item()
+        if rel > w:
+            w, wn = rel, n
+    out.update(c_worst=w, c_worst_name=wn)
+    print(f"rank {rank}: {json.dumps(out)}", flush=True)
+    with open(os.path.join(root, f"sp_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    comm.destroy_parallel_env()
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5155,6 +5861,7 @@ def main() -> int:
     ln_entry["registers"] = b5_registers
     dq_entry, dkv_entry = flash_bwd_phase(fa, gen, rows)
     ln_bwd_entry = ln_bwd_phase(ln, gen, rows)
+    partial_entry = partial_phase(fa, gen, rows)
     for r in rows:
         print(r)
     print(f"kernel checks done at {time.perf_counter() - t_start:.1f} s")
@@ -5217,6 +5924,11 @@ def main() -> int:
     multichip = multichip_gpt_phase(pt, kernels, card)
     print(f"multichip GPT phase done at {time.perf_counter() - t_start:.1f} "
           "s")
+    sp_pp_ep = sp_pp_ep_phase(pt, kernels, card)
+    print(f"sp/pp/ep phase done at {time.perf_counter() - t_start:.1f} s")
+    partial_entry["launches"] = sp_pp_ep.pop("partial_op")
+    partial_entry["launches_by_path"] = {"sp4_ring_pallas":
+                                         partial_entry["launches"]}
     entries = [flash, ln_entry, add_entry, dq_entry, dkv_entry, ln_bwd_entry]
     for e in entries:
         if hmma is not None and e["name"] in hmma:
@@ -5246,7 +5958,9 @@ def main() -> int:
             **{f"jit_save_{k}": v[e["name"]] for k, v in saved.items()},
             "guarded_training": sum(guarded[e["name"]].values()),
             "detection": detection[e["name"]],
-            **{k: v[e["name"]] for k, v in multichip.items()}}
+            **{k: v[e["name"]] for k, v in multichip.items()},
+            **{k: v[e["name"]] for k, v in sp_pp_ep.items()}}
+    entries.append(partial_entry)
     print(f"{card}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
@@ -5260,4 +5974,6 @@ if __name__ == "__main__":
         sys.exit(acp_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--rank-child"]:
         sys.exit(rank_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--sp-child"]:
+        sys.exit(sp_child(sys.argv[2:]))
     sys.exit(main())

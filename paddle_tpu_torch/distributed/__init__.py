@@ -14,15 +14,16 @@ Ported: the world and its groups (``comm``), the collectives
 (``collective``), the comm monitor (``comm_monitor``), ``spawn`` and the
 ``python -m paddle_tpu_torch.distributed.launch`` launcher,
 ``DataParallel`` across trainers (``parallel``), the tensor-parallel
-layers at any mp (``meta_parallel``), ``fleet`` at any dp x mp, the
+layers at any mp (``meta_parallel``), the pipeline (``pipeline``: one
+stage a rank, 1F1B and F-then-B), ``fleet`` at any dp x pp x sp x mp, the
 quantization plane's serving half (``quantized_comm``,
-``quantized_compute``) and the trainer's half of ``elastic``. The
-pipeline, ring and Ulysses attention, MoE, quantized gradient comm,
-resharding, ZeRO sharding and the elastic launcher are ROADMAP queue A
-item 7's later parts.
+``quantized_compute``) and the trainer's half of ``elastic``; ring and
+Ulysses attention live in ``nn/layers/ring_attention.py`` and MoE in
+``incubate/moe.py``. Quantized gradient comm, resharding, ZeRO sharding
+and the elastic launcher are ROADMAP queue A item 7's later parts.
 """
 from . import (comm, comm_monitor, collective, elastic, fleet, parallel,
-               quantized_comm, quantized_compute)
+               pipeline, quantized_comm, quantized_compute)
 from .collective import (ReduceOp, all_gather, all_reduce, alltoall,
                          barrier, broadcast, monitored_barrier, reduce,
                          reduce_scatter, scatter, wait)
@@ -34,6 +35,7 @@ from .meta_parallel import (
     RowParallelLinear, VocabParallelEmbedding, split,
 )
 from .parallel import DataParallel
+from .pipeline import PipelineLayer, PipelineParallel
 from .spawn import spawn
 
 
@@ -49,7 +51,8 @@ def __getattr__(name):
 
 
 __all__ = ["comm", "comm_monitor", "collective", "elastic", "fleet",
-           "parallel", "quantized_comm", "quantized_compute",
+           "parallel", "pipeline", "quantized_comm", "quantized_compute",
+           "PipelineLayer", "PipelineParallel",
            "ReduceOp", "all_gather", "all_reduce", "alltoall", "barrier",
            "broadcast", "monitored_barrier", "reduce", "reduce_scatter",
            "scatter", "wait", "Group", "ParallelEnv", "get_group",

@@ -26,6 +26,12 @@ algorithms (PyTorch 2.11's gloo takes CUDA tensors for every op used here:
 and results stay on the rank's device: a transport moves bytes and never
 computes on the host in the device's place.
 
+Sequence and pipeline parallelism add the torch-level ``ppermute_`` (and
+its ring ``shift_``), ``send_recv_`` between two ranks of a group, and
+``all_to_all_tiled_`` (``jax.lax.all_to_all(..., tiled=True)``): each is
+one ``all_to_all_single`` whose splits route the bytes, which every rank
+of the group enters.
+
 ``ReduceOp.AVG`` is a SUM and a division by the group's size on the
 device (gloo has no AVG of integers); ``reduce_scatter`` splits dim 0 of
 its input into ``nranks`` equal parts.
@@ -44,7 +50,8 @@ from .comm import Group
 
 __all__ = ["ReduceOp", "all_reduce", "reduce", "all_gather", "broadcast",
            "reduce_scatter", "scatter", "alltoall", "barrier", "wait",
-           "monitored_barrier", "transport", "all_reduce_", "all_gather_"]
+           "monitored_barrier", "transport", "all_reduce_", "all_gather_",
+           "ppermute_", "shift_", "send_recv_", "all_to_all_tiled_"]
 
 
 class ReduceOp:
@@ -138,6 +145,114 @@ def all_gather_(t: torch.Tensor, group: Optional[Group] = None
         else:
             dist.all_gather_into_tensor(out, t.reshape(-1), group=g.pg)
     return out.view((g.nranks,) + tuple(t.shape))
+
+
+def _exchange(send: torch.Tensor, recv: torch.Tensor, dst: int, src: int,
+              g: Group) -> None:
+    """Rank ``dst`` of ``g`` gets ``send`` and this rank fills ``recv``
+    from rank ``src`` (-1: nothing to send or to receive): one
+    ``all_to_all_single`` whose splits are 0 but for those two ranks. Every
+    rank of the group calls it; ``send`` and ``recv`` are flat and
+    contiguous, of the pair's one type. gloo takes it on CUDA tensors too
+    (its send and recv do not stage a CUDA tensor through host memory),
+    NCCL and gloo on the CPU alike, so the shift has one route."""
+    n = g.nranks
+    ins = [0] * n
+    outs = [0] * n
+    if dst >= 0:
+        ins[dst] = send.numel()
+    if src >= 0:
+        outs[src] = recv.numel()
+    dist.all_to_all_single(recv, send, outs, ins, group=g.pg)
+
+
+def ppermute_(t: torch.Tensor, perm, group: Optional[Group] = None
+              ) -> torch.Tensor:
+    """``jax.lax.ppermute``: ``perm`` lists ``(src, dst)`` pairs of group
+    ranks, each rank the source of one pair at most and the destination of
+    one at most; every rank of the group calls it with its own ``t`` (all
+    of one shape and type) and gets what its source sent, or zeros when it
+    is nobody's destination. Counted as op ``ppermute``."""
+    g = _group(group)
+    me = g.rank
+    dst = next((int(d) for s, d in perm if int(s) == me), -1)
+    src = next((int(s) for s, d in perm if int(d) == me), -1)
+    t = t.contiguous()
+    out = torch.zeros_like(t)
+    with _watch("ppermute", g, t, _nbytes(t) if dst >= 0 else 0):
+        if g.pg is None:
+            if src == me:
+                out.copy_(t)
+        else:
+            empty = t.new_empty(0)
+            _exchange(t.reshape(-1) if dst >= 0 else empty,
+                      out.view(-1) if src >= 0 else empty, dst, src, g)
+    return out
+
+
+def shift_(t: torch.Tensor, group: Optional[Group] = None) -> torch.Tensor:
+    """The ring shift: rank ``i``'s ``t`` goes to rank ``(i + 1) % n`` of
+    the group; returns what rank ``(i - 1) % n`` sent (``ppermute`` over
+    ``[(i, (i + 1) % n)]``)."""
+    g = _group(group)
+    n = g.nranks
+    return ppermute_(t, [(i, (i + 1) % n) for i in range(n)], g)
+
+
+def send_recv_(send: Optional[torch.Tensor], dst: int, recv_like,
+               src: int, group: Optional[Group] = None
+               ) -> Optional[torch.Tensor]:
+    """One point-to-point transfer inside ``group``, which every rank of
+    it enters: this rank sends ``send`` to group rank ``dst`` (None, -1:
+    it sends nothing) and receives from group rank ``src`` a tensor shaped
+    like ``recv_like`` (a tensor or ``(shape, dtype, device)``; None, -1:
+    it receives nothing). The sender's and receiver's types agree. Counted
+    as op ``send_recv``. Returns the received tensor (None)."""
+    g = _group(group)
+    recv = None
+    if src >= 0:
+        shape, dtype, dev = (tuple(recv_like.shape), recv_like.dtype,
+                             recv_like.device) \
+            if isinstance(recv_like, torch.Tensor) else recv_like
+        recv = torch.empty(shape, dtype=dtype, device=dev)
+    probe = send if send is not None else recv
+    if probe is None:  # a rank of the group outside this transfer
+        probe = torch.empty(0, device=comm._state.device or "cpu")
+    if send is not None:
+        send = send.contiguous()
+    with _watch("send_recv", g, probe,
+                _nbytes(send) if send is not None else 0):
+        if g.pg is None:
+            if src >= 0:
+                recv.copy_(send)
+        else:
+            empty = probe.new_empty(0)
+            _exchange(send.reshape(-1) if send is not None else empty,
+                      recv.view(-1) if recv is not None else empty,
+                      dst, src, g)
+    return recv
+
+
+def all_to_all_tiled_(x: torch.Tensor, split_axis: int, concat_axis: int,
+                      group: Optional[Group] = None) -> torch.Tensor:
+    """``jax.lax.all_to_all(x, axis, split_axis, concat_axis,
+    tiled=True)``: ``x`` is cut into ``n`` equal parts along
+    ``split_axis``, part ``j`` goes to group rank ``j``, and the parts
+    received are joined along ``concat_axis`` in rank order. Counted as
+    op ``all_to_all``."""
+    g = _group(group)
+    n = g.nranks
+    if x.shape[split_axis] % n:
+        raise ValueError(f"all_to_all: axis {split_axis} of "
+                         f"{tuple(x.shape)} does not split into {n} parts")
+    inp = torch.stack(x.chunk(n, dim=split_axis)).contiguous()
+    out = torch.empty_like(inp)
+    with _watch("all_to_all", g, inp, _nbytes(inp)):
+        if g.pg is None:
+            out.copy_(inp)
+        else:
+            dist.all_to_all_single(out, inp, group=g.pg)
+    return torch.cat(out.unbind(0), dim=concat_axis)
 
 
 # ---------------------------------------------------------------------------

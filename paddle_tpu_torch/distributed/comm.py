@@ -25,11 +25,12 @@ on the CPU. NCCL refuses two ranks on one device, so the rule is not a
 preference: a ``backend=`` that disagrees with it raises, and nothing picks
 another backend in silence. :func:`backend` names the job's.
 
-``init_hybrid_mesh(dp, mp)`` lays the world out as the JAX package's mesh,
-axis order ``(dp, pp, sp, mp)`` with mp innermost (rank = dp_index * mp +
-mp_index), and makes the dp and mp subgroups once, on every rank in the same
-order. ``pp``, ``sp`` and ``dp_inner`` above 1 raise, naming the ROADMAP
-item that brings them.
+``init_hybrid_mesh(dp, mp, pp, sp)`` lays the world out as the JAX
+package's mesh, axis order ``(dp, pp, sp, mp)`` with mp innermost (rank =
+``((dp_index * PP + pp_index) * SP + sp_index) * MP + mp_index``), and makes
+the group of each axis and the ``data`` group (dp x sp) once, on every rank
+in the same order. ``dp_inner`` above 1 raises, naming the ROADMAP item
+that brings it.
 """
 from __future__ import annotations
 
@@ -45,7 +46,8 @@ __all__ = ["Group", "HybridMesh", "ParallelEnv", "init_parallel_env",
            "is_initialized", "get_group", "new_group", "get_rank",
            "get_world_size", "backend", "backend_rule", "rank_device",
            "init_hybrid_mesh", "hybrid_mesh", "dp_axes", "dp_size",
-           "mp_mesh", "mp_group", "dp_group", "shard_rank_axis",
+           "mp_mesh", "mp_group", "dp_group", "data_group", "mesh_rank",
+           "mesh_coords", "shard_rank_axis",
            "replicate", "spmd_region", "in_spmd_region",
            "destroy_parallel_env"]
 
@@ -361,49 +363,83 @@ def in_spmd_region(axis_name: Optional[str] = None) -> bool:
 # ---------------------------------------------------------------------------
 
 
+#: the mesh's axes, outermost first (mp innermost)
+MESH_AXES = ("dp", "pp", "sp", "mp")
+
+
+def mesh_rank(coords: Dict[str, int], shape: Dict[str, int]) -> int:
+    """The rank at ``coords`` of a mesh of ``shape``: ``((dp * PP + pp) *
+    SP + sp) * MP + mp``, the JAX package's device order
+    (``devices.reshape(dp, pp, sp, mp)``)."""
+    r = 0
+    for a in MESH_AXES:
+        r = r * int(shape[a]) + int(coords[a])
+    return r
+
+
+def mesh_coords(rank: int, shape: Dict[str, int]) -> Dict[str, int]:
+    """The inverse of :func:`mesh_rank`."""
+    out = {}
+    for a in reversed(MESH_AXES):
+        out[a] = rank % int(shape[a])
+        rank //= int(shape[a])
+    return {a: out[a] for a in MESH_AXES}
+
+
+def _axis_groups(shape: Dict[str, int], axes: Tuple[str, ...], me: int,
+                 name: str) -> Group:
+    """Make every group whose ranks differ only along ``axes`` (every rank
+    of the world calls this, in one order) and return this rank's."""
+    import itertools
+
+    others = [a for a in MESH_AXES if a not in axes]
+    mine = None
+    for fixed in itertools.product(*(range(shape[a]) for a in others)):
+        base = dict(zip(others, fixed))
+        ranks = [mesh_rank({**base, **dict(zip(axes, var))}, shape)
+                 for var in itertools.product(*(range(shape[a])
+                                                for a in axes))]
+        g = new_group(ranks, axis_name=name)
+        if me in ranks:
+            mine = g
+    return mine
+
+
 def init_hybrid_mesh(dp: int = 1, mp: int = 1, pp: int = 1, sp: int = 1,
                      dp_inner: int = 1) -> HybridMesh:
     """Lay the world out as the job's mesh (axes dp, pp, sp, mp; mp
-    innermost) and make its dp and mp groups. ``dp * mp`` must be the
-    world size; ``pp``, ``sp`` and ``dp_inner`` above 1 raise."""
+    innermost: rank ``((dp * PP + pp) * SP + sp) * MP + mp``) and make the
+    group of each axis above 1, on every rank in the same order, plus the
+    ``data`` group over dp x sp (the ranks that hold the same replicated
+    parameters and different tokens: gradients are averaged over it). The
+    product of the degrees must be the world size; ``dp_inner`` above 1
+    raises."""
     global _mesh
-    for name, v, item in (("pp", pp, "7 (the pipeline)"),
-                          ("sp", sp, "7 (ring and Ulysses attention)"),
-                          ("dp_inner", dp_inner,
-                           "7 (hierarchical allreduce)")):
-        if int(v) != 1:
-            raise NotImplementedError(
-                f"init_hybrid_mesh({name}={v}): not ported yet, ROADMAP "
-                f"queue A item {item}")
-    dp, mp = int(dp), int(mp)
-    need = dp * mp
+    if int(dp_inner) != 1:
+        raise NotImplementedError(
+            f"init_hybrid_mesh(dp_inner={dp_inner}): not ported yet, ROADMAP "
+            "queue A item 7 (hierarchical allreduce)")
+    shape = dict(dp=int(dp), pp=int(pp), sp=int(sp), mp=int(mp))
+    need = 1
+    for v in shape.values():
+        need *= v
     world = get_world_size()
     if need != world:
         raise ValueError(
-            f"hybrid topology dp={dp} x mp={mp} = {need} ranks, but the "
-            f"world has {world}: launch dp * mp trainers")
+            f"hybrid topology dp={dp} x pp={pp} x sp={sp} x mp={mp} = {need} "
+            f"ranks, but the world has {world}: launch that many trainers")
     if world > 1:
         _ensure_init()
-    shape = dict(dp=dp, pp=1, sp=1, mp=mp)
-    if world == 1:
-        one = Group([0], -1, "mp")
-        groups = {a: one for a in shape}
-        coords = {a: 0 for a in shape}
-    else:
-        me = get_rank()
-        coords = dict(dp=me // mp, pp=0, sp=0, mp=me % mp)
-        groups = {}
-        # every rank makes every subgroup, in one order
-        for j in range(mp):
-            g = new_group([i * mp + j for i in range(dp)], axis_name="dp")
-            if j == coords["mp"]:
-                groups["dp"] = g
-        for i in range(dp):
-            g = new_group([i * mp + j for j in range(mp)], axis_name="mp")
-            if i == coords["dp"]:
-                groups["mp"] = g
-        solo = Group([me], -1, "solo")
-        groups["pp"] = groups["sp"] = solo
+    me = get_rank() if world > 1 else 0
+    coords = mesh_coords(me, shape)
+    groups = {}
+    solo = Group([me], -1, "solo")
+    for a in MESH_AXES:
+        groups[a] = _axis_groups(shape, (a,), me, a) \
+            if shape[a] > 1 else solo
+    groups["data"] = groups["dp"] if shape["sp"] == 1 else \
+        _axis_groups(shape, ("dp", "sp"), me, "data") \
+        if shape["dp"] > 1 else groups["sp"]
     _mesh = HybridMesh(shape, groups, coords)
     _publish_streams()
     return _mesh
@@ -439,6 +475,15 @@ def mp_mesh() -> HybridMesh:
 def mp_group() -> Optional[Group]:
     """This rank's mp Group (None without a mesh)."""
     return None if _mesh is None else _mesh.group("mp")
+
+
+def data_group() -> Optional[Group]:
+    """The group over which replicated parameters' gradients are averaged:
+    dp x sp (every rank of it holds other tokens); the dp group when sp is
+    1, the default group without a mesh."""
+    if _mesh is not None:
+        return _mesh.group("data")
+    return _state.default_group
 
 
 def dp_group() -> Optional[Group]:
@@ -491,9 +536,9 @@ def _publish_streams() -> None:
     """Name this rank's random streams in ``core.random`` (outside a world
     of several ranks none is named, and the package's generator serves):
 
-    - ``dropout``: per dp index. The batch is split over dp, so each dp
-      rank draws its own masks, while mp peers, which hold the same
-      activations, draw the same ones.
+    - ``dropout``: per dp x sp index. The batch is split over dp and the
+      sequence over sp, so each such rank draws its own masks, while mp
+      peers, which hold the same activations, draw the same ones.
     - ``dropout_mp``: per dp and mp index, for activations that tensor
       parallelism shards (the heads, the MLP's hidden units).
     - ``shard_init``: per mp index, for the shards of tensor-parallel
@@ -504,7 +549,8 @@ def _publish_streams() -> None:
 
     keys = {}
     if get_world_size() > 1 and _state.default_group is not None:
-        dp_i = _mesh.axis_rank("dp") if _mesh is not None else get_rank()
+        dp_i = _mesh.axis_rank("dp") * _mesh.shape["sp"] \
+            + _mesh.axis_rank("sp") if _mesh is not None else get_rank()
         mp_i = _mesh.axis_rank("mp") if _mesh is not None else -1
         keys = {"dropout": (1, dp_i, -1), "dropout_mp": (1, dp_i, mp_i)}
     if _mesh is not None and _mesh.shape["mp"] > 1:

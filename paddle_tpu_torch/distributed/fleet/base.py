@@ -8,10 +8,15 @@ optimizer so that it carries the strategy (``user_defined_strategy``) to
 ``jit.TrainStep``, which applies its ``amp`` option and runs the step
 across the world.
 
-As in the JAX package, a ``dp_degree`` left at 1 takes what ``mp`` leaves
-of the world. ``pp_degree`` and ``sp_degree`` above 1 raise (ROADMAP
-queue A item 7), and a strategy option the port has not ported is kept as
-data and refused by ``TrainStep``, naming it.
+As in the JAX package, a ``dp_degree`` left at 1 takes what ``mp``, ``pp``
+and ``sp`` leave of the world. With ``pp_degree`` above 1,
+``distributed_model`` takes a ``PipelineLayer`` and returns its
+``PipelineParallel`` (``pipeline_configs``' ``accumulate_steps`` and
+``schedule_mode``); with ``sp_degree`` above 1 the ``DataParallel`` it
+returns averages the gradients over dp x sp and its ``shard_input`` cuts
+the batch over dp and the sequence (axis 1) over sp. A strategy option
+the port has not ported is kept as data and refused by ``TrainStep``,
+naming it.
 """
 from __future__ import annotations
 
@@ -156,15 +161,34 @@ class Fleet:
 
     # -- the model and optimizer decorators ------------------------------
     def distributed_model(self, model):
-        """``model`` wrapped for data parallelism over the mesh's dp group
-        (``DataParallel``: ranks start from the dp group's first rank's
-        parameters, gradients are averaged over dp at the end of each
+        """``model`` wrapped for data parallelism over the mesh's dp x sp
+        group (``DataParallel``: ranks start from that group's first rank's
+        parameters, gradients are averaged over it at the end of each
         backward, ``shard_input`` takes this rank's part of a global
-        batch). A ``DataParallel`` is returned as it is."""
+        batch). A ``DataParallel`` is returned as it is. A
+        ``PipelineLayer`` becomes its ``PipelineParallel`` (pp above 1),
+        with the reference's refusals (distributed/fleet/base.py:681)."""
+        from ..pipeline import PipelineLayer, PipelineParallel
+
         self._require_init()
+        mesh = comm.mp_mesh()
+        if isinstance(model, PipelineLayer):
+            if mesh.shape["pp"] == 1:
+                raise ValueError(
+                    "PipelineLayer needs hybrid_configs pp_degree > 1")
+            pc = self._strategy.pipeline_configs
+            return PipelineParallel(
+                model, mesh=mesh,
+                accumulate_steps=int(pc["accumulate_steps"]),
+                schedule_mode=str(pc.get("schedule_mode", "1F1B")))
+        if mesh.shape["pp"] > 1:
+            raise ValueError(
+                "pp_degree > 1 requires the model to be a "
+                "distributed.PipelineLayer (stage partition; the "
+                "device_guard analog)")
         if isinstance(model, DataParallel):
             return model
-        return DataParallel(model, group=comm.mp_mesh().group("dp"))
+        return DataParallel(model, group=mesh.group("data"))
 
     def distributed_optimizer(self, optimizer, strategy=None):
         """``optimizer`` carrying the strategy of :meth:`init` (or

@@ -4,9 +4,11 @@ object, a feature flag and a ``*_configs`` dict per feature, with the
 JAX package's field names and defaults (``amp_configs`` defaults to bf16,
 ``use_bf16`` True, dynamic scaling from 32768 when float16 is asked for).
 
-``fleet.init`` lays the world out as ``hybrid_configs`` (dp x mp; or
-``tensor_parallel`` with its ``tensor_parallel_degree``). ``jit.TrainStep``
-applies ``amp``; every other option of ``NOT_PORTED`` is kept as data,
+``fleet.init`` lays the world out as ``hybrid_configs`` (dp x pp x sp x
+mp; or ``tensor_parallel`` with its ``tensor_parallel_degree``).
+``jit.TrainStep`` applies ``amp``; ``fleet.distributed_model`` reads
+``pipeline_configs`` (``accumulate_steps``, ``schedule_mode``) for a
+``PipelineLayer``; every other option of ``NOT_PORTED`` is kept as data,
 and a ``TrainStep`` given a strategy that sets one raises
 ``NotImplementedError`` naming it.
 """
@@ -17,7 +19,7 @@ import copy
 
 _DEFAULTS = {
     # feature flags and their configs, with the JAX package's names and
-    # defaults; only `amp` changes what the port runs
+    # defaults; `amp` and `pipeline_configs` change what the port runs
     "amp": False,
     "amp_configs": {
         "init_loss_scaling": 32768.0,
@@ -80,7 +82,7 @@ _DEFAULTS = {
 
 #: the options the port keeps as data only: a TrainStep refuses a strategy
 #: that sets one
-NOT_PORTED = ("recompute", "sharding", "pipeline", "gradient_merge", "fp16_allreduce", "localsgd", "lamb", "lars",
+NOT_PORTED = ("recompute", "sharding", "gradient_merge", "fp16_allreduce", "localsgd", "lamb", "lars",
               "hierarchical_allreduce", "async_dcn_allreduce",
               "quantized_allreduce", "quantized_matmul", "quantized_moments",
               "dgc", "elastic_reshard", "a_sync")

@@ -36,7 +36,8 @@ from . import collective, comm
 from .comm import ParallelEnv, init_parallel_env
 
 __all__ = ["DataParallel", "ParallelEnv", "init_parallel_env",
-           "shard_batch", "reduce_gradients", "all_reduce_sum"]
+           "shard_batch", "shard_tokens", "reduce_gradients",
+           "all_reduce_sum"]
 
 
 def shard_batch(x, mesh=None, axis_name: str = "dp", group=None) -> Tensor:
@@ -51,6 +52,25 @@ def shard_batch(x, mesh=None, axis_name: str = "dp", group=None) -> Tensor:
         raise ValueError(f"shard_batch: batch {B} does not split over {n} "
                          "data-parallel ranks")
     part = raw[r * B // n:(r + 1) * B // n]
+    if isinstance(part, torch.Tensor):
+        return Tensor._wrap(part.to(comm._state.device or part.device))
+    return to_tensor(np.ascontiguousarray(part), place=comm._state.device)
+
+
+def shard_tokens(x, mesh=None) -> Tensor:
+    """This rank's part of a global ``[B, S, ...]`` batch on a mesh with
+    sequence parallelism: rows ``[d * B / dp, (d + 1) * B / dp)`` of its dp
+    index ``d`` and positions ``[s * S / sp, (s + 1) * S / sp)`` of its sp
+    index ``s``, a ``Tensor`` on the rank's device."""
+    mesh = mesh or comm.hybrid_mesh()
+    raw = x._data if isinstance(x, Tensor) else x
+    B, S = int(raw.shape[0]), int(raw.shape[1])
+    dp, sp = mesh.shape["dp"], mesh.shape["sp"]
+    if B % dp or S % sp:
+        raise ValueError(f"shard_tokens: [{B}, {S}] does not split over "
+                         f"dp={dp} x sp={sp}")
+    d, s = mesh.axis_rank("dp"), mesh.axis_rank("sp")
+    part = raw[d * B // dp:(d + 1) * B // dp, s * S // sp:(s + 1) * S // sp]
     if isinstance(part, torch.Tensor):
         return Tensor._wrap(part.to(comm._state.device or part.device))
     return to_tensor(np.ascontiguousarray(part), place=comm._state.device)
@@ -163,7 +183,13 @@ class DataParallel(Layer):
                          self._bucket_mb)
 
     def shard_input(self, x) -> Tensor:
-        """This rank's slice of the global batch ``x`` (dim 0)."""
+        """This rank's slice of the global batch ``x`` (dim 0); over a
+        mesh's dp x sp group, its rows and its sequence positions (dim 1,
+        :func:`shard_tokens`)."""
+        mesh = comm.hybrid_mesh()
+        if mesh is not None and mesh.shape["sp"] > 1 \
+                and self.group is mesh.group("data"):
+            return shard_tokens(x, mesh)
         return shard_batch(x, group=self.group)
 
     def scale_loss(self, loss):

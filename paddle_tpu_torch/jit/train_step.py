@@ -59,12 +59,14 @@ running statistics.)
 
 **Across a world of ranks** (``distributed``: a rank is a process), the
 step makes explicit what the JAX package's one controller gives for free.
-The gradients are averaged over the dp group before the loss scale is
-divided out and before the clip (by the model's ``DataParallel`` hooks,
-``fleet.distributed_model``, or else by the step, through
-``distributed.parallel.reduce_gradients``); the global-norm clip sums
-the tensor-parallel shards' squares over mp. The returned loss is the dp
-mean, the same on every rank. The guard's verdict (its health bits and
+The gradients are averaged over the data group (dp, times sp on a mesh
+with sequence parallelism, where each rank's loss covers its own tokens:
+the mean of equal shards' mean losses is the global token mean) before
+the loss scale is divided out and before the clip (by the model's
+``DataParallel`` hooks, ``fleet.distributed_model``, or else by the step,
+through ``distributed.parallel.reduce_gradients``); the global-norm clip
+sums the tensor-parallel shards' squares over mp. The returned loss is
+the mean over the data group, the same on every rank. The guard's verdict (its health bits and
 grad norm, the norm over the full gradients) and the float16 scaler's
 found-inf are reduced over the world with MAX before they mask the
 update, so a step that one rank skips is skipped by all.
@@ -173,7 +175,7 @@ class TrainStep:
         if comm.get_world_size() <= 1:
             return None
         world = comm._ensure_init()
-        dp = comm.dp_group()
+        dp = comm.data_group()
         hooked = isinstance(model, DataParallel) and model.group is dp
         return world, dp, dp.nranks > 1 and not hooked
 
@@ -270,7 +272,7 @@ class TrainStep:
 
             if world[2]:
                 reduce_gradients(self._params, world[1])
-            # the dp mean, the same on every rank
+            # the data group's mean, the same on every rank
             loss = collective.all_reduce_(
                 loss.detach().clone().reshape(1), collective.ReduceOp.AVG,
                 world[1]).reshape(())

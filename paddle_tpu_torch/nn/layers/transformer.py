@@ -9,9 +9,14 @@ or, with ``need_weights``, the dense form that returns the weights.
 ``attn_impl="blockwise"`` runs ``ring_attention.blockwise_attention``
 (the flash kernels for block-divisible shapes on the card, causal or not)
 and refuses, as the JAX package does, an ``attn_mask``, weight dropout in
-training, ``need_weights`` and a cache. The ``ring``, ``ring_pallas`` and
-``ulysses`` routes (sequence parallel) are ROADMAP queue A item 7, and
-raise. ``gen_cache`` builds the static-capacity cache
+training, ``need_weights`` and a cache. The sequence-parallel routes
+``ring``, ``ring_pallas`` (each step on the flash kernels) and
+``ulysses`` refuse the same; on a world with an ``sp`` axis each rank
+passes its own sequence shard ``[B, S/sp, d]`` (global positions from
+``sp_rank * S/sp``) and gets its rows back (``ring_attention_raw`` and
+``_ulysses_raw`` over the mesh's sp group: a rank is a process, where the
+JAX package's layer takes the global tensors); without a mesh they raise,
+as there. ``gen_cache`` builds the static-capacity cache
 contiguous or paged, full width or int8/fp8 (``QuantKV``).
 
 ``TransformerEncoder`` and ``TransformerDecoder`` clone their first layer
@@ -40,7 +45,8 @@ from ..layer import Layer
 from .common import Dropout, Linear
 from .container import LayerList
 from .norm import LayerNorm
-from .ring_attention import blockwise_attention
+from .ring_attention import (_ulysses_raw, blockwise_attention,
+                             ring_attention_raw)
 
 __all__ = [
     "MultiHeadAttention", "TransformerEncoderLayer", "TransformerEncoder",
@@ -84,10 +90,6 @@ class MultiHeadAttention(Layer):
         if attn_impl not in ("dense", "blockwise", "ring", "ring_pallas",
                              "ulysses"):
             raise ValueError(f"unknown attn_impl {attn_impl!r}")
-        if attn_impl not in ("dense", "blockwise"):
-            raise NotImplementedError(
-                f"MultiHeadAttention: attn_impl={attn_impl!r} (sequence "
-                "parallel) is ROADMAP queue A item 7")
         self.attn_impl, self.causal = attn_impl, causal
         self.block_size = block_size
         self.embed_dim = embed_dim
@@ -220,7 +222,7 @@ class MultiHeadAttention(Layer):
 
     def forward(self, query, key=None, value=None, attn_mask=None,
                 cache=None, pos=None):
-        if self.attn_impl == "blockwise":
+        if self.attn_impl != "dense":
             self._refuse_blockwise(attn_mask, cache, pos)
         key = query if key is None else key
         value = key if value is None else value
@@ -259,6 +261,15 @@ class MultiHeadAttention(Layer):
         if self.attn_impl == "blockwise":
             out = blockwise_attention(q, k, v, causal=self.causal,
                                       block_size=self.block_size)
+            return self._finish_output(out, None, cache)
+        if self.attn_impl == "ulysses":
+            out = _ulysses_raw(q, k, v, causal=self.causal,
+                               block_size=self.block_size)
+            return self._finish_output(out, None, cache)
+        if self.attn_impl in ("ring", "ring_pallas"):
+            out = ring_attention_raw(
+                q, k, v, causal=self.causal,
+                use_pallas=self.attn_impl == "ring_pallas")
             return self._finish_output(out, None, cache)
         mask = _convert_attention_mask(attn_mask, q.dtype)
         if not self.need_weights:

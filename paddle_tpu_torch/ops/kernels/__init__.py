@@ -27,6 +27,7 @@ def reset_launches() -> None:
         w.launches = 0
         w.by_dtype = {}
         w.shapes = set()
+    flash_attention.flash_attention_partial.launches = 0
 
 
 def launches() -> dict:

@@ -38,6 +38,12 @@ takes the plain version; a CUDA tensor launches the kernel or raises. A
 wrapper function called directly with an input that requires grad while
 grad mode is on raises on either device (its outputs would be cut from
 the graph): training goes through :class:`FlashAttentionFunction`.
+
+Ring attention's building block, ``flash_attention_partial`` (the JAX
+package's ``flash_attention_partial``), is a fourth custom op over the
+same kernels: the B1 forward's unmerged ``(out, lse)`` of one KV shard,
+whose autograd formula takes the lse cotangent too and folds it into
+delta (``delta = rowsum(g_out * out) - g_lse``) before the B3/B4 ops.
 """
 from __future__ import annotations
 
@@ -355,6 +361,85 @@ def _fwd_backward(ctx, g, _g_lse):
 
 
 _fwd_op.register_autograd(_fwd_backward, setup_context=_fwd_setup)
+
+
+# -- the ring's building block: the unmerged partial (out, lse) of one KV
+# shard, whose autograd formula takes the lse cotangent
+
+@torch.library.custom_op(f"{_build.NAMESPACE}::flash_attention_partial",
+                         mutates_args=())
+def _partial_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool = False, block_q: int = 256, block_k: int = 256,
+                scale: Optional[float] = None, q_offset: int = 0,
+                kv_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    if q.device.type == "cuda":
+        flash_attention_partial.launches += 1
+    return flash_attention_fwd(q, k, v, causal=causal, block_q=block_q,
+                               block_k=block_k, scale=scale,
+                               q_offset=q_offset, kv_offset=kv_offset)
+
+
+@_partial_op.register_fake
+def _(q, k, v, causal=False, block_q=256, block_k=256, scale=None,
+      q_offset=0, kv_offset=0):
+    B, H, S, Sk, _ = _check_qkv(q, k, v)
+    _check_blocks(S, Sk, block_q, block_k)
+    lse_type = torch.promote_types(q.dtype, torch.float32)
+    return torch.empty_like(q), q.new_empty((B, H, S), dtype=lse_type)
+
+
+def partial_backward(q, k, v, out, lse, g_out, g_lse, *, causal=False,
+                     scale=None, q_offset=0, kv_offset=0):
+    """(dq, dk, dv) of a partial ``(out, lse)`` given the cotangents of
+    both (``_fap_bwd``): the lse cotangent folds into delta, ``delta =
+    rowsum(g_out * out) - g_lse`` (``ds = p (dp - delta) + p g_lse``), then
+    the B3/B4 ops with that delta; the plain backward on the CPU. A None
+    cotangent counts as zeros."""
+    if g_out is None:
+        g_out = torch.zeros_like(out)
+    delta = (_up(g_out) * _up(out)).sum(dim=-1).to(lse.dtype)
+    if g_lse is not None:
+        delta = delta - g_lse.to(delta.dtype)
+    g = g_out.to(q.dtype).contiguous()
+    kw = dict(causal=causal, scale=scale, q_offset=q_offset,
+              kv_offset=kv_offset)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, g, lse, delta, **kw)
+    delta = delta.contiguous()
+    dq = _dq_op(q, k, v, g, lse, delta, causal, scale, q_offset, kv_offset)
+    dk, dv = _dkv_op(q, k, v, g, lse, delta, causal, scale, q_offset,
+                     kv_offset)
+    return dq, dk, dv
+
+
+def _partial_backward(ctx, g_out, g_lse):
+    q, k, v, out, lse = ctx.saved_tensors
+    causal, scale, q_offset, kv_offset = ctx.kw
+    dq, dk, dv = partial_backward(q, k, v, out, lse, g_out, g_lse,
+                                  causal=causal, scale=scale,
+                                  q_offset=q_offset, kv_offset=kv_offset)
+    return dq, dk, dv, None, None, None, None, None, None
+
+
+_partial_op.register_autograd(_partial_backward, setup_context=_fwd_setup)
+
+
+def flash_attention_partial(q, k, v, causal=False, block_q=256, block_k=256,
+                            scale=None, q_offset=0, kv_offset=0):
+    """Ring attention's building block (``flash_attention_partial`` of
+    ``flash_attention.py:421``): the B1/B2 forward over one KV shard with
+    GLOBAL position offsets, returning its UNMERGED ``(out, lse)``; a row
+    with every key masked gives ``(0, -1e30)``, which the ring's merge
+    weighs 0. Differentiable in both outputs: the custom op
+    ``flash_attention_partial``, whose autograd formula
+    (:func:`partial_backward`) folds the lse cotangent into delta and runs
+    the B3/B4 ops. ``flash_attention_partial.launches`` counts its calls
+    on a CUDA tensor (each launches B1)."""
+    return _partial_op(q, k, v, causal, block_q, block_k, scale, q_offset,
+                       kv_offset)
+
+
+flash_attention_partial.launches = 0
 
 
 class FlashAttentionFunction:

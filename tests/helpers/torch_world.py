@@ -1,6 +1,7 @@
 """Worlds of ``paddle_tpu_torch`` ranks on the CPU, for the multi-rank
-parity tests (tests/test_torch_collective.py and
-tests/test_torch_tensor_parallel.py).
+parity tests (tests/test_torch_collective.py,
+tests/test_torch_tensor_parallel.py, tests/test_torch_sequence_parallel.py
+and tests/test_torch_pipeline_moe.py).
 
 A world is ``nprocs`` processes started by the port's ``spawn`` (the
 ``spawn`` start method), each on the CPU with one thread, meeting through a
@@ -520,6 +521,194 @@ def case_random_streams(rank, inputs, tmpdir):
     out["plain"], out["recomputed"] = run(False), run(True)
     out["eval_loss"] = run(False, training=False)[0]
     return out
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism at sp4 (tests/test_torch_sequence_parallel.py)
+# ---------------------------------------------------------------------------
+
+
+def _fleet_hybrid(**degrees):
+    from paddle_tpu_torch.distributed import comm, fleet
+
+    comm._mesh = None
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {f"{k}_degree": v for k, v in degrees.items()}
+    fleet.init(is_collective=True, strategy=s)
+    return s
+
+
+def _seq_rows(a, axis, rank, n):
+    """Rank ``rank``'s ``1/n`` of ``a`` along ``axis``."""
+    size = a.shape[axis] // n
+    return np.take(a, range(rank * size, (rank + 1) * size), axis=axis)
+
+
+def sp_decoder(vocab, d, heads, seq, impl):
+    """A one-layer causal decoder whose attention is ``impl``: token and
+    position embeddings (the positions of this rank's sequence shard on an
+    sp mesh), a ``TransformerEncoderLayer`` and a head."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed import comm
+
+    class Decoder(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(vocab, d)
+            self.pos = nn.Embedding(seq, d)
+            self.layer = nn.TransformerEncoderLayer(
+                d, heads, 2 * d, dropout=0.0, attn_impl=impl, causal=True)
+            self.head = nn.Linear(d, vocab)
+
+        def forward(self, ids):
+            T = ids.shape[1]
+            mesh = comm.hybrid_mesh()
+            start = mesh.axis_rank("sp") * T if mesh is not None else 0
+            pos = paddle.arange(start, start + T, dtype="int64")
+            return self.head(self.layer(self.embed(ids) + self.pos(pos)))
+
+    return Decoder()
+
+
+def case_sequence_parallel(rank, inputs, tmpdir):
+    """At sp4: ring, ring_pallas and Ulysses attention (global forms, causal
+    and not) with the gradients of ``sum(out * g)``; each
+    ``MultiHeadAttention`` route on this rank's rows of x; the one-layer
+    decoder trained 3 steps through fleet (sp_degree 4) and
+    ``TrainStep``."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import comm, fleet
+    from paddle_tpu_torch.distributed import meta_parallel as M
+    from paddle_tpu_torch.nn.layers import ring_attention as ra
+
+    _fleet_hybrid(sp=4)
+    mesh = comm.hybrid_mesh()
+    out = {"sp_rank": mesh.axis_rank("sp"),
+           "sp_group": mesh.group("sp").ranks,
+           "data_group": mesh.group("data").ranks}
+    q, k, v, g = (torch.tensor(a) for a in inputs["qkvg"])
+    for impl in ("ring", "ring_pallas", "ulysses"):
+        for causal in (True, False):
+            ts = [t.clone().requires_grad_() for t in (q, k, v)]
+            if impl == "ulysses":
+                o = ra.ulysses_attention(*ts, causal=causal,
+                                         block_size=inputs["block"])
+            else:
+                o = ra.ring_attention(*ts, causal=causal,
+                                      use_pallas=impl == "ring_pallas")
+            (o * g).sum().backward()
+            out[impl, causal] = [_np(o)] + [_np(t.grad) for t in ts]
+    x, cot = inputs["mha_x"], inputs["mha_cot"]
+    for impl in ("ring", "ring_pallas", "ulysses"):
+        mha = pt.nn.MultiHeadAttention(*inputs["mha_cfg"], attn_impl=impl,
+                                       causal=True,
+                                       block_size=inputs["block"])
+        mha.set_state_dict(inputs["mha"])
+        xt = torch.tensor(_seq_rows(x, 1, rank, 4), requires_grad=True)
+        o = mha(xt)
+        (o * torch.tensor(_seq_rows(cot, 1, rank, 4))).sum().backward()
+        out["mha", impl] = {"out": _np(o), "gx": _np(xt.grad),
+                            "grads": {n: _np(p.grad) for n, p in
+                                      mha.named_parameters()}}
+    model = sp_decoder(*inputs["dec_cfg"])
+    model.set_state_dict(inputs["dec_init"])
+    fl = fleet.distributed_model(model)
+    opt = fleet.distributed_optimizer(pt.optimizer.Momentum(
+        learning_rate=inputs["dec_lr"], momentum=0.9,
+        parameters=model.parameters()))
+
+    def loss_fn(logits, labels):
+        return pt.nn.functional.cross_entropy(
+            logits.reshape([-1, logits.shape[-1]]), labels.reshape([-1]))
+
+    step = pt.jit.TrainStep(fl, loss_fn, opt)
+    ids, labels = inputs["dec_batch"]
+    out["dec_shard"] = tuple(fl.shard_input(ids).shape)
+    out["dec_losses"] = [float(step(fl.shard_input(ids),
+                                    fl.shard_input(labels)))
+                         for _ in range(3)]
+    out["dec_params"] = M.full_state_dict(model)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the pipeline and MoE (tests/test_torch_pipeline_moe.py)
+# ---------------------------------------------------------------------------
+
+
+def pipeline_blocks(d, heads, classes):
+    """Two ``ParallelGPTBlock``s and a head (dropout 0)."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed import ParallelGPTBlock
+
+    return [ParallelGPTBlock(d, heads, dropout=0.0),
+            ParallelGPTBlock(d, heads, dropout=0.0), nn.Linear(d, classes)]
+
+
+def pipeline_loss(out, y):
+    """Mean over the positions, then cross-entropy."""
+    import paddle_tpu_torch as pt
+
+    return pt.nn.functional.cross_entropy(out.mean(axis=1), y)
+
+
+def case_pipeline(rank, inputs, tmpdir):
+    """``PipelineParallel.train_batch`` through fleet at pp2 (x dp2) in
+    1F1B and F-then-B, and at pp2 x mp2 in 1F1B: losses and the gathered
+    parameters after the steps; the inference forward."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import PipelineParallel, fleet
+    from paddle_tpu_torch.distributed import meta_parallel as M
+
+    out = {}
+    for name, degrees, mode in (("pp2", dict(dp=2, pp=2), "1F1B"),
+                                ("pp2_fthenb", dict(dp=2, pp=2), "F-then-B"),
+                                ("pp2_mp2", dict(pp=2, mp=2), "1F1B")):
+        s = _fleet_hybrid(**degrees)
+        s.pipeline = True
+        s.pipeline_configs = {"accumulate_steps": inputs["pp_micro"],
+                              "schedule_mode": mode}
+        layer = pt.distributed.PipelineLayer(
+            pipeline_blocks(*inputs["pp_cfg"]), loss_fn=pipeline_loss)
+        layer.set_state_dict(inputs["pp_init"])
+        model = fleet.distributed_model(layer)
+        assert isinstance(model, PipelineParallel)
+        opt = fleet.distributed_optimizer(pt.optimizer.Momentum(
+            learning_rate=inputs["pp_lr"], momentum=0.9,
+            parameters=model.parameters()))
+        res = {"stage": model.stage_id, "segments": model.segments}
+        if name == "pp2":
+            res["forward"] = _np(model(inputs["pp_x"][0]))
+        res["losses"] = [float(model.train_batch([x, y], opt))
+                         for x, y in zip(inputs["pp_x"], inputs["pp_y"])]
+        own = {id(p) for p in model.stage.params}
+        res["params"] = {k: v for k, v in M.full_state_dict(layer).items()
+                         if id(dict(layer.named_parameters()).get(k)) in own}
+        out[name] = res
+    return out
+
+
+def case_moe(rank, inputs, tmpdir):
+    """``ExpertParallelMoE`` at ep4 (mp4, 2 experts a rank): out, aux and
+    the gradients of x and the (gathered) weights."""
+    import torch
+
+    from paddle_tpu_torch.distributed import meta_parallel as M
+    from paddle_tpu_torch.incubate import ExpertParallelMoE
+
+    _fleet_hybrid(mp=4)
+    moe = ExpertParallelMoE(*inputs["moe_cfg"])
+    moe.set_state_dict(inputs["moe_init"])
+    x = torch.tensor(inputs["moe_x"], requires_grad=True)
+    o, aux = moe(x)
+    ((o * torch.tensor(inputs["moe_cot"])).sum()
+     + inputs["moe_aux_w"] * aux).backward()
+    return {"local": {n: tuple(p.shape) for n, p in moe.named_parameters()},
+            "out": _np(o), "aux": float(aux), "gx": _np(x.grad),
+            "grads": _full_grads(moe), "full": M.full_state_dict(moe)}
 
 
 # ---------------------------------------------------------------------------

@@ -46,6 +46,7 @@ from paddle_tpu.distributed.fleet.base import \
     _DistributedOptimizer as _JaxDistributedOptimizer
 from paddle_tpu.jit import TrainStep as JaxTrainStep
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.distributed import ParallelGPTBlock
 from paddle_tpu_torch.distributed import fleet

@@ -33,6 +33,7 @@ from paddle_tpu.distributed import comm
 from paddle_tpu.jit import TrainStep as JaxTrainStep
 from paddle_tpu.nn.layers import ring_attention as jra
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 import paddle_tpu_torch as pt
 from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch.nn.layers import ring_attention as tra
@@ -184,21 +185,42 @@ REFUSED = {
 
 
 def test_blockwise_refusals_and_other_impls():
-    """What the blockwise route refuses, as paddle_tpu does; the sequence
-    parallel routes are ROADMAP queue A item 7."""
+    """What the blockwise route refuses, as paddle_tpu does, and the
+    sequence-parallel routes (``ring``, ``ring_pallas``, ``ulysses``):
+    the same refusals; without a mesh both packages raise RuntimeError;
+    on a one-rank mesh (sp 1) each route equals paddle_tpu's on carried
+    weights (the multi-rank worlds: tests/test_torch_sequence_parallel.py)."""
+    from paddle_tpu_torch.distributed import comm as tcomm
+
     E = 8
     x = arr((1, 4, E))
-    for what, (make, call) in REFUSED.items():
-        for pkg in (paddle_tpu, pt):
-            m = pkg.nn.MultiHeadAttention(E, 2, attn_impl="blockwise",
-                                          **make)
-            with pytest.raises(NotImplementedError):
-                call(pkg, m, pkg.to_tensor(x))
-    for impl in ("ring", "ring_pallas", "ulysses"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            tnn.MultiHeadAttention(E, 2, attn_impl=impl)
+    for impl in ("blockwise", "ring", "ring_pallas", "ulysses"):
+        for what, (make, call) in REFUSED.items():
+            for pkg in (paddle_tpu, pt):
+                m = pkg.nn.MultiHeadAttention(E, 2, attn_impl=impl, **make)
+                with pytest.raises(NotImplementedError):
+                    call(pkg, m, pkg.to_tensor(x))
     with pytest.raises(ValueError):
         tnn.MultiHeadAttention(E, 2, attn_impl="sparse")
+    prev = comm._state.hybrid_mesh, tcomm._mesh
+    try:
+        comm._state.hybrid_mesh = tcomm._mesh = None
+        for impl in ("ring", "ring_pallas", "ulysses"):
+            for pkg in (paddle_tpu, pt):
+                m = pkg.nn.MultiHeadAttention(E, 2, attn_impl=impl)
+                with pytest.raises(RuntimeError, match="mesh"):
+                    m(pkg.to_tensor(x))
+        comm.init_hybrid_mesh(dp=1, mp=1, pp=1, sp=1)
+        tcomm.init_hybrid_mesh(dp=1, mp=1, pp=1, sp=1)
+        xs = arr((2, 8, E), seed=4)
+        for impl in ("ring", "ring_pallas", "ulysses"):
+            jl = jnn.MultiHeadAttention(E, 2, attn_impl=impl, causal=True,
+                                        block_size=4)
+            tl = tnn.MultiHeadAttention(E, 2, attn_impl=impl, causal=True,
+                                        block_size=4)
+            compare(jl, tl, (xs,), params=carry(jl, tl))
+    finally:
+        comm._state.hybrid_mesh, tcomm._mesh = prev
 
 
 # -- BERT on blockwise attention with LAMB: the 2-layer slice -------------------

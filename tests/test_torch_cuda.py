@@ -29,7 +29,10 @@ under sync debug mode "error". KV migration: a bundle's gathered bytes
 equal the pool's blocks exactly (float32, int8, fp8), cross the wire
 bit-exact and resume to the unmoved run's tokens; ``MigrateInsert``
 resets the slot's state and reads nothing back; ``retire_slots``
-relocates a live request without changing its tokens.
+relocates a live request without changing its tokens. The ring's
+``flash_attention_partial`` at [1, 16, 2048, 64] (diagonal, full and
+fully masked shards; float32 and bf16): out, lse and its lse-cotangent
+backward against the plain versions at these tolerances, with opcheck.
 """
 
 import pytest
@@ -1050,6 +1053,54 @@ def test_custom_ops_opcheck_at_the_cards_shapes(gen):
         result = torch.library.opcheck(
             getattr(torch.ops.paddle_tpu_torch, name), args)
         assert set(result.values()) == {"SUCCESS"}, (name, result)
+
+
+# the ring's per-rank shard at GPT-medium width (S 8192 over sp4): the
+# diagonal shard, an earlier rank's (not causal), a later rank's (fully
+# masked: every key in the future)
+PARTIAL_CASES = [(True, 0), (False, 0), (True, 2048)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal,ko", PARTIAL_CASES,
+                         ids=["diagonal", "full", "masked"])
+def test_flash_attention_partial_on_the_card(gen, dtype, causal, ko):
+    """``flash_attention_partial`` at [1, 16, 2048, 64]: out and lse
+    against the plain forward; its autograd formula (a loss reading out
+    and lse) against ``flash_attention_bwd_plain`` with ``delta =
+    rowsum(g_out * out) - g_lse``; the B1, B3 and B4 kernels launched
+    once each, no plain path; a fully masked shard gives out 0, lse
+    -1e30 and zero gradients; ``opcheck`` passes at that shape."""
+    shape = (1, 16, 2048, 64)
+    q, k, v, go = (torch.randn(shape, device="cuda", generator=gen
+                               ).to(dtype) for _ in range(4))
+    gl = torch.randn(shape[:3], device="cuda", generator=gen)
+    kw = dict(causal=causal, q_offset=0, kv_offset=ko)
+    ts = [t.clone().requires_grad_() for t in (q, k, v)]
+    kernels.reset_launches()
+    out, lse = fa.flash_attention_partial(*ts, causal, 256, 256, None, 0, ko)
+    ((out.float() * go.float()).sum() + (lse * gl).sum()).backward()
+    po, pl = fa.flash_attention_fwd_plain(q, k, v, **kw)
+    delta = (go.float() * po.float()).sum(-1) - gl
+    ref = fa.flash_attention_bwd_plain(q, k, v, go, pl, delta, **kw)
+    assert_near(out.detach(), po, dtype)
+    assert_near(lse.detach(), pl, torch.float32)
+    for t, want in zip(ts, ref):
+        assert_near(t.grad, want, dtype)
+    assert {n: kernels.launches()[n] for n in (
+        "flash_attention_fwd", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv")} == dict.fromkeys(
+        ("flash_attention_fwd", "flash_attention_bwd_dq",
+         "flash_attention_bwd_dkv"), 1)
+    assert fa.flash_attention_partial.launches == 1
+    if ko:
+        assert bool((out == 0).all()) and bool((lse <= -1e29).all())
+        assert all(bool((t.grad == 0).all()) for t in ts)
+    result = torch.library.opcheck(
+        torch.ops.paddle_tpu_torch.flash_attention_partial,
+        ([t.detach().requires_grad_() for t in (q, k, v)]
+         + [causal, 256, 256, None, 0, ko]))
+    assert set(result.values()) == {"SUCCESS"}, result
 
 
 def test_to_static_step_launches_as_the_eager_step(gen):

@@ -11,11 +11,15 @@ the CPU (their plain versions), torch only.
   ``empty`` / ``empty_like`` in its place, and the exported module gives
   the eager call's outputs (a fake tensor's empty outputs would not).
 - The forward ops' autograd formulas agree with ``gradcheck`` in float64.
+- ``flash_attention_partial`` (over B1 and B3/B4) passes ``opcheck``,
+  exports as itself and its lse-cotangent formula agrees with
+  ``gradcheck``.
 The card's shapes: ``tests/test_torch_cuda.py`` (``-m cuda``).
 """
 import pytest
 import torch
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 from paddle_tpu_torch.core import random as rnd
 from paddle_tpu_torch.ops import kernels
 from paddle_tpu_torch.ops.kernels import _build
@@ -157,6 +161,39 @@ def test_forward_ops_gradcheck_float64():
     assert torch.autograd.gradcheck(
         lambda a, e, c, d: ln.AddLayerNormFunction.apply(a, e, c, d),
         (x, y, w, b))
+
+
+def test_partial_op_opcheck_export_and_gradcheck():
+    """``flash_attention_partial`` (ring attention's building block, over
+    B1 and B3/B4): ``opcheck`` with inputs that require grad, a
+    ``torch.export`` that records the op itself, and ``gradcheck`` in
+    float64 of a loss that reads both out and lse (the lse cotangent
+    folded into delta), causal with fully masked rows."""
+    q, k, v = _qkv(grad=True)
+    result = torch.library.opcheck(OPS.flash_attention_partial,
+                                   (q, k, v, True, 8, 8, None, 0, 0))
+    assert set(result.values()) == {"SUCCESS"}, result
+
+    class Partial(torch.nn.Module):
+        def forward(self, a, b, c):
+            return fa.flash_attention_partial(a, b, c, True, 8, 8)
+
+    args = tuple(_qkv())
+    ep = torch.export.export(Partial(), args, strict=False)
+    assert "paddle_tpu_torch.flash_attention_partial.default" in [
+        str(n.target) for n in ep.graph.nodes if n.op == "call_function"]
+    for a, b in zip(ep.module()(*args), Partial()(*args)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    gq, gk, gv = _qkv(grad=True, dtype=torch.float64)
+    wl = torch.randn(B, H, S, generator=_gen(), dtype=torch.float64)
+
+    def loss(a, b, c):
+        out, lse = fa.flash_attention_partial(a, b, c, True, 8, 8, None, 0,
+                                              4)
+        live = torch.where(lse > -1e29, lse, torch.zeros_like(lse))
+        return out.sum(-1) + live * wl
+
+    assert torch.autograd.gradcheck(loss, (gq, gk, gv))
 
 
 def test_fake_outputs_keep_the_stat_types():

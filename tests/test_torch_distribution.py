@@ -15,6 +15,7 @@ import pytest
 import paddle_tpu
 from paddle_tpu import distribution as jd
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 import paddle_tpu_torch as pt
 from paddle_tpu_torch import distribution as td
 from test_torch_ops_math import cpu_device  # noqa: F401

@@ -37,6 +37,7 @@ from paddle_tpu.distributed import comm as jcomm
 from paddle_tpu.ops import (creation, linalg, logic, manipulation, math,
                             search, sequence)
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.core import device as pt_device
 from paddle_tpu_torch.distributed import comm as tcomm
@@ -363,8 +364,8 @@ KNOWN_NAMESPACE_GAPS = {
     # item 5 (vision/ops.py) is ported; "AG" is that module's alias of
     # core.autograd, no API
     "vision.ops": {"AG"},
-    # item 7: the mixture-of-experts layer (auto_checkpoint is ported)
-    "incubate": {"moe", "ExpertParallelMoE"},
+    # item 7's MoE and auto_checkpoint: ported
+    "incubate": set(),
     "incubate.checkpoint.auto_checkpoint": set(),
     # item 8's training half: ported; the fleet monitor and the rank and
     # controller fault sites wait for item 7
@@ -377,8 +378,8 @@ KNOWN_NAMESPACE_GAPS = {
     # item 6 (to_static, jit.save/load): ported
     "jit": set(),
     "distributed": {
-        # item 7's later parts: the pipeline and resharding
-        "PipelineLayer", "PipelineParallel", "pipeline", "resharding"},
+        # item 7's later parts: resharding (the pipeline is ported)
+        "resharding"},
 }
 
 
@@ -462,15 +463,19 @@ def test_set_device_and_no_fallback():
 
 def test_one_device_mesh():
     """The one-process mesh; a degree the world cannot hold raises
-    (ValueError: the world has fewer ranks), and so do the axes not
-    ported yet (NotImplementedError)."""
+    (ValueError: the world has fewer ranks), pp and sp as dp, and the axis
+    not ported yet raises NotImplementedError."""
     prev = tcomm._mesh
     try:
         mesh = tcomm.init_hybrid_mesh(dp=1, mp=1, pp=1, sp=1)
         assert tcomm.hybrid_mesh() is mesh and mesh.shape["mp"] == 1
         with pytest.raises(ValueError, match="the world has 1"):
             tcomm.init_hybrid_mesh(dp=2)
-        with pytest.raises(NotImplementedError, match="item 7"):
+        with pytest.raises(ValueError, match="the world has 1"):
             tcomm.init_hybrid_mesh(pp=2)
+        with pytest.raises(ValueError, match="the world has 1"):
+            tcomm.init_hybrid_mesh(sp=2)
+        with pytest.raises(NotImplementedError, match="item 7"):
+            tcomm.init_hybrid_mesh(dp_inner=2)
     finally:
         tcomm._mesh = prev

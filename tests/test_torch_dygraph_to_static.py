@@ -16,6 +16,7 @@ import pytest
 import paddle_tpu
 import test_dygraph_to_static as ref
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 import paddle_tpu_torch as paddle
 from paddle_tpu_torch.jit import to_static
 from paddle_tpu_torch.jit.ast_transform import convert_to_static

@@ -37,6 +37,7 @@ import pytest
 import paddle.fluid as jfluid
 import paddle_tpu
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 import paddle_tpu_torch as pt
 import paddle_tpu_torch.compat.paddle.fluid as tfluid
 from paddle_tpu_torch.static.program import set_program_parameters

@@ -24,6 +24,7 @@ import torch
 import paddle_tpu
 from paddle_tpu.distributed import comm as jcomm
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.distributed import comm as tcomm
 from test_torch_dygraph_gpt import (SMALL, _batch, _bench_lm_loss,

@@ -25,6 +25,7 @@ from paddle_tpu.nn.functional import attention as jax_attn
 from paddle_tpu.nn.functional import norm as jax_norm
 from paddle_tpu.ops.pallas import fused_add_layer_norm, fused_layer_norm
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 from paddle_tpu_torch.nn.functional import attention as t_attn
 from paddle_tpu_torch.nn.functional import norm as t_norm
 from paddle_tpu_torch.ops.kernels import _build

@@ -32,6 +32,7 @@ from paddle_tpu.serving import Request as JaxRequest
 from paddle_tpu.serving import kv_migration as jkvm
 from paddle_tpu.serving import paged_kv as jpk
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.distributed import quantized_comm as qc
 from paddle_tpu_torch.jit import DecodeState, MigrateInsert

@@ -24,6 +24,7 @@ from paddle_tpu import nn as jnn
 from paddle_tpu.distributed import comm
 from paddle_tpu.distributed import meta_parallel as jmp
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 import paddle_tpu_torch as pt
 from paddle_tpu_torch import nn
 from paddle_tpu_torch.distributed import meta_parallel as tmp

@@ -19,6 +19,7 @@ from paddle_tpu import nn as jnn
 from paddle_tpu.core import random as jrandom
 from paddle_tpu.nn import functional as JF
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 import paddle_tpu_torch as pt
 from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch.nn.layers import loss as nce_module

@@ -16,6 +16,7 @@ import paddle_tpu
 from paddle_tpu import nn as jnn
 from paddle_tpu.nn import functional as JF
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 import paddle_tpu_torch as pt
 from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch.nn import functional as TF

@@ -10,6 +10,7 @@ import pytest
 
 import paddle_tpu
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 import paddle_tpu_torch as pt
 from test_torch_ops_math import arr, check, cpu_device  # noqa: F401
 

@@ -23,6 +23,7 @@ from paddle_tpu.distributed import comm as jax_comm
 from paddle_tpu.ops import pallas as jax_pallas
 from paddle_tpu.ops.pallas.flash_attention import flash_attention as jax_fa
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.core import device as pt_device
 from paddle_tpu_torch.distributed import comm as pt_comm

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 
 from test_torch_ops_math import arr, check, cpu_device  # noqa: F401
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 
 X = arr((3, 4, 5))
 # distinct values, so max/min/median pick one element in both packages

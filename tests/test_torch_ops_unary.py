@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 from test_torch_ops_math import arr, check, cpu_device  # noqa: F401
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 
 X = arr((3, 4), -2.0, 2.0)
 U = arr((3, 4), -0.9, 0.9, seed=1)     # (-1, 1)

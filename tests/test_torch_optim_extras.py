@@ -30,6 +30,7 @@ from paddle_tpu.jit import TrainStep as JaxTrainStep
 from paddle_tpu.optimizer import lr as jax_lr
 from paddle_tpu.serving import TransformerLM as JaxLM
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.optimizer import lr as pt_lr
 

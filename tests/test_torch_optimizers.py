@@ -29,6 +29,7 @@ import paddle_tpu
 from paddle_tpu.distributed import comm
 from paddle_tpu.jit import TrainStep as JaxTrainStep
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 import paddle_tpu_torch as pt
 from test_torch_ops_math import arr, cpu_device  # noqa: F401
 

@@ -51,6 +51,7 @@ from paddle_tpu.serving import generate as jax_generate
 from paddle_tpu.serving import paged_kv as jpk
 from paddle_tpu.serving.adapters import AdapterSet as JaxAdapterSet
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.distributed import quantized_comm as qc
 from paddle_tpu_torch.distributed import quantized_compute as qcp

@@ -27,6 +27,7 @@ import paddle
 import paddle.fluid as jfluid
 import paddle_tpu
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 import paddle_tpu_torch
 import paddle_tpu_torch.compat.paddle as route
 from paddle_tpu_torch.ops import kernels

@@ -32,6 +32,7 @@ from paddle_tpu.serving import Request as JaxRequest
 from paddle_tpu.serving import router as jrouter
 from paddle_tpu.utils import fault_injection as jfi
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.observability import bus
 from paddle_tpu_torch.serving import Request

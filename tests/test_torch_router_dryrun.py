@@ -24,6 +24,7 @@ import time
 
 import pytest
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 from paddle_tpu_torch.observability import bus
 from paddle_tpu_torch.serving.router import (FileHost, FilePrefillHost,
                                              Router, sim_next_token)

@@ -28,6 +28,7 @@ from paddle_tpu.serving import Request as JaxRequest
 from paddle_tpu.serving import TransformerLM as JaxLM
 from paddle_tpu.serving import generate as jax_generate
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 import paddle_tpu_torch as pt
 
 VOCAB, D, HEADS, LAYERS, CAP = 48, 128, 4, 2, 32

@@ -22,6 +22,7 @@ from paddle_tpu.serving import paged_kv as jpk
 from paddle_tpu.serving import prefix_cache as jpx
 from paddle_tpu.serving.adapters import AdapterSet as JaxAdapterSet
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.serving import Request
 from paddle_tpu_torch.serving import paged_kv as pk

@@ -31,6 +31,7 @@ from paddle_tpu.serving import TransformerLM as JaxLM
 from paddle_tpu.serving import generate as jax_generate
 from paddle_tpu.serving import paged_kv as jpk
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.jit import PrefillStep
 from paddle_tpu_torch.serving import Request

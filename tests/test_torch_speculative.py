@@ -35,6 +35,7 @@ from paddle_tpu.serving import TransformerLM as JaxLM
 from paddle_tpu.serving import generate as jax_generate
 from paddle_tpu.serving import sampling as jax_sampling
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.jit import (PrefillStep, SpecDecodeState,
                                   SpeculativeDecodeStep, spec_k_default)

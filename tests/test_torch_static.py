@@ -24,6 +24,7 @@ import torch
 import paddle_tpu
 import paddle_tpu.static.nn as jsn
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 import paddle_tpu_torch as pt
 import paddle_tpu_torch.static.nn as tsn
 from paddle_tpu_torch.static.program import set_program_parameters

@@ -18,6 +18,7 @@ import pytest
 
 import paddle_tpu
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.core.autograd import NanInfError
 from paddle_tpu_torch.core.dtype import dtype_name

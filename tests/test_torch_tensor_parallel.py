@@ -36,6 +36,7 @@ from paddle_tpu.distributed.parallel import shard_batch
 from paddle_tpu.jit import TrainStep as JTrainStep
 from paddle_tpu.ops.pallas.flash_attention import flash_attention as jax_fa
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.core import device as pt_device
 from paddle_tpu_torch.distributed import comm as pt_comm

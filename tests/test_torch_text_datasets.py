@@ -15,6 +15,7 @@ import pytest
 import paddle_tpu
 from paddle_tpu.text import datasets as jtd
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.text import datasets as ttd
 from helpers.stage_ref_data import stage_mnist

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
 NEG = -1e30

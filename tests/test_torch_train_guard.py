@@ -42,6 +42,7 @@ from paddle_tpu.serving import TransformerLM as JaxLM
 from paddle_tpu.utils import fault_injection as jfi
 from paddle_tpu.utils import train_guard as jtg
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.core import device as pt_device
 from paddle_tpu_torch.distributed import comm as pt_comm

@@ -28,6 +28,7 @@ import paddle_tpu
 from paddle_tpu.nn import functional as JF
 from paddle_tpu.ops.pallas import fused_add_layer_norm, fused_layer_norm
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.ops.kernels import flash_attention as tfa
 from paddle_tpu_torch.ops.kernels import layer_norm as tln

@@ -34,6 +34,7 @@ from paddle_tpu.jit import TrainStep as JaxTrainStep
 from paddle_tpu.nn import functional as JF
 from paddle_tpu.serving import TransformerLM as JaxLM
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 import paddle_tpu_torch as pt
 
 VOCAB, D, HEADS, LAYERS, S, B = 48, 128, 4, 2, 16, 2

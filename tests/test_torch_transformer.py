@@ -40,6 +40,7 @@ from paddle_tpu import nn as jnn
 from paddle_tpu.distributed import comm as jcomm
 from paddle_tpu.serving import TransformerLM as JaxLM
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 import paddle_tpu_torch as pt
 from chip_smoke import greedy, padding_mask, smoothed_loss, translation_model
 from paddle_tpu_torch.ops.kernels import layer_norm as ln_kernels

@@ -35,6 +35,7 @@ from paddle_tpu.ops.pallas.flash_attention import flash_attention as jax_fa
 from paddle_tpu.vision import datasets as jds
 from paddle_tpu.vision import transforms as JT
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 import paddle_tpu_torch as pt
 from paddle_tpu_torch import metric as pmetric
 from paddle_tpu_torch.core import device as pt_device

@@ -24,6 +24,7 @@ from paddle_tpu import optimizer as jax_optimizer
 from paddle_tpu.nn import functional as JF
 from paddle_tpu.ops.manipulation import flatten as jax_flatten
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.ops import flatten as torch_flatten

@@ -71,6 +71,7 @@ from paddle_tpu.jit import TrainStep as JaxTrainStep
 from paddle_tpu.vision import models as jax_models
 from paddle_tpu.vision.models.resnet import BottleneckBlock as JaxBottleneck
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.distributed import fleet
 from paddle_tpu_torch.vision import models as pt_models
