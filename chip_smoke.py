@@ -234,15 +234,38 @@
    one world of 4 ranks of this script (``--sp-child``) on this card over
    gloo: GPT-medium-shaped at sp4 on ``ring_pallas`` (S 8192, 2048 a
    rank) against one process on ``blockwise`` (losses within 1e-5, first-
-   step gradients within 1e-4, rank r launching B1/B3/B4 24 (r + 1) times
-   a step), a bf16 Ulysses step against a bf16 ring step; bench's
+   step gradients within 1e-4, rank r launching B1/B3/B4 ``SP_LAYERS`` (r +
+   1) times a step), a bf16 Ulysses step against a bf16 ring step; bench's
    GPT-medium as a ``PipelineLayer`` at pp2 x mp2 (1F1B over 4
    microbatches; F-then-B's loss = 1F1B's) against one process's
    ``TrainStep``; ``ExpertParallelMoE`` at ep4 against one process's;
-   before the world, step 2 also holds ``flash_attention_partial`` (B1;
-   B3/B4 with the lse cotangent) against its plain version at the ring's
-   [1, 16, 2048, 64], and B1/B3/B4 at the ring's and Ulysses' shapes;
-27. prints one ``{"kernels": [...]}`` line (the seven kernels' entries and
+   both models at full width and ``SP_LAYERS`` (4) of 24 blocks, a depth
+   cut; before the world, step 2 also holds ``flash_attention_partial``
+   (B1; B3/B4 with the lse cotangent) against its plain version at the
+   ring's [1, 16, 2048, 64], and B1/B3/B4 at the ring's and Ulysses'
+   shapes;
+27. its ``q8m_phase``: bench.py's ``_bench_gpt_q8m`` (GPT-medium, B = 4,
+   S = 1024, ``strategy.quantized_moments = "int8"``): three float32
+   AdamW steps against the same steps with wide moments (losses within
+   ``Q8M_LOSS_RTOL``; the resident moment bytes counted from the
+   optimizer's accumulators equal ``moment_bytes_info``'s, ~3.9x below
+   float32), then the program as bench writes it (bf16 AMP, int8 then
+   wide moments: ms/step, tokens/s, peak memory, launches), then one
+   float32 step under ``strategy.quantized_matmul = "int8"`` at 4 blocks
+   (loss within ``QAT_LOSS_RTOL`` of the dense loss, float32 weight
+   gradients);
+28. its ``dp_q8_phase``: bench.py's ``_bench_gpt_dp_q8`` (GPT-medium at full
+   width and ``DPQ8_LAYERS`` of 24 blocks, a depth cut; dp4 = dcn2 x ici2,
+   ``async_dcn_allreduce``, global batch 16) as a world of 4 ranks of this
+   script (``--dpq8-child``) over gloo: float32 with the policy off
+   (first-step gradients within 1e-5 of one process's), float32 int8
+   (first-step gradients against the oracle of each dcn group's mean
+   gradient through ``quantize_dequantize``, averaged; losses within rtol
+   2e-2 / atol 1e-3 of the policy-off run's), bench's bf16 program int8
+   and off (ms/step, global tokens/s, collective host ms and bytes by op,
+   group and transport: the dcn hop's bytes >= 3.5x fewer under int8, the
+   ici hop's the same);
+29. prints one ``{"kernels": [...]}`` line (the seven kernels' entries and
    the partial op's) and, last, the ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device, outside a
@@ -423,6 +446,11 @@ MC_RANK_ROW = "per rank dp2 x mp2 S=1024"
 SP_WORLD = 4
 SP_SEQ = 8192
 SP_STEPS = 3
+# the sp decoder and the pipeline's GPT keep bench's width and SP_LAYERS of
+# its 24 blocks: a depth cut that makes room for the gradient-width phases
+# (named in PERF.md; CHIP_SMOKE_SP_LAYERS sets another even depth, which
+# the --sp-child processes inherit)
+SP_LAYERS = int(os.environ.get("CHIP_SMOKE_SP_LAYERS", "4"))
 # float32, TF32 off: the ring merges 1-4 partials where the one-process
 # run's flash kernel sums one row; each loss within SP_LOSS_RTOL, each
 # first-step gradient within SP_GRAD_RTOL of its largest value
@@ -454,6 +482,62 @@ EP_AUX_W = 0.01
 EP_RTOL = 1e-5
 #: a world still running after this many seconds is killed and fails
 SP_DEADLINE_S = 600
+
+
+# bench.py's _bench_gpt_q8m (GPT-medium, B = 4, S = 1024, int8 Adam moments)
+Q8M_STEPS = 3
+# (a) float32, int8 moments against wide ones from the same weights: steps
+# 1 and 2 see the same weights in both runs (step 1's update reads moments
+# that are still wide: they are narrowed after it), so their losses agree
+# to float32 rounding (1e-6). Step 3's weights took one update from narrow
+# moments: each moment element within half a step (1/254 of its row
+# block's largest) of the wide one, which moves each weight's Adam update
+# (about lr = 1e-4 a weight) by a fraction of itself; the loss then moves
+# by a fraction of what a whole step moves it (~0.1 at loss ~10.4):
+# Q8M_LOSS_RTOL = 1e-3 relative
+Q8M_EXACT_RTOL = 1e-6
+Q8M_LOSS_RTOL = 1e-3
+# one float32 step under strategy.quantized_matmul = "int8" at QAT_LAYERS
+# blocks: the forward multiplies by weights within half an int8 step
+# (1/254 of each 128-row block's largest) of the dense ones, so the loss
+# stays within QAT_LOSS_RTOL = 1e-2 of the dense loss, and each weight
+# gradient within the reference's own QAT_GRAD_RTOL = 5e-2 of its largest
+# dense value (tests/test_quantized_compute.py's bound), full width
+QAT_LAYERS = 4
+QAT_LOSS_RTOL = 1e-2
+QAT_GRAD_RTOL = 5e-2
+
+# bench.py's _bench_gpt_dp_q8 (hierarchical dp, async dcn hop, int8) as a
+# world of 4 ranks of this script (--dpq8-child) on the one card over
+# gloo: dp4 = dcn2 x ici2, 4 rows a rank (global B = 16, S = 1024); the
+# GPT keeps bench's width and DPQ8_LAYERS of its 24 blocks, a depth cut
+# (named in PERF.md; CHIP_SMOKE_DPQ8_LAYERS sets another depth, which the
+# --dpq8-child processes inherit); each gradient's size is that of the
+# full model's, so the hop's per-gradient traffic is real
+DPQ8_LAYERS = int(os.environ.get("CHIP_SMOKE_DPQ8_LAYERS", "4"))
+DPQ8_WORLD, DPQ8_ICI = 4, 2
+DPQ8_BATCH = 4 * DPQ8_WORLD
+DPQ8_STEPS = 3
+# (b) the int8 hop's first-step gradients against the oracle (each dcn
+# group's mean gradient through quantize_dequantize, averaged): a code on a
+# rounding boundary of the world's ici mean and the one process's group
+# mean (float32 sums in another order) may land one int8 step apart in
+# either group, so the average may be off by up to one step of the
+# element's block: per element, |got - oracle| <= (the larger of the two
+# groups' scales of its 128-block, max|block| / 127) + DPQ8_ORACLE_RTOL *
+# max|oracle|; and the gradients must not be the full-width ones (some
+# parameter off them by more than MC_GRAD_RTOL of its largest value)
+DPQ8_ORACLE_RTOL = 1e-5
+# (c) the int8 run's losses against the policy-off run's: the bounds of the
+# reference's TestHierarchicalQuantized
+DPQ8_LOSS_RTOL, DPQ8_LOSS_ATOL = 2e-2, 1e-3
+#: the int8 dcn hop's bytes must be at least this many times fewer
+DPQ8_BYTES_X = 3.5
+#: a world still running after this many seconds is killed and fails
+DPQ8_DEADLINE_S = 480
+#: the attention kernels' shape on each rank: [B/dp, H, S, D]
+DPQ8_RANK_SHAPE = (DPQ8_BATCH // DPQ8_WORLD, HEADS, TRAIN_S,
+                   D_MODEL // HEADS)
 
 
 # B5 (layer_norm_fwd) before its redesign, float32 ms by shape: this
@@ -5126,9 +5210,7 @@ def multichip_gpt_phase(pt, kernels, card):
         if o["grad_worst"] > MC_GRAD_RTOL:
             fail(f"multichip GPT rank {r}: gradient {o['grad_worst_name']} "
                  f"off by {o['grad_worst']:.3e} of its largest value")
-        want = {k: {t: n * MC_STEPS * MC_LAYERS // LAYERS
-                    for t, n in v.items()}
-                for k, v in DYGRAPH_LAUNCHES.items()}
+        want = _scaled(DYGRAPH_LAUNCHES, MC_LAYERS, MC_STEPS)
         if o["a_launches"] != want:
             fail(f"multichip GPT rank {r}: float32 launches "
                  f"{o['a_launches']}, expected {want}")
@@ -5287,9 +5369,10 @@ def rank_child(argv) -> int:
     return 0
 
 
-def sp_decoder(paddle, attn_impl, layers=LAYERS):
+def sp_decoder(paddle, attn_impl, layers=SP_LAYERS):
     """The sp part's GPT-medium-shaped causal decoder: token and position
-    embeddings, ``layers`` post-LN ``TransformerEncoderLayer(1024, 16,
+    embeddings, ``layers`` (``SP_LAYERS`` of GPT-medium's 24: a depth
+    cut) post-LN ``TransformerEncoderLayer(1024, 16,
     4096, dropout=0)`` on ``attn_impl`` (causal) with GPT's GELU (a
     ReLU's kink turns a pre-activation within rounding of 0 into a
     gradient that differs by a whole token's term, 7.3e-3 of
@@ -5338,8 +5421,8 @@ def _sp_batch():
 
 def pp_gpt_layers(paddle):
     """bench.py's ``_gpt_medium`` as a layer sequence for ``PipelineLayer``:
-    the embeddings (token + position), 24 ``ParallelGPTBlock``s and the
-    32k head."""
+    the embeddings (token + position), ``SP_LAYERS`` ``ParallelGPTBlock``s
+    (of its 24: a depth cut) and the 32k head."""
     from paddle_tpu_torch import nn
     from paddle_tpu_torch.distributed import ParallelGPTBlock
 
@@ -5356,7 +5439,7 @@ def pp_gpt_layers(paddle):
 
     return ([Embedding()]
             + [ParallelGPTBlock(D_MODEL, HEADS, dropout=0.0)
-               for _ in range(LAYERS)]
+               for _ in range(SP_LAYERS)]
             + [nn.Linear(D_MODEL, VOCAB)])
 
 
@@ -5379,23 +5462,25 @@ def sp_pp_ep_phase(pt, kernels, card):
         0.01, ``_bench_lm_loss``): the first-step gradients (averaged over
         sp) within ``SP_GRAD_RTOL`` of each largest value of one process's
         on ``blockwise`` (B1-B4 at S 8192), ``SP_STEPS`` losses within
-        ``SP_LOSS_RTOL``; rank r launches B1, B3 and B4 exactly 24 (r + 1)
-        times a step (the diagonal and r earlier shards a layer; the masked
-        shards launch nothing) at [1, 16, 2048, 64]. Then one bf16 AMP O1
-        step on ``ulysses`` (B1, B3, B4 24 a step at [1, 4, 8192, 64] bf16)
+        ``SP_LOSS_RTOL``; rank r launches B1, B3 and B4 exactly
+        ``SP_LAYERS`` (r + 1) times a step (the diagonal and r earlier
+        shards a layer; the masked shards launch nothing) at [1, 16, 2048,
+        64]. Then one bf16 AMP O1 step on ``ulysses`` (B1, B3, B4
+        ``SP_LAYERS`` a step at [1, 4, 8192, 64] bf16)
         against one on ``ring_pallas`` (losses within ``SP_ULYSSES_RTOL``),
         and one direct ``ulysses_attention(use_pallas=True)`` against the
         flash kernel on the global tensors. ms/step, global tokens/s, host
         ms in the ring's shifts and in ``all_reduce`` by transport, peak by
         rank.
-    (b) pp2 x mp2: bench's GPT-medium as ``PipelineLayer`` (embeddings, 24
-        ``ParallelGPTBlock``, head; 13 layers a stage) through fleet,
+    (b) pp2 x mp2: bench's GPT-medium as ``PipelineLayer`` (embeddings,
+        ``SP_LAYERS`` ``ParallelGPTBlock``, head; half a stage) through fleet,
         ``accumulate_steps`` 4, 1F1B, batch 8 x 1024: the first-step
         gradients (before the update) within ``SP_GRAD_RTOL`` of one
         process's, one F-then-B pass's loss within ``PP_SCHEDULE_RTOL`` of
         1F1B's, ``PP_STEPS`` ``train_batch`` losses within ``SP_LOSS_RTOL``
         of one process's ``TrainStep``; every kernel of the block on every
-        rank (12 blocks x 4 microbatches a step); ms/step, tokens/s, peak
+        rank (SP_LAYERS / 2 blocks x 4 microbatches a step); ms/step,
+        tokens/s, peak
         by stage.
     (c) ep4: ``ExpertParallelMoE(1024, 4096, 8)`` over mp4 (2 experts a
         rank) on x [4, 1024, 1024]: out, aux and the gradients of x, gate,
@@ -5522,7 +5607,7 @@ def sp_pp_ep_phase(pt, kernels, card):
         if o["a_grad_worst"] > SP_GRAD_RTOL:
             fail(f"sp4 rank {r}: gradient {o['a_grad_worst_name']} off by "
                  f"{o['a_grad_worst']:.3e} of its largest value")
-        want = SP_STEPS * LAYERS * (r + 1)
+        want = SP_STEPS * SP_LAYERS * (r + 1)
         for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
                      "flash_attention_bwd_dkv"):
             if o["a_launches"][name] != {"float32": want}:
@@ -5530,11 +5615,11 @@ def sp_pp_ep_phase(pt, kernels, card):
                      f"{o['a_launches'][name]}, expected {want} float32")
             if o["a_shapes"][name] != [list(SP_RING_SHAPE)]:
                 fail(f"sp4 rank {r}: {name} at {o['a_shapes'][name]}")
-            if o["u_launches"][name] != {"bfloat16": LAYERS} or \
+            if o["u_launches"][name] != {"bfloat16": SP_LAYERS} or \
                     o["u_shapes"][name] != [list(SP_ULYSSES_SHAPE)]:
                 fail(f"sp4 Ulysses rank {r}: {name} launches "
                      f"{o['u_launches'][name]} at {o['u_shapes'][name]}")
-            if o["rb_launches"][name] != {"bfloat16": LAYERS * (r + 1)}:
+            if o["rb_launches"][name] != {"bfloat16": SP_LAYERS * (r + 1)}:
                 fail(f"sp4 bf16 ring rank {r}: {name} launches "
                      f"{o['rb_launches'][name]}")
         if o["a_partials"] != want:
@@ -5559,7 +5644,7 @@ def sp_pp_ep_phase(pt, kernels, card):
                 PP_SCHEDULE_RTOL * abs(o["b_1f1b_loss"]):
             fail(f"pp2 x mp2 rank {r}: F-then-B loss {o['b_fthenb_loss']!r}"
                  f" against 1F1B's {o['b_1f1b_loss']!r}")
-        per = PP_STEPS * PP_MICRO * (LAYERS // 2)
+        per = PP_STEPS * PP_MICRO * (SP_LAYERS // 2)
         want = {k: {"float32": n * per} for k, n in (
             ("flash_attention_fwd", 1), ("flash_attention_bwd_dq", 1),
             ("flash_attention_bwd_dkv", 1), ("layer_norm_fwd", 1),
@@ -5820,6 +5905,585 @@ def sp_child(argv) -> int:
     return 0
 
 
+def _scaled(launches, layers, steps):
+    """``launches`` (per step of the 24-block model, by input types) for
+    ``steps`` steps of a ``layers``-block cut."""
+    return {k: {t: n * steps * layers // LAYERS for t, n in v.items()}
+            for k, v in launches.items()}
+
+
+def _moment_bytes(opt):
+    """The resident bytes of an Adam optimizer's two moments, payload and
+    scales, counted from its accumulators."""
+    accs = opt._accumulators
+    return sum(t.numel() * t.element_size()
+               for nm in ("moment1", "moment2", "moment1_scale",
+                          "moment2_scale") if nm in accs
+               for t in accs[nm].values())
+
+
+def q8m_phase(pt, kernels, card):
+    """bench.py's ``_bench_gpt_q8m`` program: GPT-medium (full width, 24
+    blocks), B = 4, S = 1024, AdamW 1e-4 / 0.01 through
+    ``fleet.distributed_optimizer`` with ``strategy.quantized_moments =
+    "int8"``, ``TrainStep``, bench's loss and batch.
+
+    (a) float32, TF32 off: ``Q8M_STEPS`` steps with int8 moments against
+        the same steps with wide moments, from the same weights; losses 1
+        and 2 within ``Q8M_EXACT_RTOL``, the last within
+        ``Q8M_LOSS_RTOL`` (the constants' note); the resident moment bytes
+        counted from the optimizer's accumulators (int8 payloads, float32
+        scales) equal ``moment_bytes_info``'s ``bytes_resident``, 3.88x
+        below float32; B1-B7 at their float32 counts.
+    (b) the program as bench writes it: bf16 AMP, int8 moments and then
+        wide ones, one warm-up step and ``Q8M_STEPS`` timed: ms/step,
+        tokens/s, peak memory, B1-B7 at ``AMP_LAUNCHES``.
+    (c) one float32 step under ``strategy.quantized_matmul = "int8"`` at
+        ``QAT_LAYERS`` blocks: its loss within ``QAT_LOSS_RTOL`` of the
+        dense loss, each weight gradient float32 and within
+        ``QAT_GRAD_RTOL`` of its largest dense value (and not equal to
+        it), B1/B3/B4 ``QAT_LAYERS`` times.
+
+    Returns the launch counts of (a)'s int8 run, (b)'s int8 run and
+    (c)."""
+    import gc
+
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed import quantized_compute as qcp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    pt.seed(4)
+    model = _gpt_medium()
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    lm_loss = _bench_lm_loss(model)
+    n = TRAIN_B * TRAIN_S
+    ids = torch.as_tensor((np.arange(n) % 31000).reshape(TRAIN_B, TRAIN_S),
+                          device="cuda")
+    labels = torch.as_tensor(((np.arange(n) + 1) % 31000).reshape(
+        TRAIN_B, TRAIN_S), device="cuda")
+
+    def trainer(quant, amp):
+        s = fleet.DistributedStrategy()
+        s.amp = amp
+        if quant:
+            s.quantized_moments = "int8"
+        fleet.init(is_collective=True, strategy=s)
+        model.set_state_dict(init)
+        opt = fleet.distributed_optimizer(pt.optimizer.AdamW(
+            learning_rate=1e-4, weight_decay=0.01,
+            parameters=model.parameters()), strategy=s)
+        return pt.jit.TrainStep(model, lm_loss, opt), opt
+
+    def free():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    # (a) float32: int8 moments against wide ones
+    a = {}
+    for name in ("wide", "int8"):
+        step, opt = trainer(name == "int8", False)
+        kernels.reset_launches()  # the float32 q8m path starts here
+        a[name] = [step(ids, labels).item() for _ in range(Q8M_STEPS)]
+        a[f"{name}_launches"] = kernels.launches_by_dtype()  # ... ends here
+        a[f"{name}_bytes"] = _moment_bytes(opt._inner)
+        if name == "int8":
+            info = step._moment_bytes_info
+            accs = opt._inner._accumulators
+            types = {nm: sorted({str(t.dtype) for t in accs[nm].values()})
+                     for nm in ("moment1", "moment2", "moment1_scale",
+                                "moment2_scale")}
+        del step, opt
+        free()
+    print(f"q8m (a) float32 on {card}, B={TRAIN_B} S={TRAIN_S}, "
+          f"{Q8M_STEPS} AdamW steps: losses int8 moments {a['int8']}, wide "
+          f"{a['wide']}; |diff| "
+          f"{[abs(x - y) for x, y in zip(a['int8'], a['wide'])]}; moment "
+          f"bytes counted {a['int8_bytes']} (moment_bytes_info "
+          f"{info['bytes_resident']}, x{info['reduction_x']} below float32 "
+          f"{info['bytes_f32']}; wide run's counted {a['wide_bytes']}); "
+          f"types {types}")
+    for i, (q, w) in enumerate(zip(a["int8"], a["wide"])):
+        tol = Q8M_EXACT_RTOL if i < 2 else Q8M_LOSS_RTOL
+        if not math.isfinite(q) or abs(q - w) > tol * abs(w):
+            fail(f"q8m (a): step {i + 1} loss {q!r} with int8 moments "
+                 f"against {w!r} with wide ones (rtol {tol})")
+    if a["int8_bytes"] != info["bytes_resident"] \
+            or a["wide_bytes"] != info["bytes_f32"] \
+            or info["reduction_x"] < 3.8:
+        fail(f"q8m (a): moment bytes {a['int8_bytes']} (wide "
+             f"{a['wide_bytes']}) against {info}")
+    if types != {"moment1": ["torch.int8"], "moment2": ["torch.int8"],
+                 "moment1_scale": ["torch.float32"],
+                 "moment2_scale": ["torch.float32"]}:
+        fail(f"q8m (a): moment types {types}")
+    for name in ("wide", "int8"):
+        if a[f"{name}_launches"] != _scaled(DYGRAPH_LAUNCHES, LAYERS,
+                                            Q8M_STEPS):
+            fail(f"q8m (a) {name}: launches {a[f'{name}_launches']}")
+
+    # (b) bench's program: bf16 AMP, int8 moments then wide ones
+    b = {}
+    for name in ("int8", "wide"):
+        step, opt = trainer(name == "int8", True)
+        step(ids, labels).item()  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()  # the bf16 q8m path starts here
+        losses, ms = [], []
+        for _ in range(Q8M_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            losses.append(step(ids, labels).item())  # .item() syncs
+            ms.append((time.perf_counter() - t1) * 1e3)
+        b[name] = dict(losses=losses, ms=ms,
+                       launches=kernels.launches_by_dtype(),  # ... ends here
+                       peak=torch.cuda.max_memory_allocated() / 2 ** 30)
+        del step, opt
+        free()
+        mean = float(np.mean(ms))
+        print(f"q8m (b) bf16 AMP, {name} moments, {Q8M_STEPS} steps after "
+              f"one warm-up on {card}: losses {losses}; step ms "
+              f"{[round(x, 2) for x in ms]}, mean {mean:.2f} ms, "
+              f"{TRAIN_B * TRAIN_S / mean * 1e3:.1f} tokens/s; peak memory "
+              f"{b[name]['peak']:.2f} GiB; launches {b[name]['launches']}")
+        if not all(np.isfinite(losses)):
+            fail(f"q8m (b) {name}: losses {losses}")
+        if b[name]["launches"] != _scaled(AMP_LAUNCHES, LAYERS, Q8M_STEPS):
+            fail(f"q8m (b) {name}: launches {b[name]['launches']}")
+    del model, init, lm_loss
+    free()
+
+    # (c) one float32 step through the QAT matmul at QAT_LAYERS blocks
+    pt.seed(5)
+    model = _gpt_cut(QAT_LAYERS)
+    lm_loss = _bench_lm_loss(model)
+    qinit = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    def eager(scope):
+        model.zero_grad(set_to_none=True)
+        with qcp.matmul_scope(scope):
+            loss = lm_loss(model(ids), labels)
+        loss.backward()
+        out = {k: p.grad.detach().clone()
+               for k, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return loss.item(), out
+
+    loss_d, g_d = eager(None)
+    loss_q, g_q = eager(("int8", 128))
+    worst, worst_name, moved = 0.0, "", False
+    for k, g in g_q.items():
+        if g.dtype != torch.float32 or not bool(torch.isfinite(g).all()):
+            fail(f"q8m (c): the QAT gradient of {k} is not finite float32")
+        rel = ((g - g_d[k]).abs().max() / g_d[k].abs().max()).item()
+        moved |= rel > 0
+        if rel > worst:
+            worst, worst_name = rel, k
+    s = fleet.DistributedStrategy()
+    s.quantized_matmul = "int8"
+    fleet.init(is_collective=True, strategy=s)
+    model.set_state_dict(qinit)
+    step = pt.jit.TrainStep(model, lm_loss, fleet.distributed_optimizer(
+        pt.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                           parameters=model.parameters()), strategy=s))
+    kernels.reset_launches()  # the QAT step starts here
+    loss_s = step(ids, labels).item()
+    c_launches = kernels.launches_by_dtype()  # ... and ends here
+    print(f"q8m (c) quantized_matmul int8, {QAT_LAYERS} blocks, float32: "
+          f"TrainStep loss {loss_s!r}, eager QAT loss {loss_q!r}, dense "
+          f"{loss_d!r} (rel {abs(loss_q - loss_d) / abs(loss_d):.3e}, "
+          f"tolerance {QAT_LOSS_RTOL}); worst weight gradient against the "
+          f"dense one {worst:.3e} of its largest ({worst_name}; tolerance "
+          f"{QAT_GRAD_RTOL}); q_matmul {step._q_matmul_info}; launches "
+          f"{c_launches}; phase {time.perf_counter() - t0:.1f} s")
+    if not math.isfinite(loss_s) or abs(loss_s - loss_q) > \
+            Q8M_EXACT_RTOL * abs(loss_q) or abs(loss_q - loss_d) > \
+            QAT_LOSS_RTOL * abs(loss_d):
+        fail("q8m (c): the QAT loss strays from the dense loss")
+    if worst > QAT_GRAD_RTOL or not moved:
+        fail(f"q8m (c): QAT gradients {worst:.3e} off the dense ones")
+    if c_launches != _scaled(DYGRAPH_LAUNCHES, QAT_LAYERS, 1):
+        fail(f"q8m (c): launches {c_launches}")
+    del model, step, lm_loss, qinit, g_q, g_d
+    free()
+    return {"q8m_f32_int8": {k: sum(v.values()) for k, v in
+                             a["int8_launches"].items()},
+            "q8m_bf16_int8": {k: sum(v.values()) for k, v in
+                              b["int8"]["launches"].items()},
+            "q8m_qat_f32": {k: sum(v.values()) for k, v in
+                            c_launches.items()}}
+
+
+def _dpq8_batch():
+    """bench.py's _bench_gpt_dp_q8 batch: the global [16, S] ids and
+    next-token labels, as numpy."""
+    n = DPQ8_BATCH * TRAIN_S
+    ids = (np.arange(n) % 31000).reshape(DPQ8_BATCH, TRAIN_S) \
+        .astype(np.int64)
+    labels = ((np.arange(n) + 1) % 31000).reshape(DPQ8_BATCH, TRAIN_S) \
+        .astype(np.int64)
+    return ids, labels
+
+
+def _dpq8_strategy(fleet, quant, amp):
+    """bench's _bench_gpt_dp_q8 strategy: hierarchical dcn x ici2 dp, the
+    async dcn hop, ``quant`` ("int8" or None), ``amp``."""
+    s = fleet.DistributedStrategy()
+    s.amp = amp
+    s.hierarchical_allreduce = True
+    s.hierarchical_allreduce_inter_nranks = DPQ8_ICI
+    s.async_dcn_allreduce = True
+    if quant:
+        s.quantized_allreduce = quant
+    return s
+
+
+def _hop_bytes(counts, op, group):
+    return sum(c["bytes"] for c in counts
+               if c["op"] == op and c["group"] == group)
+
+
+def dp_q8_phase(pt, kernels, card):
+    """bench.py's ``_bench_gpt_dp_q8`` program at GPT-medium's full width
+    and ``DPQ8_LAYERS`` of its 24 blocks (a depth cut) as a world of 4
+    ranks of this script (``--dpq8-child``), dp4 = dcn2 x ici2, all on this
+    card over gloo, started by the port's launcher with a deadline; 4 rows
+    a rank, global B = 16, S = 1024, AdamW 1e-4 / 0.01 through fleet with
+    ``hierarchical_allreduce`` (inter_nranks 2) and
+    ``async_dcn_allreduce``.
+
+    The parent first runs, on the global batch, from the same weights
+    (seed 0): the first-step gradients; each dcn group's (rows 0-7 and
+    8-15) and from them the oracle (each through the plain quantizer,
+    ``quantize_dequantize``, then averaged); ``DPQ8_STEPS`` float32
+    ``TrainStep`` losses. Then each rank:
+
+    (a) float32, TF32 off, the policy off: first-step gradients (what the
+        update receives) within ``MC_GRAD_RTOL`` of one process's largest
+        value, losses within ``MC_LOSS_RTOL``;
+    (b) float32, ``quantized_allreduce = "int8"``: first-step gradients
+        against the oracle within the note's per-block bound
+        (``DPQ8_ORACLE_RTOL``), and not the full-width gradients;
+    (c) (b)'s losses within ``DPQ8_LOSS_RTOL`` / ``DPQ8_LOSS_ATOL`` of
+        (a)'s;
+    (d) bench's program as written (bf16 AMP O1), int8 and off: one
+        warm-up step and ``DPQ8_STEPS`` timed: ms/step, global tokens/s,
+        host ms and bytes of each collective by (op, group, transport),
+        peak memory by rank; the dcn hop's bytes at least
+        ``DPQ8_BYTES_X`` times fewer under int8 (and equal to 3 steps of
+        ``grad_comm_info``'s dcn hop), the ici hop's unchanged.
+
+    Fails when a rank exits non-zero or outlives ``DPQ8_DEADLINE_S``, when a
+    collective ran on another backend than the rule's, when a gate fails,
+    or when a kernel of the path was not launched at its count or ran in
+    other types. Returns rank 0's launch counts of (a), (b) and (d)."""
+    import gc
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.distributed import launch as dlaunch
+    from paddle_tpu_torch.distributed import quantized_comm as qc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    shm = "/dev/shm" if os.path.isdir("/dev/shm") else None
+    root = tempfile.mkdtemp(prefix="dp_q8_", dir=shm)
+    try:
+        pt.seed(0)
+        model = _gpt_cut(DPQ8_LAYERS)
+        lm_loss = _bench_lm_loss(model)
+        torch.save({k: v.detach().cpu() for k, v in
+                    model.state_dict().items()},
+                   os.path.join(root, "state.pt"))
+        ids, labels = (torch.as_tensor(a, device="cuda")
+                       for a in _dpq8_batch())
+
+        def grads(rows):
+            model.clear_gradients()
+            lm_loss(model(ids[rows]), labels[rows]).backward()
+            out = {k: p.grad.detach().clone()
+                   for k, p in model.named_parameters()}
+            model.clear_gradients()
+            return out
+
+        half = DPQ8_BATCH // 2
+        torch.save({k: v.cpu() for k, v in grads(slice(None)).items()},
+                   os.path.join(root, "grads.pt"))
+        g0, g1 = grads(slice(0, half)), grads(slice(half, None))
+        torch.save({k: ((qc.quantize_dequantize(g0[k], "int8", 128)
+                         + qc.quantize_dequantize(g1[k], "int8", 128))
+                        / 2).cpu() for k in g0},
+                   os.path.join(root, "oracle.pt"))
+        # each 128-block's step: the larger of the two groups' scales
+        torch.save({k: torch.maximum(
+            qc.quantize_blockwise(g0[k], "int8", 128)[1],
+            qc.quantize_blockwise(g1[k], "int8", 128)[1]).cpu()
+            for k in g0}, os.path.join(root, "block_step.pt"))
+        del g0, g1
+        step = pt.jit.TrainStep(model, lm_loss, pt.optimizer.AdamW(
+            learning_rate=1e-4, weight_decay=0.01,
+            parameters=model.parameters()))
+        ref = [step(ids, labels).item() for _ in range(DPQ8_STEPS)]
+        del model, step, lm_loss, ids, labels
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        print(f"dp_q8: one-process reference, B={DPQ8_BATCH} S={TRAIN_S} "
+              f"float32, {DPQ8_LAYERS} blocks: losses {ref}; gradients, "
+              f"the dcn groups' oracle written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        logs = os.path.join(root, "logs")
+        t1 = time.perf_counter()
+        rc = dlaunch.launch(os.path.abspath(__file__),
+                            ["--dpq8-child", root],
+                            nproc_per_node=DPQ8_WORLD, log_dir=logs,
+                            deadline=DPQ8_DEADLINE_S)
+        world_s = time.perf_counter() - t1
+        for r in range(DPQ8_WORLD):
+            with open(os.path.join(logs, f"workerlog.{r}")) as f:
+                text = f.read()
+            if rc != 0 or r == 0:
+                print(f"--- rank {r} log ---\n{text.rstrip()}")
+        if rc != 0:
+            fail(f"dp_q8: the world of {DPQ8_WORLD} ranks exited with code "
+                 f"{rc}")
+        res = []
+        for r in range(DPQ8_WORLD):
+            with open(os.path.join(root, f"dpq8_rank{r}.json")) as f:
+                res.append(json.load(f))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"dp_q8: world of {DPQ8_WORLD} ranks (dcn{DPQ8_WORLD // DPQ8_ICI} "
+          f"x ici{DPQ8_ICI}) ran in {world_s:.1f} s on {card}, 4 ranks "
+          "sharing one H100 over gloo")
+    f32_want = _scaled(DYGRAPH_LAUNCHES, DPQ8_LAYERS, DPQ8_STEPS)
+    bf16_want = _scaled(AMP_LAUNCHES, DPQ8_LAYERS, DPQ8_STEPS)
+    for r, o in enumerate(res):
+        runs = ("a", "b", "d_int8", "d_off")
+        bad = [c for run in runs for c in o[f"{run}_counts"]
+               if c["backend"] != "gloo" or c["transport"] != "gloo-cuda"]
+        if o["backend"] != "gloo" or bad:
+            fail(f"dp_q8 rank {r}: a collective left the rule's backend "
+                 f"(gloo, gloo-cuda): {o['backend']}, {bad}")
+        for i, (got, want) in enumerate(zip(o["a_losses"], ref)):
+            if abs(got - want) > MC_LOSS_RTOL * abs(want):
+                fail(f"dp_q8 (a) rank {r} step {i + 1}: loss {got!r} "
+                     f"against one process's {want!r}")
+        if o["a_grad_worst"] > MC_GRAD_RTOL:
+            fail(f"dp_q8 (a) rank {r}: gradient {o['a_grad_worst_name']} "
+                 f"off by {o['a_grad_worst']:.3e} of its largest value")
+        for run, want in (("a", [True, True, None, False]),
+                          ("b", [True, True, ["int8", 128], False])):
+            if o[f"{run}_flags"] != want:
+                fail(f"dp_q8 ({run}) rank {r}: the step's dcn hop "
+                     f"(explicit, per gradient, policy, boundary flag left "
+                     f"set) {o[f'{run}_flags']}, expected {want}")
+        if o["b_oracle_worst"] > 1.0:
+            fail(f"dp_q8 (b) rank {r}: gradient {o['b_oracle_worst_name']} "
+                 f"off the oracle by {o['b_oracle_worst']:.3f} of its bound")
+        if o["b_full_width"] <= MC_GRAD_RTOL:
+            fail(f"dp_q8 (b) rank {r}: the int8 hop's gradients are the "
+                 f"full-width ones (at most {o['b_full_width']:.3e} of "
+                 "their largest value off them)")
+        for i, (q, f) in enumerate(zip(o["b_losses"], o["a_losses"])):
+            if abs(q - f) > DPQ8_LOSS_RTOL * abs(f) + DPQ8_LOSS_ATOL:
+                fail(f"dp_q8 (c) rank {r} step {i + 1}: int8 loss {q!r} "
+                     f"against the policy-off {f!r}")
+        for run, want in (("a", f32_want), ("b", f32_want),
+                          ("d_int8", bf16_want), ("d_off", bf16_want)):
+            if o[f"{run}_launches"] != want:
+                fail(f"dp_q8 {run} rank {r}: launches "
+                     f"{o[f'{run}_launches']}, expected {want}")
+        for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                     "flash_attention_bwd_dkv"):
+            if o["a_shapes"][name] != [list(DPQ8_RANK_SHAPE)]:
+                fail(f"dp_q8 rank {r}: {name} at {o['a_shapes'][name]}")
+        q8 = _hop_bytes(o["d_int8_counts"], "quantized_allreduce", "dcn")
+        full = _hop_bytes(o["d_off_counts"], "all_reduce", "dcn")
+        ici = [_hop_bytes(o[f"d_{k}_counts"], "all_reduce", "ici")
+               for k in ("int8", "off")]
+        priced = DPQ8_STEPS * o["grad_comm"]["hops"]["dcn"]["bytes_on_wire"]
+        if not q8 or full / q8 < DPQ8_BYTES_X or q8 != priced \
+                or ici[0] != ici[1] or not ici[0]:
+            fail(f"dp_q8 rank {r}: hop bytes dcn int8 {q8} (priced "
+                 f"{priced}), off {full}; ici {ici}")
+        if not all(np.isfinite(o["d_int8_losses"] + o["d_off_losses"])):
+            fail(f"dp_q8 (d) rank {r}: losses {o['d_int8_losses']} "
+                 f"{o['d_off_losses']}")
+    for key in ("a_losses", "b_losses", "d_int8_losses", "d_off_losses"):
+        if any(o[key] != res[0][key] for o in res):
+            fail(f"dp_q8: {key} differ across ranks: "
+                 f"{[o[key] for o in res]}")
+    r0 = res[0]
+    print(f"dp_q8 (a) float32 policy off: losses {r0['a_losses']} (one "
+          f"process {ref}); worst first-step gradient "
+          f"{max(o['a_grad_worst'] for o in res):.3e} of its largest "
+          f"({r0['a_grad_worst_name']}); launches a rank {r0['a_launches']}"
+          f" at {r0['a_shapes']['flash_attention_fwd']}")
+    print(f"dp_q8 (b) float32 int8: losses {r0['b_losses']}; worst first-"
+          f"step gradient against the oracle "
+          f"{max(o['b_oracle_worst'] for o in res):.3f} of its per-block "
+          f"bound ({r0['b_oracle_worst_name']}); off the full-width "
+          f"gradients by up to {r0['b_full_width']:.3e} of the largest; "
+          f"(c) |int8 - off| "
+          f"{[abs(q - f) for q, f in zip(r0['b_losses'], r0['a_losses'])]}")
+    for k in ("int8", "off"):
+        ms = float(np.mean(r0[f"d_{k}_ms"]))
+        print(f"dp_q8 (d) bf16 AMP, dcn hop {k}, {DPQ8_STEPS} steps after "
+              f"one warm-up (4 ranks sharing one H100 over gloo): losses "
+              f"{r0[f'd_{k}_losses']}; step ms "
+              f"{[round(x, 1) for x in r0[f'd_{k}_ms']]}, mean {ms:.1f} ms, "
+              f"{DPQ8_BATCH * TRAIN_S / ms * 1e3:.1f} global tokens/s; peak "
+              f"memory by rank "
+              f"{[round(o[f'd_{k}_peak_gib'], 2) for o in res]} GiB")
+        for c in r0[f"d_{k}_counts"]:
+            print(f"dp_q8 (d) {k} rank 0 collectives, {DPQ8_STEPS} steps: "
+                  f"{c['op']} group {c['group']} {c['backend']}/"
+                  f"{c['transport']}: {c['calls']} calls, {c['bytes']} "
+                  f"bytes, {c['ms']:.1f} host ms")
+    q8 = _hop_bytes(r0["d_int8_counts"], "quantized_allreduce", "dcn")
+    full = _hop_bytes(r0["d_off_counts"], "all_reduce", "dcn")
+    print(f"dp_q8: dcn hop bytes a rank, {DPQ8_STEPS} steps: off {full}, "
+          f"int8 {q8} (x{full / q8:.3f} fewer); ici hop "
+          f"{_hop_bytes(r0['d_int8_counts'], 'all_reduce', 'ici')} both; "
+          f"grad_comm {r0['grad_comm']}")
+    return {"dp_q8_f32_off": {k: sum(v.values()) for k, v in
+                              r0["a_launches"].items()},
+            "dp_q8_f32_int8": {k: sum(v.values()) for k, v in
+                               r0["b_launches"].items()},
+            "dp_q8_bf16_int8": {k: sum(v.values()) for k, v in
+                                r0["d_int8_launches"].items()}}
+
+
+def dpq8_child(argv) -> int:
+    """``python3 chip_smoke.py --dpq8-child DIR``: one rank of
+    ``dp_q8_phase``'s world, started by the port's launcher. Writes its
+    results to ``DIR/dpq8_rank<r>.json``."""
+    root, = argv
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import comm, fleet
+    from paddle_tpu_torch.ops import kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_parallel_env()
+    rank = dist.get_rank()
+    fleet.init(is_collective=True,
+               strategy=_dpq8_strategy(fleet, None, False))
+    pt.seed(0)
+    model = _gpt_cut(DPQ8_LAYERS)
+    lm_loss = _bench_lm_loss(model)
+    model.set_state_dict(torch.load(os.path.join(root, "state.pt"),
+                                    mmap=True))
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    fl = fleet.distributed_model(model)
+    ids, labels = (fl.shard_input(a) for a in _dpq8_batch())
+    mon = dist.comm_monitor.monitor()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {"rank": rank, "backend": comm.backend()}
+
+    class FirstGrads(pt.optimizer.AdamW):
+        """AdamW that keeps the first gradients it is given (after the
+        reduction and the clip): what the update receives."""
+        first = None
+
+        def _functional_update(self, params, grads, lr, t):
+            if self.first is None:
+                self.first = {self._names[id(p)]: g.detach().clone()
+                              for p, g in zip(params, grads)
+                              if g is not None}
+            return super()._functional_update(params, grads, lr, t)
+
+    def run(quant, amp, warm):
+        model.set_state_dict(init)
+        s = _dpq8_strategy(fleet, quant, amp)
+        opt = FirstGrads(learning_rate=1e-4, weight_decay=0.01,
+                         parameters=list(model.named_parameters()))
+        step = pt.jit.TrainStep(fl, lm_loss,
+                                fleet.distributed_optimizer(opt, strategy=s))
+        if warm:
+            step(ids, labels).item()
+        torch.cuda.reset_peak_memory_stats()
+        mon.reset_counts()
+        kernels.reset_launches()  # the dp_q8 path starts here
+        losses, ms = [], []
+        for _ in range(DPQ8_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses.append(step(ids, labels).item())  # .item() syncs
+            ms.append((time.perf_counter() - t) * 1e3)
+        res = {"losses": losses, "ms": ms,
+               "launches": kernels.launches_by_dtype(),  # ... ends here
+               "shapes": kernels.launch_shapes(),
+               "counts": mon.comm_counts(by_group=True),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "flags": [step._async_dcn, step._hop is not None,
+                         step._dcn_quant, step.opt._quant_explicit],
+               "grad_comm": step._grad_comm_info}
+        return res, opt.first
+
+    def worst(first, ref, bound=None):
+        """The largest |got - want| over the parameters, in units of the
+        parameter's largest |want|, or of ``bound(k, want)`` per
+        element."""
+        w, wn = 0.0, ""
+        for k, g in first.items():
+            want = ref[k].to(dev)
+            err = (g - want).abs()
+            if bound is None:
+                lim = want.abs().max()
+                rel = (err.max() / lim).item() if lim > 0 \
+                    else float("inf")
+            else:
+                lim = bound(k, want).clamp_min(torch.finfo(
+                    torch.float32).tiny)
+                rel = (err / lim).max().item()
+            if rel > w:
+                w, wn = rel, k
+        return w, wn
+
+    # (a) float32, the policy off
+    res, first = run(None, False, warm=False)
+    ref = torch.load(os.path.join(root, "grads.pt"), mmap=True)
+    w, wn = worst(first, ref)
+    out.update({f"a_{k}": v for k, v in res.items()},
+               a_grad_worst=w, a_grad_worst_name=wn)
+    del first, ref
+    # (b) float32, the int8 dcn hop, against the oracle
+    res, first = run("int8", False, warm=False)
+    oracle = torch.load(os.path.join(root, "oracle.pt"), mmap=True)
+    block_step = torch.load(os.path.join(root, "block_step.pt"))
+
+    def bound(k, want):
+        n = want.numel()
+        step = block_step[k].to(dev).repeat_interleave(128)[:n]
+        return step.view_as(want) + DPQ8_ORACLE_RTOL * want.abs().max()
+
+    w, wn = worst(first, oracle, bound)
+    del oracle
+    ref = torch.load(os.path.join(root, "grads.pt"), mmap=True)
+    full, _ = worst(first, ref)
+    out.update({f"b_{k}": v for k, v in res.items()},
+               b_oracle_worst=w, b_oracle_worst_name=wn, b_full_width=full)
+    del first, ref
+    # (d) bench's program as written: bf16 AMP, int8 and off
+    for name, quant in (("int8", "int8"), ("off", None)):
+        res, first = run(quant, True, warm=True)
+        out.update({f"d_{name}_{k}": v for k, v in res.items()})
+        del first
+    out["grad_comm"] = out["d_int8_grad_comm"]
+    print(f"rank {rank}: {json.dumps(out)}", flush=True)
+    with open(os.path.join(root, f"dpq8_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    comm.destroy_parallel_env()
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5926,6 +6590,10 @@ def main() -> int:
           "s")
     sp_pp_ep = sp_pp_ep_phase(pt, kernels, card)
     print(f"sp/pp/ep phase done at {time.perf_counter() - t_start:.1f} s")
+    q8m = q8m_phase(pt, kernels, card)
+    print(f"q8m phase done at {time.perf_counter() - t_start:.1f} s")
+    dp_q8 = dp_q8_phase(pt, kernels, card)
+    print(f"dp_q8 phase done at {time.perf_counter() - t_start:.1f} s")
     partial_entry["launches"] = sp_pp_ep.pop("partial_op")
     partial_entry["launches_by_path"] = {"sp4_ring_pallas":
                                          partial_entry["launches"]}
@@ -5959,7 +6627,9 @@ def main() -> int:
             "guarded_training": sum(guarded[e["name"]].values()),
             "detection": detection[e["name"]],
             **{k: v[e["name"]] for k, v in multichip.items()},
-            **{k: v[e["name"]] for k, v in sp_pp_ep.items()}}
+            **{k: v[e["name"]] for k, v in sp_pp_ep.items()},
+            **{k: v[e["name"]] for k, v in q8m.items()},
+            **{k: v[e["name"]] for k, v in dp_q8.items()}}
     entries.append(partial_entry)
     print(f"{card}")
     print(json.dumps({"kernels": entries}))
@@ -5976,4 +6646,6 @@ if __name__ == "__main__":
         sys.exit(rank_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--sp-child"]:
         sys.exit(sp_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--dpq8-child"]:
+        sys.exit(dpq8_child(sys.argv[2:]))
     sys.exit(main())

@@ -15,15 +15,19 @@ Ported: the world and its groups (``comm``), the collectives
 ``python -m paddle_tpu_torch.distributed.launch`` launcher,
 ``DataParallel`` across trainers (``parallel``), the tensor-parallel
 layers at any mp (``meta_parallel``), the pipeline (``pipeline``: one
-stage a rank, 1F1B and F-then-B), ``fleet`` at any dp x pp x sp x mp, the
-quantization plane's serving half (``quantized_comm``,
-``quantized_compute``) and the trainer's half of ``elastic``; ring and
-Ulysses attention live in ``nn/layers/ring_attention.py`` and MoE in
-``incubate/moe.py``. Quantized gradient comm, resharding, ZeRO sharding
-and the elastic launcher are ROADMAP queue A item 7's later parts.
+stage a rank, 1F1B and F-then-B), ``fleet`` at any dp x pp x sp x mp
+(dp factored into dcn x ici under ``hierarchical_allreduce``), the
+quantization plane (``quantized_comm``: the quantizer, the quantized
+allreduce and KV layout; ``quantized_compute``: narrow serving weights,
+``qat_matmul``, the narrow Adam moments), the per-gradient dcn hop
+(``overlap``) and the trainer's half of ``elastic``; ring and Ulysses
+attention live in ``nn/layers/ring_attention.py`` and MoE in
+``incubate/moe.py``. Resharding, ZeRO sharding, the tensor-parallel
+overlap rings and the elastic launcher are ROADMAP queue A item 7's
+part 5.
 """
-from . import (comm, comm_monitor, collective, elastic, fleet, parallel,
-               pipeline, quantized_comm, quantized_compute)
+from . import (comm, comm_monitor, collective, elastic, fleet, overlap,
+               parallel, pipeline, quantized_comm, quantized_compute)
 from .collective import (ReduceOp, all_gather, all_reduce, alltoall,
                          barrier, broadcast, monitored_barrier, reduce,
                          reduce_scatter, scatter, wait)
@@ -51,7 +55,8 @@ def __getattr__(name):
 
 
 __all__ = ["comm", "comm_monitor", "collective", "elastic", "fleet",
-           "parallel", "pipeline", "quantized_comm", "quantized_compute",
+           "overlap", "parallel", "pipeline", "quantized_comm",
+           "quantized_compute",
            "PipelineLayer", "PipelineParallel",
            "ReduceOp", "all_gather", "all_reduce", "alltoall", "barrier",
            "broadcast", "monitored_barrier", "reduce", "reduce_scatter",

@@ -51,7 +51,8 @@ from .comm import Group
 __all__ = ["ReduceOp", "all_reduce", "reduce", "all_gather", "broadcast",
            "reduce_scatter", "scatter", "alltoall", "barrier", "wait",
            "monitored_barrier", "transport", "all_reduce_", "all_gather_",
-           "ppermute_", "shift_", "send_recv_", "all_to_all_tiled_"]
+           "ppermute_", "shift_", "send_recv_", "all_to_all_tiled_",
+           "all_reduce_async_", "all_gather_async_"]
 
 
 class ReduceOp:
@@ -145,6 +146,64 @@ def all_gather_(t: torch.Tensor, group: Optional[Group] = None
         else:
             dist.all_gather_into_tensor(out, t.reshape(-1), group=g.pg)
     return out.view((g.nranks,) + tuple(t.shape))
+
+
+class _Pending:
+    """An issued asynchronous collective: :meth:`wait` completes it (the
+    process group's work, then ``finish`` on the result) and adds the
+    wait's host time to the comm monitor's row of the call, which was
+    counted, with its bytes, when it was issued."""
+
+    def __init__(self, work, result, finish, row):
+        self._work, self._result, self._finish = work, result, finish
+        self._row = row
+
+    def wait(self) -> torch.Tensor:
+        import time
+
+        t0 = time.perf_counter()
+        if self._work is not None:
+            self._work.wait()
+        out = self._finish(self._result) if self._finish else self._result
+        op, backend, tr, axis = self._row
+        _cm.monitor().count(op, backend, tr, 0, time.perf_counter() - t0,
+                            calls=0, group=axis)
+        return out
+
+
+def all_reduce_async_(t: torch.Tensor, op: int = ReduceOp.SUM,
+                      group: Optional[Group] = None) -> _Pending:
+    """:func:`all_reduce_` issued without waiting: returns a handle whose
+    ``wait()`` completes it and returns ``t`` (reduced in place)."""
+    g = _group(group)
+    with _watch("all_reduce", g, t, _nbytes(t)):
+        work = None if g.pg is None else dist.all_reduce(
+            t, op=_TORCH_OP[op], group=g.pg, async_op=True)
+    finish = (lambda r: _avg(r, g.nranks)) if op == ReduceOp.AVG else None
+    return _Pending(work, t, finish, _row("all_reduce", g, t))
+
+
+def all_gather_async_(t: torch.Tensor, group: Optional[Group] = None, *,
+                      op: str = "all_gather"):
+    """Every rank's flat ``t`` gathered rank-major into one buffer,
+    issued without waiting: returns ``(buffer, work)``, the buffer valid
+    after ``work.wait()`` (``work`` None for a group of one). Counted
+    under ``op`` with the bytes of ``t``: what this rank hands the
+    transport."""
+    g = _group(group)
+    t = t.contiguous().reshape(-1)
+    out = torch.empty(g.nranks * t.numel(), dtype=t.dtype, device=t.device)
+    with _watch(op, g, t, _nbytes(t)):
+        if g.pg is None:
+            out.copy_(t)
+            return out, None
+        work = dist.all_gather_into_tensor(out, t, group=g.pg,
+                                           async_op=True)
+    return out, _Pending(work, out, None, _row(op, g, t))
+
+
+def _row(op: str, g: Group, t: torch.Tensor):
+    return (op, g.backend, transport(g, t), g.axis_name)
 
 
 def _exchange(send: torch.Tensor, recv: torch.Tensor, dst: int, src: int,

@@ -29,8 +29,13 @@ another backend in silence. :func:`backend` names the job's.
 package's mesh, axis order ``(dp, pp, sp, mp)`` with mp innermost (rank =
 ``((dp_index * PP + pp_index) * SP + sp_index) * MP + mp_index``), and makes
 the group of each axis and the ``data`` group (dp x sp) once, on every rank
-in the same order. ``dp_inner`` above 1 raises, naming the ROADMAP item
-that brings it.
+in the same order. ``dp_inner`` above 1 factors dp into the two levels of
+a hierarchical reduction (counterpart of
+``paddle_tpu/distributed/comm.py:419-455``): ``dcn`` outer x ``ici``
+inner, ``dp = dcn * dp_inner``, the dp index ``dcn_index * dp_inner +
+ici_index`` (so a rank is ``((((dcn * ICI + ici) * PP + pp) * SP + sp) *
+MP + mp``, the same rank as before), and the mesh gains the ``dcn`` and
+``ici`` groups; ``dp`` and ``data`` stay the whole dp (x sp) group.
 """
 from __future__ import annotations
 
@@ -88,15 +93,19 @@ class Group:
 class HybridMesh:
     """The job's rank grid: axes ``(dp, pp, sp, mp)``, mp innermost. ``shape``
     maps each axis to its degree; :meth:`group` is this rank's Group along
-    an axis and :meth:`axis_rank` its index there."""
+    an axis and :meth:`axis_rank` its index there. A hierarchical mesh
+    (``dp_inner`` above 1) names ``(dcn, ici, pp, sp, mp)`` as its axes,
+    as the JAX package's does, and keeps ``dp`` in ``shape``, the groups
+    and the coordinates as the pair's product."""
 
     def __init__(self, shape: Dict[str, int], groups: Dict[str, Group],
                  coords: Dict[str, int]):
         self.shape = dict(shape)
-        self.axis_names = tuple(self.shape)
+        self.axis_names = (("dcn", "ici") if "dcn" in self.shape
+                           else ("dp",)) + MESH_AXES[1:]
         self.size = 1
-        for v in self.shape.values():
-            self.size *= int(v)
+        for a in MESH_AXES:
+            self.size *= int(self.shape[a])
         self._groups = groups
         self._coords = coords
 
@@ -387,16 +396,23 @@ def mesh_coords(rank: int, shape: Dict[str, int]) -> Dict[str, int]:
 
 
 def _axis_groups(shape: Dict[str, int], axes: Tuple[str, ...], me: int,
-                 name: str) -> Group:
-    """Make every group whose ranks differ only along ``axes`` (every rank
-    of the world calls this, in one order) and return this rank's."""
+                 name: str, order: Tuple[str, ...] = MESH_AXES) -> Group:
+    """Make every group whose ranks differ only along ``axes`` of the
+    axes ``order`` (every rank of the world calls this, in one order) and
+    return this rank's."""
     import itertools
 
-    others = [a for a in MESH_AXES if a not in axes]
+    def rank_of(coords):
+        r = 0
+        for a in order:
+            r = r * int(shape[a]) + int(coords[a])
+        return r
+
+    others = [a for a in order if a not in axes]
     mine = None
     for fixed in itertools.product(*(range(shape[a]) for a in others)):
         base = dict(zip(others, fixed))
-        ranks = [mesh_rank({**base, **dict(zip(axes, var))}, shape)
+        ranks = [rank_of({**base, **dict(zip(axes, var))})
                  for var in itertools.product(*(range(shape[a])
                                                 for a in axes))]
         g = new_group(ranks, axis_name=name)
@@ -412,13 +428,15 @@ def init_hybrid_mesh(dp: int = 1, mp: int = 1, pp: int = 1, sp: int = 1,
     group of each axis above 1, on every rank in the same order, plus the
     ``data`` group over dp x sp (the ranks that hold the same replicated
     parameters and different tokens: gradients are averaged over it). The
-    product of the degrees must be the world size; ``dp_inner`` above 1
-    raises."""
+    product of the degrees must be the world size. ``dp_inner`` above 1
+    factors dp into ``dcn`` (``dp / dp_inner``) x ``ici`` (``dp_inner``),
+    ici innermost, and makes the ``dcn`` and ``ici`` groups after the
+    others."""
     global _mesh
-    if int(dp_inner) != 1:
-        raise NotImplementedError(
-            f"init_hybrid_mesh(dp_inner={dp_inner}): not ported yet, ROADMAP "
-            "queue A item 7 (hierarchical allreduce)")
+    dp_inner = int(dp_inner)
+    if dp_inner > 1 and int(dp) % dp_inner:
+        raise ValueError(f"hierarchical dp: dp={dp} not divisible by "
+                         f"dp_inner={dp_inner}")
     shape = dict(dp=int(dp), pp=int(pp), sp=int(sp), mp=int(mp))
     need = 1
     for v in shape.values():
@@ -440,6 +458,14 @@ def init_hybrid_mesh(dp: int = 1, mp: int = 1, pp: int = 1, sp: int = 1,
     groups["data"] = groups["dp"] if shape["sp"] == 1 else \
         _axis_groups(shape, ("dp", "sp"), me, "data") \
         if shape["dp"] > 1 else groups["sp"]
+    if dp_inner > 1:
+        shape.update(dcn=shape["dp"] // dp_inner, ici=dp_inner)
+        coords.update(dcn=coords["dp"] // dp_inner,
+                      ici=coords["dp"] % dp_inner)
+        order = ("dcn", "ici") + MESH_AXES[1:]
+        for a in ("dcn", "ici"):
+            groups[a] = _axis_groups(shape, (a,), me, a, order) \
+                if shape[a] > 1 else solo
     _mesh = HybridMesh(shape, groups, coords)
     _publish_streams()
     return _mesh
@@ -449,14 +475,17 @@ def hybrid_mesh() -> Optional[HybridMesh]:
     return _mesh
 
 
-def dp_axes(mesh: Optional[HybridMesh] = None) -> str:
-    """The axis data-parallel work shards over: ``dp`` (the JAX package's
-    hierarchical ``dcn`` x ``ici`` pair is not ported: ``dp_inner``
-    raises)."""
+def dp_axes(mesh: Optional[HybridMesh] = None):
+    """The axis (or axis pair) data-parallel work shards over: ``dp``, or
+    ``("dcn", "ici")`` on a hierarchical mesh."""
+    m = mesh if mesh is not None else _mesh
+    if m is not None and "ici" in m.axis_names:
+        return ("dcn", "ici")
     return "dp"
 
 
 def dp_size(mesh: Optional[HybridMesh] = None) -> int:
+    """The data-parallel degree (on a hierarchical mesh, dcn x ici)."""
     m = mesh if mesh is not None else _mesh
     return 1 if m is None else int(m.shape["dp"])
 

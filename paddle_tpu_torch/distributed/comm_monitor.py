@@ -24,7 +24,11 @@ ring buffer (the flight recorder), dumped on timeout, desync or SIGTERM.
   that never arrived.
 - **counts**: each collective adds its calls, bytes and host seconds under
   ``(op, backend, transport)`` (:meth:`CommMonitor.comm_counts`), so a run
-  shows which backend and transport every collective took.
+  shows which backend and transport every collective took; with
+  ``by_group=True`` the rows are split by the group's axis name as well
+  (``ici`` and ``dcn`` are the two hops of a hierarchical dp). An
+  asynchronous collective is counted when issued, and its wait adds its
+  host time to the same row.
 
 The ``coll`` fault site sits in :meth:`CommMonitor.watch`: ``coll:hang``,
 ``coll:fail``, ``coll:kill`` and ``coll:desync`` (``arg`` = the rank that
@@ -195,7 +199,8 @@ class CommMonitor:
         self._desync_round = 0
         self._lock = threading.Lock()
         self._sigterm_installed = False
-        # (op, backend, transport) -> [calls, bytes, host seconds]
+        # (op, group axis name, backend, transport) -> [calls, bytes,
+        # host seconds]
         self._counts: Dict[tuple, list] = {}
 
     # -- recording --------------------------------------------------------
@@ -217,23 +222,34 @@ class CommMonitor:
 
     # -- counts -----------------------------------------------------------
     def count(self, op: str, backend: str, transport: str, nbytes: int,
-              seconds: float) -> None:
-        """Add one finished collective to its (op, backend, transport)
-        row."""
+              seconds: float, *, calls: int = 1,
+              group: Optional[str] = None) -> None:
+        """Add ``calls`` collectives (1: one finished call; 0: the wait
+        of one already counted) to their (op, group, backend, transport)
+        row; ``group`` is the group's axis name."""
         with self._lock:
-            row = self._counts.setdefault((op, backend, transport),
-                                          [0, 0, 0.0])
-            row[0] += 1
+            row = self._counts.setdefault(
+                (op, group or "", backend, transport), [0, 0, 0.0])
+            row[0] += int(calls)
             row[1] += int(nbytes)
             row[2] += float(seconds)
 
-    def comm_counts(self) -> List[dict]:
+    def comm_counts(self, by_group: bool = False) -> List[dict]:
         """The rows of :meth:`count`: op, backend, transport, calls, bytes
-        and host milliseconds, in the order first seen."""
+        and host milliseconds, in the order first seen; with
+        ``by_group`` split by the group's axis name (key ``group``)."""
         with self._lock:
-            return [{"op": k[0], "backend": k[1], "transport": k[2],
-                     "calls": v[0], "bytes": v[1], "ms": v[2] * 1e3}
-                    for k, v in self._counts.items()]
+            rows: Dict[tuple, list] = {}
+            for (op, group, backend, transport), v in self._counts.items():
+                key = (op, group, backend, transport) if by_group \
+                    else (op, backend, transport)
+                row = rows.setdefault(key, [0, 0, 0.0])
+                for i in range(3):
+                    row[i] += v[i]
+        names = ("op", "group", "backend", "transport") if by_group \
+            else ("op", "backend", "transport")
+        return [{**dict(zip(names, k)), "calls": v[0], "bytes": v[1],
+                 "ms": v[2] * 1e3} for k, v in rows.items()]
 
     def reset_counts(self) -> None:
         with self._lock:
@@ -279,7 +295,7 @@ class CommMonitor:
                 rec.t_done = time.time()
                 if backend is not None:
                     self.count(op, backend, transport or "", nbytes,
-                               time.perf_counter() - t0)
+                               time.perf_counter() - t0, group=axis)
 
     # -- timeout path -----------------------------------------------------
     def _on_timeout(self, rec: _Record, deadline: float) -> None:

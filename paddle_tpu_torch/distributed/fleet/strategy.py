@@ -5,11 +5,15 @@ JAX package's field names and defaults (``amp_configs`` defaults to bf16,
 ``use_bf16`` True, dynamic scaling from 32768 when float16 is asked for).
 
 ``fleet.init`` lays the world out as ``hybrid_configs`` (dp x pp x sp x
-mp; or ``tensor_parallel`` with its ``tensor_parallel_degree``).
-``jit.TrainStep`` applies ``amp``; ``fleet.distributed_model`` reads
-``pipeline_configs`` (``accumulate_steps``, ``schedule_mode``) for a
-``PipelineLayer``; every other option of ``NOT_PORTED`` is kept as data,
-and a ``TrainStep`` given a strategy that sets one raises
+mp; or ``tensor_parallel`` with its ``tensor_parallel_degree``), with dp
+factored into dcn x ici under ``hierarchical_allreduce``.
+``jit.TrainStep`` applies ``amp``, the gradient-width options
+(``fp16_allreduce``, ``quantized_allreduce``, ``dgc``, which becomes the
+latter, ``async_dcn_allreduce``) and the quantized compute
+(``quantized_matmul``, ``quantized_moments``); ``fleet.distributed_model``
+reads ``pipeline_configs`` (``accumulate_steps``, ``schedule_mode``) for a
+``PipelineLayer``; every option of ``NOT_PORTED`` is kept as data, and a
+``TrainStep`` given a strategy that sets one raises
 ``NotImplementedError`` naming it.
 """
 from __future__ import annotations
@@ -82,10 +86,8 @@ _DEFAULTS = {
 
 #: the options the port keeps as data only: a TrainStep refuses a strategy
 #: that sets one
-NOT_PORTED = ("recompute", "sharding", "gradient_merge", "fp16_allreduce", "localsgd", "lamb", "lars",
-              "hierarchical_allreduce", "async_dcn_allreduce",
-              "quantized_allreduce", "quantized_matmul", "quantized_moments",
-              "dgc", "elastic_reshard", "a_sync")
+NOT_PORTED = ("recompute", "sharding", "gradient_merge", "localsgd", "lamb",
+              "lars", "elastic_reshard", "a_sync")
 
 
 class DistributedStrategy:

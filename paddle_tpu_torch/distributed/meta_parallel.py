@@ -35,7 +35,9 @@ rank's part, and the part of an input that is not yet parallel
 A degree that does not divide its dimension raises ``ValueError``. ``mp``
 (keyword) defaults to the hybrid mesh's mp degree (1 without a mesh); one
 that differs from the mesh's raises. At mp = 1 every layer is the plain
-single-device one.
+single-device one. With ``PADDLE_TP_OVERLAP`` set on, the forward of a
+``RowParallelLinear`` and of a gathering ``ColumnParallelLinear`` raises
+(``overlap.tp_overlap_enabled``: the overlap rings are not ported yet).
 
 **Weights.** ``state_dict()`` on a rank returns its **shards** (the local
 parameters). ``set_state_dict`` takes either the shards or the **full**
@@ -63,7 +65,7 @@ import torch
 
 from .. import amp
 from ..core import random as rnd
-from . import collective, comm
+from . import collective, comm, overlap
 from . import quantized_comm as qc
 from ..nn import functional as F
 from ..nn.functional import attention as attn_route
@@ -230,6 +232,8 @@ class ColumnParallelLinear(Linear):
                                         _col_groups))
 
     def forward(self, x):
+        if self.gather_output:
+            overlap.tp_overlap_enabled()  # raises when asked for the ring
         if self._mp == 1:
             return super().forward(x)
         out = F.linear(_CopyToMP.apply(x, self._mp_group), self.weight,
@@ -268,6 +272,7 @@ class RowParallelLinear(Linear):
                                       g))
 
     def forward(self, x):
+        overlap.tp_overlap_enabled()  # raises when asked for the ring
         if self._mp == 1:
             return super().forward(x)
         if not self.input_is_parallel:

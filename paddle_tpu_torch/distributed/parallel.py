@@ -21,6 +21,17 @@ locally. A parameter with no gradient on a rank enters its bucket as zeros
 and keeps no gradient there; ranks are expected to leave the same
 parameters unused (``find_unused_parameters`` is taken and changes
 nothing). At a dp degree of one, nothing is communicated.
+
+On a hierarchical mesh (``init_hybrid_mesh(dp_inner=k)``, the
+``hierarchical_allreduce`` strategy) the reduction over the data group
+takes two hops at full width: an all-reduce AVG over the fast inner
+``ici`` group (and ``sp``, when the sequence is split), then one over the
+slow ``dcn`` group. The mean of the ici means over dcn is the mean over
+the whole group. Where ``TrainStep`` makes the dcn hop explicit
+(``async_dcn_allreduce``, or a quantized policy on a hierarchical mesh),
+its ``overlap.DcnGradHop`` reduces each gradient in the backward pass,
+under ``overlap.manual_dcn``, and ``DataParallel`` leaves that pass's
+gradients to it.
 """
 from __future__ import annotations
 
@@ -32,7 +43,7 @@ import torch
 
 from ..core.tensor import Tensor, to_tensor
 from ..nn.layer import Layer
-from . import collective, comm
+from . import collective, comm, overlap
 from .comm import ParallelEnv, init_parallel_env
 
 __all__ = ["DataParallel", "ParallelEnv", "init_parallel_env",
@@ -114,20 +125,36 @@ def _buckets(params: Sequence[torch.Tensor], nbytes: int
     return out
 
 
+def _hops(group) -> list:
+    """The groups a gradient reduction over ``group`` averages over, in
+    order: on a hierarchical mesh's data group, the ici group (and the sp
+    group when sp is above 1), then the dcn group; else ``[group]``."""
+    mesh = comm.hybrid_mesh()
+    if mesh is None or "dcn" not in mesh.shape \
+            or group is not mesh.group("data"):
+        return [group]
+    return [mesh.group("ici")] + \
+        ([mesh.group("sp")] if mesh.shape["sp"] > 1 else []) + \
+        [mesh.group("dcn")]
+
+
 @torch.no_grad()
 def reduce_gradients(params: Sequence[torch.Tensor], group=None,
                      bucket_mb: float = 25) -> None:
     """Average ``params``' gradients over ``group`` (the dp group by
-    default) in place, one all-reduce per bucket of ``bucket_mb``."""
+    default) in place, one all-reduce per bucket of ``bucket_mb`` and
+    hop (:func:`_hops`)."""
     g = group or comm.dp_group()
     if g is None or g.nranks <= 1:
         return
+    hops = _hops(g)
     for bucket in _buckets([p for p in params if p.requires_grad],
                            int(bucket_mb * 2 ** 20)):
         flat = torch.cat([(p.grad if p.grad is not None
                            else torch.zeros_like(p)).reshape(-1)
                           for p in bucket])
-        collective.all_reduce_(flat, collective.ReduceOp.AVG, g)
+        for h in hops:
+            collective.all_reduce_(flat, collective.ReduceOp.AVG, h)
         off = 0
         for p in bucket:
             n = p.numel()
@@ -171,8 +198,9 @@ class DataParallel(Layer):
 
     def _on_grad(self, _p) -> None:
         # the first gradient of a backward pass queues the reduction at
-        # its end, when every gradient of the pass is accumulated
-        if self._sync and not self._queued:
+        # its end, when every gradient of the pass is accumulated; a pass
+        # under the explicit dcn hop is the hop's to reduce
+        if self._sync and not self._queued and not overlap.in_manual_dcn():
             self._queued = True
             torch.autograd.Variable._execution_engine.queue_callback(
                 self._reduce)

@@ -1,7 +1,7 @@
-"""Block-scaled int8 / fp8-e4m3 quantization and the quantized KV-cache
-layout (counterpart of ``paddle_tpu/distributed/quantized_comm.py``: its
-quantizer and KV layout; the quantized allreduce belongs to the
-distributed slice).
+"""Block-scaled int8 / fp8-e4m3 quantization, the quantized gradient
+allreduce and the quantized KV-cache layout (counterpart of
+``paddle_tpu/distributed/quantized_comm.py``; the allreduce of its lines
+144-206, the byte record of 312-329).
 
 Symmetric per-block scales: each block's scale is ``amax / qmax`` (127
 for int8, 448 for float8_e4m3fn, its largest finite value), the payload
@@ -13,6 +13,21 @@ all-zero block gets scale 0 and dequantizes to exact zeros.
 torch lacks ``scatter_`` and ``gather`` for ``float8_e4m3fn``; the cache
 code moves fp8 payloads through :func:`bits` (a ``uint8`` view of the same
 bytes, which is bit-exact).
+
+**The gradient's two forms.** :func:`quantize_dequantize` is the boundary
+round trip (one pass through the quantizer, back at the value's own type:
+the width policy of a reduction with no explicit dcn hop).
+:func:`quantized_allreduce` is the wire-true exchange over a group of
+ranks: each rank quantizes its value, the group all-gathers the payloads
+and their float32 scales, and each rank widens every peer's contribution
+and sums them in float32 (then divides by the group's size), so the
+reduction never runs in the narrow type. Payload and scales travel as one
+``uint8`` buffer of ``n + 4 * ceil(n / block)`` bytes for ``n`` values
+(the payload without its last block's padding; :func:`wire_bytes`): one
+``all_gather_into_tensor`` a gradient, which gloo takes for CUDA tensors
+as it does for CPU ones. The comm monitor counts that exchange as op
+``quantized_allreduce`` with the bytes this rank hands the transport, as
+it counts an ``all_reduce`` by its operand's bytes.
 """
 from __future__ import annotations
 
@@ -25,6 +40,7 @@ __all__ = [
     "SUPPORTED", "fp8_dtype", "resolve_policy", "bits", "from_bits",
     "quantize_blockwise", "dequantize_blockwise", "quantize_along",
     "dequantize_along", "quantize_lastaxis", "dequantize_lastaxis",
+    "quantize_dequantize", "quantized_allreduce", "quantized_pmean",
     "QuantKV", "tensors_of", "quantize_like", "kv_quant_policy", "kv_zero",
     "wire_bytes", "grad_comm_info",
 ]
@@ -138,6 +154,92 @@ def dequantize_blockwise(payload, scales, shape, out_dtype=torch.float32):
     for d in shape:
         n *= int(d)
     return flat.reshape(-1)[:n].reshape(tuple(shape)).to(out_dtype)
+
+
+def quantize_dequantize(x, dtype: str = "int8", block: int = 128):
+    """The boundary round trip: ``x`` passes the block quantizer once and
+    comes back at its own type and shape."""
+    p, s = quantize_blockwise(x, dtype, block)
+    return dequantize_blockwise(p, s, x.shape, x.dtype)
+
+
+def _hop_group(group):
+    """A Group, a group id, or a mesh axis name (``"dcn"``: this rank's
+    group along that axis of the hybrid mesh)."""
+    from . import collective, comm
+
+    if isinstance(group, str):
+        mesh = comm.hybrid_mesh()
+        if mesh is None:
+            raise ValueError(f"quantized_allreduce over axis {group!r} "
+                             "needs a hybrid mesh")
+        return mesh.group(group)
+    return collective._group(group)
+
+
+class QuantizedWork:
+    """An issued :func:`quantized_allreduce`: :meth:`wait` completes the
+    gather and returns the reduced tensor (at the input's type and
+    shape)."""
+
+    def __init__(self, x, work, gathered, nb, block, qdtype, mean, n):
+        self._x, self._work, self._gathered = x, work, gathered
+        self._nb, self._block, self._qdtype = nb, block, qdtype
+        self._mean, self._n = mean, n
+
+    def wait(self) -> torch.Tensor:
+        if self._work is not None:
+            self._work.wait()
+        n, nb, block = self._n, self._nb, self._block
+        size = self._x.numel()
+        rows = self._gathered.view(n, -1)
+        # the payload crossed unpadded: the last block's tail is zeros
+        payload = torch.nn.functional.pad(
+            rows[:, :size], (0, nb * block - size)).view(self._qdtype) \
+            .reshape(n, nb, block)
+        scales = rows[:, size:].contiguous().view(torch.float32)
+        contrib = _widen(payload, scales[..., None])  # [n, nb, block]
+        total = contrib.sum(dim=0)                     # float32 master sum
+        if self._mean:
+            total = total / n
+        x = self._x
+        return total.reshape(-1)[:x.numel()].reshape(x.shape).to(x.dtype)
+
+
+def quantized_allreduce(x, group=None, *, dtype: str = "int8",
+                        block: int = 128, mean: bool = True,
+                        async_op: bool = False):
+    """The block-quantized allreduce of ``x`` over ``group`` (a Group,
+    its id, or a mesh axis name such as ``"dcn"``): quantize here,
+    all-gather payload and scales, widen each peer's contribution, sum in
+    float32 (the mean with ``mean``), cast back to ``x``'s type. Every rank
+    of the group gets the same bytes back. With ``async_op`` it returns a
+    :class:`QuantizedWork` whose ``wait()`` gives the result."""
+    from . import collective
+
+    g = _hop_group(group)
+    qdtype, _ = _qparams(dtype)
+    payload, scales = quantize_blockwise(x, dtype, block)
+    nb = int(scales.shape[0])
+    buf = torch.cat([bits(payload).reshape(-1)[:x.numel()]
+                     .view(torch.uint8), scales.view(torch.uint8)])
+    out, work = collective.all_gather_async_(buf, g, op="quantized_allreduce")
+    w = QuantizedWork(x, work, out, nb, block, qdtype, mean, g.nranks)
+    return w if async_op else w.wait()
+
+
+def quantized_pmean(x, group=None, *, dtype: str = "int8",
+                    block: int = 128):
+    """The JAX package's form for its partial-manual regions: each rank's
+    value through :func:`quantize_dequantize`, then a full-width mean over
+    ``group``. The port's step uses :func:`quantized_allreduce` (a process
+    group has no such limit); this keeps the public name and its
+    numbers."""
+    from . import collective
+
+    q = quantize_dequantize(x, dtype, block).contiguous()
+    return collective.all_reduce_(q, collective.ReduceOp.AVG,
+                                  _hop_group(group))
 
 
 def _axis_block(d: int, block: int) -> int:
@@ -264,17 +366,21 @@ def wire_bytes(n_elems: int, dtype, block: int = 128) -> int:
 
 
 def grad_comm_info(n_elems: int, policy=None, *,
-                   fp16_allreduce: bool = False) -> dict:
+                   fp16_allreduce: bool = False,
+                   hierarchical: bool = False) -> dict:
     """The static ``grad_comm`` record of one gradient reduction: its type
     and bytes on the wire (payload and scales) beside the float32
-    baseline. ``policy`` is a :func:`resolve_policy` pair or None."""
+    baseline. ``policy`` is a :func:`resolve_policy` pair or None. With
+    ``hierarchical`` the record adds ``hops``, each hop priced at its own
+    width: ``ici`` at full width (float32, or bfloat16 under
+    ``fp16_allreduce``), ``dcn`` at the policy's."""
     if policy is not None:
         dtype, block = policy
     else:
         dtype, block = ("bfloat16" if fp16_allreduce else "float32"), 0
     wire = wire_bytes(n_elems, dtype, block or 128)
     f32 = 4 * int(n_elems)
-    return {
+    out = {
         "dtype": dtype,
         "block": int(block),
         "grad_elems": int(n_elems),
@@ -282,3 +388,10 @@ def grad_comm_info(n_elems: int, policy=None, *,
         "bytes_f32": int(f32),
         "reduction_x": round(f32 / wire, 2) if wire else 1.0,
     }
+    if hierarchical:
+        full = "bfloat16" if fp16_allreduce else "float32"
+        out["hops"] = {
+            "ici": {"dtype": full,
+                    "bytes_on_wire": wire_bytes(n_elems, full)},
+            "dcn": {"dtype": dtype, "bytes_on_wire": int(wire)}}
+    return out

@@ -19,8 +19,32 @@ inside the step: the gradients are divided by the scale, a step whose
 gradients (or, with the guard on, loss, gradients or new parameters) are
 not finite leaves parameters and moments unchanged and counts as a bad
 step, and the scale grows or backs off on the device, with no host read.
-The bias correction then counts applied updates only. Every other
-strategy option raises ``NotImplementedError``.
+The bias correction then counts applied updates only.
+
+The gradient-width and quantized-compute options (counterpart of
+``paddle_tpu/jit/train_step.py:108-203, 260-346, 382``):
+``quantized_matmul`` arms ``quantized_compute.matmul_scope`` around the
+forward and the loss, so every wide linear weight trains through
+``qat_matmul``; ``quantized_moments`` is the optimizer's (armed by
+``fleet.distributed_optimizer``); ``fp16_allreduce`` and a
+``quantized_allreduce`` without an explicit hop are the optimizer's
+boundary casts. On a hierarchical mesh, ``async_dcn_allreduce``, or
+``quantized_allreduce`` with ``hierarchical_allreduce``, makes the dcn hop
+explicit (``_async_dcn``, its policy ``_dcn_quant``), as in the JAX
+package: each gradient's dcn reduction starts in the step's backward pass
+(``distributed.overlap.DcnGradHop``, whose ``manual_dcn`` extent a
+``DataParallel`` model leaves alone) and completes before the clip, and
+the optimizer's boundary round trip stands down for the step's update
+(``_quant_explicit`` is set around it only: the model and the optimizer
+keep no state of the step). ``async_dcn_allreduce`` without
+``hierarchical_allreduce`` raises, and so does the
+explicit hop with float16 dynamic loss scaling, with a model that has
+buffers, or with ``return_outputs``. The static records
+``_grad_comm_info`` (priced per hop on a hierarchical mesh),
+``_q_matmul_info`` and ``_moment_bytes_info`` ride the ``step_metrics``
+rows and go to the bus once (``grad_comm``, ``q_matmul``,
+``moment_bytes``). Every other strategy option of ``NOT_PORTED`` raises
+``NotImplementedError``.
 
 The guard (``utils/train_guard.py``) runs unless ``PADDLE_GUARD_MODE=off``.
 Each step computes its health word and folds it into the guard's state
@@ -95,6 +119,16 @@ __all__ = ["TrainStep"]
 _POISON = (1.0, float("nan"), float("inf"), 1e4)
 
 
+@contextlib.contextmanager
+def _explicit(opt):
+    """``opt._quant_explicit`` set for the extent of the block."""
+    prev, opt._quant_explicit = opt._quant_explicit, True
+    try:
+        yield
+    finally:
+        opt._quant_explicit = prev
+
+
 def _as_list(x):
     if x is None:
         return []
@@ -121,6 +155,11 @@ class TrainStep:
         self._amp_ctx = None          # amp.auto_cast kwargs of the step
         self._loss_scale_cfg = None   # float16 dynamic loss scaling
         self._scaler_state = ()       # (scale, good, bad, applied) tensors
+        self._quant_info = None       # quantized_allreduce's policy
+        self._q_matmul = None         # quantized_matmul's policy
+        self._async_dcn = False       # the dcn hop is explicit
+        self._dcn_quant = None        # the explicit hop's policy
+        self._hop = None              # overlap.DcnGradHop
         strategy = getattr(optimizer, "user_defined_strategy", None)
         if strategy is not None:
             self._read_strategy(strategy)
@@ -144,7 +183,7 @@ class TrainStep:
         self._guard = _TG.TrainGuard(mode=mode, model=model) \
             if mode != "off" else None
         self._guard_state = None
-        self._world_reduce = self._world_plan(model)
+        self._world_reduce = self._world_plan(model, return_outputs)
         if self._guard is not None:
             self._guard._on_rollback = self._after_rollback
             self._guard_state = _TG.init_guard_state(self._device)
@@ -153,30 +192,71 @@ class TrainStep:
         self._n_steps = 0
         self._example = None   # the first call's batch, for the FLOP count
         self._flops = None
+        from ..distributed import comm as _comm
         from ..distributed import quantized_comm as _qc
+        from ..distributed import quantized_compute as _qcp
 
+        mesh = _comm.hybrid_mesh()
+        n = sum(p.numel() for p in self._params)
         self._grad_comm_info = _qc.grad_comm_info(
-            sum(p.numel() for p in self._params))
+            n, self._quant_info, fp16_allreduce=bool(
+                strategy is not None and strategy.fp16_allreduce),
+            hierarchical=mesh is not None and "dcn" in mesh.shape)
+        self._q_matmul_info = _qcp.q_matmul_info(
+            sum(p.numel() for p in self._params if p.dim() == 2),
+            self._q_matmul)
+        self._moment_bytes_info = _qcp.moment_bytes_info(
+            n, getattr(optimizer, "_q_moments", None))
         if self._guard is not None:
             self._guard._sampler.set_grad_comm(self._grad_comm_info)
+            self._guard._sampler.set_quant_bytes(self._q_matmul_info,
+                                                 self._moment_bytes_info)
         if _bus.enabled():
             from ..observability import ledger as _ledger
 
             _ledger.install_backend_listener()
             _bus.emit("grad_comm", self._grad_comm_info, step=0)
+            _bus.emit("q_matmul", self._q_matmul_info, step=0)
+            _bus.emit("moment_bytes", self._moment_bytes_info, step=0)
 
-    @staticmethod
-    def _world_plan(model):
+    def _world_plan(self, model, return_outputs):
         """(world Group, dp Group, reduce the gradients here?) in a world
-        of several ranks; None in a world of one."""
+        of several ranks; None in a world of one. With the explicit dcn
+        hop: checks what it needs and makes the step's
+        :class:`~distributed.overlap.DcnGradHop`."""
         from ..distributed import comm
         from ..distributed.parallel import DataParallel
 
+        if self._async_dcn:
+            mesh = comm.hybrid_mesh()
+            if comm.get_world_size() <= 1 or mesh is None \
+                    or "dcn" not in mesh.shape or mesh.shape["dcn"] <= 1:
+                raise ValueError(
+                    "the explicit dcn grad reduction (async_dcn_allreduce / "
+                    "hierarchical quantized_allreduce) needs a hybrid mesh "
+                    "with a dcn axis (> 1) — fleet.init with "
+                    "hierarchical_allreduce and a dp_degree that factors "
+                    "must run first")
+            if self._buffers:
+                # batch statistics would be updated per dcn group
+                raise NotImplementedError(
+                    "the explicit dcn grad reduction does not support "
+                    "models with buffers (running batch statistics) yet")
+            if return_outputs:
+                raise NotImplementedError(
+                    "the explicit dcn grad reduction does not compose with "
+                    "return_outputs")
         if comm.get_world_size() <= 1:
             return None
         world = comm._ensure_init()
         dp = comm.data_group()
         hooked = isinstance(model, DataParallel) and model.group is dp
+        if self._async_dcn:
+            from ..distributed.overlap import DcnGradHop
+
+            self._hop = DcnGradHop(self._params, comm.hybrid_mesh(),
+                                   self._dcn_quant)
+            hooked = True
         return world, dp, dp.nranks > 1 and not hooked
 
     @torch.no_grad()
@@ -204,18 +284,43 @@ class TrainStep:
         if unported:
             raise NotImplementedError(
                 f"TrainStep: strategy options {unported} are not ported yet "
-                "(the port applies amp)")
-        if not strategy.amp:
-            return
-        ac = strategy.amp_configs
-        dtype = "float16" if ac["use_pure_fp16"] or not ac["use_bf16"] \
-            else "bfloat16"
-        self._amp_ctx = dict(
-            enable=True, level="O2" if ac["use_pure_fp16"] else "O1",
-            dtype=dtype, custom_white_list=ac["custom_white_list"],
-            custom_black_list=ac["custom_black_list"])
-        if dtype == "float16" and ac["use_dynamic_loss_scaling"]:
-            self._loss_scale_cfg = dict(ac)
+                "(ROADMAP queue A item 7, part 5)")
+        from ..distributed import quantized_comm as _qc
+        from ..distributed import quantized_compute as _qcp
+
+        if strategy.quantized_allreduce:
+            self._quant_info = _qc.resolve_policy(
+                strategy.quantized_allreduce,
+                strategy.quantized_allreduce_block)
+        if strategy.quantized_matmul:
+            self._q_matmul = _qcp.resolve_matmul(strategy.quantized_matmul)
+        if strategy.amp:
+            ac = strategy.amp_configs
+            dtype = "float16" if ac["use_pure_fp16"] or not ac["use_bf16"] \
+                else "bfloat16"
+            self._amp_ctx = dict(
+                enable=True, level="O2" if ac["use_pure_fp16"] else "O1",
+                dtype=dtype, custom_white_list=ac["custom_white_list"],
+                custom_black_list=ac["custom_black_list"])
+            if dtype == "float16" and ac["use_dynamic_loss_scaling"]:
+                self._loss_scale_cfg = dict(ac)
+        if strategy.async_dcn_allreduce \
+                and not strategy.hierarchical_allreduce:
+            raise ValueError(
+                "async_dcn_allreduce requires hierarchical_allreduce: the "
+                "explicit async hop is the 'dcn' level of the dcn x ici "
+                "mesh factoring")
+        if strategy.async_dcn_allreduce or (
+                self._quant_info is not None
+                and strategy.hierarchical_allreduce):
+            if self._loss_scale_cfg is not None:
+                raise NotImplementedError(
+                    "the explicit dcn grad reduction (async_dcn_allreduce / "
+                    "hierarchical quantized_allreduce) does not compose "
+                    "with fp16 dynamic loss scaling yet (bf16 amp "
+                    "composes)")
+            self._async_dcn = True
+            self._dcn_quant = self._quant_info
 
     def _scaler_tensors(self, scale, good, bad, applied):
         dev = self._device
@@ -227,6 +332,29 @@ class TrainStep:
         if self._amp_ctx is None:
             return contextlib.nullcontext()
         return amp.auto_cast(**self._amp_ctx)
+
+    def _q_guard(self):
+        """The quantized-matmul scope of the forward and the loss."""
+        if self._q_matmul is None:
+            return contextlib.nullcontext()
+        from ..distributed import quantized_compute as _qcp
+
+        return _qcp.matmul_scope(self._q_matmul)
+
+    def _hop_guard(self):
+        """The explicit dcn hop's extent: the backward pass."""
+        if self._hop is None:
+            return contextlib.nullcontext()
+        return self._hop.backward()
+
+    def _update_guard(self):
+        """The update's extent: under the explicit quantized hop, the
+        optimizer's boundary round trip stands down (quantizing twice
+        would double the error)."""
+        if self._dcn_quant is None \
+                or not hasattr(self.opt, "_quant_explicit"):
+            return contextlib.nullcontext()
+        return _explicit(self.opt)
 
     def _tensor(self, x):
         return torch.as_tensor(to_torch(x), device=self._device)
@@ -256,21 +384,24 @@ class TrainStep:
         _prof.step_boundary(self._n_steps)
         masked = self._guard is not None or self._loss_scale_cfg is not None
         old_bufs = [b.clone() for b in self._buffers] if masked else []
-        with torch.enable_grad(), self._amp_guard():
+        scaling = self._loss_scale_cfg is not None
+        with torch.enable_grad(), self._amp_guard(), self._q_guard():
             outs = self.model(*ins)
             loss = to_torch(self.loss_fn(outs, *lbls))
-        scaling = self._loss_scale_cfg is not None
-        if scaling:
-            scale = self._scaler_state[0]
-            (loss * scale.to(loss.dtype)).backward()
-        else:
-            loss.backward()
+        with self._hop_guard():
+            if scaling:
+                scale = self._scaler_state[0]
+                (loss * scale.to(loss.dtype)).backward()
+            else:
+                loss.backward()
         world = self._world_reduce
         if world is not None:
             from ..distributed import collective
             from ..distributed.parallel import reduce_gradients
 
-            if world[2]:
+            if self._hop is not None:
+                self._hop.wait()  # every dcn reduction, before the clip
+            elif world[2]:
                 reduce_gradients(self._params, world[1])
             # the data group's mean, the same on every rank
             loss = collective.all_reduce_(
@@ -291,7 +422,8 @@ class TrainStep:
         # with loss scaling the bias correction counts applied updates
         t = (self._scaler_state[3] + 1).float() if scaling \
             else opt._step_count
-        with _prof.device_annotation("TrainStep::opt_update"):
+        with _prof.device_annotation("TrainStep::opt_update"), \
+                self._update_guard():
             news = opt._functional_update(self._params, grads, opt.get_lr(),
                                           t)
         ok = None
@@ -359,7 +491,8 @@ class TrainStep:
             ins, lbls = self._example
 
             def loss():
-                with torch.enable_grad(), self._amp_guard():
+                with torch.enable_grad(), self._amp_guard(), \
+                        self._q_guard():
                     return to_torch(self.loss_fn(self.model(*ins), *lbls))
 
             self._flops = _mfu.count_flops(loss, module=self.model)

@@ -10,8 +10,9 @@ white-listed name ``linear``. Its weight is paddle's ``[in, out]``, as in
 the JAX package; the product takes it as a transposed operand of the
 same GEMM, with no copy. A narrow weight (an int8/fp8 checkpoint, or
 ``distributed.quantized_compute.quantize_layer``) always takes the
-quantized matmul; ``PADDLE_Q_MATMUL`` (the fake-quant training matmul)
-raises: not ported.
+quantized matmul; a wide 2-D float weight under an armed policy
+(``strategy.quantized_matmul`` through ``TrainStep``'s scope, or
+``PADDLE_Q_MATMUL``) takes the fake-quant ``qat_matmul``.
 
 ``dropout`` (and ``dropout2d``/``dropout3d``, ``alpha_dropout``,
 ``class_center_sample``) draws from the ``torch.Generator`` the caller
@@ -51,21 +52,20 @@ def linear(x, weight, bias=None, name=None):
     float inputs are cast to the AMP type first (white list). A weight
     that carries scales (``quantized_compute.attach_quantized``) is
     widened to ``x``'s type and multiplied (``quantized_matmul``). A wide
-    weight under ``PADDLE_Q_MATMUL`` raises ``NotImplementedError``: the
-    fake-quant matmul is ROADMAP queue A item 7."""
+    2-D float weight under an armed policy (``quantized_compute.
+    matmul_policy()``) goes through ``qat_matmul``, after the AMP cast."""
     from ...distributed import quantized_compute as Q
 
     qsc = Q.scale_of(weight)
     if qsc is not None:
         x, qsc, bias = amp.cast_if_amp("linear", (x, qsc, bias))
         return Q.quantized_matmul(x, weight, qsc, bias)
-    if weight.dim() == 2 and weight.is_floating_point() \
-            and Q.matmul_policy() is not None:
-        raise NotImplementedError(
-            "PADDLE_Q_MATMUL (the fake-quant qat_matmul over a wide weight) "
-            "is not ported yet: ROADMAP queue A item 7; unset it, or load "
-            "int8/fp8 weights (jit.load_quantized) to serve them narrow")
+    pol = Q.matmul_policy() if weight.dim() == 2 \
+        and weight.is_floating_point() else None
     x, weight, bias = amp.cast_if_amp("linear", (x, weight, bias))
+    if pol is not None:
+        out = Q.qat_matmul(x, weight, *pol)
+        return out if bias is None else out + bias
     return torch.nn.functional.linear(x, weight.t(), bias)
 
 

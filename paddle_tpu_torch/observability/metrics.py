@@ -12,7 +12,9 @@ copy is read, the sampler builds one ``step_metrics`` row from
 - examples and tokens per step from the inputs' shapes (host ints);
 - the caching allocator's counters (:func:`device_memory`, a host query
   of ``torch.cuda.memory_stats``; None on the CPU);
-- the step's static grad-comm record (``grad_comm``).
+- the step's static grad-comm record (``grad_comm``), and, only when a
+  quantized-compute policy is armed, the static ``q_matmul`` and
+  ``moment_bytes`` records (:meth:`StepMetricsSampler.set_quant_bytes`).
 
 It adds no device read of its own. ``PADDLE_OBS_STEP_METRICS=0`` turns
 the rows off; with the guard off (``PADDLE_GUARD_MODE=off``) there is no
@@ -95,12 +97,28 @@ class StepMetricsSampler:
         self._examples = 0
         self._tokens = 0
         self._grad_comm: Optional[dict] = None
+        self._q_matmul: Optional[dict] = None
+        self._moment_bytes: Optional[dict] = None
 
     def set_grad_comm(self, info: Optional[dict]) -> None:
         """The step's static grad-comm record (dtype and bytes of one
         gradient reduction, from the parameters' shapes), carried by every
         row."""
         self._grad_comm = dict(info) if info else None
+
+    def set_quant_bytes(self, q_matmul: Optional[dict],
+                        moment_bytes: Optional[dict]) -> None:
+        """The static quantized-compute records (resident matmul-weight
+        bytes under the QAT policy, Adam-moment bytes under
+        ``quantized_moments``), carried by every row only when armed
+        (``reduction_x`` other than 1): a row with every policy off keeps
+        its keys."""
+        def armed(info):
+            return dict(info) if info and info.get(
+                "reduction_x", 1.0) != 1.0 else None
+
+        self._q_matmul = armed(q_matmul)
+        self._moment_bytes = armed(moment_bytes)
 
     def tick(self, inputs) -> None:
         """Per-step accounting from the inputs' shapes (host ints)."""
@@ -147,6 +165,10 @@ class StepMetricsSampler:
                 payload["tokens_per_sec"] = round(tokens / dt, 1)
         if self._grad_comm:
             payload["grad_comm"] = self._grad_comm
+        if self._q_matmul:
+            payload["q_matmul"] = self._q_matmul
+        if self._moment_bytes:
+            payload["moment_bytes"] = self._moment_bytes
         mem = device_memory()
         if mem:
             payload["device_memory"] = mem

@@ -29,6 +29,16 @@ through ``get_lr``. ``weight_decay`` is a regularizer
 precedence. ``AdamW`` decays decoupled instead, ``Lamb`` and ``Lars``
 inside their rules.
 
+``Adam.quantize_moments(policy, block)`` (what
+``strategy.quantized_moments`` arms; counterpart of
+``paddle_tpu/optimizer/optimizer.py:421-520``) holds ``moment1`` and
+``moment2`` as int8/fp8 payloads with float32 ``moment1_scale`` and
+``moment2_scale`` (``distributed/quantized_compute.py``'s last-axis block
+layout, the second moment in the sqrt domain): each update widens them,
+runs the unchanged Adam/AdamW rule and narrows them again, so the state
+passes one quantizer round trip a step. It must be armed before the
+first step.
+
 ``state_dict()`` / ``set_state_dict()`` use the JAX package's keys:
 ``"<name>.<accumulator>"`` with the parameter's ``name``, or
 ``param_<i>`` (its index in the parameter list) when it has none,
@@ -195,14 +205,28 @@ class Optimizer:
             if p is None:
                 continue
             v = to_torch(val)
-            v = v.detach() if isinstance(v, torch.Tensor) \
-                else torch.as_tensor(np.array(val))
-            dtype = torch.float32 if acc_name == "master_weight" \
-                or self._multi_precision and p.dtype in _LOW else p.dtype
+            if isinstance(v, torch.Tensor):
+                v = v.detach()
+            else:
+                arr = np.array(val)
+                # numpy's float8 (ml_dtypes) crosses as its bytes
+                v = torch.from_numpy(arr.view(np.uint8)).view(
+                    torch.float8_e4m3fn) \
+                    if arr.dtype.name == "float8_e4m3fn" \
+                    else torch.as_tensor(arr)
             self._accumulators.setdefault(acc_name, {})[id(p)] = v.to(
-                device=p.device, dtype=dtype).clone()
+                device=p.device, dtype=self._acc_dtype(acc_name, p, v)
+            ).clone()
 
     set_dict = set_state_dict
+
+    def _acc_dtype(self, acc_name: str, p, v) -> torch.dtype:
+        """The type accumulator ``acc_name`` of ``p`` is held in (``v``: a
+        value loaded for it): float32 for a master weight and for the
+        state of a 16-bit parameter under ``multi_precision``, else the
+        parameter's."""
+        return torch.float32 if acc_name == "master_weight" \
+            or self._multi_precision and p.dtype in _LOW else p.dtype
 
     # -- the update ----------------------------------------------------------
     def _process_grads(self, params, grads):
@@ -261,6 +285,8 @@ class Optimizer:
         device) each value written is ``where(ok, new, old)``, in place (one
         kernel a buffer, as the plain copy): a step whose ``ok`` is False
         leaves them bitwise unchanged, and the host never reads ``ok``."""
+        from ..distributed.quantized_comm import bits
+
         for p, new_p, accs, new_accs in news:
             olds = [p] + [accs[n] for n in accs]
             fresh = [new_p] + [new_accs[n] for n in accs]
@@ -268,7 +294,9 @@ class Optimizer:
                 if ok is None:
                     o.copy_(f)
                 else:
-                    torch.where(ok, f, o, out=o)
+                    # float8 state selects on its bytes (torch.where has
+                    # no float8 kernel)
+                    torch.where(ok, bits(f), bits(o), out=bits(o))
 
     def step(self) -> None:
         """Apply one update from the accumulated ``.grad`` (eager path)."""
@@ -356,17 +384,95 @@ class Adam(Optimizer):
         self._epsilon = float(epsilon)
         self._multi_precision = bool(multi_precision)
 
+    # -- quantized moments ------------------------------------------------
+    #: the (dtype, block) policy of quantize_moments, or None (wide)
+    _q_moments = None
+    _Q_MOMENT_NAMES = ("moment1", "moment2")
+
+    def quantize_moments(self, policy, block=128):
+        """Hold ``moment1``/``moment2`` narrow (``policy`` "int8" or
+        "fp8", ``block`` values a scale). Raises once wide moment state
+        exists: re-encoding live moments would change the run's course
+        mid-way (arm first, then resume through ``set_state_dict``).
+        Returns the resolved policy (None for an empty one)."""
+        from ..distributed import quantized_comm as _qc
+
+        pol = _qc.resolve_policy(policy, block, knob="quantized_moments")
+        if pol is None:
+            return None
+        for nm in self._Q_MOMENT_NAMES:
+            if self._accumulators.get(nm):
+                raise RuntimeError(
+                    "quantized_moments must be armed before the first "
+                    "step: this optimizer already holds wide moment "
+                    "state (arm at construction, or resume via "
+                    "set_state_dict after arming)")
+        self._q_moments = pol
+        self._acc_names = ("moment1", "moment2", "moment1_scale",
+                           "moment2_scale")
+        return pol
+
+    def _acc_init(self, name, like):
+        if self._q_moments is None or name not in self._acc_names:
+            return super()._acc_init(name, like)
+        from ..distributed import quantized_comm as _qc
+
+        dt, bs = self._q_moments
+        if like.dim() == 0:
+            # a scalar has no axis to block over: a wide payload and the
+            # 0-d zero-scale sentinel
+            return torch.zeros((), dtype=torch.float32, device=like.device) \
+                if name.endswith("_scale") else torch.zeros_like(like)
+        d = int(like.shape[-1])
+        if name.endswith("_scale"):
+            return torch.zeros(tuple(like.shape[:-1]) + (
+                d // _qc._axis_block(d, bs),), dtype=torch.float32,
+                device=like.device)
+        qdtype, _ = _qc._qparams(dt)
+        raw = torch.uint8 if qdtype == _qc.fp8_dtype() else qdtype
+        return _qc.from_bits(torch.zeros(like.shape, dtype=raw,
+                                         device=like.device), qdtype)
+
+    def _acc_dtype(self, acc_name, p, v):
+        if self._q_moments is not None and acc_name in self._acc_names \
+                and v.dim() > 0:
+            return torch.float32 if acc_name.endswith("_scale") \
+                else v.dtype
+        return super()._acc_dtype(acc_name, p, v)
+
     def _moments(self, g, accs, t):
         b1, b2 = self._beta1, self._beta2
-        m = b1 * accs["moment1"] + (1 - b1) * g
-        v = b2 * accs["moment2"] + (1 - b2) * (g * g)
+        if self._q_moments is None:
+            m0, v0 = accs["moment1"], accs["moment2"]
+        else:
+            from ..distributed import quantized_compute as _Q
+
+            m0 = _Q.moment_wide(accs["moment1"], accs["moment1_scale"],
+                                g.dtype)
+            v0 = _Q.moment2_wide(accs["moment2"], accs["moment2_scale"],
+                                 g.dtype)
+        m = b1 * m0 + (1 - b1) * g
+        v = b2 * v0 + (1 - b2) * (g * g)
         mhat = m / (1 - b1 ** t)
         vhat = v / (1 - b2 ** t)
         return m, v, mhat / (torch.sqrt(vhat) + self._epsilon)
 
+    def _moment_state(self, m, v):
+        """The new accumulators of the moments ``m`` and ``v``: as they
+        are, or narrow under ``quantize_moments``."""
+        if self._q_moments is None:
+            return {"moment1": m, "moment2": v}
+        from ..distributed import quantized_compute as _Q
+
+        dt, bs = self._q_moments
+        mp, ms = _Q.moment_narrow(m, dt, bs)
+        vp, vs = _Q.moment2_narrow(v, dt, bs)
+        return {"moment1": mp, "moment2": vp, "moment1_scale": ms,
+                "moment2_scale": vs}
+
     def _rule(self, param, p, g, accs, lr, t):
         m, v, upd = self._moments(g, accs, t)
-        return p - lr * upd, {"moment1": m, "moment2": v}
+        return p - lr * upd, self._moment_state(m, v)
 
 
 class AdamW(Adam):
@@ -401,7 +507,7 @@ class AdamW(Adam):
             if not self._apply_decay_param_fun(name):
                 wd = 0.0
         m, v, upd = self._moments(g, accs, t)
-        return p - lr * (upd + wd * p), {"moment1": m, "moment2": v}
+        return p - lr * (upd + wd * p), self._moment_state(m, v)
 
 
 class Adamax(Optimizer):

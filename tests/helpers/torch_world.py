@@ -755,6 +755,25 @@ def case_cuda_collectives(rank, inputs, tmpdir):
     return out
 
 
+def case_cuda_quantized(rank, inputs, tmpdir):
+    """``quantized_allreduce`` of this rank's CUDA tensor (int8 and fp8,
+    waited at once and issued without waiting), with the counts."""
+    import torch
+
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import quantized_comm as qc
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    x = torch.tensor(inputs["x"][rank], device=dev)
+    out = {}
+    for dt in ("int8", "fp8"):
+        out[dt] = _np(qc.quantized_allreduce(x, dtype=dt))
+        out[dt, "async"] = _np(qc.quantized_allreduce(
+            x, dtype=dt, async_op=True).wait())
+    out["counts"] = dist.comm_monitor.monitor().comm_counts(by_group=True)
+    return out
+
+
 def case_cuda_gpt_block(rank, inputs, tmpdir):
     """``ParallelGPTBlock`` at mp2 on the card, through the kernels."""
     from paddle_tpu_torch import distributed as dist
@@ -769,3 +788,201 @@ def case_cuda_gpt_block(rank, inputs, tmpdir):
     res["shapes"] = kernels.launch_shapes()
     return res
 
+
+
+# ---------------------------------------------------------------------------
+# gradient width: the dcn2 x ici2 world (tests/test_torch_quantized_comm.py)
+# ---------------------------------------------------------------------------
+
+
+def dense_net():
+    """The JAX package's ``_DenseNet`` of its quantized-comm tests."""
+    import paddle_tpu_torch as pt
+
+    class DenseNet(pt.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.fc1 = pt.nn.Linear(10, 16)
+            self.fc2 = pt.nn.Linear(16, 4)
+
+        def forward(self, x):
+            return self.fc2(pt.nn.functional.relu(self.fc1(x)))
+
+    return DenseNet()
+
+
+def _recording(cls):
+    """``cls`` whose ``_functional_update`` keeps the gradients it was
+    given (after the reduction, the clip and the width cast), by name."""
+
+    class Recording(cls):
+        def _functional_update(self, params, grads, lr, t):
+            self.seen.append({self._names[id(p)]: _np(g)
+                              for p, g in zip(params, grads)
+                              if g is not None})
+            return super()._functional_update(params, grads, lr, t)
+
+    return Recording
+
+
+def _hier_strategy(quant, async_dcn, **kw):
+    from paddle_tpu_torch.distributed import fleet
+
+    s = fleet.DistributedStrategy()
+    s.hierarchical_allreduce = True
+    s.hierarchical_allreduce_inter_nranks = 2
+    s.async_dcn_allreduce = async_dcn
+    if quant:
+        s.quantized_allreduce = quant
+    for k, v in kw.items():
+        setattr(s, k, v)
+    return s
+
+
+def _hier_train(inputs, quant, async_dcn, steps=3):
+    """The JAX package's TestHierarchicalQuantized program: the dense net,
+    Momentum 0.1 / 0.9, cross entropy, ``steps`` batches of 16 (4 a rank)
+    through fleet at dp4 = dcn2 x ici2 and ``TrainStep``."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import comm_monitor, fleet
+
+    s = _hier_strategy(quant, async_dcn)
+    fleet.init(is_collective=True, strategy=s)
+    net = dense_net()
+    net.set_state_dict(inputs["dense_init"])
+    model = fleet.distributed_model(net)
+    opt = _recording(pt.optimizer.Momentum)(
+        learning_rate=0.1, momentum=0.9,
+        parameters=list(net.named_parameters()))
+    opt.seen = []
+    opt = fleet.distributed_optimizer(opt)
+    step = pt.jit.TrainStep(
+        model, lambda o, y: pt.nn.functional.cross_entropy(o, y), opt)
+    mon = comm_monitor.monitor()
+    mon.reset_counts()
+    losses = [float(step(model.shard_input(x), model.shard_input(y)))
+              for x, y in inputs["dense_data"][:steps]]
+    return {"losses": losses,
+            "params": {k: _np(v) for k, v in net.state_dict().items()},
+            "grads": opt.seen[0],
+            "flags": (step._async_dcn, step._hop is not None,
+                      step._dcn_quant, opt._quant_explicit,
+                      opt._comm_width_cast() is None),
+            "counts": mon.comm_counts(by_group=True),
+            "grad_comm": step._grad_comm_info}
+
+
+def _hier_reuse(inputs):
+    """One ``DataParallel`` model and one distributed optimizer through a
+    step of the int8 async dcn hop, then a plain ``TrainStep`` and an
+    eager backward pass on the same wrapper, each on the first batch at
+    learning rate 0 (the parameters stay the initial ones): the gradients
+    of the later two, the post-accumulate hooks on the parameters, and
+    the optimizer's flags after the hop's step."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import fleet
+
+    fleet.init(is_collective=True, strategy=_hier_strategy("int8", True))
+    net = dense_net()
+    net.set_state_dict(inputs["dense_init"])
+    model = fleet.distributed_model(net)
+    opt = fleet.distributed_optimizer(pt.optimizer.SGD(
+        learning_rate=0.0, parameters=net.parameters()))
+
+    def loss_fn(o, y):
+        return pt.nn.functional.cross_entropy(o, y)
+
+    x, y = (model.shard_input(a) for a in inputs["dense_data"][0])
+    pt.jit.TrainStep(model, loss_fn, opt)(x, y)
+    out = {"flags": (opt._quant_explicit, opt._comm_width_cast() is None),
+           "hooks": [len(p._post_accumulate_grad_hooks or {})
+                     for p in net.parameters()]}
+    plain = _recording(pt.optimizer.SGD)(
+        learning_rate=0.0, parameters=list(net.named_parameters()))
+    plain.seen = []
+    pt.jit.TrainStep(model, loss_fn, plain)(x, y)
+    out["plain"] = plain.seen[0]
+    net.clear_gradients()
+    loss_fn(model(x), y).backward()
+    out["eager"] = {k: _np(p.grad) for k, p in net.named_parameters()}
+    return out
+
+
+def case_hierarchical(rank, inputs, tmpdir):
+    """The hierarchical mesh, the quantized allreduce over the world and
+    over dcn, and the dense net at dp4 = dcn2 x ici2: the dcn hop off,
+    int8 and fp8 (per gradient, in backward), int8 without
+    ``async_dcn_allreduce``, the policy off twice, and a ``DataParallel``
+    wrapper reused after the hop's step."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import comm, fleet
+    from paddle_tpu_torch.distributed import quantized_comm as qc
+
+    out = {}
+    fleet.init(is_collective=True, strategy=_hier_strategy(None, False))
+    mesh = comm.hybrid_mesh()
+    out["mesh"] = {"axis_names": mesh.axis_names, "dp_axes": comm.dp_axes(),
+                   "dp_size": comm.dp_size(),
+                   "coords": {a: mesh.axis_rank(a)
+                              for a in ("dp", "dcn", "ici")},
+                   "groups": {a: mesh.group(a).ranks
+                              for a in ("dp", "data", "dcn", "ici")}}
+    x = torch.tensor(inputs["qar"][rank])
+    for dt in ("int8", "fp8"):
+        out[f"qar_world_{dt}"] = _np(qc.quantized_allreduce(x, dtype=dt))
+        out[f"qar_dcn_{dt}"] = _np(qc.quantized_allreduce(
+            x, "dcn", dtype=dt))
+    out["qar_sum"] = _np(qc.quantized_allreduce(x, mean=False))
+    out["pmean_dcn"] = _np(qc.quantized_pmean(x, "dcn"))
+    out["bf16"] = str(qc.quantized_allreduce(
+        x.to(torch.bfloat16), "dcn").dtype)
+    for name, quant, async_dcn in (("off", None, True),
+                                   ("int8", "int8", True),
+                                   ("fp8", "fp8", True),
+                                   ("int8_tail", "int8", False),
+                                   ("flat_off", None, False),
+                                   ("flat_off2", None, False)):
+        out[name] = _hier_train(inputs, quant, async_dcn)
+    out["reuse"] = _hier_reuse(inputs)
+    # what the strategy refuses at TrainStep, by message
+    errs = {}
+    for key, kw in (("async_flat", dict(hierarchical_allreduce=False)),
+                    ("fp16_scaling", dict(amp=True, amp_configs={
+                        "use_bf16": False}))):
+        s = _hier_strategy("int8", True, **kw)
+        net = dense_net()
+        opt = pt.distributed.fleet.distributed_optimizer(
+            pt.optimizer.SGD(learning_rate=0.1,
+                             parameters=net.parameters()), strategy=s)
+        try:
+            pt.jit.TrainStep(net, lambda o, y: (o ** 2).mean(), opt)
+        except (ValueError, NotImplementedError) as e:
+            errs[key] = f"{type(e).__name__}: {e}"
+    out["errors"] = errs
+    return out
+
+
+def case_hier_gpt_block(rank, inputs, tmpdir):
+    """``ParallelGPTBlock`` at dcn2 x ici2 x mp2 (a world of 8): 2 Momentum
+    steps with the dcn hop int8 and at full width, per gradient."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import ParallelGPTBlock, fleet
+
+    out = {}
+    for name, quant in (("int8", "int8"), ("off", None)):
+        s = _hier_strategy(quant, True,
+                           hybrid_configs={"dp_degree": 4, "mp_degree": 2})
+        fleet.init(is_collective=True, strategy=s)
+        net = ParallelGPTBlock(16, 4, dropout=0.0)
+        net.set_state_dict(inputs["gpt_block"])
+        model = fleet.distributed_model(net)
+        opt = fleet.distributed_optimizer(pt.optimizer.Momentum(
+            learning_rate=0.05, momentum=0.9, parameters=net.parameters()))
+        step = pt.jit.TrainStep(
+            model, lambda o, y: pt.nn.functional.cross_entropy(
+                o.mean(axis=1), y), opt)
+        out[name] = [float(step(model.shard_input(x), model.shard_input(y)))
+                     for x, y in inputs["gpt_block_data"]]
+    return out

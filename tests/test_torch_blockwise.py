@@ -218,9 +218,42 @@ def test_blockwise_refusals_and_other_impls():
                                         block_size=4)
             tl = tnn.MultiHeadAttention(E, 2, attn_impl=impl, causal=True,
                                         block_size=4)
-            compare(jl, tl, (xs,), params=carry(jl, tl))
+            _compare_jitted(jl, tl, xs)
     finally:
         comm._state.hybrid_mesh, tcomm._mesh = prev
+
+
+def _compare_jitted(jl, tl, x):
+    """``compare(jl, tl, (x,), params=carry(jl, tl))`` with the
+    reference's output and gradients from ``jax.value_and_grad`` of
+    ``functional_call``, jitted (its eager tape runs each primitive of a
+    ``shard_map`` as a program of its own, ~15 s a route here): the same
+    weights ``w`` of ``sum(out * w)``, the same tolerances."""
+    from paddle_tpu.jit.functional_call import functional_call
+
+    from test_torch_nn_activation import GRAD_REL, _near
+
+    pairs = dict((n, tp) for (n, _), (_, tp) in zip(
+        jl.named_parameters(), carry(jl, tl)))
+    params = {n: p._data for n, p in jl.named_parameters()}
+    out = np.asarray(jax.jit(lambda ps, xx: functional_call(
+        jl, ps, args=(xx,))[0])(params, jax.numpy.asarray(x)))
+    w = np.random.RandomState(1).uniform(0.5, 1.5, out.shape) \
+        .astype(out.dtype)
+
+    def loss(ps, xx):
+        return jax.numpy.sum(functional_call(jl, ps, args=(xx,))[0] * w)
+
+    gp, gx = jax.jit(jax.grad(loss, argnums=(0, 1)))(
+        params, jax.numpy.asarray(x))
+    tx = pt.to_tensor(x, stop_gradient=False)
+    tout = tl(tx)
+    _near(tout.numpy(), out, None, "output")
+    pt.sum(tout * pt.to_tensor(w)).backward()
+    _near(tx.gradient(), np.asarray(gx), GRAD_REL, "gradient")
+    for n, tp in pairs.items():
+        _near(np.asarray(tp.gradient()), np.asarray(gp[n]), GRAD_REL,
+              f"gradient {n}")
 
 
 # -- BERT on blockwise attention with LAMB: the 2-layer slice -------------------

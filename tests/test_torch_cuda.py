@@ -33,6 +33,13 @@ relocates a live request without changing its tokens. The ring's
 ``flash_attention_partial`` at [1, 16, 2048, 64] (diagonal, full and
 fully masked shards; float32 and bf16): out, lse and its lse-cotangent
 backward against the plain versions at these tolerances, with opcheck.
+Gradient width: ``quantized_allreduce`` of CUDA tensors over gloo (2
+ranks on the card, int8 and fp8, waited and async) equals the CPU's
+quantize-dequantize of each rank's value, averaged, bit for bit (the same
+IEEE operations); ``qat_matmul`` forward and straight-through backward on
+the card within 1e-5 of each output's largest value of the CPU's (TF32
+off; summation order), and AdamW with int8 and fp8 moments, masked writes
+included, within 1e-6 of the CPU's parameters.
 """
 
 import pytest
@@ -1429,3 +1436,61 @@ def test_parallel_gpt_block_at_mp2_on_the_card(default_device, tmp_path):
                      "add_layer_norm_fwd", "layer_norm_bwd"):
             assert o["launches"][name] >= 1, (r, name)
         assert o["shapes"]["flash_attention_fwd"] == [(2, 2, 256, 64)]
+
+
+def test_quantized_allreduce_on_cuda_tensors(default_device, tmp_path):
+    """``quantized_allreduce`` of CUDA tensors in a 2-rank world on the
+    card: the CPU quantizer's round trip of each rank's value, averaged,
+    bit for bit, waited at once or later; counted as op
+    ``quantized_allreduce`` on gloo, transport gloo-cuda, with the bytes
+    of the payload and the scales."""
+    import numpy as np
+    from helpers import torch_world as tw
+    from paddle_tpu_torch.distributed import quantized_comm as qc
+
+    x = np.random.RandomState(0).randn(2, 1000).astype(np.float32)
+    out = tw.run_world(["cuda_quantized"], str(tmp_path), {"x": x},
+                       nprocs=2, device="gpu")
+    for dt in ("int8", "fp8"):
+        want = ((qc.quantize_dequantize(torch.tensor(x[0]), dt)
+                 + qc.quantize_dequantize(torch.tensor(x[1]), dt)) / 2)
+        for o in out["cuda_quantized"]:
+            np.testing.assert_array_equal(o[dt], want.numpy())
+            np.testing.assert_array_equal(o[dt, "async"], want.numpy())
+    for o in out["cuda_quantized"]:
+        (row,) = [c for c in o["counts"] if c["op"] == "quantized_allreduce"]
+        assert (row["backend"], row["transport"]) == ("gloo", "gloo-cuda")
+        assert row["calls"] == 4 and row["bytes"] == 4 * (1000 + 4 * 8)
+
+
+def test_qat_matmul_and_narrow_moments_on_the_card(gen):
+    """``qat_matmul`` and AdamW with narrow moments on the card against
+    the same on the CPU."""
+    from paddle_tpu_torch.distributed import quantized_compute as qcp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = torch.randn(4, 64, 256, device="cuda", generator=gen)
+    w = torch.randn(256, 96, device="cuda", generator=gen) * 0.1
+    cot = torch.randn(4, 64, 96, device="cuda", generator=gen)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        xd = x.detach().to(dev, copy=True).requires_grad_()
+        wd = w.detach().to(dev, copy=True).requires_grad_()
+        out = qcp.qat_matmul(xd, wd, "int8", 128)
+        (out * cot.to(dev)).sum().backward()
+        res[dev] = [t.detach().cpu() for t in (out, xd.grad, wd.grad)]
+    for got, want in zip(res["cuda"], res["cpu"]):
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    for width in ("int8", "fp8"):
+        params = {}
+        for dev in ("cuda", "cpu"):
+            p = torch.nn.Parameter(w.to(dev).clone())
+            opt = pt.optimizer.AdamW(learning_rate=1e-2, parameters=[p])
+            opt.quantize_moments(width)
+            for i in range(3):
+                g = w.to(dev) * (i + 1)
+                news = opt._functional_update([p], [g], 1e-2, i + 1)
+                opt._write(news, torch.tensor(i != 1, device=dev))
+            params[dev] = p.detach().cpu()
+        assert (params["cuda"] - params["cpu"]).abs().max() <= \
+            1e-6 * params["cpu"].abs().max()

@@ -463,8 +463,9 @@ def test_set_device_and_no_fallback():
 
 def test_one_device_mesh():
     """The one-process mesh; a degree the world cannot hold raises
-    (ValueError: the world has fewer ranks), pp and sp as dp, and the axis
-    not ported yet raises NotImplementedError."""
+    (ValueError: the world has fewer ranks), pp and sp as dp, and the
+    hierarchical factoring as dp (and a dp that ``dp_inner`` does not
+    divide)."""
     prev = tcomm._mesh
     try:
         mesh = tcomm.init_hybrid_mesh(dp=1, mp=1, pp=1, sp=1)
@@ -475,7 +476,9 @@ def test_one_device_mesh():
             tcomm.init_hybrid_mesh(pp=2)
         with pytest.raises(ValueError, match="the world has 1"):
             tcomm.init_hybrid_mesh(sp=2)
-        with pytest.raises(NotImplementedError, match="item 7"):
+        with pytest.raises(ValueError, match="the world has 1"):
+            tcomm.init_hybrid_mesh(dp=2, dp_inner=2)
+        with pytest.raises(ValueError, match="not divisible"):
             tcomm.init_hybrid_mesh(dp_inner=2)
     finally:
         tcomm._mesh = prev

@@ -210,12 +210,13 @@ class TestQuantizer:
         with pytest.raises(ValueError, match="supported"):
             qc.resolve_policy("int4")
         assert qc.resolve_policy("fp8", 64) == ("fp8", 64)
-        # PADDLE_Q_MATMUL arms the fake-quant matmul, which is not
-        # ported: the port must raise, not compute at full width
+        # PADDLE_Q_MATMUL arms the fake-quant matmul: a wide weight goes
+        # through qat_matmul, never at full width
         monkeypatch.setenv("PADDLE_Q_MATMUL", "int8")
         lin = pt.nn.Linear(8, 4, device="cpu", generator=torch.Generator())
-        with pytest.raises(NotImplementedError, match="item 7"):
-            lin(torch.ones(2, 8))
+        x = torch.linspace(-1, 1, 16).reshape(2, 8)
+        assert torch.equal(lin(x), qcp.qat_matmul(x, lin.weight.detach())
+                           + lin.bias.detach())
         monkeypatch.setenv("PADDLE_Q_MATMUL", "int3")
         with pytest.raises(ValueError, match="PADDLE_Q_MATMUL"):
             lin(torch.ones(2, 8))

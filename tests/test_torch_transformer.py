@@ -31,6 +31,7 @@ as the path needs (12 + 18 a Transformer-base forward: here 4 + 6).
 """
 import math
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -136,13 +137,19 @@ def test_square_subsequent_mask(env):
 
 
 def test_forward_matches(env):
-    """The whole model at dropout 0, padding and causal masks."""
+    """The whole model at dropout 0, padding and causal masks (the JAX
+    package's forward jitted through ``functional_call``: eagerly it
+    compiles each op of the Pallas interpreter's LayerNorms anew)."""
+    from paddle_tpu.jit.functional_call import functional_call
+
     jm, tm = _models()
     src, tgt, _ = _batch()
-    jo = jm(*_inputs(paddle_tpu, src, tgt))
+    params = {n: p._data for n, p in jm.named_parameters()}
+    jo = jax.jit(lambda ps, *a: functional_call(jm, ps, args=a)[0])(
+        params, *[x._data for x in _inputs(paddle_tpu, src, tgt)])
     to = tm(*_inputs(pt, src, tgt))
     assert tuple(to.shape) == (B, T, V)
-    assert _max_err(to.numpy(), jo.numpy()) <= TOL
+    assert _max_err(to.numpy(), jo) <= TOL
 
 
 def _grad(p):
@@ -176,6 +183,36 @@ def _train(paddle, model, steps=3):
     return losses, grads
 
 
+def _jax_train(model, steps=3):
+    """:func:`_train`'s program through the JAX package's ``TrainStep``
+    (jitted: its eager tape compiles each op of the Pallas interpreter's
+    LayerNorms anew, ~90 s here), step 1's gradients from
+    ``jax.grad`` of the function its ``TrainStep`` differentiates."""
+    from paddle_tpu.jit import TrainStep as JaxTrainStep
+
+    sched = paddle_tpu.optimizer.lr.NoamDecay(d_model=D, warmup_steps=4,
+                                              learning_rate=0.1)
+    opt = paddle_tpu.optimizer.Adam(learning_rate=sched, beta1=0.9,
+                                    beta2=0.98, epsilon=1e-9,
+                                    parameters=model.parameters())
+    src, tgt, label = _batch(1)
+    ins = _inputs(paddle_tpu, src, tgt)
+    lab = paddle_tpu.to_tensor(label)
+    step = JaxTrainStep(model, lambda out, y: smoothed_loss(
+        paddle_tpu, out, y, V), opt)
+    g = jax.jit(jax.grad(lambda p: step._loss_of(
+        p, (), None, tuple(x._data for x in ins), (lab._data,))[0]))(
+        tuple(p._data for p in step._p_objs))
+    name_of = {id(p): n for n, p in model.named_parameters()}
+    grads = {name_of[id(p)]: np.asarray(x)
+             for p, x in zip(step._p_objs, g)}
+    losses = []
+    for _ in range(steps):
+        losses.append(float(step(ins, lab).numpy()))
+        sched.step()
+    return losses, grads
+
+
 def test_three_adam_steps_match(env):
     """Losses within 1e-5 relative; step 1's gradients within 1e-5 of
     each parameter's largest; parameters within 1e-4 of their largest
@@ -190,7 +227,7 @@ def test_three_adam_steps_match(env):
     (0.96% here)."""
     jm, tm = _models()
     start = {k: np.asarray(p._data).copy() for k, p in jm.named_parameters()}
-    (jl, jg), (tl, tg) = _train(paddle_tpu, jm), _train(pt, tm)
+    (jl, jg), (tl, tg) = _jax_train(jm), _train(pt, tm)
     np.testing.assert_allclose(tl, jl, rtol=TOL)
     assert all(np.isfinite(jl)) and abs(jl[2] - jl[0]) > 1e3 * TOL * jl[0]
     tparams = dict(tm.named_parameters())
