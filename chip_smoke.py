@@ -25,7 +25,7 @@
    their buffer) and that no instantiation of its register path spills;
 3. serves the GPT-medium-shaped ``TransformerLM`` (vocab 32000, d_model
    1024, 16 heads, ffn 4096, float32, random weights from a seeded
-   generator; 4 of its 24 layers in steps 3-7, a depth cut,
+   generator; 2 of its 24 layers in steps 3-7, a depth cut,
    ``SERVE_LAYERS``) through ``generate`` and ``InferenceEngine``, checks
    the cached decode against a full forward that goes through the flash
    kernel, and checks that every forward kernel was launched on that path
@@ -183,7 +183,7 @@
    its plain step (gradients within 1e-5, the forward kernels twice a
    block, a lower peak); ms/step of each, capture seconds, peak memory;
 22. its ``jit_save_phase``: the same program with its head applied (ids ->
-   logits) in ``eval()``, 4 of its 24 blocks (a depth cut,
+   logits) in ``eval()``, 2 of its 24 blocks (a depth cut,
    ``SAVE_LAYERS``), saved by ``paddle.jit.save`` at ``InputSpec([8,
    128], "int64")`` and served from a process of its own that imports
    the port and neither this script nor any module defining the model,
@@ -193,7 +193,7 @@
    forward's launches, no ``jax``, ``paddle_tpu`` or model source loaded;
    save, load and forward ms, the artifact's bytes;
 23. its ``guarded_training_phase``: bench.py's GPT-medium program at its
-   full width and 4 of its 24 blocks (a depth cut, ``GUARD_LAYERS``;
+   full width and 2 of its 24 blocks (a depth cut, ``GUARD_LAYERS``;
    float32, TF32 off, AdamW 1e-4 / 0.01, B = 4, S = 1024) through
    ``TrainStep``
    under the numerical guard and ``train_epoch_range``: guard on against
@@ -219,14 +219,14 @@
    result on the same tensors within 1e-4 (NMS's kept rows equal but at
    score ties, reported); step and NMS ms;
 25. its ``multichip_gpt_phase``: bench.py's ``_bench_gpt_multichip``
-   program (GPT-medium at full width and 4 of its 24 blocks, a depth cut,
+   program (GPT-medium at full width and 2 of its 24 blocks, a depth cut,
    ``MC_LAYERS``; fleet dp2 x mp2, global batch 8) as a world of 4 ranks
    of this script (``--rank-child``)
    started by ``paddle_tpu_torch.distributed.launch``, all on this card
    over gloo (the backend rule for ranks that share a card): float32
    against the same program in one process (each loss within 1e-5, every
    first-step gradient gathered to full within 1e-5 of its largest, the
-   attention kernels at [4, 8, 1024, 64], 4 a step), one step under
+   attention kernels at [4, 8, 1024, 64], ``MC_LAYERS`` a step), one step under
    ``PADDLE_FLASH_SHARD=0`` (no kernel, the same loss), and the bf16 AMP
    program as bench writes it (ms/step, global tokens/s, collective ms by
    op and transport, peak memory by rank: 4 ranks sharing one H100);
@@ -239,7 +239,7 @@
    GPT-medium as a ``PipelineLayer`` at pp2 x mp2 (1F1B over 4
    microbatches; F-then-B's loss = 1F1B's) against one process's
    ``TrainStep``; ``ExpertParallelMoE`` at ep4 against one process's;
-   both models at full width and ``SP_LAYERS`` (4) of 24 blocks, a depth
+   both models at full width and ``SP_LAYERS`` (2) of 24 blocks, a depth
    cut; before the world, step 2 also holds ``flash_attention_partial``
    (B1; B3/B4 with the lse cotangent) against its plain version at the
    ring's [1, 16, 2048, 64], and B1/B3/B4 at the ring's and Ulysses'
@@ -265,7 +265,20 @@
    and off (ms/step, global tokens/s, collective host ms and bytes by op,
    group and transport: the dcn hop's bytes >= 3.5x fewer under int8, the
    ici hop's the same);
-29. prints one ``{"kernels": [...]}`` line (the seven kernels' entries and
+29. its ``strategy_phase``: the strategy's optimizer options at
+   GPT-medium's full width and ``STRAT_LAYERS`` (2) of 24 blocks, a depth
+   cut, as one world of 8 ranks of this script (``--strat-child``) over
+   gloo: ``__graft_entry__.py``'s dp2 x pp2 x mp2 with ZeRO-1 and gradient
+   merge k 2 against one process's merged Adam step (losses and
+   parameters within 1e-6, Adam's first moment within 1e-5 of the merged
+   gradient's; moment bytes half the stage's); dp4 x mp2 with Lamb,
+   ZeRO-3, the overlap rings and recompute against the same world with
+   those three off (losses, parameters and Lamb's first moment within
+   1e-5; a quarter of the mp shard's parameter bytes a rank between
+   steps; B1, B5 and B6 twice a block a step); LocalSGD at dp8 (k 1 =
+   ``DataParallel`` SGD within 1e-6; with k 2 the ranks differ after step
+   1 and are equal bit for bit after step 2);
+30. prints one ``{"kernels": [...]}`` line (the seven kernels' entries and
    the partial op's) and, last, the ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero, printing no result, without a CUDA device, outside a
@@ -323,9 +336,9 @@ LOGIT_ATOL = 2e-3
 
 # the serving paths (serving, the tier, quantized, speculative, the router
 # plane) run GPT-medium at its full width and SERVE_LAYERS of its 24 layers:
-# a depth cut that makes room for the sequence, pipeline and expert phase
-# (named in PERF.md; CHIP_SMOKE_SERVE_LAYERS sets another depth)
-SERVE_LAYERS = int(os.environ.get("CHIP_SMOKE_SERVE_LAYERS", "4"))
+# a depth cut that makes room for the world phases (named in PERF.md;
+# CHIP_SMOKE_SERVE_LAYERS sets another depth)
+SERVE_LAYERS = int(os.environ.get("CHIP_SMOKE_SERVE_LAYERS", "2"))
 
 # the serving tier: bench.py's _bench_decode_paged (block 16, chunk 32,
 # engine requests of 16 new tokens) and _bench_serve_multitenant (prompt
@@ -408,11 +421,11 @@ DYGRAPH_LAUNCHES = {
 # kernels are on cuda:0, and the speeds are those of 4 ranks sharing one
 # H100 over gloo, which say nothing of NCCL across cards
 MC_DP, MC_MP = 2, 2
-# the world's GPT keeps bench's width and MC_LAYERS of its 24 blocks: a
-# depth cut that makes room for the sequence, pipeline and expert phase
-# (named in PERF.md; CHIP_SMOKE_MC_LAYERS sets another depth, which the
-# --rank-child processes inherit)
-MC_LAYERS = int(os.environ.get("CHIP_SMOKE_MC_LAYERS", "4"))
+# the world's GPT keeps bench's width and MC_LAYERS (2) of its 24 blocks: a
+# depth cut that makes room for the later world phases (named in PERF.md;
+# CHIP_SMOKE_MC_LAYERS sets another depth, which the --rank-child
+# processes inherit)
+MC_LAYERS = int(os.environ.get("CHIP_SMOKE_MC_LAYERS", "2"))
 MC_WORLD = MC_DP * MC_MP
 MC_BATCH = 4 * MC_DP
 MC_STEPS = 3
@@ -446,11 +459,11 @@ MC_RANK_ROW = "per rank dp2 x mp2 S=1024"
 SP_WORLD = 4
 SP_SEQ = 8192
 SP_STEPS = 3
-# the sp decoder and the pipeline's GPT keep bench's width and SP_LAYERS of
-# its 24 blocks: a depth cut that makes room for the gradient-width phases
+# the sp decoder and the pipeline's GPT keep bench's width and SP_LAYERS
+# (2) of its 24 blocks: a depth cut that makes room for the later phases
 # (named in PERF.md; CHIP_SMOKE_SP_LAYERS sets another even depth, which
 # the --sp-child processes inherit)
-SP_LAYERS = int(os.environ.get("CHIP_SMOKE_SP_LAYERS", "4"))
+SP_LAYERS = int(os.environ.get("CHIP_SMOKE_SP_LAYERS", "2"))
 # float32, TF32 off: the ring merges 1-4 partials where the one-process
 # run's flash kernel sums one row; each loss within SP_LOSS_RTOL, each
 # first-step gradient within SP_GRAD_RTOL of its largest value
@@ -510,11 +523,12 @@ QAT_GRAD_RTOL = 5e-2
 # bench.py's _bench_gpt_dp_q8 (hierarchical dp, async dcn hop, int8) as a
 # world of 4 ranks of this script (--dpq8-child) on the one card over
 # gloo: dp4 = dcn2 x ici2, 4 rows a rank (global B = 16, S = 1024); the
-# GPT keeps bench's width and DPQ8_LAYERS of its 24 blocks, a depth cut
-# (named in PERF.md; CHIP_SMOKE_DPQ8_LAYERS sets another depth, which the
-# --dpq8-child processes inherit); each gradient's size is that of the
-# full model's, so the hop's per-gradient traffic is real
-DPQ8_LAYERS = int(os.environ.get("CHIP_SMOKE_DPQ8_LAYERS", "4"))
+# GPT keeps bench's width and DPQ8_LAYERS (2) of its 24 blocks, a depth
+# cut that makes room for the strategy phase (named in PERF.md;
+# CHIP_SMOKE_DPQ8_LAYERS sets another depth, which the --dpq8-child
+# processes inherit); each gradient's size is that of the full model's,
+# so the hop's per-gradient traffic is real
+DPQ8_LAYERS = int(os.environ.get("CHIP_SMOKE_DPQ8_LAYERS", "2"))
 DPQ8_WORLD, DPQ8_ICI = 4, 2
 DPQ8_BATCH = 4 * DPQ8_WORLD
 DPQ8_STEPS = 3
@@ -538,6 +552,22 @@ DPQ8_DEADLINE_S = 480
 #: the attention kernels' shape on each rank: [B/dp, H, S, D]
 DPQ8_RANK_SHAPE = (DPQ8_BATCH // DPQ8_WORLD, HEADS, TRAIN_S,
                    D_MODEL // HEADS)
+
+
+# the strategy's optimizer options as one world of 8 ranks of this script
+# (--strat-child) on the one card over gloo: bench's GPT-medium at its full
+# width and STRAT_LAYERS of its 24 blocks, a depth cut (named in PERF.md;
+# CHIP_SMOKE_STRAT_LAYERS sets another even depth, which the --strat-child
+# processes inherit); global batch 8 x 1024
+STRAT_LAYERS = int(os.environ.get("CHIP_SMOKE_STRAT_LAYERS", "2"))
+STRAT_WORLD, STRAT_BATCH, STRAT_STEPS = 8, 8, 2
+STRAT_LR, STRAT_SGD_LR = 1e-4, 1e-2
+#: (a) losses and parameters against one process's merged update; (b) the
+#: options on against off; (c) LocalSGD k 1 against DataParallel SGD: the
+#: largest |got - want| over each parameter's largest |want| (phase notes)
+STRAT_A_RTOL, STRAT_B_RTOL, STRAT_C_RTOL = 1e-6, 1e-5, 1e-6
+#: a world still running after this many seconds is killed and fails
+STRAT_DEADLINE_S = 480
 
 
 # B5 (layer_norm_fwd) before its redesign, float32 ms by shape: this
@@ -675,9 +705,10 @@ RECOMPUTE_LAUNCHES = {
 # to the eager forward's, or within SAVE_LOGIT_RTOL of the largest |logit|
 SAVE_B, SAVE_S = BATCH, PROMPT
 SAVE_LOGIT_RTOL = 1e-5
-# the saved program keeps bench's width and SAVE_LAYERS of its 24 blocks
-# (a depth cut, as MC_LAYERS; CHIP_SMOKE_SAVE_LAYERS sets another depth)
-SAVE_LAYERS = int(os.environ.get("CHIP_SMOKE_SAVE_LAYERS", "4"))
+# the saved program keeps bench's width and SAVE_LAYERS (2) of its 24
+# blocks (a depth cut, as MC_LAYERS; CHIP_SMOKE_SAVE_LAYERS sets another
+# depth)
+SAVE_LAYERS = int(os.environ.get("CHIP_SMOKE_SAVE_LAYERS", "2"))
 
 
 def fail(msg: str) -> None:
@@ -4362,10 +4393,11 @@ GUARD_SYNC_EVERY, GUARD_STEPS = 2, 4
 ACP_EPOCHS, ACP_STEPS, ACP_INTER = 3, 2, 2
 # the depth cut that keeps the script's phases near half its time limit
 # once the multichip phase joined them: the guarded phase's GPT keeps
-# bench's width and its first GUARD_LAYERS of 24 blocks (named in PERF.md;
+# bench's width and its first GUARD_LAYERS (2) of 24 blocks (named in
+# PERF.md;
 # CHIP_SMOKE_GUARD_LAYERS sets another depth, which the --acp-child
 # processes inherit: tools/time_depth_cuts.py times the phase at two)
-GUARD_LAYERS = int(os.environ.get("CHIP_SMOKE_GUARD_LAYERS", "4"))
+GUARD_LAYERS = int(os.environ.get("CHIP_SMOKE_GUARD_LAYERS", "2"))
 GUARD_MAX_SKIPS = 2
 #: the six kernels' functions, as the trace names them
 TRACE_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
@@ -5419,10 +5451,11 @@ def _sp_batch():
     return ids, (ids + 1) % 31000
 
 
-def pp_gpt_layers(paddle):
+def pp_gpt_layers(paddle, layers=None):
     """bench.py's ``_gpt_medium`` as a layer sequence for ``PipelineLayer``:
-    the embeddings (token + position), ``SP_LAYERS`` ``ParallelGPTBlock``s
-    (of its 24: a depth cut) and the 32k head."""
+    the embeddings (token + position), ``layers`` (``SP_LAYERS`` by
+    default) ``ParallelGPTBlock``s (of its 24: a depth cut) and the 32k
+    head."""
     from paddle_tpu_torch import nn
     from paddle_tpu_torch.distributed import ParallelGPTBlock
 
@@ -5439,7 +5472,7 @@ def pp_gpt_layers(paddle):
 
     return ([Embedding()]
             + [ParallelGPTBlock(D_MODEL, HEADS, dropout=0.0)
-               for _ in range(SP_LAYERS)]
+               for _ in range(SP_LAYERS if layers is None else layers)]
             + [nn.Linear(D_MODEL, VOCAB)])
 
 
@@ -6484,6 +6517,569 @@ def dpq8_child(argv) -> int:
     return 0
 
 
+def _strat_batches():
+    """The strategy phase's two global batches: [8, 1024] ids and
+    next-token labels, the second shifted by 7 tokens."""
+    n = STRAT_BATCH * TRAIN_S
+    out = []
+    for shift in (0, 7):
+        ids = ((np.arange(n) + shift) % 31000).reshape(STRAT_BATCH, TRAIN_S)
+        out.append((ids.astype(np.int64), ((ids + 1) % 31000).astype(
+            np.int64)))
+    return out
+
+
+def strategy_phase(pt, kernels, card):
+    """The strategy's optimizer options at GPT-medium's full width and
+    ``STRAT_LAYERS`` of its 24 blocks (a depth cut), as one world of 8
+    ranks of this script (``--strat-child``), all on this card over gloo,
+    started by the port's launcher with a deadline; global batch 8 x
+    1024, float32 with TF32 off unless a case says bf16. Three cases in
+    turn, each with the launch counts reset:
+
+    (a) ``__graft_entry__.py``'s composition: dp2 x pp2 x mp2, ZeRO-1 and
+        ``gradient_merge`` k 2 (avg) over Adam (lr 1e-4) through fleet,
+        bench's GPT as a ``PipelineLayer`` (embeddings, the blocks, the
+        32k head), 1F1B over 2 microbatches, two ``train_batch`` calls on
+        two batches (the first off the merge boundary). Held against one
+        process that computes both batches' gradients and applies one Adam
+        step to their mean: both losses within ``STRAT_A_RTOL`` (1e-6; the
+        pipeline at pp2 x mp2 agrees with one process within 8.8e-8), and
+        every element of the rank's stage's parameters (its mp shard)
+        within ``STRAT_A_RTOL`` of its parameter's largest value plus how
+        far the step can move it apart: Adam's first step moves an element
+        by ``lr g / (|g| + eps)``, whose change with ``g`` is ``lr eps /
+        (|g| + eps)^2`` for gradients that agree within ``MC_GRAD_RTOL``
+        (1e-5) of their largest (every world phase's gradient bound), and
+        by at most 2 lr (the key third of each ``qkv.bias`` has a gradient
+        of 0 but for rounding: softmax is unchanged by a constant added to
+        a row's scores). The worst element's share of its bound is
+        printed. Adam's and Lamb's steps do not change when every
+        gradient is scaled by one factor, so the parameters cannot show
+        a wrong gradient scale (a merge without its mean, a dp sum in
+        place of the mean): the reduced gradient is held directly,
+        Adam's first moment on each rank (its ZeRO shard) within
+        ``MC_GRAD_RTOL`` of the largest of (1 - beta1) times one
+        process's merged gradient. Adam's moment bytes on a rank are half
+        the stage's unsharded bytes (every leaf has an axis 2 divides: no
+        padding). Every kernel of the block on every rank: (blocks a
+        stage) x 2 microbatches x 2 calls.
+    (b) dp4 x mp2, ``lamb`` swapping AdamW (lr 1e-4, decay 0.01) with ZeRO
+        stage 3, ``PADDLE_TP_OVERLAP=1`` and ``recompute`` on, two
+        ``TrainStep`` steps, against the same world with the three off
+        (Lamb, unsharded): losses within ``STRAT_B_RTOL`` (1e-5), each
+        parameter element within ``STRAT_B_RTOL`` of its largest value plus
+        (a)'s step bound for the off run's first-step gradient (its first
+        moment over 1 - beta1), over two steps and scaled by Lamb's trust
+        ratio (at most the larger of 1 and the parameter's root mean
+        square); Lamb's first moment, gathered from the ZeRO shards,
+        within ``STRAT_B_RTOL`` of the off run's (the gradients' scale,
+        which the parameters cannot show); the parameter bytes a rank
+        holds between
+        steps a quarter of its mp shard's (every leaf divides by 4); the
+        rings shift (``ppermute`` calls with the knob on, none off); B1,
+        B5 and B6 launch twice a block a step (recompute), B3, B4 and B7
+        as without it.
+    (c) LocalSGD over SGD (lr 1e-2) at dp8, one row a rank: k 1 gives
+        ``DataParallel`` SGD's losses and parameters within
+        ``STRAT_C_RTOL`` (1e-6, of each parameter's largest) over 2 steps; with k 2 the ranks'
+        parameters differ after step 1 and are equal bit for bit after
+        step 2.
+
+    The one-process references run first, in this process; weights,
+    batches and results reach the ranks through ``/dev/shm``. Fails when a
+    rank exits non-zero or outlives ``STRAT_DEADLINE_S``, when a collective
+    ran on another backend than the rule's, or when a gate or a kernel of
+    the path fails. Returns rank 0's launch counts by case."""
+    import gc
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.distributed import launch as dlaunch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    shm = "/dev/shm" if os.path.isdir("/dev/shm") else None
+    root = tempfile.mkdtemp(prefix="strategy_", dir=shm)
+
+    def save(obj, name):
+        torch.save(obj, os.path.join(root, name))
+
+    try:
+        # (a) one process: both batches' gradients, one Adam step on
+        # their mean
+        pt.seed(1)
+        layer = pt.distributed.PipelineLayer(
+            pp_gpt_layers(pt, STRAT_LAYERS), loss_fn=pp_loss)
+        save({k: v.detach().cpu() for k, v in layer.state_dict().items()},
+             "a_state.pt")
+        losses = []
+        dev = layer.parameters()[0].device
+        for ids, labels in _strat_batches():
+            ids, labels = (torch.as_tensor(a, device=dev)
+                           for a in (ids, labels))
+            loss = pp_loss(layer(ids), labels)
+            loss.backward()
+            losses.append(loss.item())
+            del loss
+        opt = pt.optimizer.Adam(learning_rate=STRAT_LR,
+                                parameters=layer.parameters())
+        with torch.no_grad():
+            for p in layer.parameters():
+                p.grad.div_(2)
+        save({k: p.grad.detach().cpu() for k, p in
+              layer.named_parameters()}, "a_grad.pt")
+        opt.step()
+        save({k: v.detach().cpu() for k, v in layer.state_dict().items()},
+             "a_ref.pt")
+        ref = {"a": losses}
+        del layer, opt
+        # (b), (c): the GPT's weights
+        pt.seed(0)
+        model = _gpt_cut(STRAT_LAYERS)
+        save({k: v.detach().cpu() for k, v in model.state_dict().items()},
+             "gpt_state.pt")
+        del model
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        with open(os.path.join(root, "ref.json"), "w") as f:
+            json.dump(ref, f)
+        print(f"strategy: one-process reference (a) in "
+              f"{time.perf_counter() - t0:.1f} s: losses {ref['a']}")
+        logs = os.path.join(root, "logs")
+        t1 = time.perf_counter()
+        rc = dlaunch.launch(os.path.abspath(__file__),
+                            ["--strat-child", root],
+                            nproc_per_node=STRAT_WORLD, log_dir=logs,
+                            deadline=STRAT_DEADLINE_S)
+        world_s = time.perf_counter() - t1
+        for r in range(STRAT_WORLD):
+            with open(os.path.join(logs, f"workerlog.{r}")) as f:
+                text = f.read()
+            if rc != 0 or r == 0:
+                print(f"--- rank {r} log ---\n{text.rstrip()}")
+        if rc != 0:
+            fail(f"strategy: the world of {STRAT_WORLD} ranks exited with "
+                 f"code {rc}")
+        res = []
+        for r in range(STRAT_WORLD):
+            with open(os.path.join(root, f"strat_rank{r}.json")) as f:
+                res.append(json.load(f))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"strategy: world of {STRAT_WORLD} ranks ran in {world_s:.1f} s "
+          f"on {card}, 8 ranks sharing one H100 over gloo")
+    L = STRAT_LAYERS
+    per_stage = STRAT_STEPS * 2 * (L // 2)
+    want_a = {k: {"float32": n * per_stage} for k, n in (
+        ("flash_attention_fwd", 1), ("flash_attention_bwd_dq", 1),
+        ("flash_attention_bwd_dkv", 1), ("layer_norm_fwd", 1),
+        ("add_layer_norm_fwd", 1), ("layer_norm_bwd", 2))}
+    want_off = {k: {"float32": n * L * STRAT_STEPS} for k, n in (
+        ("flash_attention_fwd", 1), ("flash_attention_bwd_dq", 1),
+        ("flash_attention_bwd_dkv", 1), ("layer_norm_fwd", 1),
+        ("add_layer_norm_fwd", 1), ("layer_norm_bwd", 2))}
+    want_on = {k: {"float32": n * L * STRAT_STEPS} for k, n in (
+        ("flash_attention_fwd", 2), ("flash_attention_bwd_dq", 1),
+        ("flash_attention_bwd_dkv", 1), ("layer_norm_fwd", 2),
+        ("add_layer_norm_fwd", 2), ("layer_norm_bwd", 2))}
+    for r, o in enumerate(res):
+        bad = [c for run in ("a", "b_on", "b_off", "c_k2")
+               for c in o[f"{run}_counts"]
+               if c["backend"] != "gloo" or c["transport"] != "gloo-cuda"]
+        if o["backend"] != "gloo" or bad:
+            fail(f"strategy rank {r}: a collective left the rule's backend "
+                 f"(gloo, gloo-cuda): {o['backend']}, {bad}")
+        # (a)
+        for i, (got, want) in enumerate(zip(o["a_losses"], ref["a"])):
+            if abs(got - want) > STRAT_A_RTOL * abs(want):
+                fail(f"strategy (a) rank {r} call {i + 1}: loss {got!r} "
+                     f"against one process's {want!r}")
+        if o["a_worst"] > 1:
+            fail(f"strategy (a) rank {r}: parameter {o['a_worst_name']} at "
+                 f"{o['a_worst']:.3f} of its bound")
+        if o["a_m1_worst"] > 1:
+            fail(f"strategy (a) rank {r}: Adam's first moment of "
+                 f"{o['a_m1_worst_name']} at {o['a_m1_worst']:.3f} of its "
+                 "bound against one process's merged gradient")
+        if 2 * o["a_moment_bytes"] != o["a_unsharded_moment_bytes"]:
+            fail(f"strategy (a) rank {r}: moment bytes "
+                 f"{o['a_moment_bytes']}, unsharded "
+                 f"{o['a_unsharded_moment_bytes']}")
+        if o["a_launches"] != want_a:
+            fail(f"strategy (a) rank {r}: launches {o['a_launches']}, "
+                 f"expected {want_a}")
+        # (b)
+        for i, (got, want) in enumerate(zip(o["b_on_losses"],
+                                            o["b_off_losses"])):
+            if abs(got - want) > STRAT_B_RTOL * abs(want):
+                fail(f"strategy (b) rank {r} step {i + 1}: loss {got!r} "
+                     f"with the options on, {want!r} off")
+        if o["b_worst"] > 1:
+            fail(f"strategy (b) rank {r}: parameter {o['b_worst_name']} at "
+                 f"{o['b_worst']:.3f} of its bound")
+        if o["b_m1_worst"] > 1:
+            fail(f"strategy (b) rank {r}: Lamb's first moment of "
+                 f"{o['b_m1_worst_name']} at {o['b_m1_worst']:.3f} of its "
+                 "bound against the run with the options off")
+        if 4 * o["b_on_param_bytes"] != o["b_off_param_bytes"]:
+            fail(f"strategy (b) rank {r}: parameter bytes held between "
+                 f"steps {o['b_on_param_bytes']} with ZeRO-3, "
+                 f"{o['b_off_param_bytes']} without")
+        if not o["b_on_shifts"] or o["b_off_shifts"]:
+            fail(f"strategy (b) rank {r}: ring shifts on {o['b_on_shifts']}"
+                 f", off {o['b_off_shifts']}")
+        for run, want in (("b_on", want_on), ("b_off", want_off)):
+            if o[f"{run}_launches"] != want:
+                fail(f"strategy ({run}) rank {r}: launches "
+                     f"{o[f'{run}_launches']}, expected {want}")
+        # (c)
+        for i, (got, want) in enumerate(zip(o["c_k1_losses"],
+                                            o["c_dp_losses"])):
+            if abs(got - want) > STRAT_C_RTOL * abs(want):
+                fail(f"strategy (c) rank {r} step {i + 1}: LocalSGD k 1 "
+                     f"loss {got!r}, DataParallel {want!r}")
+        if o["c_k1_worst"] > 1:
+            fail(f"strategy (c) rank {r}: LocalSGD k 1 parameter "
+                 f"{o['c_k1_worst_name']} at {o['c_k1_worst']:.3f} of its "
+                 "bound")
+        if o["c_k2_launches"] != want_off:
+            fail(f"strategy (c) rank {r}: launches {o['c_k2_launches']}, "
+                 f"expected {want_off}")
+    for key in ("a_losses", "b_on_losses", "b_off_losses", "c_k1_losses",
+                "c_dp_losses", "c_k2_losses"):
+        if any(o[key] != res[0][key] for o in res):
+            fail(f"strategy: {key} differ across ranks: "
+                 f"{[o[key] for o in res]}")
+    for i in range(STRAT_STEPS):
+        hashes = {o["c_k2_hashes"][i] for o in res}
+        if (len(hashes) == 1) != (i % 2 == 1):
+            fail(f"strategy (c) LocalSGD k 2: after step {i + 1} the ranks' "
+                 f"parameters take {len(hashes)} distinct values")
+    r0 = res[0]
+    print(f"strategy (a) dp2 x pp2 x mp2 ZeRO-1 + gm k2: losses "
+          f"{r0['a_losses']} (one process {ref['a']}); worst parameter at "
+          f"{max(o['a_worst'] for o in res):.3f} of its bound "
+          f"({r0['a_worst_name']}); first moment at "
+          f"{max(o['a_m1_worst'] for o in res):.3f} of its bound "
+          f"({r0['a_m1_worst_name']}); "
+          f"moment bytes by rank {[o['a_moment_bytes'] for o in res]} of "
+          f"{[o['a_unsharded_moment_bytes'] for o in res]} unsharded; call "
+          f"ms {[round(x, 1) for x in r0['a_ms']]}; peak by rank (stage) "
+          f"{[(round(o['a_peak_gib'], 2), o['a_stage']) for o in res]} GiB")
+    print(f"strategy (b) dp4 x mp2 Lamb, ZeRO-3 + rings + recompute: losses "
+          f"{r0['b_on_losses']} (off {r0['b_off_losses']}); worst parameter "
+          f"at {max(o['b_worst'] for o in res):.3f} of its bound "
+          f"({r0['b_worst_name']}); first moment at "
+          f"{max(o['b_m1_worst'] for o in res):.3f} of its bound "
+          f"({r0['b_m1_worst_name']}); "
+          f"parameter bytes a rank {r0['b_on_param_bytes']} (off "
+          f"{r0['b_off_param_bytes']}); step ms on "
+          f"{[round(x, 1) for x in r0['b_on_ms']]}, off "
+          f"{[round(x, 1) for x in r0['b_off_ms']]}; peak by rank on "
+          f"{[round(o['b_on_peak_gib'], 2) for o in res]}, off "
+          f"{[round(o['b_off_peak_gib'], 2) for o in res]} GiB; launches "
+          f"on {r0['b_on_launches']}")
+    print(f"strategy (c) LocalSGD dp8: k 1 losses {r0['c_k1_losses']} "
+          f"(DataParallel {r0['c_dp_losses']}), worst parameter at "
+          f"{max(o['c_k1_worst'] for o in res):.3f} of its bound; k 2 "
+          f"losses "
+          f"{r0['c_k2_losses']}, distinct parameters across ranks by step "
+          f"{[len({o['c_k2_hashes'][i] for o in res}) for i in range(STRAT_STEPS)]}; "
+          f"step ms k 2 {[round(x, 1) for x in r0['c_k2_ms']]}, "
+          f"DataParallel {[round(x, 1) for x in r0['c_dp_ms']]}")
+    for run in ("a", "b_on", "b_off", "c_k2", "c_dp"):
+        for c in r0[f"{run}_counts"]:
+            print(f"strategy ({run}) rank 0 collectives: {c['op']} group "
+                  f"{c['group']} {c['backend']}/{c['transport']}: "
+                  f"{c['calls']} calls, {c['bytes']} bytes, "
+                  f"{c['ms']:.1f} host ms")
+    return {"strategy_a_pp_zero1_gm2": {k: sum(v.values()) for k, v in
+                                        r0["a_launches"].items()},
+            "strategy_b_zero3_rings_recompute": {
+                k: sum(v.values()) for k, v in r0["b_on_launches"].items()},
+            "strategy_c_localsgd": {k: sum(v.values()) for k, v in
+                                    r0["c_k2_launches"].items()}}
+
+
+def strat_child(argv) -> int:
+    """``python3 chip_smoke.py --strat-child DIR``: one rank of
+    ``strategy_phase``'s world, started by the port's launcher. Writes its
+    results to ``DIR/strat_rank<r>.json``."""
+    import gc
+    import hashlib
+
+    root, = argv
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import comm, fleet
+    from paddle_tpu_torch.distributed.parallel import DataParallel, \
+        shard_batch
+    from paddle_tpu_torch.ops import kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_parallel_env()
+    rank = dist.get_rank()
+    dev = comm.rank_device()
+    mon = dist.comm_monitor.monitor()
+    out = {"rank": rank, "backend": comm.backend()}
+    t_start = time.perf_counter()
+
+    def done(what):
+        print(f"rank {rank}: {what} done at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+    def world(degrees=None, **options):
+        comm._mesh = None
+        s = fleet.DistributedStrategy()
+        if degrees:
+            s.hybrid_configs = {f"{k}_degree": v
+                                for k, v in degrees.items()}
+        for k, v in options.items():
+            setattr(s, k, v)
+        fleet.init(is_collective=True, strategy=s)
+        return s
+
+    def load(name):
+        return torch.load(os.path.join(root, name), mmap=True)
+
+    def start():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mon.reset_counts()
+        kernels.reset_launches()
+
+    def timed(fn, n):
+        ms, vals = [], []
+        for i in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            vals.append(fn(i))
+            ms.append((time.perf_counter() - t) * 1e3)
+        return vals, ms
+
+    def finish(tag, losses, ms):
+        out.update({f"{tag}_losses": losses, f"{tag}_ms": ms,
+                    f"{tag}_launches": kernels.launches_by_dtype(),
+                    f"{tag}_shapes": kernels.launch_shapes(),
+                    f"{tag}_counts": mon.comm_counts(by_group=True),
+                    f"{tag}_peak_gib":
+                        torch.cuda.max_memory_allocated() / 2 ** 30})
+
+    def nbytes(ts):
+        return int(sum(t.numel() * t.element_size() for t in ts))
+
+    def worst(pairs, rtol):
+        """The largest |got - want| / (rtol max|want| + slack) over
+        ``(name, got, want, slack)`` (slack: a tensor of the elements'
+        shape, or 0), and its name: at most 1 where every element is
+        within its bound."""
+        w, wn = 0.0, ""
+        for name, got, want, slack in pairs:
+            want = want.float()
+            err = (got.float() - want).abs()
+            lim = (rtol * want.abs().max() + slack).clamp_min(
+                torch.finfo(torch.float32).tiny)
+            ratio = (err / lim).max().item()
+            if ratio > w:
+                w, wn = ratio, name
+        return w, wn
+
+    def step_slack(g, eps, scale):
+        """How far ``scale`` steps of an Adam-family rule at the rate can
+        move an element apart in two runs whose gradients ``g`` agree
+        within ``MC_GRAD_RTOL`` of their largest: the first step moves it
+        by lr g / (|g| + eps), whose change with g is eps / (|g| + eps)^2,
+        and by at most 2 lr (the sign)."""
+        a = g.abs().float()
+        d = MC_GRAD_RTOL * a.max()
+        return scale * torch.clamp(eps * d / (a + eps) ** 2, max=2.0)
+
+    batches = _strat_batches()
+
+    # (a) dp2 x pp2 x mp2, ZeRO-1, gradient merge k 2
+    world(dict(dp=2, pp=2, mp=2), pipeline=True,
+          pipeline_configs={"accumulate_steps": 2, "schedule_mode": "1F1B"},
+          sharding=True, sharding_configs={"stage": 1},
+          gradient_merge=True,
+          gradient_merge_configs={"k_steps": 2, "avg": True})
+    pt.seed(1)
+    layer = pt.distributed.PipelineLayer(pp_gpt_layers(pt, STRAT_LAYERS),
+                                         loss_fn=pp_loss)
+    start_state = load("a_state.pt")
+    layer.set_state_dict(start_state)
+    model = fleet.distributed_model(layer)
+    opt = fleet.distributed_optimizer(pt.optimizer.Adam(
+        learning_rate=STRAT_LR, parameters=model.parameters()))
+    start()
+    losses, ms = timed(lambda i: model.train_batch(list(batches[i]),
+                                                   opt).item(), STRAT_STEPS)
+    finish("a", losses, ms)
+    own = {id(p) for p in model.stage.params}
+    want, grad = load("a_ref.pt"), load("a_grad.pt")
+    pairs = []
+    for name, p in layer.named_parameters():
+        if id(p) not in own:
+            continue
+        shard = getattr(p, "_tp_shard", None)
+        pick = (lambda t: shard.take(t.to(dev))) if shard is not None \
+            else (lambda t: t.to(dev))
+        pairs.append((name, p.detach(), pick(want[name]),
+                      step_slack(pick(grad[name]), opt._inner._epsilon,
+                                 STRAT_LR)))
+    out["a_worst"], out["a_worst_name"] = worst(pairs, STRAT_A_RTOL)
+    inner = opt._inner
+    # the reduced, merged gradient itself: Adam's first moment after the
+    # boundary, this rank's ZeRO shard of its mp shard
+    b1, m1, mpairs = inner._beta1, inner._accumulators["moment1"], []
+    for name, p in layer.named_parameters():
+        if id(p) not in own:
+            continue
+        shard = getattr(p, "_tp_shard", None)
+        g = grad[name].to(dev)
+        g = shard.take(g) if shard is not None else g
+        zs = getattr(p, "_zero_shard", None)
+        g = zs.take(g) if zs is not None else g
+        mpairs.append((name, m1[id(p)], (1 - b1) * g, 0.0))
+    out["a_m1_worst"], out["a_m1_worst_name"] = worst(mpairs, MC_GRAD_RTOL)
+    out["a_moment_bytes"] = nbytes(
+        v for acc in ("moment1", "moment2")
+        for pid, v in inner._accumulators[acc].items() if pid in own)
+    out["a_unsharded_moment_bytes"] = 2 * nbytes(model.stage.params)
+    out["a_stage"] = model.stage_id
+    del model, layer, opt, inner, pairs, mpairs, m1, want, grad, start_state
+    done("(a) dp2 x pp2 x mp2 ZeRO-1 + gm k2")
+
+    # (b) dp4 x mp2: Lamb with ZeRO-3, the rings and recompute, and off
+    gpt_state = load("gpt_state.pt")
+    kept, kept_m1, grad = {}, {}, {}
+    for tag, on in (("b_off", False), ("b_on", True)):
+        world(dict(dp=4, mp=2), lamb=True, recompute=on, sharding=on,
+              sharding_configs={"stage": 3})
+        os.environ["PADDLE_TP_OVERLAP"] = "1" if on else "0"
+        pt.seed(0)
+        model = _gpt_cut(STRAT_LAYERS)
+        model.set_state_dict(gpt_state)
+        lm_loss = _bench_lm_loss(model)
+        fl = fleet.distributed_model(model)
+        opt = fleet.distributed_optimizer(pt.optimizer.AdamW(
+            learning_rate=STRAT_LR, weight_decay=0.01,
+            parameters=model.parameters()))
+        step = pt.jit.TrainStep(fl, lm_loss, opt)
+        ids, labels = (fl.shard_input(a) for a in batches[0])
+        inner = opt._inner
+
+        def one(i):
+            loss = step(ids, labels).item()
+            if not on and i == 0:  # the first step's gradients, for the
+                m1 = inner._accumulators["moment1"]  # bound: m1 / (1 - b1)
+                grad.update({n: m1[id(p)] / (1 - inner._beta1)
+                             for n, p in model.named_parameters()})
+            return loss
+
+        start()
+        losses, ms = timed(one, STRAT_STEPS)
+        finish(tag, losses, ms)
+        out[f"{tag}_shifts"] = sum(c["calls"] for c in out[f"{tag}_counts"]
+                                   if c["op"] == "ppermute")
+        out[f"{tag}_param_bytes"] = nbytes(model.parameters())
+        out[f"{tag}_inner"] = type(opt._inner).__name__
+        m1 = inner._accumulators["moment1"]
+        if not on:
+            kept = {n: p.detach().clone()
+                    for n, p in model.named_parameters()}
+            kept_m1 = {n: m1[id(p)].clone()
+                       for n, p in model.named_parameters()}
+        else:
+            pairs, mpairs = [], []
+            eps = inner._epsilon
+            for name, p in model.named_parameters():
+                zs = getattr(p, "_zero_shard", None)
+                full = (lambda t: zs.gather(t)) if zs is not None and \
+                    tuple(p.shape) == zs.shard_shape else \
+                    (lambda t: t.detach())
+                shard = getattr(p, "_tp_shard", None)
+                s0 = gpt_state[name].to(dev)
+                s0 = shard.take(s0) if shard is not None else s0
+                trust = max(1.0, s0.float().pow(2).mean().sqrt().item())
+                pairs.append((name, full(p), kept[name], step_slack(
+                    grad[name], eps, STRAT_STEPS * STRAT_LR * trust)))
+                mpairs.append((name, full(m1[id(p)]), kept_m1[name], 0.0))
+            out["b_worst"], out["b_worst_name"] = worst(pairs,
+                                                        STRAT_B_RTOL)
+            out["b_m1_worst"], out["b_m1_worst_name"] = worst(
+                mpairs, STRAT_B_RTOL)
+            del pairs, mpairs
+        del model, fl, opt, step, lm_loss, inner, m1
+    os.environ.pop("PADDLE_TP_OVERLAP")
+    kept, kept_m1, grad = None, None, None
+    done("(b) dp4 x mp2 Lamb + ZeRO-3 + rings + recompute")
+
+    # (c) LocalSGD at dp8 against DataParallel
+    def params_hash(model):
+        """A fingerprint of the parameters' bits, taken on the device:
+        per parameter the sum of its int32 words and of each word times
+        its index (int64, wrapping)."""
+        h = hashlib.sha1()
+        for p in model.parameters():
+            b = p.detach().reshape(-1).view(torch.int32).to(torch.int64)
+            i = torch.arange(b.numel(), device=b.device)
+            h.update(f"{int(b.sum())}:{int((b * i).sum())}|".encode())
+        return h.hexdigest()
+
+    kept = None
+    for tag in ("c_dp", "c_k1", "c_k2"):
+        if tag == "c_dp":
+            world()
+        else:
+            world(localsgd=True, localsgd_configs={"k_steps": int(tag[-1])})
+        pt.seed(0)
+        model = _gpt_cut(STRAT_LAYERS)
+        model.set_state_dict(gpt_state)
+        lm_loss = _bench_lm_loss(model)
+        sgd = pt.optimizer.SGD(learning_rate=STRAT_SGD_LR,
+                               parameters=model.parameters())
+        if tag == "c_dp":
+            step = pt.jit.TrainStep(DataParallel(model), lm_loss, sgd)
+        else:
+            step = pt.jit.TrainStep(model, lm_loss,
+                                    fleet.distributed_optimizer(sgd))
+        ids, labels = (shard_batch(a) for a in batches[0])
+        hashes = []
+
+        def one(i):
+            loss = step(ids, labels).item()
+            hashes.append(params_hash(model))
+            return loss
+
+        start()
+        losses, ms = timed(one, STRAT_STEPS)
+        finish(tag, losses, ms)
+        out[f"{tag}_hashes"] = hashes
+        if tag == "c_dp":
+            kept = {n: p.detach().clone() for n, p in
+                    model.named_parameters()}
+        elif tag == "c_k1":
+            w, wn = worst([(n, p.detach(), kept[n], 0.0)
+                           for n, p in model.named_parameters()],
+                          STRAT_C_RTOL)
+            out.update(c_k1_worst=w, c_k1_worst_name=wn)
+            kept = None
+        del model, step, lm_loss, sgd
+    done("(c) LocalSGD dp8")
+    print(f"rank {rank}: {json.dumps(out)}", flush=True)
+    with open(os.path.join(root, f"strat_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    comm.destroy_parallel_env()
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6594,6 +7190,8 @@ def main() -> int:
     print(f"q8m phase done at {time.perf_counter() - t_start:.1f} s")
     dp_q8 = dp_q8_phase(pt, kernels, card)
     print(f"dp_q8 phase done at {time.perf_counter() - t_start:.1f} s")
+    strategy = strategy_phase(pt, kernels, card)
+    print(f"strategy phase done at {time.perf_counter() - t_start:.1f} s")
     partial_entry["launches"] = sp_pp_ep.pop("partial_op")
     partial_entry["launches_by_path"] = {"sp4_ring_pallas":
                                          partial_entry["launches"]}
@@ -6629,7 +7227,8 @@ def main() -> int:
             **{k: v[e["name"]] for k, v in multichip.items()},
             **{k: v[e["name"]] for k, v in sp_pp_ep.items()},
             **{k: v[e["name"]] for k, v in q8m.items()},
-            **{k: v[e["name"]] for k, v in dp_q8.items()}}
+            **{k: v[e["name"]] for k, v in dp_q8.items()},
+            **{k: v[e["name"]] for k, v in strategy.items()}}
     entries.append(partial_entry)
     print(f"{card}")
     print(json.dumps({"kernels": entries}))
@@ -6648,4 +7247,6 @@ if __name__ == "__main__":
         sys.exit(sp_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--dpq8-child"]:
         sys.exit(dpq8_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--strat-child"]:
+        sys.exit(strat_child(sys.argv[2:]))
     sys.exit(main())

@@ -19,12 +19,13 @@ stage a rank, 1F1B and F-then-B), ``fleet`` at any dp x pp x sp x mp
 (dp factored into dcn x ici under ``hierarchical_allreduce``), the
 quantization plane (``quantized_comm``: the quantizer, the quantized
 allreduce and KV layout; ``quantized_compute``: narrow serving weights,
-``qat_matmul``, the narrow Adam moments), the per-gradient dcn hop
-(``overlap``) and the trainer's half of ``elastic``; ring and Ulysses
-attention live in ``nn/layers/ring_attention.py`` and MoE in
-``incubate/moe.py``. Resharding, ZeRO sharding, the tensor-parallel
-overlap rings and the elastic launcher are ROADMAP queue A item 7's
-part 5.
+``qat_matmul``, the narrow Adam moments), the per-gradient dcn hop and
+the tensor-parallel overlap rings (``overlap``), the strategy's optimizer
+options (``fleet``: ZeRO stages 1-3, gradient merge, the Lamb and Lars
+swaps; ``fleet.localsgd``) and the trainer's half of ``elastic``; ring
+and Ulysses attention live in ``nn/layers/ring_attention.py`` and MoE in
+``incubate/moe.py``. Resharding and the elastic launcher are ROADMAP
+queue A item 7's part 6.
 """
 from . import (comm, comm_monitor, collective, elastic, fleet, overlap,
                parallel, pipeline, quantized_comm, quantized_compute)

@@ -52,7 +52,7 @@ __all__ = ["ReduceOp", "all_reduce", "reduce", "all_gather", "broadcast",
            "reduce_scatter", "scatter", "alltoall", "barrier", "wait",
            "monitored_barrier", "transport", "all_reduce_", "all_gather_",
            "ppermute_", "shift_", "send_recv_", "all_to_all_tiled_",
-           "all_reduce_async_", "all_gather_async_"]
+           "all_reduce_async_", "all_gather_async_", "reduce_scatter_"]
 
 
 class ReduceOp:
@@ -146,6 +146,25 @@ def all_gather_(t: torch.Tensor, group: Optional[Group] = None
         else:
             dist.all_gather_into_tensor(out, t.reshape(-1), group=g.pg)
     return out.view((g.nranks,) + tuple(t.shape))
+
+
+def reduce_scatter_(t: torch.Tensor, op: int = ReduceOp.SUM,
+                    group: Optional[Group] = None) -> torch.Tensor:
+    """Rank ``r`` of ``group`` gets row ``r`` of the reduction of the
+    contiguous ``t`` (``[nranks, ...]``, one row a rank): a new tensor of
+    ``t.shape[1:]``. SUM or AVG."""
+    g = _group(group)
+    t = t.contiguous()
+    out = torch.empty(tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
+    with _watch("reduce_scatter", g, t, _nbytes(t)):
+        if g.pg is None:
+            out.copy_(t[0])
+        else:
+            dist.reduce_scatter_tensor(out.view(-1), t.view(-1),
+                                       op=_TORCH_OP[op], group=g.pg)
+        if op == ReduceOp.AVG:
+            _avg(out, g.nranks)
+    return out
 
 
 class _Pending:

@@ -7,13 +7,17 @@ JAX package's field names and defaults (``amp_configs`` defaults to bf16,
 ``fleet.init`` lays the world out as ``hybrid_configs`` (dp x pp x sp x
 mp; or ``tensor_parallel`` with its ``tensor_parallel_degree``), with dp
 factored into dcn x ici under ``hierarchical_allreduce``.
-``jit.TrainStep`` applies ``amp``, the gradient-width options
+``fleet.distributed_optimizer`` applies the optimizer options: the
+``lamb`` and ``lars`` swaps, ``sharding`` (ZeRO stages 1-3 over the dp
+group), ``gradient_merge``, the gradient-width options
 (``fp16_allreduce``, ``quantized_allreduce``, ``dgc``, which becomes the
-latter, ``async_dcn_allreduce``) and the quantized compute
-(``quantized_matmul``, ``quantized_moments``); ``fleet.distributed_model``
-reads ``pipeline_configs`` (``accumulate_steps``, ``schedule_mode``) for a
-``PipelineLayer``; every option of ``NOT_PORTED`` is kept as data, and a
-``TrainStep`` given a strategy that sets one raises
+latter) and ``quantized_moments``; ``a_sync`` raises there.
+``jit.TrainStep`` applies ``amp``, ``recompute``, ``quantized_matmul``
+and ``async_dcn_allreduce``, and hands a ``localsgd`` strategy to
+``fleet.localsgd.LocalSGDStep``; ``fleet.distributed_model`` reads
+``pipeline_configs`` (``accumulate_steps``, ``schedule_mode``) for a
+``PipelineLayer``. The one option of ``NOT_PORTED``, ``elastic_reshard``,
+is kept as data, and ``distributed_optimizer`` and ``TrainStep`` raise
 ``NotImplementedError`` naming it.
 """
 from __future__ import annotations
@@ -84,10 +88,9 @@ _DEFAULTS = {
     "last_comm_group_size_MB": 1,
 }
 
-#: the options the port keeps as data only: a TrainStep refuses a strategy
-#: that sets one
-NOT_PORTED = ("recompute", "sharding", "gradient_merge", "localsgd", "lamb",
-              "lars", "elastic_reshard", "a_sync")
+#: the options the port keeps as data only: distributed_optimizer and
+#: TrainStep refuse a strategy that sets one
+NOT_PORTED = ("elastic_reshard",)
 
 
 class DistributedStrategy:

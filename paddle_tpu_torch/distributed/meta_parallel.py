@@ -36,8 +36,10 @@ A degree that does not divide its dimension raises ``ValueError``. ``mp``
 (keyword) defaults to the hybrid mesh's mp degree (1 without a mesh); one
 that differs from the mesh's raises. At mp = 1 every layer is the plain
 single-device one. With ``PADDLE_TP_OVERLAP`` set on, the forward of a
-``RowParallelLinear`` and of a gathering ``ColumnParallelLinear`` raises
-(``overlap.tp_overlap_enabled``: the overlap rings are not ported yet).
+``RowParallelLinear`` and of a gathering ``ColumnParallelLinear`` takes
+the overlap ring (``overlap.row_parallel_overlap``,
+``overlap.column_gather_overlap``) where ``overlap.row_overlap_plan``
+allows it, and the plain form otherwise, as the JAX package's do.
 
 **Weights.** ``state_dict()`` on a rank returns its **shards** (the local
 parameters). ``set_state_dict`` takes either the shards or the **full**
@@ -78,7 +80,7 @@ from ..nn.layers.transformer import MultiHeadAttention
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
            "VocabParallelEmbedding", "ParallelMultiHeadAttention",
            "ParallelGPTBlock", "split", "full_state_dict",
-           "global_square_sum", "is_shard"]
+           "global_square_sum", "norm_groups", "is_shard"]
 
 
 def _mp_of(mp: Optional[int], what: str):
@@ -134,6 +136,24 @@ def _redraw_shard(w, weight_attr, fan_in, fan_out, gen) -> None:
     with torch.no_grad():
         w.copy_(XavierNormal(fan_in, fan_out)(
             tuple(w.shape), w.dtype, device=w.device, generator=gen))
+
+
+def _overlap_plan(x, weight):
+    """The overlap ring's plan (``overlap.row_overlap_plan``) when
+    ``PADDLE_TP_OVERLAP`` routes this layer's product through it, else
+    None; None too when the weight takes a quantized-matmul route (scales
+    attached, or an armed policy), whose narrow form goes through
+    ``F.linear``, as in the JAX package."""
+    if not overlap.tp_overlap_enabled():
+        return None
+    from . import quantized_compute as Q
+
+    if Q.scale_of(weight) is not None or Q.matmul_policy() is not None:
+        return None
+    rows = 1
+    for d in x.shape[:-1]:
+        rows *= int(d)
+    return overlap.row_overlap_plan(comm.hybrid_mesh(), rows)
 
 
 def _mark(p, shard: _Shard):
@@ -232,10 +252,12 @@ class ColumnParallelLinear(Linear):
                                         _col_groups))
 
     def forward(self, x):
-        if self.gather_output:
-            overlap.tp_overlap_enabled()  # raises when asked for the ring
         if self._mp == 1:
             return super().forward(x)
+        if self.gather_output and self._col_groups == 1 \
+                and _overlap_plan(x, self.weight) is not None:
+            return overlap.column_gather_overlap(x, self.weight, self.bias,
+                                                 self._mp_group)
         out = F.linear(_CopyToMP.apply(x, self._mp_group), self.weight,
                        self.bias)
         if self.gather_output:
@@ -272,12 +294,14 @@ class RowParallelLinear(Linear):
                                       g))
 
     def forward(self, x):
-        overlap.tp_overlap_enabled()  # raises when asked for the ring
         if self._mp == 1:
             return super().forward(x)
         if not self.input_is_parallel:
             x = _ScatterToMP.apply(x, _Shard(
                 (), x.dim() - 1, self._mp, self._mp_rank, self._mp_group))
+        if _overlap_plan(x, self.weight) is not None:
+            return overlap.row_parallel_overlap(x, self.weight, self.bias,
+                                                self._mp_group)
         out = _ReduceFromMP.apply(F.linear(x, self.weight), self._mp_group)
         if self.bias is not None:
             out = out + self.bias.to(out.dtype)
@@ -550,37 +574,60 @@ def split(x, size, operation: str, axis: int = 0,
 
 
 def full_state_dict(layer: Layer) -> Dict[str, np.ndarray]:
-    """``layer``'s state with every tensor-parallel shard gathered back to
-    its full array (a collective over mp: every mp rank calls it), as
-    numpy arrays in the JAX package's layout."""
+    """``layer``'s state with every shard gathered back to its full array,
+    as numpy arrays in the JAX package's layout: a parameter held as its
+    ZeRO stage-3 shard over dp first (its logical shape, the padding
+    cut), then each tensor-parallel shard over mp (a collective: every
+    rank of those groups calls it)."""
     out = {}
     for name, t in layer.state_dict(keep_vars=True).items():
+        zs = getattr(t, "_zero_shard", None)
+        full = zs.gather(t) if zs is not None and tuple(t.shape) == \
+            zs.shard_shape else t.detach()
         shard = getattr(t, "_tp_shard", None)
-        full = shard.gather(t) if shard is not None else t.detach()
+        full = shard.gather(full) if shard is not None else full
         out[name] = full.float().cpu().numpy() \
             if full.dtype == torch.bfloat16 else full.cpu().numpy()
     return out
 
 
+def norm_groups(p, t) -> tuple:
+    """The groups over which the squares of ``t``, a value of parameter
+    ``p`` (or its gradient, or an update of it), are summed to give the
+    full tensor's: the ZeRO group when ``t`` is this rank's ZeRO shard of
+    ``p`` (``p._zero_shard``, ``distributed.fleet``), then the mp group
+    when ``p`` is a tensor-parallel shard; ``()`` for a replicated
+    tensor."""
+    out = []
+    zs = getattr(p, "_zero_shard", None)
+    if zs is not None and tuple(t.shape) == zs.shard_shape:
+        out.append(zs.group)
+    shard = getattr(p, "_tp_shard", None)
+    if shard is not None and shard.group is not None \
+            and shard.group.nranks > 1:
+        out.append(shard.group)
+    return tuple(out)
+
+
 def global_square_sum(params_grads) -> torch.Tensor:
     """The squared L2 norm, in float32, of the full gradients of
     ``(param, grad)`` pairs (None gradients skipped): the replicated ones
-    counted once, the tensor-parallel shards (:func:`is_shard`) summed
-    over the mp group, as the JAX package's global arrays give it. A 0-dim
-    tensor on the gradients' device, equal on every mp rank."""
-    rep, shard = [], []
+    counted once, the shards (tensor-parallel, :func:`is_shard`, and ZeRO
+    shards, :func:`norm_groups`) summed over their groups, as the JAX
+    package's global arrays give it. A 0-dim tensor on the gradients'
+    device, equal on every rank of those groups."""
+    by_groups = {}
     for p, g in params_grads:
         if g is not None:
-            (shard if is_shard(p) else rep).append(g)
+            gs = norm_groups(p, g)
+            by_groups.setdefault(tuple(id(x) for x in gs), (gs, []))[1] \
+                .append(g)
     total = None
-    for gs, reduce in ((rep, False), (shard, True)):
-        if not gs:
-            continue
-        sq = torch.stack(torch._foreach_norm(gs, 2, dtype=torch.float32)
+    for gs, grads in by_groups.values():
+        sq = torch.stack(torch._foreach_norm(grads, 2, dtype=torch.float32)
                          ).square().sum()
-        if reduce:
-            g = comm.mp_group()
-            if g is not None and g.nranks > 1:
-                collective.all_reduce_(sq.reshape(1), group=g)
+        for g in gs:
+            sq = collective.all_reduce_(sq.reshape(1).clone(),
+                                        group=g).reshape(())
         total = sq if total is None else total + sq
     return total

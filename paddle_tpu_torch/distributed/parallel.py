@@ -32,6 +32,11 @@ the whole group. Where ``TrainStep`` makes the dcn hop explicit
 its ``overlap.DcnGradHop`` reduces each gradient in the backward pass,
 under ``overlap.manual_dcn``, and ``DataParallel`` leaves that pass's
 gradients to it.
+
+Under ZeRO stage 2 or 3 (``fleet``'s ``sharding``) the parameters that
+ZeRO shards carry ``_zero_shard``: their gradients are reduce-scattered,
+in the hook and in :func:`reduce_gradients` alike, and each rank keeps
+its shard of the mean gradient only (``_zero_shard.grad``).
 """
 from __future__ import annotations
 
@@ -138,18 +143,78 @@ def _hops(group) -> list:
         [mesh.group("dcn")]
 
 
+def _scatter_hops(group, zs) -> tuple:
+    """How a gradient reduction over ``group`` reduce-scatters onto the
+    ZeRO shards of ``zs`` (``fleet``'s shard of a parameter): ``(groups
+    all-reduced first, groups reduce-scattered in order)``, or None when
+    ``group`` is not the data group ZeRO shards over. On a hierarchical
+    mesh the scatter takes the dcn hop, then the ici hop (rank ``c *
+    ici + i`` of dp ends with row ``c * ici + i``); the sp group, when sp
+    is above 1, is averaged over first (ZeRO shards over dp only)."""
+    mesh = comm.hybrid_mesh()
+    if mesh is None:
+        return ((), (group,)) if group is zs.group else None
+    if group is not mesh.group("data") and group is not mesh.group("dp"):
+        return None
+    pre = (mesh.group("sp"),) if group is mesh.group("data") \
+        and mesh.shape["sp"] > 1 else ()
+    if "dcn" in mesh.shape:
+        return pre, (mesh.group("dcn"), mesh.group("ici"))
+    return pre, (mesh.group("dp"),)
+
+
+def _scatters(p, group) -> bool:
+    zs = getattr(p, "_zero_shard", None)
+    return zs is not None and zs.scatter and \
+        _scatter_hops(group, zs) is not None
+
+
+@torch.no_grad()
+def _reduce_scatter_bucket(bucket, group) -> None:
+    """One bucket of ZeRO parameters (stage 2 and 3): each gradient padded
+    and laid out as ``[dp, shard]`` rows, the rows of the bucket joined,
+    one reduce-scatter (AVG) a hop; each parameter's shard of the mean
+    gradient lands in ``p._zero_shard.grad`` and ``p.grad`` is freed."""
+    pre, hops = _scatter_hops(group, bucket[0]._zero_shard)
+    rows = torch.cat([p._zero_shard.rows(
+        p.grad if p.grad is not None else torch.zeros_like(p))
+        for p in bucket], dim=1)
+    for h in pre:
+        collective.all_reduce_(rows, collective.ReduceOp.AVG, h)
+    for h in hops:
+        rows = collective.reduce_scatter_(
+            rows.view(h.nranks, -1), collective.ReduceOp.AVG, h)
+    off = 0
+    for p in bucket:
+        zs = p._zero_shard
+        k = zs.numel
+        if p.grad is not None:
+            zs.grad = rows[off:off + k].view(zs.shard_shape)
+            p.grad = None
+        off += k
+
+
 @torch.no_grad()
 def reduce_gradients(params: Sequence[torch.Tensor], group=None,
                      bucket_mb: float = 25) -> None:
     """Average ``params``' gradients over ``group`` (the dp group by
     default) in place, one all-reduce per bucket of ``bucket_mb`` and
-    hop (:func:`_hops`)."""
+    hop (:func:`_hops`). A parameter that ZeRO stage 2 or 3 shards
+    (``p._zero_shard``, ``fleet``) is reduce-scattered instead, in buckets
+    of its own: this rank keeps only its shard of the mean gradient
+    (:func:`_reduce_scatter_bucket`)."""
     g = group or comm.dp_group()
     if g is None or g.nranks <= 1:
         return
+    params = [p for p in params if p.requires_grad]
+    scattered = [p for p in params if _scatters(p, g)]
+    if scattered:
+        ids = {id(p) for p in scattered}
+        params = [p for p in params if id(p) not in ids]
+        for bucket in _buckets(scattered, int(bucket_mb * 2 ** 20)):
+            _reduce_scatter_bucket(bucket, g)
     hops = _hops(g)
-    for bucket in _buckets([p for p in params if p.requires_grad],
-                           int(bucket_mb * 2 ** 20)):
+    for bucket in _buckets(params, int(bucket_mb * 2 ** 20)):
         flat = torch.cat([(p.grad if p.grad is not None
                            else torch.zeros_like(p)).reshape(-1)
                           for p in bucket])

@@ -29,8 +29,13 @@ once (from ``core.random``'s streams, as every layer of a world does).
 
 ``train_batch`` applies one update from the microbatch-mean gradients,
 with no clip and no regularizer term, as the JAX package's
-``_functional_update`` path does; the mean loss comes back on every rank
-(from the last stage). ``PipelineLayer`` holds every layer on every rank,
+``_functional_update`` path does, through the optimizer's own
+``_functional_update`` and ``_write``: a ``fleet.distributed_optimizer``
+applies its strategy there (the width casts, ZeRO over the stage's dp
+group, gradient merge across ``train_batch`` calls on top of the
+microbatch accumulation; reference ``pipeline.py:398-440``). Each rank
+holds one stage, so the merge counter advances once a call on every
+stage. The mean loss comes back on every rank (from the last stage). ``PipelineLayer`` holds every layer on every rank,
 so a ``paddle_tpu`` ``state_dict()`` loads into it as it is; each rank
 then trains its segment's parameters only.
 """
@@ -314,16 +319,19 @@ class PipelineParallel(Layer):
         """One global batch: split into microbatches, run the schedule,
         apply the optimizer once with microbatch-averaged gradients (and
         averaged over dp). Returns the mean loss, the same on every rank."""
+        from .fleet.base import _grad_of
+
         if scaler is not None:
             raise NotImplementedError(
                 "GradScaler with pipeline: use bf16 (strategy.amp) instead")
+        if hasattr(optimizer, "_apply_zero_padding"):
+            optimizer._apply_zero_padding(self.stage.params)
+            optimizer._zero_gather(self.stage.params)
         loss = self.forward_backward_pipeline(data)
-        params = [p for p in self.stage.params if p.grad is not None]
-        inner = getattr(optimizer, "_inner", optimizer)
-        inner._step_count += 1
-        inner._write(inner._functional_update(
-            params, [p.grad for p in params], inner.get_lr(),
-            inner._step_count))
+        optimizer._step_count += 1
+        optimizer._write(optimizer._functional_update(
+            self.stage.params, [_grad_of(p) for p in self.stage.params],
+            optimizer.get_lr(), optimizer._step_count))
         for p in self.stage.params:
             p.grad = None
         if lr_scheduler is not None:

@@ -259,9 +259,11 @@ class TerminateOnPreempt(Callback):
     epoch in flight, save a ``save_dir/preempt`` checkpoint and stop
     training. Touches the rank's heartbeat
     (``distributed.elastic.heartbeat``) every batch, so the launcher's
-    hung-rank watchdog sees a live trainer between epochs. (The JAX
-    package also prints the collective flight recorder's dump, which the
-    port does not have yet: ROADMAP queue A item 7.)
+    hung-rank watchdog sees a live trainer between epochs. With
+    ``verbose``, it dumps the collective flight recorder
+    (``distributed.comm_monitor.dump_flight_recorder("preempt")``: the
+    rank's ``comm_dump.rank{r}.json`` under ``PADDLE_COLL_DEBUG_DIR``) and
+    prints its path, so the hapi log names the collective stream.
     """
 
     def __init__(self, save_dir=None, verbose=1):
@@ -298,6 +300,13 @@ class TerminateOnPreempt(Callback):
             if self.verbose:
                 print(f"TerminateOnPreempt: SIGTERM received — saved "
                       f"{path}, stopping after epoch {epoch}")
+        if self.verbose:
+            from ..distributed import comm_monitor
+
+            dump = comm_monitor.dump_flight_recorder("preempt")
+            if dump:
+                print(f"TerminateOnPreempt: collective flight recorder "
+                      f"at {dump}")
 
     def on_train_end(self, logs=None):
         from ..distributed.elastic import restore_preempt_notice

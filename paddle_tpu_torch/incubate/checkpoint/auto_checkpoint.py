@@ -152,16 +152,18 @@ class TrainEpochRange:
         from ...framework import io as fio
         from ...utils.fault_injection import fault_point
 
+        # every rank takes the models' state (a ZeRO stage-3 parameter is
+        # gathered to its logical shape, a collective); one writer per job
+        states = [m.state_dict() for m in self._models]
+        states += [getattr(o, "_inner", o).state_dict() for o in self._opts]
+        states += [x.state_dict() for x in self._extras]
         if comm.get_rank() != 0:
-            return  # one writer per job
+            return
         fault_point("acp.save")
         os.makedirs(self._dir, exist_ok=True)
         tmp = os.path.join(self._dir, f".tmp_{_SNAP_PREFIX}{epoch:08d}")
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        states = [m.state_dict() for m in self._models]
-        states += [getattr(o, "_inner", o).state_dict() for o in self._opts]
-        states += [x.state_dict() for x in self._extras]
         crcs = {}
         for fname, state in zip(self._state_files(with_extras=True),
                                 states):

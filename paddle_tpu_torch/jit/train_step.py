@@ -43,8 +43,19 @@ buffers, or with ``return_outputs``. The static records
 ``_grad_comm_info`` (priced per hop on a hierarchical mesh),
 ``_q_matmul_info`` and ``_moment_bytes_info`` ride the ``step_metrics``
 rows and go to the bus once (``grad_comm``, ``q_matmul``,
-``moment_bytes``). Every other strategy option of ``NOT_PORTED`` raises
-``NotImplementedError``.
+``moment_bytes``). The optimizer options are the optimizer's
+(``fleet.distributed_optimizer``: ZeRO, gradient merge, the Lamb and Lars
+swaps); the step holds a stage-3 parameter as its shard between calls and
+gathers it at the start of each (``_zero_gather``), and takes a ZeRO
+gradient shard where the reduction scattered one. With
+``strategy.recompute`` the model's forward runs through
+``jit.recompute`` (the JAX package's ``jax.checkpoint`` of
+``_fwd_segment``): its activations are recomputed in backward, under the
+step's AMP and quantized-matmul scopes, and its forward kernels launch
+twice. A ``localsgd`` strategy makes ``TrainStep(...)`` return a
+``fleet.localsgd.LocalSGDStep``, refused with amp or recompute and with
+the options that reduce or shard gradients. ``elastic_reshard``, the one
+option of ``NOT_PORTED``, raises ``NotImplementedError``.
 
 The guard (``utils/train_guard.py``) runs unless ``PADDLE_GUARD_MODE=off``.
 Each step computes its health word and folds it into the guard's state
@@ -107,6 +118,7 @@ import torch
 from .. import amp
 from .. import profiler as _prof
 from ..core.tensor import to_torch
+from ..distributed.fleet.base import _grad_of
 from ..distributed.fleet.strategy import DistributedStrategy
 from ..observability import bus as _bus
 from ..utils import fault_injection as _FI
@@ -150,8 +162,19 @@ class TrainStep:
     ``return_outputs=True``); parameters' ``.grad`` is cleared after the
     update."""
 
+    def __new__(cls, model=None, loss_fn=None, optimizer=None, **kwargs):
+        # a localsgd strategy takes fleet.localsgd.LocalSGDStep's step
+        s = getattr(optimizer, "user_defined_strategy", None)
+        if cls is TrainStep and isinstance(s, DistributedStrategy) \
+                and s.localsgd:
+            from ..distributed.fleet.localsgd import LocalSGDStep
+
+            cls = LocalSGDStep
+        return super().__new__(cls)
+
     def __init__(self, model: torch.nn.Module, loss_fn: Callable,
                  optimizer, *, return_outputs: bool = False):
+        self._recompute = False       # strategy.recompute
         self._amp_ctx = None          # amp.auto_cast kwargs of the step
         self._loss_scale_cfg = None   # float16 dynamic loss scaling
         self._scaler_state = ()       # (scale, good, bad, applied) tensors
@@ -174,6 +197,9 @@ class TrainStep:
         self._buffers = list(model.buffers())
         self._device = self._params[0].device if self._params \
             else torch.device("cpu")
+        if hasattr(optimizer, "_apply_zero_padding"):
+            # ZeRO's layout: the shards (at stage 3, the storage too)
+            optimizer._apply_zero_padding(self._params)
         if self._loss_scale_cfg is not None:
             self._scaler_state = self._scaler_tensors(
                 self._loss_scale_cfg["init_loss_scaling"], 0, 0, 0)
@@ -284,7 +310,22 @@ class TrainStep:
         if unported:
             raise NotImplementedError(
                 f"TrainStep: strategy options {unported} are not ported yet "
-                "(ROADMAP queue A item 7, part 5)")
+                "(ROADMAP queue A item 7, part 6: the elastic launcher and "
+                "resharding)")
+        if strategy.localsgd:
+            if strategy.amp or strategy.recompute:
+                raise NotImplementedError(
+                    "localsgd does not compose with amp/recompute yet")
+            clash = [k for k in ("quantized_allreduce",
+                                 "async_dcn_allreduce", "fp16_allreduce",
+                                 "sharding", "gradient_merge")
+                     if getattr(strategy, k)]
+            if clash:
+                raise NotImplementedError(
+                    f"localsgd does not compose with {clash}: LocalSGD "
+                    "replaces per-step grad reduction with periodic "
+                    "parameter averaging")
+        self._recompute = bool(strategy.recompute)
         from ..distributed import quantized_comm as _qc
         from ..distributed import quantized_compute as _qcp
 
@@ -342,10 +383,29 @@ class TrainStep:
         return _qcp.matmul_scope(self._q_matmul)
 
     def _hop_guard(self):
-        """The explicit dcn hop's extent: the backward pass."""
+        """The backward pass's extent: the explicit dcn hop's."""
         if self._hop is None:
             return contextlib.nullcontext()
         return self._hop.backward()
+
+    def _forward(self, ins):
+        """The model's forward under the step's AMP and quantized-matmul
+        scopes; with ``strategy.recompute`` through ``jit.recompute``
+        (its activations recomputed in backward, the named random streams
+        kept: the JAX package's ``jax.checkpoint`` of ``_fwd_segment``),
+        which enters the scopes again for the recomputation."""
+        model, amp_guard, q_guard = self.model, self._amp_guard, \
+            self._q_guard
+        if not self._recompute:
+            with amp_guard(), q_guard():
+                return model(*ins)
+        from .recompute import recompute
+
+        def segment(*xs):
+            with amp_guard(), q_guard():
+                return model(*xs)
+
+        return recompute(segment, *ins)
 
     def _update_guard(self):
         """The update's extent: under the explicit quantized hop, the
@@ -368,6 +428,10 @@ class TrainStep:
         with _prof.RecordEvent("TrainStep"):
             return self._call_impl(inputs, labels)
 
+    def _before_write(self, news) -> None:
+        """Between the update and its masked write (``LocalSGDStep``'s
+        parameter average)."""
+
     def _call_impl(self, inputs, labels):
         ins = [self._tensor(x) for x in _as_list(inputs)]
         lbls = [self._tensor(y) for y in _as_list(labels)]
@@ -375,6 +439,8 @@ class TrainStep:
             self._example = (ins, lbls)
         for p in self._params:
             p.grad = None
+        if hasattr(self.opt, "_zero_gather"):
+            self.opt._zero_gather(self._params)  # ZeRO stage 3
         inject = _FI.consume_grad_action() if self._inject_enabled else 0
         if self._guard is not None:
             self._guard.capture(ins, lbls, rng_state=self._rng_state)
@@ -385,9 +451,10 @@ class TrainStep:
         masked = self._guard is not None or self._loss_scale_cfg is not None
         old_bufs = [b.clone() for b in self._buffers] if masked else []
         scaling = self._loss_scale_cfg is not None
-        with torch.enable_grad(), self._amp_guard(), self._q_guard():
-            outs = self.model(*ins)
-            loss = to_torch(self.loss_fn(outs, *lbls))
+        with torch.enable_grad():
+            outs = self._forward(ins)
+            with self._amp_guard(), self._q_guard():
+                loss = to_torch(self.loss_fn(outs, *lbls))
         with self._hop_guard():
             if scaling:
                 scale = self._scaler_state[0]
@@ -407,7 +474,7 @@ class TrainStep:
             loss = collective.all_reduce_(
                 loss.detach().clone().reshape(1), collective.ReduceOp.AVG,
                 world[1]).reshape(())
-        grads = [p.grad for p in self._params]
+        grads = [_grad_of(p) for p in self._params]
         opt = self.opt
         with torch.no_grad():
             if scaling:
@@ -455,6 +522,7 @@ class TrainStep:
                                            world[0])
                     ok = bad[0] == 0
             self._update_scaler(ok)
+        self._before_write(news)
         opt._write(news, ok)
         if old_bufs:
             with torch.no_grad():

@@ -36,9 +36,10 @@ class ClipGradByValue(ClipGradBase):
 
 class ClipGradByNorm(ClipGradBase):
     """Scale each gradient whose own L2 norm exceeds ``clip_norm`` down
-    to it. A tensor-parallel shard's norm is its full gradient's: the
-    shards' squares are summed over the mp group (one all-reduce for all
-    of them)."""
+    to it. A shard's norm is its full gradient's: the squares of
+    tensor-parallel shards are summed over the mp group, and of ZeRO
+    gradient shards over the dp group (one all-reduce a group for all of
+    them, ``distributed.meta_parallel.norm_groups``)."""
 
     def __init__(self, clip_norm):
         self.clip_norm = float(clip_norm)
@@ -46,14 +47,20 @@ class ClipGradByNorm(ClipGradBase):
     def __call__(self, params_grads):
         sq = {i: g.float().square().sum()
               for i, (p, g) in enumerate(params_grads) if _clipped(p, g)}
-        from ..distributed import collective, comm
-        from ..distributed.meta_parallel import is_shard
+        from ..distributed import collective
+        from ..distributed.meta_parallel import norm_groups
 
-        shards = [i for i in sq if is_shard(params_grads[i][0])]
-        if shards:
-            summed = collective.all_reduce_(
-                torch.stack([sq[i] for i in shards]), group=comm.mp_group())
-            sq.update(zip(shards, summed.unbind()))
+        by_groups = {}
+        for i in sq:
+            gs = norm_groups(*params_grads[i])
+            if gs:
+                by_groups.setdefault(tuple(id(x) for x in gs),
+                                     (gs, []))[1].append(i)
+        for gs, idx in by_groups.values():
+            summed = torch.stack([sq[i] for i in idx])
+            for g in gs:
+                summed = collective.all_reduce_(summed, group=g)
+            sq.update(zip(idx, summed.unbind()))
         out = []
         for i, (p, g) in enumerate(params_grads):
             if i not in sq:
@@ -69,8 +76,8 @@ class ClipGradByNorm(ClipGradBase):
 class ClipGradByGlobalNorm(ClipGradBase):
     """Scale all gradients by ``clip_norm / (global_norm + 1e-6)`` when the
     L2 norm over all of them exceeds ``clip_norm``. Under tensor
-    parallelism the norm is that of the full gradients: the shards'
-    squares are summed over the mp group
+    parallelism and ZeRO the norm is that of the full gradients: the
+    shards' squares are summed over their groups
     (``distributed.meta_parallel.global_square_sum``)."""
 
     def __init__(self, clip_norm, group_name="default_group"):

@@ -287,12 +287,14 @@ def class_center_sample(label, num_classes, num_samples, group=None, *,
     rest (``generator``, the package's when None), ascending; each label
     is remapped to its class's index in the sample. The JAX package
     raises here (not implemented): this is upstream Paddle's function, a
-    named departure; ``group`` (the model-parallel split) is not ported
-    and must be None."""
+    named departure, and so is its refusal of ``group`` (upstream's
+    model-parallel split), which has no counterpart in the JAX package
+    to port and must be None."""
     if group is not None:
         raise NotImplementedError("class_center_sample(group=): the "
-                                  "model-parallel split is ROADMAP queue A "
-                                  "item 7")
+                                  "model-parallel split is a departure "
+                                  "the port does not take (the JAX "
+                                  "package raises for the whole function)")
     if generator is None:
         generator = default_generator(label.device)
     flat = label.reshape(-1).long()

@@ -169,14 +169,30 @@ class Layer(torch.nn.Module):
         return self._full_name
 
     # -- state ----------------------------------------------------------
+    def _save_to_state_dict(self, destination, prefix, keep_vars):
+        """``state_dict()``'s entries of this layer: a parameter held as
+        its ZeRO stage-3 shard (``_zero_shard``, ``distributed.fleet``)
+        at its logical shape, gathered over the dp group (a collective:
+        every rank of that group takes the state together); with
+        ``keep_vars`` the parameter itself."""
+        super()._save_to_state_dict(destination, prefix, keep_vars)
+        if keep_vars:
+            return
+        for name, p in self._parameters.items():
+            zs = getattr(p, "_zero_shard", None)
+            if zs is not None and tuple(p.shape) == zs.shard_shape:
+                destination[prefix + name] = zs.gather(p)
+
     @torch.no_grad()
     def set_state_dict(self, state_dict, use_structured_name=True):
         """Copy values (numpy arrays, ``Tensor`` or torch tensors) into
         the parameters and persistent buffers of the same names, each
         cast to its target's type; returns ``(missing, unexpected)``
         names. A shape that differs raises, except the full shape of a
-        tensor-parallel shard (``_tp_shard``, ``distributed.meta_parallel``),
-        of which this rank's part is kept."""
+        tensor-parallel shard (``_tp_shard``, ``distributed.meta_parallel``)
+        or of a parameter held as its ZeRO stage-3 shard (``_zero_shard``,
+        ``distributed.fleet``), of which this rank's part is kept. A ZeRO
+        parameter takes its logical shape only (a shard of it raises)."""
         own = self.state_dict(keep_vars=True)
         missing = [n for n in own if n not in state_dict]
         unexpected = [k for k in state_dict if k not in own]
@@ -189,6 +205,13 @@ class Layer(torch.nn.Module):
             shard = getattr(target, "_tp_shard", None)
             if shard is not None and tuple(v.shape) == shard.full_shape:
                 v = shard.take(v)
+            zs = getattr(target, "_zero_shard", None)
+            if zs is not None and tuple(v.shape) != zs.full_shape:
+                raise ValueError(
+                    f"set_state_dict: {name} has shape {tuple(v.shape)}, "
+                    f"a ZeRO parameter takes its logical {zs.full_shape}")
+            if zs is not None and tuple(target.shape) == zs.shard_shape:
+                v = zs.take(v)
             if tuple(v.shape) != tuple(target.shape):
                 raise ValueError(
                     f"set_state_dict: {name} has shape {tuple(v.shape)}, "

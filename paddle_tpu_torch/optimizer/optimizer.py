@@ -11,13 +11,22 @@ on first use. Updates happen in place, under ``torch.no_grad``, on the
 parameter and accumulator buffers, where JAX returns new arrays. The
 trust ratios of ``Lamb`` and ``Lars`` are ``torch.where`` branches on the
 device, as JAX's ``jnp.where``: a parameter or update of norm 0 (a bias at
-its first step) takes ratio 1 (``Lars``: the plain rate).
+its first step) takes ratio 1 (``Lars``: the plain rate). Their norms are
+the full tensor's, as the JAX package's global arrays give them: a
+tensor-parallel shard's squares are summed over the mp group and a ZeRO
+shard's over the dp group (``_norm``). A step count held on the device
+(a 0-dim tensor: the loss scaler's or gradient merge's applied updates)
+enters the bias correction as ``-expm1(t log beta)``
+(``_bias_correction``), which keeps the value the host's double power
+gives.
 
 Two entry points apply an update: ``step()`` (or ``minimize(loss)``)
 from the accumulated ``.grad`` (the eager path), and
 ``_functional_update`` then ``_write`` (what ``jit.TrainStep`` calls),
 whose write can be masked on a device flag so that a skipped step leaves
-parameters and every accumulator unchanged. Both first add the regularizer
+parameters and every accumulator unchanged. ``_functional_update`` takes
+the values to update in the parameters' place (``values=``: ZeRO's
+shards), with accumulators made like them. Both first add the regularizer
 terms to the gradients and then clip them (``_process_grads``), as the JAX
 package does, and both scale the learning rate by the parameter's
 ``ParamAttr(learning_rate=)`` (``optimize_attr["learning_rate"]``).
@@ -59,6 +68,7 @@ alone).
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -71,6 +81,27 @@ __all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adamax",
            "Adagrad", "Adadelta", "RMSProp", "Lamb", "Lars", "LarsMomentum"]
 
 _LOW = (torch.float16, torch.bfloat16)
+
+
+def _bias_correction(beta: float, t):
+    """``1 - beta ** t``. For a step count held on the device (a 0-dim
+    tensor) it is ``-expm1(t log beta)`` in ``t``'s type: the float32
+    power of ``beta`` rounds ``1 - beta`` to ~1e-5 of itself (0.999 to
+    0.99900001), out of step with the moments' ``(1 - beta)``, taken in
+    double; the two forms agree to an ulp of the host's double value."""
+    if isinstance(t, torch.Tensor) and beta > 0:
+        return -torch.expm1(t * math.log(beta))
+    return 1 - beta ** t
+
+
+def _value_like(p, g):
+    """``p``'s value in ``g``'s layout: this rank's ZeRO shard of ``p``
+    when ``g`` is one (``distributed.fleet``), else ``p``, detached."""
+    zs = getattr(p, "_zero_shard", None)
+    if zs is not None and g is not None and tuple(g.shape) == zs.shard_shape \
+            and tuple(p.shape) != zs.shard_shape:
+        return zs.take(p.detach())
+    return p.detach()
 
 
 class Optimizer:
@@ -237,7 +268,7 @@ class Optimizer:
         for p, g in zip(params, grads):
             r = getattr(p, "regularizer", None) or self._regularization
             out.append(g if g is None or r is None
-                       else g + r.grad_term(p.detach()))
+                       else g + r.grad_term(_value_like(p, g)))
         grads = out
         if self._grad_clip is not None:
             grads = [g for _, g in self._grad_clip(list(zip(params, grads)))]
@@ -251,31 +282,53 @@ class Optimizer:
         raise NotImplementedError
 
     @torch.no_grad()
-    def _functional_update(self, params, grads, lr: float, t: int):
+    def _functional_update(self, params, grads, lr: float, t, values=None):
         """The rule applied to every parameter with a gradient (a ``None``
         gradient leaves its parameter and state untouched), out of place,
-        at each parameter's rate: a list of ``(param, new_param, accs,
+        at each parameter's rate: a list of ``(target, new_value, accs,
         new_accs)`` for :meth:`_write`. Nothing is written yet, so a
-        caller can judge the new parameters first."""
+        caller can judge the new parameters first. ``values`` (one a
+        parameter) are what the rule updates in the parameters' place, the
+        write's targets, with accumulators made like them: a ZeRO shard of
+        each parameter (``distributed.fleet``); the parameters
+        themselves by default."""
         news = []
-        for p, g in zip(params, grads):
+        for i, (p, g) in enumerate(zip(params, grads)):
             if g is None:
                 continue
+            v = p if values is None else values[i]
             p_lr = self._param_lr(p, lr)
-            if self._multi_precision and p.dtype in _LOW:
-                master = self._acc("master_weight", p)
+            if self._multi_precision and v.dtype in _LOW:
+                master = self._acc("master_weight", p, like=v)
                 accs = {n: self._acc(n, p, like=master)
                         for n in self._acc_names}
                 new_m, new_accs = self._rule(p, master, g.float(), accs,
                                              p_lr, t)
                 accs["master_weight"] = master
                 new_accs["master_weight"] = new_m
-                news.append((p, new_m.to(p.dtype), accs, new_accs))
+                news.append((v, new_m.to(v.dtype), accs, new_accs))
                 continue
-            accs = {n: self._acc(n, p) for n in self._acc_names}
-            new_p, new_accs = self._rule(p, p, g.to(p.dtype), accs, p_lr, t)
-            news.append((p, new_p, accs, new_accs))
+            accs = {n: self._acc(n, p, like=v) for n in self._acc_names}
+            new_p, new_accs = self._rule(p, v, g.to(v.dtype), accs, p_lr, t)
+            news.append((v, new_p, accs, new_accs))
         return news
+
+    @staticmethod
+    def _norm(param, t):
+        """The L2 norm of ``t``, a value of ``param`` (or of its update),
+        as the full tensor's: the squares of a tensor-parallel shard or a
+        ZeRO shard are summed over its groups
+        (``distributed.meta_parallel.norm_groups``)."""
+        sq = torch.sum(t * t)
+        if getattr(param, "_tp_shard", None) is not None \
+                or getattr(param, "_zero_shard", None) is not None:
+            from ..distributed import collective
+            from ..distributed.meta_parallel import norm_groups
+
+            for g in norm_groups(param, t):
+                sq = collective.all_reduce_(sq.reshape(1).clone(),
+                                            group=g).reshape(())
+        return torch.sqrt(sq)
 
     @staticmethod
     @torch.no_grad()
@@ -453,8 +506,8 @@ class Adam(Optimizer):
                                  g.dtype)
         m = b1 * m0 + (1 - b1) * g
         v = b2 * v0 + (1 - b2) * (g * g)
-        mhat = m / (1 - b1 ** t)
-        vhat = v / (1 - b2 ** t)
+        mhat = m / _bias_correction(b1, t)
+        vhat = v / _bias_correction(b2, t)
         return m, v, mhat / (torch.sqrt(vhat) + self._epsilon)
 
     def _moment_state(self, m, v):
@@ -528,7 +581,7 @@ class Adamax(Optimizer):
         b1 = self._beta1
         m = b1 * accs["moment"] + (1 - b1) * g
         u = torch.maximum(self._beta2 * accs["inf_norm"], g.abs())
-        return (p - lr / (1 - b1 ** t) * m / (u + self._epsilon),
+        return (p - lr / _bias_correction(b1, t) * m / (u + self._epsilon),
                 {"moment": m, "inf_norm": u})
 
 
@@ -607,10 +660,6 @@ class RMSProp(Optimizer):
         return p - mom, new
 
 
-def _norm(t):
-    return torch.sqrt(torch.sum(t * t))
-
-
 class Lamb(Optimizer):
     """``_lamb_rule``: Adam's bias-corrected step plus ``lamb_weight_decay
     * p``, scaled by the trust ratio ``|p| / |r|`` (1 where either norm is
@@ -637,10 +686,10 @@ class Lamb(Optimizer):
         b1, b2 = self._beta1, self._beta2
         m = b1 * accs["moment1"] + (1 - b1) * g
         v = b2 * accs["moment2"] + (1 - b2) * (g * g)
-        mhat = m / (1 - b1 ** t)
-        vhat = v / (1 - b2 ** t)
+        mhat = m / _bias_correction(b1, t)
+        vhat = v / _bias_correction(b2, t)
         r = mhat / (torch.sqrt(vhat) + self._epsilon) + wd * p
-        p_norm, r_norm = _norm(p), _norm(r)
+        p_norm, r_norm = self._norm(param, p), self._norm(param, r)
         trust = torch.where((p_norm > 0) & (r_norm > 0), p_norm / r_norm,
                             torch.ones_like(p_norm))
         return p - lr * trust * r, {"moment1": m, "moment2": v}
@@ -668,7 +717,7 @@ class Lars(Optimizer):
     def _rule(self, param, p, g, accs, lr, t):
         name = self._param_name(param)
         wd = 0.0 if any(tag in name for tag in self._exclude) else self._wd
-        p_norm, g_norm = _norm(p), _norm(g)
+        p_norm, g_norm = self._norm(param, p), self._norm(param, g)
         local_lr = torch.where(
             (p_norm > 0) & (g_norm > 0),
             lr * self._coeff * p_norm

@@ -986,3 +986,420 @@ def case_hier_gpt_block(rank, inputs, tmpdir):
         out[name] = [float(step(model.shard_input(x), model.shard_input(y)))
                      for x, y in inputs["gpt_block_data"]]
     return out
+
+
+# ---------------------------------------------------------------------------
+# the strategy's optimizer options: ZeRO, gradient merge, recompute, the
+# Lamb/Lars swaps, the overlap rings and LocalSGD
+# (tests/test_torch_fleet_strategy.py, tests/test_torch_fleet_worlds.py)
+# ---------------------------------------------------------------------------
+
+
+def _strategy_world(degrees=None, **options):
+    """``fleet.init`` of a fresh mesh of ``degrees`` (dp filling the rest
+    of the world) under a strategy with ``options``."""
+    from paddle_tpu_torch.distributed import comm, fleet
+
+    comm._mesh = None
+    s = fleet.DistributedStrategy()
+    if degrees:
+        s.hybrid_configs = {f"{k}_degree": v for k, v in degrees.items()}
+    for k, v in options.items():
+        setattr(s, k, v)
+    fleet.init(is_collective=True, strategy=s)
+    return s
+
+
+def zero_net():
+    """``test_sharding_gm``'s ``_Net``: fc1 [16, 24], relu, fc2 [24, 8]."""
+    import paddle_tpu_torch as pt
+
+    class Net(pt.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.fc1 = pt.nn.Linear(16, 24)
+            self.fc2 = pt.nn.Linear(24, 8)
+
+        def forward(self, x):
+            return self.fc2(pt.nn.functional.relu(self.fc1(x)))
+
+    return Net()
+
+
+def _nbytes(tensors):
+    return int(sum(t.numel() * t.element_size() for t in tensors))
+
+
+def _moment_bytes(opt, params):
+    inner = getattr(opt, "_inner", opt)
+    ids = {id(p) for p in params}
+    return _nbytes([v for name in ("moment1", "moment2")
+                    for pid, v in inner._accumulators.get(name, {}).items()
+                    if pid in ids])
+
+
+def case_zero(rank, inputs, tmpdir):
+    """ZeRO stages 1-3 over the world's dp (and stage 2 under the ``lamb``
+    swap, and with a per-tensor clip) on ``zero_net`` through fleet and
+    ``TrainStep`` with an L2 weight decay (Adam's; the swap drops it, as
+    the JAX package's does) and a global-norm clip (``ClipGradByNorm``
+    where the case says "norm"): losses, the full parameters after the
+    steps, the bytes of Adam's moments and of the parameters this rank
+    holds between steps."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed import meta_parallel as M
+
+    out = {}
+    for name, stage, lamb, clip in inputs["zero_cases"]:
+        _strategy_world(sharding=True, sharding_configs={"stage": stage},
+                        lamb=lamb)
+        net = zero_net()
+        net.set_state_dict(inputs["zero_init"])
+        fl = fleet.distributed_model(net)
+        clip_cls = pt.nn.ClipGradByNorm if clip == "norm" \
+            else pt.nn.ClipGradByGlobalNorm
+        opt = fleet.distributed_optimizer(pt.optimizer.Adam(
+            learning_rate=inputs["zero_lr"], parameters=net.parameters(),
+            weight_decay=inputs["zero_wd"],
+            grad_clip=clip_cls(inputs["zero_clip"])))
+        step = pt.jit.TrainStep(fl, lambda o, y: pt.nn.functional
+                                .cross_entropy(o, y), opt)
+        losses = [float(step(fl.shard_input(x), fl.shard_input(y)))
+                  for x, y in inputs["zero_data"]]
+        params = list(net.parameters())
+        out[name] = {
+            "losses": losses,
+            "inner": type(opt._inner).__name__,
+            "moment_bytes": _moment_bytes(opt, params),
+            "param_bytes": _nbytes(params),
+            "shapes": {n: tuple(p.shape) for n, p in net.named_parameters()},
+            "params": M.full_state_dict(net)}
+    return out
+
+
+def case_zero_embedding(rank, inputs, tmpdir):
+    """ZeRO stage 3 over the world's dp on ``Embedding(30522, 10)``, whose
+    axes 4 and 8 do not divide (the rows padded): two Adam steps, the
+    checkpoint at logical shapes (the layer's and the optimizer's
+    ``state_dict``), a shard refused by ``set_state_dict``, the checkpoint
+    restored through ``set_state_dict`` and one more step."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed import meta_parallel as M
+    from paddle_tpu_torch.distributed.parallel import shard_batch
+
+    _strategy_world(sharding=True, sharding_configs={"stage": 3})
+    emb = pt.nn.Embedding(*inputs["emb_shape"])
+    emb.set_state_dict(inputs["emb_init"])
+    opt = fleet.distributed_optimizer(pt.optimizer.Adam(
+        learning_rate=0.1, parameters=emb.parameters()))
+    step = pt.jit.TrainStep(emb, lambda o, y: (o ** 2).mean(), opt)
+    ids = shard_batch(inputs["emb_ids"])
+    out = {"losses": [float(step(ids, ids)) for _ in range(2)],
+           "stored": tuple(emb.weight.shape),
+           "param_bytes": _nbytes([emb.weight])}
+    full = {k: _np(v) for k, v in emb.state_dict().items()}
+    osd = {k: _np(v) for k, v in opt.state_dict().items()
+           if k.endswith((".moment1", ".moment2"))}
+    try:
+        emb.set_state_dict({"weight": _np(emb.weight)})
+        out["shard_refused"] = False
+    except ValueError:
+        out["shard_refused"] = True
+    out.update(ckpt_shape=full["weight"].shape,
+               moment_shapes={k: v.shape for k, v in osd.items()},
+               moment1=[v for k, v in osd.items()
+                        if k.endswith(".moment1")][0])
+    if inputs.get("emb_restore", True):
+        emb.set_state_dict(full)
+        opt.set_state_dict(opt.state_dict())
+    out["restored"] = tuple(emb.weight.shape)
+    out["losses"].append(float(step(ids, ids)))
+    out["weight"] = M.full_state_dict(emb)["weight"]
+    return out
+
+
+def case_rings(rank, inputs, tmpdir):
+    """``ColumnParallelLinear(gather_output=True)`` into
+    ``RowParallelLinear`` at mp2 (dp the rest of the world),
+    ``PADDLE_TP_OVERLAP`` on and off:
+    this rank's rows of the output and of the input's gradient, and the
+    full weight gradients summed over dp, of ``sum(out ** 2)``."""
+    import os
+
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import (ColumnParallelLinear,
+                                              RowParallelLinear, collective,
+                                              comm, overlap)
+
+    _strategy_world(dict(mp=2))
+    mesh = comm.hybrid_mesh()
+    col = ColumnParallelLinear(*inputs["ring_col"], gather_output=True)
+    row = RowParallelLinear(*inputs["ring_row"], input_is_parallel=False)
+    pt.nn.Sequential(col, row).set_state_dict(inputs["ring_init"])
+    d = mesh.axis_rank("dp")
+    x_all = inputs["ring_x"]
+    n = x_all.shape[0] // mesh.shape["dp"]
+    out = {"rows": (d * n, (d + 1) * n)}
+    calls = []
+    rings = {name: getattr(overlap, name) for name in (
+        "row_parallel_overlap", "column_gather_overlap")}
+    for knob in ("1", "0"):
+        os.environ["PADDLE_TP_OVERLAP"] = knob
+        for name, fn in rings.items():
+            def rec(*a, _fn=fn, _name=name, _knob=knob):
+                calls.append((_knob, _name))
+                return _fn(*a)
+
+            setattr(overlap, name, rec)
+        try:
+            x = torch.tensor(x_all[d * n:(d + 1) * n],
+                             device=col.weight.device, requires_grad=True)
+            y = row(col(x))
+            (y ** 2).sum().backward()
+        finally:
+            for name, fn in rings.items():
+                setattr(overlap, name, fn)
+        grads = {}
+        for pname, p in (("col_w", col.weight), ("col_b", col.bias),
+                         ("row_w", row.weight), ("row_b", row.bias)):
+            g = collective.all_reduce_(p.grad.clone(),
+                                       group=mesh.group("dp"))
+            shard = getattr(p, "_tp_shard", None)
+            grads[pname] = _np(shard.gather(g) if shard is not None else g)
+            p.grad = None
+        out[knob] = {"out": _np(y), "gx": _np(x.grad), "grads": grads}
+    os.environ.pop("PADDLE_TP_OVERLAP")
+    out["calls"] = calls
+    return out
+
+
+def case_c8_pipeline(rank, inputs, tmpdir):
+    """``PipelineParallel.train_batch`` at pp2 (dp the rest of the world)
+    through a fleet optimizer with ``fp16_allreduce``: the update takes the wrapper's
+    width cast."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed import meta_parallel as M
+
+    _strategy_world(dict(pp=2), pipeline=True, fp16_allreduce=True,
+                    pipeline_configs={"accumulate_steps": inputs["pp_micro"]})
+    layer = pt.distributed.PipelineLayer(
+        pipeline_blocks(*inputs["pp_cfg"]), loss_fn=pipeline_loss)
+    layer.set_state_dict(inputs["pp_init"])
+    model = fleet.distributed_model(layer)
+    opt = fleet.distributed_optimizer(pt.optimizer.Momentum(
+        learning_rate=inputs["pp_lr"], momentum=0.9,
+        parameters=model.parameters()))
+    losses = [float(model.train_batch([x, y], opt))
+              for x, y in zip(inputs["pp_x"], inputs["pp_y"])]
+    own = {id(p) for p in model.stage.params}
+    named = dict(layer.named_parameters())
+    return {"losses": losses, "stage": model.stage_id,
+            "params": {k: v for k, v in M.full_state_dict(layer).items()
+                       if id(named.get(k)) in own}}
+
+
+def lars_mlp():
+    """``ColumnParallelLinear(16, 24)``, relu, ``RowParallelLinear(24,
+    8)``: every weight and the column bias mp shards."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import (ColumnParallelLinear,
+                                              RowParallelLinear)
+
+    class MLP(pt.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.col = ColumnParallelLinear(16, 24, gather_output=False)
+            self.row = RowParallelLinear(24, 8, input_is_parallel=True)
+
+        def forward(self, x):
+            return self.row(pt.nn.functional.relu(self.col(x)))
+
+    return MLP()
+
+
+def case_lars_mp(rank, inputs, tmpdir):
+    """``lars`` swapping Momentum at mp2 (dp the rest of the world) on
+    ``lars_mlp`` through fleet and ``TrainStep``, unsharded and with ZeRO
+    stage 2 (the trust ratio's norms summed over the mp group, and over
+    dp for the ZeRO shards): losses and the full parameters."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed import meta_parallel as M
+
+    out = {}
+    for stage in (0, 2):
+        _strategy_world(dict(mp=2), lars=True,
+                        lars_configs=inputs["lars_configs"],
+                        sharding=stage > 0, sharding_configs={"stage": 2})
+        net = lars_mlp()
+        net.set_state_dict(inputs["lars_init"])
+        fl = fleet.distributed_model(net)
+        opt = fleet.distributed_optimizer(pt.optimizer.Momentum(
+            learning_rate=inputs["lars_lr"], momentum=0.9,
+            parameters=net.parameters()))
+        step = pt.jit.TrainStep(fl, lambda o, y: pt.nn.functional
+                                .cross_entropy(o, y), opt)
+        losses = [float(step(fl.shard_input(x), fl.shard_input(y)))
+                  for x, y in inputs["zero_data"]]
+        out[stage] = {"losses": losses, "inner": type(opt._inner).__name__,
+                      "sharded": sum(getattr(p, "_zero_shard", None)
+                                     is not None for p in net.parameters()),
+                      "params": M.full_state_dict(net)}
+    return out
+
+
+def case_strategy_gpt(rank, inputs, tmpdir):
+    """The GPT at mp2 (dp the rest of the world) through ``TrainStep``, two
+    steps of ``lamb`` (swapping AdamW) with ZeRO stage 3,
+    ``PADDLE_TP_OVERLAP`` and ``recompute`` on, and the same with all
+    three off: losses, the full parameters, the parameter bytes held
+    between steps and the blocks' forward calls a step."""
+    import os
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed import meta_parallel as M
+
+    out = {}
+    for name, on in (("on", True), ("off", False)):
+        _strategy_world(dict(mp=2), lamb=True, recompute=on,
+                        sharding=on, sharding_configs={"stage": 3})
+        os.environ["PADDLE_TP_OVERLAP"] = "1" if on else "0"
+        model = gpt(*inputs["gpt_cfg"])
+        model.set_state_dict(inputs["gpt_init"])
+        fwd = [0]
+        for blk in model.blocks:
+            blk.register_forward_pre_hook(
+                lambda *a: fwd.__setitem__(0, fwd[0] + 1))
+        fl = fleet.distributed_model(model)
+        opt = fleet.distributed_optimizer(pt.optimizer.AdamW(
+            learning_rate=inputs["gpt_lr"], weight_decay=0.01,
+            parameters=model.parameters()))
+        step = pt.jit.TrainStep(fl, lm_loss(model), opt)
+        ids, labels = inputs["gpt_batch"]
+        losses = [float(step(fl.shard_input(ids), fl.shard_input(labels)))
+                  for _ in range(2)]
+        out[name] = {"losses": losses, "inner": type(opt._inner).__name__,
+                     "forwards": fwd[0],
+                     "param_bytes": _nbytes(model.parameters()),
+                     "params": M.full_state_dict(model)}
+    os.environ.pop("PADDLE_TP_OVERLAP")
+    return out
+
+
+def case_graft_gpt(rank, inputs, tmpdir):
+    """``__graft_entry__.py``'s GPT: dp2 x pp2 x mp2, ZeRO-1 and
+    ``gradient_merge`` k 2 over Adam, 1F1B over 2 microbatches, four
+    ``train_batch`` calls (two merge boundaries): losses, this stage's
+    parameters gathered over mp, and Adam's moment bytes here."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed import meta_parallel as M
+    from paddle_tpu_torch.distributed import ParallelGPTBlock
+
+    _strategy_world(dict(dp=2, pp=2, mp=2), pipeline=True,
+                    pipeline_configs={"accumulate_steps": 2},
+                    sharding=True, sharding_configs={"stage": 1},
+                    gradient_merge=True,
+                    gradient_merge_configs={"k_steps": 2, "avg": True})
+    D, H = inputs["graft_dh"]
+    layer = pt.distributed.PipelineLayer(
+        [ParallelGPTBlock(D, H, dropout=0.0) for _ in range(2)]
+        + [pt.nn.Linear(D, 10)], loss_fn=pipeline_loss)
+    layer.set_state_dict(inputs["graft_init"])
+    model = fleet.distributed_model(layer)
+    opt = fleet.distributed_optimizer(pt.optimizer.Adam(
+        learning_rate=1e-3, parameters=model.parameters()))
+    x, y = inputs["graft_x"], inputs["graft_y"]
+    losses = [float(model.train_batch([x, y], opt)) for _ in range(4)]
+    own = {id(p) for p in model.stage.params}
+    named = dict(layer.named_parameters())
+    return {"losses": losses, "stage": model.stage_id,
+            "moment_bytes": _moment_bytes(opt, model.stage.params),
+            "stage_bytes": _nbytes(model.stage.params),
+            "params": {k: v for k, v in M.full_state_dict(layer).items()
+                       if id(named.get(k)) in own}}
+
+
+def case_graft_hier(rank, inputs, tmpdir):
+    """``__graft_entry__.py``'s hierarchical composition: dp8 = dcn4 x ici2
+    with ZeRO over Adam through ``TrainStep`` (three steps), at stage 1 (the
+    dryrun's) and at stages 2 and 3 (the gradients reduce-scattered over
+    the dcn hop, then the ici hop): losses and the parameters."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import fleet
+
+    from paddle_tpu_torch.distributed import meta_parallel as M
+
+    out = {}
+    for stage in (1, 2, 3):
+        _strategy_world(hierarchical_allreduce=True,
+                        hierarchical_allreduce_inter_nranks=2, sharding=True,
+                        sharding_configs={"stage": stage})
+        net = pt.nn.Sequential(pt.nn.Linear(32, 64), pt.nn.ReLU(),
+                               pt.nn.Linear(64, 10))
+        net.set_state_dict(inputs["hier_init"])
+        fl = fleet.distributed_model(net)
+        opt = fleet.distributed_optimizer(pt.optimizer.Adam(
+            learning_rate=1e-3, parameters=net.parameters()))
+        step = pt.jit.TrainStep(fl, lambda o, y: pt.nn.functional
+                                .cross_entropy(o, y), opt)
+        x = fl.shard_input(inputs["hier_x"])
+        y = fl.shard_input(inputs["hier_y"])
+        losses = [float(step(x, y)) for _ in range(3)]
+        out[stage] = {
+            "losses": losses, "axes": comm_axes(),
+            "moment_bytes": _moment_bytes(opt, list(net.parameters())),
+            "params": M.full_state_dict(net)}
+    return out
+
+
+def comm_axes():
+    from paddle_tpu_torch.distributed import comm
+
+    return comm.hybrid_mesh().axis_names
+
+
+def case_localsgd(rank, inputs, tmpdir):
+    """LocalSGD over SGD on ``Linear(3, 1)`` (the world's dp): k 1 against
+    ``DataParallel`` SGD over the same steps; k 2: this rank's parameters
+    after each step, and the ``state_dict`` after the last."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.localsgd import LocalSGDStep
+    from paddle_tpu_torch.distributed.parallel import (DataParallel,
+                                                       shard_batch)
+
+    def mse(o, y):
+        return ((o - y) * (o - y)).mean()
+
+    xs, ys = inputs["ls_x"], inputs["ls_y"]
+    out = {}
+    _strategy_world()
+    dp = DataParallel(pt.nn.Linear(3, 1))
+    dp.set_state_dict(inputs["ls_init"])
+    step = pt.jit.TrainStep(dp, mse, pt.optimizer.SGD(
+        learning_rate=0.1, parameters=dp.parameters()))
+    out["dp_losses"] = [float(step(dp.shard_input(x), dp.shard_input(y)))
+                        for x, y in zip(xs, ys)]
+    out["dp_w"] = _np(dp._layers.weight)
+    for k in (1, 2):
+        _strategy_world(localsgd=True, localsgd_configs={"k_steps": k})
+        net = pt.nn.Linear(3, 1)
+        net.set_state_dict(inputs["ls_init"])
+        opt = fleet.distributed_optimizer(pt.optimizer.SGD(
+            learning_rate=0.1, parameters=net.parameters()))
+        step = pt.jit.TrainStep(net, mse, opt)
+        assert isinstance(step, LocalSGDStep)
+        losses, ws = [], []
+        for x, y in zip(xs, ys):
+            losses.append(float(step(shard_batch(x), shard_batch(y))))
+            ws.append(_np(net.weight).copy())
+        out[k] = {"losses": losses, "w": ws,
+                  "state_w": _np(net.state_dict()["weight"])}
+    return out

@@ -281,15 +281,20 @@ def test_dgc_routes_to_the_quantized_policy():
 
 
 def test_strategy_options_leave_not_ported():
+    """Every strategy option is ported but ``elastic_reshard`` (ROADMAP
+    queue A item 7, part 6), which ``distributed_optimizer`` refuses."""
     from paddle_tpu_torch.distributed.fleet import strategy as st
 
+    assert st.NOT_PORTED == ("elastic_reshard",)
     for name in ("fp16_allreduce", "hierarchical_allreduce",
                  "async_dcn_allreduce", "quantized_allreduce",
-                 "quantized_matmul", "quantized_moments", "dgc"):
+                 "quantized_matmul", "quantized_moments", "dgc",
+                 "recompute", "sharding", "gradient_merge", "localsgd",
+                 "lamb", "lars", "a_sync"):
         assert name not in st.NOT_PORTED
-    for name in ("recompute", "sharding", "gradient_merge", "localsgd",
-                 "lamb", "lars", "elastic_reshard", "a_sync"):
-        assert name in st.NOT_PORTED
+    with pytest.raises(NotImplementedError, match="part 6"):
+        _distributed_opt(pt, elastic_reshard="auto")
+    _fresh_process_state()
 
 
 def test_failed_step_leaves_the_boundary_policy_armed():
@@ -310,9 +315,14 @@ def test_failed_step_leaves_the_boundary_policy_armed():
 
 
 def test_tp_overlap_knob_raises(monkeypatch):
-    """``PADDLE_TP_OVERLAP`` off changes nothing; on, the row-parallel
-    and the gathering column-parallel layers' forward raises, naming the
-    item that ports the overlap rings."""
+    """``PADDLE_TP_OVERLAP`` off changes nothing; on, it takes the ring:
+    ``tp_overlap_enabled`` is True and the layers no longer raise; at mp 1
+    they keep the plain form (``row_overlap_plan`` declines), and on an
+    mp2 mesh the plan takes the ring for rows that split into two chunks
+    and declines otherwise, and with sp above 1 (the rings at mp2 in a
+    world: tests/test_torch_fleet_strategy.py)."""
+    from types import SimpleNamespace
+
     from paddle_tpu_torch.distributed import (ColumnParallelLinear,
                                               RowParallelLinear, overlap)
 
@@ -320,11 +330,18 @@ def test_tp_overlap_knob_raises(monkeypatch):
     x = torch.ones(2, 8)
     monkeypatch.setenv("PADDLE_TP_OVERLAP", "0")
     assert overlap.tp_overlap_enabled() is False
-    assert row(x).shape == col(x).shape == (2, 4)
+    plain = (row(x), col(x))
+    assert plain[0].shape == plain[1].shape == (2, 4)
     monkeypatch.setenv("PADDLE_TP_OVERLAP", "1")
-    for layer in (row, col):
-        with pytest.raises(NotImplementedError, match="part 5"):
-            layer(x)
+    assert overlap.tp_overlap_enabled() is True
+    for layer, want in zip((row, col), plain):
+        torch.testing.assert_close(layer(x), want, rtol=0, atol=0)
+    mesh = SimpleNamespace(shape={"dp": 2, "pp": 1, "sp": 1, "mp": 2})
+    assert overlap.row_overlap_plan(None, 4) is None
+    assert overlap.row_overlap_plan(mesh, 4) == (2, None)
+    assert overlap.row_overlap_plan(mesh, 3) is None
+    mesh.shape["sp"] = 2
+    assert overlap.row_overlap_plan(mesh, 4) is None
     assert overlap.in_manual_dcn() is False
 
 

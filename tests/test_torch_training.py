@@ -231,11 +231,13 @@ def test_train_step_refuses_what_is_not_ported(models, monkeypatch):
         monkeypatch.setenv("PADDLE_GUARD_MODE", "bogus")
         pt.jit.TrainStep(tm, _torch_loss, pt.optimizer.AdamW(learning_rate=LR))
     monkeypatch.delenv("PADDLE_GUARD_MODE")
+    # the one strategy option not ported (recompute is: its numerics,
+    # tests/test_torch_fleet_strategy.py)
     strategy = pt.distributed.fleet.DistributedStrategy()
-    strategy.recompute = True
+    strategy.elastic_reshard = "auto"
     opt = pt.optimizer.AdamW(learning_rate=LR)
     opt.user_defined_strategy = strategy
-    with pytest.raises(NotImplementedError, match="recompute"):
+    with pytest.raises(NotImplementedError, match="elastic_reshard"):
         pt.jit.TrainStep(tm, _torch_loss, opt)
     # lr_ratio, multi_precision and lazy_mode are ported (their updates:
     # tests/test_torch_optimizers.py)

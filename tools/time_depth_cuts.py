@@ -8,8 +8,9 @@ PHASE is ``serving`` (the serving, serving tier, quantized serving,
 speculative and router phases, ``CHIP_SMOKE_SERVE_LAYERS``),
 ``multichip`` (``CHIP_SMOKE_MC_LAYERS``), ``jit_save``
 (``CHIP_SMOKE_SAVE_LAYERS``), ``guarded`` (``CHIP_SMOKE_GUARD_LAYERS``),
-``sp_pp_ep`` (``CHIP_SMOKE_SP_LAYERS``, even) or ``dp_q8``
-(``CHIP_SMOKE_DPQ8_LAYERS``).
+``sp_pp_ep`` (``CHIP_SMOKE_SP_LAYERS``, even), ``dp_q8``
+(``CHIP_SMOKE_DPQ8_LAYERS``) or ``strategy`` (``CHIP_SMOKE_STRAT_LAYERS``,
+even).
 Builds the port's kernels, then runs the phase (every gate of it) once for
 each depth in the order given, each run in a process of its own (the
 guarded phase arms the profiler's one trace window a process) with the
@@ -42,6 +43,7 @@ PHASES = {
     "guarded": ("CHIP_SMOKE_GUARD_LAYERS", ("guarded_training_phase",)),
     "sp_pp_ep": ("CHIP_SMOKE_SP_LAYERS", ("sp_pp_ep_phase",)),
     "dp_q8": ("CHIP_SMOKE_DPQ8_LAYERS", ("dp_q8_phase",)),
+    "strategy": ("CHIP_SMOKE_STRAT_LAYERS", ("strategy_phase",)),
 }
 
 
