@@ -568,6 +568,11 @@ STRAT_LR, STRAT_SGD_LR = 1e-4, 1e-2
 STRAT_A_RTOL, STRAT_B_RTOL, STRAT_C_RTOL = 1e-6, 1e-5, 1e-6
 #: a world still running after this many seconds is killed and fails
 STRAT_DEADLINE_S = 480
+#: (d) the elastic reshard: a global batch of 24 x 1024 (8 and 6 divide
+#: it) over 4 Adam steps, ranks 6 and 7 out for steps 2 and 3; losses
+#: within STRAT_D_RTOL of one process's uninterrupted run
+STRAT_D_BATCH, STRAT_D_STEPS, STRAT_D_OUT = 24, 4, (6, 7)
+STRAT_D_RTOL = 1e-6
 
 
 # B5 (layer_norm_fwd) before its redesign, float32 ms by shape: this
@@ -1339,7 +1344,12 @@ def partial_phase(fa, gen, rows):
     g_lse``. Timed (forward) at the diagonal in float32 beside the plain
     forward and ``aten._scaled_dot_product_efficient_attention`` with its
     log-sum-exp (one PyTorch call computing (out, lse)); the backward's
-    time beside it. Returns the JSON entry."""
+    time beside it, with its bound (B3's and B4's added) and SDPA's
+    backward (``torch.autograd.grad`` of ``scaled_dot_product_attention``,
+    the library's nearest call: it takes no lse cotangent). Returns the
+    JSON entry."""
+    import torch.nn.functional as tF
+
     B, H, S, D = SP_RING_SHAPE
     cases = ((True, 0, "diagonal shard"), (False, 0, "full shard"),
              (True, S, "fully masked shard"))
@@ -1384,18 +1394,51 @@ def partial_phase(fa, gen, rows):
             lib_ms = time_ms(
                 lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
                     q, k, v, None, True, 0.0, causal), calls=5)
+            # SDPA's backward alone, as flash_bwd_phase times it (its
+            # forward recorded on the stream the backward is captured on)
+            ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                lib_out = tF.scaled_dot_product_attention(ql, kl, vl,
+                                                          is_causal=causal)
+            lib_bwd_ms = time_ms(lambda: torch.autograd.grad(
+                lib_out, (ql, kl, vl), go, retain_graph=True), calls=5,
+                stream=side)
+            del ql, kl, vl, lib_out
             pairs = S * (S + 1) // 2
             nbytes = 4 * B * H * S * D * q.element_size() + B * H * S * 4
             bms, by = bound_ms(nbytes, 4 * D * pairs * B * H, dtype,
                                PEAK_MMA_FLOPS)
+            # the backward's bound, from the work it needs: S = QK^T once,
+            # then dP, dV, dQ and dK (10 D flops a causal pair); q, k, v,
+            # o, dO, lse and its cotangent read, dq, dk, dv written
+            el_, it = B * H * S * D, q.element_size()
+            bwd_bms = bound_ms(8 * el_ * it + 2 * B * H * S * 4,
+                               10 * D * pairs * B * H, dtype,
+                               PEAK_MMA_FLOPS)[0]
+            # B3's and B4's bounds (flash_bwd_phase's counts) added: what
+            # the split kernels' design moves and recomputes (S and dP in
+            # each)
+            split_bms = bound_ms(5 * el_ * it + 2 * B * H * S * 4,
+                                 6 * D * pairs * B * H, dtype,
+                                 PEAK_MMA_FLOPS)[0] + bound_ms(
+                6 * el_ * it + 2 * B * H * S * 4, 8 * D * pairs * B * H,
+                dtype, PEAK_MMA_FLOPS)[0]
             timed[SHORT[dtype]] = dict(
                 shape=f"[{B},{H},{S},{D}] causal", max_abs_err=max(
                     [el] + [e for e, _ in errs]),
                 ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                library_ms=lib_ms, backward_ms=bwd_ms)
+                library_ms=lib_ms, backward_ms=bwd_ms,
+                backward_bound_ms=bwd_bms,
+                backward_split_bound_ms=split_bms,
+                backward_library_ms=lib_bwd_ms)
             rows.append(f"flash_attention_partial {str(dtype)[6:]} "
                         f"{timed[SHORT[dtype]]['shape']}: forward {ms:.4f} "
-                        f"ms, backward (delta, B3, B4) {bwd_ms:.4f} ms, "
+                        f"ms, backward (delta, B3, B4) {bwd_ms:.4f} ms "
+                        f"(bound {bwd_bms:.4f} ms, B3 + B4's bounds "
+                        f"{split_bms:.4f} ms, SDPA's backward "
+                        f"{lib_bwd_ms:.4f} ms), "
                         f"plain forward {plain_ms:.4f} ms, efficient "
                         f"attention with lse {lib_ms:.4f} ms, bound "
                         f"{bms:.6f} ms ({by})")
@@ -6529,6 +6572,19 @@ def _strat_batches():
     return out
 
 
+def _elastic_batches():
+    """(d)'s global batches: [24, 1024] ids and next-token labels, each
+    shifted by 5 tokens from the one before."""
+    n = STRAT_D_BATCH * TRAIN_S
+    out = []
+    for i in range(STRAT_D_STEPS):
+        ids = ((np.arange(n) + 5 * i) % 31000).reshape(STRAT_D_BATCH,
+                                                        TRAIN_S)
+        out.append((ids.astype(np.int64), ((ids + 1) % 31000).astype(
+            np.int64)))
+    return out
+
+
 def strategy_phase(pt, kernels, card):
     """The strategy's optimizer options at GPT-medium's full width and
     ``STRAT_LAYERS`` of its 24 blocks (a depth cut), as one world of 8
@@ -6585,6 +6641,34 @@ def strategy_phase(pt, kernels, card):
         ``STRAT_C_RTOL`` (1e-6, of each parameter's largest) over 2 steps; with k 2 the ranks'
         parameters differ after step 1 and are equal bit for bit after
         step 2.
+    (d) ``__graft_entry__.py:275-327``'s elastic composition: flat dp8,
+        Adam (lr 1e-4) through ``resharding.ElasticStep(policy=
+        "shrink_expand")`` over ``TrainStep``, a global batch of 24 x 1024
+        a step (``shard_input``). Step 1 at dp8; ``notify_departure([6,
+        7])`` on every rank and the boundary (the world is rebuilt at
+        dp6: ranks 6 and 7 leave it); steps 2 and 3 at dp6;
+        ``notify_return([6, 7])`` and the boundary (dp8 again: the
+        returning ranks take the state from a survivor); step 4 at dp8.
+        Every rank's plan reads dp8 -> dp6 -> dp8; ranks 6 and 7 launch
+        no kernel and start no collective while out; the four losses
+        within ``STRAT_D_RTOL`` (1e-6) of one process's uninterrupted Adam
+        run on the same batches; after the return, before step 4, every
+        rank's parameters and Adam moments bit-equal to rank 0's; after
+        step 4 every rank's parameters equal and within ``STRAT_A_RTOL``
+        of the one-process run's plus four steps' slack (after Adam's
+        first step an update is a ratio of gradient sums, which gradients
+        that agree within ``MC_GRAD_RTOL`` of their largest, d, move by up
+        to 2 d / |g|, at the element's smallest |g| over the run), and
+        Adam's first moment (linear in the gradients: their scale, which
+        the step ignores) within ``MC_GRAD_RTOL`` of the run's largest,
+        and its second moment within what such gradients move a sum of
+        squares by, element by element (the update's denominator, and the
+        state the returning ranks took); rank 0's bus two
+        ``reshard`` rows, covered and without the fallback, and no
+        ``io.load``; B1, B3, B4, B5 and B6 ``STRAT_LAYERS`` launches and B7
+        twice that for each step a rank takes. Prints each transition's
+        wall seconds and bytes sent, the step ms at dp8 and dp6, and the
+        share of each leaf's elements at the parameter slack's clamp.
 
     The one-process references run first, in this process; weights,
     batches and results reach the ranks through ``/dev/shm``. Fails when a
@@ -6635,19 +6719,50 @@ def strategy_phase(pt, kernels, card):
              "a_ref.pt")
         ref = {"a": losses}
         del layer, opt
-        # (b), (c): the GPT's weights
+        # (b), (c), (d): the GPT's weights; (d) one process: four Adam
+        # steps on its global batches
         pt.seed(0)
         model = _gpt_cut(STRAT_LAYERS)
         save({k: v.detach().cpu() for k, v in model.state_dict().items()},
              "gpt_state.pt")
-        del model
+        adam = pt.optimizer.Adam(learning_rate=STRAT_LR,
+                                 parameters=model.parameters())
+        step = pt.jit.TrainStep(model, _bench_lm_loss(model), adam)
+        ref["d"] = []
+        # for the bound: each element's smallest |gradient| over the steps
+        # (g_t = (m_t - beta1 m_t-1) / (1 - beta1)) and each parameter's
+        # largest first-step |gradient|
+        named = list(model.named_parameters())
+        b1 = adam._beta1
+        gmin, gmax, m_prev = {}, {}, {n: 0.0 for n, _ in named}
+        for ids, labels in _elastic_batches():
+            ref["d"].append(float(step(ids, labels)))
+            m1 = adam._accumulators["moment1"]
+            for n, p in named:
+                g = ((m1[id(p)] - b1 * m_prev[n]) / (1 - b1)).abs()
+                m_prev[n] = m1[id(p)].clone()
+                gmin[n] = g if n not in gmin else torch.minimum(gmin[n], g)
+                gmax[n] = torch.maximum(gmax[n], g.max()) if n in gmax \
+                    else g.max()
+            del m1
+        m2 = adam._accumulators["moment2"]
+        save({"gmin": {n: v.cpu() for n, v in gmin.items()},
+              "gmax": {n: v.cpu() for n, v in gmax.items()},
+              "m1": {n: m_prev[n].cpu() for n, _ in named},
+              "m2": {n: m2[id(p)].cpu() for n, p in named}}, "d_grad.pt")
+        del m2
+        save({k: v.detach().cpu() for k, v in model.state_dict().items()},
+             "d_ref.pt")
+        del named, gmin, gmax, m_prev
+        del model, adam, step
         gc.collect()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         with open(os.path.join(root, "ref.json"), "w") as f:
             json.dump(ref, f)
-        print(f"strategy: one-process reference (a) in "
-              f"{time.perf_counter() - t0:.1f} s: losses {ref['a']}")
+        print(f"strategy: one-process references (a), (d) in "
+              f"{time.perf_counter() - t0:.1f} s: losses {ref['a']}, "
+              f"{ref['d']}")
         logs = os.path.join(root, "logs")
         t1 = time.perf_counter()
         rc = dlaunch.launch(os.path.abspath(__file__),
@@ -6748,6 +6863,56 @@ def strategy_phase(pt, kernels, card):
         if o["c_k2_launches"] != want_off:
             fail(f"strategy (c) rank {r}: launches {o['c_k2_launches']}, "
                  f"expected {want_off}")
+        # (d)
+        taken = 2 if r in STRAT_D_OUT else STRAT_D_STEPS
+        for i, (got, want) in enumerate(zip(o["d_losses"], ref["d"])):
+            if got is None and r in STRAT_D_OUT and i in (1, 2):
+                continue
+            if got is None or abs(got - want) > STRAT_D_RTOL * abs(want):
+                fail(f"strategy (d) rank {r} step {i + 1}: loss {got!r} "
+                     f"against one process's {want!r}")
+        if o["d_dp"] != [8, 6, 6, 8] or [
+                (w["old"], w["new"], w["lost"]) for w in o["d_rows"]] != [
+                ("dp8", "dp6", list(STRAT_D_OUT)), ("dp6", "dp8", [])]:
+            fail(f"strategy (d) rank {r}: dp by step {o['d_dp']}, plans "
+                 f"{[(w['old'], w['new'], w['lost']) for w in o['d_rows']]}"
+                 ", expected dp8 -> dp6 -> dp8")
+        if (r in STRAT_D_OUT) != (o["d_out_launches"] == {}
+                                  and o["d_out_records"] == 0):
+            fail(f"strategy (d) rank {r}: while ranks {STRAT_D_OUT} were "
+                 f"out it launched {o['d_out_launches']} and started "
+                 f"{o['d_out_records']} collectives")
+        want_d = {k: {"float32": n * L * taken} for k, n in (
+            ("flash_attention_fwd", 1), ("flash_attention_bwd_dq", 1),
+            ("flash_attention_bwd_dkv", 1), ("layer_norm_fwd", 1),
+            ("add_layer_norm_fwd", 1), ("layer_norm_bwd", 2))}
+        if o["d_launches"] != want_d:
+            fail(f"strategy (d) rank {r}: launches {o['d_launches']}, "
+                 f"expected {want_d} ({taken} steps)")
+        if o["d_worst"] > 1:
+            fail(f"strategy (d) rank {r}: parameter {o['d_worst_name']} at "
+                 f"{o['d_worst']:.3f} of its bound against one process")
+        if o["d_m1_worst"] > 1:
+            fail(f"strategy (d) rank {r}: Adam's first moment of "
+                 f"{o['d_m1_worst_name']} at {o['d_m1_worst']:.3f} of its "
+                 "bound against one process")
+        if o["d_m2_worst"] > 1:
+            fail(f"strategy (d) rank {r}: Adam's second moment of "
+                 f"{o['d_m2_worst_name']} at {o['d_m2_worst']:.3f} of its "
+                 "bound against one process")
+        if o["d_io_loads"]:
+            fail(f"strategy (d) rank {r}: {o['d_io_loads']} checkpoint "
+                 "reads on the covered path")
+    for key in ("d_return_hash", "d_final_hash"):
+        if any(o[key] != res[0][key] for o in res):
+            fail(f"strategy (d): {key} differs across ranks (the returning "
+                 f"ranks' state is not rank 0's): "
+                 f"{[o[key] for o in res]}")
+    bus_rows = res[0]["d_bus_rows"]
+    if len(bus_rows) != 2 or not all(
+            w["covered"] and not w["fallback"] for w in bus_rows):
+        fail(f"strategy (d): rank 0's bus has reshard rows {bus_rows}, "
+             "expected two, covered, without the fallback")
     for key in ("a_losses", "b_on_losses", "b_off_losses", "c_k1_losses",
                 "c_dp_losses", "c_k2_losses"):
         if any(o[key] != res[0][key] for o in res):
@@ -6790,7 +6955,27 @@ def strategy_phase(pt, kernels, card):
           f"{[len({o['c_k2_hashes'][i] for o in res}) for i in range(STRAT_STEPS)]}; "
           f"step ms k 2 {[round(x, 1) for x in r0['c_k2_ms']]}, "
           f"DataParallel {[round(x, 1) for x in r0['c_dp_ms']]}")
-    for run in ("a", "b_on", "b_off", "c_k2", "c_dp"):
+    dms = r0["d_ms"]
+    print(f"strategy (d) dp8 -> dp6 -> dp8 Adam, ElasticStep: losses "
+          f"{r0['d_losses']} (one process {ref['d']}), ranks "
+          f"{list(STRAT_D_OUT)}' {[res[i]['d_losses'] for i in STRAT_D_OUT]}"
+          f"; worst parameter at {max(o['d_worst'] for o in res):.3f} of its "
+          f"bound ({r0['d_worst_name']}), first moment at "
+          f"{max(o['d_m1_worst'] for o in res):.3f} "
+          f"({r0['d_m1_worst_name']}), second moment at "
+          f"{max(o['d_m2_worst'] for o in res):.3f} "
+          f"({r0['d_m2_worst_name']}); share of elements at the parameter "
+          f"slack's clamp by leaf (rank 0) "
+          f"{ {n: round(v, 4) for n, v in r0['d_clamp_share'].items()} }"
+          f"; transitions (rank 0) "
+          + "; ".join(f"{w['old']} -> {w['new']} {w['wall_s']:.3f} s, "
+                      f"{w['bytes_moved']} bytes sent" for w in r0["d_rows"])
+          + f"; slowest rank's transitions "
+          f"{[max(o['d_rows'][i]['wall_s'] for o in res) for i in (0, 1)]} s"
+          f"; step ms at dp8 {[round(dms[i], 1) for i in (0, 3)]}, at dp6 "
+          f"{[round(dms[i], 1) for i in (1, 2)]}; peak by rank "
+          f"{[round(o['d_peak_gib'], 2) for o in res]} GiB")
+    for run in ("a", "b_on", "b_off", "c_k2", "c_dp", "d"):
         for c in r0[f"{run}_counts"]:
             print(f"strategy ({run}) rank 0 collectives: {c['op']} group "
                   f"{c['group']} {c['backend']}/{c['transport']}: "
@@ -6801,7 +6986,9 @@ def strategy_phase(pt, kernels, card):
             "strategy_b_zero3_rings_recompute": {
                 k: sum(v.values()) for k, v in r0["b_on_launches"].items()},
             "strategy_c_localsgd": {k: sum(v.values()) for k, v in
-                                    r0["c_k2_launches"].items()}}
+                                    r0["c_k2_launches"].items()},
+            "strategy_d_elastic_reshard": {
+                k: sum(v.values()) for k, v in r0["d_launches"].items()}}
 
 
 def strat_child(argv) -> int:
@@ -7021,16 +7208,19 @@ def strat_child(argv) -> int:
     done("(b) dp4 x mp2 Lamb + ZeRO-3 + rings + recompute")
 
     # (c) LocalSGD at dp8 against DataParallel
-    def params_hash(model):
-        """A fingerprint of the parameters' bits, taken on the device:
-        per parameter the sum of its int32 words and of each word times
-        its index (int64, wrapping)."""
+    def bits_hash(tensors):
+        """A fingerprint of float32 tensors' bits, taken on the device:
+        per tensor the sum of its int32 words and of each word times its
+        index (int64, wrapping)."""
         h = hashlib.sha1()
-        for p in model.parameters():
-            b = p.detach().reshape(-1).view(torch.int32).to(torch.int64)
+        for t in tensors:
+            b = t.detach().reshape(-1).view(torch.int32).to(torch.int64)
             i = torch.arange(b.numel(), device=b.device)
             h.update(f"{int(b.sum())}:{int((b * i).sum())}|".encode())
         return h.hexdigest()
+
+    def params_hash(model):
+        return bits_hash(model.parameters())
 
     kept = None
     for tag in ("c_dp", "c_k1", "c_k2"):
@@ -7072,6 +7262,114 @@ def strat_child(argv) -> int:
             kept = None
         del model, step, lm_loss, sgd
     done("(c) LocalSGD dp8")
+
+    # (d) the elastic reshard: flat dp8 -> dp6 -> dp8 through ElasticStep
+    from paddle_tpu_torch.distributed import resharding
+    from paddle_tpu_torch.observability import bus
+    from paddle_tpu_torch.utils import fault_injection
+
+    world()
+    pt.seed(0)
+    model = _gpt_cut(STRAT_LAYERS)
+    model.set_state_dict(gpt_state)
+    adam = pt.optimizer.Adam(learning_rate=STRAT_LR,
+                             parameters=model.parameters())
+    estep = resharding.ElasticStep(
+        pt.jit.TrainStep(model, _bench_lm_loss(model), adam),
+        policy="shrink_expand")
+    d_batches = _elastic_batches()
+    loads0 = fault_injection._injector()._counts.get("io.load", 0)
+    d_losses, d_ms, d_dp = [], [], []
+
+    def d_step(i):
+        ids, labels = d_batches[i]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = estep(estep.shard_input(ids), estep.shard_input(labels))
+        d_losses.append(None if loss is None else float(loss))
+        torch.cuda.synchronize()
+        d_ms.append((time.perf_counter() - t) * 1e3)
+        d_dp.append(estep.dp_size())
+
+    def state_hash():
+        accs = adam._accumulators
+        return bits_hash(t for p in model.parameters() for t in (
+            [p] + [accs[a][id(p)] for a in ("moment1", "moment2")]))
+
+    start()
+    d_step(0)
+    estep.notify_departure(list(STRAT_D_OUT))
+    estep._poll_notices()   # the boundary: the world shrinks to dp6
+    seen = (kernels.launches_by_dtype(), mon._n_records)
+    d_step(1)
+    d_step(2)
+    launched = kernels.launches_by_dtype()
+    out["d_out_launches"] = {
+        k: {t: n - seen[0].get(k, {}).get(t, 0) for t, n in v.items()
+            if n != seen[0].get(k, {}).get(t, 0)}
+        for k, v in launched.items()
+        if v != seen[0].get(k, {})}
+    out["d_out_records"] = mon._n_records - seen[1]
+    estep.notify_return(list(STRAT_D_OUT))
+    estep._poll_notices()   # the boundary: dp8 again, the state sent
+    out["d_return_hash"] = state_hash()
+    d_step(3)
+    finish("d", d_losses, d_ms)
+    out["d_dp"], out["d_rows"] = d_dp, estep.rows
+    out["d_final_hash"] = params_hash(model)
+    want, grad = load("d_ref.pt"), load("d_grad.pt")
+
+    def d_sense(n):
+        """2 d / (|g| + eps): how far gradients that agree within
+        ``MC_GRAD_RTOL`` of their largest (d) can move Adam's update after
+        its first step (sign-like: (a)'s eps / (|g| + eps)^2), a ratio of
+        gradient sums, m / sqrt(v); |g| the element's smallest over the
+        one-process run's steps."""
+        a, eps = grad["gmin"][n].to(dev).float(), adam._epsilon
+        d = MC_GRAD_RTOL * grad["gmax"][n].to(dev).float()
+        return 2 * d / (a + eps)
+
+    def d_slack(n):
+        """How far four Adam steps can move an element apart in two such
+        runs: each step by d_sense in units of lr, and by at most 2 lr
+        (the clamp: such elements are held by the moments' gates)."""
+        return STRAT_D_STEPS * STRAT_LR * torch.clamp(d_sense(n), max=2.0)
+
+    out["d_worst"], out["d_worst_name"] = worst(
+        [(n, p.detach(), want[n].to(dev), d_slack(n))
+         for n, p in model.named_parameters()], STRAT_A_RTOL)
+    # the share of each leaf's elements whose slack is at the clamp
+    out["d_clamp_share"] = {
+        n: float((d_sense(n) >= 2.0).float().mean())
+        for n, _ in model.named_parameters()}
+    # the gradients' scale, which Adam's step ignores: the first moment,
+    # linear in the gradients, against the one-process run's
+    m1 = adam._accumulators["moment1"]
+    out["d_m1_worst"], out["d_m1_worst_name"] = worst(
+        [(n, m1[id(p)], grad["m1"][n].to(dev), 0.0)
+         for n, p in model.named_parameters()], MC_GRAD_RTOL)
+    # Adam's second moment, a sum of squares, element by element: where
+    # the gradients agree within d, (1 - b2) sum_t (2 |g_t| d + d^2), and
+    # sum_t |g_t| <= sqrt(T v / ((1 - b2) b2^(T - 1))) (v: one process's)
+    m2, b2, T = adam._accumulators["moment2"], adam._beta2, STRAT_D_STEPS
+
+    def v_slack(n):
+        d = MC_GRAD_RTOL * grad["gmax"][n].to(dev).float()
+        v = grad["m2"][n].to(dev).float()
+        s = torch.sqrt(T * v / ((1 - b2) * b2 ** (T - 1)))
+        return (1 - b2) * (2 * d * s + T * d * d)
+
+    out["d_m2_worst"], out["d_m2_worst_name"] = worst(
+        [(n, m2[id(p)], grad["m2"][n].to(dev), v_slack(n))
+         for n, p in model.named_parameters()], 0.0)
+    del m1, m2
+    out["d_io_loads"] = fault_injection._injector()._counts.get(
+        "io.load", 0) - loads0
+    path = bus.bus_path()
+    out["d_bus_rows"] = [r["payload"] for r in bus.read_stream(path)
+                         if r["kind"] == "reshard"] if path else []
+    del model, adam, estep, want, grad
+    done("(d) elastic reshard dp8 -> dp6 -> dp8")
     print(f"rank {rank}: {json.dumps(out)}", flush=True)
     with open(os.path.join(root, f"strat_rank{rank}.json"), "w") as f:
         json.dump(out, f)

@@ -22,13 +22,16 @@ allreduce and KV layout; ``quantized_compute``: narrow serving weights,
 ``qat_matmul``, the narrow Adam moments), the per-gradient dcn hop and
 the tensor-parallel overlap rings (``overlap``), the strategy's optimizer
 options (``fleet``: ZeRO stages 1-3, gradient merge, the Lamb and Lars
-swaps; ``fleet.localsgd``) and the trainer's half of ``elastic``; ring
-and Ulysses attention live in ``nn/layers/ring_attention.py`` and MoE in
-``incubate/moe.py``. Resharding and the elastic launcher are ROADMAP
-queue A item 7's part 6.
+swaps; ``fleet.localsgd``), ``elastic`` (the trainer's half and the
+launcher's ``ElasticManager``) and in-job resharding (``resharding``:
+the planner, coverage and ``ElasticStep`` over a rebuilt world); ring and
+Ulysses attention live in ``nn/layers/ring_attention.py`` and MoE in
+``incubate/moe.py``. The launcher's embedded fleet monitor and co-tenancy
+controller are ROADMAP queue A item 8.
 """
 from . import (comm, comm_monitor, collective, elastic, fleet, overlap,
-               parallel, pipeline, quantized_comm, quantized_compute)
+               parallel, pipeline, quantized_comm, quantized_compute,
+               resharding)
 from .collective import (ReduceOp, all_gather, all_reduce, alltoall,
                          barrier, broadcast, monitored_barrier, reduce,
                          reduce_scatter, scatter, wait)
@@ -57,7 +60,7 @@ def __getattr__(name):
 
 __all__ = ["comm", "comm_monitor", "collective", "elastic", "fleet",
            "overlap", "parallel", "pipeline", "quantized_comm",
-           "quantized_compute",
+           "quantized_compute", "resharding",
            "PipelineLayer", "PipelineParallel",
            "ReduceOp", "all_gather", "all_reduce", "alltoall", "barrier",
            "broadcast", "monitored_barrier", "reduce", "reduce_scatter",

@@ -36,6 +36,23 @@ inner, ``dp = dcn * dp_inner``, the dp index ``dcn_index * dp_inner +
 ici_index`` (so a rank is ``((((dcn * ICI + ici) * PP + pp) * SP + sp) *
 MP + mp``, the same rank as before), and the mesh gains the ``dcn`` and
 ``ici`` groups; ``dp`` and ``data`` stay the whole dp (x sp) group.
+
+**Rebuilding the world** (:func:`rebuild_world`, the counterpart of the
+JAX package's ``rebuild_world`` and ``set_hybrid_mesh``: the comm half of
+an elastic reshard, ``resharding.py``). torch has no shrink: a process
+group cannot drop a member, and ``new_group`` is a collective over the
+old world, which a dead rank never joins. So the members of the new
+world (ranks in the world's first numbering) destroy every process group
+of the old one first (a gloo group left to the interpreter's teardown can
+end the process with ``std::terminate``), then meet at a new rendezvous
+generation: ``<store>.gen<g>`` beside a ``file://`` store, else
+``file://$PADDLE_COLL_SYNC_DIR/world.gen<g>`` (the launcher sets it; with
+neither, the rebuild raises). They are renumbered in member order, and
+the hybrid mesh is laid out again at the planned degrees, which publishes
+the world anew for everything that reads it (the named random streams,
+``fleet``'s topology, :func:`get_rank` / :func:`get_world_size`). A rank left out of the new
+world leaves it: it holds no group, and a call that needs the world raises
+until a later :func:`rebuild_world` names it again.
 """
 from __future__ import annotations
 
@@ -54,6 +71,8 @@ __all__ = ["Group", "HybridMesh", "ParallelEnv", "init_parallel_env",
            "mp_mesh", "mp_group", "dp_group", "data_group", "mesh_rank",
            "mesh_coords", "shard_rank_axis",
            "replicate", "spmd_region", "in_spmd_region",
+           "rebuild_world", "in_world", "base_rank", "counterpart",
+           "follow_world",
            "destroy_parallel_env"]
 
 
@@ -73,6 +92,8 @@ class Group:
         self.pg = pg
         self.backend = backend_name if self.nranks > 1 else "local"
         self.rank = self.get_group_rank(get_rank())
+        #: the hybrid mesh's names for this group (``dp``, ``data``, ...)
+        self.roles = set()
 
     @property
     def world_size(self) -> int:
@@ -127,6 +148,12 @@ class _CommState:
         self.spmd_axes: Tuple[str, ...] = ()
         self.backend: Optional[str] = None
         self.device: Optional[torch.device] = None
+        self.init_method: Optional[str] = None  # the first rendezvous's
+        #: after rebuild_world: the world's members in its first numbering
+        #: (None before; this rank out of the world when not in it)
+        self.members: Optional[List[int]] = None
+        self.base: Tuple[int, int] = (0, 1)  # (rank, world) at the start
+        self.generation = 0  # rebuild_world calls so far
 
 
 _state = _CommState()
@@ -140,25 +167,47 @@ def _env_int(name: str, default: int) -> int:
 
 
 def get_rank() -> int:
-    """This trainer's rank: the process group's, else
-    ``PADDLE_TRAINER_ID`` (0 when unset)."""
+    """This trainer's rank: the process group's, else (a rebuilt world of
+    one) its index among the members, else ``PADDLE_TRAINER_ID`` (0 when
+    unset)."""
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank()
+    m = _state.members
+    if m is not None and _state.base[0] in m:
+        return m.index(_state.base[0])
     return _env_int("PADDLE_TRAINER_ID", 0)
 
 
 def get_world_size() -> int:
-    """The number of trainer processes: the process group's, else
-    ``PADDLE_TRAINERS_NUM`` (1 when unset)."""
+    """The number of trainer processes: the process group's, else the
+    rebuilt world's, else ``PADDLE_TRAINERS_NUM`` (1 when unset)."""
     if dist.is_available() and dist.is_initialized():
         return dist.get_world_size()
+    if _state.members is not None and in_world():
+        return len(_state.members)
     return _env_int("PADDLE_TRAINERS_NUM", 1)
+
+
+def base_rank() -> int:
+    """This trainer's rank in the world's first numbering (the launch
+    env's ``PADDLE_TRAINER_ID``), which a rebuilt world keeps."""
+    return _state.base[0] if _state.default_group is not None \
+        or _state.members is not None else get_rank()
+
+
+def in_world() -> bool:
+    """False on a rank that a :func:`rebuild_world` left out."""
+    return _state.members is None or _state.base[0] in _state.members
 
 
 def _local_rank_and_size() -> Tuple[int, int]:
     """This rank's index among the ranks of its host, and their number,
-    from the launch env's endpoints (all ranks local when it has none)."""
-    rank, world = get_rank(), get_world_size()
+    from the launch env's endpoints (all ranks local when it has none),
+    in the world's first numbering."""
+    if _state.members is not None:
+        rank, world = _state.base
+    else:
+        rank, world = get_rank(), get_world_size()
     eps = [e for e in os.environ.get(
         "PADDLE_TRAINER_ENDPOINTS", "").split(",") if e]
     if len(eps) != world:
@@ -238,6 +287,8 @@ def init_parallel_env(backend: Optional[str] = None, *,
         _dev.set_device("cpu")
     _state.device = dev
     _state.backend = rule
+    _state.init_method = init_method
+    _state.base = (rank, world)
     if meet:
         secs = float(os.environ.get("PADDLE_RDV_DEADLINE", "") or 600.0)
         dist.init_process_group(
@@ -253,6 +304,11 @@ def init_parallel_env(backend: Optional[str] = None, *,
 
 def _ensure_init() -> Group:
     if _state.default_group is None:
+        if not in_world():
+            raise RuntimeError(
+                f"rank {_state.base[0]} left the world at an elastic "
+                f"reshard (members {_state.members}): it joins no "
+                "collective until a return folds it back in")
         init_parallel_env()
     return _state.default_group
 
@@ -451,10 +507,9 @@ def init_hybrid_mesh(dp: int = 1, mp: int = 1, pp: int = 1, sp: int = 1,
     me = get_rank() if world > 1 else 0
     coords = mesh_coords(me, shape)
     groups = {}
-    solo = Group([me], -1, "solo")
     for a in MESH_AXES:
         groups[a] = _axis_groups(shape, (a,), me, a) \
-            if shape[a] > 1 else solo
+            if shape[a] > 1 else Group([me], -1, a)
     groups["data"] = groups["dp"] if shape["sp"] == 1 else \
         _axis_groups(shape, ("dp", "sp"), me, "data") \
         if shape["dp"] > 1 else groups["sp"]
@@ -465,7 +520,9 @@ def init_hybrid_mesh(dp: int = 1, mp: int = 1, pp: int = 1, sp: int = 1,
         order = ("dcn", "ici") + MESH_AXES[1:]
         for a in ("dcn", "ici"):
             groups[a] = _axis_groups(shape, (a,), me, a, order) \
-                if shape[a] > 1 else solo
+                if shape[a] > 1 else Group([me], -1, a)
+    for name, g in groups.items():
+        g.roles.add(name)
     _mesh = HybridMesh(shape, groups, coords)
     _publish_streams()
     return _mesh
@@ -577,7 +634,7 @@ def _publish_streams() -> None:
     from ..core import random as _rnd
 
     keys = {}
-    if get_world_size() > 1 and _state.default_group is not None:
+    if _state.default_group is not None and get_world_size() > 1:
         dp_i = _mesh.axis_rank("dp") * _mesh.shape["sp"] \
             + _mesh.axis_rank("sp") if _mesh is not None else get_rank()
         mp_i = _mesh.axis_rank("mp") if _mesh is not None else -1
@@ -585,6 +642,117 @@ def _publish_streams() -> None:
     if _mesh is not None and _mesh.shape["mp"] > 1:
         keys["shard_init"] = (2, _mesh.axis_rank("mp"))
     _rnd.set_streams(keys)
+
+
+def _generation_url(gen: int) -> str:
+    """Where the world of generation ``gen`` meets (the module's notes)."""
+    base = _state.init_method or ""
+    if base.startswith("file://"):
+        return f"{base}.gen{gen}"
+    sync = os.environ.get("PADDLE_COLL_SYNC_DIR")
+    if not sync:
+        raise RuntimeError(
+            "rebuild_world: no file:// store and no PADDLE_COLL_SYNC_DIR to "
+            "meet at (the port's launcher sets it)")
+    return "file://" + os.path.join(sync, f"world.gen{gen}")
+
+
+def _drop_groups() -> None:
+    """Forget the port's groups and the mesh, then destroy every process
+    group of this rank while the interpreter runs."""
+    import gc
+
+    global _mesh
+    _state.default_group = None
+    _state.groups = {}
+    _state.next_gid = 1
+    _mesh = None
+    gc.collect()
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def rebuild_world(members: Sequence[int],
+                  dims: Optional[Dict[str, int]] = None,
+                  dp_inner: int = 1) -> Optional[Group]:
+    """Make ``members`` (ranks in the world's first numbering, in order)
+    the world: every rank of the first world calls this, in the same
+    order, with the same arguments (the module's notes), so every rank
+    counts the same generation. The old world's process groups are
+    destroyed first; the members meet at the next generation's
+    rendezvous, renumbered in member order, and, with
+    ``dims`` (``dp``, ``mp``, ``pp``, ``sp``), lay out the hybrid mesh
+    again (``dp_inner``: its dcn x ici factoring). Returns the new default
+    group, or None on a rank left out."""
+    members = [int(r) for r in members]
+    if _state.default_group is not None or dist.is_initialized():
+        _drop_groups()
+    _state.generation += 1
+    me = _state.base[0]
+    _state.members = members
+    if me not in members:
+        _publish_streams()
+        return None
+    world, rank = len(members), members.index(me)
+    if world > 1:
+        secs = float(os.environ.get("PADDLE_RDV_DEADLINE", "") or 600.0)
+        dist.init_process_group(
+            _state.backend,
+            init_method=_generation_url(_state.generation),
+            rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=secs))
+    pg = dist.group.WORLD if world > 1 else None
+    _state.default_group = Group(range(world), 0, "dp", pg, _state.backend)
+    _state.groups[0] = _state.default_group
+    if dims is not None:
+        init_hybrid_mesh(dp=dims.get("dp", 1), mp=dims.get("mp", 1),
+                         pp=dims.get("pp", 1), sp=dims.get("sp", 1),
+                         dp_inner=dp_inner)
+    else:
+        _publish_streams()
+    return _state.default_group
+
+
+def counterpart(g: Optional[Group]) -> Optional[Group]:
+    """The rebuilt world's group that plays ``g``'s part: the default
+    group for the old default group, the mesh's group of the same axis for
+    a mesh group, a group of this rank alone for one of one rank."""
+    if g is None:
+        return None
+    if g.id == 0:
+        return _ensure_init()
+    if _mesh is not None:
+        for role in sorted(g.roles, key=lambda r: r != "data") \
+                + [g.axis_name]:
+            if role in _mesh._groups:
+                return _mesh.group(role)
+    if g.nranks == 1:
+        return Group([get_rank()], -1, g.axis_name)
+    raise RuntimeError(
+        f"{g!r} has no counterpart in the rebuilt world: only the default "
+        "group and the hybrid mesh's groups follow a reshard")
+
+
+def follow_world(model, params=()) -> None:
+    """Point every group that ``model``'s layers cache (an attribute that
+    is a :class:`Group`, a tensor-parallel shard's group on a parameter)
+    at its :func:`counterpart` in the rebuilt world; a ``DataParallel``
+    takes its new group's hooks (``_follow_world``)."""
+    seen = set()
+    mods = model.modules() if hasattr(model, "modules") else [model]
+    for m in mods:
+        for k, v in list(vars(m).items()):
+            if isinstance(v, Group):
+                object.__setattr__(m, k, counterpart(v))
+        follow = getattr(m, "_follow_world", None)
+        if callable(follow):
+            follow()
+    for p in list(params) + (list(model.parameters())
+                             if hasattr(model, "parameters") else []):
+        shard = getattr(p, "_tp_shard", None)
+        if shard is not None and id(shard) not in seen:
+            seen.add(id(shard))
+            shard.group = counterpart(shard.group)
 
 
 def _reset() -> None:
@@ -601,9 +769,5 @@ def destroy_parallel_env() -> None:
     port's groups, then destroy the process groups while the interpreter
     still runs (a gloo process group left to the interpreter's own
     teardown can end the process with ``std::terminate``)."""
-    import gc
-
+    _drop_groups()
     _reset()
-    gc.collect()
-    if dist.is_available() and dist.is_initialized():
-        dist.destroy_process_group()

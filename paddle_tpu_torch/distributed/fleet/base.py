@@ -23,11 +23,11 @@ package's checks and swaps: ``a_sync`` (parameter-server mode) and
 optimizer for ``Lamb`` (``lamb_configs``; ``exclude_from_weight_decay``
 tags match a parameter's name, or its ``named_parameters()`` name where
 it has none, as ``Lars`` does), ``lars`` a ``Momentum`` for ``Lars``, and
-a wrong inner optimizer raises ``ValueError``; an option of
-``NOT_PORTED`` (``elastic_reshard``) raises ``NotImplementedError``
-naming ROADMAP part 6. The returned :class:`_DistributedOptimizer`
-applies ZeRO (``sharding``, stages 1-3) and ``gradient_merge`` in its
-update (its notes), through ``jit.TrainStep`` and
+a wrong inner optimizer raises ``ValueError``; ``elastic_reshard`` is
+data here, read by ``resharding.ElasticStep``. The returned
+:class:`_DistributedOptimizer` applies ZeRO (``sharding``, stages 1-3)
+and ``gradient_merge`` in its update (its notes), through
+``jit.TrainStep`` and
 ``PipelineParallel.train_batch``; its eager ``step()`` merges and casts
 the gradients on ``.grad`` and runs the inner step, unsharded (the
 reference's semantics).
@@ -408,6 +408,41 @@ class _DistributedOptimizer:
         """A sharded accumulator at its logical shape (a collective)."""
         return zs.gather(v) if tuple(v.shape) == zs.shard_shape else v
 
+    def _zero_unshard(self, params, gather: bool = True) -> int:
+        """ZeRO's reshard seam (the JAX package's ``_strip_zero_padding``):
+        before the world changes, each parameter's shards (its own at stage
+        3, its accumulators') go back to their logical shapes and the
+        parameter loses its :class:`_ZeroShard`; the next
+        :meth:`_apply_zero_padding` plans them for the new dp. ``gather``:
+        all-gather each shard over the old dp group (the covered case).
+        Without it (a departed rank held a shard, or this rank was out of
+        the world) each sharded value becomes a zero placeholder at its
+        logical shape, which the fallback's restore or a survivor's
+        broadcast fills. Returns the bytes this rank sent."""
+        sent = 0
+        for p in params:
+            zs = getattr(p, "_zero_shard", None)
+            if zs is None:
+                continue
+            if zs.shard_shape != zs.full_shape:
+                def full(v):
+                    nonlocal sent
+                    if tuple(v.shape) != zs.shard_shape:
+                        return v
+                    if not gather:
+                        return v.new_zeros(zs.full_shape)
+                    sent += v.numel() * v.element_size() * (zs.n - 1)
+                    return zs.gather(v).to(v.dtype)
+
+                for store in self._inner._accumulators.values():
+                    v = store.get(id(p))
+                    if v is not None:
+                        store[id(p)] = full(v)
+                with torch.no_grad():
+                    p.data = full(p.data)
+            del p._zero_shard
+        return sent
+
     # -- gradient merge ------------------------------------------------------
     def _gm_counter(self, device):
         if self._gm_cnt is None:
@@ -740,12 +775,6 @@ class Fleet:
                 "sharding hybrid_dp (sharding groups x dp groups) is not "
                 "built; state shards over the FULL dp axis here "
                 "(equivalent to sharding_degree == dp_degree)")
-        unported = s.not_ported()
-        if unported:
-            raise NotImplementedError(
-                f"strategy options {unported} are not ported yet (ROADMAP "
-                "queue A item 7, part 6: the elastic launcher and "
-                "resharding)")
         if s.quantized_matmul:
             qcp.resolve_matmul(s.quantized_matmul)
         if s.lamb:

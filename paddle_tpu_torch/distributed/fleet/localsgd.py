@@ -71,6 +71,13 @@ class LocalSGDStep(TrainStep):
         plan = super()._world_plan(model, return_outputs)
         return None if plan is None else (plan[0], plan[1], False)
 
+    #: refused, as the JAX package's ``rebind_mesh`` refuses LocalSGD
+    #: (each rank's diverging parameters are state the planner does not
+    #: cover): ``check_rebind`` raises it before the world changes
+    _reshard_refusal = (
+        "elastic resharding does not compose with localsgd: LocalSGDStep "
+        "carries per-replica state the reshard planner does not cover yet")
+
     def _hop_guard(self):
         """The backward pass: a ``DataParallel`` model's reduction off."""
         no_sync = getattr(self.model, "no_sync", None)

@@ -16,9 +16,10 @@ latter) and ``quantized_moments``; ``a_sync`` raises there.
 and ``async_dcn_allreduce``, and hands a ``localsgd`` strategy to
 ``fleet.localsgd.LocalSGDStep``; ``fleet.distributed_model`` reads
 ``pipeline_configs`` (``accumulate_steps``, ``schedule_mode``) for a
-``PipelineLayer``. The one option of ``NOT_PORTED``, ``elastic_reshard``,
-is kept as data, and ``distributed_optimizer`` and ``TrainStep`` raise
-``NotImplementedError`` naming it.
+``PipelineLayer``; ``distributed.resharding.ElasticStep`` reads
+``elastic_reshard`` (off / ``"shrink"`` / ``"shrink_expand"``) and
+``elastic_reshard_configs`` (``quorum``, ``batch``). ``NOT_PORTED`` is
+empty: every option of the JAX package's strategy runs in the port.
 """
 from __future__ import annotations
 
@@ -88,9 +89,8 @@ _DEFAULTS = {
     "last_comm_group_size_MB": 1,
 }
 
-#: the options the port keeps as data only: distributed_optimizer and
-#: TrainStep refuse a strategy that sets one
-NOT_PORTED = ("elastic_reshard",)
+#: the JAX package's options the port keeps as data only: none
+NOT_PORTED = ()
 
 
 class DistributedStrategy:
@@ -129,8 +129,3 @@ class DistributedStrategy:
             conf[name] = merged
         else:
             conf[name] = value
-
-    def not_ported(self):
-        """The options of ``NOT_PORTED`` that this strategy sets."""
-        return [k for k in NOT_PORTED
-                if self._conf[k] not in (False, None, "off")]

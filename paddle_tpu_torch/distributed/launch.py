@@ -8,44 +8,45 @@ when a process dies, launch_utils.py:996-1118).
 
 Each rank is a process (``comm.py``): ``--nproc_per_node N`` starts N
 copies of the script with the env of :func:`build_cluster_env`, rank 0's
-endpoint doubling as the rendezvous address of ``init_parallel_env``. Each
-child writes to ``<log_dir>/workerlog.<rank>`` (its parent's stdio without
-a log dir). The first child to fail ends the job: the others get SIGTERM,
-then SIGKILL 10 s later, and its exit code is returned. A job still running
-at ``deadline`` seconds is killed and returns ``HUNG_RC`` (98). The
-children also get ``PADDLE_COLL_SYNC_DIR`` (a fresh directory, for
-``monitored_barrier`` and the desync exchange, removed when the job
-ends), ``PADDLE_COLL_DEBUG_DIR``
-(the log dir, where flight-recorder dumps land), ``PADDLE_COLL_TIMEOUT``
-from ``coll_timeout`` and ``PADDLE_DISTRI_BACKEND`` from ``backend`` (a
-backend that disagrees with the rule of ``comm.py`` makes the ranks raise).
+endpoint doubling as the rendezvous address of ``init_parallel_env``.
 Without ``start_port`` (or ``PADDLE_PORT``) a job of one host takes a port
 that is free on it, so two jobs on one host do not collide; a job of
 several hosts takes 6170, which every host must agree on.
 
+The ranks are watched by ``elastic.ElasticManager`` (its notes): each
+child writes to ``<log_dir>/workerlog.<rank>`` (its parent's stdio without
+a log dir); the first child to fail ends the job (the others get SIGTERM,
+then SIGKILL after the grace) and its exit code is returned, unless
+``elastic_retries`` relaunches the job or ``reshard`` retires the rank
+while the quorum holds; ``watchdog_timeout`` puts down a rank whose
+heartbeat goes stale; a job still running at ``deadline`` seconds is
+killed and returns ``HUNG_RC`` (98). The children also get
+``PADDLE_COLL_SYNC_DIR`` (a fresh directory an attempt, under the
+launcher's own ``PADDLE_COLL_SYNC_DIR`` where set: the hosts of a job share
+it), ``PADDLE_COLL_DEBUG_DIR`` (the log dir, where flight-recorder
+dumps land), ``PADDLE_COLL_TIMEOUT`` from ``coll_timeout`` and
+``PADDLE_DISTRI_BACKEND`` from ``backend`` (a backend that disagrees with
+the rule of ``comm.py`` makes the ranks raise).
+
 Usage::
 
     python -m paddle_tpu_torch.distributed.launch --nproc_per_node=2 \\
-        [--ips=h1,h2] [--start_port=P] [--deadline=600] train.py [args]
+        [--ips=h1,h2] [--start_port=P] [--deadline=600] \\
+        [--elastic_retries=N] [--watchdog_timeout=S] \\
+        [--reshard=shrink --reshard_quorum=0.5] train.py [args]
 
-The elastic options of the JAX package's launcher (``elastic_retries``,
-``watchdog_timeout``, ``reshard``, ``monitor``, ``ctl``) belong to its
-``ElasticManager``, ROADMAP queue A item 7's last part: set, they raise.
+``monitor`` and ``ctl`` (the embedded fleet monitor and the co-tenancy
+controller) are ROADMAP queue A item 8: set, they raise.
 """
 from __future__ import annotations
 
 import argparse
 import os
-import shutil
-import signal
 import socket
-import subprocess
 import sys
-import tempfile
-import time
 from typing import Dict, List, Optional
 
-from .elastic import HUNG_RC
+from .elastic import ElasticManager
 
 __all__ = ["launch", "build_cluster_env", "main"]
 
@@ -97,19 +98,6 @@ def build_cluster_env(nproc: int, ips: str = "127.0.0.1",
     return envs
 
 
-def _stop(procs, grace: float = 10.0) -> None:
-    for p in procs:
-        if p.poll() is None:
-            p.send_signal(signal.SIGTERM)
-    t_end = time.monotonic() + grace
-    for p in procs:
-        try:
-            p.wait(timeout=max(t_end - time.monotonic(), 0.1))
-        except subprocess.TimeoutExpired:
-            p.kill()
-            p.wait()
-
-
 def launch(script: str, script_args: List[str], nproc_per_node: int = 1,
            ips: str = "127.0.0.1", start_port: Optional[int] = None,
            backend: Optional[str] = None, node_rank: Optional[int] = None,
@@ -119,19 +107,10 @@ def launch(script: str, script_args: List[str], nproc_per_node: int = 1,
            monitor: bool = None, ctl: str = None,
            deadline: Optional[float] = None) -> int:
     """Start this host's ranks (``node_rank`` of ``ips``, default
-    ``PADDLE_NODE_RANK`` or 0) and watch them. Returns 0 when all exit 0,
-    else the first failure's exit code (``HUNG_RC`` at the deadline)."""
-    for name, value in (("elastic_retries", elastic_retries or None),
-                        ("watchdog_timeout", watchdog_timeout),
-                        ("reshard", None if reshard in (None, "off")
-                         else reshard),
-                        ("reshard_quorum", reshard_quorum),
-                        ("monitor", monitor), ("ctl", None if ctl in
-                                               (None, "off") else ctl)):
-        if value is not None:
-            raise NotImplementedError(
-                f"launch({name}={value!r}): the elastic launcher is not "
-                "ported yet, ROADMAP queue A item 7")
+    ``PADDLE_NODE_RANK`` or 0) and watch them through
+    ``elastic.ElasticManager``. Returns 0 when all exit 0 (ranks a
+    quorum-holding reshard retired included), else the first failure's
+    exit code (``HUNG_RC`` at the deadline or after a watchdog kill)."""
     if node_rank is None:
         node_rank = int(os.environ.get("PADDLE_NODE_RANK", "0"))
     hosts = [h.strip() for h in ips.split(",") if h.strip()]
@@ -140,54 +119,14 @@ def launch(script: str, script_args: List[str], nproc_per_node: int = 1,
             f"node_rank {node_rank} out of range for {len(hosts)} hosts")
     envs = build_cluster_env(nproc_per_node, ips=ips, start_port=start_port)
     lo = node_rank * nproc_per_node
-    envs = envs[lo:lo + nproc_per_node]
-    log_dir = log_dir or os.environ.get("PADDLE_LOG_DIR")
-    own_sync = not os.environ.get("PADDLE_COLL_SYNC_DIR")
-    sync_dir = tempfile.mkdtemp(prefix="paddle_coll_sync_") if own_sync \
-        else os.environ["PADDLE_COLL_SYNC_DIR"]
-    procs, logs = [], []
-    try:
-        for env in envs:
-            env["PADDLE_COLL_SYNC_DIR"] = sync_dir
-            if backend:
-                env["PADDLE_DISTRI_BACKEND"] = backend
-            if coll_timeout is not None:
-                env["PADDLE_COLL_TIMEOUT"] = str(coll_timeout)
-            out = None
-            if log_dir:
-                os.makedirs(log_dir, exist_ok=True)
-                env["PADDLE_COLL_DEBUG_DIR"] = log_dir
-                out = open(os.path.join(
-                    log_dir, f"workerlog.{env['PADDLE_TRAINER_ID']}"), "w")
-                logs.append(out)
-            procs.append(subprocess.Popen(
-                [sys.executable, "-u", script] + list(script_args), env=env,
-                stdout=out, stderr=subprocess.STDOUT if out else None))
-        t_end = None if deadline is None else time.monotonic() + deadline
-        while True:
-            codes = [p.poll() for p in procs]
-            bad = [(i, c) for i, c in enumerate(codes) if c not in (None, 0)]
-            if bad:
-                rank, rc = bad[0]
-                print(f"paddle_tpu_torch.launch: rank {lo + rank} exited "
-                      f"with code {rc}; stopping the job", file=sys.stderr,
-                      flush=True)
-                _stop(procs)
-                return rc
-            if all(c == 0 for c in codes):
-                return 0
-            if t_end is not None and time.monotonic() > t_end:
-                print(f"paddle_tpu_torch.launch: deadline {deadline:g} s "
-                      "passed; killing the job", file=sys.stderr, flush=True)
-                _stop(procs, grace=2.0)
-                return HUNG_RC
-            time.sleep(0.1)
-    finally:
-        _stop(procs, grace=2.0)
-        for f in logs:
-            f.close()
-        if own_sync:
-            shutil.rmtree(sync_dir, ignore_errors=True)
+    mgr = ElasticManager(
+        script, list(script_args), envs[lo:lo + nproc_per_node],
+        backend=backend, max_restarts=int(elastic_retries),
+        watchdog_timeout=watchdog_timeout, log_dir=log_dir,
+        coll_timeout=coll_timeout, reshard=reshard,
+        reshard_quorum=reshard_quorum, monitor=monitor, controller=ctl,
+        deadline=deadline)
+    return mgr.run()
 
 
 def main(argv=None):
@@ -213,6 +152,29 @@ def main(argv=None):
                              "ranks' comm monitor")
     parser.add_argument("--deadline", type=float, default=None,
                         help="kill the job after this many seconds")
+    parser.add_argument("--elastic_retries", type=int, default=0,
+                        help="relaunch the whole job up to N times per "
+                             "rolling PADDLE_ELASTIC_WINDOW after a failure")
+    parser.add_argument("--watchdog_timeout", type=float, default=None,
+                        help="seconds without a rank heartbeat before the "
+                             "watchdog puts it down (default: "
+                             "$PADDLE_WATCHDOG_TIMEOUT, 0 = off)")
+    parser.add_argument("--reshard", type=str, default=None,
+                        choices=("off", "shrink", "shrink_expand"),
+                        help="turn a quorum-holding rank loss into an "
+                             "in-job reshard notice (default: "
+                             "$PADDLE_RESHARD_MODE or off)")
+    parser.add_argument("--reshard_quorum", type=float, default=None,
+                        help="least surviving share for an in-job reshard "
+                             "(default: $PADDLE_RESHARD_QUORUM or 0.5)")
+    parser.add_argument("--monitor", type=str, default=None,
+                        choices=("on", "off"),
+                        help="the embedded fleet monitor: 'on' raises "
+                             "(ROADMAP queue A item 8)")
+    parser.add_argument("--ctl", type=str, default=None,
+                        choices=("off", "dryrun", "live"),
+                        help="the co-tenancy controller: anything but "
+                             "'off' raises (ROADMAP queue A item 8)")
     parser.add_argument("script", type=str)
     parser.add_argument("script_args", nargs=argparse.REMAINDER)
     args = parser.parse_args(argv)
@@ -220,7 +182,12 @@ def main(argv=None):
         args.script, args.script_args, nproc_per_node=args.nproc_per_node,
         ips=args.ips, start_port=args.start_port, backend=args.backend,
         node_rank=args.node_rank, log_dir=args.log_dir,
-        coll_timeout=args.coll_timeout, deadline=args.deadline))
+        coll_timeout=args.coll_timeout, deadline=args.deadline,
+        elastic_retries=args.elastic_retries,
+        watchdog_timeout=args.watchdog_timeout, reshard=args.reshard,
+        reshard_quorum=args.reshard_quorum,
+        monitor=None if args.monitor is None else args.monitor == "on",
+        ctl=args.ctl))
 
 
 if __name__ == "__main__":

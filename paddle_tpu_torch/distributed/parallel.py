@@ -247,11 +247,26 @@ class DataParallel(Layer):
         self._bucket_mb = float(comm_buffer_size_MB)
         self._sync = True
         self._queued = False
+        self._hooked = False
         if self.group.nranks > 1:
             self.sync_params_buffers()
-            for p in layers.parameters():
+            self._hook()
+
+    def _hook(self) -> None:
+        if not self._hooked:
+            self._hooked = True
+            for p in self._layers.parameters():
                 if p.requires_grad:
                     p.register_post_accumulate_grad_hook(self._on_grad)
+
+    def _follow_world(self) -> None:
+        """After ``comm.follow_world`` gave the wrapper its group in a
+        rebuilt world: no reduction is pending (a step whose collective
+        failed may have queued one), and a group above one rank gets the
+        reduction hooks (a wrapper made at one rank had none)."""
+        self._queued = False
+        if self.group.nranks > 1:
+            self._hook()
 
     @torch.no_grad()
     def sync_params_buffers(self) -> None:

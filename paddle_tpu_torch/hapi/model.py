@@ -13,9 +13,19 @@ through ``framework.io``, so a checkpoint of the JAX package's ``Model``
 resumes here.
 
 Raised as in the JAX package: ``prepare(amp_configs=)`` (AMP comes from
-``fleet``'s strategy) and ``train_batch(update=False)``. A launch of
-several trainers raises in ``prepare``, as the port's ``comm`` does
-(ROADMAP queue A item 7).
+``fleet``'s strategy) and ``train_batch(update=False)``.
+
+Across trainers (the reference's ``prepare_distributed_context``, the JAX
+package's ``hapi/model.py:91-120``): under a world of more than one
+trainer, ``prepare`` wraps the network in ``DataParallel`` (the mesh's dp
+group), and the batch engines give each rank its dp share of a batch whose
+rows the dp degree divides, in every element but the scalars (other
+batches, and ``predict``'s, run whole on every rank: one decision a batch,
+which the loss mean and the metrics' gather follow). A rank holds only
+its share, where the JAX package's arrays are global, so the
+logged loss is the dp group's mean and the metrics read every rank's
+outputs and labels, gathered over dp: the numbers of the whole batch, as
+in the JAX package.
 
 Departure: a metric with several names (``Accuracy(topk=(1, 5))`` names
 ``acc_top1`` and ``acc_top5``) logs one value under each name, as upstream
@@ -86,6 +96,7 @@ class Model:
         self._train_step: Optional[TrainStep] = None
         self._save_dir = None
         self._prepared = False
+        self._dp_model = None
 
     # -- setup ---------------------------------------------------------------
     def prepare(self, optimizer=None, loss=None, metrics=None,
@@ -108,14 +119,62 @@ class Model:
                 "amp via Model.prepare: use fleet DistributedStrategy.amp "
                 "(the TrainStep consumes it)"
             )
-        if comm.get_world_size() > 1:
-            raise NotImplementedError(
-                "Model.prepare with several trainers: hapi's data-parallel "
-                "Model is not ported yet, ROADMAP queue A item 7 (use "
-                "DataParallel and jit.TrainStep)")
+        # prepare_distributed_context (model.py:165): several trainers
+        # train the network data-parallel
+        from ..distributed.parallel import DataParallel
+
+        if comm.is_initialized() and comm.get_world_size() > 1 \
+                and not isinstance(self.network, DataParallel):
+            self._dp_model = DataParallel(self.network)
         self._train_step = None
         self._prepared = True
         return self
+
+    def _net(self):
+        return self._dp_model if self._dp_model is not None else self.network
+
+    def _dp(self):
+        """The dp group batches shard over, or None."""
+        g = self._dp_model.group if self._dp_model is not None else None
+        return g if g is not None and g.nranks > 1 else None
+
+    def _split(self, inputs, labels):
+        """The batch's inputs and labels as ``Tensor``s, and the dp group
+        they are sharded over: this rank's dp share of every element but
+        the scalars when the dp degree divides all their rows, else the
+        whole batch and None (the module's notes)."""
+        ins = [_tensor(x) for x in _to_list(inputs)]
+        lbls = [_tensor(y) for y in _to_list(labels)]
+        g = self._dp()
+        if g is None or any(t.ndim > 0 and t.shape[0] % g.nranks
+                            for t in ins + lbls):
+            return ins, lbls, None
+        share = self._dp_model.shard_input
+        return ([share(t) if t.ndim > 0 else t for t in ins],
+                [share(t) if t.ndim > 0 else t for t in lbls], g)
+
+    @staticmethod
+    def _gather(xs, g):
+        """``xs`` (this rank's rows of a batch sharded over ``g``)
+        gathered back to the whole batch; left as they are when ``g`` is
+        None."""
+        from ..distributed import collective
+
+        if g is None:
+            return xs
+        return [Tensor._wrap(collective.all_gather_(
+            _tensor(x)._data, g).flatten(0, 1)) for x in xs]
+
+    @staticmethod
+    def _mean_loss(loss, g):
+        """The loss of a batch sharded over ``g`` averaged over dp (the
+        whole batch's mean for a mean-reduced loss)."""
+        from ..distributed import collective
+
+        if g is None:
+            return loss
+        t = _tensor(loss)._data.detach().float().reshape(1).clone()
+        return collective.all_reduce_(t, collective.ReduceOp.AVG, g)[0]
 
     def _loss_fn(self, outs, *labels):
         if self._loss is None:
@@ -138,17 +197,19 @@ class Model:
             )
         if self._train_step is None:
             self._train_step = TrainStep(
-                self.network, self._loss_fn, self._optimizer,
+                self._net(), self._loss_fn, self._optimizer,
                 return_outputs=bool(self._metrics),
             )
-        inputs = [_tensor(x) for x in _to_list(inputs)]
-        labels = [_tensor(y) for y in _to_list(labels)]
+        inputs, labels, g = self._split(inputs, labels)
         self.network.train()
         if self._metrics:
-            # metrics come from the forward the loss used
+            # metrics come from the forward the loss used (the step's
+            # loss is the dp group's mean already)
             loss, outs = self._train_step(inputs, labels)
             metrics = [float(loss.reshape(-1)[0])]
-            metrics += self._update_metrics(wrap_like(outs), labels)
+            metrics += self._update_metrics(
+                self._gather(_to_list(wrap_like(outs)), g),
+                self._gather(labels, g))
         else:
             loss = self._train_step(inputs, labels)
             metrics = [float(loss.reshape(-1)[0])]
@@ -166,19 +227,19 @@ class Model:
 
     def eval_batch(self, inputs, labels=None):
         self.network.eval()
-        inputs = [_tensor(x) for x in _to_list(inputs)]
-        labels = [_tensor(y) for y in _to_list(labels)]
+        inputs, labels, g = self._split(inputs, labels)
         with torch.no_grad():
-            outs = self.network(*inputs)
-            loss = self._loss_fn(outs, *labels)
+            outs = self._net()(*inputs)
+            loss = self._mean_loss(self._loss_fn(outs, *labels), g)
         metrics = [float(_numpy(loss).reshape(-1)[0])]
-        metrics += self._update_metrics(outs, labels)
+        metrics += self._update_metrics(
+            self._gather(_to_list(outs), g), self._gather(labels, g))
         return metrics if len(metrics) > 1 else metrics[0]
 
     def predict_batch(self, inputs):
         self.network.eval()
         with torch.no_grad():
-            outs = self.network(*[_tensor(x) for x in _to_list(inputs)])
+            outs = self._net()(*[_tensor(x) for x in _to_list(inputs)])
         return [_numpy(o) for o in _to_list(outs)]
 
     # -- loops ---------------------------------------------------------------

@@ -54,8 +54,15 @@ gradient shard where the reduction scattered one. With
 step's AMP and quantized-matmul scopes, and its forward kernels launch
 twice. A ``localsgd`` strategy makes ``TrainStep(...)`` return a
 ``fleet.localsgd.LocalSGDStep``, refused with amp or recompute and with
-the options that reduce or shard gradients. ``elastic_reshard``, the one
-option of ``NOT_PORTED``, raises ``NotImplementedError``.
+the options that reduce or shard gradients. ``elastic_reshard`` is read
+by ``distributed.resharding.ElasticStep``, which wraps the step; after it
+rebuilds the world, :meth:`TrainStep.rebind_world` (the counterpart of the
+JAX package's ``rebind_mesh``) points everything that caches a group at
+the new one: ``DataParallel``'s group, the tensor-parallel layers' and
+shards' mp groups, the step's world reduce (the guard's verdict, the
+loss's mean), ZeRO's shards (re-planned for the new dp) and the explicit
+dcn hop. The eager step has no compiled program to drop: a reshard costs
+no recompile, where the JAX package's costs exactly one.
 
 The guard (``utils/train_guard.py``) runs unless ``PADDLE_GUARD_MODE=off``.
 Each step computes its health word and folds it into the guard's state
@@ -306,12 +313,6 @@ class TrainStep:
             raise NotImplementedError(
                 "TrainStep: the optimizer's strategy must be a "
                 f"fleet.DistributedStrategy, got {type(strategy).__name__}")
-        unported = strategy.not_ported()
-        if unported:
-            raise NotImplementedError(
-                f"TrainStep: strategy options {unported} are not ported yet "
-                "(ROADMAP queue A item 7, part 6: the elastic launcher and "
-                "resharding)")
         if strategy.localsgd:
             if strategy.amp or strategy.recompute:
                 raise NotImplementedError(
@@ -538,6 +539,99 @@ class TrainStep:
         if self._ret_out:
             return loss.detach(), _detach(outs)
         return loss.detach()
+
+    # -- the elastic reshard's seams (distributed/resharding.py) ---------
+    #: why this step cannot be resharded (None: it can)
+    _reshard_refusal = None
+
+    def _host_counters(self) -> tuple:
+        """The step's host-side counters (the optimizer's step count and
+        the calls): what a returning rank takes from a survivor, and part
+        of :meth:`_retry_point`."""
+        return (self.opt._step_count, self._n_steps)
+
+    def _restore_host_counters(self, counters) -> None:
+        self.opt._step_count, self._n_steps = counters
+
+    def _retry_point(self) -> tuple:
+        """All that a call changes before its optimizer write: the host
+        counters, the buffers the forward mutates in place (BatchNorm's
+        running statistics), every random stream and the guard's capture
+        (its step, batch ring and sampler counts). :meth:`_rewind` puts
+        them back, so a step whose collective failed runs again from the
+        state it started with."""
+        from ..core import random as _rnd
+
+        g = self._guard
+        guard = None if g is None else (
+            g._step, list(g._ring), g._sampler._examples,
+            g._sampler._tokens)
+        return (self._host_counters(),
+                [b.detach().clone() for b in self._buffers],
+                _rnd.get_states(), guard)
+
+    def _rewind(self, point) -> None:
+        from ..core import random as _rnd
+
+        counters, bufs, rng, guard = point
+        self._restore_host_counters(counters)
+        with torch.no_grad():
+            for b, old in zip(self._buffers, bufs):
+                b.copy_(old)
+        _rnd.set_states(rng)
+        if guard is not None:
+            g = self._guard
+            g._step, ring, g._sampler._examples, g._sampler._tokens = guard
+            g._ring.clear()
+            g._ring.extend(ring)
+
+    def _guard_host_state(self):
+        """The guard's host counters (None without a guard): what a
+        returning rank takes from a survivor."""
+        g = self._guard
+        if g is None:
+            return None
+        return {"step": g._step, "last": list(g._last),
+                "last_step": g._last_step, "reported": g._reported_bad,
+                "rollbacks": g.rollbacks}
+
+    def _set_guard_host_state(self, state) -> None:
+        g = self._guard
+        if g is None or state is None:
+            return
+        g._pending = None
+        g._step, g._last = state["step"], list(state["last"])
+        g._last_step, g._reported_bad = state["last_step"], state["reported"]
+        g.rollbacks = state["rollbacks"]
+
+    def check_rebind(self, dims) -> None:
+        """Refuse, before the world changes, a reshard to mesh degrees
+        ``dims`` that this step cannot follow: a ``_reshard_refusal``
+        (``LocalSGDStep``) raises it; the explicit dcn hop on degrees
+        without a dcn axis above 1 raises ``ValueError``, as the JAX
+        package's ``rebind_mesh`` does."""
+        if self._reshard_refusal:
+            raise NotImplementedError(self._reshard_refusal)
+        if self._async_dcn and int(dims.get("dcn", 1)) <= 1:
+            raise ValueError(
+                "the explicit dcn grad reduction needs a dcn axis (> 1) on "
+                "the resharded mesh — the planner must keep the "
+                "hierarchical factoring")
+
+    def rebind_world(self) -> None:
+        """Follow a world that ``comm.rebuild_world`` rebuilt (the module's
+        notes; :meth:`check_rebind` first): every group the model caches is
+        replaced by its counterpart in the new world, ZeRO's shards are
+        planned again over the new dp group (at stage 3 the parameters
+        become their new shards), and the step's world reduce and explicit
+        dcn hop are made again."""
+        from ..distributed import comm
+
+        comm.follow_world(self.model, self._params)
+        self._hop = None
+        self._world_reduce = self._world_plan(self.model, self._ret_out)
+        if hasattr(self.opt, "_apply_zero_padding"):
+            self.opt._apply_zero_padding(self._params)
 
     def _after_rollback(self) -> None:
         """The guard restored a checkpoint (parameters and optimizer, and

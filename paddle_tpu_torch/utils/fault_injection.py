@@ -5,7 +5,7 @@
 
     site:action:nth[:arg]
 
-- ``site``   a fault point. The port instruments nine: ``serve`` (each
+- ``site``   a fault point. The port instruments ten: ``serve`` (each
   router tick, each mailbox-worker poll, each router submit and each
   prefix-cache lookup that a ``prefix_stale`` / ``adapter_missing`` rule
   names), ``mon`` (each telemetry-bus row write), ``io.save`` (before
@@ -13,10 +13,11 @@
   replace, where ``corrupt`` bites), ``io.load``, ``acp.save`` (before an
   auto-checkpoint snapshot), ``epoch`` (on entering each
   ``TrainEpochRange`` epoch), ``grad`` (once per ``jit.TrainStep``
-  call) and ``coll`` (each collective, inside the comm monitor's
-  watch). A rule for a site the JAX package instruments and the port does
-  not yet (``rank``, ``ctl``) raises ``NotImplementedError``
-  naming the ROADMAP item that brings it; so does any other site.
+  call), ``coll`` (each collective, inside the comm monitor's
+  watch) and ``rank`` (once per ``resharding.ElasticStep`` step-boundary
+  check). A rule for a site the JAX package instruments and the port does
+  not yet (``ctl``) raises ``NotImplementedError`` naming the ROADMAP
+  item that brings it; so does any other site.
 - ``action`` ``fail`` (raise :class:`InjectedFault`, an IOError), ``kill``
   (``os._exit(arg)``, default 17), ``hang`` (at ``serve``: an event, the
   targeted worker -- ``arg`` = its rank -- stops draining its mailbox but
@@ -38,10 +39,15 @@
   means ``io.save.post``, so it corrupts a complete file), or
   ``desync`` (``coll`` only: arm a flag the comm monitor consumes to
   mutate this rank's op fingerprint; ``arg`` = the rank it fires on,
-  default 0). The other actions of the grammar (``depart``/``return``,
-  ``flap``/``die``/``lend_crash`` and the serve event ``lent_worker_crash``)
-  parse as in the JAX package and then raise ``NotImplementedError``: their
-  sites are not instrumented here.
+  default 0), or ``depart`` / ``return`` (``rank`` only: arm a rank
+  departure or return notice that ``ElasticStep`` folds in at its next
+  boundary; ``arg`` = the rank, in the world's first numbering, default
+  None: the consumer takes the highest live rank, so ``rank:depart:3:1,
+  rank:return:6:1`` loses rank 1 at the third boundary and brings it back
+  at the sixth; events are armed in the order their rules fire). The
+  other actions of the grammar (``flap``/``die``/``lend_crash`` and the
+  serve event ``lent_worker_crash``) parse as in the JAX package and then
+  raise ``NotImplementedError``: their sites are not instrumented here.
 - ``nth``    the 1-based per-process hit count of that site at which the
   rule fires.
 - ``arg``    the action's parameter.
@@ -59,9 +65,9 @@ from typing import Dict, List, Optional
 
 __all__ = ["InjectedFault", "FaultInjector", "fault_point", "consume_flag",
            "has_site", "consume_grad_action", "GRAD_POISONS",
-           "consume_serve_events", "consume_serve_matching",
-           "consume_mon_action", "LEND_PHASES", "RECLAIM_PHASES",
-           "PORTED_SITES", "reset"]
+           "consume_rank_events", "consume_serve_events",
+           "consume_serve_matching", "consume_mon_action", "LEND_PHASES",
+           "RECLAIM_PHASES", "PORTED_SITES", "reset"]
 
 _SPEC_ENV = "PADDLE_FAULT_SPEC"
 _ACTIONS = ("fail", "hang", "kill", "corrupt", "desync", "nan", "inf",
@@ -92,11 +98,10 @@ _ACP_SITES = ("acp.save", "epoch")
 
 #: the sites the port has fault points for
 PORTED_SITES = _SERVE_SITES + _MON_SITES + _IO_SITES + _ACP_SITES \
-    + _GRAD_SITES + _DESYNC_SITES
+    + _GRAD_SITES + _DESYNC_SITES + _RANK_SITES
 #: the JAX package's other sites -> the ROADMAP queue A item that ports
 #: the code they sit in
 _SITE_ITEMS = {
-    "rank": "7 (distributed, resharding)",
     "ctl": "8 (the fleet controller)",
 }
 #: serve-site events of planes the port does not have yet
@@ -134,6 +139,7 @@ class FaultInjector:
         self.flags: set = set()  # armed markers ("grad:nan" ...)
         self.serve_events: List = []  # armed (action, arg|None), ordered
         self.mon_events: List = []  # armed drop/dup bus-line actions
+        self.rank_events: List = []  # armed (action, rank|None), ordered
         for item in filter(None, (s.strip() for s in spec.split(","))):
             parts = item.split(":")
             if len(parts) < 3:
@@ -220,6 +226,13 @@ class FaultInjector:
             while time.monotonic() < deadline:
                 time.sleep(min(1.0, deadline - time.monotonic() + 0.01))
             return
+        if r.action in _RANK_ACTIONS:
+            rank = int(r.arg) if r.arg else None
+            print(f"fault_injection: arming rank:{r.action}"
+                  f"{'' if rank is None else f':{rank}'} at {tag}",
+                  file=sys.stderr, flush=True)
+            self.rank_events.append((r.action, rank))
+            return
         if r.action in _SERVE_ACTIONS:
             arg = int(r.arg) if r.arg else None
             print(f"fault_injection: arming serve:{r.action}"
@@ -298,6 +311,18 @@ def consume_grad_action() -> int:
         if consume_flag(f"grad:{name}"):
             return code
     return 0
+
+
+def consume_rank_events() -> List:
+    """Fire the ``rank`` site for this step-boundary check and drain the
+    armed rank events: ordered ``(action, rank)`` pairs (``rank`` None when
+    the rule named none: the consumer takes the highest live rank)."""
+    fault_point("rank")
+    inj = _active
+    if inj is None or not inj.rank_events:
+        return []
+    out, inj.rank_events = inj.rank_events, []
+    return out
 
 
 def consume_serve_events() -> List:

@@ -1403,3 +1403,282 @@ def case_localsgd(rank, inputs, tmpdir):
         out[k] = {"losses": losses, "w": ws,
                   "state_w": _np(net.state_dict()["weight"])}
     return out
+
+
+# ---------------------------------------------------------------------------
+# elastic resharding and hapi across trainers
+# (tests/test_torch_resharding.py, tests/test_torch_elastic.py)
+# ---------------------------------------------------------------------------
+
+
+def reshard_net():
+    """The JAX package's resharding tests' net: Linear(16, 32), ReLU,
+    Linear(32, 10)."""
+    import paddle_tpu_torch as pt
+
+    return pt.nn.Sequential(pt.nn.Linear(16, 32), pt.nn.ReLU(),
+                            pt.nn.Linear(32, 10))
+
+
+def _ce_loss(o, y):
+    import paddle_tpu_torch as pt
+
+    return pt.nn.functional.cross_entropy(o, y)
+
+
+def _io_loads():
+    from paddle_tpu_torch.utils import fault_injection as FI
+
+    return FI._injector()._counts.get("io.load", 0)
+
+
+def _whole_world(rank, tmpdir, case):
+    """Every rank back in one flat world of the first ranks (after a case
+    whose reshard left some out), with the fault spec and the bus file
+    unset."""
+    from paddle_tpu_torch.distributed import comm
+    from paddle_tpu_torch.utils import fault_injection as FI
+
+    for k in ("PADDLE_FAULT_SPEC", "PADDLE_OBS_BUS_FILE"):
+        os.environ.pop(k, None)
+    FI.reset()
+    comm.rebuild_world(range(comm._state.base[1]))
+
+
+def _elastic_run(estep, data, events=None):
+    """``estep`` over ``data``; ``events`` maps a step index to
+    ``("depart"|"return", ranks)``, called on every rank before that step.
+    Returns the losses (None while this rank is out) and the dp degree of
+    each step."""
+    losses, dps = [], []
+    for i, (x, y) in enumerate(data):
+        ev = (events or {}).get(i)
+        if ev is not None:
+            getattr(estep, f"notify_{ev[0]}")(ev[1])
+        loss = estep(estep.shard_input(x), estep.shard_input(y))
+        losses.append(None if loss is None else float(loss))
+        dps.append(estep.dp_size())
+    return losses, dps
+
+
+def case_reshard_api(rank, inputs, tmpdir):
+    """dp4 -> dp3 -> dp4 through ``ElasticStep``'s API (rank 2 departs
+    before step 3 and returns before step 6), Adam through ``TrainStep``:
+    losses, the dp degree a step, the ``reshard`` rows (the bus too), the
+    parameters and Adam's moments at the end, and ``io.load`` reads."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import comm, resharding
+
+    os.environ["PADDLE_OBS_BUS_FILE"] = os.path.join(
+        tmpdir, f"telemetry.rank{rank}.jsonl")
+    comm.init_hybrid_mesh(dp=4)
+    net = reshard_net()
+    net.set_state_dict(inputs["rs_init"])
+    opt = pt.optimizer.Adam(learning_rate=1e-3, parameters=net.parameters())
+    estep = resharding.ElasticStep(pt.jit.TrainStep(net, _ce_loss, opt),
+                                   policy="shrink_expand")
+    loads0 = _io_loads()
+    losses, dps = _elastic_run(estep, inputs["rs_data"],
+                               {3: ("departure", 2), 6: ("return", 2)})
+    out = {"losses": losses, "dps": dps, "rows": estep.rows,
+           "io_loads": _io_loads() - loads0, "reshards": estep.reshards,
+           "params": {k: _np(v) for k, v in net.state_dict().items()},
+           "moments": [_np(v) for _, v in sorted(
+               opt._accumulators["moment1"].items())]}
+    _whole_world(rank, tmpdir, "api")
+    return out
+
+
+def case_reshard_fault(rank, inputs, tmpdir):
+    """dp2 x mp2 through fleet (``strategy.elastic_reshard="shrink"``, Adam)
+    on ``lars_mlp``: ``PADDLE_FAULT_SPEC=rank:depart:2:3`` takes rank 3 at
+    the second boundary, and rank 2 (its dp row) with it: dp1 x mp2.
+    Losses, the dp degree a step, the rows, the full parameters."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import fleet, resharding
+    from paddle_tpu_torch.distributed import meta_parallel as M
+    from paddle_tpu_torch.utils import fault_injection as FI
+
+    os.environ["PADDLE_FAULT_SPEC"] = "rank:depart:2:3"
+    FI.reset()
+    _strategy_world(dict(mp=2), elastic_reshard="shrink")
+    net = lars_mlp()
+    net.set_state_dict(inputs["rs_tp_init"])
+    model = fleet.distributed_model(net)
+    opt = fleet.distributed_optimizer(pt.optimizer.Adam(
+        learning_rate=1e-2, parameters=net.parameters()))
+    estep = resharding.ElasticStep(pt.jit.TrainStep(model, _ce_loss, opt))
+    losses, dps = _elastic_run(estep, inputs["rs_tp_data"])
+    out = {"policy": estep.policy, "losses": losses, "dps": dps,
+           "rows": estep.rows, "out": estep.out,
+           "params": M.full_state_dict(net) if not estep.out else None}
+    _whole_world(rank, tmpdir, "fault")
+    return out
+
+
+def case_reshard_zero(rank, inputs, tmpdir):
+    """ZeRO-1 at dp4 (``strategy.elastic_reshard="shrink"``): a departure
+    is uncovered, so ``CoverageError`` without a fallback; with one, the
+    checkpoint rank 0 wrote after step 3 is restored at logical shapes and
+    re-sharded over dp3 for steps 4 and 5. Losses, the moments' shapes,
+    ``io.load`` reads."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import collective, fleet, resharding
+    from paddle_tpu_torch.framework import io as fio
+
+    out = {}
+    for fallback in (False, True):
+        _strategy_world(sharding=True, sharding_configs={"stage": 1},
+                        elastic_reshard="shrink")
+        net = reshard_net()
+        net.set_state_dict(inputs["rs_init"])
+        model = fleet.distributed_model(net)
+        opt = fleet.distributed_optimizer(pt.optimizer.Adam(
+            learning_rate=1e-3, parameters=net.parameters()))
+        ck = os.path.join(tmpdir, "zero_ck.pdparams")
+
+        def restore():
+            st = fio.load(ck)
+            model.set_state_dict(st["m"])
+            opt.set_state_dict(st["o"])
+
+        estep = resharding.ElasticStep(
+            pt.jit.TrainStep(model, _ce_loss, opt),
+            fallback=restore if fallback else None)
+        data = inputs["rs_zero_data"]
+        losses, _ = _elastic_run(estep, data[:3])
+        if not fallback:
+            estep.notify_departure(3)
+            try:
+                estep._poll_notices()
+                out["error"] = None
+            except resharding.CoverageError as e:
+                out["error"] = str(e)
+            continue
+        st = {"m": model.state_dict(), "o": opt.state_dict()}
+        if rank == 0:
+            fio.save(st, ck)
+        collective.barrier()
+        loads0 = _io_loads()
+        more, dps = _elastic_run(estep, data[3:], {0: ("departure", 3)})
+        out.update(losses=losses + more, dps=dps, rows=estep.rows,
+                   io_loads=_io_loads() - loads0,
+                   moment_shapes=[tuple(v.shape) for _, v in sorted(
+                       opt._inner._accumulators["moment1"].items())])
+    _whole_world(rank, tmpdir, "zero")
+    return out
+
+
+def case_reshard_batch(rank, inputs, tmpdir):
+    """The batch policies at dp4: ``batch="shrink"`` keeps each rank's
+    first share (12 rows: 3 a rank, 9 over dp3 after rank 0 departs);
+    ``batch="rescale"`` keeps the global batch (12 over dp2 after ranks 0
+    and 1 depart) and refuses one that the new dp does not divide (8 rows
+    over dp3)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import comm, resharding
+
+    def elastic(**kw):
+        comm._mesh = None
+        comm.init_hybrid_mesh(dp=4)
+        net = reshard_net()
+        net.set_state_dict(inputs["rs_init"])
+        opt = pt.optimizer.Adam(learning_rate=1e-3,
+                                parameters=net.parameters())
+        return resharding.ElasticStep(pt.jit.TrainStep(net, _ce_loss, opt),
+                                      policy="shrink", **kw)
+
+    def rows(t):
+        return None if t is None else int(t.shape[0])
+
+    x, y = inputs["rs_data"][0]
+    out = {}
+    e = elastic(batch="shrink")
+    e(e.shard_input(x), e.shard_input(y))
+    e.notify_departure(0)
+    e._poll_notices()
+    out["shrink"] = (rows(e.shard_input(x)), e.dp_size())
+    _whole_world(rank, tmpdir, "batch")
+    e = elastic()
+    e(e.shard_input(x), e.shard_input(y))
+    e.notify_departure([0, 1])
+    e._poll_notices()
+    out["rescale"] = (rows(e.shard_input(x)), e.dp_size())
+    _whole_world(rank, tmpdir, "batch")
+    e = elastic(quorum=0.1)
+    e.shard_input(x[:8])
+    e.notify_departure(0)
+    e._poll_notices()
+    try:
+        e.shard_input(x[:8])
+        out["indivisible"] = None
+    except ValueError as err:
+        out["indivisible"] = str(err)
+    _whole_world(rank, tmpdir, "batch")
+    return out
+
+
+def case_hapi_fit(rank, inputs, tmpdir):
+    """hapi's ``Model`` across the world: ``prepare`` wraps ``reshard_net``
+    in ``DataParallel``; ``fit`` (Adam, ``CrossEntropyLoss``, ``Accuracy``)
+    over the global batches, each rank on its dp share, then ``evaluate``:
+    the logged loss and accuracy a step, ``evaluate``'s numbers and the
+    parameters."""
+    import paddle_tpu_torch as pt
+
+    net = reshard_net()
+    net.set_state_dict(inputs["hapi_init"])
+    model = pt.Model(net)
+    model.prepare(pt.optimizer.Adam(learning_rate=1e-2,
+                                    parameters=net.parameters()),
+                  pt.nn.CrossEntropyLoss(), pt.metric.Accuracy())
+    logs = []
+
+    class Record(pt.hapi.callbacks.Callback):
+        def on_train_batch_end(self, step, lg=None):
+            logs.append({k: float(np.ravel(v)[0]) for k, v in lg.items()
+                         if k in ("loss", "acc")})
+
+    model.fit(inputs["hapi_data"], epochs=1, verbose=0, shuffle=False,
+              callbacks=[Record()])
+    res = model.evaluate(inputs["hapi_data"], verbose=0)
+    return {"wrapped": model._dp_model is not None, "logs": logs,
+            "eval": {k: float(np.ravel(v)[0]) for k, v in res.items()},
+            "params": {k: _np(v) for k, v in net.state_dict().items()}}
+
+
+def case_reshard_refusals(rank, inputs, tmpdir):
+    """Reshards a step cannot follow raise on every rank before the world
+    changes: ``ElasticStep`` over ``LocalSGDStep`` at dp4
+    (``NotImplementedError``: the JAX package's ``rebind_mesh`` refuses
+    LocalSGD) and, at dcn2 x ici2 under ``async_dcn_allreduce``, a
+    departure of dcn group 1 (``ValueError``: the explicit dcn hop needs a
+    dcn axis, as in the JAX package)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import comm, fleet, resharding
+
+    out = {}
+    x, y = inputs["rs_data"][0]
+    for name, options, lost in (
+            ("localsgd", dict(localsgd=True,
+                              localsgd_configs={"k_steps": 2}), 1),
+            ("dcn", dict(hierarchical_allreduce=True,
+                         hierarchical_allreduce_inter_nranks=2,
+                         async_dcn_allreduce=True), [2, 3])):
+        _strategy_world(**options)
+        net = reshard_net()
+        net.set_state_dict(inputs["rs_init"])
+        inner = pt.optimizer.SGD if name == "localsgd" else pt.optimizer.Adam
+        opt = fleet.distributed_optimizer(inner(
+            learning_rate=0.1, parameters=net.parameters()))
+        estep = resharding.ElasticStep(
+            pt.jit.TrainStep(net, _ce_loss, opt), policy="shrink")
+        estep(estep.shard_input(x), estep.shard_input(y))
+        estep.notify_departure(lost)
+        try:
+            estep._poll_notices()
+            out[name] = None
+        except (NotImplementedError, ValueError) as e:
+            out[name] = f"{type(e).__name__}: {e}"
+        out[f"{name}_world"] = (comm.get_world_size(), estep.reshards)
+    return out

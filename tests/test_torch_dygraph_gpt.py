@@ -367,19 +367,18 @@ KNOWN_NAMESPACE_GAPS = {
     # item 7's MoE and auto_checkpoint: ported
     "incubate": set(),
     "incubate.checkpoint.auto_checkpoint": set(),
-    # item 8's training half: ported; the fleet monitor and the rank and
-    # controller fault sites wait for item 7
+    # item 8's training half and item 7's rank fault site: ported; the
+    # fleet monitor and the controller's fault site wait for item 8
     "profiler": set(),
     "hapi.callbacks": set(),
     "utils.train_guard": set(),
     "observability": {"FleetMonitor"},
     "observability.metrics": set(),
-    "utils.fault_injection": {"consume_rank_events", "consume_ctl_events"},
+    "utils.fault_injection": {"consume_ctl_events"},
     # item 6 (to_static, jit.save/load): ported
     "jit": set(),
-    "distributed": {
-        # item 7's later parts: resharding (the pipeline is ported)
-        "resharding"},
+    # item 7: ported, resharding last
+    "distributed": set(),
 }
 
 

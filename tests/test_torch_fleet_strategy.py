@@ -6,8 +6,9 @@ One process, on the same numpy weights and inputs in both packages:
   ``Linear(4, 4)`` (weights ``arange(16) / 10``, one step at lr 0.1 on
   ``[[1, 2, 3, 4]]``): ``gradient_merge`` k 2 leaves the weights, the
   ``lamb`` and ``lars`` swaps update as the JAX package's do, within 1e-6;
-  ``a_sync``, ``elastic_reshard``, ``sharding`` with ``hybrid_dp`` and a
-  wrong inner optimizer for ``lamb`` or ``lars`` raise.
+  ``a_sync``, ``sharding`` with ``hybrid_dp`` and a wrong inner optimizer
+  for ``lamb`` or ``lars`` raise; ``elastic_reshard`` is kept, and an
+  unknown policy raises in the ``ElasticStep`` that reads it.
 - Gradient merge, fused (``TrainStep``) and eager, on
   ``test_sharding_gm``'s ``_Net`` and ``TestGradientMerge`` programs;
   a step the guard skips adds nothing to the merge buffer or counter.
@@ -27,6 +28,7 @@ helpers.
 import io
 import os
 import signal
+import types
 from contextlib import redirect_stdout
 
 import numpy as np
@@ -125,7 +127,7 @@ def test_c6_eager_option_matches_reference(opt_name, flags, inner):
 
 @pytest.mark.parametrize("opt_name,flags,error,match", [
     ("SGD", dict(a_sync=True), NotImplementedError, "a_sync"),
-    ("SGD", dict(elastic_reshard="auto"), NotImplementedError, "part 6"),
+    ("SGD", dict(elastic_reshard="auto"), ValueError, "shrink_expand"),
     ("SGD", dict(sharding=True, sharding_configs={"hybrid_dp": True}),
      NotImplementedError, "hybrid_dp"),
     ("SGD", dict(lamb=True), ValueError, "lamb"),
@@ -134,8 +136,14 @@ def test_c6_eager_option_matches_reference(opt_name, flags, inner):
         "lars_inner"])
 def test_c6_refusals(opt_name, flags, error, match):
     for pkg in (jpaddle, pt):
-        if pkg is jpaddle and "elastic_reshard" in flags:
-            continue  # the JAX package runs it (ROADMAP part 6)
+        if "elastic_reshard" in flags:
+            # the optimizer keeps the policy as data in both packages; the
+            # ElasticStep that reads it refuses an unknown one
+            _, opt = _c6(pkg, opt_name, **flags)
+            with pytest.raises(error, match=match):
+                pkg.distributed.resharding.ElasticStep(
+                    types.SimpleNamespace(opt=opt))
+            continue
         with pytest.raises(error, match=match):
             _c6(pkg, opt_name, **flags)
         _fresh_process_state()

@@ -371,13 +371,40 @@ def test_refusals_match(lenet_weights, monkeypatch):
                               [np.zeros((1,), np.int64)], update=False)
         with pytest.raises(TypeError):
             model.prepare(metrics=[object()])
+    # several trainers train data-parallel (tests/test_torch_elastic.py);
+    # a world that was never set up trains alone, as in paddle_tpu
     monkeypatch.setenv("PADDLE_TRAINERS_NUM", "2")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        pt.Model(_lenet(pt, lenet_weights)).prepare()
+    model = pt.Model(_lenet(pt, lenet_weights))
+    model.prepare()
+    assert model._dp_model is None
     # ported: both callbacks construct as in paddle_tpu
     for pkg in PKGS.values():
         assert pkg.hapi.callbacks.TerminateOnPreempt().preempted is False
         assert pkg.hapi.callbacks.GuardCallback(max_skips=3).max_skips == 3
+
+
+@pytest.mark.parametrize("label_rows,sharded", [(4, True), (3, False)])
+def test_batch_shards_whole_or_not_at_all(label_rows, sharded, lenet_weights,
+                                          monkeypatch):
+    """Across trainers a batch shards over dp only when the dp degree
+    divides the rows of every element but the scalars; then each element
+    gives its share, else all stay whole and nothing is gathered (a dp2
+    group stands in for a world)."""
+    from types import SimpleNamespace
+
+    model = pt.Model(_lenet(pt, lenet_weights))
+    group = SimpleNamespace(nranks=2)
+    model._dp_model = SimpleNamespace(
+        group=group, shard_input=lambda t: t[: t.shape[0] // 2])
+    x = np.arange(4 * 3, dtype=np.float32).reshape(4, 3)
+    y = np.arange(label_rows, dtype=np.int64)
+    ins, lbls, g = model._split([x, np.float32(2.0)], [y])
+    assert (g is group) == sharded
+    assert [tuple(t.shape) for t in ins + lbls] == (
+        [(2, 3), (), (2,)] if sharded else [(4, 3), (), (label_rows,)])
+    if not sharded:
+        assert model._gather(lbls, g) is lbls
+        assert model._mean_loss(7.0, g) == 7.0
 
 
 def test_metrics_with_several_names_departure(mnist_home, lenet_weights):

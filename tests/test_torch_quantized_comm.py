@@ -281,19 +281,13 @@ def test_dgc_routes_to_the_quantized_policy():
 
 
 def test_strategy_options_leave_not_ported():
-    """Every strategy option is ported but ``elastic_reshard`` (ROADMAP
-    queue A item 7, part 6), which ``distributed_optimizer`` refuses."""
+    """Every strategy option is ported, ``elastic_reshard`` last (read by
+    ``resharding.ElasticStep``): ``distributed_optimizer`` keeps it."""
     from paddle_tpu_torch.distributed.fleet import strategy as st
 
-    assert st.NOT_PORTED == ("elastic_reshard",)
-    for name in ("fp16_allreduce", "hierarchical_allreduce",
-                 "async_dcn_allreduce", "quantized_allreduce",
-                 "quantized_matmul", "quantized_moments", "dgc",
-                 "recompute", "sharding", "gradient_merge", "localsgd",
-                 "lamb", "lars", "a_sync"):
-        assert name not in st.NOT_PORTED
-    with pytest.raises(NotImplementedError, match="part 6"):
-        _distributed_opt(pt, elastic_reshard="auto")
+    assert st.NOT_PORTED == ()
+    opt, s = _distributed_opt(pt, elastic_reshard="shrink")
+    assert opt.user_defined_strategy.elastic_reshard == "shrink"
     _fresh_process_state()
 
 

@@ -231,14 +231,16 @@ def test_train_step_refuses_what_is_not_ported(models, monkeypatch):
         monkeypatch.setenv("PADDLE_GUARD_MODE", "bogus")
         pt.jit.TrainStep(tm, _torch_loss, pt.optimizer.AdamW(learning_rate=LR))
     monkeypatch.delenv("PADDLE_GUARD_MODE")
-    # the one strategy option not ported (recompute is: its numerics,
-    # tests/test_torch_fleet_strategy.py)
+    # every strategy option is ported, elastic_reshard last: TrainStep
+    # keeps it as data, and the ElasticStep that reads it refuses a policy
+    # it does not know (tests/test_torch_resharding.py)
     strategy = pt.distributed.fleet.DistributedStrategy()
     strategy.elastic_reshard = "auto"
     opt = pt.optimizer.AdamW(learning_rate=LR)
     opt.user_defined_strategy = strategy
-    with pytest.raises(NotImplementedError, match="elastic_reshard"):
-        pt.jit.TrainStep(tm, _torch_loss, opt)
+    step = pt.jit.TrainStep(tm, _torch_loss, opt)
+    with pytest.raises(ValueError, match="elastic_reshard"):
+        pt.distributed.resharding.ElasticStep(step)
     # lr_ratio, multi_precision and lazy_mode are ported (their updates:
     # tests/test_torch_optimizers.py)
     for kw in ({"lr_ratio": lambda p: 1.0}, {"multi_precision": True},
